@@ -13,16 +13,34 @@ Phases, each of which fails the run with a non-zero exit:
              the stated tolerance, and time kernel, plain version, the
              card's least possible time for the same work (bound) and one
              PyTorch library call computing the same function (yardstick
-             only; the port never calls it);
+             only; the port never calls it); check that waiting on a CUDA
+             event lets other Python threads run (the engine's harvester
+             waits so while its dispatcher launches);
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
-             kernel path against the plain-PyTorch path on a small input,
-             serve it through ServingApp(batch=True, row_lists=True) on a
-             local port, POST ragged /predict requests (some concurrent),
-             check every reply and /health, and check that both kernels
-             launched during the requests;
-5. report  — one JSON line of per-kernel numbers, the nvidia-smi line, and
+             kernel path against the plain-PyTorch path
+             on a small input, serve it through ServingApp(batch=True,
+             row_lists=True) on a local port, POST ragged /predict requests
+             (some concurrent), check every reply and /health, and check
+             that both kernels launched during the requests;
+5. engine  — the same template at all --layers behind the block-paged
+             DecodeEngine (16 slots, paged attention kernel) and
+             ServingApp(batch=False): check the paged decode step's logits
+             against the contiguous plain path, POST 24 ragged prompts in
+             staggered concurrent waves (requests join mid-decode) and one
+             /predict/stream, check every reply, /health and that the
+             pool's blocks in use are back at 0 in /metrics, check that
+             the paged, flash and norm kernels launched during the
+             requests and that no operation made the host wait for the
+             card meanwhile (torch.cuda.set_sync_debug_mode), and count the requests whose tokens equal a
+             contiguous engine's (printed; bf16 near-ties may flip);
+6. int8 kv — a 4-layer paged engine with kv_quant=True serves a few
+             requests through the kernel's int8 form;
+7. fp32    — an 8-layer fp32-activation model: a paged engine (the kernel
+             with fp32 queries) and a contiguous engine must give the same
+             tokens (at most one flip in 12 requests);
+8. report  — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -39,6 +57,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +72,12 @@ PEAK_FP32_OPS_S = 67e12
 
 NORM_TOL = dict(rtol=1 / 64, atol=1e-3)   # <= 2 bf16 ulps: same fp32 statistic, other sum order
 FLASH_TOL = dict(rtol=2e-2, atol=2e-2)    # bf16 P rounded at the running (kernel) vs row (plain) max
+PAGED_TOL = dict(rtol=2e-2, atol=2e-2)    # bf16 p rounded before (kernel) vs after (plain) normalising
 LOGIT_COSINE_MIN = 0.99                   # 8B kernel path vs plain path, bf16 through every layer
+
+# the engine phase's serving configuration
+ENGINE_BUCKETS = (64, 256, 1024)
+ENGINE_NEW_TOKENS = 64
 
 
 def log(msg: str) -> None:
@@ -166,6 +190,101 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
     }
 
 
+PAGED_LENGTHS = (1, 15, 16, 17, 300, 1000, 1100)
+
+
+def paged_case(batch: int, hq: int, hk: int, d: int, blk: int, width: int, int8: bool,
+               gen) -> dict:
+    """Engine-shaped paged decode attention: a shuffled block allocation,
+    trash entries past each row's coverage, ragged lengths and a dead row
+    (all-trash table, length 1, as dead slots decode)."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.ops import paged_attention as pa
+
+    n_blocks = 1 + batch * width
+    lengths = [PAGED_LENGTHS[i % len(PAGED_LENGTHS)] for i in range(batch - 1)] + [1]
+    perm = (torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(1)) + 1)
+    table = torch.zeros(batch, width, dtype=torch.int32)
+    for b, n in enumerate(lengths[:-1]):
+        cover = -(-n // blk)
+        table[b, :cover] = perm[b * width: b * width + cover].int()
+    table = table.cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn(batch, hq, d, device="cuda", generator=gen).bfloat16()
+    shape = (n_blocks, blk, hk, d)
+    scales = {}
+    if int8:
+        k = torch.randint(-127, 128, shape, device="cuda", generator=gen).to(torch.int8)
+        v = torch.randint(-127, 128, shape, device="cuda", generator=gen).to(torch.int8)
+        scales = {name: torch.rand(shape[:3], device="cuda", generator=gen) * 0.01 + 1e-3
+                  for name in ("k_scale", "v_scale")}
+    else:
+        k = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        v = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+    run = lambda: pa.paged_attention_cuda(q, k, v, table, lens, **scales)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q, k, v, table, lens, **scales)
+    form = "int8" if int8 else "bf16"
+    err = check_close(f"paged_attention {form}", got, want, PAGED_TOL)
+    # bytes this data needs: every visible K/V row once at kv-head width
+    # (int8: 1 byte a value plus a 4-byte scale per head), q, out, table,
+    # lengths
+    rows = sum(lengths)
+    per_row = hk * d * (1 if int8 else 2) + (hk * 4 if int8 else 0)
+    nbytes = 2 * rows * per_row + 2 * q.numel() * 2 + table.numel() * 4 + batch * 4
+    ops = 4 * rows * hq * d                       # q.k and p.v, 2 flops per MAC
+    b_ms, b_by = bound(nbytes, ops, PEAK_BF16_OPS_S)
+    # yardstick: no single PyTorch call pages, so SDPA over the same rows
+    # gathered contiguous (int8: dequantized to bf16), gather not timed
+    flat = table.reshape(-1).long()
+
+    def gathered(pool, sc):
+        g = pool[flat].reshape(batch, width * blk, hk, d)
+        if sc is not None:
+            g = g.float() * sc[flat].reshape(batch, width * blk, hk, 1)
+        return g.bfloat16().transpose(1, 2)
+
+    gk = gathered(k, scales.get("k_scale"))
+    gv = gathered(v, scales.get("v_scale"))
+    mask = (torch.arange(width * blk, device="cuda")[None] < lens[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    return {
+        "shape": f"q[{batch},{hq},{d}] bf16, {form} pools[{n_blocks},{blk},{hk},{d}], "
+                 f"table[{batch},{width}], lengths {lengths}",
+        "form": form,
+        "max_abs_err": err,
+        "ms": time_ms(run),
+        "plain_ms": time_ms(
+            lambda: pa.paged_attention_plain(q, k, v, table, lens, **scales), iters=5
+        ),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask, enable_gqa=True)
+        ),
+        "library_call": "scaled_dot_product_attention(enable_gqa) over the rows gathered "
+                        "contiguous beforehand (gather not timed)",
+    }
+
+
+def event_wait_releases_gil() -> int:
+    """Count Python loop iterations the main thread makes while another
+    thread waits on a CUDA event behind ~0.2 s of device work. A wait
+    that held the interpreter lock would leave the count near 0."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e8))
+    event = torch.cuda.Event()
+    event.record()
+    waiter = threading.Thread(target=event.synchronize)
+    waiter.start()
+    count = 0
+    while waiter.is_alive():
+        count += 1
+    waiter.join()
+    return count
+
+
 def kernel_phase(batch: int, bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     norms = [norm_case(batch * bucket, 4096, gen), norm_case(batch, 4096, gen)]
@@ -173,12 +292,22 @@ def kernel_phase(batch: int, bucket: int) -> dict:
         flash_case(batch, bucket, 32, 8, 128, [0, 17, 333, bucket - 24][:batch], gen),
         flash_case(1, 4096, 32, 8, 128, [0], gen),
     ]
-    for name, cases in (("rms_norm_fwd", norms), ("flash_fwd_padded", flashes)):
+    # the engine's decode step: 16 slots, Llama-3-8B heads, block 16,
+    # table width of a 1024-bucket engine with 64 new tokens
+    pageds = [paged_case(16, 32, 8, 128, 16, 73, int8, gen) for int8 in (False, True)]
+    out = {"rms_norm_fwd": norms, "flash_fwd_padded": flashes, "paged_attention": pageds}
+    for name, cases in out.items():
         for c in cases:
             log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} "
                 f"ms {c['ms']} plain_ms {c['plain_ms']} bound_ms {c['bound_ms']} "
                 f"({c['bound_by']}) library_ms {c['library_ms']}")
-    return {"rms_norm_fwd": norms, "flash_fwd_padded": flashes}
+    count = event_wait_releases_gil()
+    log(f"kernels: main-thread loop iterations during a CUDA event wait: {count}")
+    if count < 10_000:
+        raise AssertionError(
+            f"waiting on a CUDA event held the interpreter lock ({count} iterations)"
+        )
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -224,6 +353,40 @@ def logits_agreement(config, params, device: str) -> float:
     return float(torch.nn.functional.cosine_similarity(outs[0], outs[1], dim=-1).min())
 
 
+def serving_config(config):
+    """The template's serving knobs: int8 weights, flash prefill, fused
+    norm (the paged decode attention is ``paged_impl="auto"``)."""
+    return dataclasses.replace(
+        config, quantized=True, prefill_impl="flash", norm_impl="fused", paged_impl="auto"
+    )
+
+
+def build_template(config, max_new_tokens: int, buckets: tuple, device: str):
+    """The ported llm_serving template's Model at ``config`` and its
+    trained (random, seeded) weights on ``device``."""
+    from unionml_tpu_torch.templates.llm_serving.app import build_model
+
+    model = build_model(
+        config, name="chip_smoke", max_new_tokens=max_new_tokens, bucket_lens=buckets
+    )
+    t0 = time.perf_counter()
+    params, _ = model.train(hyperparameters={"seed": 0, "device": device})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"{config.num_layers}-layer int8 weights (hidden {config.hidden_dim}) "
+        f"built on {device} in {time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+def layer_subset(params: dict, layers: int) -> dict:
+    """The first ``layers`` blocks of a Llama param tree (a shallower
+    model over the same embedding, norm and head)."""
+    return {
+        k: v for k, v in params.items()
+        if not k.startswith("block_") or int(k.split("_")[1]) < layers
+    }
+
+
 def serve_phase(
     config, max_new_tokens: int, *, device: str = "cuda",
     buckets: tuple = (16, 64, 256, 1024),
@@ -235,7 +398,6 @@ def serve_phase(
     from unionml_tpu_torch.models import Llama, make_lm_predictor
     from unionml_tpu_torch.ops import flash_attention as fa
     from unionml_tpu_torch.ops import fused_norm
-    from unionml_tpu_torch.templates.llm_serving.app import build_model
 
     on_card = device == "cuda"
 
@@ -243,17 +405,8 @@ def serve_phase(
         if on_card:
             torch.cuda.synchronize()
 
-    config = dataclasses.replace(
-        config, quantized=True, prefill_impl="flash", norm_impl="fused"
-    )
-    model = build_model(
-        config, name="chip_smoke", max_new_tokens=max_new_tokens, bucket_lens=buckets
-    )
-    t0 = time.perf_counter()
-    params, _ = model.train(hyperparameters={"seed": 0, "device": device})
-    sync()
-    log(f"serve: {config.num_layers}-layer int8 weights (hidden {config.hidden_dim}) "
-        f"built on {device} in {time.perf_counter() - t0:.2f} s")
+    config = serving_config(config)
+    model, params = build_template(config, max_new_tokens, buckets, device)
 
     cos = logits_agreement(config, params, device)
     log(f"serve: kernel path vs plain path prefill logits, min cosine {cos}")
@@ -344,6 +497,303 @@ def serve_phase(
     return out
 
 
+def paged_logits_agreement(config, params, device: str) -> float:
+    """Cosine similarity of one decode step's logits through the paged
+    path (pool + block table + paged attention, kernel on the card) and
+    the contiguous plain path, on the same prefilled rows of 2 sequences."""
+    from unionml_tpu_torch.models import Llama, init_cache
+
+    rng = np.random.default_rng(3)
+    blk, n_rows, seq = 16, 48, 37
+    model = Llama(config)
+    tokens = torch.from_numpy(rng.integers(1, config.vocab_size, size=(2, seq))).to(device)
+    outs = []
+    with torch.inference_mode():
+        cache = init_cache(config, 2, n_rows, device=device)
+        logits, cache = model(params, tokens, cache=cache, cache_index=0)
+        step = logits[:, -1].argmax(-1)[:, None]
+        fill = torch.full((2,), seq, dtype=torch.int32, device=device)
+        kv_mask = torch.arange(n_rows, device=device)[None].expand(2, -1) <= seq
+        # the same rows in a pool: row b's blocks are 1 + b*3 .. 3 + b*3
+        width = n_rows // blk
+        pool = init_cache(config, 1 + 2 * width, blk, device=device)
+        for layer, cached in zip(pool, cache):
+            for pbuf, cbuf in zip(layer, cached):
+                pbuf[1:] = cbuf.reshape((2 * width, blk) + tuple(cbuf.shape[2:]))
+        table = (1 + torch.arange(2 * width, device=device).reshape(2, width)).int()
+        contiguous, _ = model(params, step, cache=cache, cache_index=fill, kv_mask=kv_mask)
+        paged, _ = model(params, step, cache=pool, cache_index=fill, block_table=table)
+        outs = [contiguous[:, -1].float(), paged[:, -1].float()]
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("decode-step logits are not finite")
+    return float(torch.nn.functional.cosine_similarity(outs[0], outs[1], dim=-1).min())
+
+
+def _pool_blocks_in_use(metrics: str) -> list:
+    return [float(line.rsplit(" ", 1)[1]) for line in metrics.splitlines()
+            if line.startswith("unionml_kv_pool_blocks_in_use{")]
+
+
+def engine_phase(
+    config, max_new_tokens: int, *, device: str = "cuda", model=None, params=None,
+    slots: int = 16,
+    buckets: tuple = ENGINE_BUCKETS, chunk_steps: int = 8, waves: int = 3,
+    lengths: tuple = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 1000,
+                      300, 8, 999, 77, 550, 20, 1001, 250, 128, 45, 620, 5),
+) -> dict:
+    """Serve ``config`` through the block-paged DecodeEngine behind
+    ServingApp(batch=False); ``device="cpu"`` rehearses the phase at a
+    small config, with the kernels' plain versions."""
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import DecodeEngine, ServingApp
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    config = serving_config(config)
+    if model is None:
+        model, params = build_template(config, max_new_tokens, buckets, device)
+    cos = paged_logits_agreement(config, params, device)
+    log(f"engine: paged vs contiguous decode-step logits, min cosine {cos}")
+    if cos < LOGIT_COSINE_MIN:
+        raise AssertionError(f"paged decode step disagrees with the contiguous path ({cos})")
+
+    kw = dict(slots=slots, prompt_buckets=buckets, max_new_tokens=max_new_tokens,
+              chunk_steps=chunk_steps, device=device)
+    engine = DecodeEngine(Llama(config), paged=True, **kw)
+
+    @model.predictor
+    def predictor(params: dict, prompts: list) -> list:
+        return engine.generate(params, prompts)
+
+    t0 = time.perf_counter()
+    engine.warmup(params)
+    sync()
+    log(f"engine: warmup ({len(engine.buckets)} buckets) {time.perf_counter() - t0:.2f} s, "
+        f"cache_len {engine.cache_len}, pool {engine.kv_pool.capacity} blocks of "
+        f"{engine.kv_pool.block_size}")
+    engine.reset_stats()
+    app = ServingApp(
+        model, batch=False, health=engine.health, stats=engine.stats,
+        stream=lambda p, features: engine.generate_stream(p, features[0]),
+    )
+    host, port = app.serve(host="127.0.0.1", port=0, blocking=False)
+    base = f"http://{host}:{port}"
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    stream_prompt = rng.integers(1, config.vocab_size, size=333).tolist()
+    results, errors, streamed = {}, [], []
+
+    def request(i):
+        try:
+            status, body = post(f"{base}/predict", {"features": [prompts[i]]})
+            results[i] = (status, body)
+        except Exception as exc:  # reported below; any failure fails the run
+            errors.append(f"prompt {i} ({len(prompts[i])} tokens): {exc!r}")
+
+    def stream():
+        try:
+            req = urllib.request.Request(
+                f"{base}/predict/stream", data=json.dumps({"features": [stream_prompt]}).encode(),
+                method="POST", headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                for line in resp.read().decode().splitlines():
+                    if line.startswith("data:"):
+                        event = json.loads(line[5:])
+                        streamed.extend(event.get("tokens", []))
+        except Exception as exc:
+            errors.append(f"stream: {exc!r}")
+
+    for counter in (pa.KERNEL, fa.KERNEL, fused_norm.KERNEL):
+        counter.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    threads = [threading.Thread(target=stream)]
+    per_wave = -(-len(prompts) // waves)
+    # count operations that make the host wait for the card while the
+    # requests run (the dispatcher must never wait; the harvester waits on
+    # CUDA events, which this mode does not count)
+    sync_warnings = warnings.catch_warnings(record=True)
+    caught = sync_warnings.__enter__()
+    warnings.simplefilter("always")
+    if on_card:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        t_start = time.perf_counter()
+        threads[0].start()
+        for w in range(waves):   # staggered waves: later ones join mid-decode
+            wave = [threading.Thread(target=request, args=(i,))
+                    for i in range(w * per_wave, min(len(prompts), (w + 1) * per_wave))]
+            for th in wave:
+                th.start()
+            threads += wave
+            time.sleep(0.5 if on_card else 0.05)
+        give_up = time.monotonic() + 300
+        for th in threads:
+            th.join(timeout=max(0.0, give_up - time.monotonic()))
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("the engine's requests did not finish in 300 s")
+        sync()
+        wall_s = time.perf_counter() - t_start
+        launches = {"paged_attention": pa.KERNEL.launches, "flash_fwd_padded": fa.KERNEL.launches,
+                    "rms_norm_fwd": fused_norm.KERNEL.launches}
+        with urllib.request.urlopen(f"{base}/health", timeout=60) as resp:
+            health_status, health = resp.status, json.loads(resp.read())
+        deadline = time.monotonic() + 60
+        while engine.stats()["kv_pool"]["blocks_in_use"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+            in_use = _pool_blocks_in_use(resp.read().decode())
+        stats = engine.stats()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+        sync_warnings.__exit__(None, None, None)
+        app.shutdown()
+        engine.close()
+    host_syncs = [str(w.message) for w in caught
+                  if "synchronizing CUDA operation" in str(w.message)]
+    if errors:
+        raise AssertionError("; ".join(errors))
+    n_tokens = 0
+    for i, prompt in enumerate(prompts):
+        status, body = results[i]
+        if status != 200 or len(body) != 1 or len(body[0]) != max_new_tokens or not all(
+            isinstance(t, int) and 0 <= t < config.vocab_size for t in body[0]
+        ):
+            raise AssertionError(f"bad /predict reply for a {len(prompt)}-token prompt: "
+                                 f"{status} {body}")
+        n_tokens += len(body[0])
+    if len(streamed) != max_new_tokens:
+        raise AssertionError(f"/predict/stream gave {len(streamed)} tokens")
+    if health_status != 200 or health.get("status") != "ok":
+        raise AssertionError(f"/health not ok: {health_status} {health}")
+    if host_syncs:
+        raise AssertionError(f"{len(host_syncs)} operations waited for the card while the "
+                             "engine served (the dispatcher must never wait)")
+    if not in_use or any(in_use):
+        raise AssertionError(f"kv pool blocks in use after the drain: {in_use}")
+    if on_card:
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was never launched on the engine path")
+
+    # the same prompts through a contiguous engine (printed, not gated)
+    contiguous = DecodeEngine(Llama(config), paged=False, **kw)
+    try:
+        want = contiguous.generate(params, prompts)
+    finally:
+        contiguous.close()
+    matching = sum(results[i][1][0] == want[i] for i in range(len(prompts)))
+    itl = stats.get("itl_ms", {})
+    out = {
+        "layers": config.num_layers,
+        "requests": len(prompts) + 1,
+        "wall_s": wall_s,
+        "tokens_per_s": (n_tokens + len(streamed)) / wall_s,
+        "ttft_ms_p50": stats["ttft_ms"]["p50"],
+        "ttft_ms_p99": stats["ttft_ms"]["p99"],
+        "decode_ms_per_step_p50": itl.get("p50"),
+        "decode_ms_per_step_mean": itl.get("mean"),
+        "slot_occupancy": stats["slot_occupancy"],
+        "decode_steps": stats["decode_steps"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        "paged_logit_cosine": cos,
+        "match_contiguous": f"{matching}/{len(prompts)}",
+        "host_syncs": len(host_syncs),
+        "launches": launches,
+    }
+    log(f"engine: {out['requests']} requests ({len(prompts)} /predict in {waves} staggered "
+        f"waves + 1 stream), wall {wall_s} s, {out['tokens_per_s']} generated tokens/s")
+    log(f"engine: ttft_ms p50 {out['ttft_ms_p50']} p99 {out['ttft_ms_p99']}; decode ms per "
+        f"step (harvest spacing / tokens) p50 {out['decode_ms_per_step_p50']} mean "
+        f"{out['decode_ms_per_step_mean']}; {out['decode_steps']} decode steps at slot "
+        f"occupancy {out['slot_occupancy']}")
+    log(f"engine: peak memory {out['peak_mem_gib']} GiB, launches {launches}, requests "
+        f"token-identical to a contiguous engine: {out['match_contiguous']}")
+    log(f"engine: operations that waited for the card during the requests: {len(host_syncs)}")
+    return out
+
+
+def kv_quant_phase(config, params, max_new_tokens: int, *, device: str = "cuda",
+                   layers: int = 4, buckets: tuple = (64, 256)) -> dict:
+    """A paged engine with the int8 KV cache at ``layers`` layers serves a
+    few requests: the paged kernel's int8 form on a real path."""
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    config = dataclasses.replace(serving_config(config), num_layers=layers, kv_quant=True)
+    engine = DecodeEngine(Llama(config), paged=True, slots=4, prompt_buckets=buckets,
+                          max_new_tokens=max_new_tokens, chunk_steps=8, device=device)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in (9, 200, 64, 31, 150)]
+    pa.KERNEL.launches = 0
+    try:
+        outs = engine.generate(layer_subset(params, layers), prompts)
+        blocks = engine.stats()["kv_pool"]
+    finally:
+        engine.close()
+    launches = pa.KERNEL.launches
+    if any(len(o) != max_new_tokens or not all(0 <= t < config.vocab_size for t in o)
+           for o in outs):
+        raise AssertionError(f"bad int8-KV engine replies: {outs}")
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the paged kernel's int8 form was never launched")
+    log(f"int8 kv: {len(prompts)} requests on a {layers}-layer kv_quant paged engine, "
+        f"paged_attention int8 launches {launches}, pool allocated "
+        f"{blocks['allocated_blocks']} blocks")
+    return {"layers": layers, "requests": len(prompts), "launches": launches}
+
+
+def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda", layers: int = 8,
+                      buckets: tuple = ENGINE_BUCKETS,
+                      lengths: tuple = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 300)
+                      ) -> dict:
+    """The same prompts through a paged engine (the paged kernel with fp32
+    queries) and a contiguous engine (plain cached attention) of one
+    fp32-activation model: with no bf16 rounding of the softmax weights
+    the two must agree token for token (at most one near-tie flip)."""
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    # the flash prefill kernel takes bf16 only: fp32 prefills stay cached
+    config = dataclasses.replace(
+        serving_config(config), num_layers=layers, dtype="float32", prefill_impl="cached"
+    )
+    _, params = build_template(config, max_new_tokens, buckets, device)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    outs = {}
+    pa.KERNEL.launches = 0
+    for paged in (True, False):
+        engine = DecodeEngine(Llama(config), paged=paged, slots=16, prompt_buckets=buckets,
+                              max_new_tokens=max_new_tokens, chunk_steps=8, device=device)
+        try:
+            outs[paged] = engine.generate(params, prompts)
+        finally:
+            engine.close()
+    launches = pa.KERNEL.launches
+    matching = sum(a == b for a, b in zip(outs[True], outs[False]))
+    log(f"fp32 parity: {matching}/{len(prompts)} requests token-identical, paged kernel "
+        f"(fp32 queries) vs contiguous plain path, {layers} layers; paged_attention "
+        f"launches {launches}")
+    if matching < len(prompts) - 1:
+        raise AssertionError(f"fp32 paged engine disagrees with the contiguous engine: "
+                             f"{matching}/{len(prompts)}")
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the paged kernel was never launched in the fp32 engine")
+    return {"layers": layers, "match": f"{matching}/{len(prompts)}", "launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--layers", type=int, default=32)
@@ -360,6 +810,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(HERE))
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 LM head in full fp32
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
 
     card = card_line()
     log(f"card: {card}")
@@ -376,30 +827,51 @@ def main(argv=None) -> int:
 
     batch, bucket = 4, 1024
     kernels = kernel_phase(batch, bucket)
+    log(f"time: kernels done at {time.perf_counter() - t_run:.1f} s")
 
     from unionml_tpu_torch.models import LlamaConfig
 
-    config = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=args.layers)
-    served = serve_phase(config, args.max_new_tokens)
+    base = LlamaConfig.llama3_8b()
+    served = serve_phase(dataclasses.replace(base, num_layers=args.layers),
+                         args.max_new_tokens)
+    log(f"time: serve done at {time.perf_counter() - t_run:.1f} s")
+    config = serving_config(dataclasses.replace(base, num_layers=args.layers))
+    model, params = build_template(config, ENGINE_NEW_TOKENS, ENGINE_BUCKETS, "cuda")
+    engine = engine_phase(config, ENGINE_NEW_TOKENS, model=model, params=params)
+    log(f"time: engine done at {time.perf_counter() - t_run:.1f} s")
+    int8_kv = kv_quant_phase(config, params, 16)
+    del model, params
+    log(f"time: int8 kv done at {time.perf_counter() - t_run:.1f} s")
+    fp32 = fp32_parity_phase(base, 32)
+    log(f"time: fp32 parity done at {time.perf_counter() - t_run:.1f} s")
 
     replaces = {
         "rms_norm_fwd": ("unionml_tpu_torch/csrc/fused_norm.cu", "unionml_tpu/ops/fused_norm.py:72"),
         "flash_fwd_padded": ("unionml_tpu_torch/csrc/flash_attention.cu",
                              "unionml_tpu/ops/flash_attention.py:63"),
+        "paged_attention": ("unionml_tpu_torch/csrc/paged_attention.cu",
+                            "unionml_tpu/ops/paged_attention.py:141"),
     }
     rows = []
     for name, cases in kernels.items():
         main_case = cases[0]
+        launches = engine["launches"][name]
+        if name == "paged_attention":
+            for c in cases:   # launches of each form on its own engine path
+                c["launches"] = launches if c["form"] == "bf16" else int8_kv["launches"]
+            launches += int8_kv["launches"]
         rows.append({
             "name": name, "route": "cuda", "source": replaces[name][0],
-            "replaces": replaces[name][1], "launches": served["launches"][name],
+            "replaces": replaces[name][1], "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
+            "serve_launches": served["launches"].get(name),
             "shapes": cases,
         })
-    print(json.dumps({"kernels": rows, "serve": served}), flush=True)
+    print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "int8_kv": int8_kv,
+                      "fp32_parity": fp32, "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's paged decode engine, on one card.
+
+    python3 scripts/profile_torch_engine.py [--layers 32] [--slots 16]
+        [--max-new-tokens 64] [--chunk-steps 8]
+
+Builds the ported llm_serving template at Llama-3-8B width (int8 weights,
+padded flash prefill, fused RMSNorm, paged decode attention; random
+weights from a seeded generator on the card) behind a block-paged
+``DecodeEngine`` with ``--slots`` slots, warms it, then:
+
+1. submits one prompt per slot at once (ragged lengths up to 1000 tokens)
+   and times the call with the host clock (the call returns once every
+   token is harvested), twice; prints the engine's TTFT and inter-token
+   latency, and the dispatcher's host time per decode chunk;
+2. traces the same call with ``torch.profiler`` (CPU + CUDA) and prints
+   the device time by kernel name and the launches of the port's three
+   kernels. The idle share is one minus the traced device-busy time over
+   the UNTRACED call's wall time.
+
+Prints the card's name and power limit first. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=16)
+    ap.add_argument("--max-new-tokens", type=int, default=64)
+    ap.add_argument("--chunk-steps", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("card:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip(), flush=True)
+
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.models import Llama, LlamaConfig
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import DecodeEngine
+    from unionml_tpu_torch.templates.llm_serving.app import build_model
+
+    config = dataclasses.replace(
+        LlamaConfig.llama3_8b(), num_layers=args.layers, quantized=True,
+        prefill_impl="flash", norm_impl="fused", paged_impl="auto",
+    )
+    buckets = (64, 256, 1024)
+    model = build_model(config, name="profile", max_new_tokens=args.max_new_tokens,
+                        bucket_lens=buckets)
+    params, _ = model.train(hyperparameters={"seed": 0})
+    engine = DecodeEngine(
+        Llama(config), paged=True, slots=args.slots, prompt_buckets=buckets,
+        max_new_tokens=args.max_new_tokens, chunk_steps=args.chunk_steps,
+        registry=telemetry.MetricsRegistry(), device="cuda",
+    )
+    rng = np.random.default_rng(0)
+    lengths = np.linspace(5, 1000, args.slots).astype(int)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    try:
+        engine.warmup(params)
+        engine.generate(params, prompts)
+
+        def timed():
+            engine.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(params, prompts)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        calls = [timed(), timed()]
+        stats = engine.stats()
+        print(f"shape: {args.slots} prompts of {lengths.tolist()} tokens at once, "
+              f"{args.max_new_tokens} new tokens, {args.layers} layers, chunk_steps "
+              f"{args.chunk_steps}")
+        print(f"call_ms {calls}")
+        print(f"ttft_ms {stats['ttft_ms']}")
+        print(f"itl_ms {stats.get('itl_ms')}")
+        print(f"dispatch_ms_per_chunk {engine._h_dispatch.summary()}; decode_steps "
+              f"{stats['decode_steps']}")
+
+        from torch.profiler import ProfilerActivity, profile
+
+        for k in (pa.KERNEL, fa.KERNEL, fused_norm.KERNEL):
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.generate(params, prompts)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine.close()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    busy_ms = sum(getattr(e, attr) for e in events) / 1e3
+    call_ms = min(calls)
+    print(f"traced call: wall_ms {wall_ms}, device busy_ms {busy_ms}; "
+          f"idle share of the untraced call {1 - busy_ms / call_ms}")
+    print(f"launches: paged_attention {pa.KERNEL.launches}, flash_fwd_padded "
+          f"{fa.KERNEL.launches}, rms_norm_fwd {fused_norm.KERNEL.launches}")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:15]:
+        ms = getattr(e, attr) / 1e3
+        print(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f}% x{e.count:<6d} {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels and its paged engine on the card.
+
+These tests import neither JAX nor the JAX package, so they run on the
+machine with the card (``python -m pytest tests/test_torch_cuda.py``);
+without a CUDA device each one skips. Each kernel is held against its
+plain PyTorch version on the same inputs, within the tolerance stated at
+the assertion, and its launch count must rise.
+"""
+
+import pytest
+import torch
+
+from unionml_tpu_torch.models import Llama, LlamaConfig, init_params
+from unionml_tpu_torch.ops import flash_attention as tflash
+from unionml_tpu_torch.ops import fused_norm as tnorm
+from unionml_tpu_torch.ops import paged_attention as tpaged
+from unionml_tpu_torch.serving import DecodeEngine
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(300, 64), (4096, 4096), (4, 4096)])
+def test_rms_norm_kernel_matches_plain_on_card(cuda, rows, d):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(rows, d, device=cuda, generator=gen).bfloat16()
+    g = (1 + 0.1 * torch.randn(d, device=cuda, generator=gen)).bfloat16()
+    before = tnorm.KERNEL.launches
+    got = tnorm.fused_rms_norm(x, g, 1e-5)
+    torch.cuda.synchronize()
+    assert tnorm.KERNEL.launches == before + 1
+    # <= 2 bf16 ulps: the same fp32 statistic in another summation order
+    torch.testing.assert_close(got, tnorm.rms_norm_plain(x, g, 1e-5), rtol=1 / 64, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kvh,d,pads", [
+    (2, 100, 4, 2, 64, [0, 37]),
+    (4, 1024, 32, 8, 128, [0, 17, 333, 1000]),
+])
+def test_flash_kernel_matches_plain_on_card(cuda, b, s, h, kvh, d, pads):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, s, h, d, device=cuda, generator=gen).bfloat16()
+    k = torch.randn(b, s, kvh, d, device=cuda, generator=gen).bfloat16()
+    v = torch.randn(b, s, kvh, d, device=cuda, generator=gen).bfloat16()
+    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    got = tflash.flash_attention(q, k, v, causal=True, kv_valid_start=pad)
+    torch.cuda.synchronize()
+    want = tflash.flash_fwd_padded_plain(q, k, v, pad, causal=True, scale=d**-0.5)
+    # bf16 P rounds at the kernel's running max, the plain version's row max
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    for row, p in enumerate(pads):
+        assert not got[row, :p].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("form", ["bf16", "int8", "fp32-q"])
+def test_paged_kernel_matches_plain_on_card(cuda, d, form):
+    """Engine-shaped case: duplicate and trash entries, ragged lengths
+    (block edges, several 32-row passes of a 48-row block), GQA 4."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, hq, hk, blk, n = 8, 16, 4, 48, 128
+    lengths = torch.tensor([1, 47, 48, 49, 300, 500, 0, 1], dtype=torch.int32, device=cuda)
+    width = -(-int(lengths.max()) // blk)
+    perm = torch.randperm(n - 1, generator=gen, device=cuda)[: b * width] % (n - 1) + 1
+    table = perm.reshape(b, width).int()
+    cover = -(-lengths.long() // blk)
+    table = torch.where(torch.arange(width, device=cuda)[None] < cover[:, None], table, 0).int()
+    qdt = torch.float32 if form == "fp32-q" else torch.bfloat16
+    q = torch.randn(b, hq, d, device=cuda, generator=gen).to(qdt)
+    scales = {}
+    if form == "int8":
+        k = torch.randint(-127, 128, (n, blk, hk, d), device=cuda, generator=gen).to(torch.int8)
+        v = torch.randint(-127, 128, (n, blk, hk, d), device=cuda, generator=gen).to(torch.int8)
+        scales = {
+            "k_scale": torch.rand(n, blk, hk, device=cuda, generator=gen) * 0.02 + 1e-3,
+            "v_scale": torch.rand(n, blk, hk, device=cuda, generator=gen) * 0.02 + 1e-3,
+        }
+    else:
+        k = torch.randn(n, blk, hk, d, device=cuda, generator=gen).bfloat16()
+        v = torch.randn(n, blk, hk, d, device=cuda, generator=gen).bfloat16()
+    before = tpaged.KERNEL.launches
+    got = tpaged.paged_attention(q, k, v, table, lengths, **scales)
+    torch.cuda.synchronize()
+    assert tpaged.KERNEL.launches == before + 1
+    want = tpaged.paged_attention_plain(q, k, v, table, lengths, **scales)
+    live = lengths > 0
+    # bf16 p is rounded before (kernel) or after (plain) normalisation
+    torch.testing.assert_close(got[live].float(), want[live].float(), rtol=2e-2, atol=2e-2)
+    assert not got[~live].any()
+
+
+@pytest.mark.cuda
+def test_paged_engine_runs_the_kernel_and_matches_contiguous_on_card(cuda):
+    """A small fp32-activation model (head_dim 64) on the card: the paged
+    engine launches the kernel (fp32 queries) and gives the contiguous
+    engine's greedy tokens."""
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           dtype="float32", norm_impl="fused")
+    params = init_params(cfg, seed=0, device=cuda)
+    prompts = [list(range(1, n + 1)) for n in (3, 17, 40)]
+    outs = {}
+    before = tpaged.KERNEL.launches
+    for paged in (True, False):
+        engine = DecodeEngine(Llama(cfg), paged=paged, slots=2, max_new_tokens=8,
+                              prompt_buckets=(16, 64), chunk_steps=4, device=cuda)
+        try:
+            outs[paged] = engine.generate(params, prompts)
+        finally:
+            engine.close()
+    assert tpaged.KERNEL.launches > before
+    assert outs[True] == outs[False]

@@ -6,9 +6,8 @@ tests run them); the port's kernel wrappers take their plain PyTorch
 versions for CPU tensors. Tolerances are fp32: the two sides compute the
 same function in a different summation order.
 
-Tests marked ``cuda`` hold each CUDA kernel against its plain version on
-the card and skip without one (``chip_smoke.py`` runs the same check at
-the main path's shapes).
+The CUDA kernels are held against their plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import importlib
@@ -34,13 +33,6 @@ FP32 = dict(rtol=1e-5, atol=1e-5)
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("shape", [(300, 64), (3, 100, 32)])
@@ -149,37 +141,3 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tflash.flash_fwd_padded_cuda(
             q, k, v, torch.zeros(2, dtype=torch.int32), causal=True, scale=0.25
         )
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(300, 64), (4096, 4096), (4, 4096)])
-def test_rms_norm_kernel_matches_plain_on_card(cuda, rows, d):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(rows, d, device=cuda, generator=gen).bfloat16()
-    g = (1 + 0.1 * torch.randn(d, device=cuda, generator=gen)).bfloat16()
-    before = tnorm.KERNEL.launches
-    got = tnorm.fused_rms_norm(x, g, 1e-5)
-    torch.cuda.synchronize()
-    assert tnorm.KERNEL.launches == before + 1
-    # <= 2 bf16 ulps: the same fp32 statistic in another summation order
-    torch.testing.assert_close(got, tnorm.rms_norm_plain(x, g, 1e-5), rtol=1 / 64, atol=1e-3)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kvh,d,pads", [
-    (2, 100, 4, 2, 64, [0, 37]),
-    (4, 1024, 32, 8, 128, [0, 17, 333, 1000]),
-])
-def test_flash_kernel_matches_plain_on_card(cuda, b, s, h, kvh, d, pads):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(b, s, h, d, device=cuda, generator=gen).bfloat16()
-    k = torch.randn(b, s, kvh, d, device=cuda, generator=gen).bfloat16()
-    v = torch.randn(b, s, kvh, d, device=cuda, generator=gen).bfloat16()
-    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
-    got = tflash.flash_attention(q, k, v, causal=True, kv_valid_start=pad)
-    torch.cuda.synchronize()
-    want = tflash.flash_fwd_padded_plain(q, k, v, pad, causal=True, scale=d**-0.5)
-    # bf16 P rounds at the kernel's running max, the plain version's row max
-    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
-    for row, p in enumerate(pads):
-        assert not got[row, :p].any()

@@ -36,8 +36,8 @@ import unionml_tpu_torch
 from unionml_tpu_torch import ModelArtifact
 from unionml_tpu_torch import telemetry
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models import LlamaConfig, from_jax_params, init_params
-from unionml_tpu_torch.serving import MicroBatcher
+from unionml_tpu_torch.models import Llama, LlamaConfig, from_jax_params, init_params
+from unionml_tpu_torch.serving import DecodeEngine, MicroBatcher
 from unionml_tpu_torch.serving.http import ServingApp
 from unionml_tpu_torch.templates.llm_serving import app as template
 
@@ -203,7 +203,7 @@ def test_port_imports_neither_jax_nor_reference():
         text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr[-2000:]
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    assert int(res.stdout.strip().splitlines()[-1]) >= 35
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, served_params):
@@ -219,6 +219,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, served_params):
         from_jax_params(jax.tree_util.tree_map(np.asarray, served_params), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         template.build_model(cfg, name="no_card", **GEN).train()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(Llama(cfg), slots=1, max_new_tokens=2, prompt_buckets=(8,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(Llama(cfg), paged=True, slots=1, max_new_tokens=2, prompt_buckets=(8,))
 
 
 def test_unported_model_paths_raise():
@@ -232,7 +236,7 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError):
         model.predictor(lambda params, prompts: prompts, jit=True)
     with pytest.raises(NotImplementedError):
-        LlamaConfig.tiny(kv_quant=True)
+        LlamaConfig.tiny(weight_bits=4)
 
 
 def test_batcher_array_mode_coalesces_trees():

@@ -14,9 +14,10 @@ CUDA kernel of :mod:`unionml_tpu_torch.ops.fused_norm`),
 halves, fp32), the cached path of :class:`Attention` (contiguous KV
 cache, scalar or per-row fill index, ``prefill_impl="flash"`` through the
 kernel of :mod:`unionml_tpu_torch.ops.flash_attention`), the cache-free
-path with the ``xla`` reference attention, and the gated
-:class:`MlpBlock`. Block-paged caches, the int8 KV cache, cross
-attention and the GELU MLP raise ``NotImplementedError``.
+path with the ``xla`` reference attention, the block-paged decode step
+(``block_table=``, through :mod:`unionml_tpu_torch.ops.paged_attention`),
+the int8 KV cache, and the gated :class:`MlpBlock`. Cross attention and
+the GELU MLP raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,11 @@ from torch import nn
 
 from unionml_tpu_torch._device import torch_dtype
 from unionml_tpu_torch.models.quantization import DenseGeneral, QuantizedDenseGeneral
-from unionml_tpu_torch.ops.attention import cached_attention, mha_reference
+from unionml_tpu_torch.ops.attention import (
+    cached_attention,
+    mha_reference,
+    quantized_cache_attention,
+)
 
 
 def make_dense(*, quantized: bool, features, dtype: Any, axis=-1) -> nn.Module:
@@ -119,13 +124,15 @@ def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
     fill ``index`` (an int shared by every row, or a [B] tensor of per-row
     fills). The reference builds a new buffer; the port writes into the
     caller's cache, which every caller owns for the whole generation, to
-    avoid a copy of the cache per layer per step."""
+    avoid a copy of the cache per layer per step. A per-row fill is
+    clamped into ``[0, max_len - seq]`` on the device, as the reference's
+    vmapped ``dynamic_update_slice`` clamps it (checking it on the host
+    would wait for the device at every layer of every decode step)."""
     seq = new.shape[1]
     new = new.to(buf.dtype)
     if isinstance(index, torch.Tensor) and index.dim() == 1:
-        pos = index.long()[:, None] + torch.arange(seq, device=buf.device)[None, :]
-        if int(pos.max()) >= buf.shape[1]:
-            raise ValueError(f"cache write past max_len {buf.shape[1]}")
+        start = index.long().clamp(0, max(0, buf.shape[1] - seq))
+        pos = start[:, None] + torch.arange(seq, device=buf.device)[None, :]
         rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
         buf[rows, pos] = new
         return
@@ -135,6 +142,16 @@ def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
             f"cache write [{index}, {index + seq}) past max_len {buf.shape[1]}"
         )
     buf[:, index:index + seq] = new
+
+
+def quantize_kv(x: torch.Tensor):
+    """int8 KV-cache quantization of ``x`` [..., head_dim]: per-(row, head)
+    scale ``absmax / 127`` floored at ``1e-8``, values rounded half to even
+    and clipped to +-127. Returns ``(int8 values, fp32 scales [...])``."""
+    x32 = x.float()
+    s = (x32.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
 class Attention(nn.Module):
@@ -159,12 +176,15 @@ class Attention(nn.Module):
         causal: bool = False,
         attn_impl: str = "xla",
         prefill_impl: str = "cached",
+        paged_impl: str = "auto",
         quantized: bool = False,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
         if prefill_impl not in ("cached", "flash"):
             raise ValueError(f"unknown prefill impl {prefill_impl!r}")
+        if paged_impl not in ("auto", "pallas", "reference"):
+            raise ValueError(f"unknown paged impl {paged_impl!r}")
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim or features // num_heads
@@ -174,6 +194,11 @@ class Attention(nn.Module):
         self.causal = causal
         self.attn_impl = attn_impl
         self.prefill_impl = prefill_impl
+        # decode attention over a block-paged pool (block_table=): the
+        # reference's names — "pallas" = the hand-written CUDA kernel,
+        # "reference" = its plain version, "auto" = the kernel for CUDA
+        # tensors and the plain version for CPU ones
+        self.paged_impl = paged_impl
         self.dtype = torch_dtype(dtype)
 
         def dense(feats, axis=-1):
@@ -198,16 +223,24 @@ class Attention(nn.Module):
     ):
         """Returns ``out`` or ``(out, cache)`` when a cache is given.
 
-        ``cache``: (k, v) of [batch, max_len, kv_heads, head_dim], written
-        in place at ``cache_index`` (an int, or a [batch] tensor of
-        per-row fills); ``kv_mask``: bool [batch, max_len], False slots
-        are never attended to (left padding). ``full_prefill``: the
-        caller's promise that this call covers the whole visible history
-        (empty cache, index 0, no prefix), which lets
-        ``prefill_impl="flash"`` attend over the fresh k/v alone.
+        ``cache``: (k, v) of [batch, max_len, kv_heads, head_dim], or the
+        int8 form (k_q, v_q, k_scale, v_scale) with fp32 scales [batch,
+        max_len, kv_heads], written in place at ``cache_index`` (an int, or
+        a [batch] tensor of per-row fills); ``kv_mask``: bool [batch,
+        max_len], False slots are never attended to (left padding).
+        ``full_prefill``: the caller's promise that this call covers the
+        whole visible history (empty cache, index 0, no prefix), which
+        lets ``prefill_impl="flash"`` attend over the fresh k/v alone.
+
+        ``block_table``: int [batch, table_width] — marks ``cache`` as a
+        block-paged pool (per buffer [num_blocks, block, kv_heads, ...])
+        addressed through the table. Decode steps only: ``seq == 1``, a
+        [batch] ``cache_index`` and no ``kv_mask``; the step's k/v row goes
+        to pool block ``table[b, fill // block]`` at offset ``fill %
+        block`` and attention reads through
+        :func:`~unionml_tpu_torch.ops.paged_attention.paged_attention`
+        with ``lengths = fill + 1`` (the written row sees itself).
         """
-        if block_table is not None:
-            raise NotImplementedError("block-paged KV caches are not ported (see ROADMAP.md)")
         batch, seq, _ = x.shape
         q = self.q(params["q"], x)
         k = self.k(params["k"], x)
@@ -232,12 +265,61 @@ class Attention(nn.Module):
             out = mha_reference(q, k, v, causal=self.causal)
             return self.o(params["o"], out)
 
-        if len(cache) != 2:
-            raise NotImplementedError("the int8 KV cache (kv_quant) is not ported (see ROADMAP.md)")
-        ck, cv = cache
-        _update_cache(ck, k, cache_index)
-        _update_cache(cv, v, cache_index)
-        if full_prefill and seq > 1 and self.prefill_impl == "flash":
+        if len(cache) not in (2, 4):
+            raise ValueError(
+                f"cache must be (k, v) or (k_q, v_q, k_scale, v_scale), got {len(cache)} buffers"
+            )
+        if block_table is not None:
+            if seq != 1 or not (
+                isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
+            ):
+                raise ValueError(
+                    "block-paged caches support vector-index decode steps only "
+                    f"(seq == 1), got seq={seq}, cache_index {cache_index!r}"
+                )
+            if kv_mask is not None:
+                raise ValueError(
+                    "kv_mask is incompatible with block_table — paged "
+                    "visibility derives from the fills"
+                )
+            blk = cache[0].shape[1]
+            fill = cache_index.long()
+            pid = torch.gather(block_table.long(), 1, (fill // blk)[:, None])[:, 0]
+            off = fill % blk
+
+            def write(buf, new):
+                # one indexed write at (pool block, offset) per buffer
+                buf[pid, off] = new[:, 0].to(buf.dtype)
+        else:
+            def write(buf, new):
+                _update_cache(buf, new, cache_index)
+
+        quant = len(cache) == 4
+        if quant:
+            # int8 KV cache: per-(row, head) scales; the scales fold into
+            # the attention math (never a dequantized cache copy)
+            ck, cv, ks, vs = cache
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            for buf, new in ((ck, k_q), (cv, v_q), (ks, k_s), (vs, v_s)):
+                write(buf, new)
+            new_cache = (ck, cv, ks, vs)
+        else:
+            ck, cv = cache
+            write(ck, k)
+            write(cv, v)
+            new_cache = (ck, cv)
+        scales = dict(k_scale=ks, v_scale=vs) if quant else {}
+
+        out = None
+        if block_table is not None:
+            from unionml_tpu_torch.ops.paged_attention import paged_attention
+
+            out = paged_attention(
+                q[:, 0], ck, cv, block_table, cache_index + 1,
+                impl=self.paged_impl, **scales,
+            )[:, None]
+        elif full_prefill and seq > 1 and self.prefill_impl == "flash":
             from unionml_tpu_torch.ops.flash_attention import flash_attention
 
             # per-row LEADING-invalid count: argmax finds the first True,
@@ -270,8 +352,11 @@ class Attention(nn.Module):
             bias = torch.where(
                 visible, torch.zeros((), device=x.device), torch.full((), -1e30, device=x.device)
             )
-            out = cached_attention(q, ck.to(self.dtype), cv.to(self.dtype), bias=bias)
-        return self.o(params["o"], out), (ck, cv)
+            if quant:
+                out = quantized_cache_attention(q, ck, cv, ks, vs, bias=bias)
+            else:
+                out = cached_attention(q, ck.to(self.dtype), cv.to(self.dtype), bias=bias)
+        return self.o(params["o"], out), new_cache
 
 
 class MlpBlock(nn.Module):

@@ -5,7 +5,8 @@ grouped-query attention, SwiGLU MLP, untied fp32 LM head. Weights are
 the reference's param tree (nested dicts with the flax names) passed to
 ``forward``; :func:`init_params` makes a random tree of that layout on a
 device, and :func:`init_cache` the KV cache. Only the dense model is
-ported: MoE, LoRA, int4 and the int8 KV cache raise
+ported, with the int8 KV cache (``kv_quant``) and the block-paged
+decode step (``block_table=``): MoE, LoRA and int4 raise
 ``NotImplementedError``.
 """
 
@@ -20,7 +21,8 @@ from torch import nn
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.layers import Attention, MlpBlock, RMSNorm, make_dense
 
-Cache = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # per-layer (k, v)
+# per layer (k, v), or (k_q, v_q, k_scale, v_scale) under kv_quant
+Cache = Tuple[Tuple[torch.Tensor, ...], ...]
 
 
 @dataclass(frozen=True)
@@ -41,12 +43,21 @@ class LlamaConfig:
     # attention for FULL prefills: "flash" runs the padded flash kernel
     # over the fresh k/v; "cached" keeps the masked cached-attention path
     prefill_impl: str = "cached"
+    # decode attention over a BLOCK-PAGED pool (block_table=): "pallas" =
+    # the hand-written CUDA kernel (ops/paged_attention.py), "reference" =
+    # its plain version, "auto" = the kernel for CUDA tensors and the
+    # plain version for CPU ones (the reference's names, so configs carry
+    # over)
+    paged_impl: str = "auto"
     # "fused" = the fused RMSNorm kernel (ops/fused_norm.py)
     norm_impl: str = "xla"
     quantized: bool = False  # weight-only int8 matmuls (serving path)
     weight_bits: int = 8
     num_experts: int = 0
     lora_rank: int = 0
+    # int8 KV cache (generation paths): per-(position, kv_head) fp32
+    # scales; init_cache builds the quantized layout and Attention infers
+    # it from the cache structure
     kv_quant: bool = False
     dtype: str = "bfloat16"
 
@@ -54,7 +65,6 @@ class LlamaConfig:
         for name, unported in (
             ("num_experts", self.num_experts),
             ("lora_rank", self.lora_rank),
-            ("kv_quant", self.kv_quant),
             ("weight_bits != 8", self.weight_bits != 8),
         ):
             if unported:
@@ -91,7 +101,8 @@ class LlamaBlock(nn.Module):
             cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             features=cfg.hidden_dim, rope=True, rope_theta=cfg.rope_theta,
             rope_scaling=cfg.rope_scaling, causal=True, attn_impl=cfg.attn_impl,
-            prefill_impl=cfg.prefill_impl, quantized=cfg.quantized, dtype=dtype,
+            prefill_impl=cfg.prefill_impl, paged_impl=cfg.paged_impl,
+            quantized=cfg.quantized, dtype=dtype,
         )
         self.mlp_norm = RMSNorm(eps=cfg.norm_eps, dtype=dtype, impl=cfg.norm_impl)
         self.mlp = MlpBlock(
@@ -99,13 +110,13 @@ class LlamaBlock(nn.Module):
         )
 
     def forward(self, params, x, *, positions=None, cache=None, cache_index=None,
-                kv_mask=None, full_prefill=False):
+                kv_mask=None, block_table=None, full_prefill=False):
         h = self.attn_norm(params["attn_norm"], x)
         if cache is not None:
             a, new_cache = self.attn(
                 params["attn"], h, positions=positions, cache=cache,
                 cache_index=cache_index, kv_mask=kv_mask,
-                full_prefill=full_prefill,
+                block_table=block_table, full_prefill=full_prefill,
             )
         else:
             if kv_mask is not None:
@@ -147,10 +158,17 @@ class Llama(nn.Module):
         cache: Optional[Cache] = None,
         cache_index=None,
         kv_mask: Optional[torch.Tensor] = None,
+        block_table: Optional[torch.Tensor] = None,
         logit_index: Optional[torch.Tensor] = None,
         full_prefill: bool = False,
     ):
         """logits [B,S,V] fp32; with ``cache`` returns (logits, cache).
+
+        ``block_table``: int [B, table_width] — marks ``cache`` as a
+        block-paged pool (per layer [num_blocks, block, kv_heads, ...])
+        addressed through the table; decode steps only (``seq == 1``,
+        vector ``cache_index``). See :class:`~unionml_tpu_torch.models
+        .layers.Attention`.
 
         ``kv_mask``: bool (batch, max_len), False cache slots are never
         attended to. ``logit_index``: optional int [B] — the LM head runs
@@ -173,7 +191,7 @@ class Llama(nn.Module):
                 params[f"block_{i}"], x, positions=positions,
                 cache=cache[i] if cache is not None else None,
                 cache_index=cache_index, kv_mask=kv_mask,
-                full_prefill=full_prefill,
+                block_table=block_table, full_prefill=full_prefill,
             )
             new_cache.append(c)
         if logit_index is not None:
@@ -242,11 +260,29 @@ def init_cache(
     device: DeviceLike = None,
 ) -> Cache:
     """Zero-filled KV cache: per-layer (k, v) of [B, max_len, kv_heads,
-    head_dim] on ``device`` (``None`` = CUDA). Every buffer is its own
-    allocation: the port writes the cache in place."""
+    head_dim] on ``device`` (``None`` = CUDA). With ``config.kv_quant``
+    each layer is instead ``(k_q int8, v_q int8, k_scale fp32 [B,
+    max_len, kv_heads], v_scale)``, scales one. Every buffer is its own
+    allocation: the port writes the cache in place. (The engine's paged
+    pool is this cache with ``batch`` = pool blocks and ``max_len`` = the
+    block size.)"""
     dev = resolve_device(device)
     max_len = max_len or config.max_len
     shape = (batch, max_len, config.num_kv_heads, config.head_dim)
+    if config.kv_quant:
+        if torch_dtype(dtype) != torch.bfloat16:
+            # the dtype argument governs the bf16 cache form only
+            raise ValueError(
+                f"kv_quant caches are int8 + fp32 scales; dtype={dtype} "
+                "cannot apply (drop the dtype argument or kv_quant)"
+            )
+        return tuple(
+            (torch.zeros(shape, dtype=torch.int8, device=dev),
+             torch.zeros(shape, dtype=torch.int8, device=dev),
+             torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+             torch.ones(shape[:-1], dtype=torch.float32, device=dev))
+            for _ in range(config.num_layers)
+        )
     return tuple(
         (torch.zeros(shape, dtype=dtype, device=dev),
          torch.zeros(shape, dtype=dtype, device=dev))

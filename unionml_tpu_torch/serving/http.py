@@ -300,7 +300,7 @@ class ServingApp:
         :class:`~unionml_tpu_torch.serving.router.HttpReplica` can make
         cache-affinity routing decisions across hosts.
 
-        ``goodput``: a zero-arg callable        ``goodput``: a zero-arg callable returning the serving goodput
+        ``goodput``: a zero-arg callable returning the serving goodput
         plane's report — wire ``engine.goodput_report`` — served at
         ``GET /debug/goodput``: batch-occupancy classification
         (full-batch / padded-slot / prefill-mix / idle device passes),

@@ -1,0 +1,410 @@
+"""Serving goodput plane: batch-occupancy accounting + perf watchdog.
+
+The port of :mod:`unionml_tpu.serving.perf`, logic unchanged. The
+reference's training goodput tracker classifies trainer wall time into
+compute vs. badput causes; this module classifies the decode engine's
+*device passes* — every dispatcher pass lands in a bounded ring as one
+of :data:`PASS_KINDS`:
+
+- ``full_batch``  — every resident slot carried a live request; the
+  chunk's slot-steps were all useful work.
+- ``padded_slots`` — the chunk ran with empty slots; the padded
+  slot-steps are the serving analogue of training's badput.
+- ``prefill_mix`` — the chunk ran while a chunked admission was
+  interleaving prefill into the decode cadence (useful, but decode
+  throughput is degraded by the mixed program).
+- ``idle`` — the dispatcher found no work at all (queue empty, no
+  occupants); wall time with the device parked.
+
+:class:`ServingPerfPlane` owns the ring, publishes the
+``unionml_serving_goodput_ratio`` / ``unionml_serving_occupancy_ratio``
+/ ``unionml_serving_kv_pressure_ratio`` gauges per engine, and carries
+a :class:`ServingRegressionWatchdog` — rolling-baseline detectors
+(reusing :class:`~unionml_tpu_torch.goodput
+.StepTimeRegressionDetector`'s hysteresis) over TTFT, inter-token
+latency, and the goodput ratio itself. Regression transitions emit
+``perf_regression`` flight events whose ``reason`` comes from the
+closed :data:`PERF_REGRESSION_REASONS` set (lint-enforced against
+docs/observability.md, like the rollout decision reasons), and
+:meth:`ServingRegressionWatchdog.advisory` is the signal the
+autoscaler and the rollout SLO guard can poll.
+
+Everything here is pure host math — no device work, no wall
+clocks (``clock`` is injectable monotonic seconds) — so the
+classification and hysteresis are unit-testable on synthetic traces,
+and the hot-path cost per dispatcher pass is one deque append plus a
+few float ops (the ``serve_perf`` bench holds the on/off p99 delta
+under 1%).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Optional
+
+from unionml_tpu_torch import telemetry
+from unionml_tpu_torch.goodput import StepTimeRegressionDetector
+
+__all__ = [
+    "PASS_KINDS",
+    "PERF_REGRESSION_REASONS",
+    "ServingPerfPlane",
+    "ServingRegressionWatchdog",
+]
+
+#: The device-pass taxonomy (docs/observability.md "Serving goodput &
+#: tail attribution"). Every dispatcher pass is exactly one of these.
+PASS_KINDS = (
+    "full_batch",     # all slots occupied: pure useful decode
+    "padded_slots",   # some slots empty: padded slot-steps wasted
+    "prefill_mix",    # chunked admission interleaved into the cadence
+    "idle",           # no work at all: device parked
+)
+
+#: Closed reasons vocabulary for ``perf_regression`` flight events —
+#: lint-enforced both ways against the docs table, like
+#: ROLLBACK/DECISION reasons (scripts/lint_basics.py).
+PERF_REGRESSION_REASONS = (
+    "ttft_regression",    # submit-to-first-token crossed the baseline band
+    "itl_regression",     # inter-token latency crossed the baseline band
+    "goodput_collapse",   # goodput ratio fell against its baseline
+)
+
+#: Feed the goodput watchdog every Nth dispatcher pass — the detector
+#: wants a sampled trend, not one update per 2 ms chunk.
+_GOODPUT_FEED_EVERY = 32
+
+#: Goodput ratios are inverted (lower is worse) before they feed the
+#: shared higher-is-worse detector; the floor keeps a cold-start 0.0
+#: ratio from producing an unbounded inverse.
+_GOODPUT_FLOOR = 0.05
+
+
+class ServingRegressionWatchdog:
+    """Rolling-baseline regression detection over serving perf signals.
+
+    One :class:`StepTimeRegressionDetector` per
+    :data:`PERF_REGRESSION_REASONS` entry. TTFT and ITL feed their
+    detectors directly (ms, higher is worse); the goodput ratio feeds
+    as ``1 / max(ratio, 0.05)`` so a collapse (ratio down) reads as a
+    regression (value up) to the same hysteresis machinery. State
+    *transitions* emit ``perf_regression`` flight events; the steady
+    state is readable via :meth:`advisory` (what the autoscaler and
+    rollout SLO guard poll).
+
+    ``flight=None`` disables event emission (pure-math tests); the
+    engine passes its recorder plus its ``engine``/``phase`` identity
+    so fleet dumps attribute the event.
+    """
+
+    def __init__(
+        self,
+        *,
+        flight: Optional[telemetry.FlightRecorder] = None,
+        engine: str = "engine",
+        phase: str = "colocated",
+        window: int = 50,
+        threshold: float = 1.5,
+        clear_threshold: float = 1.2,
+        consecutive: int = 3,
+        min_samples: int = 10,
+    ):
+        self._flight = flight
+        self._engine = engine
+        self._phase = phase
+        self._lock = threading.Lock()
+        self._detectors: Dict[str, StepTimeRegressionDetector] = {
+            reason: StepTimeRegressionDetector(
+                window=window, threshold=threshold,
+                clear_threshold=clear_threshold,
+                consecutive=consecutive, min_steps=min_samples,
+            )
+            for reason in PERF_REGRESSION_REASONS
+        }
+        self._last_ratio = {r: 1.0 for r in PERF_REGRESSION_REASONS}
+
+    def _feed(self, reason: str, value: float, raw: float) -> dict:
+        with self._lock:
+            verdict = self._detectors[reason].update(value)
+            self._last_ratio[reason] = verdict["ratio"]
+        if (verdict["entered"] or verdict["cleared"]) and (
+            self._flight is not None
+        ):
+            tag = {} if self._phase == "colocated" else {"phase": self._phase}
+            self._flight.record(
+                "perf_regression",
+                engine=self._engine,
+                **tag,
+                reason=reason,
+                state="entered" if verdict["entered"] else "cleared",
+                ratio=round(verdict["ratio"], 3),
+                value=round(raw, 4),
+            )
+        return verdict
+
+    def observe_ttft(self, ttft_ms: float) -> dict:
+        """Feed one completed request's TTFT (ms)."""
+        return self._feed("ttft_regression", float(ttft_ms), float(ttft_ms))
+
+    def observe_itl(self, itl_ms: float) -> dict:
+        """Feed one completed request's mean inter-token latency (ms)."""
+        return self._feed("itl_regression", float(itl_ms), float(itl_ms))
+
+    def observe_goodput(self, ratio: float) -> dict:
+        """Feed one goodput-ratio sample (0..1, higher is better)."""
+        ratio = float(ratio)
+        return self._feed(
+            "goodput_collapse", 1.0 / max(ratio, _GOODPUT_FLOOR), ratio
+        )
+
+    def advisory(self) -> dict:
+        """The poll surface: ``{"regressed", "reasons", "detail"}`` —
+        ``reasons`` lists the currently-regressed signals, ``detail``
+        has each detector's live ratio/anomaly counters."""
+        with self._lock:
+            detail = {
+                reason: {
+                    "regressed": det.regressed,
+                    "ratio": round(self._last_ratio[reason], 4),
+                    "anomalies": det.anomalies,
+                    "baseline": det.baseline(),
+                }
+                for reason, det in self._detectors.items()
+            }
+        active = [r for r in PERF_REGRESSION_REASONS if detail[r]["regressed"]]
+        return {
+            "regressed": bool(active),
+            "reasons": active,
+            "detail": detail,
+        }
+
+
+class ServingPerfPlane:
+    """Bounded-ring device-pass accountant for one decode engine.
+
+    The engine's dispatcher calls :meth:`note_pass` after every chunk
+    dispatch and :meth:`note_idle` on every no-work pass; the
+    harvester calls :meth:`note_tokens` per harvested chunk. The ring
+    (newest ``ring`` passes) is the goodput window: ratios are over
+    *recent* passes, so a burst of idle at startup ages out instead of
+    depressing the gauge forever.
+
+    - ``goodput_ratio``  = occupied slot-steps / all slot-steps in the
+      ring (idle passes count the full batch as lost).
+    - ``occupancy_ratio`` = occupied slot-steps / dispatched
+      slot-steps (idle passes excluded — the padding-only view).
+    - ``kv_pressure_ratio`` = blocks in use / pool capacity at the
+      last dispatch pass.
+    """
+
+    def __init__(
+        self,
+        *,
+        registry: Optional[telemetry.MetricsRegistry] = None,
+        flight: Optional[telemetry.FlightRecorder] = None,
+        engine: str = "engine",
+        phase: str = "colocated",
+        slots: int = 1,
+        chunk_steps: int = 1,
+        ring: int = 2048,
+        clock: Callable[[], float] = time.perf_counter,
+        watchdog: Optional[ServingRegressionWatchdog] = None,
+    ):
+        self._registry = (
+            registry if registry is not None else telemetry.get_registry()
+        )
+        self._engine = engine
+        self._phase = phase
+        self._slots = max(1, int(slots))
+        self._chunk_steps = max(1, int(chunk_steps))
+        self._clock = clock
+        self._lock = threading.Lock()
+        # ring entries: (kind, occupied_slot_steps, total_slot_steps),
+        # with the slot-step sums carried incrementally (evictions
+        # subtract, appends add) so the per-pass ratio math is O(1) —
+        # walking a 2048-entry ring per 2 ms dispatcher pass is what
+        # the serve_perf bench exists to catch
+        self._ring: deque = deque(maxlen=max(16, int(ring)))
+        self._occ_steps = 0
+        self._disp_steps = 0
+        self._idle_steps = 0
+        self._passes = 0
+        self._tokens = 0
+        self._t0 = clock()
+        self._kv_pressure = 0.0
+        self.watchdog = (
+            watchdog
+            if watchdog is not None
+            else ServingRegressionWatchdog(
+                flight=flight, engine=engine, phase=phase
+            )
+        )
+        R, lbl = self._registry, {"engine": engine}
+
+        def gauge(name, help):
+            return R.gauge(name, help, ("engine",)).labels(**lbl)
+
+        self._g_goodput = gauge(
+            "unionml_serving_goodput_ratio",
+            "Occupied slot-steps over all slot-steps in the recent "
+            "dispatcher-pass ring (idle passes count the whole batch "
+            "as lost; 1.0 = every pass was a full batch).",
+        )
+        self._g_occupancy = gauge(
+            "unionml_serving_occupancy_ratio",
+            "Occupied slot-steps over dispatched slot-steps in the "
+            "recent ring (idle passes excluded: the padded-slot view).",
+        )
+        self._g_kv_pressure = gauge(
+            "unionml_serving_kv_pressure_ratio",
+            "KV pool blocks in use over pool capacity at the last "
+            "dispatch pass (0 on non-paged engines).",
+        )
+        # lazy gauges, sampled at scrape/read time: the dispatcher
+        # calls note_pass/note_idle every ~2 ms, and three eager
+        # Gauge.set calls per pass are measurable against the
+        # serve_perf bench's 1% p99 bar — the scrape path pays instead
+        self._g_goodput.set_function(lambda: self._sample_ratios()[0])
+        self._g_occupancy.set_function(lambda: self._sample_ratios()[1])
+        self._g_kv_pressure.set_function(lambda: self._sample_ratios()[2])
+
+    # -- dispatcher hooks --------------------------------------------------
+
+    def note_pass(
+        self,
+        occupied: int,
+        *,
+        prefill_mix: bool = False,
+        kv_in_use: int = 0,
+        kv_capacity: int = 0,
+    ) -> None:
+        """One dispatched decode chunk: ``occupied`` slots carried live
+        requests (of the engine's ``slots``); ``prefill_mix`` flags a
+        chunk that ran while chunked admission was interleaving."""
+        occupied = min(self._slots, max(0, int(occupied)))
+        if prefill_mix:
+            kind = "prefill_mix"
+        elif occupied >= self._slots:
+            kind = "full_batch"
+        else:
+            kind = "padded_slots"
+        total = self._slots * self._chunk_steps
+        occ = occupied * self._chunk_steps
+        goodput = None
+        with self._lock:
+            self._append_locked(kind, occ, total)
+            self._passes += 1
+            if kv_capacity > 0:
+                self._kv_pressure = min(
+                    1.0, max(0.0, kv_in_use / kv_capacity)
+                )
+            if self._passes % _GOODPUT_FEED_EVERY == 0:
+                goodput = self._ratios_locked()[0]
+        if goodput is not None:
+            self.watchdog.observe_goodput(goodput)
+
+    def note_idle(self) -> None:
+        """One dispatcher pass that found no work: the whole batch's
+        slot-steps are classified idle."""
+        total = self._slots * self._chunk_steps
+        with self._lock:
+            self._append_locked("idle", 0, total)
+            self._passes += 1
+
+    def note_tokens(self, n: int) -> None:
+        """``n`` tokens harvested (the achieved-throughput numerator)."""
+        with self._lock:
+            self._tokens += int(n)
+
+    # -- request hooks (from the harvester's finish path) ------------------
+
+    def observe_request(self, ttft_ms: float, itl_mean_ms: float) -> None:
+        """Feed one completed request's TTFT and mean ITL into the
+        regression watchdog (ITL only when the request decoded more
+        than its first token)."""
+        self.watchdog.observe_ttft(ttft_ms)
+        if itl_mean_ms > 0.0:
+            self.watchdog.observe_itl(itl_mean_ms)
+
+    # -- reporting ---------------------------------------------------------
+
+    def _append_locked(self, kind, occ, total) -> None:
+        # deque(maxlen) evicts silently on append, which would desync
+        # the running sums — pop the victim explicitly first
+        if len(self._ring) == self._ring.maxlen:
+            k0, o0, t0 = self._ring.popleft()
+            if k0 == "idle":
+                self._idle_steps -= t0
+            else:
+                self._occ_steps -= o0
+                self._disp_steps -= t0
+        self._ring.append((kind, occ, total))
+        if kind == "idle":
+            self._idle_steps += total
+        else:
+            self._occ_steps += occ
+            self._disp_steps += total
+
+    def _ratios_locked(self):
+        occ = self._occ_steps
+        disp = self._disp_steps
+        idle = self._idle_steps
+        goodput = occ / (disp + idle) if (disp + idle) else 0.0
+        occupancy = occ / disp if disp else 0.0
+        return goodput, occupancy, self._kv_pressure
+
+    def _sample_ratios(self):
+        with self._lock:
+            return self._ratios_locked()
+
+    def report(self) -> dict:
+        """The ``/debug/goodput`` body for this engine: ring
+        classification counts + slot-step sums, the three ratios,
+        achieved tokens/s since construction (or :meth:`reset`), and
+        the watchdog advisory."""
+        with self._lock:
+            ring = list(self._ring)
+            passes = self._passes
+            tokens = self._tokens
+            elapsed = max(1e-9, self._clock() - self._t0)
+            ratios = self._ratios_locked()
+        counts = {kind: 0 for kind in PASS_KINDS}
+        slot_steps = {kind: 0 for kind in PASS_KINDS}
+        occupied = 0
+        for kind, occ, total in ring:
+            counts[kind] += 1
+            slot_steps[kind] += total
+            occupied += occ
+        goodput, occupancy, pressure = ratios
+        return {
+            "engine": self._engine,
+            "phase": self._phase,
+            "slots": self._slots,
+            "chunk_steps": self._chunk_steps,
+            "ring_passes": len(ring),
+            "total_passes": passes,
+            "passes": counts,
+            "slot_steps": slot_steps,
+            "occupied_slot_steps": occupied,
+            "goodput_ratio": round(goodput, 6),
+            "occupancy_ratio": round(occupancy, 6),
+            "kv_pressure_ratio": round(pressure, 6),
+            "tokens": tokens,
+            "tokens_per_s": round(tokens / elapsed, 3),
+            "watchdog": self.watchdog.advisory(),
+        }
+
+    def reset(self) -> None:
+        """Clear the ring and re-anchor the throughput window (the
+        windowed ``stats()``/bench reset path)."""
+        with self._lock:
+            self._ring.clear()
+            self._occ_steps = 0
+            self._disp_steps = 0
+            self._idle_steps = 0
+            self._passes = 0
+            self._tokens = 0
+            self._t0 = self._clock()
+            self._kv_pressure = 0.0
