@@ -40,7 +40,21 @@ Phases, each of which fails the run with a non-zero exit:
 7. fp32    — an 8-layer fp32-activation model: a paged engine (the kernel
              with fp32 queries) and a contiguous engine must give the same
              tokens (at most one flip in 12 requests);
-8. report  — one JSON line of per-kernel numbers, the nvidia-smi line, and
+8. int4    — packed-int4 weights (random, made on the card from a seeded
+             generator) at all --layers: the paged engine phase of 5. with
+             group-wise scales (g=128, the grouped int4 kernel at every
+             decode-step projection and the LM head, launch count checked
+             against the steps taken, decode-step logits against the plain
+             int4 path); then the speculative engine (per-channel int4
+             target, the 0.3B int8 draft, 8 slots, k=4) behind
+             ServingApp(batch=False): every reply, no host waits, the
+             verify's 40 rows through the per-channel kernel, acceptance,
+             and self-speculation accepting >= 99%; then fp32 parity at 8
+             layers: int4 paged vs contiguous, speculative (draft and self)
+             vs plain (at most one flip in 12 requests); last, every int4
+             launch shape these phases gave the kernel is run again on
+             random inputs and held against the plain version;
+9. report  — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -50,6 +64,7 @@ JAX or of the unionml_tpu package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -73,7 +88,12 @@ PEAK_FP32_OPS_S = 67e12
 NORM_TOL = dict(rtol=1 / 64, atol=1e-3)   # <= 2 bf16 ulps: same fp32 statistic, other sum order
 FLASH_TOL = dict(rtol=2e-2, atol=2e-2)    # bf16 P rounded at the running (kernel) vs row (plain) max
 PAGED_TOL = dict(rtol=2e-2, atol=2e-2)    # bf16 p rounded before (kernel) vs after (plain) normalising
+INT4_TOL = {                              # the same fp32 products in another summation order:
+    torch.bfloat16: dict(rtol=1 / 64, atol=1e-2),   # <= 2 bf16 ulps after the one final rounding
+    torch.float32: dict(rtol=1e-4, atol=1e-4),      # fp32 FMA (kernel) vs fp32 GEMM (plain), no TF32
+}
 LOGIT_COSINE_MIN = 0.99                   # 8B kernel path vs plain path, bf16 through every layer
+SPEC_SELF_ACCEPT_MIN = 0.99               # self-speculation: draft == target
 
 # the engine phase's serving configuration
 ENGINE_BUCKETS = (64, 256, 1024)
@@ -268,6 +288,92 @@ def paged_case(batch: int, hq: int, hk: int, d: int, blk: int, width: int, int8:
     }
 
 
+def random_int4_weight(k: int, n: int, group: int, gen, device: str = "cuda") -> tuple:
+    """Random packed int4 weights ``[k, n/2]`` and fp32 scales (``[n]``, or
+    ``[k/group, n]``) whose dequantized values have mean 0 and std about
+    1/sqrt(k). Each nibble is uniform in [-7, 7] (std 4.32): a uniform byte
+    would give nibbles in [-8, 7], whose mean of -0.5 adds the same value to
+    every output channel and drowns a random model in one direction."""
+    lo, hi = (torch.randint(-7, 8, (k, n // 2), device=device, generator=gen,
+                            dtype=torch.int16) & 15 for _ in range(2))
+    byte = lo | (hi << 4)
+    packed = torch.where(byte > 127, byte - 256, byte).to(torch.int8)
+    shape = (k // group, n) if group else (n,)
+    scale = (0.75 + 0.5 * torch.rand(shape, device=device, generator=gen)) / (4.32 * k**0.5)
+    return packed, scale
+
+
+def _int4pack_library(x, packed, scale, tile, group):
+    """``torch._weight_int4pack_mm`` on the same nibbles (bf16 scales, zero
+    point 8; repacking not timed): a yardstick, not an oracle. Returns
+    ``(ms, note)``; ``ms`` is None where the card's build lacks the op."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    k, n = x.shape[1], scale.shape[-1]
+    try:
+        unsigned = (i4.unpack_int4(packed, tile).to(torch.int32) + 8).t().contiguous()  # [n, k]
+        as_bytes = ((unsigned[:, ::2] << 4) | unsigned[:, 1::2]).to(torch.uint8)
+        try:
+            w = torch._convert_weight_to_int4pack(as_bytes, 8)
+        except RuntimeError:
+            w = torch._convert_weight_to_int4pack(unsigned, 8)
+        sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).bfloat16().contiguous()
+        xb = x.bfloat16()
+        torch._weight_int4pack_mm(xb, w, group, sz)
+        return time_ms(lambda: torch._weight_int4pack_mm(xb, w, group, sz)), (
+            f"torch._weight_int4pack_mm, group {group}, bf16 scales (repack not timed)"
+        )
+    except (RuntimeError, AttributeError, TypeError) as exc:
+        return None, f"torch._weight_int4pack_mm unavailable on this build: {exc!r}"[:300]
+
+
+def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = None) -> dict:
+    """One int4 matmul at a main-path shape: the kernel against its plain
+    version, and the per-row independence of its result (the first 8 rows
+    of a ``rows``-row launch equal an 8-row launch bit for bit)."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    tile = tile or i4.tile_for(n, k)
+    packed, scale = random_int4_weight(k, n, group, gen)
+    x = torch.randn(rows, k, device="cuda", generator=gen).to(dtype)
+    run = lambda: i4.int4_matmul_cuda(x, packed, scale, tile_n=tile, group_size=group)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    want = i4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype, group_size=group)
+    form = f"g{group}" if group else "per-channel"
+    name = f"int4_matmul {form} x[{rows},{k}] {str(dtype).split('.')[-1]} N={n}"
+    err = check_close(name, got, want, INT4_TOL[dtype])
+    if rows > 8:
+        head = i4.int4_matmul_cuda(x[:8].contiguous(), packed, scale, tile_n=tile, group_size=group)
+        if not torch.equal(head, got[:8]):
+            raise AssertionError(f"{name}: a row's result depends on the launch's row count")
+    elt = x.element_size()
+    nbytes = packed.numel() + scale.numel() * 4 + rows * k * elt + rows * n * elt
+    peak = PEAK_FP32_OPS_S if dtype == torch.float32 else PEAK_BF16_OPS_S
+    b_ms, b_by = bound(nbytes, 2 * rows * k * n, peak)
+    if group and dtype == torch.bfloat16:
+        lib_ms, lib_note = _int4pack_library(x, packed, scale, tile, group)
+    else:
+        w = i4.unpack_int4(packed, tile)  # dequantized beforehand, not timed
+        w = (w.float() * (scale.repeat_interleave(group, 0) if group else scale)).to(dtype)
+        lib_ms = time_ms(lambda: torch.mm(x, w))
+        lib_note = f"torch.mm of {str(dtype).split('.')[-1]} x against the weight dequantized " \
+                   "beforehand (dequantization not timed)"
+        del w
+    return {
+        "shape": f"x[{rows},{k}] {str(dtype).split('.')[-1]} @ W4[{k},{n}] tile {tile}, {form}",
+        "form": form, "rows": rows,
+        "max_abs_err": err,
+        "ms": time_ms(run),
+        "plain_ms": time_ms(
+            lambda: i4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype,
+                                         group_size=group), iters=3,
+        ),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "library_call": lib_note,
+    }
+
+
 def event_wait_releases_gil() -> int:
     """Count Python loop iterations the main thread makes while another
     thread waits on a CUDA event behind ~0.2 s of device work. A wait
@@ -295,7 +401,20 @@ def kernel_phase(batch: int, bucket: int) -> dict:
     # the engine's decode step: 16 slots, Llama-3-8B heads, block 16,
     # table width of a 1024-bucket engine with 64 new tokens
     pageds = [paged_case(16, 32, 8, 128, 16, 73, int8, gen) for int8 in (False, True)]
-    out = {"rms_norm_fwd": norms, "flash_fwd_padded": flashes, "paged_attention": pageds}
+    # the 0.3B draft's prefill (head_dim 64) through the flash kernel
+    flashes.append(flash_case(batch, 256, 16, 8, 64, [0, 17, 100, 200][:batch], gen))
+    # int4 at Llama-3-8B shapes: per-channel at the speculative verify's
+    # 40 rows (8 slots x 5), grouped at the paged engine's 16-slot decode;
+    # q/o, gate/up, down and the fp32 LM head (tile 256) of each. The 4-row
+    # LM-head cases are extras, off the main paths.
+    bf16, fp32 = torch.bfloat16, torch.float32
+    per_channel = [int4_case(40, 4096, 4096, 0, bf16, gen), int4_case(40, 4096, 14336, 0, bf16, gen),
+                   int4_case(40, 14336, 4096, 0, bf16, gen), int4_case(40, 4096, 128256, 0, fp32, gen),
+                   int4_case(4, 4096, 128256, 0, fp32, gen)]
+    grouped = [int4_case(16, 4096, 14336, 128, bf16, gen), int4_case(16, 14336, 4096, 128, bf16, gen),
+               int4_case(16, 4096, 128256, 128, fp32, gen), int4_case(4, 4096, 128256, 128, fp32, gen)]
+    out = {"rms_norm_fwd": norms, "flash_fwd_padded": flashes, "paged_attention": pageds,
+           "int4_matmul": per_channel, "int4_matmul_grouped": grouped}
     for name, cases in out.items():
         for c in cases:
             log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} "
@@ -376,6 +495,115 @@ def build_template(config, max_new_tokens: int, buckets: tuple, device: str):
     log(f"{config.num_layers}-layer int8 weights (hidden {config.hidden_dim}) "
         f"built on {device} in {time.perf_counter() - t0:.2f} s")
     return model, params
+
+
+def random_quantized_params(config, seed: int, device: str = "cuda") -> dict:
+    """Random serving weights in the layout ``quantize_params`` writes for
+    ``config`` (int8 everywhere, or packed int4 with the per-site int8
+    fallback for ``weight_bits=4``), made straight from a seeded
+    ``torch.Generator`` on ``device``: no fp weights are quantized."""
+    from unionml_tpu_torch._device import torch_dtype
+    from unionml_tpu_torch.models.convert import _dense_shapes, _int4_site
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = torch_dtype(config.dtype)
+    d = config.hidden_dim
+
+    def dense(path, k, n):
+        int4 = config.weight_bits == 4 and _int4_site(config, path, k, n)
+        if not int4:
+            q = torch.randint(-127, 128, (k, n), device=device, generator=gen, dtype=torch.int8)
+            scale = (0.75 + 0.5 * torch.rand(n, device=device, generator=gen)) / (73.0 * k**0.5)
+            return {"kernel_q": q, "scale": scale}
+        group = config.int4_group
+        packed, scale = random_int4_weight(k, n, group, gen, device)
+        return {"kernel_p": packed, ("scale_g" if group else "scale"): scale}
+
+    def ones():
+        return torch.ones(d, device=device, dtype=dtype)
+
+    emb = torch.randn(config.vocab_size, d, device=device, generator=gen) * d**-0.5
+    params = {"embed": {"embedding": emb.to(dtype)}}
+    for i in range(config.num_layers):
+        block = {"attn_norm": {"scale": ones()}, "mlp_norm": {"scale": ones()},
+                 "attn": {}, "mlp": {}}
+        for (part, site), (_, (k, n)) in _dense_shapes(config).items():
+            block[part][site] = dense((part, site), k, n)
+        params[f"block_{i}"] = block
+    params["final_norm"] = {"scale": ones()}
+    params["lm_head"] = dense(("lm_head",), d, config.vocab_size)
+    return params
+
+
+class Int4Probe:
+    """Harness-side instrumentation of the int4 kernel wrapper: records the
+    row count of every launch (``rows``) and every launch shape (``shapes``:
+    rows, K, N, group, dtype, tile) and, inside ``plain()``, routes the
+    CUDA calls to the kernel's plain version (the reference math on the
+    card, for logits comparisons). The port itself never does this."""
+
+    def __init__(self):
+        from unionml_tpu_torch.ops import int4_matmul as i4
+
+        self._mod = i4
+        self._real = i4.int4_matmul_cuda
+        self.rows: set = set()
+        self.shapes: set = set()
+        self._plain = False
+
+        def wrapper(x, packed, scale, *, tile_n, group_size=0):
+            if self._plain:
+                return i4.int4_matmul_plain(x, packed, scale, tile_n=tile_n, dtype=x.dtype,
+                                            group_size=group_size)
+            rows, k = (int(d) for d in x.shape)
+            self.rows.add(rows)
+            self.shapes.add((rows, k, int(scale.shape[-1]), int(group_size), x.dtype, int(tile_n)))
+            return self._real(x, packed, scale, tile_n=tile_n, group_size=group_size)
+
+        i4.int4_matmul_cuda = wrapper
+
+    @contextlib.contextmanager
+    def plain(self):
+        self._plain = True
+        try:
+            yield
+        finally:
+            self._plain = False
+
+    def close(self):
+        self._mod.int4_matmul_cuda = self._real
+
+
+def int4_launch_shape_checks(shapes, seed: int = 3) -> dict:
+    """Every launch shape the int4 phases gave the kernel (as an
+    :class:`Int4Probe` recorded them), run again on seeded random inputs of
+    that shape and held against the plain version, so each instance the
+    engines ran (row-tile count, per-channel or grouped, bf16 or fp32, LM
+    head included) is checked on the card at its own shape. Returns
+    ``{kernel name: [{"shape", "max_abs_err"}]}``."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"int4_matmul": [], "int4_matmul_grouped": []}
+    weight_key, weight = None, None
+    for rows, k, n, group, dtype, tile in sorted(shapes, key=lambda s: (s[1:4], s[5], str(s[4]),
+                                                                         s[0])):
+        if weight_key != (k, n, group, tile):   # one weight resident at a time
+            weight_key, weight = (k, n, group, tile), None
+            weight = random_int4_weight(k, n, group, gen)
+        packed, scale = weight
+        x = torch.randn(rows, k, device="cuda", generator=gen).to(dtype)
+        got = i4.int4_matmul_cuda(x, packed, scale, tile_n=tile, group_size=group)
+        want = i4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype, group_size=group)
+        form = f"g{group}" if group else "per-channel"
+        shape = f"x[{rows},{k}] {str(dtype).split('.')[-1]} @ W4[{k},{n}] tile {tile}, {form}"
+        err = check_close(f"int4_matmul launch shape {shape}", got, want, INT4_TOL[dtype])
+        out["int4_matmul_grouped" if group else "int4_matmul"].append(
+            {"shape": shape, "max_abs_err": err})
+    for name, checked in out.items():
+        log(f"int4 launch shapes: {name}: {len(checked)} shapes held against the plain version, "
+            f"max abs err {max((c['max_abs_err'] for c in checked), default=None)}")
+    return out
 
 
 def layer_subset(params: dict, layers: int) -> dict:
@@ -497,10 +725,12 @@ def serve_phase(
     return out
 
 
-def paged_logits_agreement(config, params, device: str) -> float:
+def paged_logits_agreement(config, params, device: str, probe=None) -> float:
     """Cosine similarity of one decode step's logits through the paged
     path (pool + block table + paged attention, kernel on the card) and
-    the contiguous plain path, on the same prefilled rows of 2 sequences."""
+    the contiguous plain path, on the same prefilled rows of 2 sequences.
+    With an :class:`Int4Probe` the contiguous step also runs the int4
+    matmuls' plain version."""
     from unionml_tpu_torch.models import Llama, init_cache
 
     rng = np.random.default_rng(3)
@@ -521,7 +751,12 @@ def paged_logits_agreement(config, params, device: str) -> float:
             for pbuf, cbuf in zip(layer, cached):
                 pbuf[1:] = cbuf.reshape((2 * width, blk) + tuple(cbuf.shape[2:]))
         table = (1 + torch.arange(2 * width, device=device).reshape(2, width)).int()
-        contiguous, _ = model(params, step, cache=cache, cache_index=fill, kv_mask=kv_mask)
+        if probe is not None:
+            with probe.plain():
+                contiguous, _ = model(params, step, cache=cache, cache_index=fill,
+                                      kv_mask=kv_mask)
+        else:
+            contiguous, _ = model(params, step, cache=cache, cache_index=fill, kv_mask=kv_mask)
         paged, _ = model(params, step, cache=pool, cache_index=fill, block_table=table)
         outs = [contiguous[:, -1].float(), paged[:, -1].float()]
     if not all(torch.isfinite(o).all() for o in outs):
@@ -536,7 +771,7 @@ def _pool_blocks_in_use(metrics: str) -> list:
 
 def engine_phase(
     config, max_new_tokens: int, *, device: str = "cuda", model=None, params=None,
-    slots: int = 16,
+    slots: int = 16, probe=None,
     buckets: tuple = ENGINE_BUCKETS, chunk_steps: int = 8, waves: int = 3,
     lengths: tuple = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 1000,
                       300, 8, 999, 77, 550, 20, 1001, 250, 128, 45, 620, 5),
@@ -547,6 +782,7 @@ def engine_phase(
     from unionml_tpu_torch.models import Llama
     from unionml_tpu_torch.ops import flash_attention as fa
     from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import int4_matmul as i4
     from unionml_tpu_torch.ops import paged_attention as pa
     from unionml_tpu_torch.serving import DecodeEngine, ServingApp
 
@@ -559,7 +795,14 @@ def engine_phase(
     config = serving_config(config)
     if model is None:
         model, params = build_template(config, max_new_tokens, buckets, device)
-    cos = paged_logits_agreement(config, params, device)
+    counters = {"paged_attention": pa.KERNEL, "flash_fwd_padded": fa.KERNEL,
+                "rms_norm_fwd": fused_norm.KERNEL}
+    if config.weight_bits == 4:
+        if config.int4_group:
+            counters["int4_matmul_grouped"] = i4.KERNEL_GROUPED
+        else:
+            counters["int4_matmul"] = i4.KERNEL
+    cos = paged_logits_agreement(config, params, device, probe=probe)
     log(f"engine: paged vs contiguous decode-step logits, min cosine {cos}")
     if cos < LOGIT_COSINE_MIN:
         raise AssertionError(f"paged decode step disagrees with the contiguous path ({cos})")
@@ -611,7 +854,7 @@ def engine_phase(
         except Exception as exc:
             errors.append(f"stream: {exc!r}")
 
-    for counter in (pa.KERNEL, fa.KERNEL, fused_norm.KERNEL):
+    for counter in counters.values():
         counter.launches = 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -642,8 +885,7 @@ def engine_phase(
             raise AssertionError("the engine's requests did not finish in 300 s")
         sync()
         wall_s = time.perf_counter() - t_start
-        launches = {"paged_attention": pa.KERNEL.launches, "flash_fwd_padded": fa.KERNEL.launches,
-                    "rms_norm_fwd": fused_norm.KERNEL.launches}
+        launches = {name: c.launches for name, c in counters.items()}
         with urllib.request.urlopen(f"{base}/health", timeout=60) as resp:
             health_status, health = resp.status, json.loads(resp.read())
         deadline = time.monotonic() + 60
@@ -684,6 +926,19 @@ def engine_phase(
         for name, n in launches.items():
             if n == 0:
                 raise AssertionError(f"kernel {name} was never launched on the engine path")
+    int4_expected = None
+    if config.weight_bits == 4:
+        # every decode step runs the 7 projections of every layer and the LM
+        # head through the kernel (16 rows), every admission the LM head
+        # once (its one logit row); the other prefill rows take the fallback
+        int4_expected = stats["decode_steps"] * (7 * config.num_layers + 1) + len(prompts) + 1
+        name = "int4_matmul_grouped" if config.int4_group else "int4_matmul"
+        log(f"engine: {name} launches {launches[name]}, expected at least {int4_expected} "
+            f"({stats['decode_steps']} decode steps x {7 * config.num_layers + 1} + "
+            f"{len(prompts) + 1} admissions)")
+        if on_card and launches[name] < int4_expected:
+            raise AssertionError(f"{name} launched {launches[name]} times, expected at least "
+                                 f"{int4_expected}")
 
     # the same prompts through a contiguous engine (printed, not gated)
     contiguous = DecodeEngine(Llama(config), paged=False, **kw)
@@ -709,6 +964,7 @@ def engine_phase(
         "match_contiguous": f"{matching}/{len(prompts)}",
         "host_syncs": len(host_syncs),
         "launches": launches,
+        "int4_expected_launches": int4_expected,
     }
     log(f"engine: {out['requests']} requests ({len(prompts)} /predict in {waves} staggered "
         f"waves + 1 stream), wall {wall_s} s, {out['tokens_per_s']} generated tokens/s")
@@ -753,6 +1009,14 @@ def kv_quant_phase(config, params, max_new_tokens: int, *, device: str = "cuda",
     return {"layers": layers, "requests": len(prompts), "launches": launches}
 
 
+def fp32_config(config, layers: int):
+    """``config`` served with fp32 activations at ``layers`` layers (the
+    flash prefill kernel takes bf16 only: fp32 prefills stay cached)."""
+    return dataclasses.replace(
+        serving_config(config), num_layers=layers, dtype="float32", prefill_impl="cached"
+    )
+
+
 def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda", layers: int = 8,
                       buckets: tuple = ENGINE_BUCKETS,
                       lengths: tuple = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 300)
@@ -760,16 +1024,17 @@ def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda", laye
     """The same prompts through a paged engine (the paged kernel with fp32
     queries) and a contiguous engine (plain cached attention) of one
     fp32-activation model: with no bf16 rounding of the softmax weights
-    the two must agree token for token (at most one near-tie flip)."""
+    the two must agree token for token (at most one near-tie flip). An int4
+    config runs its int4 kernel's fp32 form in both engines."""
     from unionml_tpu_torch.models import Llama
     from unionml_tpu_torch.ops import paged_attention as pa
     from unionml_tpu_torch.serving import DecodeEngine
 
-    # the flash prefill kernel takes bf16 only: fp32 prefills stay cached
-    config = dataclasses.replace(
-        serving_config(config), num_layers=layers, dtype="float32", prefill_impl="cached"
-    )
-    _, params = build_template(config, max_new_tokens, buckets, device)
+    config = fp32_config(config, layers)
+    if config.weight_bits == 4:
+        params = random_quantized_params(config, 0, device)
+    else:
+        _, params = build_template(config, max_new_tokens, buckets, device)
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
     outs = {}
@@ -784,14 +1049,221 @@ def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda", laye
     launches = pa.KERNEL.launches
     matching = sum(a == b for a, b in zip(outs[True], outs[False]))
     log(f"fp32 parity: {matching}/{len(prompts)} requests token-identical, paged kernel "
-        f"(fp32 queries) vs contiguous plain path, {layers} layers; paged_attention "
-        f"launches {launches}")
+        f"(fp32 queries) vs contiguous plain path, {layers} layers, weight_bits "
+        f"{config.weight_bits} group {config.int4_group}; paged_attention launches {launches}")
     if matching < len(prompts) - 1:
         raise AssertionError(f"fp32 paged engine disagrees with the contiguous engine: "
                              f"{matching}/{len(prompts)}")
     if device == "cuda" and launches == 0:
         raise AssertionError("the paged kernel was never launched in the fp32 engine")
     return {"layers": layers, "match": f"{matching}/{len(prompts)}", "launches": launches}
+
+
+# the 0.3B draft of the JAX package's speculative benchmark
+DRAFT_WIDTHS = dict(hidden_dim=1024, num_layers=10, num_heads=16, num_kv_heads=8, mlp_dim=2816)
+
+
+def _spec_engine(target_cfg, draft_cfg, device, **kw):
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    draft = Llama(target_cfg) if draft_cfg is None else Llama(draft_cfg)
+    return DecodeEngine(Llama(target_cfg), draft_module=draft, device=device, **kw)
+
+
+def spec_phase(target_cfg, target_params, draft_cfg, draft_params, max_new_tokens: int, *,
+               device: str = "cuda", probe=None, slots: int = 8, k: int = 4,
+               buckets: tuple = (64, 256), chunk_steps: int = 4,
+               lengths: tuple = (5, 200, 37, 120, 64, 12, 180, 90), self_requests: int = 4) -> dict:
+    """Serve the int4 target with the draft through the speculative
+    DecodeEngine behind ServingApp(batch=False): every prompt at once plus
+    one /predict/stream, no host waits while serving, the per-channel int4
+    kernel launched with the verify's slots * (k+1) rows among its row
+    counts; then self-speculation (draft = target) must accept nearly
+    every proposal. ``device="cpu"`` rehearses it at a small config."""
+    from unionml_tpu_torch import ModelArtifact
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.ops import int4_matmul as i4
+    from unionml_tpu_torch.serving import DecodeEngine, ServingApp
+    from unionml_tpu_torch.templates.llm_serving.app import build_model
+
+    on_card = device == "cuda"
+    kw = dict(speculate_k=k, slots=slots, prompt_buckets=buckets, max_new_tokens=max_new_tokens,
+              chunk_steps=chunk_steps)
+    params = {"target": target_params, "draft": draft_params}
+    engine = _spec_engine(target_cfg, draft_cfg, device, **kw)
+    model = build_model(target_cfg, name="chip_smoke_spec")
+    model.artifact = ModelArtifact(params)
+
+    @model.predictor
+    def predictor(params: dict, prompts: list) -> list:
+        return engine.generate(params, prompts)
+
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, target_cfg.vocab_size, size=n).tolist() for n in lengths]
+    results, errors, streamed = {}, [], []
+    t0 = time.perf_counter()
+    engine.warmup(params)
+    if on_card:
+        torch.cuda.synchronize()
+    log(f"spec: warmup {time.perf_counter() - t0:.2f} s, cache_len {engine.cache_len}")
+    engine.reset_stats()
+    app = ServingApp(model, batch=False, health=engine.health, stats=engine.stats,
+                     stream=lambda p, features: engine.generate_stream(p, features[0]))
+    host, port = app.serve(host="127.0.0.1", port=0, blocking=False)
+    base = f"http://{host}:{port}"
+
+    def request(i):
+        try:
+            results[i] = post(f"{base}/predict", {"features": [prompts[i]]})
+        except Exception as exc:  # reported below; any failure fails the run
+            errors.append(f"prompt {i}: {exc!r}")
+
+    def stream():
+        try:
+            req = urllib.request.Request(
+                f"{base}/predict/stream", data=json.dumps({"features": [prompts[0]]}).encode(),
+                method="POST", headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                for line in resp.read().decode().splitlines():
+                    if line.startswith("data:"):
+                        streamed.extend(json.loads(line[5:]).get("tokens", []))
+        except Exception as exc:
+            errors.append(f"stream: {exc!r}")
+
+    i4.KERNEL.launches = 0
+    if probe is not None:
+        probe.rows.clear()
+    threads = [threading.Thread(target=stream)] + [
+        threading.Thread(target=request, args=(i,)) for i in range(len(prompts))
+    ]
+    sync_warnings = warnings.catch_warnings(record=True)
+    caught = sync_warnings.__enter__()
+    warnings.simplefilter("always")
+    if on_card:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("the speculative engine's requests did not finish in 300 s")
+        if on_card:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_start
+        launches = i4.KERNEL.launches
+        stats = engine.stats()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+        sync_warnings.__exit__(None, None, None)
+        app.shutdown()
+        engine.close()
+    rows_seen = sorted(probe.rows) if probe is not None else []
+    host_syncs = [str(w.message) for w in caught
+                  if "synchronizing CUDA operation" in str(w.message)]
+    if errors:
+        raise AssertionError("; ".join(errors))
+    for i, prompt in enumerate(prompts):
+        status, body = results[i]
+        if status != 200 or len(body) != 1 or len(body[0]) != max_new_tokens or not all(
+            isinstance(t, int) and 0 <= t < target_cfg.vocab_size for t in body[0]
+        ):
+            raise AssertionError(f"bad speculative reply for a {len(prompt)}-token prompt: "
+                                 f"{status} {body}")
+    if len(streamed) != max_new_tokens:
+        raise AssertionError(f"speculative /predict/stream gave {len(streamed)} tokens")
+    if host_syncs:
+        raise AssertionError(f"{len(host_syncs)} operations waited for the card while the "
+                             "speculative engine served")
+    if on_card and (launches == 0 or slots * (k + 1) not in rows_seen):
+        raise AssertionError(f"int4_matmul launches {launches}, row counts {rows_seen}: the "
+                             f"verify's {slots * (k + 1)} rows never reached the kernel")
+
+    # the same prompts through the plain int4 engine (bf16 agreement, printed)
+    plain = DecodeEngine(Llama(target_cfg), device=device, slots=slots, prompt_buckets=buckets,
+                         max_new_tokens=max_new_tokens, chunk_steps=chunk_steps)
+    try:
+        want = plain.generate(target_params, prompts)
+    finally:
+        plain.close()
+    matching = sum(results[i][1][0] == want[i] for i in range(len(prompts)))
+
+    # self-speculation: draft = target
+    self_engine = _spec_engine(target_cfg, None, device, **kw)
+    try:
+        self_engine.generate({"target": target_params, "draft": target_params},
+                             prompts[:self_requests])
+        self_acc = self_engine.stats()["speculative"]["acceptance_rate"]
+    finally:
+        self_engine.close()
+    spec = stats["speculative"]
+    n_tokens = len(prompts) * max_new_tokens + len(streamed)
+    out = {
+        "layers": target_cfg.num_layers, "draft_layers": draft_cfg.num_layers,
+        "requests": len(prompts) + 1, "k": k, "slots": slots,
+        "wall_s": wall_s, "tokens_per_s": n_tokens / wall_s,
+        "acceptance_rate": spec["acceptance_rate"], "rounds": spec["rounds"],
+        "self_acceptance_rate": self_acc,
+        "ttft_ms_p50": stats["ttft_ms"]["p50"],
+        "itl_ms_p50": stats.get("itl_ms", {}).get("p50"),
+        "int4_rows_seen": rows_seen, "launches": {"int4_matmul": launches},
+        "match_plain_bf16": f"{matching}/{len(prompts)}", "host_syncs": len(host_syncs),
+    }
+    log(f"spec: {out['requests']} requests, k={k}, {slots} slots, wall {wall_s} s, "
+        f"{out['tokens_per_s']} generated tokens/s, acceptance {out['acceptance_rate']} over "
+        f"{out['rounds']} rounds, ttft p50 {out['ttft_ms_p50']} ms, itl p50 {out['itl_ms_p50']}")
+    log(f"spec: int4_matmul launches {launches}, row counts seen {rows_seen}; requests "
+        f"token-identical to the plain int4 engine (bf16, not gated): {out['match_plain_bf16']}; "
+        f"self-speculation acceptance {self_acc}")
+    if self_acc < SPEC_SELF_ACCEPT_MIN:
+        raise AssertionError(f"self-speculation accepted {self_acc} of proposals "
+                             f"(< {SPEC_SELF_ACCEPT_MIN})")
+    return out
+
+
+def spec_fp32_parity_phase(target_cfg, draft_cfg, max_new_tokens: int, *, device: str = "cuda",
+                           layers: int = 8, buckets: tuple = (64, 256),
+                           lengths: tuple = (5, 200, 37, 120, 64, 12, 180, 90, 16, 250, 33, 7)
+                           ) -> dict:
+    """fp32 activations, ``layers`` layers: the speculative engine (the
+    0.3B draft, and self-speculation) and the plain int4 engine must give
+    the same tokens (at most one near-tie flip in 12 requests); the int4
+    kernel runs its fp32 form."""
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    target_cfg = fp32_config(target_cfg, layers)
+    draft_cfg = fp32_config(draft_cfg, draft_cfg.num_layers)
+    tp = random_quantized_params(target_cfg, 1, device)
+    dp = random_quantized_params(draft_cfg, 2, device)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, target_cfg.vocab_size, size=n).tolist() for n in lengths]
+    kw = dict(slots=8, prompt_buckets=buckets, max_new_tokens=max_new_tokens, chunk_steps=4)
+    plain = DecodeEngine(Llama(target_cfg), device=device, **kw)
+    try:
+        want = plain.generate(tp, prompts)
+    finally:
+        plain.close()
+    out = {"layers": layers}
+    for name, draft, params in (("draft", draft_cfg, dp), ("self", None, tp)):
+        engine = _spec_engine(target_cfg, draft, device, speculate_k=4, **kw)
+        try:
+            got = engine.generate({"target": tp, "draft": params}, prompts)
+            acc = engine.stats()["speculative"]["acceptance_rate"]
+        finally:
+            engine.close()
+        matching = sum(a == b for a, b in zip(got, want))
+        log(f"spec fp32 parity ({name} draft): {matching}/{len(prompts)} requests "
+            f"token-identical to the plain int4 engine, {layers} layers, acceptance {acc}")
+        if matching < len(prompts) - 1:
+            raise AssertionError(f"fp32 speculative engine ({name} draft) disagrees with the "
+                                 f"plain engine: {matching}/{len(prompts)}")
+        out[name] = {"match": f"{matching}/{len(prompts)}", "acceptance_rate": acc}
+    return out
 
 
 def main(argv=None) -> int:
@@ -845,33 +1317,76 @@ def main(argv=None) -> int:
     fp32 = fp32_parity_phase(base, 32)
     log(f"time: fp32 parity done at {time.perf_counter() - t_run:.1f} s")
 
+    from unionml_tpu_torch import ModelArtifact
+    from unionml_tpu_torch.templates.llm_serving.app import build_model
+
+    probe = Int4Probe()
+    try:
+        cfg4 = serving_config(dataclasses.replace(base, num_layers=args.layers, weight_bits=4,
+                                                  int4_group=128))
+        params4 = random_quantized_params(cfg4, 0)
+        model4 = build_model(cfg4, name="chip_smoke_int4", max_new_tokens=ENGINE_NEW_TOKENS,
+                             bucket_lens=ENGINE_BUCKETS)
+        model4.artifact = ModelArtifact(params4)
+        int4_engine = engine_phase(cfg4, ENGINE_NEW_TOKENS, model=model4, params=params4,
+                                   probe=probe)
+        del model4, params4
+        log(f"time: int4 paged engine done at {time.perf_counter() - t_run:.1f} s")
+        target_cfg = serving_config(dataclasses.replace(base, num_layers=args.layers,
+                                                        weight_bits=4))
+        draft_cfg = serving_config(dataclasses.replace(base, **DRAFT_WIDTHS))
+        spec = spec_phase(target_cfg, random_quantized_params(target_cfg, 1), draft_cfg,
+                          random_quantized_params(draft_cfg, 2), 32, probe=probe)
+        log(f"time: int4 speculative engine done at {time.perf_counter() - t_run:.1f} s")
+        int4_fp32 = fp32_parity_phase(dataclasses.replace(base, weight_bits=4, int4_group=128), 32)
+        spec_fp32 = spec_fp32_parity_phase(dataclasses.replace(base, weight_bits=4),
+                                           dataclasses.replace(base, **DRAFT_WIDTHS), 32)
+        log(f"time: int4 fp32 parity done at {time.perf_counter() - t_run:.1f} s")
+    finally:
+        probe.close()
+    shape_checks = int4_launch_shape_checks(probe.shapes)
+    log(f"time: int4 launch-shape checks done at {time.perf_counter() - t_run:.1f} s")
+
     replaces = {
         "rms_norm_fwd": ("unionml_tpu_torch/csrc/fused_norm.cu", "unionml_tpu/ops/fused_norm.py:72"),
         "flash_fwd_padded": ("unionml_tpu_torch/csrc/flash_attention.cu",
                              "unionml_tpu/ops/flash_attention.py:63"),
         "paged_attention": ("unionml_tpu_torch/csrc/paged_attention.cu",
                             "unionml_tpu/ops/paged_attention.py:141"),
+        "int4_matmul": ("unionml_tpu_torch/csrc/int4_matmul.cu",
+                        "unionml_tpu/ops/int4_matmul.py:136"),
+        "int4_matmul_grouped": ("unionml_tpu_torch/csrc/int4_matmul.cu",
+                                "unionml_tpu/ops/int4_matmul.py:184"),
     }
+    # launches on each kernel's main path: the int8 engine phase for rows
+    # 1, 2 and 6, the speculative engine for row 7, the int4 paged engine
+    # for row 8
+    main_launches = dict(engine["launches"])
+    main_launches["int4_matmul"] = spec["launches"]["int4_matmul"]
+    main_launches["int4_matmul_grouped"] = int4_engine["launches"]["int4_matmul_grouped"]
     rows = []
     for name, cases in kernels.items():
         main_case = cases[0]
-        launches = engine["launches"][name]
+        launches = main_launches[name]
         if name == "paged_attention":
             for c in cases:   # launches of each form on its own engine path
                 c["launches"] = launches if c["form"] == "bf16" else int8_kv["launches"]
             launches += int8_kv["launches"]
+        checked = cases + shape_checks.get(name, [])
         rows.append({
             "name": name, "route": "cuda", "source": replaces[name][0],
             "replaces": replaces[name][1], "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in checked),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
             "serve_launches": served["launches"].get(name),
-            "shapes": cases,
+            "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "int8_kv": int8_kv,
-                      "fp32_parity": fp32, "seconds": time.perf_counter() - t_run}), flush=True)
+                      "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
+                      "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
+                      "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

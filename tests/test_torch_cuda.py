@@ -7,12 +7,21 @@ plain PyTorch version on the same inputs, within the tolerance stated at
 the assertion, and its launch count must rise.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
-from unionml_tpu_torch.models import Llama, LlamaConfig, init_params
+from unionml_tpu_torch.models import (
+    LLAMA_QUANT_PATTERNS,
+    Llama,
+    LlamaConfig,
+    init_params,
+    quantize_params,
+)
 from unionml_tpu_torch.ops import flash_attention as tflash
 from unionml_tpu_torch.ops import fused_norm as tnorm
+from unionml_tpu_torch.ops import int4_matmul as tint4
 from unionml_tpu_torch.ops import paged_attention as tpaged
 from unionml_tpu_torch.serving import DecodeEngine
 
@@ -116,3 +125,79 @@ def test_paged_engine_runs_the_kernel_and_matches_contiguous_on_card(cuda):
             engine.close()
     assert tpaged.KERNEL.launches > before
     assert outs[True] == outs[False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n,tile,group", [
+    (1, 256, 512, 512, 0), (16, 4096, 1024, 512, 0), (40, 1024, 4096, 512, 0),
+    (64, 256, 768, 256, 128), (16, 4096, 14336, 512, 128), (5, 96, 200, 200, 0),
+    (3, 384, 640, 128, 0), (7, 256, 1536, 256, 256),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_kernel_matches_plain_on_card(cuda, rows, k, n, tile, group, dtype):
+    """Aligned and unaligned widths (N/2 not a multiple of 16, K not of 8,
+    a single 200-channel tile), one to 64 rows, per-channel and grouped,
+    both compute dtypes; the first rows of a launch equal a smaller
+    launch bit for bit (no reduction order depends on the row count)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    packed = torch.randint(-128, 128, (k, n // 2), device=cuda, generator=gen, dtype=torch.int8)
+    scale = torch.rand((k // group, n) if group else (n,), device=cuda, generator=gen) * 0.05
+    x = torch.randn(rows, k, device=cuda, generator=gen).to(dtype)
+    kernel = tint4.KERNEL_GROUPED if group else tint4.KERNEL
+    before = kernel.launches
+    got = tint4.int4_matmul_cuda(x, packed, scale, tile_n=tile, group_size=group)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.dtype == dtype
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype, group_size=group)
+    # the same fp32 products in another summation order, then (bf16) one rounding
+    tol = dict(rtol=1 / 64, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, want, **tol)
+    head = tint4.int4_matmul_cuda(x[:1].contiguous(), packed, scale, tile_n=tile,
+                                  group_size=group)
+    assert torch.equal(head, got[:1])
+
+
+@pytest.mark.cuda
+def test_int4_routing_on_card(cuda):
+    """Decode rows launch the kernel (never the plain version); prefill
+    rows take the fallback; a CUDA call the kernel cannot take raises."""
+    w = torch.randn(256, 512, device=cuda)
+    packed, scale = tint4.quantize_kernel_int4(w, 512)
+    before = tint4.KERNEL.launches
+    tint4.int4_matmul(torch.randn(8, 256, device=cuda), packed, scale, tile_n=512)
+    tint4.int4_matmul(torch.randn(65, 256, device=cuda), packed, scale, tile_n=512)
+    assert tint4.KERNEL.launches == before + 1
+    with pytest.raises(ValueError, match="rows"):
+        tint4.int4_matmul_cuda(torch.randn(65, 256, device=cuda).bfloat16(), packed, scale,
+                               tile_n=512)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tint4.int4_matmul_cuda(torch.randn(8, 256, device=cuda).half(), packed, scale,
+                               tile_n=512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 128])
+def test_int4_engines_run_the_kernel_on_card(cuda, group):
+    """An fp32-activation int4 model on the card: the paged engine and the
+    speculative engine (self-draft) give the plain contiguous engine's
+    greedy tokens, through the int4 kernel's fp32 form."""
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           mlp_dim=512, dtype="float32", quantized=True, weight_bits=4,
+                           int4_group=group)
+    fp = init_params(dataclasses.replace(cfg, quantized=False), seed=0, device=cuda)
+    params = quantize_params(fp, LLAMA_QUANT_PATTERNS, bits=4, group_size=group)
+    prompts = [list(range(1, n + 1)) for n in (3, 17, 40)]
+    kernel = tint4.KERNEL_GROUPED if group else tint4.KERNEL
+    before = kernel.launches
+    kw = dict(slots=2, max_new_tokens=8, prompt_buckets=(16, 64), chunk_steps=4, device=cuda)
+    outs = {}
+    for name, extra in (("plain", {}), ("paged", dict(paged=True)),
+                        ("spec", dict(draft_module=Llama(cfg), speculate_k=3))):
+        engine = DecodeEngine(Llama(cfg), **kw, **extra)
+        try:
+            p = {"target": params, "draft": params} if name == "spec" else params
+            outs[name] = engine.generate(p, prompts)
+        finally:
+            engine.close()
+    assert kernel.launches > before
+    assert outs["paged"] == outs["plain"] and outs["spec"] == outs["plain"]

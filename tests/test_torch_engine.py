@@ -460,9 +460,12 @@ def test_bind_refuses_hot_swap_while_busy(weights):
 def test_unported_engine_options_raise(weights):
     _, cfg = _configs()
     module = Llama(cfg)
-    for kw in (dict(draft_module=module), dict(prefix_cache=True), dict(system_prefix=[1, 2])):
+    for kw in (dict(prefix_cache=True), dict(system_prefix=[1, 2])):
         with pytest.raises(NotImplementedError):
             DecodeEngine(module, device="cpu", **kw)
+    # the speculative engine is contiguous only, as in the reference
+    with pytest.raises(ValueError, match="paged"):
+        DecodeEngine(module, device="cpu", draft_module=module, paged=True)
     with pytest.raises(ValueError, match="prefix cache"):
         DecodeEngine(module, device="cpu", paged=True,
                      scheduler=SchedulerConfig(preempt=True))

@@ -236,7 +236,7 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError):
         model.predictor(lambda params, prompts: prompts, jit=True)
     with pytest.raises(NotImplementedError):
-        LlamaConfig.tiny(weight_bits=4)
+        LlamaConfig.tiny(lora_rank=4)
 
 
 def test_batcher_array_mode_coalesces_trees():

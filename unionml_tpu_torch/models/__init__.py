@@ -11,8 +11,13 @@ from unionml_tpu_torch.models.generate import (
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig, init_cache, init_params
 from unionml_tpu_torch.models.quantization import (
     LLAMA_QUANT_PATTERNS,
+    Int4DenseGeneral,
     QuantizedDenseGeneral,
     quantize_params,
+)
+from unionml_tpu_torch.models.speculative import (
+    make_speculative_generator,
+    make_speculative_predictor,
 )
 from unionml_tpu_torch.models.train import resolve_params
 
@@ -25,8 +30,11 @@ __all__ = [
     "make_generator",
     "make_lm_predictor",
     "make_sampler",
+    "make_speculative_generator",
+    "make_speculative_predictor",
     "serving_params",
     "LLAMA_QUANT_PATTERNS",
+    "Int4DenseGeneral",
     "QuantizedDenseGeneral",
     "quantize_params",
     "resolve_params",

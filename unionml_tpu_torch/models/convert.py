@@ -2,12 +2,18 @@
 
 :func:`from_jax_params` takes the reference's param tree (nested dicts
 of numpy arrays — ``jax.tree_util.tree_map(np.asarray, params)`` of a
-``unionml_tpu`` Llama, fp or after its int8 ``quantize_params``) and
+``unionml_tpu`` Llama, fp or after its ``quantize_params`` with
+``bits=8`` or ``bits=4``) and
 returns the same tree of torch tensors on a device, checked leaf by leaf
 against the config's geometry. The layout is kept as it is (kernels
 ``[K, N]`` for ``x @ W``; the DenseGeneral q/k/v kernels ``[D, H, hd]``
-and o ``[H, hd, D]``; int8 ``kernel_q`` ``[K, N]`` + ``scale`` ``[N]``),
-so both packages compute the same products on the same numbers. The rest
+and o ``[H, hd, D]``; int8 ``kernel_q`` ``[K, N]`` + ``scale`` ``[N]``;
+packed int4 ``kernel_p`` ``[K, N/2]`` + ``scale`` ``[N]`` or ``scale_g``
+``[K/g, N]``), so both packages compute the same products on the same
+numbers. For a ``weight_bits=4`` config each site must carry the form
+the config's layer declares there (int4 where ``tile_for`` gives a tile
+and the group divides K, the int8 fallback elsewhere); a tree packed for
+another tile or group is refused rather than decoded wrong. The rest
 of the reference's converter (HF safetensors import/export) is not
 ported yet.
 """
@@ -22,6 +28,7 @@ import torch
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch.models.llama import LlamaConfig
+from unionml_tpu_torch.models.quantization import INT4_COLUMN_PARALLEL, int4_tile
 
 
 def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
@@ -45,6 +52,41 @@ def _dense_shapes(config: LlamaConfig) -> Dict[Tuple[str, ...], Tuple[Tuple[int,
         ("mlp", "up"): ((d, c.mlp_dim), (d, c.mlp_dim)),
         ("mlp", "down"): ((c.mlp_dim, d), (c.mlp_dim, d)),
     }
+
+
+def _int4_site(config: LlamaConfig, path: Tuple[str, ...], k: int, n: int) -> bool:
+    """Whether the config's layer at ``path`` (``[K, N]``) is packed int4
+    (else the int8 fallback), as ``Int4DenseGeneral`` decides it."""
+    shards = config.int4_tp if path[-1] in INT4_COLUMN_PARALLEL else 1
+    return bool(int4_tile(k, n, shards=shards, group_size=config.int4_group))
+
+
+def _check_dense(config: LlamaConfig, path, node, shapes, leaf_shape, seen) -> None:
+    fp_shape, (k, n) = shapes
+    if config.quantized and config.weight_bits == 4:
+        form = "int4" if _int4_site(config, path, k, n) else "int8"
+    else:
+        form = "int8" if "kernel_q" in node else "fp"
+    if form == "int4":
+        if "kernel_p" not in node:
+            raise ValueError(
+                f"param {'/'.join(path)}: this int4 config packs the site "
+                f"(kernel_p), the tree has {sorted(node)}"
+            )
+        g = config.int4_group
+        leaves = {"kernel_p": (k, n // 2), ("scale_g" if g else "scale"): ((k // g, n) if g else (n,))}
+    elif form == "int8":
+        if "kernel_q" not in node:
+            raise ValueError(
+                f"param {'/'.join(path)}: expected the int8 form (kernel_q + scale), "
+                f"the tree has {sorted(node)}"
+            )
+        leaves = {"kernel_q": (k, n), "scale": (n,)}
+    else:
+        leaves = {"kernel": fp_shape}
+    for name, want in leaves.items():
+        _check(path + (name,), leaf_shape(path + (name,)), want)
+        seen.add(path + (name,))
 
 
 def _expected(config: LlamaConfig) -> Dict[Tuple[str, ...], Any]:
@@ -79,15 +121,8 @@ def from_jax_params(params: Mapping, config: LlamaConfig, device: DeviceLike = N
     seen = set()
     for path, shapes in expected.items():
         node = _get(params, path)
-        if isinstance(shapes[0], tuple):  # a dense site: fp or int8
-            fp_shape, q_shape = shapes
-            if "kernel_q" in node:
-                _check(path + ("kernel_q",), leaf_shape(path + ("kernel_q",)), q_shape)
-                _check(path + ("scale",), leaf_shape(path + ("scale",)), (q_shape[1],))
-                seen.update({path + ("kernel_q",), path + ("scale",)})
-            else:
-                _check(path + ("kernel",), leaf_shape(path + ("kernel",)), fp_shape)
-                seen.add(path + ("kernel",))
+        if isinstance(shapes[0], tuple):  # a dense site: fp, int8 or int4
+            _check_dense(config, path, node, shapes, leaf_shape, seen)
         else:
             _check(path, tuple(np.shape(node)), shapes)
             seen.add(path)

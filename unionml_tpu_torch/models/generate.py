@@ -242,17 +242,19 @@ def make_lm_predictor(
 def serving_params(params, dtype: torch.dtype = torch.bfloat16):
     """Cast float params once for serving residency.
 
-    Integer leaves (int8 ``kernel_q``) pass through unchanged, and so does
-    a per-channel ``scale`` next to its ``kernel_q`` (the dequant contract
-    is "apply the fp32 scale, then one cast down"); norm params, also
-    named ``scale``, cast. (The reference's int4 and MoE leaves do not
-    occur in the port's trees yet.)
+    Integer leaves (int8 ``kernel_q``, packed int4 ``kernel_p``) pass
+    through unchanged, and so does a ``scale`` or group-wise ``scale_g``
+    next to its ``kernel_q`` / ``kernel_p`` (the dequant contract is
+    "apply the fp32 scale, then one cast down"); norm params, also named
+    ``scale``, cast. (The reference's MoE leaves do not occur in the
+    port's trees yet.)
     """
 
     def walk(node):
         if isinstance(node, Mapping):
+            quant = "kernel_q" in node or "kernel_p" in node
             return {
-                k: v if k == "scale" and "kernel_q" in node else walk(v)
+                k: v if k in ("scale", "scale_g") and quant else walk(v)
                 for k, v in node.items()
             }
         if torch.is_floating_point(node):

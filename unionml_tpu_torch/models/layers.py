@@ -16,8 +16,9 @@ cache, scalar or per-row fill index, ``prefill_impl="flash"`` through the
 kernel of :mod:`unionml_tpu_torch.ops.flash_attention`), the cache-free
 path with the ``xla`` reference attention, the block-paged decode step
 (``block_table=``, through :mod:`unionml_tpu_torch.ops.paged_attention`),
-the int8 KV cache, and the gated :class:`MlpBlock`. Cross attention and
-the GELU MLP raise ``NotImplementedError``.
+the int8 KV cache, and the gated :class:`MlpBlock`, with int8 or
+packed-int4 (``weight_bits=4``) weight-only projections. Cross attention
+and the GELU MLP raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import torch_dtype
-from unionml_tpu_torch.models.quantization import DenseGeneral, QuantizedDenseGeneral
+from unionml_tpu_torch.models.quantization import (
+    DenseGeneral,
+    Int4DenseGeneral,
+    QuantizedDenseGeneral,
+)
 from unionml_tpu_torch.ops.attention import (
     cached_attention,
     mha_reference,
@@ -38,14 +43,29 @@ from unionml_tpu_torch.ops.attention import (
 )
 
 
-def make_dense(*, quantized: bool, features, dtype: Any, axis=-1) -> nn.Module:
+def make_dense(
+    *,
+    quantized: bool,
+    features,
+    dtype: Any,
+    axis=-1,
+    weight_bits: int = 8,
+    int4_group: int = 0,
+    int4_shards: int = 1,
+) -> nn.Module:
     """Dense-projection factory shared by every matmul site of the
-    serving path (attention q/k/v/o, gated MLP, lm_head): int8
-    :class:`QuantizedDenseGeneral` when ``quantized``, else the fp
-    :class:`DenseGeneral`. (The reference's int4 and LoRA sites are not
-    ported; :class:`~unionml_tpu_torch.models.llama.LlamaConfig` refuses
-    them.)"""
+    serving path (attention q/k/v/o, gated MLP, lm_head): when
+    ``quantized``, int8 :class:`QuantizedDenseGeneral` or, with
+    ``weight_bits=4``, packed-int4 :class:`Int4DenseGeneral` (group-wise
+    scales with ``int4_group``, a packing that survives ``int4_shards``-way
+    column sharding); else the fp :class:`DenseGeneral`. (The reference's
+    LoRA sites are not ported; :class:`~unionml_tpu_torch.models.llama
+    .LlamaConfig` refuses them.)"""
     if quantized:
+        if weight_bits == 4:
+            return Int4DenseGeneral(
+                features, axis=axis, dtype=dtype, group_size=int4_group, shards=int4_shards,
+            )
         return QuantizedDenseGeneral(features, axis=axis, dtype=dtype)
     return DenseGeneral(features, axis=axis, dtype=dtype)
 
@@ -159,8 +179,8 @@ class Attention(nn.Module):
 
     Params: ``q``/``k``/``v`` dense kernels with features ``(heads,
     head_dim)`` and ``o`` contracting ``(heads, head_dim)`` — the
-    reference's layout, fp (``kernel``) or int8 (``kernel_q`` +
-    ``scale``).
+    reference's layout, fp (``kernel``), int8 (``kernel_q`` + ``scale``)
+    or packed int4 (``kernel_p`` + ``scale`` / ``scale_g``).
     """
 
     def __init__(
@@ -178,6 +198,9 @@ class Attention(nn.Module):
         prefill_impl: str = "cached",
         paged_impl: str = "auto",
         quantized: bool = False,
+        weight_bits: int = 8,
+        int4_group: int = 0,
+        int4_tp: int = 1,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
@@ -201,12 +224,17 @@ class Attention(nn.Module):
         self.paged_impl = paged_impl
         self.dtype = torch_dtype(dtype)
 
-        def dense(feats, axis=-1):
-            return make_dense(quantized=quantized, features=feats, dtype=self.dtype, axis=axis)
+        def dense(feats, axis=-1, shards=1):
+            return make_dense(
+                quantized=quantized, features=feats, dtype=self.dtype, axis=axis,
+                weight_bits=weight_bits, int4_group=int4_group, int4_shards=shards,
+            )
 
-        self.q = dense((num_heads, self.head_dim))
-        self.k = dense((self.num_kv_heads, self.head_dim))
-        self.v = dense((self.num_kv_heads, self.head_dim))
+        # q/k/v are column-parallel under tensor parallelism: their int4
+        # tile divides the per-device width; o is row-parallel
+        self.q = dense((num_heads, self.head_dim), shards=int4_tp)
+        self.k = dense((self.num_kv_heads, self.head_dim), shards=int4_tp)
+        self.v = dense((self.num_kv_heads, self.head_dim), shards=int4_tp)
         self.o = dense(features, axis=(-2, -1))
 
     def forward(
@@ -370,6 +398,9 @@ class MlpBlock(nn.Module):
         *,
         gated: bool = True,
         quantized: bool = False,
+        weight_bits: int = 8,
+        int4_group: int = 0,
+        int4_tp: int = 1,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
@@ -377,11 +408,15 @@ class MlpBlock(nn.Module):
             raise NotImplementedError("the GELU MLP is not ported (see ROADMAP.md)")
         dtype = torch_dtype(dtype)
 
-        def dense(feats):
-            return make_dense(quantized=quantized, features=feats, dtype=dtype)
+        def dense(feats, shards=1):
+            return make_dense(
+                quantized=quantized, features=feats, dtype=dtype, weight_bits=weight_bits,
+                int4_group=int4_group, int4_shards=shards,
+            )
 
-        self.gate = dense(hidden_dim)
-        self.up = dense(hidden_dim)
+        # gate/up are column-parallel under tensor parallelism, down is not
+        self.gate = dense(hidden_dim, shards=int4_tp)
+        self.up = dense(hidden_dim, shards=int4_tp)
         self.down = dense(features)
 
     def forward(self, params, x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,9 @@ grouped-query attention, SwiGLU MLP, untied fp32 LM head. Weights are
 the reference's param tree (nested dicts with the flax names) passed to
 ``forward``; :func:`init_params` makes a random tree of that layout on a
 device, and :func:`init_cache` the KV cache. Only the dense model is
-ported, with the int8 KV cache (``kv_quant``) and the block-paged
-decode step (``block_table=``): MoE, LoRA and int4 raise
-``NotImplementedError``.
+ported, with int8 or packed-int4 (``weight_bits=4``) weight-only
+matmuls, the int8 KV cache (``kv_quant``) and the block-paged decode
+step (``block_table=``): MoE and LoRA raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,8 +51,14 @@ class LlamaConfig:
     paged_impl: str = "auto"
     # "fused" = the fused RMSNorm kernel (ops/fused_norm.py)
     norm_impl: str = "xla"
-    quantized: bool = False  # weight-only int8 matmuls (serving path)
+    quantized: bool = False  # weight-only quantized matmuls (serving path)
+    # 8 = int8; 4 = packed int4 through the int4 kernel (ops/int4_matmul.py)
     weight_bits: int = 8
+    # weight_bits=4 only: int4_group > 0 = group-wise scales [K/g, N]
+    # (quantize_params(group_size=...) must match); int4_tp = the tensor
+    # degree the packing tiles survive (quantize_params(tensor=...))
+    int4_group: int = 0
+    int4_tp: int = 1
     num_experts: int = 0
     lora_rank: int = 0
     # int8 KV cache (generation paths): per-(position, kv_head) fp32
@@ -65,13 +71,14 @@ class LlamaConfig:
         for name, unported in (
             ("num_experts", self.num_experts),
             ("lora_rank", self.lora_rank),
-            ("weight_bits != 8", self.weight_bits != 8),
         ):
             if unported:
                 raise NotImplementedError(
                     f"LlamaConfig {name} is not ported to unionml_tpu_torch "
                     "(see ROADMAP.md)"
                 )
+        if self.weight_bits not in (4, 8):
+            raise ValueError(f"weight_bits must be 8 or 4, got {self.weight_bits}")
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -102,11 +109,14 @@ class LlamaBlock(nn.Module):
             features=cfg.hidden_dim, rope=True, rope_theta=cfg.rope_theta,
             rope_scaling=cfg.rope_scaling, causal=True, attn_impl=cfg.attn_impl,
             prefill_impl=cfg.prefill_impl, paged_impl=cfg.paged_impl,
-            quantized=cfg.quantized, dtype=dtype,
+            quantized=cfg.quantized, weight_bits=cfg.weight_bits,
+            int4_group=cfg.int4_group, int4_tp=cfg.int4_tp, dtype=dtype,
         )
         self.mlp_norm = RMSNorm(eps=cfg.norm_eps, dtype=dtype, impl=cfg.norm_impl)
         self.mlp = MlpBlock(
-            cfg.mlp_dim, cfg.hidden_dim, gated=True, quantized=cfg.quantized, dtype=dtype,
+            cfg.mlp_dim, cfg.hidden_dim, gated=True, quantized=cfg.quantized,
+            weight_bits=cfg.weight_bits, int4_group=cfg.int4_group, int4_tp=cfg.int4_tp,
+            dtype=dtype,
         )
 
     def forward(self, params, x, *, positions=None, cache=None, cache_index=None,
@@ -145,8 +155,11 @@ class Llama(nn.Module):
         self.dtype = torch_dtype(config.dtype)
         self.blocks = nn.ModuleList(LlamaBlock(config) for _ in range(config.num_layers))
         self.final_norm = RMSNorm(eps=config.norm_eps, dtype=self.dtype, impl=config.norm_impl)
+        # the LM head is row-parallel under int4 tensor parallelism (K
+        # sharded), so its packing ignores int4_tp (shards=1)
         self.lm_head = make_dense(
-            quantized=config.quantized, features=config.vocab_size, dtype=torch.float32
+            quantized=config.quantized, features=config.vocab_size, dtype=torch.float32,
+            weight_bits=config.weight_bits, int4_group=config.int4_group,
         )
 
     def forward(
@@ -202,6 +215,38 @@ class Llama(nn.Module):
         if cache is not None:
             return logits, tuple(new_cache)
         return logits
+
+
+def assert_int4_tp_compatible(config: LlamaConfig, tensor: int) -> None:
+    """Refuse tensor-parallel degrees whose per-device channel ranges split
+    an int4 packing tile — a misaligned shard pairs nibbles with the wrong
+    output channels and decodes garbage with no exception. With
+    ``config.int4_tp`` set (the degree ``quantize_params(tensor=...)``
+    packed for), any ``tensor`` dividing it is slab-aligned. The LM head is
+    exempt: it shards K. (Tensor parallelism itself is not ported yet;
+    this is the guard it will call.)"""
+    from unionml_tpu_torch.ops.int4_matmul import tile_for
+
+    if tensor <= 1 or config.weight_bits != 4:
+        return
+    # column-parallel sites only (o/down/lm_head shard K)
+    sites = (
+        ("attn/q", config.num_heads * config.head_dim, config.hidden_dim),
+        ("attn/k", config.num_kv_heads * config.head_dim, config.hidden_dim),
+        ("mlp/gate", config.mlp_dim, config.hidden_dim),
+    )
+    for name, n, k in sites:
+        tile = tile_for(n, k, shards=config.int4_tp)
+        if tile and (n // tensor) % tile:
+            raise ValueError(
+                f"int4 layer {name}: {n} channels / tensor={tensor} = "
+                f"{n // tensor} per device, not a multiple of the packing "
+                f"tile {tile} (tree packed for int4_tp={config.int4_tp}) — "
+                "the shard would unpack wrong channels. Re-quantize with "
+                f"quantize_params(tensor={tensor}) and "
+                f"LlamaConfig(int4_tp={tensor}), serve at a divisor of "
+                f"{config.int4_tp}, or serve this model int8."
+            )
 
 
 def init_params(

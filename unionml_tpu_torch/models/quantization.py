@@ -1,14 +1,17 @@
-"""Weight-only int8 quantization for serving.
+"""Weight-only int8 and packed-int4 quantization for serving.
 
-The port of the int8 half of :mod:`unionml_tpu.models.quantization`:
+The port of :mod:`unionml_tpu.models.quantization` for dense layers:
 :class:`QuantizedDenseGeneral` (DenseGeneral geometry, ``kernel_q`` int8
-``[K, N]`` + ``scale`` fp32 ``[N]``) and :func:`quantize_params` with
-``bits=8``. The product runs as a plain matrix product with fp32
-accumulation and an fp32 result, then ``* scale``, then ONE cast to the
-compute dtype — the
+``[K, N]`` + ``scale`` fp32 ``[N]``), :class:`Int4DenseGeneral`
+(``kernel_p`` int8 ``[K, N/2]``, two nibbles a byte, + ``scale [N]`` or
+group-wise ``scale_g [K/g, N]``, through
+:func:`~unionml_tpu_torch.ops.int4_matmul.int4_matmul`) and
+:func:`quantize_params` with ``bits=8`` or ``bits=4``. The int8 product
+runs as a plain matrix product with fp32 accumulation and an fp32
+result, then ``* scale``, then ONE cast to the compute dtype — the
 reference's rounding point (a product that rounds to bf16 before the
-scale would be a different result). The packed-int4 layout and MoE
-expert blocks are not ported yet and raise.
+scale would be a different result). MoE expert blocks are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -20,6 +23,27 @@ import torch
 from torch import nn
 
 from unionml_tpu_torch._device import torch_dtype
+from unionml_tpu_torch.ops.int4_matmul import (
+    fp32_product,
+    int4_matmul,
+    quantize_kernel_int4,
+    tile_for,
+)
+
+# dense sites sharded along N (column-parallel) under tensor parallelism:
+# their int4 tile divides the per-device width; o, down and the LM head
+# shard K and pack for one device
+INT4_COLUMN_PARALLEL = ("q", "k", "v", "gate", "up")
+
+
+def int4_tile(k: int, n: int, *, shards: int = 1, group_size: int = 0) -> int:
+    """The packing tile of an int4 site ``[K, N]``, or 0 where the site
+    stays int8 (no conforming tile, or a group that does not divide K) —
+    the one rule :class:`Int4DenseGeneral`, :func:`quantize_params` and the
+    weight bridge share."""
+    if group_size and k % group_size:
+        return 0
+    return tile_for(n, k, shards=shards)
 
 
 def _dense_geometry(x: torch.Tensor, axis, features):
@@ -82,16 +106,52 @@ class QuantizedDenseGeneral(nn.Module):
             raise ValueError(f"kernel_q is {tuple(kernel_q.shape)}, expected {(k, n)}")
         # inputs round to the compute dtype as in the reference; the
         # product then accumulates in fp32 and is NOT rounded before the
-        # scale. On the card a bf16/fp16 product runs on the tensor cores
-        # with an fp32 result; elsewhere an fp32 product of the same
-        # values (int8 and bf16 are exact in fp32) gives the same numbers
-        x2 = xt.reshape(-1, k).to(self.dtype)
-        if x2.is_cuda and self.dtype in (torch.bfloat16, torch.float16):
-            y = torch.mm(x2, kernel_q.to(self.dtype), out_dtype=torch.float32)
-        else:
-            y = x2.float() @ kernel_q.float()
-        y = y * scale.float()
+        # scale
+        y = fp32_product(xt.reshape(-1, k).to(self.dtype), kernel_q) * scale.float()
         return y.to(self.dtype).reshape(lead + feats)
+
+
+class Int4DenseGeneral(nn.Module):
+    """Weight-only packed-int4 dense layer (DenseGeneral geometry).
+
+    Params ``kernel_p`` int8 ``[K, N/2]`` (the tile-slab order of
+    :mod:`unionml_tpu_torch.ops.int4_matmul`) + fp32 ``scale [N]``, or
+    ``scale_g [K/group_size, N]`` when ``group_size`` is set. A layer with
+    no conforming tile (``tile_for`` gives 0) or a group that does not
+    divide K is the int8 fallback ``kernel_q`` + ``scale``, as
+    :func:`quantize_params` (``bits=4``) writes it, so a mixed int4/int8
+    tree serves through one module.
+
+    ``shards``: the tensor-parallel degree the packing tile must survive
+    (column-parallel sites q/k/v and gate/up; o, down and the LM head keep
+    1). It MUST match the ``tensor=`` the tree was quantized with, or the
+    baked slab order and the layer's tile disagree.
+    """
+
+    def __init__(self, features, axis=-1, dtype: Any = torch.bfloat16,
+                 group_size: int = 0, shards: int = 1):
+        super().__init__()
+        self.features = features
+        self.axis = axis
+        self.dtype = torch_dtype(dtype)
+        self.group_size = group_size
+        self.shards = shards
+        self._int8 = QuantizedDenseGeneral(features, axis=axis, dtype=dtype)
+
+    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
+        xt, lead, feats, k, n = _dense_geometry(x, self.axis, self.features)
+        tile = int4_tile(k, n, shards=self.shards, group_size=self.group_size)
+        if not tile:
+            return self._int8(params, x)
+        kernel_p = params["kernel_p"]
+        scale = params["scale_g"] if self.group_size else params["scale"]
+        if tuple(kernel_p.shape) != (k, n // 2):
+            raise ValueError(f"kernel_p is {tuple(kernel_p.shape)}, expected {(k, n // 2)}")
+        y = int4_matmul(
+            xt.reshape(-1, k), kernel_p, scale, tile_n=tile,
+            dtype=self.dtype, group_size=self.group_size,
+        )
+        return y.reshape(lead + feats)
 
 
 def _quantize_kernel_2d(w2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,13 +163,31 @@ def _quantize_kernel_2d(w2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def _quantize_int4_site(path, w2d: torch.Tensor, group_size: int, tensor: int):
+    """The packed-int4 leaves of one dense site, or ``None`` when the site
+    stays int8."""
+    shards = tensor if path and path[-1] in INT4_COLUMN_PARALLEL else 1
+    tile = int4_tile(w2d.shape[0], w2d.shape[1], shards=shards, group_size=group_size)
+    if not tile:
+        return None
+    packed, scale = quantize_kernel_int4(w2d, tile, group_size=group_size)
+    return {"kernel_p": packed, ("scale_g" if group_size else "scale"): scale}
+
+
 LLAMA_QUANT_PATTERNS = (
     r"attn/(q|k|v|o)$", r"mlp/(gate|up|down)$", r"lm_head$", r"moe$"
 )
 
 
-def quantize_params(params: Any, patterns: Sequence[str], *, bits: int = 8) -> Any:
-    """Convert fp dense kernels to the int8 param structure.
+def quantize_params(
+    params: Any,
+    patterns: Sequence[str],
+    *,
+    bits: int = 8,
+    group_size: int = 0,
+    tensor: int = 1,
+) -> Any:
+    """Convert fp dense kernels to the quantized param structure.
 
     Walks the tree; any dict holding a ``kernel`` tensor whose path
     (``/``-joined keys) matches one of ``patterns`` becomes
@@ -117,10 +195,17 @@ def quantize_params(params: Any, patterns: Sequence[str], *, bits: int = 8) -> A
     ``o`` contracts its LEADING dims (``[heads, dim, out]`` → K=heads*dim),
     every other one its single leading input dim (``[in, ...features]`` →
     K=in, N=prod(features)). Non-matching subtrees pass through. Tensors
-    stay on their device. ``bits=4`` and MoE expert blocks are not ported.
+    stay on their device. MoE expert blocks are not ported and raise.
+
+    ``bits=4``: the packed-int4 layout (``kernel_p`` + ``scale``, or
+    ``scale_g`` with ``group_size``) for layers with a conforming tile; a
+    layer with none (odd width) or whose K the group does not divide stays
+    int8. ``tensor``: the tensor-parallel degree to pack for — the
+    column-parallel sites (q/k/v, gate/up) take a tile dividing their
+    per-device width (``LlamaConfig.int4_tp`` must match).
     """
-    if bits != 8:
-        raise NotImplementedError("only int8 quantize_params is ported (see ROADMAP.md)")
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
     compiled = [re.compile(p) for p in patterns]
 
     def walk(path, tree):
@@ -134,8 +219,10 @@ def quantize_params(params: Any, patterns: Sequence[str], *, bits: int = 8) -> A
                     w2d = w.reshape(-1, w.shape[-1])
                 else:
                     w2d = w.reshape(w.shape[0], -1)
-                q, scale = _quantize_kernel_2d(w2d)
-                out = {"kernel_q": q, "scale": scale}
+                out = _quantize_int4_site(path, w2d, group_size, tensor) if bits == 4 else None
+                if out is None:
+                    q, scale = _quantize_kernel_2d(w2d)
+                    out = {"kernel_q": q, "scale": scale}
                 for extra, v in tree.items():
                     if extra != "kernel":
                         out[extra] = v

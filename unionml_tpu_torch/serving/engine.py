@@ -25,10 +25,17 @@ resident state IN PLACE (the reference donates it to a jitted program):
   so "harvested" means the chunk finished on the card — what the
   fence-deferred frees of the paged pool need.
 
+With ``draft_module`` the engine is SPECULATIVE (contiguous layout
+only, as in the reference): each decode chunk is ``chunk_steps`` rounds
+of per-slot draft proposals and ONE shared ``[slots, k+1]`` verify
+forward of the target, with greedy acceptance, eos truncation and fill
+advance kept on the device; the host reads each round's emissions through
+the same pinned copy and event.
+
 On the CPU (the tests) the same code runs synchronously.
 
-Not ported yet, and refused at construction (ROADMAP.md): speculative
-decoding (``draft_module``), the prefix cache and ``system_prefix`` with
+Not ported yet, and refused at construction (ROADMAP.md): the prefix
+cache and ``system_prefix`` with
 ``prefill_export`` / ``kv_export`` / ``kv_import``, and preemption
 (``SchedulerConfig(preempt=True)``, which needs the prefix cache). An
 injected fault (``FaultInjector``) is recovered as in the reference; a
@@ -43,6 +50,7 @@ import queue
 import threading
 import time
 from collections import deque
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence
 
@@ -237,8 +245,20 @@ class DecodeEngine:
         device: where the resident state lives; ``None`` = CUDA, raising
             without a card. The params passed to :meth:`generate` must
             live there.
-        draft_module/system_prefix/prefix_cache: not ported;
-            anything but the defaults raises ``NotImplementedError``.
+        draft_module: a smaller same-vocabulary decoder enabling
+            speculative decoding: each decode chunk becomes
+            ``chunk_steps`` rounds of per-slot draft proposals plus ONE
+            shared ``[slots, k+1]`` verify forward, with greedy
+            acceptance advancing per-slot fills — token-identical to
+            plain greedy decoding of the target for any draft.
+            ``bind``/``generate`` then take the ``{"target": ...,
+            "draft": ...}`` params mapping. Greedy only; not with
+            ``paged`` or ``prefix_cache``.
+        speculate_k: draft tokens proposed per round (k+1 emitted at
+            most; a round costs k+1 draft steps and one (k+1)-token
+            verify).
+        system_prefix/prefix_cache: not ported; anything but the
+            defaults raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -260,6 +280,7 @@ class DecodeEngine:
         submit_timeout: float = 300.0,
         system_prefix: Optional[Sequence[int]] = None,
         draft_module=None,
+        speculate_k: int = 4,
         prefix_cache=None,
         registry: Optional[telemetry.MetricsRegistry] = None,
         tracer: Optional[telemetry.TraceRecorder] = None,
@@ -282,11 +303,44 @@ class DecodeEngine:
     ):
         from unionml_tpu_torch.models.generate import make_sampler
 
-        if draft_module is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_module) is not ported to "
-                "unionml_tpu_torch (see ROADMAP.md)"
-            )
+        self.draft = draft_module
+        self.speculate_k = int(speculate_k)
+        if self.draft is not None:
+            if temperature != 0.0:
+                raise ValueError(
+                    "the speculative engine is greedy-only (sampled speculation "
+                    "needs the rejection-sampling correction; match "
+                    "make_speculative_generator)"
+                )
+            if prefix_cache not in (None, False):
+                raise ValueError(
+                    "the speculative engine does not compose with the prefix "
+                    "KV-cache — the draft model would need a mirrored block "
+                    "store; drop prefix_cache"
+                )
+            if self.draft.config.vocab_size != module.config.vocab_size:
+                raise ValueError(
+                    f"target/draft vocabularies differ: {module.config.vocab_size} "
+                    f"vs {self.draft.config.vocab_size}"
+                )
+            if self.speculate_k < 1:
+                raise ValueError(f"speculate_k must be >= 1, got {speculate_k}")
+            if prompt_buckets and self.speculate_k + 1 > min(int(b) for b in prompt_buckets):
+                # idle slots write k+1 garbage rows from their parked fill;
+                # an admission's full-bucket write must cover them
+                raise ValueError(
+                    f"speculate_k + 1 = {self.speculate_k + 1} exceeds the "
+                    f"smallest prompt bucket {min(prompt_buckets)}"
+                )
+            if paged or kv_pool_bytes is not None or kv_pool_blocks is not None:
+                raise ValueError(
+                    "the speculative engine does not compose with the paged KV "
+                    "pool — the draft model would need a mirrored pool; drop "
+                    "paged/kv_pool_* or draft_module"
+                )
+        # rows a dispatched chunk can advance a slot: 1 per decode step,
+        # or k+1 per speculative round
+        self._round_stride = 1 if self.draft is None else self.speculate_k + 1
         if system_prefix is not None or prefix_cache not in (None, False):
             raise NotImplementedError(
                 "the prefix KV cache (prefix_cache / system_prefix) is not "
@@ -388,7 +442,9 @@ class DecodeEngine:
         self.cache_len = (
             self.buckets[-1]
             + max_new_tokens
-            + (self.pipeline_depth + 1) * chunk_steps
+            + (self.pipeline_depth + 1) * chunk_steps * self._round_stride
+            # a speculative round writes k rows past its counted advance
+            + (self._round_stride - 1)
         )
         if self.paged:
             # the logical row space maps onto whole pool blocks; overshoot
@@ -396,14 +452,17 @@ class DecodeEngine:
             self.cache_len = (
                 -(-self.cache_len // self._kv_block_size) * self._kv_block_size
             )
-        if self.cache_len > self.cfg.max_len:
+        max_len = min(
+            [self.cfg.max_len] + ([self.draft.config.max_len] if self.draft is not None else [])
+        )
+        if self.cache_len > max_len:
             raise ValueError(
                 f"cache length {self.cache_len} (= max bucket "
                 f"{self.buckets[-1]} + max_new_tokens {max_new_tokens} + "
                 f"(pipeline_depth {self.pipeline_depth} + 1) * chunk_steps "
-                f"{chunk_steps} spare rows) exceeds model max_len "
-                f"{self.cfg.max_len}; lower pipeline_depth/chunk_steps or "
-                "raise max_len"
+                f"{chunk_steps} * round stride {self._round_stride} spare rows) "
+                f"exceeds model max_len {max_len}; lower pipeline_depth/"
+                "chunk_steps or raise max_len"
             )
         # device block pool (paged mode): host-side free-list allocator +
         # per-slot block tables; the device arrays live in _state
@@ -554,6 +613,14 @@ class DecodeEngine:
             "unionml_engine_chunk_harvest_ms",
             "Blocking readback + accounting per harvested decode chunk "
             "(includes in-flight pipeline lag).",
+        )
+        self._m_spec_rounds = counter(
+            "unionml_engine_spec_rounds_total",
+            "Speculative rounds whose tokens were served.",
+        )
+        self._m_spec_accepted = counter(
+            "unionml_engine_spec_accepted_tokens_total",
+            "Draft tokens accepted by the target verify forward.",
         )
         # fault tolerance: admission control / supervision series
         rejected = R.counter(
@@ -953,6 +1020,9 @@ class DecodeEngine:
     def _build_programs(self):
         from unionml_tpu_torch.models.llama import init_cache
 
+        if self.draft is not None:
+            self._build_spec_programs()
+            return
         if self.paged:
             self._build_paged_programs()
             return
@@ -1047,22 +1117,24 @@ class DecodeEngine:
 
         self._decode_chunk = decode_chunk
 
-    def _make_prefill_step(self):
+    def _lead_chunk(self, module, params, fresh, toks, start) -> None:
+        """One lead prefill chunk of ``module`` into its fresh cache, in
+        place: tokens are fully real (only chunks covering the true length
+        run; the final one goes through ``finish_prefill``)."""
         dev = self.device
+        lf = fresh[0][0].shape[1]
+        c = toks.shape[1]
+        module(
+            params, toks,
+            positions=start + torch.arange(c, device=dev)[None, :],
+            cache=fresh, cache_index=start,
+            kv_mask=(torch.arange(lf, device=dev) < start + c)[None, :],
+            logit_index=torch.zeros((1,), dtype=torch.long, device=dev),
+        )
 
+    def _make_prefill_step(self):
         def prefill_step(params, fresh, toks, start):
-            """One lead chunk: tokens are fully real (only chunks covering
-            the true length run; the final one goes through
-            ``finish_prefill``). Fills the fresh cache in place."""
-            lf = fresh[0][0].shape[1]
-            c = toks.shape[1]
-            self.module(
-                params, toks,
-                positions=start + torch.arange(c, device=dev)[None, :],
-                cache=fresh, cache_index=start,
-                kv_mask=(torch.arange(lf, device=dev) < start + c)[None, :],
-                logit_index=torch.zeros((1,), dtype=torch.long, device=dev),
-            )
+            self._lead_chunk(self.module, params, fresh, toks, start)
             return fresh
 
         return prefill_step
@@ -1154,6 +1226,155 @@ class DecodeEngine:
             return torch.stack(out)
 
         self._decode_chunk = decode_chunk
+
+    def _build_spec_programs(self):
+        """Speculative-mode device programs (``draft_module`` set): the
+        contiguous programs' attribute names and signatures, so the
+        dispatcher and admission machinery are shared; ``params`` is the
+        bound ``{"target", "draft"}`` mapping and fresh caches are
+        ``(target, draft)`` pairs. The decode chunk runs ``chunk_steps``
+        speculative rounds: per-slot draft proposals (vector
+        ``cache_index``), ONE shared [slots, k+1] verify forward, greedy
+        acceptance advancing per-slot fills — the round of
+        ``make_speculative_generator``, restructured for the resident slot
+        batch. Nothing in a round reads a device value on the host."""
+        from unionml_tpu_torch.models.llama import init_cache
+        from unionml_tpu_torch.models.speculative import greedy_acceptance
+
+        cfg, dcfg = self.cfg, self.draft.config
+        L, B, k, dev = self.cache_len, self.slots, self.speculate_k, self.device
+        module, draft = self.module, self.draft
+        eos_id, pad_id = self.eos_id, self.pad_id
+        rows_l = torch.arange(L, device=dev)[None, :]
+        steps = torch.arange(k + 1, device=dev)[None, :]
+
+        def init_state():
+            return {
+                "cache": init_cache(cfg, B, L, device=dev),
+                "d_cache": init_cache(dcfg, B, L, device=dev),
+                "kv_mask": torch.zeros((B, L), dtype=torch.bool, device=dev),
+                "fill": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "last_tok": torch.zeros((B,), dtype=torch.long, device=dev),
+                "done": torch.ones((B,), dtype=torch.bool, device=dev),
+            }
+
+        self._init_state = init_state
+
+        def finish_prefill(params, state, fresh, slot, toks, start, true_len, full=False):
+            """Prefill tail for BOTH caches (each model honours its own
+            ``prefill_impl`` on a monolithic admission), the first token
+            from the target's last real position, and both filled caches
+            written into the slot's rows [0, bucket)."""
+            fresh_t, fresh_d = fresh
+            first, filled_t = self._run_prefill(
+                params["target"], fresh_t, toks, start, true_len,
+                full=full and cfg.prefill_impl == "flash",
+            )
+            bucket = fresh_d[0][0].shape[1]
+            c = toks.shape[1]
+            # the draft's prefill logits are never read
+            _, filled_d = draft(
+                params["draft"], toks,
+                positions=start + torch.arange(c, device=dev)[None, :],
+                cache=fresh_d, cache_index=start,
+                kv_mask=(torch.arange(bucket, device=dev) < true_len)[None, :],
+                logit_index=torch.zeros((1,), dtype=torch.long, device=dev),
+                full_prefill=full and dcfg.prefill_impl == "flash",
+            )
+            for key, filled in (("cache", filled_t), ("d_cache", filled_d)):
+                for dst_layer, src_layer in zip(state[key], filled):
+                    for dst, src in zip(dst_layer, src_layer):
+                        dst[slot, :bucket] = src[0].to(dst.dtype)
+            state["kv_mask"][slot] = rows_l[0] < true_len
+            state["fill"][slot].fill_(true_len)   # no host copy (see _build_programs)
+            state["last_tok"][slot] = first
+            state["done"][slot].fill_(False)
+            return first
+
+        def init_fresh(*, bucket):
+            return (init_cache(cfg, 1, bucket, device=dev), init_cache(dcfg, 1, bucket, device=dev))
+
+        def prefill(params, state, slot, tokens, true_len):
+            return finish_prefill(
+                params, state, init_fresh(bucket=tokens.shape[0]), slot, tokens[None], 0,
+                true_len, full=True,
+            )
+
+        def prefill_step(params, fresh, toks, start):
+            self._lead_chunk(module, params["target"], fresh[0], toks, start)
+            self._lead_chunk(draft, params["draft"], fresh[1], toks, start)
+            return fresh
+
+        self._prefill = prefill
+        self._prefill_final = finish_prefill
+        self._init_fresh = init_fresh
+        self._prefill_step = prefill_step
+
+        def spec_chunk(params, state, active):
+            """``chunk_steps`` speculative rounds. Returns one int64
+            tensor [R, B, k+3]: per round and slot the emission row (k+1
+            tokens), the emitted count (eos-truncated on the device) and
+            the accepted draft count; the host truncates at the budget."""
+            outs = []
+            for _ in range(self.chunk_steps):
+                live = active & ~state["done"]
+                fill0 = state["fill"]
+                kv_mask = state["kv_mask"]
+                # the draft proposes k tokens over k+1 steps (the extra step
+                # writes proposal k's KV, so a fully accepted round leaves no
+                # draft-cache hole)
+                tok, f, props = state["last_tok"], fill0, []
+                for _ in range(k + 1):
+                    vis = kv_mask | (
+                        (rows_l >= fill0[:, None]) & (rows_l <= f[:, None]) & live[:, None]
+                    )
+                    logits, _ = draft(
+                        params["draft"], tok[:, None], cache=state["d_cache"],
+                        cache_index=f, kv_mask=vis,
+                    )
+                    tok = torch.argmax(logits[:, -1], -1)
+                    props.append(tok)
+                    f = f + 1
+                props = torch.stack(props[:k], dim=1)                     # [B, k]
+
+                # ONE shared multi-token verify forward for every slot
+                verify_in = torch.cat([state["last_tok"][:, None], props], dim=1)
+                vis_v = kv_mask | (
+                    (rows_l >= fill0[:, None]) & (rows_l <= (fill0 + k)[:, None])
+                    & live[:, None]
+                )
+                v_logits, _ = module(
+                    params["target"], verify_in, cache=state["cache"], cache_index=fill0,
+                    kv_mask=vis_v,
+                )
+                greedy = torch.argmax(v_logits, -1)
+                accepted, correction, emit = greedy_acceptance(props, greedy)
+                n_emit = torch.where(live, accepted + 1, 0)
+                done = state["done"]
+                if eos_id is not None:
+                    eos_hit = (emit == eos_id) & (steps < n_emit[:, None])
+                    any_eos = eos_hit.any(dim=1)
+                    first_eos = torch.argmax(eos_hit.int(), dim=1)
+                    n_emit = torch.where(any_eos, torch.minimum(n_emit, first_eos + 1), n_emit)
+                    done = done | (live & any_eos)
+                # rows consumed = accepted + 1 (eos shrinks the emission, not
+                # the rows written; done stops later rounds)
+                new_fill = fill0 + torch.where(live, accepted + 1, 0).int()
+                # freeze before the end: the next round writes k+1 rows
+                state["done"] = done | (live & (new_fill + k + 1 >= L))
+                state["kv_mask"] = kv_mask | (
+                    (rows_l >= fill0[:, None]) & (rows_l < new_fill[:, None])
+                )
+                state["fill"] = new_fill
+                state["last_tok"] = torch.where(live, correction, state["last_tok"])
+                outs.append(torch.cat([
+                    torch.where(live[:, None], emit, pad_id),
+                    n_emit[:, None],
+                    torch.where(live, accepted, 0)[:, None],
+                ], dim=1))
+            return torch.stack(outs)
+
+        self._decode_chunk = spec_chunk
 
     def generate(
         self,
@@ -1356,6 +1577,13 @@ class DecodeEngine:
         would mix weights within a decode — refused instead."""
         if params is self._params:
             return
+        if self.draft is not None:
+            if not (isinstance(params, Mapping) and "target" in params and "draft" in params):
+                raise ValueError(
+                    'a speculative engine binds a mapping {"target": params, '
+                    '"draft": params} (the make_speculative_predictor artifact '
+                    "contract)"
+                )
         with self._lock:
             busy = (
                 any(r is not None for r in self._occupant)
@@ -1400,6 +1628,18 @@ class DecodeEngine:
             "decode_steps": steps,
             "slot_occupancy": round(occupied / max(1, steps * self.slots), 3),
         }
+        if self.draft is not None:
+            spec_rounds = int(self._m_spec_rounds.value)
+            spec_accepted = int(self._m_spec_accepted.value)
+            out["speculative"] = {
+                "k": self.speculate_k,
+                "rounds": spec_rounds,
+                "accepted_draft_tokens": spec_accepted,
+                # fraction of proposed draft tokens the target accepted
+                "acceptance_rate": round(
+                    spec_accepted / max(1, spec_rounds * self.speculate_k), 3
+                ),
+            }
         if self.kv_pool is not None:
             out["kv_pool"] = self.kv_pool.stats()
         if self._usage is not None:
@@ -1495,7 +1735,7 @@ class DecodeEngine:
         for m in (
             self._m_requests, self._m_errors, self._m_abandoned,
             self._m_timeouts, self._m_steps, self._m_chunks,
-            self._m_occupied,
+            self._m_occupied, self._m_spec_rounds, self._m_spec_accepted,
             self._m_deadline_shed, self._m_recoveries,
             *self._m_rejected.values(),
             self._h_queue, self._h_prefill, self._h_decode, self._h_ttft,
@@ -1913,13 +2153,7 @@ class DecodeEngine:
                 req = self._occupant[slot]
                 if req is None or gens[slot] != self._slot_gen[slot]:
                     continue  # stale: dispatched for a previous occupant
-                chunk: List[int] = []
-                for step_toks in toks:
-                    tok = int(step_toks[slot])
-                    req.tokens.append(tok)
-                    chunk.append(tok)
-                    if self._req_done(req, tok):
-                        break
+                chunk = self._take_tokens(req, slot, toks)
                 self._tracer.record_span(
                     req.rid, f"decode-chunk[{req._chunk_i}]", dispatched, now,
                     tokens=len(chunk),
@@ -1932,11 +2166,16 @@ class DecodeEngine:
                 req.emit(chunk)
                 if self._perf is not None and chunk:
                     self._observe_itl(req, now, len(chunk))
-                if self._usage is not None:
+                if self._usage is not None and chunk:
                     tenant_tokens[req.tenant] = (
                         tenant_tokens.get(req.tenant, 0) + len(chunk)
                     )
-                self._finish_if_done(slot, chunk[-1])
+                if chunk:
+                    self._finish_if_done(slot, chunk[-1])
+                elif req.abandoned:
+                    # a speculative slot frozen on the device emits nothing;
+                    # the idle readback still retires an abandoned waiter
+                    self._finish_if_done(slot, req.tokens[-1] if req.tokens else self.pad_id)
             if self.paged:
                 # this chunk (and by FIFO order every earlier one) has
                 # finished on the device: deferred frees fenced at or
@@ -1953,6 +2192,36 @@ class DecodeEngine:
                 flops=self._program_cost("engine.decode"),
                 slot_steps=self.chunk_steps * self.slots,
             )
+
+    def _take_tokens(self, req, slot: int, toks: np.ndarray) -> List[int]:
+        """Append one slot's harvested tokens to ``req`` up to its budget
+        (the per-token ``_req_done`` walk) and return them. Plain readback
+        ``[steps, B]``: one token a step. Speculative readback ``[R, B,
+        k+3]``: per round the emission row (k+1), the emitted count and
+        the accepted draft count; a round's ``n_emit`` tokens, counting
+        the rounds and accepted tokens served (stale and post-retirement
+        rounds would skew the /stats acceptance rate)."""
+        if self.draft is None:
+            stream = (int(step_toks[slot]) for step_toks in toks)
+        else:
+            k = self.speculate_k
+
+            def rounds():
+                for row in toks[:, slot]:
+                    n_emit = int(row[k + 1])
+                    if n_emit:
+                        self._m_spec_rounds.inc()
+                        self._m_spec_accepted.inc(int(row[k + 2]))
+                    yield from (int(t) for t in row[:n_emit])
+
+            stream = rounds()
+        chunk: List[int] = []
+        for tok in stream:
+            req.tokens.append(tok)
+            chunk.append(tok)
+            if self._req_done(req, tok):
+                break
+        return chunk
 
     def _dispatch_chunk(self) -> bool:
         """Dispatch one decode chunk if the pipeline has a credit and any
@@ -2006,6 +2275,10 @@ class DecodeEngine:
                 return True
             for slot in np.flatnonzero(mask):
                 if self._occupant[slot] is not None:
+                    # the GUARANTEED emission per chunk (1 token a round in
+                    # speculative mode; acceptance only adds more): an upper
+                    # bound here would stop dispatching before enough tokens
+                    # land at partial acceptance
                     self._occupant[slot]._expected += self.chunk_steps
                     if self.paged:
                         # host upper bound of the slot's device fill
