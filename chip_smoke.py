@@ -15,7 +15,18 @@ Phases, each of which fails the run with a non-zero exit:
              PyTorch library call computing the same function (yardstick
              only; the port never calls it); check that waiting on a CUDA
              event lets other Python threads run (the engine's harvester
-             waits so while its dispatcher launches);
+             waits so while its dispatcher launches); the ViT rows
+             (LayerNorm, add-LayerNorm and norm backward at ViT-B/16's
+             12608 x 768, fused attention forward and backward at S = 197,
+             512 and 1024; the backward run twice for the same bits);
+3b. vit    — train ViT-B/16 (bf16 compute, fp32 params, fused attention and
+             fused norms) through the ported vision_tpu template's
+             model.train at batch 64 for 54 steps (2 warm-up): samples/s,
+             step ms, the trainer's samples/sec gauge, peak memory, the
+             loss falling, each ViT kernel's launches per step; then one
+             step's loss and gradients against the plain path (per-tensor
+             cosine) and two 3-step runs from one state (the same loss
+             bits);
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
@@ -105,12 +116,16 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
+    card first spins (``torch.cuda._sleep``, about 1 ms a call) while the
+    host enqueues the calls, so a wrapper's host cost does not show up as
+    device time for a kernel shorter than its launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -389,6 +404,344 @@ def event_wait_releases_gil() -> int:
         count += 1
     waiter.join()
     return count
+
+
+# ViT-B/16 at batch 64: 196 patches + cls, 12 heads of 64, width 768
+VIT_B, VIT_S, VIT_H, VIT_HD, VIT_D = 64, 197, 12, 64, 768
+# max |kernel - plain| over max |plain|: gradients hold many entries near 0
+# beside large ones, so bf16 rounding is judged against the tensor's scale
+SCALED_LIMIT = {
+    "norm_dx": 1e-2,        # bf16 dx, fp32 statistics in another sum order
+    "norm_params": 1e-4,    # fp32 dgamma/dbeta: per-block partials vs one sum
+    "attn_fwd": 1e-2,       # bf16 o; e rounded at the same point
+    "attn_bwd": 2e-2,       # bf16 dq/dk/dv from bf16-rounded do/z and ds
+}
+
+
+def check_scaled(name: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> float:
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if err > limit * max(scale, 1e-30):
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: max abs err {err} beyond "
+            f"{limit} x max |plain| {scale}"
+        )
+    return err
+
+
+def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
+    """Rows 3, 4 and 5 at the ViT-B shape (bf16 activations, fp32 gamma
+    and beta, eps 1e-6, the LayerNorm mode)."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    eps = 1e-6
+    x, r, dy = (torch.randn(rows, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    g = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    gb, bb = g.bfloat16(), b.bfloat16()    # the library call's bf16 affine params
+    shape = f"x[{rows},{d}] bf16, gamma/beta[{d}] fp32"
+    n = rows * d
+
+    y = fn.norm_fwd_cuda(x, g, b, eps, False)
+    s, ys = fn.norm_add_fwd_cuda(x, r, g, b, eps, False)
+    dx, dg, db = fn.norm_bwd_cuda(s, g, dy, eps, False, True)
+    torch.cuda.synchronize()
+    ln_err = check_close("layer_norm_fwd", y, fn.norm_fwd_plain(x, g, b, eps, False), NORM_TOL)
+    ps, pys = fn.norm_add_fwd_plain(x, r, g, b, eps, False)
+    if not torch.equal(s, ps):
+        raise AssertionError("add_layer_norm_fwd: s differs from the plain x + r")
+    add_err = check_close("add_layer_norm_fwd", ys, pys, NORM_TOL)
+    pdx, pdg, pdb = fn.norm_bwd_plain(s, g, dy, eps, False, True)
+    bwd_err = max(check_scaled("norm_bwd dx", dx, pdx, SCALED_LIMIT["norm_dx"]),
+                  check_scaled("norm_bwd dgamma", dg, pdg, SCALED_LIMIT["norm_params"]),
+                  check_scaled("norm_bwd dbeta", db, pdb, SCALED_LIMIT["norm_params"]))
+
+    xr = s.detach().requires_grad_()
+    w, wb = gb.detach().requires_grad_(), bb.detach().requires_grad_()
+    lib_y = F.layer_norm(xr, (d,), w, wb, eps)
+    cases = {}
+    for name, err, run, plain, nbytes, ops, lib, call in (
+        ("layer_norm_fwd", ln_err, lambda: fn.norm_fwd_cuda(x, g, b, eps, False),
+         lambda: fn.norm_fwd_plain(x, g, b, eps, False), 2 * n * 2 + 2 * d * 4, 8 * n,
+         lambda: F.layer_norm(x, (d,), gb, bb, eps), "F.layer_norm, bf16 affine params"),
+        ("add_layer_norm_fwd", add_err, lambda: fn.norm_add_fwd_cuda(x, r, g, b, eps, False),
+         lambda: fn.norm_add_fwd_plain(x, r, g, b, eps, False), 4 * n * 2 + 2 * d * 4, 9 * n,
+         lambda: F.layer_norm(x + r, (d,), gb, bb, eps), "x + r, then F.layer_norm"),
+        ("norm_bwd", bwd_err, lambda: fn.norm_bwd_cuda(s, g, dy, eps, False, True),
+         lambda: fn.norm_bwd_plain(s, g, dy, eps, False, True), 3 * n * 2 + 3 * d * 4, 15 * n,
+         lambda: torch.autograd.grad(lib_y, (xr, w, wb), dy, retain_graph=True),
+         "the backward of F.layer_norm (autograd.grad over a recorded forward)"),
+    ):
+        b_ms, b_by = bound(nbytes, ops, PEAK_FP32_OPS_S)
+        cases[name] = [{
+            "shape": shape, "max_abs_err": err, "ms": time_ms(run),
+            "plain_ms": time_ms(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lib), "library_call": call,
+        }]
+    return cases
+
+
+def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
+    """Rows 12 and 13 at one shape (non-causal, as ViT and BERT run them):
+    each against its plain version, the backward twice (same bits), and
+    the library yardsticks: SDPA forward (row 12), SDPA's backward alone
+    (row 13) and SDPA forward + backward (rows 12 + 13)."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.ops import fused_attention as tfa
+
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    q = q * float(torch.tensor(d**-0.5 * tfa.LOG2E, dtype=torch.bfloat16))
+    fwd = lambda: tfa.fused_attention_fwd_cuda(q, k, v, causal=False)  # noqa: E731
+    o = fwd()
+    bwd = lambda: tfa.fused_attention_bwd_cuda(q, k, v, do, o, causal=False)  # noqa: E731
+    grads, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    fwd_err = check_scaled(f"fused_attention_fwd S={s}", o,
+                           tfa.fused_attention_fwd_plain(q, k, v, causal=False),
+                           SCALED_LIMIT["attn_fwd"])
+    want = tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False)
+    bwd_err = 0.0
+    for name, got, ref, same in zip(("dq", "dk", "dv"), grads, want, again):
+        bwd_err = max(bwd_err, check_scaled(f"fused_attention_bwd {name} S={s}", got, ref,
+                                            SCALED_LIMIT["attn_bwd"]))
+        if not torch.equal(got, same):
+            raise AssertionError(f"fused_attention_bwd {name}: two runs differ")
+    numel = q.numel()
+    pairs = b * h * s * s
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    lq, lk, lv = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lib_o = F.scaled_dot_product_attention(lq, lk, lv)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(lq, lk, lv)
+        return torch.autograd.grad(out, (lq, lk, lv), dot)
+
+    shape = f"q/k/v[{b},{s},{h},{d}] bf16, non-causal"
+    f_ms, fb_ms = bound(4 * numel * 2, 4 * pairs * d, PEAK_BF16_OPS_S)
+    b_ms, bb_ms = bound(8 * numel * 2, 10 * pairs * d, PEAK_BF16_OPS_S)
+    fwd_case = {
+        "shape": shape, "max_abs_err": fwd_err, "ms": time_ms(fwd),
+        "plain_ms": time_ms(lambda: tfa.fused_attention_fwd_plain(q, k, v, causal=False),
+                            iters=3),
+        "bound_ms": f_ms, "bound_by": fb_ms,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        "library_call": "F.scaled_dot_product_attention",
+    }
+    bwd_case = {
+        "shape": shape, "max_abs_err": bwd_err, "ms": time_ms(bwd),
+        "plain_ms": time_ms(lambda: tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False),
+                            iters=3),
+        "bound_ms": b_ms, "bound_by": bb_ms,
+        "library_ms": time_ms(lambda: torch.autograd.grad(lib_o, (lq, lk, lv), dot,
+                                                          retain_graph=True)),
+        "library_call": "the backward of F.scaled_dot_product_attention (autograd.grad "
+                        "over a recorded forward)",
+        "fwd_bwd_ms": time_ms(lambda: (fwd(), bwd())),
+        "library_fwd_bwd_ms": time_ms(lib_fwd_bwd),
+    }
+    return {"fused_attention_fwd": fwd_case, "fused_attention_bwd": bwd_case}
+
+
+def vit_kernel_phase() -> dict:
+    """Rows 3, 4, 5, 12, 13 at the ViT-B shapes; rows 12-13 also at
+    S = 512 (BERT-base) and 1024 (the fused limit)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = vit_norm_cases(VIT_B * VIT_S, VIT_D, gen)
+    for b, s in ((VIT_B, VIT_S), (16, 512), (8, 1024)):
+        for name, case in fused_attention_case(b, s, VIT_H, VIT_HD, gen).items():
+            out.setdefault(name, []).append(case)
+    for name, cases in out.items():
+        for c in cases:
+            log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} ms {c['ms']} "
+                f"plain_ms {c['plain_ms']} bound_ms {c['bound_ms']} ({c['bound_by']}) "
+                f"library_ms {c['library_ms']}"
+                + (f" fwd+bwd ms {c['fwd_bwd_ms']} library fwd+bwd ms "
+                   f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else ""))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# ViT-B/16 training
+# --------------------------------------------------------------------- #
+
+# per training step of ViT-B/16 with norm_impl="fused" and attn_impl="fused":
+# ln1 x 12 + ln_final, ln2 (add form) x 12, their backwards, attention x 12
+VIT_LAUNCHES_PER_STEP = {"layer_norm_fwd": 13, "add_layer_norm_fwd": 12, "norm_bwd": 25,
+                         "fused_attention_fwd": 12, "fused_attention_bwd": 12}
+VIT_GRAD_COSINE_MIN = 0.99   # bf16 kernel path vs bf16 plain path, per gradient tensor
+
+
+def vit_kernels() -> dict:
+    """The wrappers (launch counters) of the ViT training path's kernels."""
+    from unionml_tpu_torch.ops import fused_attention as tfa
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    return {"layer_norm_fwd": fn.LN_KERNEL, "add_layer_norm_fwd": fn.ADD_KERNEL,
+            "norm_bwd": fn.BWD_KERNEL, "fused_attention_fwd": tfa.FWD_KERNEL,
+            "fused_attention_bwd": tfa.BWD_KERNEL}
+
+
+def vit_batches(config, batch: int, count: int, device: str, seed: int) -> list:
+    """``count`` batches of random images with the template's learnable
+    labels (channel mean above 0), made from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    size = config.image_size
+    out = []
+    for _ in range(count):
+        images = torch.from_numpy(rng.normal(size=(batch, size, size, 3)).astype(np.float32))
+        out.append((images.to(device), (images.mean(dim=(1, 2, 3)) > 0).long().to(device)))
+    return out
+
+
+def vit_grad_agreement(config, *, device: str = "cuda", batch: int = 64) -> dict:
+    """One step's loss and gradients of ``config`` (kernel path) against the
+    plain path (``attn_impl`` and ``norm_impl`` "xla") from the same params
+    and batch on ``device`` (per-tensor cosine), then two 3-step runs of the
+    kernel path's ``classification_step`` from one state, whose losses must
+    be the same bits (the backward has no atomics)."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import TrainState, ViT, adamw, classification_step
+    from unionml_tpu_torch.models import init_vit_params
+    from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = init_vit_params(config, generator=gen, device=device)
+    batches = vit_batches(config, batch, 3, device, seed=5)
+    results = {}
+    for path, cfg in (("kernel", config),
+                      ("plain", dataclasses.replace(config, attn_impl="xla", norm_impl="xla"))):
+        module = ViT(cfg)
+
+        def loss_fn(p, b, module=module):
+            return F.cross_entropy(module(p, b[0]).float(), b[1]), {}
+
+        (loss, _), grads = value_and_grad(loss_fn, params, batches[0])
+        results[path] = (float(loss), [g.float().flatten() for g in tree_leaves(grads)])
+    (k_loss, k_grads), (p_loss, p_grads) = results["kernel"], results["plain"]
+    cosines = [float(F.cosine_similarity(a, b, dim=0)) for a, b in zip(k_grads, p_grads)]
+    if not all(np.isfinite([k_loss, p_loss])) or min(cosines) < VIT_GRAD_COSINE_MIN:
+        raise AssertionError(
+            f"ViT kernel-path gradients disagree with the plain path: losses {k_loss} vs "
+            f"{p_loss}, min per-tensor cosine {min(cosines)}"
+        )
+    del results, k_grads, p_grads
+
+    step = classification_step(ViT(config))
+    runs = []
+    for _ in range(2):
+        state = TrainState.create(apply_fn=ViT(config), params=params, tx=adamw(3e-4))
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"])
+        runs.append((torch.stack(losses), state.params))
+    same_losses = torch.equal(runs[0][0], runs[1][0])
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])))
+    losses = runs[0][0].tolist()
+    if not same_losses:
+        raise AssertionError(
+            f"two 3-step runs from one state gave different losses: {losses} vs "
+            f"{runs[1][0].tolist()}"
+        )
+    out = {"kernel_loss": k_loss, "plain_loss": p_loss, "min_grad_cosine": min(cosines),
+           "grad_tensors": len(cosines), "rerun_losses": losses,
+           "rerun_same_loss_bits": same_losses, "rerun_same_param_bits": same_params}
+    log(f"vit: one step, kernel path vs plain path: loss {k_loss} vs {p_loss}, min cosine over "
+        f"{len(cosines)} gradient tensors {min(cosines)}; two 3-step runs: losses {losses}, "
+        f"same loss bits {same_losses}, same param bits {same_params}")
+    return out
+
+
+def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
+                    batches_per_epoch: int = 18, epochs: int = 3, warmup: int = 2) -> dict:
+    """Train ``config`` through the ported vision_tpu template
+    (``build_model``, ``@model.train_step``, ``model.train``) on synthetic
+    images with learnable labels: ``epochs`` x ``batches_per_epoch`` steps
+    of ``batch`` (54 steps by default, so the trainer's 50-step throughput
+    window closes and sets the ``unionml_trainer_samples_per_sec`` gauge).
+    The steps after the first ``warmup`` are timed (host clock between two
+    waits for the card); the kernels' launches per timed step must be
+    :data:`VIT_LAUNCHES_PER_STEP` and the last loss below the first."""
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.templates.vision_tpu.app import build_model
+
+    on_card = device == "cuda"
+    kernels = vit_kernels()
+    steps = batches_per_epoch * epochs
+    marks = {}
+    losses = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def on_step(state, metrics):
+        losses.append(metrics["loss"])
+        if state.step in (warmup, steps):
+            sync()
+            marks[state.step] = (time.perf_counter(), counts(),
+                                 torch.cuda.max_memory_allocated() if on_card else None)
+
+    model = build_model(config, name="chip_smoke_vit", reader_cache=False, on_step=on_step)
+    # the template's split keeps 80% for training
+    n = batch * batches_per_epoch * 5 // 4
+    for k in kernels.values():
+        k.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = model.train(
+        hyperparameters={"device": device, "learning_rate": 3e-4},
+        trainer_kwargs={"num_epochs": epochs, "batch_size": batch}, n=n, seed=0,
+    )
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    if len(losses) != steps or set(marks) != {warmup, steps}:
+        raise AssertionError(f"the trainer ran {len(losses)} steps, expected {steps}")
+    (t_a, c_a, _), (t_b, c_b, peak) = marks[warmup], marks[steps]
+    timed = steps - warmup
+    per_step = {name: (c_b[name] - c_a[name]) / timed for name in kernels}
+    losses = torch.stack(losses).float().tolist()
+    step_ms = (t_b - t_a) / timed * 1e3
+    gauge = telemetry.get_registry().gauge("unionml_trainer_samples_per_sec").value
+    out = {
+        "config": f"ViT patch {config.patch_size}, image {config.image_size}, width "
+                  f"{config.hidden_dim}, {config.num_layers} layers, {config.num_heads} heads, "
+                  f"mlp {config.mlp_dim}, {config.num_classes} classes, {config.dtype} compute, "
+                  f"fp32 params, attn {config.attn_impl}, norm {config.norm_impl}",
+        "batch": batch, "steps": steps, "timed_steps": timed,
+        "step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
+        "samples_per_sec_gauge": gauge, "wall_s": wall_s,
+        "peak_mem_gib": peak / 2**30 if on_card else None,
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "eval": metrics, "launches": launches, "launches_per_step": per_step,
+    }
+    log(f"vit: {steps} steps of batch {batch} ({warmup} warm-up): step_ms {step_ms} "
+        f"samples/s {out['samples_per_s']} gauge unionml_trainer_samples_per_sec {gauge} "
+        f"peak memory {out['peak_mem_gib']} GiB, wall {wall_s} s (reader, split, "
+        f"evaluation included)")
+    log(f"vit: loss first {losses[0]} last {losses[-1]}; eval {metrics}; launches per timed "
+        f"step {per_step}; launches in the run {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the ViT loss did not fall: {losses}")
+    if on_card:
+        if per_step != VIT_LAUNCHES_PER_STEP:
+            raise AssertionError(f"ViT kernel launches per step {per_step}, expected "
+                                 f"{VIT_LAUNCHES_PER_STEP}")
+        if not gauge > 0:
+            raise AssertionError("the trainer set no unionml_trainer_samples_per_sec gauge")
+    return out
 
 
 def kernel_phase(batch: int, bucket: int) -> dict:
@@ -1299,7 +1652,15 @@ def main(argv=None) -> int:
 
     batch, bucket = 4, 1024
     kernels = kernel_phase(batch, bucket)
+    kernels.update(vit_kernel_phase())
     log(f"time: kernels done at {time.perf_counter() - t_run:.1f} s")
+
+    from unionml_tpu_torch.models import ViTConfig
+
+    vit_cfg = dataclasses.replace(ViTConfig.base16(num_classes=1000), norm_impl="fused")
+    vit = vit_train_phase(vit_cfg)
+    vit["agreement"] = vit_grad_agreement(vit_cfg)
+    log(f"time: vit training done at {time.perf_counter() - t_run:.1f} s")
 
     from unionml_tpu_torch.models import LlamaConfig
 
@@ -1357,11 +1718,21 @@ def main(argv=None) -> int:
                         "unionml_tpu/ops/int4_matmul.py:136"),
         "int4_matmul_grouped": ("unionml_tpu_torch/csrc/int4_matmul.cu",
                                 "unionml_tpu/ops/int4_matmul.py:184"),
+        "layer_norm_fwd": ("unionml_tpu_torch/csrc/fused_norm.cu",
+                           "unionml_tpu/ops/fused_norm.py:72"),
+        "add_layer_norm_fwd": ("unionml_tpu_torch/csrc/fused_norm.cu",
+                               "unionml_tpu/ops/fused_norm.py:85"),
+        "norm_bwd": ("unionml_tpu_torch/csrc/fused_norm.cu", "unionml_tpu/ops/fused_norm.py:99"),
+        "fused_attention_fwd": ("unionml_tpu_torch/csrc/fused_attention.cu",
+                                "unionml_tpu/ops/fused_attention.py:66"),
+        "fused_attention_bwd": ("unionml_tpu_torch/csrc/fused_attention.cu",
+                                "unionml_tpu/ops/fused_attention.py:92"),
     }
     # launches on each kernel's main path: the int8 engine phase for rows
     # 1, 2 and 6, the speculative engine for row 7, the int4 paged engine
-    # for row 8
+    # for row 8, the ViT-B/16 training run for rows 3, 4, 5, 12 and 13
     main_launches = dict(engine["launches"])
+    main_launches.update(vit["launches"])
     main_launches["int4_matmul"] = spec["launches"]["int4_matmul"]
     main_launches["int4_matmul_grouped"] = int4_engine["launches"]["int4_matmul_grouped"]
     rows = []
@@ -1381,12 +1752,13 @@ def main(argv=None) -> int:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
             "serve_launches": served["launches"].get(name),
+            "launches_per_train_step": vit["launches_per_step"].get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "int8_kv": int8_kv,
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
-                      "seconds": time.perf_counter() - t_run}), flush=True)
+                      "vit_train": vit, "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

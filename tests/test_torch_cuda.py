@@ -20,6 +20,7 @@ from unionml_tpu_torch.models import (
     quantize_params,
 )
 from unionml_tpu_torch.ops import flash_attention as tflash
+from unionml_tpu_torch.ops import fused_attention as tfused
 from unionml_tpu_torch.ops import fused_norm as tnorm
 from unionml_tpu_torch.ops import int4_matmul as tint4
 from unionml_tpu_torch.ops import paged_attention as tpaged
@@ -201,3 +202,104 @@ def test_int4_engines_run_the_kernel_on_card(cuda, group):
             engine.close()
     assert kernel.launches > before
     assert outs["paged"] == outs["plain"] and outs["spec"] == outs["plain"]
+
+
+def _max_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|: gradients hold many entries near 0
+    next to large ones, so their bf16 rounding is judged against the
+    tensor's scale."""
+    scale = want.float().abs().max().clamp_min(1e-30)
+    return float((got.float() - want.float()).abs().max() / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [
+    (12608, 768, torch.bfloat16), (37, 64, torch.float32), (300, 4096, torch.bfloat16),
+    (5, 8192, torch.bfloat16),
+])
+@pytest.mark.parametrize("rms", [False, True])
+def test_norm_kernels_match_plain_on_card(cuda, rows, d, dtype, rms):
+    """Rows 2-5 at the ViT-B shape (12608 rows: 788 backward blocks, the
+    last ragged), a narrow fp32 case and Llama widths: LayerNorm/RMS
+    forward, add forward and the backward against their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(rows, d, device=cuda, generator=gen).to(dtype)
+    r = torch.randn(rows, d, device=cuda, generator=gen).to(dtype)
+    dy = torch.randn(rows, d, device=cuda, generator=gen).to(dtype)
+    g = 1 + 0.1 * torch.randn(d, device=cuda, generator=gen)
+    b = None if rms else 0.1 * torch.randn(d, device=cuda, generator=gen)
+    eps = 1e-6
+    counts = [k.launches for k in (tnorm.KERNEL, tnorm.LN_KERNEL, tnorm.ADD_KERNEL,
+                                   tnorm.BWD_KERNEL)]
+    y = tnorm.norm_fwd_cuda(x, g, b, eps, rms)
+    s, ys = tnorm.norm_add_fwd_cuda(x, r, g, b, eps, rms)
+    dx, dg, db = tnorm.norm_bwd_cuda(s, g, dy, eps, rms, not rms)
+    torch.cuda.synchronize()
+    fwd_row = 0 if rms else 1
+    after = [k.launches for k in (tnorm.KERNEL, tnorm.LN_KERNEL, tnorm.ADD_KERNEL,
+                                  tnorm.BWD_KERNEL)]
+    assert [a - c for a, c in zip(after, counts)] == [
+        int(fwd_row == 0), int(fwd_row == 1), 1, 1]
+    # <= 2 ulps of the output dtype: the same fp32 statistics summed in
+    # another order
+    tol = dict(rtol=1 / 64, atol=1e-3) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y, tnorm.norm_fwd_plain(x, g, b, eps, rms), **tol)
+    ps, pys = tnorm.norm_add_fwd_plain(x, r, g, b, eps, rms)
+    assert torch.equal(s, ps)   # one fp32 add, one rounding
+    torch.testing.assert_close(ys, pys, **tol)
+    pdx, pdg, pdb = tnorm.norm_bwd_plain(s, g, dy, eps, rms, not rms)
+    assert _max_rel_err(dx, pdx) < (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    # fp32 column sums over all rows, in per-block order against torch's
+    assert _max_rel_err(dg, pdg) < 1e-4
+    if not rms:
+        assert _max_rel_err(db, pdb) < 1e-4
+    else:
+        assert db is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(64, 197, 12, 64), (2, 17, 4, 64), (2, 512, 12, 64),
+                                     (1, 1024, 12, 64), (2, 130, 4, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_attention_kernels_match_plain_on_card(cuda, b, s, h, d, causal):
+    """Rows 12-13 at the ViT-B shape, BERT's 512, the 1024 limit, a tiny
+    ragged length and head_dim 128: forward and backward against their
+    plain versions; the backward gives the same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=gen).bfloat16()
+                   for _ in range(4))
+    q = q * float(torch.tensor(d ** -0.5 * tfused.LOG2E, dtype=torch.bfloat16))
+    before = (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches)
+    o = tfused.fused_attention_fwd_cuda(q, k, v, causal=causal)
+    grads = tfused.fused_attention_bwd_cuda(q, k, v, do, o, causal=causal)
+    again = tfused.fused_attention_bwd_cuda(q, k, v, do, o, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 2)
+    # the same rounding points; bf16 outputs and fp32 sums in another order
+    assert _max_rel_err(o, tfused.fused_attention_fwd_plain(q, k, v, causal=causal)) < 1e-2
+    want = tfused.fused_attention_bwd_plain(q, k, v, do, o, causal=causal)
+    for got, ref, same in zip(grads, want, again):
+        assert torch.isfinite(got.float()).all()
+        assert _max_rel_err(got, ref) < 2e-2
+        assert torch.equal(got, same)
+
+
+@pytest.mark.cuda
+def test_fused_attention_op_gradients_on_card(cuda):
+    """The differentiable op on the card (GQA, causal) against autograd
+    through the plain forward on fp32 copies of the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 197, 8, 64, device=cuda, generator=gen).bfloat16().requires_grad_()
+    k = torch.randn(2, 197, 2, 64, device=cuda, generator=gen).bfloat16().requires_grad_()
+    v = torch.randn(2, 197, 2, 64, device=cuda, generator=gen).bfloat16().requires_grad_()
+    out = tfused.fused_attention(q, k, v, causal=True)
+    (out.float() ** 2).sum().backward()
+    refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    from unionml_tpu_torch.ops.attention import mha_reference
+
+    (mha_reference(*refs, causal=True) ** 2).sum().backward()
+    for t, ref in zip((q, k, v), refs):
+        assert _max_rel_err(t.grad, ref.grad) < 3e-2
+    with pytest.raises(ValueError, match="bf16"):
+        tfused.fused_attention_fwd_cuda(*(t.detach().float() for t in (q, q, q)), causal=False)

@@ -227,8 +227,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, served_params):
 
 def test_unported_model_paths_raise():
     model = template.build_model(name="unported")
-    with pytest.raises(NotImplementedError):
-        model.train_step(lambda state, batch: (state, {}))
+    # train_step is ported; its checkpoint / elastic option is not yet
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        model.train_step(lambda state, batch: (state, {}), checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError):
         model.remote(project="p")
     with pytest.raises(NotImplementedError):

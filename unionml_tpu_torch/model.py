@@ -3,16 +3,21 @@
 The PyTorch port of :mod:`unionml_tpu.model` (reference: unionml/model.py
 :55-988). ``@model.trainer`` keeps the reference contract: any Python
 function ``(model_object, *data, **kwargs) -> model_object``, run
-host-side. The TPU package's second tier, ``@model.train_step`` (a jitted
-per-batch step with a synthesized loop), and the remote lifecycle are not
-ported yet: they raise ``NotImplementedError``.
+host-side. The second tier, ``@model.train_step`` (a per-batch step with a
+synthesized epoch/batch loop,
+:func:`~unionml_tpu_torch.execution.run_step_trainer`), is ported without
+its sharding, overlap, goodput and checkpoint options; the remote
+lifecycle is not ported yet: it raises ``NotImplementedError``.
 
 Everything else mirrors the reference surface: hyperparameter dataclass
 synthesis (model.py:137-161), three compiled tasks (model.py:377-502),
 three workflows (model.py:292-375), local train/predict (model.py:504-578),
 artifact save/load (model.py:580-608) and serving (model.py:610-623). The
 default saver writes a tree of torch tensors (the port's model state) as
-a state dict with ``torch.save``.
+a state dict with ``torch.save``, and a
+:class:`~unionml_tpu_torch.models.train.TrainState` as its tensors and
+counters, which the default loader restores into the state the
+registered ``init`` builds.
 """
 
 from __future__ import annotations
@@ -121,6 +126,8 @@ class Model(TrackedInstance):
         self._loader: Callable = self._default_loader
 
         self._predict_step_options: Dict[str, Any] = {}
+        self._train_step: Optional[Callable] = None
+        self._train_step_options: Dict[str, Any] = {}
 
         # compiled stages (lazily built)
         self._train_task: Optional[Stage] = None
@@ -265,10 +272,95 @@ class Model(TrackedInstance):
             return DEFAULT_RESOURCES
         return DEFAULT_DEVICE_RESOURCES
 
-    def train_step(self, fn: Optional[Callable] = None, **options):
-        """The reference's jitted per-batch training tier
-        (:meth:`unionml_tpu.model.Model.train_step`). Not ported yet."""
-        raise _not_ported("Model.train_step (the synthesized step trainer)")
+    def train_step(
+        self,
+        fn: Optional[Callable] = None,
+        *,
+        sharding: Any = None,
+        accumulate_steps: int = 1,
+        overlap_grads: bool = False,
+        double_buffer: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        goodput: Any = None,
+        measure_device_time: bool = False,
+        **train_task_kwargs,
+    ):
+        """Register a per-batch training step (the reference's second tier,
+        :meth:`unionml_tpu.model.Model.train_step`).
+
+        Contract: ``step(state, batch) -> (state, metrics)`` where ``state``
+        holds tensors on the training device (e.g. a
+        :class:`~unionml_tpu_torch.models.train.TrainState`) and ``batch``
+        has a leading batch axis. The framework synthesizes the trainer
+        (epochs, batching, device feed) around it
+        (:func:`~unionml_tpu_torch.execution.run_step_trainer`).
+        ``accumulate_steps=N`` feeds ``[N, batch_size, ...]`` microbatched
+        batches for a step that accumulates them into one update;
+        ``measure_device_time`` waits for the card after every step.
+
+        Not ported yet: ``sharding=`` and ``overlap_grads=True``
+        (parallelism, A11), ``double_buffer=True`` (the threaded feed),
+        ``goodput=`` (the ``GoodputTracker``) and ``checkpoint_dir=`` (the
+        checkpoint / elastic trainer); each raises ``NotImplementedError``
+        when the step is registered.
+        """
+        if fn is None:
+            return lambda f: self.train_step(
+                f, sharding=sharding, accumulate_steps=accumulate_steps,
+                overlap_grads=overlap_grads, double_buffer=double_buffer,
+                checkpoint_dir=checkpoint_dir, goodput=goodput,
+                measure_device_time=measure_device_time, **train_task_kwargs,
+            )
+        if checkpoint_dir:
+            raise _not_ported("train_step(checkpoint_dir=...) (the checkpoint / elastic trainer)")
+        if sharding is not None or overlap_grads:
+            raise _not_ported("train_step(sharding=..., overlap_grads=True) (parallelism, A11)")
+        if goodput:
+            raise _not_ported("train_step(goodput=...) (the GoodputTracker)")
+        if double_buffer:
+            raise _not_ported("train_step(double_buffer=True) (the threaded feed)")
+        type_guards.guard_train_step(fn)
+        self._train_step = fn
+        self._train_step_options = {
+            "accumulate_steps": accumulate_steps,
+            "measure_device_time": measure_device_time,
+        }
+        self._trainer = self._make_step_trainer()
+        self._train_task_kwargs = {"resources": DEFAULT_DEVICE_RESOURCES, **train_task_kwargs}
+        self._train_task = None
+        return fn
+
+    def _make_step_trainer(self) -> Callable:
+        """Synthesize an epoch/batch trainer loop around the registered
+        ``train_step``."""
+        from unionml_tpu_torch.execution import run_step_trainer
+
+        model = self
+
+        def trainer(
+            model_object,
+            features,
+            targets=None,
+            *,
+            num_epochs: int = 1,
+            batch_size: int = 32,
+            seed: int = 0,
+        ):
+            opts = model._train_step_options
+            return run_step_trainer(
+                step_fn=model._train_step,
+                state=model_object,
+                features=features,
+                targets=targets,
+                num_epochs=num_epochs,
+                batch_size=batch_size,
+                seed=seed,
+                accumulate_steps=opts["accumulate_steps"],
+                measure_device_time=opts["measure_device_time"],
+            )
+
+        trainer.__name__ = "synthesized_step_trainer"
+        return trainer
 
     def predictor(self, fn: Optional[Callable] = None, **predict_task_kwargs):
         """Register the predictor (reference: model.py:230-252).
@@ -669,6 +761,16 @@ class Model(TrackedInstance):
 
             torch.save({"model_obj": model_obj, "hyperparameters": hp}, file)
             return file
+        from unionml_tpu_torch.models.train import TrainState
+
+        if isinstance(model_obj, TrainState):
+            import torch
+
+            torch.save(
+                {"model_obj": model_obj.state_dict(), "train_state": True, "hyperparameters": hp},
+                file,
+            )
+            return file
         raise NotImplementedError(
             f"Default saver not defined for type {type(model_obj)}. Use the "
             "Model.saver decorator to define one."
@@ -692,10 +794,16 @@ class Model(TrackedInstance):
             model.load_state_dict(payload["model_obj"])
             return model
         # tensor-tree branch: the state dict restores its own structure,
-        # each tensor onto the device it was saved from
+        # each tensor onto the device it was saved from; a train state is
+        # restored into the state the registered init builds (its apply
+        # function and optimizer are code, not data)
         import torch
 
-        return torch.load(file, weights_only=True)["model_obj"]
+        payload = torch.load(file, weights_only=True)
+        if payload.get("train_state"):
+            target = self._init(hyperparameters=payload["hyperparameters"] or {})
+            return target.load_state_dict(payload["model_obj"])
+        return payload["model_obj"]
 
     # ------------------------------------------------------------------ #
     # serving (reference: model.py:610-623)

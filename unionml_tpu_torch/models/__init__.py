@@ -1,7 +1,8 @@
-"""The Llama serving model of the port (the reference's model zoo is
+"""The port's model zoo: the Llama serving model and the ViT training
+model with their train-state and step factories (the reference's zoo is
 ported one model at a time; ROADMAP.md)."""
 
-from unionml_tpu_torch.models.convert import from_jax_params
+from unionml_tpu_torch.models.convert import from_jax_params, vit_from_jax_params
 from unionml_tpu_torch.models.generate import (
     make_generator,
     make_lm_predictor,
@@ -19,7 +20,19 @@ from unionml_tpu_torch.models.speculative import (
     make_speculative_generator,
     make_speculative_predictor,
 )
-from unionml_tpu_torch.models.train import resolve_params
+from unionml_tpu_torch.models.train import (
+    TrainState,
+    accumulated_value_and_grad,
+    adamw,
+    classification_step,
+    create_train_state,
+    make_evaluator,
+    make_predictor,
+    masked_cross_entropy,
+    resolve_params,
+)
+from unionml_tpu_torch.models.vit import ViT, ViTConfig
+from unionml_tpu_torch.models.vit import init_params as init_vit_params
 
 __all__ = [
     "Llama",
@@ -38,4 +51,16 @@ __all__ = [
     "QuantizedDenseGeneral",
     "quantize_params",
     "resolve_params",
+    "TrainState",
+    "ViT",
+    "ViTConfig",
+    "accumulated_value_and_grad",
+    "adamw",
+    "classification_step",
+    "create_train_state",
+    "init_vit_params",
+    "make_evaluator",
+    "make_predictor",
+    "masked_cross_entropy",
+    "vit_from_jax_params",
 ]

@@ -1,4 +1,4 @@
-"""The weight bridge: a JAX Llama param tree → the port's state.
+"""The weight bridges: a JAX Llama or ViT param tree → the port's state.
 
 :func:`from_jax_params` takes the reference's param tree (nested dicts
 of numpy arrays — ``jax.tree_util.tree_map(np.asarray, params)`` of a
@@ -16,6 +16,13 @@ and the group divides K, the int8 fallback elsewhere); a tree packed for
 another tile or group is refused rather than decoded wrong. The rest
 of the reference's converter (HF safetensors import/export) is not
 ported yet.
+
+:func:`vit_from_jax_params` does the same for a ``unionml_tpu`` ViT tree
+(fp32 params): the flax Conv kernel ``[p, p, C, D]`` (HWIO), Dense kernels
+``[in, out]``, q/k/v ``[D, H, hd]`` and o ``[H, hd, D]`` (with their biases
+under ``qkv_bias``), LayerNorm ``scale`` / ``bias``, ``cls``, ``pos_embed``
+and ``head``, every leaf checked against the shape the
+:class:`~unionml_tpu_torch.models.vit.ViTConfig` declares.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch.models.llama import LlamaConfig
 from unionml_tpu_torch.models.quantization import INT4_COLUMN_PARALLEL, int4_tile
+from unionml_tpu_torch.models.vit import ViTConfig
 
 
 def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
@@ -149,3 +157,61 @@ def _get(tree: Mapping, path: Tuple[str, ...]):
 def _check(path, got, want) -> None:
     if tuple(got) != tuple(want):
         raise ValueError(f"param {'/'.join(path)} has shape {tuple(got)}, expected {tuple(want)}")
+
+
+def _vit_shapes(config: ViTConfig, channels: int) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """Every leaf of a ViT tree and its shape."""
+    c = config
+    d, h, m, p = c.hidden_dim, c.num_heads, c.mlp_dim, c.patch_size
+    hd = d // h
+    out: Dict[Tuple[str, ...], Tuple[int, ...]] = {
+        ("patch_embed", "kernel"): (p, p, channels, d),
+        ("patch_embed", "bias"): (d,),
+        ("cls",): (1, 1, d),
+        ("pos_embed",): (1, c.num_patches + 1, d),
+        ("ln_final", "scale"): (d,),
+        ("ln_final", "bias"): (d,),
+        ("head", "kernel"): (d, c.num_classes),
+        ("head", "bias"): (c.num_classes,),
+    }
+    for i in range(c.num_layers):
+        b = f"block_{i}"
+        for ln in ("ln1", "ln2"):
+            out[(b, ln, "scale")] = (d,)
+            out[(b, ln, "bias")] = (d,)
+        for name in ("q", "k", "v"):
+            out[(b, "attn", name, "kernel")] = (d, h, hd)
+            if c.qkv_bias:
+                out[(b, "attn", name, "bias")] = (h, hd)
+        out[(b, "attn", "o", "kernel")] = (h, hd, d)
+        if c.qkv_bias:
+            out[(b, "attn", "o", "bias")] = (d,)
+        out[(b, "mlp", "up", "kernel")] = (d, m)
+        out[(b, "mlp", "up", "bias")] = (m,)
+        out[(b, "mlp", "down", "kernel")] = (m, d)
+        out[(b, "mlp", "down", "bias")] = (d,)
+    return out
+
+
+def vit_from_jax_params(params: Mapping, config: ViTConfig, device: DeviceLike = None) -> dict:
+    """The reference's ViT param tree (numpy leaves) as torch tensors on
+    ``device`` (``None`` = CUDA, raising without one), same nesting and
+    layout. The patch kernel's input channels come from the tree; every
+    other dimension must match ``config``. Raises ``ValueError`` on a
+    missing or extra leaf or a wrong shape."""
+    dev = resolve_device(device)
+    kernel = np.shape(_get(params, ("patch_embed", "kernel")))
+    if len(kernel) != 4:
+        raise ValueError(f"param patch_embed/kernel has shape {kernel}, expected [p, p, C, D]")
+    expected = _vit_shapes(config, kernel[2])
+    for path, shape in expected.items():
+        _check(path, tuple(np.shape(_get(params, path))), shape)
+
+    def convert(node, path):
+        if isinstance(node, Mapping):
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
+        if path not in expected:
+            raise ValueError(f"unexpected leaf {'/'.join(path)} for this ViTConfig")
+        return _to_tensor(node, dev)
+
+    return convert(params, ())

@@ -14,11 +14,14 @@ CUDA kernel of :mod:`unionml_tpu_torch.ops.fused_norm`),
 halves, fp32), the cached path of :class:`Attention` (contiguous KV
 cache, scalar or per-row fill index, ``prefill_impl="flash"`` through the
 kernel of :mod:`unionml_tpu_torch.ops.flash_attention`), the cache-free
-path with the ``xla`` reference attention, the block-paged decode step
-(``block_table=``, through :mod:`unionml_tpu_torch.ops.paged_attention`),
-the int8 KV cache, and the gated :class:`MlpBlock`, with int8 or
-packed-int4 (``weight_bits=4``) weight-only projections. Cross attention
-and the GELU MLP raise ``NotImplementedError``.
+path (``attn_impl`` ``xla``, ``fused`` through the differentiable
+kernels of :mod:`unionml_tpu_torch.ops.fused_attention`, or ``auto``),
+the block-paged decode step (``block_table=``, through
+:mod:`unionml_tpu_torch.ops.paged_attention`), the int8 KV cache,
+:class:`LayerNorm` (flax's statistics, or ``impl="fused"`` through
+:mod:`unionml_tpu_torch.ops.fused_norm`), q/k/v/o biases, and the gated
+and GELU :class:`MlpBlock`, with int8 or packed-int4 (``weight_bits=4``)
+weight-only projections. Cross attention raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ def make_dense(
     weight_bits: int = 8,
     int4_group: int = 0,
     int4_shards: int = 1,
+    use_bias: bool = False,
 ) -> nn.Module:
     """Dense-projection factory shared by every matmul site of the
     serving path (attention q/k/v/o, gated MLP, lm_head): when
@@ -60,14 +64,17 @@ def make_dense(
     scales with ``int4_group``, a packing that survives ``int4_shards``-way
     column sharding); else the fp :class:`DenseGeneral`. (The reference's
     LoRA sites are not ported; :class:`~unionml_tpu_torch.models.llama
-    .LlamaConfig` refuses them.)"""
+    .LlamaConfig` refuses them.) ``use_bias`` adds the fp layer's
+    ``bias``; quantized layers are bias-free."""
     if quantized:
+        if use_bias:
+            raise ValueError("quantized dense layers are bias-free")
         if weight_bits == 4:
             return Int4DenseGeneral(
                 features, axis=axis, dtype=dtype, group_size=int4_group, shards=int4_shards,
             )
         return QuantizedDenseGeneral(features, axis=axis, dtype=dtype)
-    return DenseGeneral(features, axis=axis, dtype=dtype)
+    return DenseGeneral(features, axis=axis, dtype=dtype, use_bias=use_bias)
 
 
 class RMSNorm(nn.Module):
@@ -92,6 +99,35 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         normed = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + self.eps)
         return (normed * scale.float()).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with ``scale`` / ``bias`` params (the
+    reference's param names, so either impl loads the other's weights),
+    output in ``dtype``. ``impl="xla"`` is flax's ``nn.LayerNorm``
+    arithmetic (fp32 ``E[x^2] - E[x]^2`` variance, clipped at 0);
+    ``impl="fused"`` runs the fused LayerNorm kernel pair (fp32
+    ``E[(x - mu)^2]``, differentiable through the backward kernel)."""
+
+    def __init__(self, eps: float = 1e-6, dtype: Any = torch.bfloat16, impl: str = "xla"):
+        super().__init__()
+        if impl not in ("xla", "fused"):
+            raise ValueError(f"unknown norm impl {impl!r}")
+        self.eps = eps
+        self.dtype = torch_dtype(dtype)
+        self.impl = impl
+
+    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
+        scale, bias = params["scale"], params["bias"]
+        if self.impl == "fused":
+            from unionml_tpu_torch.ops.fused_norm import fused_layer_norm
+
+            return fused_layer_norm(x, scale, bias, self.eps).to(self.dtype)
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * scale.float()
+        return ((x32 - mu) * mul + bias.float()).to(self.dtype)
 
 
 def llama3_rope_frequencies(
@@ -164,6 +200,34 @@ def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
     buf[:, index:index + seq] = new
 
 
+ATTN_IMPLS = ("auto", "xla", "fused")
+
+
+def _run_attention(q, k, v, *, impl: str, causal: bool) -> torch.Tensor:
+    """Cache-free attention over [B, S, H, D]: ``xla`` is the full-score
+    reference, ``fused`` the fused short-sequence kernels, ``auto`` fused
+    up to :data:`~unionml_tpu_torch.ops.fused_attention.MAX_FUSED_SEQ`
+    equal-length tokens. Above that the reference takes flash attention,
+    whose backward (kernel rows 9-11) is not ported yet."""
+    from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ, fused_attention
+
+    if impl == "auto":
+        if q.shape[1] > MAX_FUSED_SEQ or k.shape[1] != q.shape[1]:
+            raise NotImplementedError(
+                "attn_impl 'auto' picks flash attention above "
+                f"{MAX_FUSED_SEQ} tokens; its backward is not ported yet (the "
+                "Llama-training slice, ROADMAP.md)"
+            )
+        impl = "fused"
+    if impl == "xla":
+        return mha_reference(q, k, v, causal=causal)
+    if impl == "fused":
+        return fused_attention(q, k, v, causal=causal)
+    raise NotImplementedError(
+        f"attn_impl {impl!r} is not ported; the cache-free path takes {ATTN_IMPLS}"
+    )
+
+
 def quantize_kv(x: torch.Tensor):
     """int8 KV-cache quantization of ``x`` [..., head_dim]: per-(row, head)
     scale ``absmax / 127`` floored at ``1e-8``, values rounded half to even
@@ -201,6 +265,7 @@ class Attention(nn.Module):
         weight_bits: int = 8,
         int4_group: int = 0,
         int4_tp: int = 1,
+        use_bias: bool = False,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
@@ -228,6 +293,7 @@ class Attention(nn.Module):
             return make_dense(
                 quantized=quantized, features=feats, dtype=self.dtype, axis=axis,
                 weight_bits=weight_bits, int4_group=int4_group, int4_shards=shards,
+                use_bias=use_bias,
             )
 
         # q/k/v are column-parallel under tensor parallelism: their int4
@@ -286,11 +352,7 @@ class Attention(nn.Module):
         if cache is None:
             if kv_mask is not None:
                 raise ValueError("kv_mask requires a KV cache (generation path)")
-            if self.attn_impl != "xla":
-                raise NotImplementedError(
-                    f"attn_impl {self.attn_impl!r} is not ported; only 'xla' is"
-                )
-            out = mha_reference(q, k, v, causal=self.causal)
+            out = _run_attention(q, k, v, impl=self.attn_impl, causal=self.causal)
             return self.o(params["o"], out)
 
         if len(cache) not in (2, 4):
@@ -388,8 +450,10 @@ class Attention(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    """The gated (SwiGLU) transformer MLP of Llama: ``down(silu(gate(x)) *
-    up(x))``. The GELU form (ViT/BERT) is not ported."""
+    """Transformer MLP: the gated (SwiGLU) form of Llama, ``down(silu(gate(x))
+    * up(x))``, or (``gated=False``) the GELU form of ViT/BERT, ``down(gelu(
+    up(x)))`` with biases, tanh-approximate GELU unless
+    ``gelu_approximate=False``."""
 
     def __init__(
         self,
@@ -401,25 +465,35 @@ class MlpBlock(nn.Module):
         weight_bits: int = 8,
         int4_group: int = 0,
         int4_tp: int = 1,
+        gelu_approximate: bool = True,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
-        if not gated:
-            raise NotImplementedError("the GELU MLP is not ported (see ROADMAP.md)")
+        if quantized and not gated:
+            raise ValueError("quantized MlpBlock supports the bias-free gated form")
         dtype = torch_dtype(dtype)
+        self.gated = gated
+        self.gelu_approximate = gelu_approximate
 
         def dense(feats, shards=1):
             return make_dense(
                 quantized=quantized, features=feats, dtype=dtype, weight_bits=weight_bits,
-                int4_group=int4_group, int4_shards=shards,
+                int4_group=int4_group, int4_shards=shards, use_bias=not gated,
             )
 
         # gate/up are column-parallel under tensor parallelism, down is not
-        self.gate = dense(hidden_dim, shards=int4_tp)
+        if gated:
+            self.gate = dense(hidden_dim, shards=int4_tp)
         self.up = dense(hidden_dim, shards=int4_tp)
         self.down = dense(features)
 
     def forward(self, params, x: torch.Tensor) -> torch.Tensor:
+        if not self.gated:
+            h = F.gelu(
+                self.up(params["up"], x),
+                approximate="tanh" if self.gelu_approximate else "none",
+            )
+            return self.down(params["down"], h)
         gate = F.silu(self.gate(params["gate"], x))
         up = self.up(params["up"], x)
         return self.down(params["down"], gate * up)

@@ -66,23 +66,26 @@ def _dense_geometry(x: torch.Tensor, axis, features):
 
 
 class DenseGeneral(nn.Module):
-    """Bias-free fp dense layer with flax ``DenseGeneral`` geometry: the
-    kernel is ``[*contracted dims, *features]`` and input and kernel are
-    cast to ``dtype`` before the product."""
+    """fp dense layer with flax ``DenseGeneral`` geometry: the kernel is
+    ``[*contracted dims, *features]``; input, kernel and (with
+    ``use_bias``) the ``bias`` ``[*features]`` are cast to ``dtype``, and
+    the bias is added after the product, as flax does."""
 
-    def __init__(self, features, axis=-1, dtype: Any = torch.bfloat16):
+    def __init__(self, features, axis=-1, dtype: Any = torch.bfloat16, use_bias: bool = False):
         super().__init__()
         self.features = features
         self.axis = axis
         self.dtype = torch_dtype(dtype)
+        self.use_bias = use_bias
 
     def forward(self, params, x: torch.Tensor) -> torch.Tensor:
         axes = (self.axis,) if isinstance(self.axis, int) else tuple(self.axis)
         axes = [a % x.dim() for a in axes]
         kernel = params["kernel"].to(self.dtype)
-        return torch.tensordot(
-            x.to(self.dtype), kernel, dims=(axes, list(range(len(axes))))
-        )
+        y = torch.tensordot(x.to(self.dtype), kernel, dims=(axes, list(range(len(axes)))))
+        if self.use_bias:
+            y = y + params["bias"].to(self.dtype)
+        return y
 
 
 class QuantizedDenseGeneral(nn.Module):
