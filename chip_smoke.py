@@ -27,6 +27,20 @@ Phases, each of which fails the run with a non-zero exit:
              step's loss and gradients against the plain path (per-tensor
              cosine) and two 3-step runs from one state (the same loss
              bits);
+3c. llama — rows 9-11 (the flash-attention training forward with its
+             logsumexp, the dq and the dk/dv backward kernels) at the
+             llama_lc shape (q[2,4095,12,64], kv[2,4095,4,64], causal), at
+             the Llama-3-8B head geometry and at small non-causal and
+             cross-length shapes, each against its plain version, the
+             backward twice (the same bits); then the long-context Llama of
+             benchmarks/train_throughput.py (12 x 768, 125M params, flash
+             attention) trained through an LM app's model.train
+             (@model.train_step -> lm_step) at batch 2 x 4096 tokens for 54
+             steps: tokens/s, step ms, the trainer's gauge, peak memory,
+             the loss falling, rows 9/10/11 launched 12/12/12 times a step;
+             then, at 2 layers and full width, one step's loss and gradients
+             against the plain path (per-tensor cosine) and two 3-step runs
+             from one state (the same loss bits);
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
@@ -71,8 +85,6 @@ Phases, each of which fails the run with a non-zero exit:
 It needs the repository beside it and a CUDA device; it imports nothing of
 JAX or of the unionml_tpu package.
 """
-
-from __future__ import annotations
 
 import argparse
 import contextlib
@@ -599,44 +611,42 @@ def vit_batches(config, batch: int, count: int, device: str, seed: int) -> list:
     return out
 
 
-def vit_grad_agreement(config, *, device: str = "cuda", batch: int = 64) -> dict:
-    """One step's loss and gradients of ``config`` (kernel path) against the
-    plain path (``attn_impl`` and ``norm_impl`` "xla") from the same params
-    and batch on ``device`` (per-tensor cosine), then two 3-step runs of the
-    kernel path's ``classification_step`` from one state, whose losses must
-    be the same bits (the backward has no atomics)."""
+def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_factory, params,
+                   batches, *, lr: float, cosine_min: float) -> dict:
+    """One step's loss and gradients of ``module_cls(kernel_cfg)`` against
+    ``module_cls(plain_cfg)`` from the same ``params`` and first batch
+    (``loss(outputs, labels)``; per-tensor cosine at least
+    ``cosine_min``), then two runs of ``step_factory(module)`` over all
+    ``batches`` from one AdamW state, whose losses must be the same bits
+    (the kernels use no atomics)."""
     import torch.nn.functional as F
 
-    from unionml_tpu_torch.models import TrainState, ViT, adamw, classification_step
-    from unionml_tpu_torch.models import init_vit_params
+    from unionml_tpu_torch.models import TrainState, adamw
     from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
 
-    gen = torch.Generator(device=device).manual_seed(5)
-    params = init_vit_params(config, generator=gen, device=device)
-    batches = vit_batches(config, batch, 3, device, seed=5)
     results = {}
-    for path, cfg in (("kernel", config),
-                      ("plain", dataclasses.replace(config, attn_impl="xla", norm_impl="xla"))):
-        module = ViT(cfg)
+    for path, cfg in (("kernel", kernel_cfg), ("plain", plain_cfg)):
+        module = module_cls(cfg)
 
         def loss_fn(p, b, module=module):
-            return F.cross_entropy(module(p, b[0]).float(), b[1]), {}
+            return loss(module(p, b[0]), b[1]), {}
 
-        (loss, _), grads = value_and_grad(loss_fn, params, batches[0])
-        results[path] = (float(loss), [g.float().flatten() for g in tree_leaves(grads)])
+        (value, _), grads = value_and_grad(loss_fn, params, batches[0])
+        results[path] = (float(value), [g.float().flatten() for g in tree_leaves(grads)])
+        del grads
     (k_loss, k_grads), (p_loss, p_grads) = results["kernel"], results["plain"]
     cosines = [float(F.cosine_similarity(a, b, dim=0)) for a, b in zip(k_grads, p_grads)]
-    if not all(np.isfinite([k_loss, p_loss])) or min(cosines) < VIT_GRAD_COSINE_MIN:
+    if not all(np.isfinite([k_loss, p_loss])) or min(cosines) < cosine_min:
         raise AssertionError(
-            f"ViT kernel-path gradients disagree with the plain path: losses {k_loss} vs "
+            f"{name} kernel-path gradients disagree with the plain path: losses {k_loss} vs "
             f"{p_loss}, min per-tensor cosine {min(cosines)}"
         )
     del results, k_grads, p_grads
 
-    step = classification_step(ViT(config))
+    step = step_factory(module_cls(kernel_cfg))
     runs = []
     for _ in range(2):
-        state = TrainState.create(apply_fn=ViT(config), params=params, tx=adamw(3e-4))
+        state = TrainState.create(apply_fn=module_cls(kernel_cfg), params=params, tx=adamw(lr))
         losses = []
         for b in batches:
             state, metrics = step(state, b)
@@ -648,16 +658,84 @@ def vit_grad_agreement(config, *, device: str = "cuda", batch: int = 64) -> dict
     losses = runs[0][0].tolist()
     if not same_losses:
         raise AssertionError(
-            f"two 3-step runs from one state gave different losses: {losses} vs "
+            f"two {len(batches)}-step runs from one state gave different losses: {losses} vs "
             f"{runs[1][0].tolist()}"
         )
     out = {"kernel_loss": k_loss, "plain_loss": p_loss, "min_grad_cosine": min(cosines),
            "grad_tensors": len(cosines), "rerun_losses": losses,
            "rerun_same_loss_bits": same_losses, "rerun_same_param_bits": same_params}
-    log(f"vit: one step, kernel path vs plain path: loss {k_loss} vs {p_loss}, min cosine over "
-        f"{len(cosines)} gradient tensors {min(cosines)}; two 3-step runs: losses {losses}, "
-        f"same loss bits {same_losses}, same param bits {same_params}")
+    log(f"{name}: one step, kernel path vs plain path: loss {k_loss} vs {p_loss}, min cosine "
+        f"over {len(cosines)} gradient tensors {min(cosines)}; two {len(batches)}-step runs: "
+        f"losses {losses}, same loss bits {same_losses}, same param bits {same_params}")
     return out
+
+
+def vit_grad_agreement(config, *, device: str = "cuda", batch: int = 64) -> dict:
+    """One step's loss and gradients of ``config`` (kernel path) against the
+    plain path (``attn_impl`` and ``norm_impl`` "xla") from the same params
+    and batch on ``device`` (per-tensor cosine), then two 3-step runs of the
+    kernel path's ``classification_step`` from one state, whose losses must
+    be the same bits (the backward has no atomics)."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import ViT, classification_step, init_vit_params
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    return path_agreement(
+        "vit", ViT, config, dataclasses.replace(config, attn_impl="xla", norm_impl="xla"),
+        lambda logits, labels: F.cross_entropy(logits.float(), labels), classification_step,
+        init_vit_params(config, generator=gen, device=device),
+        vit_batches(config, batch, 3, device, seed=5), lr=3e-4, cosine_min=VIT_GRAD_COSINE_MIN,
+    )
+
+
+def marked_training(build, kernels: dict, *, steps: int, warmup: int, on_card: bool,
+                    **train_kwargs) -> dict:
+    """``build(on_step).train(**train_kwargs)``, with the host clock, the
+    ``kernels``' launch counts and the peak memory marked after step
+    ``warmup`` and after the last of ``steps`` (each after a wait for the
+    card). Returns the trained state and metrics, the per-step losses, the
+    wall time, step ms and launches per step over the timed steps, the
+    run's launches, the peak memory and the trainer's samples/sec gauge."""
+    from unionml_tpu_torch import telemetry
+
+    marks = {}
+    losses = []
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def on_step(state, metrics):
+        losses.append(metrics["loss"])
+        if state.step in (warmup, steps):
+            if on_card:
+                torch.cuda.synchronize()
+            marks[state.step] = (time.perf_counter(), counts(),
+                                 torch.cuda.max_memory_allocated() if on_card else None)
+
+    model = build(on_step)
+    for k in kernels.values():
+        k.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = model.train(**train_kwargs)
+    wall_s = time.perf_counter() - t0
+    if len(losses) != steps or set(marks) != {warmup, steps}:
+        raise AssertionError(f"the trainer ran {len(losses)} steps, expected {steps}")
+    (t_a, c_a, _), (t_b, c_b, peak) = marks[warmup], marks[steps]
+    timed = steps - warmup
+    losses = torch.stack(losses).float().tolist()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return {
+        "state": state, "eval": metrics, "losses": losses, "wall_s": wall_s, "timed_steps": timed,
+        "step_ms": (t_b - t_a) / timed * 1e3, "launches": counts(),
+        "launches_per_step": {name: (c_b[name] - c_a[name]) / timed for name in kernels},
+        "peak_mem_gib": peak / 2**30 if on_card else None,
+        "samples_per_sec_gauge": telemetry.get_registry().gauge(
+            "unionml_trainer_samples_per_sec").value,
+    }
 
 
 def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
@@ -670,71 +748,37 @@ def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
     The steps after the first ``warmup`` are timed (host clock between two
     waits for the card); the kernels' launches per timed step must be
     :data:`VIT_LAUNCHES_PER_STEP` and the last loss below the first."""
-    from unionml_tpu_torch import telemetry
     from unionml_tpu_torch.templates.vision_tpu.app import build_model
 
     on_card = device == "cuda"
-    kernels = vit_kernels()
     steps = batches_per_epoch * epochs
-    marks = {}
-    losses = []
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    def counts():
-        return {name: k.launches for name, k in kernels.items()}
-
-    def on_step(state, metrics):
-        losses.append(metrics["loss"])
-        if state.step in (warmup, steps):
-            sync()
-            marks[state.step] = (time.perf_counter(), counts(),
-                                 torch.cuda.max_memory_allocated() if on_card else None)
-
-    model = build_model(config, name="chip_smoke_vit", reader_cache=False, on_step=on_step)
-    # the template's split keeps 80% for training
-    n = batch * batches_per_epoch * 5 // 4
-    for k in kernels.values():
-        k.launches = 0
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, metrics = model.train(
+    run = marked_training(
+        lambda on_step: build_model(config, name="chip_smoke_vit", reader_cache=False,
+                                    on_step=on_step),
+        vit_kernels(), steps=steps, warmup=warmup, on_card=on_card,
         hyperparameters={"device": device, "learning_rate": 3e-4},
-        trainer_kwargs={"num_epochs": epochs, "batch_size": batch}, n=n, seed=0,
+        # the template's split keeps 80% for training
+        trainer_kwargs={"num_epochs": epochs, "batch_size": batch},
+        n=batch * batches_per_epoch * 5 // 4, seed=0,
     )
-    wall_s = time.perf_counter() - t0
-    launches = counts()
-    if len(losses) != steps or set(marks) != {warmup, steps}:
-        raise AssertionError(f"the trainer ran {len(losses)} steps, expected {steps}")
-    (t_a, c_a, _), (t_b, c_b, peak) = marks[warmup], marks[steps]
-    timed = steps - warmup
-    per_step = {name: (c_b[name] - c_a[name]) / timed for name in kernels}
-    losses = torch.stack(losses).float().tolist()
-    step_ms = (t_b - t_a) / timed * 1e3
-    gauge = telemetry.get_registry().gauge("unionml_trainer_samples_per_sec").value
+    del run["state"]
+    step_ms, per_step, gauge = run["step_ms"], run["launches_per_step"], run[
+        "samples_per_sec_gauge"]
+    losses = run["losses"]
     out = {
         "config": f"ViT patch {config.patch_size}, image {config.image_size}, width "
                   f"{config.hidden_dim}, {config.num_layers} layers, {config.num_heads} heads, "
                   f"mlp {config.mlp_dim}, {config.num_classes} classes, {config.dtype} compute, "
                   f"fp32 params, attn {config.attn_impl}, norm {config.norm_impl}",
-        "batch": batch, "steps": steps, "timed_steps": timed,
-        "step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
-        "samples_per_sec_gauge": gauge, "wall_s": wall_s,
-        "peak_mem_gib": peak / 2**30 if on_card else None,
-        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
-        "eval": metrics, "launches": launches, "launches_per_step": per_step,
+        "batch": batch, "steps": steps, "samples_per_s": batch / step_ms * 1e3,
+        "first_loss": losses[0], "last_loss": losses[-1], **run,
     }
     log(f"vit: {steps} steps of batch {batch} ({warmup} warm-up): step_ms {step_ms} "
         f"samples/s {out['samples_per_s']} gauge unionml_trainer_samples_per_sec {gauge} "
-        f"peak memory {out['peak_mem_gib']} GiB, wall {wall_s} s (reader, split, "
+        f"peak memory {out['peak_mem_gib']} GiB, wall {out['wall_s']} s (reader, split, "
         f"evaluation included)")
-    log(f"vit: loss first {losses[0]} last {losses[-1]}; eval {metrics}; launches per timed "
-        f"step {per_step}; launches in the run {launches}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the ViT loss did not fall: {losses}")
+    log(f"vit: loss first {losses[0]} last {losses[-1]}; eval {out['eval']}; launches per "
+        f"timed step {per_step}; launches in the run {out['launches']}")
     if on_card:
         if per_step != VIT_LAUNCHES_PER_STEP:
             raise AssertionError(f"ViT kernel launches per step {per_step}, expected "
@@ -742,6 +786,385 @@ def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
         if not gauge > 0:
             raise AssertionError("the trainer set no unionml_trainer_samples_per_sec gauge")
     return out
+
+
+# --------------------------------------------------------------------- #
+# long-context Llama training (llama_lc)
+# --------------------------------------------------------------------- #
+
+# the Llama phase trains LlamaConfig.llama_lc() (benchmarks/train_throughput.py's
+# long-context Llama, RMSNorm in plain PyTorch as there) on batches of
+# 2 x 4096 tokens, AdamW at lr 1e-3
+LM_GRAD_COSINE_MIN = 0.99    # bf16 kernel path vs bf16 plain (xla attention) path, per tensor
+# rows 9-11 against their plain versions, row by row: max |kernel - plain|
+# over the row's max |plain| (query rows for out and dq, key rows for dk
+# and dv). Under causal attention the scale of a row falls with the number
+# of positions it averages, so a whole-tensor scale would hide late rows.
+# 2e-2 is ~2.5 bf16 ulps of the row's largest entry: one ulp of output
+# rounding plus p and ds rounded at other points in fp32 sums of another
+# order.
+FLASH_ROW_LIMIT = 2e-2
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)   # fp32 statistics, exp and sums in another order
+FLASH_TILE = 64                        # the kernels' query and key tile
+FLASH_ROW_FLOOR = 1e-3                 # of the tensor's max |plain|, see row_rel_err
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per row (all but the last dim): max |got - want| over the row's max
+    |want|, that scale floored at ``FLASH_ROW_FLOOR`` x the tensor's max
+    |want|. A row that far below the rest holds fp32 cancellation noise:
+    a query that sees one key has ds = p (dp - delta) = 0 in exact
+    arithmetic, and the plain and kernel sums leave different residues."""
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1)
+    scale = scale.clamp_min(FLASH_ROW_FLOOR * float(scale.max())).clamp_min(1e-30)
+    return err / scale
+
+
+def check_rows(name: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> dict:
+    """Hold ``got`` to ``want`` row by row (:func:`row_rel_err` at most
+    ``limit``); returns the worst row's error and the scale of ``want``."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    rel = row_rel_err(got, want)
+    worst = int(rel.argmax())
+    mag = want.float().abs()
+    stats = {"max_row_rel_err": float(rel.max()), "limit": limit,
+             "plain_abs_max": float(mag.max()), "plain_abs_median": float(mag.median()),
+             "max_abs_err": float((got.float() - want.float()).abs().max())}
+    if stats["max_row_rel_err"] > limit:
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: row {worst} (flat index over "
+            f"{tuple(rel.shape)}) is off by {stats['max_row_rel_err']} of its max |plain| "
+            f"{float(mag.amax(dim=-1).flatten()[worst])}, beyond {limit}"
+        )
+    return stats
+
+
+def dropped_tile_fault(q, k, v, do, out, lse, *, causal: bool, scale: float):
+    """A planted fault the row check must reject: the plain forward and
+    backward with each query's last visible key tile skipped (for queries
+    that see more than one tile), as a kernel with its key loop one tile
+    short would compute. ``(out, dq, dk, dv)``; the backward recomputes on
+    the given ``out`` and ``lse``, as the kernels do."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    q_len, kv_len = q.shape[1], k.shape[1]
+    rows = torch.arange(q_len, device=q.device)
+    last = (rows + (kv_len - q_len)).clamp(0, kv_len - 1) if causal else \
+        torch.full_like(rows, kv_len - 1)
+    last_tile = (last // FLASH_TILE)[:, None]
+    key_tile = (torch.arange(kv_len, device=q.device) // FLASH_TILE)[None, :]
+    vis = fa._causal_visible(q_len, kv_len, q.device) if causal else \
+        torch.ones(q_len, kv_len, dtype=torch.bool, device=q.device)
+    vis = vis & ~((key_tile == last_tile) & (last_tile > 0))
+    bad_out = fa._plain_forward(q, k, v, vis, scale)[0]
+    return (bad_out, *fa._plain_backward(q, k, v, do, out, lse, vis, scale))
+
+
+def check_flash_rows(name: str, got: dict, want: dict, fault: dict) -> dict:
+    """:func:`check_rows` for each of out, dq, dk and dv, then the planted
+    fault against the same plain versions: it must fail the check (the
+    share of its rows beyond the limit is recorded)."""
+    checks = {}
+    for t_name in ("out", "dq", "dk", "dv"):
+        checks[t_name] = check_rows(f"{name} {t_name}", got[t_name], want[t_name],
+                                    FLASH_ROW_LIMIT)
+        over = row_rel_err(fault[t_name], want[t_name]) > FLASH_ROW_LIMIT
+        checks[t_name]["fault_rows_over_limit"] = float(over.float().mean())
+        if not bool(over.any()):
+            raise AssertionError(f"{name} {t_name}: the row check passed a planted fault "
+                                 f"(the last visible key tile skipped)")
+    return checks
+
+
+def lm_kernels() -> dict:
+    """The wrappers (launch counters) of the Llama training path's kernels."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.FWD_KERNEL, "flash_bwd_dq": fa.DQ_KERNEL,
+            "flash_bwd_dkv": fa.DKV_KERNEL}
+
+
+def _visible_pairs(q_len: int, kv_len: int, causal: bool) -> int:
+    """(query, key) pairs one head attends over (bottom-right causal)."""
+    if not causal:
+        return q_len * kv_len
+    off = kv_len - q_len
+    return sum(min(kv_len, max(0, i + off + 1)) for i in range(q_len))
+
+
+def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal: bool,
+                     gen) -> dict:
+    """Rows 9, 10 and 11 at one shape: the lse forward against its plain
+    version (out and lse), the dq and dk/dv kernels against the plain
+    backward on the kernel's own out and lse, the backward run twice (the
+    same bits); times of each kernel, the plain versions, the bounds and
+    the SDPA yardsticks (its forward for row 9, its backward alone for
+    rows 10 and 11, and forward + backward against rows 9-11's total)."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    scale = d**-0.5
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, skv, kvh, d, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, skv, kvh, d, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
+    kw = dict(causal=causal, scale=scale)
+    fwd = lambda: fa.flash_fwd_cuda(q, k, v, **kw)  # noqa: E731
+    out, lse = fwd()
+    delta = fa.flash_delta(do, out)
+    dq_run = lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)  # noqa: E731
+    dkv_run = lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)  # noqa: E731
+    grads, again = (dq_run(), *dkv_run()), (dq_run(), *dkv_run())
+    torch.cuda.synchronize()
+    name = f"flash b={b} sq={sq} skv={skv} h={h}/{kvh} d={d} causal={causal}"
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    check_close(f"{name} lse", lse, want_lse, LSE_TOL)
+    want = dict(zip(("out", "dq", "dk", "dv"),
+                    (want_out, *fa.flash_bwd_plain(q, k, v, do, out, lse, **kw))))
+    fault = dict(zip(want, dropped_tile_fault(q, k, v, do, out, lse, **kw)))
+    checks = check_flash_rows(name, dict(zip(want, (out, *grads))), want, fault)
+    for g_name, got, same in zip(("dq", "dk", "dv"), grads, again):
+        if not torch.equal(got, same):
+            raise AssertionError(f"{name} {g_name}: two backward runs differ")
+    errs = {t_name: c["max_abs_err"] for t_name, c in checks.items()}
+    del want, want_out, want_lse, fault
+    # work these inputs need: every visible (query, key) pair of every head
+    pairs = b * h * _visible_pairs(sq, skv, causal)
+    q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, b * h * sq * 4
+    bounds = {
+        "flash_fwd": bound(2 * q_bytes + 2 * kv_bytes + stat_bytes,          # q, out, k, v, lse
+                           4 * pairs * d, PEAK_BF16_OPS_S),
+        "flash_bwd_dq": bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,   # q, do, dq, k, v
+                              6 * pairs * d, PEAK_BF16_OPS_S),
+        "flash_bwd_dkv": bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes,  # q, do, k, v, dk, dv
+                               8 * pairs * d, PEAK_BF16_OPS_S),
+    }
+    plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1)
+    plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, out, lse, **kw), iters=3,
+                           warmup=1)
+    # yardsticks: SDPA over [B, H, S, D] (top-left causal alignment, the
+    # same as bottom-right for equal lengths; unequal lengths get a mask)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    mask = None
+    if causal and sq != skv:
+        mask = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril(skv - sq)
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+    lq, lk, lv = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lib_o = F.scaled_dot_product_attention(lq, lk, lv, **sdpa_kw)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(lq, lk, lv, **sdpa_kw)
+        return torch.autograd.grad(o, (lq, lk, lv), dot)
+
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_o, (lq, lk, lv), dot, retain_graph=True))
+    shape = f"q[{b},{sq},{h},{d}] kv[{b},{skv},{kvh},{d}] bf16, causal={causal}"
+    cases = {
+        "flash_fwd": {"max_abs_err": errs["out"], "ms": time_ms(fwd), "plain_ms": plain_fwd_ms,
+                      "library_ms": time_ms(
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)),
+                      "library_call": "F.scaled_dot_product_attention(enable_gqa) forward",
+                      "row_checks": {"out": checks["out"]}},
+        "flash_bwd_dq": {"max_abs_err": errs["dq"], "ms": time_ms(dq_run),
+                         "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
+                         "row_checks": {"dq": checks["dq"]}},
+        "flash_bwd_dkv": {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(dkv_run),
+                          "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
+                          "row_checks": {"dk": checks["dk"], "dv": checks["dv"]}},
+    }
+    for row, case in cases.items():
+        case.update(shape=shape, bound_ms=bounds[row][0], bound_by=bounds[row][1])
+        if row != "flash_fwd":
+            case["plain_call"] = "flash_bwd_plain (dq, dk and dv together)"
+            case["library_call"] = ("the backward of F.scaled_dot_product_attention(enable_gqa) "
+                                    "alone (dq, dk and dv together; autograd.grad over a "
+                                    "recorded forward)")
+    total = lambda: (fwd(), fa.flash_bwd_cuda(q, k, v, do, out, lse, **kw))  # noqa: E731
+    cases["flash_bwd_dkv"]["fwd_bwd_ms"] = time_ms(total)
+    cases["flash_bwd_dkv"]["library_fwd_bwd_ms"] = time_ms(lib_fwd_bwd)
+    return cases
+
+
+def flash_train_kernel_phase() -> dict:
+    """Rows 9-11 at the llama_lc training shape (S = 4095: lm_step trains
+    on tokens[:, :-1]), at the Llama-3-8B head geometry, and at small
+    non-causal and cross-length shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for shape in ((2, 4095, 4095, 12, 4, 64, True), (1, 2048, 2048, 32, 8, 128, True),
+                  (2, 200, 200, 4, 2, 64, False), (2, 40, 200, 4, 2, 64, True)):
+        for name, case in flash_train_case(*shape, gen).items():
+            out.setdefault(name, []).append(case)
+    for name, cases in out.items():
+        for c in cases:
+            log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} ms {c['ms']} "
+                f"plain_ms {c['plain_ms']} bound_ms {c['bound_ms']} ({c['bound_by']}) "
+                f"library_ms {c['library_ms']}"
+                + (f" rows 9-11 ms {c['fwd_bwd_ms']} library fwd+bwd ms "
+                   f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else ""))
+            for t_name, chk in c["row_checks"].items():
+                log(f"  row check {t_name}: max row err {chk['max_row_rel_err']} of the row's "
+                    f"max |plain| (limit {chk['limit']}); |plain| max {chk['plain_abs_max']} "
+                    f"median {chk['plain_abs_median']}; planted fault: "
+                    f"{chk['fault_rows_over_limit']} of rows beyond the limit")
+    return out
+
+
+def lm_tokens(n: int, seq: int, vocab: int, seed: int) -> np.ndarray:
+    """``n`` token sequences of ``seq`` ids with a learnable structure:
+    strided progressions mod ``vocab`` (a random start and a stride in
+    [1, 16) per row), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, vocab, size=(n, 1))
+    stride = rng.integers(1, 16, size=(n, 1))
+    return (start + stride * np.arange(seq)[None]) % vocab
+
+
+def build_lm_app(config, *, name: str, on_step=None, eval_batch: int = 2):
+    """The LM app's Dataset/Model spec for ``config``: the reader makes
+    ``n`` sequences of ``seq`` tokens and returns the shifted pairs
+    (``features = tokens[:, :-1]``, ``targets = tokens[:, 1:]``), a seeded
+    splitter cuts them, the parser returns the pair; the Model's ``init=``
+    builds an AdamW ``TrainState`` of ``Llama(config)`` on the ``device``
+    hyperparameter (``None`` = CUDA), ``@model.train_step`` runs
+    ``lm_step`` on the ``(inputs, labels)`` batches the trainer feeds, and
+    the evaluator returns the mean cross entropy (``eval_batch`` rows at a
+    time). ``on_step(state, metrics)`` is called after every step."""
+    from typing import Optional
+
+    from unionml_tpu_torch import Dataset, Model
+    from unionml_tpu_torch._device import resolve_device
+    from unionml_tpu_torch.models import (
+        Llama,
+        TrainState,
+        create_train_state,
+        lm_step,
+        masked_cross_entropy,
+    )
+
+    module = Llama(config)
+    dataset = Dataset(name=f"{name}_dataset", test_size=0.2)
+
+    @dataset.reader
+    def reader(n: int = 64, seq: int = 4096, seed: int = 0) -> dict:
+        tokens = lm_tokens(n, seq, config.vocab_size, seed)
+        return {"features": tokens[:, :-1], "targets": tokens[:, 1:]}
+
+    @dataset.splitter
+    def splitter(data: dict, test_size: float, shuffle: bool, random_state: int):
+        idx = np.arange(len(data["features"]))
+        if shuffle:
+            np.random.default_rng(random_state).shuffle(idx)
+        cut = int(len(idx) * (1 - test_size))
+        return ({key: val[idx[:cut]] for key, val in data.items()},
+                {key: val[idx[cut:]] for key, val in data.items()})
+
+    @dataset.parser
+    def parser(data: dict, features, targets):
+        return (data["features"], data["targets"])
+
+    def init(learning_rate: float = 1e-3, device: Optional[str] = None) -> TrainState:
+        example = torch.zeros(1, 8, dtype=torch.long, device=resolve_device(device))
+        return create_train_state(module, example, learning_rate=learning_rate)
+
+    model = Model(name=name, init=init, dataset=dataset)
+    step = lm_step(module)
+
+    @model.train_step
+    def train_step(state, batch):
+        state, metrics = step(state, batch)
+        if on_step is not None:
+            on_step(state, metrics)
+        return state, metrics
+
+    @model.evaluator
+    def evaluator(state: TrainState, features: np.ndarray, targets: np.ndarray) -> float:
+        device = state.params["lm_head"]["kernel"].device
+        total = 0.0
+        with torch.no_grad():
+            for i in range(0, len(features), eval_batch):
+                x = torch.as_tensor(features[i:i + eval_batch], device=device)
+                y = torch.as_tensor(targets[i:i + eval_batch], device=device)
+                total += float(masked_cross_entropy(module(state.params, x), y)) * len(x)
+        return total / len(features)
+
+    return model
+
+
+def lm_train_phase(config, *, device: str = "cuda", batch: int = 2, seq: int = 4096,
+                   batches_per_epoch: int = 18, epochs: int = 3, warmup: int = 2) -> dict:
+    """Train ``config`` through the LM app's ``model.train``
+    (``@model.train_step`` -> ``run_step_trainer`` -> ``lm_step``) on
+    strided token sequences: ``epochs`` x ``batches_per_epoch`` steps of
+    ``batch`` sequences of ``seq`` tokens (54 steps by default, so the
+    trainer's 50-step window sets ``unionml_trainer_samples_per_sec``).
+    The steps after the first ``warmup`` are timed (host clock between two
+    waits for the card); rows 9, 10 and 11 must launch once per layer per
+    timed step (the forward twice under ``remat``) and the last loss must
+    be below the first."""
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    on_card = device == "cuda"
+    steps = batches_per_epoch * epochs
+    run = marked_training(
+        lambda on_step: build_lm_app(config, name="chip_smoke_llama", on_step=on_step),
+        lm_kernels(), steps=steps, warmup=warmup, on_card=on_card,
+        hyperparameters={"device": device, "learning_rate": 1e-3},
+        # the splitter keeps 80% for training
+        trainer_kwargs={"num_epochs": epochs, "batch_size": batch},
+        n=batch * batches_per_epoch * 5 // 4, seq=seq, seed=0,
+    )
+    n_params = sum(p.numel() for p in tree_leaves(run.pop("state").params))
+    step_ms, per_step, gauge = run["step_ms"], run["launches_per_step"], run[
+        "samples_per_sec_gauge"]
+    losses = run["losses"]
+    out = {
+        "config": f"Llama vocab {config.vocab_size}, width {config.hidden_dim}, "
+                  f"{config.num_layers} layers, {config.num_heads}/{config.num_kv_heads} heads, "
+                  f"mlp {config.mlp_dim}, {config.dtype} compute, fp32 params and LM head, "
+                  f"attn {config.attn_impl}, norm {config.norm_impl}, remat {config.remat}",
+        "params": n_params, "batch": batch, "seq": seq, "steps": steps,
+        "tokens_per_s": batch * (seq - 1) / step_ms * 1e3,
+        "first_loss": losses[0], "last_loss": losses[-1], **run,
+    }
+    log(f"llama: {n_params} params, {steps} steps of {batch} x {seq} tokens ({warmup} warm-up): "
+        f"step_ms {step_ms} tokens/s {out['tokens_per_s']} gauge "
+        f"unionml_trainer_samples_per_sec {gauge} peak memory {out['peak_mem_gib']} GiB, wall "
+        f"{out['wall_s']} s (reader, split, evaluation included)")
+    log(f"llama: loss first {losses[0]} last {losses[-1]}; eval {out['eval']}; launches per "
+        f"timed step {per_step}; launches in the run {out['launches']}")
+    if on_card:
+        layers = float(config.num_layers)
+        want = {"flash_fwd": layers * (2 if config.remat else 1), "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers}
+        if per_step != want:
+            raise AssertionError(f"Llama kernel launches per step {per_step}, expected {want}")
+        if not gauge > 0:
+            raise AssertionError("the trainer set no unionml_trainer_samples_per_sec gauge")
+    return out
+
+
+def lm_grad_agreement(config, *, device: str = "cuda", batch: int = 2, seq: int = 4096,
+                      layers: int = 2) -> dict:
+    """One step's loss and gradients of ``config`` cut to ``layers`` layers
+    (kernel path) against the plain path (``attn_impl="xla"``: full fp32
+    scores) from the same params and batch on ``device`` (per-tensor
+    cosine), then two 3-step ``lm_step`` runs of the kernel path from one
+    state, whose losses must be the same bits (no atomics)."""
+    from unionml_tpu_torch.models import Llama, init_params, lm_step, masked_cross_entropy
+
+    config = dataclasses.replace(config, num_layers=layers)
+    params = init_params(config, seed=5, device=device)
+    tokens = torch.from_numpy(lm_tokens(3 * batch, seq, config.vocab_size, seed=5)).to(device)
+    out = path_agreement(
+        f"llama ({layers} layers)", Llama, config, dataclasses.replace(config, attn_impl="xla"),
+        masked_cross_entropy, lm_step, params,
+        [(t[:, :-1], t[:, 1:]) for t in tokens.split(batch)], lr=1e-3,
+        cosine_min=LM_GRAD_COSINE_MIN,
+    )
+    return {"layers": layers, **out}
 
 
 def kernel_phase(batch: int, bucket: int) -> dict:
@@ -1653,6 +2076,7 @@ def main(argv=None) -> int:
     batch, bucket = 4, 1024
     kernels = kernel_phase(batch, bucket)
     kernels.update(vit_kernel_phase())
+    kernels.update(flash_train_kernel_phase())
     log(f"time: kernels done at {time.perf_counter() - t_run:.1f} s")
 
     from unionml_tpu_torch.models import ViTConfig
@@ -1663,6 +2087,11 @@ def main(argv=None) -> int:
     log(f"time: vit training done at {time.perf_counter() - t_run:.1f} s")
 
     from unionml_tpu_torch.models import LlamaConfig
+
+    llama_cfg = LlamaConfig.llama_lc()
+    llama = lm_train_phase(llama_cfg)
+    llama["agreement"] = lm_grad_agreement(llama_cfg)
+    log(f"time: llama training done at {time.perf_counter() - t_run:.1f} s")
 
     base = LlamaConfig.llama3_8b()
     served = serve_phase(dataclasses.replace(base, num_layers=args.layers),
@@ -1727,12 +2156,21 @@ def main(argv=None) -> int:
                                 "unionml_tpu/ops/fused_attention.py:66"),
         "fused_attention_bwd": ("unionml_tpu_torch/csrc/fused_attention.cu",
                                 "unionml_tpu/ops/fused_attention.py:92"),
+        "flash_fwd": ("unionml_tpu_torch/csrc/flash_attention.cu",
+                      "unionml_tpu/ops/flash_attention.py:63"),
+        "flash_bwd_dq": ("unionml_tpu_torch/csrc/flash_bwd.cu",
+                         "unionml_tpu/ops/flash_attention.py:262"),
+        "flash_bwd_dkv": ("unionml_tpu_torch/csrc/flash_bwd.cu",
+                          "unionml_tpu/ops/flash_attention.py:311"),
     }
     # launches on each kernel's main path: the int8 engine phase for rows
     # 1, 2 and 6, the speculative engine for row 7, the int4 paged engine
-    # for row 8, the ViT-B/16 training run for rows 3, 4, 5, 12 and 13
+    # for row 8, the ViT-B/16 training run for rows 3, 4, 5, 12 and 13,
+    # the llama_lc training run for rows 9, 10 and 11
     main_launches = dict(engine["launches"])
     main_launches.update(vit["launches"])
+    main_launches.update(llama["launches"])
+    per_train_step = {**vit["launches_per_step"], **llama["launches_per_step"]}
     main_launches["int4_matmul"] = spec["launches"]["int4_matmul"]
     main_launches["int4_matmul_grouped"] = int4_engine["launches"]["int4_matmul_grouped"]
     rows = []
@@ -1752,13 +2190,14 @@ def main(argv=None) -> int:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
             "serve_launches": served["launches"].get(name),
-            "launches_per_train_step": vit["launches_per_step"].get(name),
+            "launches_per_train_step": per_train_step.get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "int8_kv": int8_kv,
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
-                      "vit_train": vit, "seconds": time.perf_counter() - t_run}), flush=True)
+                      "vit_train": vit, "llama_train": llama,
+                      "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's ViT training step, on one card.
+"""Where the time goes in the PyTorch port's training step, on one card.
 
-    python3 scripts/profile_torch_train.py [--layers 12] [--batch 64]
-        [--steps 10] [--impl fused]
+    python3 scripts/profile_torch_train.py [--model vit_b16] [--layers 12]
+        [--batch 64] [--steps 10] [--impl fused]
+    python3 scripts/profile_torch_train.py --model llama_lc [--batch 2]
 
-Builds ViT-B/16 (``ViTConfig.base16``, bf16 compute, fp32 params; with
-``--impl fused`` the fused attention and fused LayerNorm kernels, with
-``--impl xla`` the plain PyTorch path) with random weights from a seeded
-generator on the card, and the step the vision_tpu template trains with
-(``classification_step``: softmax cross entropy, autograd, AdamW). Then:
+``--model vit_b16`` (the default) builds ViT-B/16 (``ViTConfig.base16``,
+bf16 compute, fp32 params; with ``--impl fused`` the fused attention and
+fused LayerNorm kernels, with ``--impl xla`` the plain PyTorch path) and
+the step the vision_tpu template trains with (``classification_step``:
+softmax cross entropy, autograd, AdamW at lr 3e-4). ``--model llama_lc``
+builds ``LlamaConfig.llama_lc()`` (the long-context Llama of
+``benchmarks/train_throughput.py``: 12 x 768, flash attention; ``--impl
+xla`` for the plain attention) and ``lm_step`` over one resident batch of
+``--batch`` random sequences of 4096 tokens (AdamW at lr 1e-3).
+Weights are random, from a seeded generator on the card. Then:
 
 1. runs 3 warm-up steps, then ``--steps`` steps between two waits for the
-   card, and prints the step time and samples/s (host clock);
+   card, and prints the step time, samples/s (ViT) or tokens/s (Llama)
+   and the peak memory (host clock);
 2. traces 5 more steps with ``torch.profiler`` (CPU + CUDA) and prints the
    device time per step by kernel class (GEMMs, the port's kernels,
    elementwise, reductions, the optimizer's multi-tensor passes, copies)
@@ -39,7 +46,11 @@ ROOT = Path(__file__).resolve().parents[1]
 # kernel-name fragments -> class, first match wins
 CLASSES = (
     ("port: fused attention", ("fused_fwd_kernel", "fused_bwd_q_kernel", "fused_bwd_kv_kernel")),
+    ("port: flash attention fwd", ("flash_fwd_padded_kernel",)),
+    ("port: flash attention dq", ("flash_dq_kernel",)),
+    ("port: flash attention dk/dv", ("flash_dkv_kernel",)),
     ("port: fused norm", ("norm_fwd_kernel", "norm_bwd_kernel")),
+    ("GEMM fp32 (cuBLAS, no TF32)", ("sgemm", "f32f32_f32f32", "gemmSN", "gemv2T")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel",)),
@@ -58,10 +69,13 @@ def kernel_class(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("vit_b16", "llama_lc"), default="vit_b16")
     ap.add_argument("--layers", type=int, default=12)
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="64 images for vit_b16, 2 sequences for llama_lc")
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--impl", choices=("fused", "xla"), default="fused")
+    ap.add_argument("--impl", choices=("fused", "xla"), default="fused",
+                    help="the port's kernels (fused; flash attention for llama_lc) or plain")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
@@ -74,22 +88,44 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
 
-    from unionml_tpu_torch.models import TrainState, ViT, ViTConfig, adamw, classification_step
-    from unionml_tpu_torch.models import init_vit_params
+    from unionml_tpu_torch.models import TrainState, adamw
 
-    config = dataclasses.replace(ViTConfig.base16(num_classes=1000), num_layers=args.layers,
-                                 attn_impl=args.impl, norm_impl=args.impl)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    module = ViT(config)
-    state = TrainState.create(apply_fn=module,
-                              params=init_vit_params(config, generator=gen, device="cuda"),
-                              tx=adamw(3e-4, weight_decay=1e-4))
-    step = classification_step(module)
-    rng = np.random.default_rng(0)
-    size = config.image_size
-    images = torch.from_numpy(
-        rng.normal(size=(args.batch, size, size, 3)).astype(np.float32)).cuda()
-    batch = (images, (images.mean(dim=(1, 2, 3)) > 0).long())
+    if args.model == "vit_b16":
+        from unionml_tpu_torch.models import ViT, ViTConfig, classification_step
+        from unionml_tpu_torch.models import init_vit_params
+
+        batch_size = args.batch or 64
+        config = dataclasses.replace(ViTConfig.base16(num_classes=1000), num_layers=args.layers,
+                                     attn_impl=args.impl, norm_impl=args.impl)
+        module = ViT(config)
+        state = TrainState.create(apply_fn=module,
+                                  params=init_vit_params(config, generator=gen, device="cuda"),
+                                  tx=adamw(3e-4, weight_decay=1e-4))
+        step = classification_step(module)
+        rng = np.random.default_rng(0)
+        size = config.image_size
+        images = torch.from_numpy(
+            rng.normal(size=(batch_size, size, size, 3)).astype(np.float32)).cuda()
+        batch = (images, (images.mean(dim=(1, 2, 3)) > 0).long())
+        shape = f"ViT-B/16 {args.layers} layers, batch {batch_size}, impl {args.impl}"
+        unit, per_step = "samples", batch_size
+    else:
+        from unionml_tpu_torch.models import Llama, LlamaConfig, init_params, lm_step
+
+        batch_size = args.batch or 2
+        config = LlamaConfig.llama_lc(num_layers=args.layers,
+                                      attn_impl="flash" if args.impl == "fused" else "xla")
+        module = Llama(config)
+        state = TrainState.create(apply_fn=module,
+                                  params=init_params(config, seed=0, device="cuda"),
+                                  tx=adamw(1e-3))
+        step = lm_step(module)
+        batch = torch.randint(0, config.vocab_size, (batch_size, 4096), generator=gen,
+                              device="cuda")
+        shape = (f"llama_lc {args.layers} layers, batch {batch_size} x 4096 tokens, attn "
+                 f"{config.attn_impl}")
+        unit, per_step = "tokens", batch_size * 4095
 
     for _ in range(3):
         state, metrics = step(state, batch)
@@ -99,9 +135,10 @@ def main() -> int:
         state, metrics = step(state, batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    print(f"shape: ViT-B/16 {args.layers} layers, batch {args.batch}, impl {args.impl}")
-    print(f"step_ms {step_ms} samples_per_s {args.batch / step_ms * 1e3} "
-          f"loss {float(metrics['loss'])}")
+    print(f"shape: {shape}")
+    print(f"step_ms {step_ms} {unit}_per_s {per_step / step_ms * 1e3} "
+          f"loss {float(metrics['loss'])} peak_mem_gib "
+          f"{torch.cuda.max_memory_allocated() / 2**30}")
 
     from torch.profiler import ProfilerActivity, profile
 

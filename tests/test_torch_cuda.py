@@ -303,3 +303,111 @@ def test_fused_attention_op_gradients_on_card(cuda):
         assert _max_rel_err(t.grad, ref.grad) < 3e-2
     with pytest.raises(ValueError, match="bf16"):
         tfused.fused_attention_fwd_cuda(*(t.detach().float() for t in (q, q, q)), causal=False)
+
+
+def _max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows (the last dim) of |got - want| over the row's max
+    |want|: under causal attention a row's scale falls with the positions
+    it averages, so each row is judged against its own, floored at 1e-3 of
+    the tensor's max (a row that is 0 in exact arithmetic, such as dq of a
+    query that sees one key, holds fp32 residues)."""
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1)
+    scale = scale.clamp_min(1e-3 * float(scale.max())).clamp_min(1e-30)
+    return float((err / scale).max())
+
+
+def _flash_inputs(cuda, b, sq, skv, h, kvh, d, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, sq, h, d, device=cuda, generator=gen).bfloat16()
+    k = torch.randn(b, skv, kvh, d, device=cuda, generator=gen).bfloat16()
+    v = torch.randn(b, skv, kvh, d, device=cuda, generator=gen).bfloat16()
+    do = torch.randn(b, sq, h, d, device=cuda, generator=gen).bfloat16()
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal", [
+    (2, 4095, 4095, 12, 4, 64, True),     # the llama_lc training shape
+    (1, 2048, 2048, 32, 8, 128, True),    # the Llama-3-8B head geometry
+    (2, 200, 200, 4, 2, 64, False),
+    (2, 40, 200, 4, 2, 64, True),         # cross-length, bottom-right aligned
+    (2, 200, 40, 4, 4, 128, True),        # q_len > kv_len: rows that see nothing
+    (1, 17, 17, 2, 1, 64, True),
+])
+def test_flash_train_kernels_match_plain_on_card(cuda, b, sq, skv, h, kvh, d, causal):
+    """Rows 9-11: the lse forward, the dq and the dk/dv kernels against
+    their plain versions on the same inputs (the backward on the kernel's
+    own out and lse); the backward gives the same bits twice."""
+    q, k, v, do = _flash_inputs(cuda, b, sq, skv, h, kvh, d)
+    scale = d ** -0.5
+    kernels = (tflash.FWD_KERNEL, tflash.DQ_KERNEL, tflash.DKV_KERNEL)
+    before = [kern.launches for kern in kernels]
+    out, lse = tflash.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+    grads = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
+    again = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert [kern.launches - n for kern, n in zip(kernels, before)] == [1, 2, 2]
+    want_out, want_lse = tflash.flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+    # bf16 P rounds at the kernel's running max, the plain version's row
+    # max: ~2.5 bf16 ulps of each query row's largest entry
+    assert _max_row_rel_err(out, want_out) < 2e-2
+    # fp32 statistics, exp and sums in another order
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    want = tflash.flash_bwd_plain(q, k, v, do, out, lse, causal=causal, scale=scale)
+    for got, ref, same in zip(grads, want, again):
+        assert torch.isfinite(got.float()).all()
+        # the same rounding points; bf16 outputs and fp32 sums in another
+        # order (query rows of dq, key rows of dk and dv)
+        assert _max_row_rel_err(got, ref) < 2e-2
+        assert torch.equal(got, same)
+
+
+@pytest.mark.cuda
+def test_flash_op_gradients_on_card(cuda):
+    """The differentiable op on the card (GQA, causal, ragged) against
+    autograd through the fp32 reference attention on fp32 copies; a dtype
+    the kernels do not take raises."""
+    q, k, v, do = _flash_inputs(cuda, 2, 300, 300, 8, 2, 64, seed=1)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = tflash.flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    from unionml_tpu_torch.ops.attention import mha_reference
+
+    mha_reference(*refs, causal=True).backward(do.float())
+    for t, ref in zip((q, k, v), refs):
+        assert _max_rel_err(t.grad, ref.grad) < 3e-2
+    with pytest.raises(ValueError, match="bf16"):
+        tflash.flash_attention(*(t.detach().float() for t in (q, k, v)), causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.flash_fwd_cuda(*(t[..., :32].contiguous().detach() for t in (q, k, v)),
+                              causal=True, scale=1.0)
+
+
+@pytest.mark.cuda
+def test_llama_flash_training_step_on_card(cuda):
+    """Two lm_steps of a small bf16 Llama with attn_impl="flash" on the
+    card: every layer launches rows 9, 10 and 11 once a step, the loss is
+    finite, and remat gives the same loss (the forward runs twice)."""
+    from unionml_tpu_torch.models import create_train_state, lm_step
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           max_len=512, attn_impl="flash")
+    tokens = torch.randint(0, 512, (2, 301), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    kernels = (tflash.FWD_KERNEL, tflash.DQ_KERNEL, tflash.DKV_KERNEL)
+    losses = {}
+    for remat in (False, True):
+        module = Llama(dataclasses.replace(cfg, remat=remat))
+        state = create_train_state(module, tokens[:1, :8])
+        step = lm_step(module)
+        before = [kern.launches for kern in kernels]
+        state, metrics = step(state, tokens)
+        torch.cuda.synchronize()
+        per_step = [kern.launches - n for kern, n in zip(kernels, before)]
+        layers = cfg.num_layers
+        assert per_step == [layers * (2 if remat else 1), layers, layers]
+        losses[remat] = float(metrics["loss"])
+    assert all(map(lambda x: x == x, losses.values()))
+    assert losses[True] == losses[False]

@@ -81,9 +81,15 @@ def test_flash_plain_casts_probabilities_to_value_dtype():
 
 
 def test_flash_without_padding_is_not_ported():
+    """The differentiable path (no ``kv_valid_start``) runs, and the padded
+    path with zero pads gives the same values, as the reference's kernels
+    do (the full check against the JAX package is
+    ``tests/test_torch_flash.py``)."""
     q, k, v = (_t(a) for a in _flash_inputs())
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention(q, k, v, causal=True)
+    out = tflash.flash_attention(q, k, v, causal=True)
+    padded = tflash.flash_attention(q, k, v, causal=True,
+                                    kv_valid_start=torch.zeros(2, dtype=torch.int32))
+    torch.testing.assert_close(out, padded, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("block_threshold", [2048, 8])

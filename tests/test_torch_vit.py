@@ -289,17 +289,19 @@ def test_vit_init_params_follow_the_config():
 
 def test_auto_attention_takes_the_fused_path_up_to_its_limit():
     """``attn_impl="auto"`` runs the fused op up to MAX_FUSED_SEQ tokens;
-    above it the reference takes flash attention, whose backward (rows
-    9-11) is the next slice's: the port says so."""
+    above it, as in the reference, the differentiable flash op (rows
+    9-11), which ``attn_impl="flash"`` also names."""
     from unionml_tpu_torch.models.layers import _run_attention
+    from unionml_tpu_torch.ops import flash_attention as tflash
 
     rng = np.random.default_rng(5)
     q, k, v = (torch.tensor(rng.normal(size=(1, 12, 2, 8)), dtype=torch.float32)
                for _ in range(3))
     torch.testing.assert_close(_run_attention(q, k, v, impl="auto", causal=False),
                                tfa.fused_attention(q, k, v), rtol=0, atol=0)
-    long = torch.zeros(1, tfa.MAX_FUSED_SEQ + 1, 1, 8)
-    with pytest.raises(NotImplementedError, match="Llama-training slice"):
-        _run_attention(long, long, long, impl="auto", causal=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run_attention(q, k, v, impl="flash", causal=False)
+    long = torch.tensor(rng.normal(size=(1, tfa.MAX_FUSED_SEQ + 1, 1, 8)), dtype=torch.float32)
+    torch.testing.assert_close(_run_attention(long, long, long, impl="auto", causal=True),
+                               tflash.flash_attention(long, long, long, causal=True),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(_run_attention(q, k, v, impl="flash", causal=False),
+                               tflash.flash_attention(q, k, v), rtol=0, atol=0)

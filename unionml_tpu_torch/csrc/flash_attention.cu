@@ -1,8 +1,12 @@
-// Padded causal flash-attention forward for Hopper (sm_90a), GQA-aware.
+// Flash-attention forward for Hopper (sm_90a), GQA-aware, in two modes.
 //
-// Replaces: unionml_tpu/ops/flash_attention.py::_fwd_kernel in its padded,
-// forward-only form (reached through _flash_fwd_padded -> pl.pallas_call),
-// the full-prefill attention of prefill_impl="flash".
+// Replaces: unionml_tpu/ops/flash_attention.py::_fwd_kernel in both its
+// forms: the padded, forward-only form (reached through _flash_fwd_padded ->
+// pl.pallas_call), the full-prefill attention of prefill_impl="flash"
+// (entry flash_fwd_padded); and the lse form of the differentiable path
+// (reached through _flash_fwd_bhsd -> pl.pallas_call), the training forward
+// whose per-row logsumexp the FlashAttention-2 backward reads (entry
+// flash_fwd_lse, no padding).
 //
 // What it computes: out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, kvh] * scale)
 // . v[b, j, kvh] over the kv positions j that are visible to query i:
@@ -11,11 +15,14 @@
 // kv head, which is read at its own width (never repeated). Query rows with
 // no visible kv position (inside the padding) return zeros. Statistics m, l
 // and the accumulator stay in fp32; P is cast to bf16 before the P.V
-// product, as the TPU kernel does. No logsumexp is written.
+// product, as the TPU kernel does. The lse mode also writes lse[b, h, i] =
+// m + ln(l) in fp32 (natural log), 0 for a row that sees nothing, so the
+// backward's exp(s - lse) stays 0 there.
 //
-// Bound on the H100: at the prefill shapes (S = 1024, head_dim 128) the
-// tensor-core operations (4 * S^2/2 * D per head) outweigh the bytes read,
-// so the bound is the bf16 matrix rate.
+// Bound on the H100: at the prefill shapes (S = 1024, head_dim 128) and the
+// training shape (S = 4095, head_dim 64) the tensor-core operations
+// (4 * S^2/2 * D per head, causal) outweigh the bytes read, so the bound is
+// the bf16 matrix rate.
 //
 // Design (a first, simple version): one block of 4 warps per (batch * head,
 // 64-query tile). The q tile is loaded once into shared memory and held in
@@ -68,8 +75,8 @@ flash_fwd_padded_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const int* __restrict__ pad,
-                        __nv_bfloat16* __restrict__ out, int sq, int skv,
-                        int h, int kvh, float scale, int causal) {
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                        int sq, int skv, int h, int kvh, float scale, int causal) {
   using Lay = Layout<D>;
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -87,7 +94,7 @@ flash_fwd_padded_kernel(const __nv_bfloat16* __restrict__ q,
   const int head = bh % h;
   const int kv_head = head / (h / kvh);
   const int offset = skv - sq;  // bottom-right causal alignment
-  const int pad_b = pad[b];
+  const int pad_b = pad != nullptr ? pad[b] : 0;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -214,6 +221,9 @@ flash_fwd_padded_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   if (half == 0) Ls[row] = l_run;
+  if (lse != nullptr && half == 0 && q_pos < sq) {
+    lse[(size_t)bh * sq + q_pos] = l_run > 0.f ? m_run + logf(l_run) : 0.f;
+  }
   __syncthreads();
   for (int i = tid; i < BQ * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
@@ -231,7 +241,7 @@ flash_fwd_padded_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pad,
-                   void* out, int b, int sq, int skv, int h, int kvh,
+                   void* out, float* lse, int b, int sq, int skv, int h, int kvh,
                    float scale, int causal, cudaStream_t stream) {
   const int bytes = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -240,7 +250,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* pad,
   dim3 grid((sq + BQ - 1) / BQ, b * h);
   flash_fwd_padded_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), pad, static_cast<__nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(v), pad, static_cast<__nv_bfloat16*>(out), lse,
       sq, skv, h, kvh, scale, causal);
   return cudaGetLastError();
 }
@@ -258,7 +268,23 @@ extern "C" int flash_fwd_padded(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pad);
   if (b <= 0 || sq <= 0) return 0;
-  if (d == 128) return launch<128>(q, k, v, p, out, b, sq, skv, h, kvh, scale, causal, s);
-  if (d == 64) return launch<64>(q, k, v, p, out, b, sq, skv, h, kvh, scale, causal, s);
+  if (d == 128) return launch<128>(q, k, v, p, out, nullptr, b, sq, skv, h, kvh, scale, causal, s);
+  if (d == 64) return launch<64>(q, k, v, p, out, nullptr, b, sq, skv, h, kvh, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The lse form (training forward): q, out: [b, sq, h, d] bf16; k, v:
+// [b, skv, kvh, d] bf16; lse: [b, h, sq] fp32; all contiguous. No padding;
+// causal alignment is bottom-right (query i sees keys j <= i + skv - sq).
+// d must be 64 or 128 and h a multiple of kvh. Returns the launch's
+// cudaError_t.
+extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* out,
+                             void* lse, int b, int sq, int skv, int h, int kvh, int d,
+                             float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (b <= 0 || sq <= 0) return 0;
+  if (d == 128) return launch<128>(q, k, v, nullptr, out, l, b, sq, skv, h, kvh, scale, causal, s);
+  if (d == 64) return launch<64>(q, k, v, nullptr, out, l, b, sq, skv, h, kvh, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

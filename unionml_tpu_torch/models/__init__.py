@@ -1,6 +1,6 @@
-"""The port's model zoo: the Llama serving model and the ViT training
-model with their train-state and step factories (the reference's zoo is
-ported one model at a time; ROADMAP.md)."""
+"""The port's model zoo: the Llama model (serving and LM training) and the
+ViT training model with their train-state and step factories (the
+reference's zoo is ported one model at a time; ROADMAP.md)."""
 
 from unionml_tpu_torch.models.convert import from_jax_params, vit_from_jax_params
 from unionml_tpu_torch.models.generate import (
@@ -26,6 +26,7 @@ from unionml_tpu_torch.models.train import (
     adamw,
     classification_step,
     create_train_state,
+    lm_step,
     make_evaluator,
     make_predictor,
     masked_cross_entropy,
@@ -59,6 +60,7 @@ __all__ = [
     "classification_step",
     "create_train_state",
     "init_vit_params",
+    "lm_step",
     "make_evaluator",
     "make_predictor",
     "masked_cross_entropy",

@@ -13,9 +13,11 @@ CUDA kernel of :mod:`unionml_tpu_torch.ops.fused_norm`),
 :func:`llama3_rope_frequencies` and :func:`rotary_embedding` (split
 halves, fp32), the cached path of :class:`Attention` (contiguous KV
 cache, scalar or per-row fill index, ``prefill_impl="flash"`` through the
-kernel of :mod:`unionml_tpu_torch.ops.flash_attention`), the cache-free
-path (``attn_impl`` ``xla``, ``fused`` through the differentiable
-kernels of :mod:`unionml_tpu_torch.ops.fused_attention`, or ``auto``),
+padded kernel of :mod:`unionml_tpu_torch.ops.flash_attention`), the
+cache-free path (``attn_impl`` ``xla``, ``fused`` through the
+differentiable kernels of :mod:`unionml_tpu_torch.ops.fused_attention`,
+``flash`` through the differentiable kernels of
+:mod:`unionml_tpu_torch.ops.flash_attention`, or ``auto``),
 the block-paged decode step (``block_table=``, through
 :mod:`unionml_tpu_torch.ops.paged_attention`), the int8 KV cache,
 :class:`LayerNorm` (flax's statistics, or ``impl="fused"`` through
@@ -200,29 +202,30 @@ def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
     buf[:, index:index + seq] = new
 
 
-ATTN_IMPLS = ("auto", "xla", "fused")
+ATTN_IMPLS = ("auto", "xla", "fused", "flash")
 
 
 def _run_attention(q, k, v, *, impl: str, causal: bool) -> torch.Tensor:
     """Cache-free attention over [B, S, H, D]: ``xla`` is the full-score
-    reference, ``fused`` the fused short-sequence kernels, ``auto`` fused
-    up to :data:`~unionml_tpu_torch.ops.fused_attention.MAX_FUSED_SEQ`
-    equal-length tokens. Above that the reference takes flash attention,
-    whose backward (kernel rows 9-11) is not ported yet."""
-    from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ, fused_attention
+    reference, ``fused`` the fused short-sequence kernels, ``flash`` the
+    differentiable flash-attention kernels, ``auto`` fused up to
+    :data:`~unionml_tpu_torch.ops.fused_attention.MAX_FUSED_SEQ`
+    equal-length tokens and flash above it (or for unequal lengths), as
+    the reference picks."""
+    from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ
 
     if impl == "auto":
-        if q.shape[1] > MAX_FUSED_SEQ or k.shape[1] != q.shape[1]:
-            raise NotImplementedError(
-                "attn_impl 'auto' picks flash attention above "
-                f"{MAX_FUSED_SEQ} tokens; its backward is not ported yet (the "
-                "Llama-training slice, ROADMAP.md)"
-            )
-        impl = "fused"
+        impl = "fused" if q.shape[1] <= MAX_FUSED_SEQ and k.shape[1] == q.shape[1] else "flash"
     if impl == "xla":
         return mha_reference(q, k, v, causal=causal)
     if impl == "fused":
+        from unionml_tpu_torch.ops.fused_attention import fused_attention
+
         return fused_attention(q, k, v, causal=causal)
+    if impl == "flash":
+        from unionml_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal)
     raise NotImplementedError(
         f"attn_impl {impl!r} is not ported; the cache-free path takes {ATTN_IMPLS}"
     )

@@ -3,11 +3,14 @@
 The port of :mod:`unionml_tpu.models.llama`: RMSNorm, rotary embeddings,
 grouped-query attention, SwiGLU MLP, untied fp32 LM head. Weights are
 the reference's param tree (nested dicts with the flax names) passed to
-``forward``; :func:`init_params` makes a random tree of that layout on a
-device, and :func:`init_cache` the KV cache. Only the dense model is
-ported, with int8 or packed-int4 (``weight_bits=4``) weight-only
-matmuls, the int8 KV cache (``kv_quant``) and the block-paged decode
-step (``block_table=``): MoE and LoRA raise ``NotImplementedError``.
+``forward``; :func:`init_params` (or ``Llama.init``, what
+:func:`~unionml_tpu_torch.models.train.create_train_state` calls) makes a
+random tree of that layout on a device, and :func:`init_cache` the KV
+cache. Only the dense model is ported, with int8 or packed-int4
+(``weight_bits=4``) weight-only matmuls, the int8 KV cache
+(``kv_quant``), the block-paged decode step (``block_table=``) and, for
+training, per-block recomputation (``remat``): MoE and LoRA raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.layers import Attention, MlpBlock, RMSNorm, make_dense
@@ -59,6 +63,10 @@ class LlamaConfig:
     # degree the packing tiles survive (quantize_params(tensor=...))
     int4_group: int = 0
     int4_tp: int = 1
+    # gradient checkpointing per block (long-context training): the
+    # cache-free forward recomputes each block's activations in the
+    # backward instead of keeping them
+    remat: bool = False
     num_experts: int = 0
     lora_rank: int = 0
     # int8 KV cache (generation paths): per-(position, kv_head) fp32
@@ -83,6 +91,19 @@ class LlamaConfig:
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def llama_lc(**overrides) -> "LlamaConfig":
+        """The long-context training Llama of
+        ``benchmarks/train_throughput.py`` (124.7M params): 12 layers of
+        width 768, GQA 12/4 at head_dim 64, MLP 2048, vocab 32000, flash
+        attention, trained on 2 x 4096 tokens."""
+        kwargs = dict(
+            vocab_size=32_000, hidden_dim=768, num_layers=12, num_heads=12,
+            num_kv_heads=4, mlp_dim=2048, max_len=4096, attn_impl="flash",
+        )
+        kwargs.update(overrides)
+        return LlamaConfig(**kwargs)
 
     @staticmethod
     def tiny(vocab_size: int = 512, **overrides) -> "LlamaConfig":
@@ -162,6 +183,13 @@ class Llama(nn.Module):
             weight_bits=config.weight_bits, int4_group=config.int4_group,
         )
 
+    def init(self, generator: torch.Generator, example_input: torch.Tensor) -> dict:
+        """Random fp32 params for this config on ``example_input``'s device
+        (:func:`init_params` with a seed drawn from ``generator``); the
+        example fixes nothing else."""
+        seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+        return init_params(self.config, seed=seed, device=example_input.device)
+
     def forward(
         self,
         params,
@@ -199,13 +227,20 @@ class Llama(nn.Module):
                 base = int(cache_index)
             positions = base + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         new_cache = []
+        # remat: recompute each block's activations in the backward instead
+        # of storing them; the cache path (decode) has no backward
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x, c = block(
-                params[f"block_{i}"], x, positions=positions,
-                cache=cache[i] if cache is not None else None,
-                cache_index=cache_index, kv_mask=kv_mask,
-                block_table=block_table, full_prefill=full_prefill,
-            )
+            if remat:
+                x, c = checkpoint(block, params[f"block_{i}"], x, positions=positions,
+                                  kv_mask=kv_mask, use_reentrant=False)
+            else:
+                x, c = block(
+                    params[f"block_{i}"], x, positions=positions,
+                    cache=cache[i] if cache is not None else None,
+                    cache_index=cache_index, kv_mask=kv_mask,
+                    block_table=block_table, full_prefill=full_prefill,
+                )
             new_cache.append(c)
         if logit_index is not None:
             rows = torch.arange(x.shape[0], device=x.device)
@@ -257,8 +292,8 @@ def init_params(
     dtype: torch.dtype = torch.float32,
 ) -> dict:
     """A random fp param tree in the reference's layout, made on ``device``
-    (``None`` = CUDA, raising without one) from a seeded
-    :class:`torch.Generator`: kernels normal with std 1/sqrt(fan_in),
+    (``None`` = CUDA, raising without one) from a generator there seeded
+    with ``seed``: kernels normal with std 1/sqrt(fan_in),
     embedding normal with std 1/sqrt(hidden), norm scales one. (The
     reference draws flax's initializers from a JAX key; the two give
     different numbers, so parity tests carry JAX weights over with

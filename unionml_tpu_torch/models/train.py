@@ -6,14 +6,13 @@ reference's optax chain ``scale_by_adam -> add_decayed_weights ->
 scale_by_learning_rate``, ``mu_dtype`` for the first moment only),
 :func:`create_train_state`, the serial :func:`accumulated_value_and_grad`
 (a Python loop with an fp32 accumulator), :func:`classification_step`,
-:func:`masked_cross_entropy`, :func:`make_evaluator` and
+:func:`lm_step`, :func:`masked_cross_entropy`, :func:`make_evaluator` and
 :func:`make_predictor`. A step function is ``step(state, batch) -> (state,
 metrics)`` as in the reference; autograd takes the place of
 ``jax.value_and_grad`` and the optimizer builds new param tensors (the
 reference's functional update), with the multi-tensor ``torch._foreach``
 ops where the dtypes allow. The gradient-overlap modes wait for
-parallelism (ROADMAP.md, A11); ``lm_step`` comes with the Llama-training
-slice; the LoRA train state with A12.
+parallelism (ROADMAP.md, A11); the LoRA train state with A12.
 """
 
 from __future__ import annotations
@@ -319,6 +318,46 @@ def classification_step(module: torch.nn.Module, *, accumulate_steps: int = 1) -
             (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
         state = state.apply_gradients(grads=grads)
         return state, {"loss": loss, "accuracy": aux["accuracy"]}
+
+    return step
+
+
+def lm_step(
+    module: torch.nn.Module,
+    *,
+    ignore_id: int = -100,
+    aux_loss_weight: float = 0.01,
+    accumulate_steps: int = 1,
+) -> Callable:
+    """Next-token LM step: the batch is token ids [B, S] and the loss runs
+    over the shifted pairs (``tokens[:, :-1]`` predicts ``tokens[:, 1:]``),
+    or an ``(inputs, labels)`` tuple whose labels carry ``ignore_id`` at
+    unsupervised positions. The loss is :func:`masked_cross_entropy` plus
+    ``aux_loss_weight`` times the layer-mean of the model's auxiliary
+    losses, which the port's dense model does not have (its ``aux_loss``
+    is 0; MoE waits for A11). Metrics ``loss`` (the cross entropy),
+    ``perplexity`` and ``aux_loss`` stay on the device.
+    ``accumulate_steps > 1``: the batch leaves carry a leading microbatch
+    axis and one optimizer update follows the fp32 grad mean over it."""
+
+    def loss_fn(params, microbatch):
+        if isinstance(microbatch, tuple):
+            inputs, targets = microbatch
+        else:
+            inputs, targets = microbatch[:, :-1], microbatch[:, 1:]
+        logits = module(params, inputs)
+        ce = masked_cross_entropy(logits, targets, ignore_id=ignore_id)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux_loss_weight * aux, {"ce": ce, "aux": aux}
+
+    def step(state: TrainState, batch):
+        if accumulate_steps > 1:
+            (_, aux), grads = accumulated_value_and_grad(loss_fn, state.params, batch)
+        else:
+            (_, aux), grads = value_and_grad(loss_fn, state.params, batch)
+        state = state.apply_gradients(grads=grads)
+        loss = aux["ce"]
+        return state, {"loss": loss, "perplexity": torch.exp(loss), "aux_loss": aux["aux"]}
 
     return step
 

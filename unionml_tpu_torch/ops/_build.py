@@ -32,7 +32,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_norm", "flash_attention", "paged_attention", "int4_matmul", "fused_attention")
+SOURCES = (
+    "fused_norm", "flash_attention", "flash_bwd", "paged_attention", "int4_matmul",
+    "fused_attention",
+)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
