@@ -210,12 +210,15 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
     v = torch.randn(b, s, kvh, d, device="cuda", generator=gen).bfloat16()
     pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
     got = fa.flash_fwd_padded_cuda(q, k, v, pad, causal=True, scale=scale)
+    again = fa.flash_fwd_padded_cuda(q, k, v, pad, causal=True, scale=scale)
     torch.cuda.synchronize()
     want = fa.flash_fwd_padded_plain(q, k, v, pad, causal=True, scale=scale)
     err = check_close(f"flash B={b} S={s}", got, want, FLASH_TOL)
     for row, p in enumerate(pads):  # queries inside the padding return zeros
         if p and bool(got[row, :p].any()):
             raise AssertionError(f"flash: padded query rows of batch row {row} are not zero")
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash B={b} S={s}: two forward runs differ")
     # work this data needs: visible (q, kv) pairs under causal + left padding
     pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
     ops = 4 * pairs * h * d                       # QK^T and PV, 2 flops per MAC
@@ -223,10 +226,11 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
     b_ms, b_by = bound(nbytes, ops, PEAK_BF16_OPS_S)
     vis = fa._visible(pad, s, s, True)[:, 0]       # [B, 1, Sq, Skv]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: fa.flash_fwd_padded_cuda(q, k, v, pad, causal=True, scale=scale))
     return {
         "shape": f"q[{b},{s},{h},{d}] kv[{b},{s},{kvh},{d}] bf16, pads {list(pads)}",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: fa.flash_fwd_padded_cuda(q, k, v, pad, causal=True, scale=scale)),
+        "max_abs_err": err, "rerun_same_bits": True,
+        "ms": ms, "tflop_s": ops / ms / 1e9,
         "plain_ms": time_ms(
             lambda: fa.flash_fwd_padded_plain(q, k, v, pad, causal=True, scale=scale), iters=3
         ),
@@ -805,7 +809,7 @@ LM_GRAD_COSINE_MIN = 0.99    # bf16 kernel path vs bf16 plain (xla attention) pa
 # order.
 FLASH_ROW_LIMIT = 2e-2
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)   # fp32 statistics, exp and sums in another order
-FLASH_TILE = 64                        # the kernels' query and key tile
+FLASH_TILE = 64                        # the backward kernels' tile (the forward's: 128)
 FLASH_ROW_FLOOR = 1e-3                 # of the tensor's max |plain|, see row_rel_err
 
 
@@ -898,8 +902,8 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
                      gen) -> dict:
     """Rows 9, 10 and 11 at one shape: the lse forward against its plain
     version (out and lse), the dq and dk/dv kernels against the plain
-    backward on the kernel's own out and lse, the backward run twice (the
-    same bits); times of each kernel, the plain versions, the bounds and
+    backward on the kernel's own out and lse, the forward and the backward
+    each run twice (the same bits); times of each kernel, the plain versions, the bounds and
     the SDPA yardsticks (its forward for row 9, its backward alone for
     rows 10 and 11, and forward + backward against rows 9-11's total)."""
     import torch.nn.functional as F
@@ -913,7 +917,7 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
     do = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
     kw = dict(causal=causal, scale=scale)
     fwd = lambda: fa.flash_fwd_cuda(q, k, v, **kw)  # noqa: E731
-    out, lse = fwd()
+    (out, lse), (out_again, lse_again) = fwd(), fwd()
     delta = fa.flash_delta(do, out)
     dq_run = lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)  # noqa: E731
     dkv_run = lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)  # noqa: E731
@@ -926,6 +930,9 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
                     (want_out, *fa.flash_bwd_plain(q, k, v, do, out, lse, **kw))))
     fault = dict(zip(want, dropped_tile_fault(q, k, v, do, out, lse, **kw)))
     checks = check_flash_rows(name, dict(zip(want, (out, *grads))), want, fault)
+    if not (torch.equal(out, out_again) and torch.equal(lse, lse_again)):
+        raise AssertionError(f"{name}: two forward runs differ")
+    del out_again, lse_again
     for g_name, got, same in zip(("dq", "dk", "dv"), grads, again):
         if not torch.equal(got, same):
             raise AssertionError(f"{name} {g_name}: two backward runs differ")
@@ -961,8 +968,10 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
 
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_o, (lq, lk, lv), dot, retain_graph=True))
     shape = f"q[{b},{sq},{h},{d}] kv[{b},{skv},{kvh},{d}] bf16, causal={causal}"
+    fwd_ms = time_ms(fwd)
     cases = {
-        "flash_fwd": {"max_abs_err": errs["out"], "ms": time_ms(fwd), "plain_ms": plain_fwd_ms,
+        "flash_fwd": {"max_abs_err": errs["out"], "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                      "tflop_s": 4 * pairs * d / fwd_ms / 1e9, "rerun_same_bits": True,
                       "library_ms": time_ms(
                           lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)),
                       "library_call": "F.scaled_dot_product_attention(enable_gqa) forward",
@@ -1002,6 +1011,7 @@ def flash_train_kernel_phase() -> dict:
             log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} ms {c['ms']} "
                 f"plain_ms {c['plain_ms']} bound_ms {c['bound_ms']} ({c['bound_by']}) "
                 f"library_ms {c['library_ms']}"
+                + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else "")
                 + (f" rows 9-11 ms {c['fwd_bwd_ms']} library fwd+bwd ms "
                    f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else ""))
             for t_name, chk in c["row_checks"].items():
@@ -1195,7 +1205,8 @@ def kernel_phase(batch: int, bucket: int) -> dict:
         for c in cases:
             log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} "
                 f"ms {c['ms']} plain_ms {c['plain_ms']} bound_ms {c['bound_ms']} "
-                f"({c['bound_by']}) library_ms {c['library_ms']}")
+                f"({c['bound_by']}) library_ms {c['library_ms']}"
+                + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else ""))
     count = event_wait_releases_gil()
     log(f"kernels: main-thread loop iterations during a CUDA event wait: {count}")
     if count < 10_000:

@@ -46,7 +46,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # kernel-name fragments -> class, first match wins
 CLASSES = (
     ("port: fused attention", ("fused_fwd_kernel", "fused_bwd_q_kernel", "fused_bwd_kv_kernel")),
-    ("port: flash attention fwd", ("flash_fwd_padded_kernel",)),
+    ("port: flash attention fwd", ("flash_fwd_kernel",)),
     ("port: flash attention dq", ("flash_dq_kernel",)),
     ("port: flash attention dk/dv", ("flash_dkv_kernel",)),
     ("port: fused norm", ("norm_fwd_kernel", "norm_bwd_kernel")),

@@ -27,6 +27,43 @@ from unionml_tpu_torch.ops import paged_attention as tpaged
 from unionml_tpu_torch.serving import DecodeEngine
 
 
+def _verify_and_steps(cfg, params, device, prompt_len=32):
+    """One speculative round's two sides over 8 slots with their own fills
+    (below ``prompt_len``): the target's multi-token verify of k + 1
+    tokens, and the same tokens fed one at a time as a draft's decode steps
+    (the engine's masks). Returns (verify logits, step logits), each [8,
+    k + 1, vocab]."""
+    from unionml_tpu_torch.models.llama import init_cache
+
+    module = Llama(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, k = 8, 4
+    length = prompt_len + 2 * k
+    cache = init_cache(cfg, b, length, device=device)
+    prompt = torch.randint(1, cfg.vocab_size, (b, prompt_len), generator=gen, device=device)
+    with torch.inference_mode():
+        _, cache = module(params, prompt, cache=cache, cache_index=0)
+        fills = torch.tensor([prompt_len * f // 20 for f in (2, 11, 6, 19, 3, 8, 13, 5)],
+                             dtype=torch.int32, device=device)
+        rows = torch.arange(length, device=device)[None, :]
+        kv_mask = rows < fills[:, None]
+        tokens = torch.randint(1, cfg.vocab_size, (b, k + 1), generator=gen, device=device)
+
+        def copy(c):
+            return tuple(tuple(buf.clone() for buf in layer) for layer in c)
+
+        def vis(last):
+            return kv_mask | ((rows >= fills[:, None]) & (rows <= (fills + last)[:, None]))
+
+        verify, _ = module(params, tokens, cache=copy(cache), cache_index=fills, kv_mask=vis(k))
+        steps, c = [], copy(cache)
+        for i in range(k + 1):
+            logits, c = module(params, tokens[:, i:i + 1], cache=c, cache_index=fills + i,
+                               kv_mask=vis(i))
+            steps.append(logits[:, -1])
+    return verify, torch.stack(steps, dim=1)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -364,10 +401,103 @@ def test_flash_train_kernels_match_plain_on_card(cuda, b, sq, skv, h, kvh, d, ca
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,pads", [
+    (1, 4095, 4095, 8, 1, 64, True, None),                # S = 4095, GQA group 8
+    (2, 300, 300, 6, 2, 128, True, None),                 # group 3, head_dim 128
+    (2, 129, 129, 4, 4, 64, True, None),                  # group 1, one row past a tile
+    (4, 300, 300, 8, 1, 128, True, [63, 64, 65, 299]),    # pads at a tile edge and S - 1
+    (3, 129, 129, 6, 2, 64, True, [63, 64, 128]),
+    (2, 300, 300, 4, 4, 64, False, [0, 65]),
+    (2, 40, 200, 6, 2, 64, True, None),                   # cross-length, bottom-right
+    (2, 40, 200, 8, 1, 128, False, None),
+    (1, 17, 4095, 2, 1, 64, False, None),                 # one busy warpgroup, 32 tiles
+])
+def test_flash_forward_kernel_edges_on_card(cuda, b, sq, skv, h, kvh, d, causal, pads):
+    """The forward kernel (rows 1 and 9) at its tile edges against the
+    plain versions: ragged sequence ends, left pads around a 64-row edge
+    and at S - 1, head_dim 64 and 128, GQA groups of 1, 3 and 8,
+    cross-length causal and non-causal; lse within its tolerance, padded
+    query rows zero, and a second run giving the same bits."""
+    q, k, v, _ = _flash_inputs(cuda, b, sq, skv, h, kvh, d, seed=2)
+    scale = d ** -0.5
+    kern = tflash.FWD_KERNEL if pads is None else tflash.KERNEL
+    before = kern.launches
+    if pads is None:
+        def run():
+            return tflash.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+
+        (out, lse), (again, lse_again) = run(), run()
+        torch.cuda.synchronize()
+        want, want_lse = tflash.flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+        # fp32 statistics, exp and sums in another order
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+        assert torch.equal(lse, lse_again)
+    else:
+        pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+
+        def run():
+            return tflash.flash_fwd_padded_cuda(q, k, v, pad, causal=causal, scale=scale)
+
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        want = tflash.flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
+        if causal:  # query rows inside the padding see nothing
+            for row, p in enumerate(pads):
+                assert not out[row, :p].any()
+    assert kern.launches == before + 2
+    assert torch.isfinite(out.float()).all()
+    # bf16 P rounds at the kernel's running max, the plain version's row
+    # max: ~2.5 bf16 ulps of each query row's largest entry
+    assert _max_row_rel_err(out, want) < 2e-2
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_flash_padded_path_is_forward_only_on_card(cuda):
+    """With ``kv_valid_start`` on the card: inputs that require grad give
+    the same values as without grad, and a backward raises."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 100, 100, 4, 2, 64, seed=3)
+    pad = torch.tensor([0, 37], dtype=torch.int32, device=cuda)
+    want = tflash.flash_attention(q, k, v, causal=True, kv_valid_start=pad)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    got = tflash.flash_attention(qg, kg, vg, causal=True, kv_valid_start=pad)
+    assert torch.equal(got.detach(), want)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        got.float().sum().backward()
+    with torch.inference_mode():  # the serving path: the direct call
+        out = tflash.flash_attention(qg, kg, vg, causal=True, kv_valid_start=pad)
+    assert out.grad_fn is None and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_verify_rows_match_one_token_steps_on_card(cuda, kv_quant):
+    """On the card a batched GEMM picks its algorithm by shape: a
+    speculative verify over 8 slots must still give, row for row, the bits
+    of the one-token decode steps of the same tokens, so self-speculation
+    accepts everything. The int4 serving form at Llama-3-8B head geometry
+    (two layers): the int4 kernel and the fused RMSNorm give a row the same
+    bits at any row count, so the attention is what this holds."""
+    cfg = LlamaConfig.tiny(vocab_size=4096, hidden_dim=4096, num_heads=32, num_kv_heads=8,
+                           mlp_dim=1024, max_len=512, kv_quant=kv_quant, quantized=True,
+                           weight_bits=4, norm_impl="fused")
+    fp = init_params(dataclasses.replace(cfg, quantized=False), seed=0, device=cuda)
+    params = quantize_params(fp, LLAMA_QUANT_PATTERNS, bits=4)
+
+    def int8_sites(tree):
+        return sum(int8_sites(v) for v in tree.values()) + ("kernel_q" in tree) \
+            if isinstance(tree, dict) else 0
+
+    assert int8_sites(params) == 0   # every projection and the LM head in int4
+    verify, steps = _verify_and_steps(cfg, params, cuda, prompt_len=376)
+    assert torch.equal(verify, steps)
+
+
+@pytest.mark.cuda
 def test_flash_op_gradients_on_card(cuda):
     """The differentiable op on the card (GQA, causal, ragged) against
-    autograd through the fp32 reference attention on fp32 copies; a dtype
-    the kernels do not take raises."""
+    autograd through the fp32 reference attention on fp32 copies; a dtype,
+    a head_dim or a base address the kernels do not take raises."""
     q, k, v, do = _flash_inputs(cuda, 2, 300, 300, 8, 2, 64, seed=1)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     out = tflash.flash_attention(q, k, v, causal=True)
@@ -383,6 +513,11 @@ def test_flash_op_gradients_on_card(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         tflash.flash_fwd_cuda(*(t[..., :32].contiguous().detach() for t in (q, k, v)),
                               causal=True, scale=1.0)
+    # the forward reads through TMA: a contiguous view off a 16-byte boundary
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash.flash_fwd_cuda(buf[1:].view(q.shape), k.detach(), v.detach(), causal=True,
+                              scale=1.0)
 
 
 @pytest.mark.cuda

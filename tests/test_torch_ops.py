@@ -15,6 +15,7 @@ import importlib
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -69,6 +70,31 @@ def test_flash_padded_plain_matches_jax_kernel():
     np.testing.assert_allclose(got, want, **FP32)
     # queries inside the padding return zeros, not NaN
     assert np.all(got[1, :23] == 0.0)
+
+
+def test_flash_padded_path_is_forward_only():
+    """With ``kv_valid_start`` the op is forward-only, as the reference is:
+    inputs that require grad give the same values as without grad, and a
+    backward through the result raises ``RuntimeError``. The reference
+    fails the same way under ``jax.grad`` (its padded kernel has no VJP)."""
+    q, k, v = _flash_inputs()
+    pads = np.array([0, 23], np.int32)
+    want = tflash.flash_attention(_t(q), _t(k), _t(v), causal=True, kv_valid_start=_t(pads))
+    qg, kg, vg = (_t(a).requires_grad_() for a in (q, k, v))
+    got = tflash.flash_attention(qg, kg, vg, causal=True, kv_valid_start=_t(pads))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        got.sum().backward()
+    with torch.no_grad():  # no graph: the direct call, as under inference_mode
+        assert tflash.flash_attention(qg, kg, vg, causal=True,
+                                      kv_valid_start=_t(pads)).grad_fn is None
+
+    def ref_loss(x):
+        return jflash(x, jnp.asarray(k), jnp.asarray(v), causal=True,
+                      kv_valid_start=jnp.asarray(pads), block_q=16, block_kv=16).sum()
+
+    with pytest.raises(AssertionError):
+        jax.grad(ref_loss)(jnp.asarray(q))
 
 
 def test_flash_plain_casts_probabilities_to_value_dtype():

@@ -71,9 +71,59 @@ def _plain(t, tp, prompts, n_new, max_len=128, eos_id=None):
     return gen(tp, prompts).tolist()
 
 
+def _verify_and_steps(cfg, params, device, prompt_len=32):
+    """One speculative round's two sides over 8 slots with their own fills
+    (below ``prompt_len``): the target's multi-token verify of k + 1
+    tokens, and the same tokens fed one at a time as a draft's decode steps
+    (the engine's masks). Returns (verify logits, step logits), each [8,
+    k + 1, vocab]."""
+    from unionml_tpu_torch.models.llama import init_cache
+
+    module = Llama(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, k = 8, 4
+    length = prompt_len + 2 * k
+    cache = init_cache(cfg, b, length, device=device)
+    prompt = torch.randint(1, cfg.vocab_size, (b, prompt_len), generator=gen, device=device)
+    with torch.inference_mode():
+        _, cache = module(params, prompt, cache=cache, cache_index=0)
+        fills = torch.tensor([prompt_len * f // 20 for f in (2, 11, 6, 19, 3, 8, 13, 5)],
+                             dtype=torch.int32, device=device)
+        rows = torch.arange(length, device=device)[None, :]
+        kv_mask = rows < fills[:, None]
+        tokens = torch.randint(1, cfg.vocab_size, (b, k + 1), generator=gen, device=device)
+
+        def copy(c):
+            return tuple(tuple(buf.clone() for buf in layer) for layer in c)
+
+        def vis(last):
+            return kv_mask | ((rows >= fills[:, None]) & (rows <= (fills + last)[:, None]))
+
+        verify, _ = module(params, tokens, cache=copy(cache), cache_index=fills, kv_mask=vis(k))
+        steps, c = [], copy(cache)
+        for i in range(k + 1):
+            logits, c = module(params, tokens[:, i:i + 1], cache=c, cache_index=fills + i,
+                               kv_mask=vis(i))
+            steps.append(logits[:, -1])
+    return verify, torch.stack(steps, dim=1)
+
+
 def _jax_plain(jt, jtp, prompt, n_new, max_len):
     gen = jmake_generator(JLlama(jt), max_new_tokens=n_new, max_len=max_len)
     return np.asarray(gen(jtp, jnp.asarray([prompt], jnp.int32)))[0].tolist()
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_verify_rows_match_one_token_steps(kv_quant):
+    """A speculative verify over 8 slots gives, row for row, the bits of
+    the one-token decode steps of the same tokens (each verify row attends
+    at a decode step's shapes), so a draft equal to the target has every
+    proposal accepted whatever the batch."""
+    cfg = LlamaConfig.tiny(vocab_size=VOCAB, dtype="float32", kv_quant=kv_quant)
+    from unionml_tpu_torch.models import init_params
+
+    verify, steps = _verify_and_steps(cfg, init_params(cfg, device="cpu"), "cpu")
+    assert torch.equal(verify, steps)
 
 
 def test_greedy_acceptance_rule_matches_jax():

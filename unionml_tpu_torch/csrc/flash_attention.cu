@@ -19,248 +19,687 @@
 // m + ln(l) in fp32 (natural log), 0 for a row that sees nothing, so the
 // backward's exp(s - lse) stays 0 there.
 //
-// Bound on the H100: at the prefill shapes (S = 1024, head_dim 128) and the
-// training shape (S = 4095, head_dim 64) the tensor-core operations
-// (4 * S^2/2 * D per head, causal) outweigh the bytes read, so the bound is
-// the bf16 matrix rate.
+// Bound on the H100: at the prefill shapes (S = 1024, head_dim 128, left
+// pads) the bytes of q, k, v and out set the bound; at the training shapes
+// (S = 4095 at head_dim 64, S = 2048 at 128, causal) the tensor-core
+// operations (4 * visible pairs * D per head) outweigh the bytes, and the
+// bound is the bf16 matrix rate (989 TFLOP/s).
 //
-// Design (a first, simple version): one block of 4 warps per (batch * head,
-// 64-query tile). The q tile is loaded once into shared memory and held in
-// WMMA fragments; a loop over 64-key tiles stages K and V in shared memory,
-// each warp computes its 16x64 score slab with bf16 WMMA (fp32 accumulate),
-// a lane pair per query row applies the mask and the online softmax, and the
-// warp adds P.V into its fp32 accumulator rows in shared memory. Key tiles
-// above the causal diagonal and tiles wholly inside the row's left padding
-// are never visited; q tiles are scheduled longest-first. On the TPU the kv
-// grid axis ran in order with scratch carried between steps; here the loop
-// over kv tiles inside the block takes its place. wgmma, TMA and a ring of
-// tiles are later work.
+// Design (the FlashAttention-3 arrangement). One CTA of three warpgroups
+// (384 threads) per (batch * head, 128-query tile), q tiles scheduled
+// longest-first (grid x = batch * head, y = q tile from the last):
+// - a producer warpgroup (setmaxnreg down to 24 registers) of which one
+//   thread issues TMA copies: the q tile once, then K and V tiles of 128
+//   keys through a ring of STAGES slots in shared memory (4 at head_dim 64,
+//   2 at 128), each slot with full barriers for K and V (transaction
+//   counts) and empty barriers for K and V that every consumer thread
+//   arrives on once its wgmmas have read the tile. Key tiles wholly above
+//   the causal diagonal or wholly inside the row's left padding are never
+//   loaded. The tensor maps are 4-D (head_dim, heads, seq, batch) with a
+//   box of one head, so a tile never crosses a batch row; rows past the
+//   sequence read as zeros and the position mask hides them. Each 64-column
+//   chunk of head_dim is one 128-byte-swizzled box; the wgmma descriptors
+//   use the same swizzle (8-row groups 1024 bytes apart; V's 64-column
+//   chunks BKV * 128 bytes apart).
+// - two consumer warpgroups (setmaxnreg up to 240), each owning 64 query
+//   rows. S = Q K^T by wgmma m64n128k16 from shared memory into fp32
+//   registers. The mask only on tiles that need it (the diagonal, the pad
+//   boundary, the ragged end: a separate instantiation of the softmax).
+//   The online softmax in registers: the row max and sum over the four
+//   threads that share a row (__shfl_xor_sync), each thread's part in four
+//   independent chains per row, scale * log2(e) folded into exp2
+//   (ex2.approx), lse converted back to the natural log. P converted to
+//   bf16 in registers, where the accumulator layout of S is the A-operand
+//   layout of the next wgmma. O += P V by wgmma with A from registers and
+//   V as a transposed (MN-major) operand from shared memory; O and its
+//   per-row rescale stay in registers.
+// - the order of a consumer iteration: S of tile j and P V of tile j - 1
+//   are issued together in the warpgroup's turn, the softmax of tile j runs
+//   while P V (and the other warpgroup's products) use the tensor cores;
+//   the two consumers take turns through named barriers (ping-pong), so one
+//   warpgroup's exp2 work overlaps the other's matrix work.
+// - the epilogue writes O / l as bf16 into the warpgroup's own (now free)
+//   q rows of shared memory, swizzled, and one TMA store per 64-column chunk
+//   copies it out; rows past the sequence are clipped by the tensor map.
+//   lse is written by one thread per row.
+// Resources (ptxas -v, nvcc 12.9): 168 registers at entry (the bound for
+// 384 threads), 240 in the consumers after setmaxnreg, 0 spills at both
+// head dims; shared memory 16 KB of q + 4 x 32 KB of K/V ring at head_dim
+// 64 (145 KB with barriers and alignment slack), 32 KB + 2 x 64 KB at 128
+// (161 KB): one CTA per SM. What holds it back (chip runs, PERF.md): at
+// head_dim 64 one tile's exp2 work (8192 on 16 units a cycle) equals its
+// matrix work, and the softmax's ALU work does not yet hide behind the
+// products. On the TPU the kv grid axis ran in order with scratch carried
+// between steps; here the loop over kv tiles inside the block takes its
+// place.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
+constexpr int BQ = 128;               // query rows per CTA
+constexpr int BKV = 128;              // keys per tile
+constexpr int CONSUMERS = 2;          // warpgroups of 64 query rows each
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int ROW_BYTES = 128;        // one swizzled row: 64 bf16 of one chunk
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// Shared-memory layout. Strides are padded off a multiple of 32 banks and
-// keep every 16x16 WMMA tile 32-byte aligned.
 template <int D>
-struct Layout {
-  static constexpr int LDH = D + 8;    // bf16 q/k/v tiles
-  static constexpr int LDS = BKV + 4;  // fp32 scores
-  static constexpr int LDP = BKV + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;    // fp32 accumulator
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + (size_t)BQ * LDH * 2;
-  static constexpr size_t V = K + (size_t)BKV * LDH * 2;
-  static constexpr size_t S = V + (size_t)BKV * LDH * 2;
-  static constexpr size_t P = S + (size_t)BQ * LDS * 4;
-  static constexpr size_t O = P + (size_t)BQ * LDP * 2;
-  static constexpr size_t L = O + (size_t)BQ * LDO * 4;
-  static constexpr size_t BYTES = L + (size_t)BQ * 4;
+struct Config {
+  static constexpr int CHUNKS = D / 64;                 // 128-byte column chunks
+  static constexpr int STAGES = D == 64 ? 4 : 2;        // K/V ring slots
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;          // one K or one V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BARS = 1 + 4 * STAGES;           // q, then k/v full and empty per slot
+  static constexpr int SMEM = BAR_OFF + 8 * BARS + 1024;  // + slack to align the base to 1024
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_padded_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const int* __restrict__ pad,
-                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                        int sq, int skv, int h, int kvh, float scale, int causal) {
-  using Lay = Layout<D>;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::Q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::K);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::V);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::S);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + Lay::P);
-  float* Os = reinterpret_cast<float*>(smem + Lay::O);
-  float* Ls = reinterpret_cast<float*>(smem + Lay::L);
+// --------------------------------------------------------------------- //
+// PTX helpers: mbarriers, TMA, wgmma
+// --------------------------------------------------------------------- //
 
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest first
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int head = bh % h;
-  const int kv_head = head / (h / kvh);
-  const int offset = skv - sq;  // bottom-right causal alignment
-  const int pad_b = pad != nullptr ? pad[b] : 0;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // q/out: [B, Sq, H, D]; k/v: [B, Skv, KVH, D], all contiguous
-  const size_t q_stride = (size_t)h * D;
-  const size_t kv_stride = (size_t)kvh * D;
-  const __nv_bfloat16* q_base = q + ((size_t)b * sq * h + head) * D;
-  const __nv_bfloat16* k_base = k + ((size_t)b * skv * kvh + kv_head) * D;
-  const __nv_bfloat16* v_base = v + ((size_t)b * skv * kvh + kv_head) * D;
-  __nv_bfloat16* o_base = out + ((size_t)b * sq * h + head) * D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
 
-  for (int i = tid; i < BQ * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    uint4 val = zero;
-    if (q_start + r < sq) {
-      val = *reinterpret_cast<const uint4*>(q_base + (q_start + r) * q_stride + c);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major operands (q,
+// k: head_dim contiguous) step 8-row groups by `sbo`; the MN-major operand
+// (v read as B = V[kv, d] with d contiguous) also steps 64-column chunks by
+// `lbo`. Every tile base is 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 128, fp32) += A (64 x 16, shared) . B (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n64(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+
+// --------------------------------------------------------------------- //
+// the kernel
+// --------------------------------------------------------------------- //
+
+// Barriers in shared memory (8 bytes each): q_full, then per ring slot s
+// k_full, v_full (the producer's transaction counts), k_empty, v_empty
+// (every consumer thread arrives once its wgmmas have read the tile).
+template <int STAGES>
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t q_full() const { return base; }
+  __device__ uint32_t k_full(int s) const { return base + 8 * (1 + s); }
+  __device__ uint32_t v_full(int s) const { return base + 8 * (1 + STAGES + s); }
+  __device__ uint32_t k_empty(int s) const { return base + 8 * (1 + 2 * STAGES + s); }
+  __device__ uint32_t v_empty(int s) const { return base + 8 * (1 + 3 * STAGES + s); }
+};
+
+// Ping-pong between the two consumer warpgroups: a warpgroup issues its
+// wgmmas only in its turn (named barrier 3 + wg) and then hands the turn
+// to the other (bar.arrive), so one warpgroup's softmax runs while the
+// other's products use the tensor cores.
+__device__ __forceinline__ void turn_begin(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(3 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(3 + (1 - wg)) : "memory");
+}
+
+// Mask (MASK: the diagonal, pad-boundary or ragged tile) and online
+// softmax of one 64 x 128 score tile held as this thread's 64 wgmma
+// accumulators: scores become p = exp2(s * scale * log2(e) - m) in place;
+// returns the rescale factors of the two rows' earlier sums. The row max
+// and sum run in CHAINS independent partials per row, so the dependent
+// FMNMX / FADD chains stay short at two warps per scheduler.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], int k0, int col_lane, int pad_b,
+                                             int hi0, int hi1, float scale_log2, float& m0,
+                                             float& m1, float& l0, float& l1, float& corr0,
+                                             float& corr1) {
+  constexpr int CHAINS = 4;
+  float mx[2][CHAINS];
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c) mx[0][c] = mx[1][c] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) {
+    float x = sc[i] * scale_log2;
+    if (MASK) {
+      const int col = k0 + (i / 4) * 8 + col_lane + (i & 1);
+      if (col < pad_b || col >= ((i & 2) ? hi1 : hi0)) x = -INFINITY;
     }
-    *reinterpret_cast<uint4*>(Qs + r * Lay::LDH + c) = val;
+    sc[i] = x;
+    // element i belongs to row (i >> 1) & 1; chain (i >> 2) % CHAINS
+    float& m = mx[(i >> 1) & 1][(i >> 2) % CHAINS];
+    m = fmaxf(m, x);
   }
-  for (int i = tid; i < BQ * Lay::LDO; i += THREADS) Os[i] = 0.f;
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[D / 16];
+  float mx0 = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+  float mx1 = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+  // the four threads of a row are lanes 4r .. 4r + 3
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float mu0 = mn0 == -INFINITY ? 0.f : mn0;  // nothing visible yet: p = 0
+  const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+  corr0 = ex2(m0 - mu0);
+  corr1 = ex2(m1 - mu1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum[2][CHAINS];  // partial sums over this thread's columns
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * Lay::LDH + kk * 16, Lay::LDH);
+  for (int c = 0; c < CHAINS; ++c) sum[0][c] = sum[1][c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) {
+    const float p = ex2(sc[i] - ((i & 2) ? mu1 : mu0));
+    sc[i] = p;
+    sum[(i >> 1) & 1][(i >> 2) % CHAINS] += p;
   }
-
-  // the softmax row this lane pair owns, and which half of the kv tile
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int q_pos = q_start + row;
-  float m_run = NEG_INF;
-  float l_run = 0.f;
-
-  // visit only kv tiles that hold a visible position for some row here
-  const int kv_lo = (pad_b / BKV) * BKV;
-  const int kv_hi = causal ? min(skv, q_start + BQ + offset) : skv;
-
-  for (int kv_start = kv_lo; kv_start < kv_hi; kv_start += BKV) {
-    for (int i = tid; i < BKV * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      uint4 kval = zero, vval = zero;
-      if (kv_start + r < skv) {
-        kval = *reinterpret_cast<const uint4*>(k_base + (kv_start + r) * kv_stride + c);
-        vval = *reinterpret_cast<const uint4*>(v_base + (kv_start + r) * kv_stride + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * Lay::LDH + c) = kval;
-      *reinterpret_cast<uint4*>(Vs + r * Lay::LDH + c) = vval;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 query rows
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + n * 16 * Lay::LDH + kk * 16, Lay::LDH);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(Ss + warp * 16 * Lay::LDS + n * 16, sf, Lay::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // masked online softmax over this lane's 32 columns of its row
-    {
-      const float* srow = Ss + row * Lay::LDS + half * 32;
-      float s[32];
-      unsigned visible = 0u;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int kv_pos = kv_start + half * 32 + j;
-        const bool ok = q_pos < sq && kv_pos < skv && kv_pos >= pad_b &&
-                        (!causal || q_pos + offset >= kv_pos);
-        s[j] = ok ? srow[j] * scale : NEG_INF;
-        visible |= (ok ? 1u : 0u) << j;
-        mx = fmaxf(mx, s[j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_run, mx);
-      const float m_safe = m_new == NEG_INF ? 0.f : m_new;
-      __nv_bfloat16* prow = Ps + row * Lay::LDP + half * 32;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float p = ((visible >> j) & 1u) ? expf(s[j] - m_safe) : 0.f;
-        prow[j] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float corr = m_run == NEG_INF ? 0.f : expf(m_run - m_safe);
-      l_run = l_run * corr + sum;
-      m_run = m_new;
-      float* orow = Os + row * Lay::LDO + half * (D / 2);
-#pragma unroll 8
-      for (int j = 0; j < D / 2; ++j) orow[j] *= corr;
-    }
-    __syncwarp();
-
-    // O += P V for this warp's rows (fp32 accumulator lives in shared memory)
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      float* optr = Os + warp * 16 * Lay::LDO + n * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, optr, Lay::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Ps + warp * 16 * Lay::LDP + kk * 16, Lay::LDP);
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * Lay::LDH + n * 16, Lay::LDH);
-        wmma::mma_sync(of, pf, vf, of);
-      }
-      wmma::store_matrix_sync(optr, of, Lay::LDO, wmma::mem_row_major);
-    }
-    __syncthreads();  // K/V tiles are overwritten by the next iteration
-  }
-
-  if (half == 0) Ls[row] = l_run;
-  if (lse != nullptr && half == 0 && q_pos < sq) {
-    lse[(size_t)bh * sq + q_pos] = l_run > 0.f ? m_run + logf(l_run) : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < BQ * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    if (q_start + r >= sq) continue;
-    const float l = fmaxf(Ls[r], 1e-30f);
-    alignas(16) __nv_bfloat16 packed[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      packed[j] = __float2bfloat16(Os[r * Lay::LDO + c + j] / l);
-    }
-    *reinterpret_cast<uint4*>(o_base + (q_start + r) * q_stride + c) =
-        *reinterpret_cast<const uint4*>(packed);
-  }
+  l0 = l0 * corr0 + ((sum[0][0] + sum[0][1]) + (sum[0][2] + sum[0][3]));
+  l1 = l1 * corr1 + ((sum[1][0] + sum[1][1]) + (sum[1][2] + sum[1][3]));
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* pad,
-                   void* out, float* lse, int b, int sq, int skv, int h, int kvh,
-                   float scale, int causal, cudaStream_t stream) {
-  const int bytes = (int)Layout<D>::BYTES;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map, const int* __restrict__ pad,
+                 float* __restrict__ lse, int sq, int skv, int h, int kvh, float scale_log2,
+                 int causal) {
+  using C = Config<D>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + C::K_OFF;
+  const uint32_t v_s = base + C::V_OFF;
+  const Bars<ST> bar{base + C::BAR_OFF};
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh % h;
+  const int kv_head = head / (h / kvh);
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+  const int offset = skv - sq;                             // bottom-right causal alignment
+  const int pad_b = pad != nullptr ? pad[b] : 0;
+  // kv tiles that hold a visible position for some row of this CTA
+  const int kv_lo = (pad_b / BKV) * BKV;
+  const int kv_hi = causal ? min(skv, q_start + BQ + offset) : skv;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BKV - 1) / BKV : 0;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(bar.q_full(), 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar.k_full(s), 1);
+      mbar_init(bar.v_full(s), 1);
+      mbar_init(bar.k_empty(s), CONSUMERS * 128);
+      mbar_init(bar.v_empty(s), CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---------------- producer: one thread issues every copy ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == CONSUMERS * 128 && n_tiles > 0) {
+      mbar_expect_tx(bar.q_full(), C::Q_BYTES);
+#pragma unroll
+      for (int w = 0; w < CONSUMERS; ++w) {
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(q_s + (c * BQ + w * 64) * ROW_BYTES, &q_map, bar.q_full(), c * 64, head,
+                   q_start + w * 64, b);
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        const uint32_t parity = ((it / ST) - 1) & 1;  // the slot's previous use
+        const int k0 = kv_lo + it * BKV;
+        if (it >= ST) mbar_wait(bar.k_empty(s), parity);
+        mbar_expect_tx(bar.k_full(s), C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(k_s + s * C::KV_BYTES + c * BKV * ROW_BYTES, &k_map, bar.k_full(s), c * 64,
+                   kv_head, k0, b);
+        }
+        if (it >= ST) mbar_wait(bar.v_empty(s), parity);
+        mbar_expect_tx(bar.v_full(s), C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          tma_load(v_s + s * C::KV_BYTES + c * BKV * ROW_BYTES, &v_map, bar.v_full(s), c * 64,
+                   kv_head, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 query rows per warpgroup ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int t = tid % 128;
+    const int lane = t % 32;
+    const int qw = q_start + wg * 64;           // first query row of this warpgroup
+    const int r0 = (t / 32) * 16 + lane / 4;    // this thread's rows: r0 and r0 + 8
+    const int qp0 = qw + r0;
+    const int qp1 = qp0 + 8;
+    const int col_lane = 2 * (lane % 4);        // this thread's first column of each 8
+    // per row: first invisible kv position (causal) or skv
+    const int hi0 = causal ? min(skv, qp0 + offset + 1) : skv;
+    const int hi1 = causal ? min(skv, qp1 + offset + 1) : skv;
+    const bool active = qw < sq;
+    // tiles holding a position that a real row of this warpgroup sees: a
+    // prefix of the CTA's tiles (the rest lie past its causal diagonal)
+    const int q_hi = causal ? min(qw + 63, sq - 1) + offset : skv - 1;
+    const int n_do = !active || q_hi < kv_lo ? 0 : min(n_tiles, (q_hi - kv_lo) / BKV + 1);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 units)
+    float l0 = 0.f, l1 = 0.f;              // this thread's partial row sums
+
+    // S = Q K^T of tile `it` (issued, not waited)
+    auto issue_s = [&](float (&sc)[BKV / 2], int it) {
+      const int s = it % ST;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, within = (kk % 4) * 32;
+        const uint64_t a = desc_sw128(q_s + (c * BQ + wg * 64) * ROW_BYTES + within, 16, 1024);
+        const uint64_t bk = desc_sw128(k_s + s * C::KV_BYTES + c * BKV * ROW_BYTES + within, 16, 1024);
+        wgmma_ss_n128(sc, a, bk, kk > 0);
+      }
+    };
+    // O += P V of tile `it` (issued, not waited)
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&p)[BKV / 4], int it) {
+      const int s = it % ST;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+        wgmma_rs(o, a, desc_sw128(v_s + s * C::KV_BYTES + kk * 16 * ROW_BYTES, BKV * ROW_BYTES, 1024));
+      }
+    };
+    // the mask only where some pair of the tile is hidden from some row
+    auto softmax = [&](float (&sc)[BKV / 2], int k0, float& corr0, float& corr1) {
+      if (k0 >= pad_b && k0 + BKV <= skv && (!causal || k0 + BKV - 1 <= qw + offset)) {
+        softmax_tile<false>(sc, k0, col_lane, pad_b, hi0, hi1, scale_log2, m0, m1, l0, l1, corr0,
+                            corr1);
+      } else {
+        softmax_tile<true>(sc, k0, col_lane, pad_b, hi0, hi1, scale_log2, m0, m1, l0, l1, corr0,
+                           corr1);
+      }
+    };
+    // P as the bf16 A operand: the accumulator layout of S is the register
+    // layout of A, four registers per 16 keys
+    auto to_p = [&](uint32_t (&p)[BKV / 4], const float (&sc)[BKV / 2]) {
+#pragma unroll
+      for (int j = 0; j < BKV / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+    };
+    // every consumer warpgroup takes n_tiles + 1 turns; warpgroup 1 opens
+    // the first for warpgroup 0 and does not pass its last
+    int turns = 0;
+    auto end_turn = [&]() {
+      ++turns;
+      if (wg == 0 || turns < n_tiles + 1) turn_pass(wg);
+    };
+
+    float sc[BKV / 2];
+    uint32_t p[BKV / 4];
+
+    if (n_tiles > 0) {
+      if (wg == 1) turn_pass(wg);
+      mbar_wait(bar.q_full(), 0);
+    }
+    if (n_do > 0) {
+      // tile 0: S, then its softmax
+      mbar_wait(bar.k_full(0), 0);
+      turn_begin(wg);
+      wgmma_fence();
+      issue_s(sc, 0);
+      wgmma_commit();
+      end_turn();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(bar.k_empty(0));
+      float corr0, corr1;
+      softmax(sc, kv_lo, corr0, corr1);
+      to_p(p, sc);
+      // tile it: S of it and P V of it - 1 in one turn, then the softmax of
+      // it while P V runs
+      for (int it = 1; it < n_do; ++it) {
+        const int s = it % ST, sp = (it - 1) % ST;
+        const int k0 = kv_lo + it * BKV;
+        mbar_wait(bar.k_full(s), (it / ST) & 1);
+        mbar_wait(bar.v_full(sp), ((it - 1) / ST) & 1);
+        turn_begin(wg);
+        fence_regs(o);
+        fence_regs(p);
+        wgmma_fence();
+        issue_s(sc, it);
+        wgmma_commit();
+        issue_pv(o, p, it - 1);
+        wgmma_commit();
+        end_turn();
+        wgmma_wait<1>();  // S done; P V may still run
+        fence_regs(sc);
+        mbar_arrive(bar.k_empty(s));
+        softmax(sc, k0, corr0, corr1);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        mbar_arrive(bar.v_empty(sp));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? corr1 : corr0;
+        to_p(p, sc);
+      }
+      // the last tile's P V
+      const int sl = (n_do - 1) % ST;
+      mbar_wait(bar.v_full(sl), ((n_do - 1) / ST) & 1);
+      turn_begin(wg);
+      fence_regs(o);
+      fence_regs(p);
+      wgmma_fence();
+      issue_pv(o, p, n_do - 1);
+      wgmma_commit();
+      end_turn();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      mbar_arrive(bar.v_empty(sl));
+    }
+    // tiles past this warpgroup's rows: release each, then take a turn, in
+    // the order the computing path does, so neither side waits on the other
+    if (n_do == 0 && n_tiles > 0) {
+      turn_begin(wg);
+      end_turn();
+    }
+    for (int it = n_do; it < n_tiles; ++it) {
+      const int s = it % ST;
+      const uint32_t parity = (it / ST) & 1;
+      mbar_wait(bar.k_full(s), parity);
+      mbar_arrive(bar.k_empty(s));
+      mbar_wait(bar.v_full(s), parity);
+      mbar_arrive(bar.v_empty(s));
+      turn_begin(wg);
+      end_turn();
+    }
+
+    // ---------------- epilogue ----------------
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (lse != nullptr && lane % 4 == 0) {
+      float* row = lse + (size_t)bh * sq;
+      if (qp0 < sq) row[qp0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : 0.f;
+      if (qp1 < sq) row[qp1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : 0.f;
+    }
+    if (!active) return;
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    // every wgmma of this warpgroup has read its q rows: reuse them for O
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int col = (i / 4) * 8 + col_lane;
+      const int row = r0 + ((i & 2) ? 8 : 0);
+      const float inv = (i & 2) ? inv1 : inv0;
+      const int c = col / 64, cc = col % 64;
+      const uint32_t addr = q_s + (c * BQ + wg * 64 + row) * ROW_BYTES +
+                            ((((cc / 8) ^ (row % 8)) * 16) | ((cc % 8) * 2));
+      asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(pack_bf16(o[i] * inv, o[i + 1] * inv))
+                   : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < C::CHUNKS; ++c) {
+        tma_store(&o_map, q_s + (c * BQ + wg * 64) * ROW_BYTES, c * 64, head, qw, b);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
+// --------------------------------------------------------------------- //
+// host side: tensor maps and the launch
+// --------------------------------------------------------------------- //
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// [batch, seq, heads, d] bf16, contiguous: a 4-D map (d, heads, seq,
+// batch) whose box is one 64-column chunk of `rows` rows of one head
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int heads, int seq,
+              int batch, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* pad, void* out,
+                   float* lse, int b, int sq, int skv, int h, int kvh, float scale, int causal,
+                   cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+    return cudaErrorMisalignedAddress;  // TMA needs 16-byte aligned tensors
+  }
+  if (skv <= 0) {  // nothing visible anywhere: zeros, and lse 0
+    cudaError_t err = cudaMemsetAsync(out, 0, (size_t)b * sq * h * D * 2, stream);
+    if (err == cudaSuccess && lse != nullptr) {
+      err = cudaMemsetAsync(lse, 0, (size_t)b * h * sq * 4, stream);
+    }
+    return err;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  if (!make_map(encode, &q_map, q, D, h, sq, b, 64) ||
+      !make_map(encode, &k_map, k, D, kvh, skv, b, BKV) ||
+      !make_map(encode, &v_map, v, D, kvh, skv, b, BKV) ||
+      !make_map(encode, &o_map, out, D, h, sq, b, 64)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_padded_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Config<D>::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, b * h);
-  flash_fwd_padded_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), pad, static_cast<__nv_bfloat16*>(out), lse,
-      sq, skv, h, kvh, scale, causal);
+  dim3 grid(b * h, (sq + BQ - 1) / BQ);
+  flash_fwd_kernel<D><<<grid, THREADS, Config<D>::SMEM, stream>>>(
+      q_map, k_map, v_map, o_map, pad, lse, sq, skv, h, kvh, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: [b, sq, h, d] bf16; k, v: [b, skv, kvh, d] bf16; pad: [b] int32
-// (first visible kv position per batch row); all contiguous on the device.
-// d must be 64 or 128 and h a multiple of kvh. Returns the launch's
-// cudaError_t.
+// (first visible kv position per batch row); all contiguous on the device,
+// q/k/v/out 16-byte aligned. d must be 64 or 128 and h a multiple of kvh.
+// Returns the launch's cudaError_t.
 extern "C" int flash_fwd_padded(const void* q, const void* k, const void* v,
                                 const void* pad, void* out, int b, int sq,
                                 int skv, int h, int kvh, int d, float scale,
@@ -274,10 +713,10 @@ extern "C" int flash_fwd_padded(const void* q, const void* k, const void* v,
 }
 
 // The lse form (training forward): q, out: [b, sq, h, d] bf16; k, v:
-// [b, skv, kvh, d] bf16; lse: [b, h, sq] fp32; all contiguous. No padding;
-// causal alignment is bottom-right (query i sees keys j <= i + skv - sq).
-// d must be 64 or 128 and h a multiple of kvh. Returns the launch's
-// cudaError_t.
+// [b, skv, kvh, d] bf16; lse: [b, h, sq] fp32; all contiguous, q/k/v/out
+// 16-byte aligned. No padding; causal alignment is bottom-right (query i
+// sees keys j <= i + skv - sq). d must be 64 or 128 and h a multiple of
+// kvh. Returns the launch's cudaError_t.
 extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* out,
                              void* lse, int b, int sq, int skv, int h, int kvh, int d,
                              float scale, int causal, void* stream) {

@@ -445,10 +445,24 @@ class Attention(nn.Module):
             bias = torch.where(
                 visible, torch.zeros((), device=x.device), torch.full((), -1e30, device=x.device)
             )
-            if quant:
-                out = quantized_cache_attention(q, ck, cv, ks, vs, bias=bias)
+
+            def attend(q_rows, bias_rows):
+                if quant:
+                    return quantized_cache_attention(q_rows, ck, cv, ks, vs, bias=bias_rows)
+                return cached_attention(q_rows, ck.to(self.dtype), cv.to(self.dtype),
+                                        bias=bias_rows)
+
+            if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1 and seq > 1:
+                # a speculative verify: each query row attends as a one-token
+                # decode step does, at the step's shapes, so its bits do not
+                # depend on how many rows share the product (a batched GEMM
+                # picks its algorithm by shape) and a draft equal to the
+                # target sees its proposals accepted
+                out = torch.cat([attend(q[:, i:i + 1].contiguous(),
+                                        bias[:, :, i:i + 1].contiguous())
+                                 for i in range(seq)], dim=1)
             else:
-                out = cached_attention(q, ck.to(self.dtype), cv.to(self.dtype), bias=bias)
+                out = attend(q, bias)
         return self.o(params["o"], out), new_cache
 
 

@@ -189,6 +189,13 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The forward kernel reads q/k/v and writes out through TMA, which
+    needs 16-byte aligned base addresses."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned q/k/v (TMA)")
+
+
 def flash_fwd_padded_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pad: torch.Tensor,
     *, causal: bool, scale: float,
@@ -198,6 +205,7 @@ def flash_fwd_padded_cuda(
     b, q_len, kv_len, h, kvh, d = _check("flash_fwd_padded_cuda", q, k, v, pad)
     if pad.dtype != torch.int32 or pad.shape != (b,):
         raise ValueError(f"pad must be int32 [{b}], got {pad.dtype} {tuple(pad.shape)}")
+    _check_aligned("flash_fwd_padded_cuda", q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         KERNEL(
@@ -214,6 +222,7 @@ def flash_fwd_cuda(
     [B, Skv, KVH, D] bf16 contiguous on one CUDA device; returns ``(out,
     lse [B, H, Sq] fp32)``."""
     b, q_len, kv_len, h, kvh, d = _check("flash_fwd_cuda", q, k, v)
+    _check_aligned("flash_fwd_cuda", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, q_len, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -304,6 +313,29 @@ def _fwd(q, k, v, causal: bool, scale: float):
     return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
 
 
+def _padded_fwd(q, k, v, pad, causal: bool, scale: float):
+    if _on_card(q):
+        return flash_fwd_padded_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     pad.contiguous(), causal=causal, scale=scale)
+    return flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
+
+
+class _PaddedForwardOnly(torch.autograd.Function):
+    """The padded path under autograd: the forward runs, differentiating it
+    raises, as ``jax.grad`` through the reference's padded path does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad, causal, scale):
+        return _padded_fwd(q, k, v, pad, causal, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        raise RuntimeError(
+            "flash_attention with kv_valid_start is forward-only (the reference's "
+            "padded path has no backward); differentiate the path without it"
+        )
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -340,22 +372,20 @@ def flash_attention(
     signature. Without ``kv_valid_start`` it is the differentiable path
     (the lse forward and the FlashAttention-2 backward kernels). With it
     (``[B]`` first visible kv position per row: left-padded prompts) it is
-    the forward-only padded path; fully masked query rows return zeros.
+    the forward-only padded path; fully masked query rows return zeros, and
+    a backward through it raises ``RuntimeError``, as in the reference.
     ``block_q`` / ``block_kv`` are the TPU kernels' tile sizes and are
     accepted for the reference's callers only: the CUDA kernels keep their
-    own 64-row tiles. The CUDA kernels for CUDA tensors, the plain versions
+    own tiles (128 queries by 128 keys in the forward, 64 in the backward). The CUDA kernels for CUDA tensors, the plain versions
     for CPU ones."""
     del block_q, block_kv  # the TPU's tile knobs; see the docstring
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_valid_start is not None:
         pad = kv_valid_start.to(device=q.device, dtype=torch.int32)
-        if _on_card(q):
-            return flash_fwd_padded_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(), pad.contiguous(),
-                causal=causal, scale=scale,
-            )
-        return flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return _PaddedForwardOnly.apply(q, k, v, pad, causal, float(scale))
+        return _padded_fwd(q, k, v, pad, causal, float(scale))
     if q.shape[2] % k.shape[2] or k.shape != v.shape:
         raise ValueError(
             f"flash_attention: q heads {q.shape[2]} must be a multiple of kv heads "
