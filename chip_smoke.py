@@ -429,9 +429,16 @@ VIT_B, VIT_S, VIT_H, VIT_HD, VIT_D = 64, 197, 12, 64, 768
 SCALED_LIMIT = {
     "norm_dx": 1e-2,        # bf16 dx, fp32 statistics in another sum order
     "norm_params": 1e-4,    # fp32 dgamma/dbeta: per-block partials vs one sum
-    "attn_fwd": 1e-2,       # bf16 o; e rounded at the same point
-    "attn_bwd": 2e-2,       # bf16 dq/dk/dv from bf16-rounded do/z and ds
 }
+# rows 12-13 against their plain versions, row by row (check_rows: query
+# rows of out and dq, key rows of dk and dv, each against its own max
+# |plain|): out within 1e-2 (e rounded to bf16 against the same final row
+# max as the plain version; one bf16 ulp of output rounding and fp32 sums
+# in another order), dq/dk/dv within 2e-2 (do / z and ds rounded at the
+# same points, then fp32 sums in another order)
+FUSED_ROW_LIMIT = {"out": 1e-2, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2}
+FUSED_CHUNK = 64        # the key chunk the planted fault of rows 12-13 skips
+ROW_FLOOR = 1e-3        # of the tensor's max |plain|, see row_rel_err
 
 
 def check_scaled(name: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> float:
@@ -445,6 +452,100 @@ def check_scaled(name: str, got: torch.Tensor, want: torch.Tensor, limit: float)
             f"{limit} x max |plain| {scale}"
         )
     return err
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per row (all but the last dim): max |got - want| over the row's max
+    |want|, that scale floored at ``ROW_FLOOR`` x the tensor's max
+    |want|. A row that far below the rest holds fp32 cancellation noise:
+    a query that sees one key has ds = p (dp - delta) = 0 in exact
+    arithmetic, and the plain and kernel sums leave different residues."""
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1)
+    scale = scale.clamp_min(ROW_FLOOR * float(scale.max())).clamp_min(1e-30)
+    return err / scale
+
+
+def check_rows(name: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> dict:
+    """Hold ``got`` to ``want`` row by row (:func:`row_rel_err` at most
+    ``limit``); returns the worst row's error and the scale of ``want``."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    rel = row_rel_err(got, want)
+    worst = int(rel.argmax())
+    mag = want.float().abs()
+    stats = {"max_row_rel_err": float(rel.max()), "limit": limit,
+             "plain_abs_max": float(mag.max()), "plain_abs_median": float(mag.median()),
+             "max_abs_err": float((got.float() - want.float()).abs().max())}
+    if stats["max_row_rel_err"] > limit:
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: row {worst} (flat index over "
+            f"{tuple(rel.shape)}) is off by {stats['max_row_rel_err']} of its max |plain| "
+            f"{float(mag.amax(dim=-1).flatten()[worst])}, beyond {limit}"
+        )
+    return stats
+
+
+def check_rows_with_fault(name: str, got: dict, want: dict, fault: dict, limits: dict,
+                          fault_name: str) -> dict:
+    """:func:`check_rows` for each tensor named in ``limits``, then the
+    planted fault against the same plain versions: it must fail the check
+    (the share of its rows beyond the limit is recorded)."""
+    checks = {}
+    for t_name, limit in limits.items():
+        checks[t_name] = check_rows(f"{name} {t_name}", got[t_name], want[t_name], limit)
+        over = row_rel_err(fault[t_name], want[t_name]) > limit
+        checks[t_name]["fault_rows_over_limit"] = float(over.float().mean())
+        if not bool(over.any()):
+            raise AssertionError(f"{name} {t_name}: the row check passed a planted fault "
+                                 f"({fault_name})")
+    return checks
+
+
+def skipped_chunk_fault(q, k, v, do, o, *, causal: bool):
+    """A planted fault the row check of rows 12-13 must reject: the plain
+    forward and backward (the arithmetic of ``fused_attention_*_plain``)
+    with each query's last visible 64-key chunk skipped, for queries that
+    see more than one chunk, as kernels whose key loop stops one chunk
+    short would compute. ``(out, dq, dk, dv)``; the backward uses the given
+    ``o``, as the backward kernel does."""
+    from unionml_tpu_torch.ops import fused_attention as tfa
+
+    pos = torch.arange(q.shape[1], device=q.device)
+    vis = pos[None, :] <= pos[:, None] if causal else \
+        torch.ones(len(pos), len(pos), dtype=torch.bool, device=q.device)
+    last = (pos if causal else torch.full_like(pos, len(pos) - 1)) // FUSED_CHUNK
+    vis = vis & ~((pos[None, :] // FUSED_CHUNK == last[:, None]) & (last[:, None] > 0))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = torch.where(vis, s, torch.full_like(s, tfa.NEG_INF))
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    z = e.sum(dim=-1, keepdim=True)
+    bad_out = (torch.einsum("bhqk,bkhd->bhqd", e.to(v.dtype).float(), v.float()) / z)
+    do_bh = do.permute(0, 2, 1, 3)
+    do_n = (do_bh.float() / z).to(do.dtype)
+    dv = torch.einsum("bhqk,bhqd->bkhd", e.to(do.dtype).float(), do_n.float())
+    delta = (do_bh.float() * o.permute(0, 2, 1, 3).float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (e * (dp - delta) * (tfa.LN2 / z)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return (bad_out.permute(0, 2, 1, 3).to(q.dtype), dq.to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def check_fused_rows(name: str, got: dict, want: dict, fault: dict) -> dict:
+    """Rows 12-13 (out, dq, dk, dv) row by row within
+    :data:`FUSED_ROW_LIMIT`; the skipped-chunk fault must fail."""
+    return check_rows_with_fault(name, got, want, fault, FUSED_ROW_LIMIT,
+                                 "each query's last 64-key chunk skipped")
+
+
+def log_row_checks(checks: dict) -> None:
+    for t_name, chk in checks.items():
+        log(f"  row check {t_name}: max row err {chk['max_row_rel_err']} of the row's "
+            f"max |plain| (limit {chk['limit']}); |plain| max {chk['plain_abs_max']} "
+            f"median {chk['plain_abs_median']}; planted fault: "
+            f"{chk['fault_rows_over_limit']} of rows beyond the limit")
 
 
 def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
@@ -518,16 +619,18 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
     bwd = lambda: tfa.fused_attention_bwd_cuda(q, k, v, do, o, causal=False)  # noqa: E731
     grads, again = bwd(), bwd()
     torch.cuda.synchronize()
-    fwd_err = check_scaled(f"fused_attention_fwd S={s}", o,
-                           tfa.fused_attention_fwd_plain(q, k, v, causal=False),
-                           SCALED_LIMIT["attn_fwd"])
-    want = tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False)
-    bwd_err = 0.0
-    for name, got, ref, same in zip(("dq", "dk", "dv"), grads, want, again):
-        bwd_err = max(bwd_err, check_scaled(f"fused_attention_bwd {name} S={s}", got, ref,
-                                            SCALED_LIMIT["attn_bwd"]))
+    want = dict(zip(("out", "dq", "dk", "dv"),
+                    (tfa.fused_attention_fwd_plain(q, k, v, causal=False),
+                     *tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False))))
+    fault = dict(zip(want, skipped_chunk_fault(q, k, v, do, o, causal=False)))
+    checks = check_fused_rows(f"fused_attention S={s}", dict(zip(want, (o, *grads))), want,
+                              fault)
+    del want, fault
+    for name, got, same in zip(("dq", "dk", "dv"), grads, again):
         if not torch.equal(got, same):
             raise AssertionError(f"fused_attention_bwd {name}: two runs differ")
+    fwd_err = checks["out"]["max_abs_err"]
+    bwd_err = max(checks[name]["max_abs_err"] for name in ("dq", "dk", "dv"))
     numel = q.numel()
     pairs = b * h * s * s
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -542,7 +645,8 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
     f_ms, fb_ms = bound(4 * numel * 2, 4 * pairs * d, PEAK_BF16_OPS_S)
     b_ms, bb_ms = bound(8 * numel * 2, 10 * pairs * d, PEAK_BF16_OPS_S)
     fwd_case = {
-        "shape": shape, "max_abs_err": fwd_err, "ms": time_ms(fwd),
+        "shape": shape, "max_abs_err": fwd_err, "row_checks": {"out": checks["out"]},
+        "ms": time_ms(fwd),
         "plain_ms": time_ms(lambda: tfa.fused_attention_fwd_plain(q, k, v, causal=False),
                             iters=3),
         "bound_ms": f_ms, "bound_by": fb_ms,
@@ -550,7 +654,9 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
         "library_call": "F.scaled_dot_product_attention",
     }
     bwd_case = {
-        "shape": shape, "max_abs_err": bwd_err, "ms": time_ms(bwd),
+        "shape": shape, "max_abs_err": bwd_err,
+        "row_checks": {name: checks[name] for name in ("dq", "dk", "dv")},
+        "ms": time_ms(bwd),
         "plain_ms": time_ms(lambda: tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False),
                             iters=3),
         "bound_ms": b_ms, "bound_by": bb_ms,
@@ -579,6 +685,7 @@ def vit_kernel_phase() -> dict:
                 f"library_ms {c['library_ms']}"
                 + (f" fwd+bwd ms {c['fwd_bwd_ms']} library fwd+bwd ms "
                    f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else ""))
+            log_row_checks(c.get("row_checks", {}))
     return out
 
 
@@ -810,39 +917,6 @@ LM_GRAD_COSINE_MIN = 0.99    # bf16 kernel path vs bf16 plain (xla attention) pa
 FLASH_ROW_LIMIT = 2e-2
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)   # fp32 statistics, exp and sums in another order
 FLASH_TILE = 64                        # the backward kernels' tile (the forward's: 128)
-FLASH_ROW_FLOOR = 1e-3                 # of the tensor's max |plain|, see row_rel_err
-
-
-def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """Per row (all but the last dim): max |got - want| over the row's max
-    |want|, that scale floored at ``FLASH_ROW_FLOOR`` x the tensor's max
-    |want|. A row that far below the rest holds fp32 cancellation noise:
-    a query that sees one key has ds = p (dp - delta) = 0 in exact
-    arithmetic, and the plain and kernel sums leave different residues."""
-    err = (got.float() - want.float()).abs().amax(dim=-1)
-    scale = want.float().abs().amax(dim=-1)
-    scale = scale.clamp_min(FLASH_ROW_FLOOR * float(scale.max())).clamp_min(1e-30)
-    return err / scale
-
-
-def check_rows(name: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> dict:
-    """Hold ``got`` to ``want`` row by row (:func:`row_rel_err` at most
-    ``limit``); returns the worst row's error and the scale of ``want``."""
-    if not torch.isfinite(got.float()).all():
-        raise AssertionError(f"{name}: kernel output is not finite")
-    rel = row_rel_err(got, want)
-    worst = int(rel.argmax())
-    mag = want.float().abs()
-    stats = {"max_row_rel_err": float(rel.max()), "limit": limit,
-             "plain_abs_max": float(mag.max()), "plain_abs_median": float(mag.median()),
-             "max_abs_err": float((got.float() - want.float()).abs().max())}
-    if stats["max_row_rel_err"] > limit:
-        raise AssertionError(
-            f"{name}: kernel disagrees with its plain version: row {worst} (flat index over "
-            f"{tuple(rel.shape)}) is off by {stats['max_row_rel_err']} of its max |plain| "
-            f"{float(mag.amax(dim=-1).flatten()[worst])}, beyond {limit}"
-        )
-    return stats
 
 
 def dropped_tile_fault(q, k, v, do, out, lse, *, causal: bool, scale: float):
@@ -867,19 +941,11 @@ def dropped_tile_fault(q, k, v, do, out, lse, *, causal: bool, scale: float):
 
 
 def check_flash_rows(name: str, got: dict, want: dict, fault: dict) -> dict:
-    """:func:`check_rows` for each of out, dq, dk and dv, then the planted
-    fault against the same plain versions: it must fail the check (the
-    share of its rows beyond the limit is recorded)."""
-    checks = {}
-    for t_name in ("out", "dq", "dk", "dv"):
-        checks[t_name] = check_rows(f"{name} {t_name}", got[t_name], want[t_name],
-                                    FLASH_ROW_LIMIT)
-        over = row_rel_err(fault[t_name], want[t_name]) > FLASH_ROW_LIMIT
-        checks[t_name]["fault_rows_over_limit"] = float(over.float().mean())
-        if not bool(over.any()):
-            raise AssertionError(f"{name} {t_name}: the row check passed a planted fault "
-                                 f"(the last visible key tile skipped)")
-    return checks
+    """Rows 9-11 (out, dq, dk, dv) row by row within
+    :data:`FLASH_ROW_LIMIT`; the dropped-tile fault must fail."""
+    return check_rows_with_fault(name, got, want, fault,
+                                 dict.fromkeys(("out", "dq", "dk", "dv"), FLASH_ROW_LIMIT),
+                                 "the last visible key tile skipped")
 
 
 def lm_kernels() -> dict:
@@ -1014,11 +1080,7 @@ def flash_train_kernel_phase() -> dict:
                 + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else "")
                 + (f" rows 9-11 ms {c['fwd_bwd_ms']} library fwd+bwd ms "
                    f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else ""))
-            for t_name, chk in c["row_checks"].items():
-                log(f"  row check {t_name}: max row err {chk['max_row_rel_err']} of the row's "
-                    f"max |plain| (limit {chk['limit']}); |plain| max {chk['plain_abs_max']} "
-                    f"median {chk['plain_abs_median']}; planted fault: "
-                    f"{chk['fault_rows_over_limit']} of rows beyond the limit")
+            log_row_checks(c["row_checks"])
     return out
 
 

@@ -173,3 +173,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tflash.flash_fwd_padded_cuda(
             q, k, v, torch.zeros(2, dtype=torch.int32), causal=True, scale=0.25
         )
+
+
+def test_kernel_library_name_follows_the_source_and_its_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source, every header
+    under ``csrc/`` and the nvcc flags: editing a header gives every
+    source a new library name, so no stale library is loaded."""
+    from unionml_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "kern.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = _build._target("kern")
+    assert first == _build._target("kern") and first.name.startswith("kern-")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build._target("kern")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build._target("kern") not in (first, second)
+    (tmp_path / "kern.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build._target("kern") not in (first, second)
+    # the real sources: every one is named, and the header is among the inputs
+    monkeypatch.undo()
+    assert (_build.CSRC / "hopper.cuh").exists()
+    assert all((_build.CSRC / f"{n}.cu").exists() for n in _build.SOURCES)

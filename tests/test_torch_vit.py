@@ -11,6 +11,8 @@ bridge. The kernels themselves run on the card in
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -115,6 +117,38 @@ def test_fused_attention_plain_backward_is_the_kernels_arithmetic():
                                                o.detach(), causal=True)
     for got, t in zip((dq, dk, dv), (q, k, v)):
         torch.testing.assert_close(got, t.grad, **FP32)
+
+
+@pytest.mark.parametrize("s,causal", [(197, False), (130, True), (65, False)])
+def test_chip_smoke_row_check_rejects_a_skipped_chunk(s, causal):
+    """chip_smoke.py's check of rows 12-13 on the CPU: the plain versions
+    pass against themselves, and the planted fault (each query's last
+    visible 64-key chunk skipped) fails it in out, dq, dk and dv, in a
+    share of rows that the check reports."""
+    repo = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, s, 2, 64)).astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    q = q * float(torch.tensor(64 ** -0.5 * tfa.LOG2E, dtype=torch.bfloat16))
+    o = tfa.fused_attention_fwd_plain(q, k, v, causal=causal)
+    want = dict(zip(("out", "dq", "dk", "dv"),
+                    (o, *tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=causal))))
+    fault = dict(zip(want, chip_smoke.skipped_chunk_fault(q, k, v, do, o, causal=causal)))
+    checks = chip_smoke.check_fused_rows("plain", want, want, fault)
+    assert set(checks) == {"out", "dq", "dk", "dv"}
+    for name, chk in checks.items():
+        assert chk["max_row_rel_err"] == 0 and chk["fault_rows_over_limit"] > 0
+        assert chk["limit"] == chip_smoke.FUSED_ROW_LIMIT[name]
+        with pytest.raises(AssertionError, match="disagrees"):
+            chip_smoke.check_rows(name, fault[name], want[name], chk["limit"])
+    # the check passes a fault only by failing: want against itself as the fault
+    with pytest.raises(AssertionError, match="planted fault"):
+        chip_smoke.check_fused_rows("plain", want, want, want)
 
 
 # --------------------------------------------------------------------- #

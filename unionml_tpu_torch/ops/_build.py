@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` (Hopper) into its own shared library, which
 :mod:`ctypes` loads. Libraries go to ``build/kernels/`` at the repository
-root, named by a hash of the source and the flags, so an edited source
-never loads a stale library. Nothing is built at import: the first
-launch builds its library, and :func:`build_all` builds every source at
-once (one ``nvcc`` process per source, all started together) — what
-``chip_smoke.py`` calls before anything else.
+root, named by a hash of the source, the headers beside it (``*.cuh``)
+and the flags, so an edited source or header never loads a stale
+library. Nothing is built at import: the first launch builds its
+library, and :func:`build_all` builds every source at once (one ``nvcc``
+process per source, all started together) — what ``chip_smoke.py``
+calls before anything else.
 
 A wrapper launches through a :class:`Kernel`, which binds the C function,
 counts launches in the plain integer ``launches`` (only where the kernel
@@ -56,9 +57,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every header under ``csrc/`` (a source may include any of them) and
+    the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -113,6 +113,8 @@ def _check(name: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned tensors (16-byte loads, TMA)")
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}, got {d}")
@@ -142,14 +144,19 @@ def fused_attention_bwd_cuda(
     o: torch.Tensor, *, causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (a dq pass over query tiles, then a
-    dk/dv pass over key tiles, ordered on the current stream)."""
+    dk/dv pass over key tiles, ordered on the current stream). The scratch
+    holds the dq pass's per-row m, ln2 / z and delta (fp32, rows padded to
+    a multiple of 64) and its ``do / z`` (bf16, do's shape) for the dk/dv
+    pass."""
     b, s, h, d = _check("fused_attention_bwd_cuda", q, k, v, do, o)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(3, b * h, s, dtype=torch.float32, device=q.device)
+    s_pad = -(-s // 64) * 64
+    scratch = torch.empty(3 * b * h * s_pad * 4 + q.numel() * 2, dtype=torch.uint8,
+                          device=q.device)
     with torch.cuda.device(q.device):
         BWD_KERNEL(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, s, h, d,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, s, h, d,
             int(causal), torch.cuda.current_stream(q.device).cuda_stream,
         )
     return dq, dk, dv
