@@ -916,7 +916,10 @@ LM_GRAD_COSINE_MIN = 0.99    # bf16 kernel path vs bf16 plain (xla attention) pa
 # order.
 FLASH_ROW_LIMIT = 2e-2
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)   # fp32 statistics, exp and sums in another order
-FLASH_TILE = 64                        # the backward kernels' tile (the forward's: 128)
+# the key tile of the planted fault: the dq kernel's key tile (the dk/dv
+# kernel's query stages are 64 rows too; the forward's key tiles are 128);
+# a kernel one 128-key tile short fails the same check
+FLASH_TILE = 64
 
 
 def dropped_tile_fault(q, k, v, do, out, lse, *, causal: bool, scale: float):

@@ -427,6 +427,73 @@ def test_flash_train_kernels_match_plain_on_card(cuda, b, sq, skv, h, kvh, d, ca
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal", [
+    (1, 4095, 4095, 8, 1, 64, True),      # S = 4095, GQA group 8
+    (2, 300, 300, 6, 2, 128, True),       # group 3, head_dim 128
+    (2, 127, 127, 4, 2, 128, True),       # around the CTA tiles: 128 rows at
+    (2, 128, 128, 4, 2, 128, True),       # head_dim 128, 192 at 64
+    (2, 129, 129, 4, 4, 128, True),
+    (2, 191, 191, 4, 2, 64, True),
+    (2, 192, 192, 4, 2, 64, True),
+    (2, 193, 193, 4, 4, 64, True),
+    (2, 300, 40, 4, 2, 64, True),         # q_len > kv_len: rows that see nothing
+    (2, 40, 300, 6, 2, 128, True),        # cross-length, bottom-right
+    (2, 1, 300, 4, 2, 64, True),          # one query
+    (2, 1, 300, 4, 1, 128, False),
+    (2, 300, 200, 4, 1, 64, False),       # non-causal
+])
+def test_flash_backward_kernel_edges_on_card(cuda, b, sq, skv, h, kvh, d, causal):
+    """The dq and dk/dv kernels (rows 10-11) at their tile edges against
+    the plain backward (on the kernel forward's own out and lse): ragged
+    ends around the CTA tiles (128 rows at head_dim 128, 192 at 64) and
+    the 64-row steps, GQA groups of
+    1, 2, 3 and 8, head_dim 64 and 128, rows that see nothing, one query,
+    cross-length and non-causal; row by row, one launch of each kernel per
+    backward, and a second backward giving the same bits."""
+    q, k, v, do = _flash_inputs(cuda, b, sq, skv, h, kvh, d, seed=4)
+    scale = d ** -0.5
+    out, lse = tflash.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+    before = (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches)
+    grads = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
+    again = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches) == (
+        before[0] + 2, before[1] + 2)
+    want = tflash.flash_bwd_plain(q, k, v, do, out, lse, causal=causal, scale=scale)
+    for got, ref, same in zip(grads, want, again):
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        # the same rounding points; bf16 outputs and fp32 sums in another
+        # order (query rows of dq, key rows of dk and dv)
+        assert _max_row_rel_err(got, ref) < 2e-2
+        assert torch.equal(got, same)
+    if causal and sq > skv:  # the first sq - skv queries see no key
+        assert not grads[0][:, :sq - skv].any()
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_refuse_misaligned_bases_on_card(cuda):
+    """The backward kernels read and write through TMA: a contiguous view
+    off a 16-byte boundary is refused before any launch."""
+    q, k, v, do = _flash_inputs(cuda, 2, 65, 65, 4, 2, 64, seed=5)
+    out, lse = tflash.flash_fwd_cuda(q, k, v, causal=True, scale=0.125)
+    delta = tflash.flash_delta(do, out)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    off = buf[1:].view(q.shape)
+    off.copy_(do)
+    kbuf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    koff = kbuf[1:].view(k.shape)
+    koff.copy_(k)
+    before = (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches)
+    kw = dict(causal=True, scale=0.125)
+    for args in ((q, k, v, off), (off, k, v, do), (q, koff, v, do), (q, k, koff, do)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tflash.flash_bwd_dq_cuda(*args, lse, delta, **kw)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tflash.flash_bwd_dkv_cuda(*args, lse, delta, **kw)
+    assert (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,pads", [
     (1, 4095, 4095, 8, 1, 64, True, None),                # S = 4095, GQA group 8
     (2, 300, 300, 6, 2, 128, True, None),                 # group 3, head_dim 128

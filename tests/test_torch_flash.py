@@ -109,6 +109,28 @@ def test_flash_bf16_rounding_points_match_jax():
         np.testing.assert_allclose(got, want, err_msg=f"d{name}", **BF16_TOL)
 
 
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    pytest.param(2, 72, 12, 4, 64, id="gqa-12-4"),
+    pytest.param(2, 72, 6, 2, 64, id="gqa-6-2"),
+    pytest.param(1, 128, 8, 1, 64, id="gqa-8-1"),
+])
+def test_flash_bf16_gqa_grads_match_jax(b, s, h, kvh, d):
+    """bf16 GQA inputs, causal, one JAX tile: each q head's dk / dv rounds
+    to bf16 where the Pallas kernel writes it, before the group is summed
+    (in fp32, rounded once, as the reference's sum outside the kernel).
+    Summing the group in fp32 and rounding once instead misses by several
+    ulps on about 1% of the elements. dk / dv are held at two bf16 ulps:
+    one from each head's rounding landing on either side of a boundary,
+    one from the rounded sum."""
+    q, k, v, g = _inputs(b, s, s, h, kvh, d, seed=3)
+    j_out, _, j_grads = _jax_side(q, k, v, g, causal=True, tile=128, dtype=jnp.bfloat16)
+    t_out, _, t_grads = _torch_side(q, k, v, g, causal=True, dtype=torch.bfloat16)
+    np.testing.assert_allclose(t_out, j_out, **BF16_TOL)
+    np.testing.assert_allclose(t_grads[0], j_grads[0], err_msg="dq", **BF16_TOL)
+    for name, got, want in zip("kv", t_grads[1:], j_grads[1:]):
+        np.testing.assert_allclose(got, want, err_msg=f"d{name}", rtol=2**-6, atol=2**-9)
+
+
 def test_flash_lse_of_rows_that_see_nothing_is_zero():
     """Causal with q_len > kv_len: the first rows see no key; their output
     is zero and their lse 0 (so the backward's exp(s - lse) stays 0), as in

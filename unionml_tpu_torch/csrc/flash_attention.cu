@@ -84,7 +84,6 @@ constexpr int BQ = 128;               // query rows per CTA
 constexpr int BKV = 128;              // keys per tile
 constexpr int CONSUMERS = 2;          // warpgroups of 64 query rows each
 constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int ROW_BYTES = 128;        // one swizzled row: 64 bf16 of one chunk
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 

@@ -272,9 +272,8 @@ fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // backward (row 13): TMA-fed tiles, wgmma, everything else in registers
 // --------------------------------------------------------------------- //
 
-constexpr int BT = 64;             // rows of every backward tile (queries or keys)
+constexpr int BT = TILE_ROWS;      // rows of every backward tile (queries or keys)
 constexpr int BWD_THREADS = 160;   // one consumer warpgroup, then one producer warp
-constexpr int ROW_BYTES = 128;     // one swizzled row: 64 bf16 of one column chunk
 
 template <int D>
 struct Bwd {
@@ -298,64 +297,6 @@ struct Bwd {
   static constexpr int B_BAR = B_STAT + B_STAGES * STAT_BYTES;
   static constexpr int B_SMEM = B_BAR + 8 * (1 + 2 * B_STAGES) + 1024;
 };
-
-// rows [row0, row0 + 64) of one head into a swizzled tile, one TMA box per
-// 64-column chunk; rows past the sequence read as zeros
-template <int D>
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int head, int row0, int b) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_load(dst + c * BT * ROW_BYTES, map, bar, c * 64, head, row0, b);
-}
-
-// the reverse; rows past the sequence are clipped by the map
-template <int D>
-__device__ __forceinline__ void store_rows(const CUtensorMap* map, uint32_t src, int head, int row0,
-                                           int b) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_store(map, src + c * BT * ROW_BYTES, c * 64, head, row0, b);
-}
-
-// acc (64 x N) = A (the 64 x D tile at a) . B (N rows of a 64 x D tile,
-// from b)^T, both K-major; N is 32 or 64 (issued, not waited)
-template <int D, int N>
-__device__ __forceinline__ void issue_abt(float (&acc)[N / 2], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BT * ROW_BYTES + (kk % 4) * 32;
-    wgmma_ss(acc, desc_sw128(a + off, 16, 1024), desc_sw128(b + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc (64 x D) += A (64 x K bf16 in registers, the accumulator layout of
-// issue_abt) . B (K rows of the 64 x D tile at b, read MN-major) (issued,
-// not waited)
-template <int D, int K>
-__device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
-                                         uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-    wgmma_rs(acc, ak, desc_sw128(b + kk * 16 * ROW_BYTES, BT * ROW_BYTES, 1024));
-  }
-}
-
-// byte offset of (row, col) in a swizzled 64 x D tile
-__device__ __forceinline__ uint32_t tile_off(int row, int col) {
-  return (col / 64) * BT * ROW_BYTES + sw128(row, col % 64);
-}
-
-// a 64 x D fp32 accumulator as bf16 into a swizzled tile (this thread's own
-// elements: rows r0 and r0 + 8, two columns of each 8)
-template <int D>
-__device__ __forceinline__ void stage_rows(uint32_t tile, const float (&acc)[D / 2], int r0,
-                                           int col_lane) {
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int col = (i / 4) * 8 + col_lane, row = r0 + ((i & 2) ? 8 : 0);
-    st_shared_b32(tile + tile_off(row, col), pack_bf16(acc[i], acc[i + 1]));
-  }
-}
 
 // some (query, key) pair of the (q0, k0) tile pair is hidden (causal) or
 // past the sequence

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (flash_attention.cu, fused_attention.cu): mbarriers, TMA tensor and bulk
-// copies, 128-byte-swizzle shared-memory descriptors, wgmma in the shapes
-// the kernels issue, bf16 packing and exp2, and the host-side builder of
-// the 4-D tensor maps over [batch, seq, heads, d] bf16 tensors.
+// (flash_attention.cu, flash_bwd.cu, fused_attention.cu): mbarriers, TMA
+// tensor and bulk copies, 128-byte-swizzle shared-memory descriptors, wgmma
+// in the shapes the kernels issue, bf16 packing and exp2, the products and
+// stores of the backward kernels' 64-row tiles, and the host-side builder
+// of the 4-D tensor maps over [batch, seq, heads, d] bf16 tensors.
 //
 // wgmma and setmaxnreg exist only for sm_90a; a source that includes this
 // header builds only for that target. ops/_build.py hashes every header
@@ -270,6 +271,79 @@ __device__ __forceinline__ uint32_t sw128(int row, int col) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
   return __bfloat1622float2(h);
+}
+
+// --------------------------------------------------------------------- //
+// 64-row tiles: the operands of the backward kernels
+// --------------------------------------------------------------------- //
+//
+// A 64-row tile of one head holds D / 64 column chunks, each 64 rows of
+// 128 bytes (8 KB) written by TMA with 128-byte swizzle, chunk c at c * 8 KB
+// from a 1024-byte aligned base. wgmma reads it K-major (head_dim is the
+// reduction: 8-row groups 1024 bytes apart, 32 bytes per 16-column step)
+// or MN-major (the rows are the reduction: 16 rows a step, chunks 8 KB
+// apart).
+
+constexpr int TILE_ROWS = 64;
+constexpr int ROW_BYTES = 128;     // one swizzled row: 64 bf16 of one column chunk
+constexpr uint32_t CHUNK_BYTES = TILE_ROWS * ROW_BYTES;
+
+// rows [row0, row0 + 64) of one head into a tile, one TMA box per column
+// chunk; rows past the sequence read as zeros
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int head, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load(dst + c * CHUNK_BYTES, map, bar, c * 64, head, row0, b);
+}
+
+// the reverse; rows past the sequence are clipped by the map
+template <int D>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, uint32_t src, int head, int row0,
+                                           int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_store(map, src + c * CHUNK_BYTES, c * 64, head, row0, b);
+}
+
+// acc (64 x N) = A (the 64 x D tile at a) . B (N rows of a 64 x D tile,
+// from b)^T, both K-major; N is 32 or 64 (issued, not waited)
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * CHUNK_BYTES + (kk % 4) * 32;
+    wgmma_ss(acc, desc_sw128(a + off, 16, 1024), desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x D) += A (64 x K bf16 in registers, the accumulator layout of
+// issue_abt) . B (K rows of the 64 x D tile at b, read MN-major) (issued,
+// not waited)
+template <int D, int K>
+__device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    wgmma_rs(acc, ak, desc_sw128(b + kk * 16 * ROW_BYTES, CHUNK_BYTES, 1024));
+  }
+}
+
+// byte offset of (row, col) in a 64 x D tile
+__device__ __forceinline__ uint32_t tile_off(int row, int col) {
+  return (col / 64) * CHUNK_BYTES + sw128(row, col % 64);
+}
+
+// a 64 x D fp32 accumulator as bf16 into a tile (this thread's own
+// elements: rows r0 and r0 + 8, two columns of each 8)
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t tile, const float (&acc)[D / 2], int r0,
+                                           int col_lane) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int col = (i / 4) * 8 + col_lane, row = r0 + ((i & 2) ? 8 : 0);
+    st_shared_b32(tile + tile_off(row, col), pack_bf16(acc[i], acc[i + 1]));
+  }
 }
 
 // --------------------------------------------------------------------- //

@@ -19,13 +19,16 @@ last ``q_len`` positions).
   backward recomputes ``p = exp(s - lse)`` tile by tile with ``delta =
   rowsum(dO * O)`` (a torch expression outside the kernels, as the
   reference leaves it to XLA) in a dq kernel over query tiles and a dk/dv
-  kernel over key tiles that sums each GQA group inside the block. Kernels
+  kernel over key tiles of each q head; each head's dk / dv is rounded to
+  the input dtype, then each GQA group is summed in fp32 and rounded once
+  (a torch sum outside the kernel, as in the reference). Kernels
   :data:`FWD_KERNEL` (``flash_fwd_lse``, the padded kernel in its lse mode),
   :data:`DQ_KERNEL` and :data:`DKV_KERNEL` (``csrc/flash_bwd.cu``);
   :func:`flash_fwd_plain` and :func:`flash_bwd_plain` are the same
   arithmetic in plain PyTorch, rounding where the TPU kernels round
   (``p`` to the value dtype before ``p @ v`` and ``p^T @ dO``, ``ds`` to
-  the input dtype before ``ds @ k`` and ``ds^T @ q``).
+  the input dtype before ``ds @ k`` and ``ds^T @ q``, each q head's dk /
+  dv before the group sum).
 
 Every op launches the kernels for CUDA tensors (bf16, head_dim 64 or 128;
 anything else raises) and takes the plain versions only for CPU tensors.
@@ -46,8 +49,10 @@ _SHAPE_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_
 KERNEL = Kernel("flash_attention", "flash_fwd_padded", [ctypes.c_void_p] * 5 + _SHAPE_ARGS)
 FWD_KERNEL = Kernel("flash_attention", "flash_fwd_lse", [ctypes.c_void_p] * 5 + _SHAPE_ARGS)
 DQ_KERNEL = Kernel("flash_bwd", "flash_bwd_dq", [ctypes.c_void_p] * 7 + _SHAPE_ARGS)
-DKV_KERNEL = Kernel("flash_bwd", "flash_bwd_dkv", [ctypes.c_void_p] * 8 + _SHAPE_ARGS)
+DKV_KERNEL = Kernel("flash_bwd", "flash_bwd_dkv", [ctypes.c_void_p] * 7 + _SHAPE_ARGS)
 HEAD_DIMS = (64, 128)
+LOG2E = 1.4426950408889634
+STAT_ROWS = 64   # the dk/dv kernel copies lse / delta in 64-row (256-byte) segments
 
 
 def _causal_visible(q_len: int, kv_len: int, device) -> torch.Tensor:
@@ -123,8 +128,9 @@ def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def _plain_backward(q, k, v, do, out, lse, vis: Optional[torch.Tensor], scale: float):
     """The FlashAttention-2 backward over the visible pairs (``vis`` as in
-    :func:`_plain_forward`): ``(dq, dk, dv)`` in the inputs' dtypes, dk/dv
-    summed over each GQA group in fp32."""
+    :func:`_plain_forward`): ``(dq, dk, dv)`` in the inputs' dtypes; each q
+    head's dk/dv rounded to the input dtype, then each GQA group summed in
+    fp32 and rounded once."""
     b, q_len, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -135,10 +141,13 @@ def _plain_backward(q, k, v, do, out, lse, vis: Optional[torch.Tensor], scale: f
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
     delta = flash_delta(do, out).reshape(b, kvh, g, q_len, 1)
     ds = (p * (dp - delta) * scale).to(q.dtype).float()
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), dog)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(b, q_len, h, d)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.reshape(b, q_len, kvh, g, d).float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    # each q head's dk / dv rounds to the input dtype (the TPU kernels' output),
+    # then the group is summed in fp32 and rounded once (the reference's sum)
+    qg = q.reshape(b, q_len, kvh, g, d).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhgd", p.to(do.dtype).float(), dog).to(v.dtype)
+    dk = torch.einsum("bhgqk,bqhgd->bkhgd", ds, qg).to(k.dtype)
+    return dq.to(q.dtype), dk.float().sum(3).to(k.dtype), dv.float().sum(3).to(v.dtype)
 
 
 def flash_bwd_plain(
@@ -146,8 +155,9 @@ def flash_bwd_plain(
     out: torch.Tensor, lse: torch.Tensor, *, causal: bool, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch FlashAttention-2 backward (the dq and dk/dv kernels'
-    reference): ``(dq, dk, dv)`` in the inputs' dtypes, dk/dv summed over
-    each GQA group in fp32."""
+    reference): ``(dq, dk, dv)`` in the inputs' dtypes; each q head's dk/dv
+    rounded to the input dtype, then each GQA group summed in fp32 and
+    rounded once (the reference's rounding points)."""
     vis = _causal_visible(q.shape[1], k.shape[1], q.device) if causal else None
     return _plain_backward(q, k, v, do, out, lse, vis, scale)
 
@@ -190,10 +200,10 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The forward kernel reads q/k/v and writes out through TMA, which
-    needs 16-byte aligned base addresses."""
+    """The kernels read and write through TMA (and bulk copies), which
+    need 16-byte aligned base addresses."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} needs 16-byte aligned q/k/v (TMA)")
+        raise ValueError(f"{name} needs 16-byte aligned tensors (TMA)")
 
 
 def flash_fwd_padded_cuda(
@@ -254,6 +264,7 @@ def flash_bwd_dq_cuda(
     device; returns dq (bf16)."""
     b, q_len, kv_len, h, kvh, d = _check_bwd("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
+    _check_aligned("flash_bwd_dq_cuda", q, k, v, do, dq)
     with torch.cuda.device(q.device):
         DQ_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), dq.data_ptr(), b, q_len, kv_len, h, kvh, d,
@@ -267,16 +278,27 @@ def flash_bwd_dkv_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel (row 11) on the operands of
     :func:`flash_bwd_dq_cuda`; returns ``(dk, dv)`` (bf16, [B, Skv, KVH,
-    D], each GQA group summed inside the kernel)."""
+    D]). The kernel reads lse * log2(e) and delta from one padded fp32 copy
+    ([2, B * H, Sq rounded up to 64]: its rows are bulk-copied, which needs
+    16-byte aligned rows) and writes each q head's dk / dv rounded to bf16
+    (into one [2, B, Skv, H, D] tensor); under GQA each group is then
+    summed in fp32 and rounded once, as the reference sums it outside its
+    kernel. dk and dv are views of one [2, ...] tensor."""
     b, q_len, kv_len, h, kvh, d = _check_bwd("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
-    if b * kvh > 65535:
-        raise ValueError(f"batch * kv heads must be at most 65535, got {b * kvh}")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    g = h // kvh
+    stats = torch.zeros(2, b * h, -(-q_len // STAT_ROWS) * STAT_ROWS, dtype=torch.float32,
+                        device=q.device)
+    stats[0, :, :q_len] = lse.view(b * h, q_len) * LOG2E
+    stats[1, :, :q_len] = delta.view(b * h, q_len)
+    heads = torch.empty(2, b, kv_len, h, d, dtype=k.dtype, device=k.device)  # dk, dv per q head
+    _check_aligned("flash_bwd_dkv_cuda", q, k, v, do, stats, heads[0], heads[1])
     with torch.cuda.device(q.device):
-        DKV_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                   delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, q_len, kv_len, h, kvh, d,
+        DKV_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                   heads[0].data_ptr(), heads[1].data_ptr(), b, q_len, kv_len, h, kvh, d,
                    float(scale), int(causal), _stream(q))
-    return dk, dv
+    if g > 1:
+        heads = heads.view(2, b, kv_len, kvh, g, d).sum(4, dtype=torch.float32).to(k.dtype)
+    return heads[0], heads[1]
 
 
 def flash_bwd_cuda(
@@ -376,8 +398,10 @@ def flash_attention(
     a backward through it raises ``RuntimeError``, as in the reference.
     ``block_q`` / ``block_kv`` are the TPU kernels' tile sizes and are
     accepted for the reference's callers only: the CUDA kernels keep their
-    own tiles (128 queries by 128 keys in the forward, 64 in the backward). The CUDA kernels for CUDA tensors, the plain versions
-    for CPU ones."""
+    own tiles (the forward: 128 queries by 128 keys; the backward's dq:
+    192 queries at head_dim 64 and 128 at 128, by 64 keys; its dk/dv: 192
+    or 128 keys of one q head by 64 queries). The CUDA
+    kernels for CUDA tensors, the plain versions for CPU ones."""
     del block_q, block_kv  # the TPU's tile knobs; see the docstring
     if scale is None:
         scale = q.shape[-1] ** -0.5
