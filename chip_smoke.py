@@ -115,6 +115,7 @@ INT4_TOL = {                              # the same fp32 products in another su
     torch.bfloat16: dict(rtol=1 / 64, atol=1e-2),   # <= 2 bf16 ulps after the one final rounding
     torch.float32: dict(rtol=1e-4, atol=1e-4),      # fp32 FMA (kernel) vs fp32 GEMM (plain), no TF32
 }
+INT4_MISMATCH_MAX = 0.02                  # per-channel bf16: share of outputs whose rounding differs
 LOGIT_COSINE_MIN = 0.99                   # 8B kernel path vs plain path, bf16 through every layer
 SPEC_SELF_ACCEPT_MIN = 0.99               # self-speculation: draft == target
 
@@ -144,6 +145,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+L2_BYTES = 50e6                           # the H100's L2
+
+
+def cold_copies(t: torch.Tensor) -> list:
+    """``t`` and as many copies as make one pass over them read more than
+    twice the L2, so a call that rotates over them finds its copy cold."""
+    count = int(2 * L2_BYTES // (t.numel() * t.element_size())) + 1
+    return [t] + [t.clone() for _ in range(count - 1)]
+
+
+def time_ms_cold(fns: list, iters: int = 20) -> float:
+    """Mean device time of one call, the calls rotating over ``fns`` (each
+    on its own copy of the weights, from :func:`cold_copies`): at least
+    ``iters`` calls and at least two full rotations."""
+    calls = max(iters, 2 * len(fns))
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * calls)
+    start.record()
+    for i in range(calls):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -337,7 +367,8 @@ def random_int4_weight(k: int, n: int, group: int, gen, device: str = "cuda") ->
 def _int4pack_library(x, packed, scale, tile, group):
     """``torch._weight_int4pack_mm`` on the same nibbles (bf16 scales, zero
     point 8; repacking not timed): a yardstick, not an oracle. Returns
-    ``(ms, note)``; ``ms`` is None where the card's build lacks the op."""
+    ``(ms, ms_cold, note)``; the times are None where the card's build
+    lacks the op."""
     from unionml_tpu_torch.ops import int4_matmul as i4
 
     k, n = x.shape[1], scale.shape[-1]
@@ -351,17 +382,48 @@ def _int4pack_library(x, packed, scale, tile, group):
         sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).bfloat16().contiguous()
         xb = x.bfloat16()
         torch._weight_int4pack_mm(xb, w, group, sz)
-        return time_ms(lambda: torch._weight_int4pack_mm(xb, w, group, sz)), (
+        cold = [lambda c=c: torch._weight_int4pack_mm(xb, c, group, sz) for c in cold_copies(w)]
+        return time_ms(lambda: torch._weight_int4pack_mm(xb, w, group, sz)), time_ms_cold(cold), (
             f"torch._weight_int4pack_mm, group {group}, bf16 scales (repack not timed)"
         )
     except (RuntimeError, AttributeError, TypeError) as exc:
-        return None, f"torch._weight_int4pack_mm unavailable on this build: {exc!r}"[:300]
+        return None, None, f"torch._weight_int4pack_mm unavailable on this build: {exc!r}"[:300]
 
 
-def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = None) -> dict:
+def rounding_mismatch(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of outputs whose bits differ from the plain version's. The
+    kernel and the plain version sum the same fp32 products in two orders
+    and round once, so only near-ties may round apart."""
+    return float((got != want).float().mean().item())
+
+
+def int4_slice_faults(x, packed, scale, tile: int) -> dict:
+    """Two planted faults of the per-channel kernel's K split, computed from
+    the plain version's math on the same inputs: the last K-slice dropped,
+    and the slices' partials rounded to bf16 and summed in reverse rank
+    order in bf16. The bit check must reject both."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    k, n = x.shape[1], scale.shape[-1]
+    w = i4.unpack_int4(packed, tile).float()
+    xf = x.float()
+    parts = [xf[:, a:b] @ w[a:b] for a, b in i4._k_slices(k, i4._k_splits(k, n))]
+    dropped = (sum(parts[:-1], torch.zeros_like(parts[0])) * scale).to(x.dtype)
+    rounded = parts[-1].to(x.dtype)
+    for p in reversed(parts[:-1]):
+        rounded = rounded + p.to(x.dtype)
+    reordered = (rounded.float() * scale).to(x.dtype)
+    return {"last_slice_dropped": dropped, "bf16_reverse_rank_sum": reordered}
+
+
+def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = None,
+              faults: bool = False) -> dict:
     """One int4 matmul at a main-path shape: the kernel against its plain
-    version, and the per-row independence of its result (the first 8 rows
-    of a ``rows``-row launch equal an 8-row launch bit for bit)."""
+    version, the per-row independence of its result (the first 8 rows of a
+    ``rows``-row launch equal an 8-row launch bit for bit), warm and cold
+    times beside the library call's; per-channel bf16 also bit for bit
+    (:func:`rounding_mismatch`), and with ``faults`` the planted K-split
+    faults, which that check must reject."""
     from unionml_tpu_torch.ops import int4_matmul as i4
 
     tile = tile or i4.tile_for(n, k)
@@ -374,6 +436,20 @@ def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = Non
     form = f"g{group}" if group else "per-channel"
     name = f"int4_matmul {form} x[{rows},{k}] {str(dtype).split('.')[-1]} N={n}"
     err = check_close(name, got, want, INT4_TOL[dtype])
+    checks = {}
+    if not group and dtype == torch.bfloat16:
+        checks["mismatch"] = rounding_mismatch(got, want)
+        if checks["mismatch"] > INT4_MISMATCH_MAX:
+            raise AssertionError(f"{name}: {checks['mismatch']:.4f} of outputs round apart from "
+                                 f"the plain version (limit {INT4_MISMATCH_MAX})")
+        if faults:
+            for fault, bad in int4_slice_faults(x, packed, scale, tile).items():
+                share = rounding_mismatch(bad, want)
+                checks[f"fault_{fault}"] = share
+                if share <= INT4_MISMATCH_MAX:
+                    raise AssertionError(f"{name}: the planted fault {fault} passes the bit "
+                                         f"check ({share:.4f} of outputs apart)")
+            log(f"{name}: {checks}")
     if rows > 8:
         head = i4.int4_matmul_cuda(x[:8].contiguous(), packed, scale, tile_n=tile, group_size=group)
         if not torch.equal(head, got[:8]):
@@ -382,26 +458,33 @@ def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = Non
     nbytes = packed.numel() + scale.numel() * 4 + rows * k * elt + rows * n * elt
     peak = PEAK_FP32_OPS_S if dtype == torch.float32 else PEAK_BF16_OPS_S
     b_ms, b_by = bound(nbytes, 2 * rows * k * n, peak)
+    cold = [
+        (lambda p=p: i4.int4_matmul_cuda(x, p, scale, tile_n=tile, group_size=group))
+        for p in cold_copies(packed)
+    ]
+    ms, ms_cold = time_ms(run), time_ms_cold(cold)
+    del cold
     if group and dtype == torch.bfloat16:
-        lib_ms, lib_note = _int4pack_library(x, packed, scale, tile, group)
+        lib_ms, lib_ms_cold, lib_note = _int4pack_library(x, packed, scale, tile, group)
     else:
         w = i4.unpack_int4(packed, tile)  # dequantized beforehand, not timed
         w = (w.float() * (scale.repeat_interleave(group, 0) if group else scale)).to(dtype)
         lib_ms = time_ms(lambda: torch.mm(x, w))
+        lib_ms_cold = time_ms_cold([lambda c=c: torch.mm(x, c) for c in cold_copies(w)])
         lib_note = f"torch.mm of {str(dtype).split('.')[-1]} x against the weight dequantized " \
                    "beforehand (dequantization not timed)"
         del w
     return {
         "shape": f"x[{rows},{k}] {str(dtype).split('.')[-1]} @ W4[{k},{n}] tile {tile}, {form}",
         "form": form, "rows": rows,
-        "max_abs_err": err,
-        "ms": time_ms(run),
+        "max_abs_err": err, **checks,
+        "ms": ms, "ms_cold": ms_cold,
         "plain_ms": time_ms(
             lambda: i4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype,
                                          group_size=group), iters=3,
         ),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "library_call": lib_note,
+        "library_ms": lib_ms, "library_ms_cold": lib_ms_cold, "library_call": lib_note,
     }
 
 
@@ -1256,10 +1339,13 @@ def kernel_phase(batch: int, bucket: int) -> dict:
     flashes.append(flash_case(batch, 256, 16, 8, 64, [0, 17, 100, 200][:batch], gen))
     # int4 at Llama-3-8B shapes: per-channel at the speculative verify's
     # 40 rows (8 slots x 5), grouped at the paged engine's 16-slot decode;
-    # q/o, gate/up, down and the fp32 LM head (tile 256) of each. The 4-row
-    # LM-head cases are extras, off the main paths.
+    # q/o, gate/up, down and the fp32 LM head (tile 256) of each, and the
+    # per-channel k/v (the narrowest grid, 8 K-slices; its planted faults
+    # with q/o's). The 4-row LM-head cases are extras, off the main paths.
     bf16, fp32 = torch.bfloat16, torch.float32
-    per_channel = [int4_case(40, 4096, 4096, 0, bf16, gen), int4_case(40, 4096, 14336, 0, bf16, gen),
+    per_channel = [int4_case(40, 4096, 4096, 0, bf16, gen, faults=True),
+                   int4_case(40, 4096, 1024, 0, bf16, gen, faults=True),
+                   int4_case(40, 4096, 14336, 0, bf16, gen),
                    int4_case(40, 14336, 4096, 0, bf16, gen), int4_case(40, 4096, 128256, 0, fp32, gen),
                    int4_case(4, 4096, 128256, 0, fp32, gen)]
     grouped = [int4_case(16, 4096, 14336, 128, bf16, gen), int4_case(16, 14336, 4096, 128, bf16, gen),
@@ -1271,7 +1357,9 @@ def kernel_phase(batch: int, bucket: int) -> dict:
             log(f"kernel {name} {c['shape']}: max_abs_err {c['max_abs_err']} "
                 f"ms {c['ms']} plain_ms {c['plain_ms']} bound_ms {c['bound_ms']} "
                 f"({c['bound_by']}) library_ms {c['library_ms']}"
-                + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else ""))
+                + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else "")
+                + (f" ms_cold {c['ms_cold']} library_ms_cold {c['library_ms_cold']}"
+                   if "ms_cold" in c else ""))
     count = event_wait_releases_gil()
     log(f"kernels: main-thread loop iterations during a CUDA event wait: {count}")
     if count < 10_000:
@@ -2265,6 +2353,7 @@ def main(argv=None) -> int:
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
+            **{key: main_case[key] for key in ("ms_cold", "library_ms_cold") if key in main_case},
             "serve_launches": served["launches"].get(name),
             "launches_per_train_step": per_train_step.get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),

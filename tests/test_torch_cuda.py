@@ -195,6 +195,134 @@ def test_int4_kernel_matches_plain_on_card(cuda, rows, k, n, tile, group, dtype)
     assert torch.equal(head, got[:1])
 
 
+def _chip_smoke():
+    """The repository's chip_smoke module (its int4 bit check and planted
+    K-split faults), imported from the repository root."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def _int4_channel_inputs(cuda, rows, k, n, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    packed = torch.randint(-128, 128, (k, n // 2), device=cuda, generator=gen, dtype=torch.int8)
+    scale = torch.rand(n, device=cuda, generator=gen) * 0.05
+    x = torch.randn(rows, k, device=cuda, generator=gen).to(dtype)
+    return x, packed, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,tile,dtype,splits", [
+    (4096, 1024, 512, torch.bfloat16, 8),      # the k/v projection: the narrowest grid
+    (14336, 4096, 512, torch.bfloat16, 8),     # down: long K slices
+    (4096, 14336, 512, torch.bfloat16, 2),     # gate/up: the widest bf16 grid
+    (4096, 2048, 256, torch.float32, 1),       # the LM head's fp32 form at a reduced N
+])
+def test_int4_channel_rows_are_bit_invariant_on_card(cuda, k, n, tile, dtype, splits):
+    """Every row count 1..64 gives each row the bits it gets in a one-row
+    launch and in the 64-row launch (the K split and every summation order
+    follow (K, N) alone; the wgmma width follows the row count), and a
+    rerun gives the same bits."""
+    if dtype == torch.bfloat16:   # the fp32 form walks all of K in every CTA
+        assert tint4._k_splits(k, n) == splits
+    x, packed, scale = _int4_channel_inputs(cuda, 64, k, n, dtype)
+
+    def run(rows):
+        return tint4.int4_matmul_cuda(x[:rows].contiguous(), packed, scale, tile_n=tile)
+
+    full = run(64)
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype)
+    tol = dict(rtol=1 / 64, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(full, want, **tol)
+    singles = torch.cat([
+        tint4.int4_matmul_cuda(x[r:r + 1].contiguous(), packed, scale, tile_n=tile)
+        for r in range(64)
+    ])
+    assert torch.equal(singles, full)
+    for rows in range(1, 65):
+        assert torch.equal(run(rows), full[:rows]), rows
+    assert torch.equal(run(64), full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_channel_dequantizes_every_byte_on_card(cuda, dtype):
+    """Each packed column holds all 256 byte values down K; one-hot x rows
+    pick one K row each, so every output is exactly nibble x scale,
+    rounded once (both nibbles of every byte, through the K split)."""
+    k, n, tile = 256, 1024, 512
+    byte = (torch.arange(k)[:, None] + 37 * torch.arange(n // 2)[None, :]) % 256
+    packed = torch.where(byte > 127, byte - 256, byte).to(torch.int8).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    scale = torch.rand(n, device=cuda, generator=gen) + 0.5
+    nibbles = tint4.unpack_int4(packed, tile).float()
+    for r0 in range(0, k, 64):
+        x = torch.zeros(64, k, device=cuda)
+        x[torch.arange(64), r0 + torch.arange(64)] = 1.0
+        got = tint4.int4_matmul_cuda(x.to(dtype), packed, scale, tile_n=tile)
+        assert torch.equal(got, (nibbles[r0:r0 + 64] * scale).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n,tile,x_off,w_off", [
+    (5, 96, 200, 200, 0, 0),      # N/2 = 100: no 16-byte weight row stride
+    (3, 98, 512, 512, 0, 0),      # 2K and 4K bytes not multiples of 16: no x row stride
+    (40, 256, 1024, 512, 1, 0),   # x's base 2 or 4 bytes off 16
+    (8, 256, 1024, 512, 0, 1),    # the weights' base one byte off
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_channel_simple_path_on_card(cuda, rows, k, n, tile, x_off, w_off, dtype):
+    """Shapes and bases that TMA cannot read take the kernel's simple path
+    (never the plain version), match the plain version, keep a row's bits
+    at any row count, and the TMA path itself refuses them."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    wbuf = torch.randint(-128, 128, (k * n // 2 + w_off,), device=cuda, generator=gen,
+                         dtype=torch.int8)
+    packed = wbuf[w_off:].view(k, n // 2)
+    scale = torch.rand(n, device=cuda, generator=gen) * 0.05
+    xbuf = torch.randn(rows * k + x_off, device=cuda, generator=gen).to(dtype)
+    x = xbuf[x_off:].view(rows, k)
+    assert not tint4._tma_path(x, packed)
+    before = tint4.KERNEL.launches
+    got = tint4.int4_matmul_cuda(x, packed, scale, tile_n=tile)
+    torch.cuda.synchronize()
+    assert tint4.KERNEL.launches == before + 1
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype)
+    tol = dict(rtol=1 / 64, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, want, **tol)
+    head = tint4.int4_matmul_cuda(x[:1].contiguous(), packed, scale, tile_n=tile)
+    assert torch.equal(head, got[:1])
+    out = torch.empty(rows, n, dtype=dtype, device=cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        tint4.KERNEL(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
+                     k, n, tile, 1, int(dtype == torch.float32), 0,
+                     torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024)])
+def test_int4_channel_bit_check_rejects_planted_faults_on_card(cuda, k, n):
+    """chip_smoke's per-channel bit check at the verify's 40 rows: the
+    kernel passes it, and a kernel that dropped the last K-slice or summed
+    the slices out of rank order in bf16 (emulated from the plain math)
+    fails it."""
+    smoke = _chip_smoke()
+    x, packed, scale = _int4_channel_inputs(cuda, 40, k, n, torch.bfloat16, seed=3)
+    scale = scale / (k ** 0.5)
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=512, dtype=torch.bfloat16)
+    got = tint4.int4_matmul_cuda(x, packed, scale, tile_n=512)
+    assert smoke.rounding_mismatch(got, want) <= smoke.INT4_MISMATCH_MAX
+    for fault, bad in smoke.int4_slice_faults(x, packed, scale, 512).items():
+        assert smoke.rounding_mismatch(bad, want) > smoke.INT4_MISMATCH_MAX, fault
+
+
 @pytest.mark.cuda
 def test_int4_routing_on_card(cuda):
     """Decode rows launch the kernel (never the plain version); prefill

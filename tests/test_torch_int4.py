@@ -142,6 +142,67 @@ def test_int4_matmul_matches_jax(rows, group, k, dtype):
     np.testing.assert_allclose(got, x @ wdq, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("k,n,splits", [
+    (4096, 1024, 8), (4096, 4096, 8), (4096, 14336, 2), (14336, 4096, 8),
+    (4096, 128256, 1), (256, 1024, 2), (96, 200, 1), (1000, 512, 8),
+])
+def test_k_split_is_fixed_by_k_and_n(k, n, splits):
+    """The per-channel kernel's K split: a function of (K, N) alone (so a
+    row's bits never follow the row count), a power of two up to 8 that
+    fills the card's 132 SMs where K allows, and slices of whole 128-row
+    chunks that cover K in rank order, the tail in the last."""
+    assert tint4._k_splits(k, n) == splits
+    tiles = -(-n // tint4.CHANNEL_TILE)
+    assert splits in (1, 2, 4, 8)
+    assert tiles * splits >= 132 or splits == 8 or 2 * splits > -(-k // 128)
+    assert splits == 1 or tiles * splits // 2 < 132
+    slices = tint4._k_slices(k, splits)
+    assert len(slices) == splits and slices[0][0] == 0 and slices[-1][1] == k
+    for (a, b), (c, _) in zip(slices, slices[1:]):
+        assert b == c and a < b and b % tint4.K_CHUNK == 0
+
+
+def test_tma_path_follows_alignment():
+    """The per-channel kernel reads by TMA only 16-byte aligned bases and
+    row strides; everything else takes its simple path."""
+    packed = torch.zeros(256, 512, dtype=torch.int8)
+    x = torch.zeros(8, 256, dtype=torch.bfloat16)
+    assert tint4._tma_path(x, packed)
+    assert not tint4._tma_path(x, torch.zeros(256, 100, dtype=torch.int8))
+    assert not tint4._tma_path(torch.zeros(8, 98, dtype=torch.bfloat16),
+                               torch.zeros(98, 512, dtype=torch.int8))
+    assert tint4._tma_path(torch.zeros(8, 100), torch.zeros(100, 512, dtype=torch.int8))
+    assert not tint4._tma_path(torch.zeros(8 * 256 + 1, dtype=torch.bfloat16)[1:].view(8, 256),
+                               packed)
+    assert not tint4._tma_path(x, torch.zeros(256 * 512 + 1, dtype=torch.int8)[1:].view(256, 512))
+
+
+def test_chip_smoke_int4_bit_check_rejects_planted_faults_on_cpu():
+    """chip_smoke's per-channel bit check on the CPU (the plain version
+    against itself, then the two planted K-split faults), at 8 slices."""
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(repo))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(repo))
+    k, n, tile = 2048, 512, 512
+    assert tint4._k_splits(k, n) == 8
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(40, k)).astype(np.float32)).bfloat16()
+    packed = torch.from_numpy(rng.integers(-128, 128, size=(k, n // 2)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.0, size=n).astype(np.float32)) / k ** 0.5
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=torch.bfloat16)
+    assert chip_smoke.rounding_mismatch(want, want) == 0.0
+    faults = chip_smoke.int4_slice_faults(x, packed, scale, tile)
+    assert set(faults) == {"last_slice_dropped", "bf16_reverse_rank_sum"}
+    for bad in faults.values():
+        assert chip_smoke.rounding_mismatch(bad, want) > chip_smoke.INT4_MISMATCH_MAX
+
+
 def test_routing_plain_fallback_and_warning(monkeypatch):
     """Decode rows with a conforming tile take the kernel's plain version
     on the CPU; prefill rows, 128 tiles and small groups take the
