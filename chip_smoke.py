@@ -15,7 +15,10 @@ Phases, each of which fails the run with a non-zero exit:
              PyTorch library call computing the same function (yardstick
              only; the port never calls it); check that waiting on a CUDA
              event lets other Python threads run (the engine's harvester
-             waits so while its dispatcher launches); the ViT rows
+             waits so while its dispatcher launches); row 6 (paged
+             decode, bf16 and int8 pools) also row by row against a
+             planted dropped-block fault and timed cold, each call on its
+             own copy of the pools; the ViT rows
              (LayerNorm, add-LayerNorm and norm backward at ViT-B/16's
              12608 x 768, fused attention forward and backward at S = 197,
              512 and 1024; the backward run twice for the same bits);
@@ -150,10 +153,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 L2_BYTES = 50e6                           # the H100's L2
 
 
-def cold_copies(t: torch.Tensor) -> list:
+def cold_copies(t: torch.Tensor, nbytes: float = None) -> list:
     """``t`` and as many copies as make one pass over them read more than
-    twice the L2, so a call that rotates over them finds its copy cold."""
-    count = int(2 * L2_BYTES // (t.numel() * t.element_size())) + 1
+    twice the L2, so a call that rotates over them finds its copy cold.
+    ``nbytes`` is what one call reads of its copy (default: all of ``t``;
+    a paged call reads only the visible rows of its pools)."""
+    count = int(2 * L2_BYTES // (nbytes or t.numel() * t.element_size())) + 1
     return [t] + [t.clone() for _ in range(count - 1)]
 
 
@@ -309,6 +314,8 @@ def paged_case(batch: int, hq: int, hk: int, d: int, blk: int, width: int, int8:
     want = pa.paged_attention_plain(q, k, v, table, lens, **scales)
     form = "int8" if int8 else "bf16"
     err = check_close(f"paged_attention {form}", got, want, PAGED_TOL)
+    checks = check_paged_rows(f"paged_attention {form}", got, want,
+                              dropped_block_fault(q, k, v, table, lens, **scales))
     # bytes this data needs: every visible K/V row once at kv-head width
     # (int8: 1 byte a value plus a 4-byte scale per head), q, out, table,
     # lengths
@@ -331,12 +338,28 @@ def paged_case(batch: int, hq: int, hk: int, d: int, blk: int, width: int, int8:
     gv = gathered(v, scales.get("v_scale"))
     mask = (torch.arange(width * blk, device="cuda")[None] < lens[:, None])[:, None, None]
     q4 = q[:, :, None]
+    # cold: each call on its own copy of the pools (and scales), rotating
+    # over copies that together hold more than twice the L2 of what one
+    # call reads; the library call over copies of the gathered rows
+    pools = [(k, v, scales)] + [
+        (k.clone(), v.clone(), {n: t.clone() for n, t in scales.items()})
+        for _ in cold_copies(k, nbytes)[1:]
+    ]
+    ms_cold = time_ms_cold([
+        lambda c=c: pa.paged_attention_cuda(q, c[0], c[1], table, lens, **c[2]) for c in pools
+    ])
+    del pools
+    lib_ms_cold = time_ms_cold([
+        lambda c=c: F.scaled_dot_product_attention(q4, c[0], c[1], attn_mask=mask,
+                                                   enable_gqa=True)
+        for c in zip(cold_copies(gk), cold_copies(gv))
+    ])
     return {
         "shape": f"q[{batch},{hq},{d}] bf16, {form} pools[{n_blocks},{blk},{hk},{d}], "
                  f"table[{batch},{width}], lengths {lengths}",
         "form": form,
-        "max_abs_err": err,
-        "ms": time_ms(run),
+        "max_abs_err": err, "row_checks": {"out": checks},
+        "ms": time_ms(run), "ms_cold": ms_cold,
         "plain_ms": time_ms(
             lambda: pa.paged_attention_plain(q, k, v, table, lens, **scales), iters=5
         ),
@@ -344,6 +367,7 @@ def paged_case(batch: int, hq: int, hk: int, d: int, blk: int, width: int, int8:
         "library_ms": time_ms(
             lambda: F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask, enable_gqa=True)
         ),
+        "library_ms_cold": lib_ms_cold,
         "library_call": "scaled_dot_product_attention(enable_gqa) over the rows gathered "
                         "contiguous beforehand (gather not timed)",
     }
@@ -621,6 +645,40 @@ def check_fused_rows(name: str, got: dict, want: dict, fault: dict) -> dict:
     :data:`FUSED_ROW_LIMIT`; the skipped-chunk fault must fail."""
     return check_rows_with_fault(name, got, want, fault, FUSED_ROW_LIMIT,
                                  "each query's last 64-key chunk skipped")
+
+
+# row 6: each (batch row, q head) output row within 2e-2 of its own max
+# |plain|. The kernel rounds each weight p to q's dtype before normalising
+# (against its running maximum), the plain version the normalised weight:
+# each is one bf16 rounding of each weight, which moves a row by well under
+# 1e-3 of its max at these lengths; then the output rounds once to bf16,
+# and one ulp of it is up to 2**-7 (0.0078) of a row's max. 2e-2 leaves
+# 2.5x that; dropping one 16-row block of a 1000-row row moves the row by
+# several times the limit.
+PAGED_ROW_LIMIT = 2e-2
+
+
+def dropped_block_fault(q, k, v, table, lengths, **scales) -> torch.Tensor:
+    """A planted fault the row check of row 6 must reject: the plain version
+    with the last visible pool block of every row that covers more than one
+    block dropped, as a kernel whose walk over a row's blocks (or over the
+    splits of a row) stops one block short would compute."""
+    from unionml_tpu_torch.ops import paged_attention as pa
+
+    blk = k.shape[1]
+    n = lengths.long().clamp(0, table.shape[1] * blk)
+    cover = (n + blk - 1) // blk
+    short = torch.where(cover > 1, (cover - 1) * blk, n).to(lengths.dtype)
+    return pa.paged_attention_plain(q, k, v, table, short, **scales)
+
+
+def check_paged_rows(name: str, got: torch.Tensor, want: torch.Tensor,
+                     fault: torch.Tensor) -> dict:
+    """Row 6 row by row within :data:`PAGED_ROW_LIMIT`; the dropped-block
+    fault must fail."""
+    return check_rows_with_fault(name, {"out": got}, {"out": want}, {"out": fault},
+                                 {"out": PAGED_ROW_LIMIT},
+                                 "each row's last visible pool block dropped")["out"]
 
 
 def log_row_checks(checks: dict) -> None:
@@ -1360,6 +1418,7 @@ def kernel_phase(batch: int, bucket: int) -> dict:
                 + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else "")
                 + (f" ms_cold {c['ms_cold']} library_ms_cold {c['library_ms_cold']}"
                    if "ms_cold" in c else ""))
+            log_row_checks(c.get("row_checks", {}))
     count = event_wait_releases_gil()
     log(f"kernels: main-thread loop iterations during a CUDA event wait: {count}")
     if count < 10_000:

@@ -14,9 +14,10 @@ weights from a seeded generator on the card) behind a block-paged
    token is harvested), twice; prints the engine's TTFT and inter-token
    latency, and the dispatcher's host time per decode chunk;
 2. traces the same call with ``torch.profiler`` (CPU + CUDA) and prints
-   the device time by kernel name and the launches of the port's three
-   kernels. The idle share is one minus the traced device-busy time over
-   the UNTRACED call's wall time.
+   the device time by kernel class (the port's kernels, GEMMs, the rest)
+   and per decode step, by kernel name, and the launches of the port's
+   three kernels. The idle share is one minus the traced device-busy time
+   over the UNTRACED call's wall time.
 
 Prints the card's name and power limit first. Needs a CUDA device.
 """
@@ -34,6 +35,24 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# kernel-name fragments -> class, first match wins
+CLASSES = (
+    ("port: paged attention", ("paged_split_kernel", "paged_combine_kernel")),
+    ("port: flash prefill", ("flash_fwd_kernel",)),
+    ("port: fused norm", ("norm_fwd_kernel",)),
+    ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "gemv")),
+    ("copy / cast", ("copy", "Memcpy", "Memset", "cat_", "CatArray")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("reduction / softmax", ("reduce_kernel", "softmax")),
+)
+
+
+def kernel_class(name: str) -> str:
+    for label, keys in CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
 
 
 def main() -> int:
@@ -122,6 +141,15 @@ def main() -> int:
           f"idle share of the untraced call {1 - busy_ms / call_ms}")
     print(f"launches: paged_attention {pa.KERNEL.launches}, flash_fwd_padded "
           f"{fa.KERNEL.launches}, rms_norm_fwd {fused_norm.KERNEL.launches}")
+    # each decode step launches the paged kernel once per layer
+    steps = max(1, pa.KERNEL.launches // args.layers)
+    by_class = {}
+    for e in events:
+        label = kernel_class(e.key)
+        by_class[label] = by_class.get(label, 0.0) + getattr(e, attr) / 1e3
+    for label, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  class {label:24s} {ms:10.3f} ms {100 * ms / busy_ms:6.2f}% "
+              f"{ms / steps:8.3f} ms per decode step ({steps} steps)")
     for e in sorted(events, key=lambda e: -getattr(e, attr))[:15]:
         ms = getattr(e, attr) / 1e3
         print(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f}% x{e.count:<6d} {e.key[:90]}")

@@ -141,6 +141,66 @@ def test_paged_kernel_matches_plain_on_card(cuda, d, form):
     # bf16 p is rounded before (kernel) or after (plain) normalisation
     torch.testing.assert_close(got[live].float(), want[live].float(), rtol=2e-2, atol=2e-2)
     assert not got[~live].any()
+    # and each (row, q head) within chip_smoke's row limit of its own max
+    # |plain|, which rejects the plain version with each row's last pool
+    # block dropped
+    smoke = _chip_smoke()
+    fault = smoke.dropped_block_fault(q, k, v, table, lengths, **scales)
+    smoke.check_paged_rows(f"paged d={d} {form}", got[live], want[live], fault[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("form", ["bf16", "int8", "fp32-q"])
+@pytest.mark.parametrize("blk", [16, 48])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_paged_kernel_split_edges_on_card(cuda, d, form, blk, group):
+    """The kernel's splits: lengths one row short of a split, on it and one
+    past it, two splits and a few rows, a row that covers the whole table,
+    lengths 0 and 1, GQA groups 1, 4 and 8, blocks of 16 and 48 rows. Row
+    by row against the plain version (the dropped-block fault rejected);
+    two runs give the same bits; the call makes the host wait for nothing
+    (sync debug mode "error")."""
+    smoke = _chip_smoke()
+    split = tpaged.split_blocks(blk) * blk
+    width = 3 * tpaged.split_blocks(blk) + 1          # a ragged last split
+    lengths = [split - 1, split, split + 1, width * blk, 0, 1, 2 * split + 5, 17]
+    b, hk = len(lengths), 2
+    hq, n = hk * group, len(lengths) * width + 1
+    gen = torch.Generator(device=cuda).manual_seed(7 * group + d)
+    perm = torch.randperm(n - 1, generator=gen, device=cuda) + 1
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    cover = -(-lens.long() // blk)
+    table = torch.where(torch.arange(width, device=cuda)[None] < cover[:, None],
+                        perm.reshape(b, width), 0).int()
+    qdt = torch.float32 if form == "fp32-q" else torch.bfloat16
+    q = torch.randn(b, hq, d, device=cuda, generator=gen).to(qdt)
+    scales = {}
+    if form == "int8":
+        k, v = (torch.randint(-127, 128, (n, blk, hk, d), device=cuda, generator=gen)
+                .to(torch.int8) for _ in range(2))
+        scales = {name: torch.rand(n, blk, hk, device=cuda, generator=gen) * 0.02 + 1e-3
+                  for name in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(n, blk, hk, d, device=cuda, generator=gen).bfloat16()
+                for _ in range(2))
+    before = tpaged.KERNEL.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpaged.paged_attention(q, k, v, table, lens, **scales)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = tpaged.paged_attention(q, k, v, table, lens, **scales)
+    torch.cuda.synchronize()
+    assert tpaged.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    want = tpaged.paged_attention_plain(q, k, v, table, lens, **scales)
+    fault = smoke.dropped_block_fault(q, k, v, table, lens, **scales)
+    live = lens > 0
+    smoke.check_paged_rows(f"paged d={d} {form} block={blk} G={group}", got[live], want[live],
+                           fault[live])
+    assert not got[~live].any()
 
 
 @pytest.mark.cuda
@@ -439,24 +499,28 @@ def _max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     (64, 197, 12, 64), (2, 17, 4, 64), (2, 512, 12, 64), (1, 1024, 12, 64), (2, 130, 4, 128),
     # one row, and each side of the 64-row tile and the 256-key row edges
     *[(2, s, 3, d) for d in (64, 128) for s in (1, 63, 64, 65, 255, 256, 257)],
+    # the forward's resident forms (1-4 key chunks at head_dim 64)
+    *[(2, s, 3, 64) for s in (128, 129, 192, 193)],
 ])
 @pytest.mark.parametrize("causal", [False, True])
 def test_fused_attention_kernels_match_plain_on_card(cuda, b, s, h, d, causal):
     """Rows 12-13 at the ViT-B shape, BERT's 512, the 1024 limit, ragged
     lengths at the tile edges and head_dim 128: forward and backward
-    against their plain versions, row by row; the backward gives the same
-    bits twice."""
+    against their plain versions, row by row; the forward and the backward
+    each give the same bits twice."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=gen).bfloat16()
                    for _ in range(4))
     q = q * float(torch.tensor(d ** -0.5 * tfused.LOG2E, dtype=torch.bfloat16))
     before = (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches)
     o = tfused.fused_attention_fwd_cuda(q, k, v, causal=causal)
+    o_again = tfused.fused_attention_fwd_cuda(q, k, v, causal=causal)
     grads = tfused.fused_attention_bwd_cuda(q, k, v, do, o, causal=causal)
     again = tfused.fused_attention_bwd_cuda(q, k, v, do, o, causal=causal)
     torch.cuda.synchronize()
     assert (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(o, o_again)
     # the same rounding points; bf16 outputs and fp32 sums in another order
     # (query rows of o and dq, key rows of dk and dv)
     assert _max_row_rel_err(o, tfused.fused_attention_fwd_plain(q, k, v, causal=causal)) < 1e-2

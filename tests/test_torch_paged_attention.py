@@ -12,6 +12,9 @@ summation order), one bf16 ulp for bf16 pools.
 version on the card.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -172,3 +175,34 @@ def test_op_never_gives_way_to_the_other_path():
         tpaged.paged_attention_cuda(
             q.bfloat16(), k.bfloat16(), v.bfloat16(), table, lengths
         )
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_chip_smoke_row_check_rejects_a_dropped_block(int8):
+    """chip_smoke.py's check of row 6 on the CPU: the plain version passes
+    against itself, and the planted fault (each row's last visible pool
+    block dropped, for rows that cover more than one block) fails it in a
+    share of rows that the check reports."""
+    repo = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    q, k, v, table, lengths, scales = _inputs(seed=7, int8=int8)
+    kv = (lambda a: _t(a).bfloat16()) if not int8 else _t
+    args = (_t(q).bfloat16(), kv(k), kv(v), _t(table), _t(lengths))
+    kw = {} if scales is None else {"k_scale": _t(scales[0]), "v_scale": _t(scales[1])}
+    want = tpaged.paged_attention_plain(*args, **kw)
+    fault = chip_smoke.dropped_block_fault(*args, **kw)
+    # rows that cover one block or none are left as they are
+    cover = -(-np.asarray(LENGTHS) // BS)
+    assert torch.equal(fault[cover <= 1], want[cover <= 1])
+    chk = chip_smoke.check_paged_rows("plain", want, want, fault)
+    assert chk["max_row_rel_err"] == 0 and chk["fault_rows_over_limit"] > 0
+    assert chk["limit"] == chip_smoke.PAGED_ROW_LIMIT
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.check_rows("out", fault, want, chk["limit"])
+    # the check passes a fault only by failing: want against itself as the fault
+    with pytest.raises(AssertionError, match="planted fault"):
+        chip_smoke.check_paged_rows("plain", want, want, want)

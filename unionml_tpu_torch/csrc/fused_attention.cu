@@ -17,17 +17,43 @@
 // Bound on the H100: at the ViT-B shape (S = 197, head_dim 64) the bytes of
 // q, k, v, o (and do, dq, dk, dv) outweigh the tensor-core operations
 // (4 * S^2 * D per head forward, 10 * S^2 * D backward), so device memory
-// bounds both directions: 0.0462 ms for the backward at q/k/v[64,197,12,64].
+// bounds both directions: 0.0231 ms for the forward and 0.0462 ms for the
+// backward at q/k/v[64,197,12,64].
 //
 // Forward design (row 12). The TPU kernel held a whole S x S fp32 score
-// tile per program (155 KB at S = 197; K/V of one head at S = 1024 would
-// already exceed the card's 227 KB of shared memory), so here every block
-// owns a 64-row query tile and walks the keys in 64-row chunks staged in
-// shared memory, with bf16 WMMA (fp32 accumulation) for every product;
-// tails past S are masked. It walks the keys twice: once for the row
-// maximum, once for e = exp2(s - m) with the final maximum, so e is rounded
-// to bf16 exactly as the TPU kernel rounds it (an online softmax would
-// round it against a running maximum).
+// tile per program (155 KB at S = 197); here every block owns a 64-row
+// query tile of one (batch, head) and one consumer warpgroup (128 threads),
+// fed by TMA through the backward's 4-D tensor maps (rows past S read as
+// zeros). Every product is a wgmma with fp32 sums in registers; nothing but
+// the operands passes through shared memory. e is rounded to bf16 against
+// the FINAL row maximum, as the TPU kernel rounds it (an online softmax
+// would round it against a running maximum), z sums the unrounded e, and O
+// = bf16(e) V is normalised by z after the product (one reciprocal a row).
+// - Resident (head_dim 64, S <= 256: ViT's 197): the whole score row of
+//   the tile stays in registers, one m64n64 accumulator per full 64-key
+//   chunk and an m64n16 one for a last chunk of at most 16 keys (ViT's 197
+//   = 3 x 64 + 5: 208 scores a row instead of 256). The block's first
+//   thread issues every load at once (Q, each K chunk, each V chunk on its
+//   own barrier; no producer warp); S of all chunks by wgmma, the exact row
+//   max from the registers, e converted to bf16 in place (the accumulator
+//   layout is the A-operand layout) and O = e V by wgmma with A from
+//   registers and V read MN-major. K is read once: 2 products per tile pair
+//   instead of 3. Templated on the chunk count (1-4) and the last chunk's
+//   width (16 or 64).
+// - Two passes (S > 256, or head_dim 128): a producer warp streams the
+//   visible K chunks through a ring of full / empty mbarrier slots for the
+//   row max alone (pass 1), then K and V for S again, e and O += e V chunk
+//   by chunk (pass 2), as kernel A of the backward does.
+// O / z is staged as bf16 over the Q tile and stored by TMA, rows past S
+// clipped. No atomics: two runs give the same bits.
+// What holds it back: the exp2 of every score (one MUFU op each; at ViT-B
+// the softmax phase is the longest of a block's life) and three warpgroups
+// an SM (registers: 168 a thread in the resident form).
+// Registers (ptxas -v), forward: resident <chunks, last width> <1, 16> 62,
+// <1, 64> 88, <2, 16> 100, <2, 64> 136, <3, 16> 148, <3, 64> 168, <4, 16>
+// 166 (ViT-B), <4, 64> 168 with 28 bytes of spill stores (193-256 keys:
+// 128 score registers under the 168 that three blocks an SM leave); two
+// passes 110 (head_dim 64) and 143 (128); no other spills.
 //
 // Backward design (row 13): two kernels, no atomics, so two runs give the
 // same bits. Each block is one consumer warpgroup (128 threads) and one
@@ -75,205 +101,333 @@
 // Registers (ptxas -v): kernel A 122 at head_dim 64, 154 at 128; kernel B
 // 128 and 238; no spills.
 
-#include <mma.h>
-
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 using namespace hopper;
 
-constexpr int TILE = 64;          // query tile and key chunk
-constexpr int WARPS = 4;          // 16 rows each
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
+constexpr int BT = TILE_ROWS;   // rows of every tile (queries or keys)
+constexpr int THREADS = 160;    // one consumer warpgroup, then one producer warp
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int LDS = TILE + 4;     // fp32 64-wide tiles
-constexpr int LDP = TILE + 8;     // bf16 64-wide tiles
-
-typedef __nv_bfloat16 bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-template <int D>
-struct Dims {
-  static constexpr int LDH = D + 8;  // bf16 [64, D] tiles
-  static constexpr int LDO = D + 4;  // fp32 [64, D] accumulators
-  static constexpr size_t H = (size_t)TILE * LDH * 2;
-  static constexpr size_t S = (size_t)TILE * LDS * 4;
-  static constexpr size_t P = (size_t)TILE * LDP * 2;
-  static constexpr size_t O = (size_t)TILE * LDO * 4;
-  static constexpr size_t STATS = (size_t)TILE * 4 * 4;
-  static constexpr size_t FWD = 3 * H + S + P + O + STATS;       // Q K V | S | P | O
-};
-
-// rows [start, start + 64) of a [B, S, H, D] tensor's (b, head) slice into a
-// [64, LDH] bf16 tile; rows at or past `len` are zero
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, int start,
-                                          int len, size_t stride) {
-  constexpr int CHUNKS = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < TILE * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    uint4 v = zero;
-    if (start + r < len) v = *reinterpret_cast<const uint4*>(base + (start + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Dims<D>::LDH + c) = v;
-  }
-}
-
-// out[16, 64] (fp32, ld LDS) = A[16, D] (fragments) . B[64, D]^T (bf16 tile)
-template <int D>
-__device__ __forceinline__ void slab_abt(const FragA* a, const bf16* b, float* out) {
-#pragma unroll
-  for (int n = 0; n < TILE / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBT bf;
-      wmma::load_matrix_sync(bf, b + n * 16 * Dims<D>::LDH + kk * 16, Dims<D>::LDH);
-      wmma::mma_sync(acc, a[kk], bf, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[16, D] (fp32 smem, ld LDO) += A[16, 64] (bf16 smem, ld LDP) . B[64, D]
-template <int D>
-__device__ __forceinline__ void slab_acc(float* acc, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    FragC c;
-    wmma::load_matrix_sync(c, acc + n * 16, Dims<D>::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {
-      FragA af;
-      FragB bf;
-      wmma::load_matrix_sync(af, a + kk * 16, LDP);
-      wmma::load_matrix_sync(bf, b + kk * 16 * Dims<D>::LDH + n * 16, Dims<D>::LDH);
-      wmma::mma_sync(c, af, bf, c);
-    }
-    wmma::store_matrix_sync(acc + n * 16, c, Dims<D>::LDO, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_frags(FragA* f, const bf16* tile) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(f[kk], tile + warp * 16 * Dims<D>::LDH + kk * 16, Dims<D>::LDH);
-  }
-}
 
 __device__ __forceinline__ bool visible(int q, int k, int len, int causal) {
   return q < len && k < len && (!causal || k <= q);
 }
 
-// The key range [0, hi) that a query tile starting at q0 may see.
-__device__ __forceinline__ int key_end(int q0, int len, int causal) {
-  return causal ? min(len, q0 + TILE) : len;
+// some (query, key) pair of the (q0, k0) tile pair is hidden (causal) or
+// past the sequence
+__device__ __forceinline__ bool needs_mask(int q0, int k0, int len, int causal) {
+  return q0 + BT > len || k0 + BT > len || (causal && k0 + BT - 1 > q0);
 }
 
-// Row maximum of this lane pair's query row over all visible keys (pass 1
-// of the forward). Returns NEG_INF for a row with none.
-template <int D>
-__device__ float row_max(const FragA* qf, bf16* Ks, float* Ss, const bf16* k_base,
-                         size_t stride, int q0, int len, int causal, int row, int half) {
-  const int warp = threadIdx.x >> 5;
-  float m = NEG_INF;
-  for (int k0 = 0; k0 < key_end(q0, len, causal); k0 += TILE) {
-    load_tile<D>(Ks, k_base, k0, len, stride);
-    __syncthreads();
-    slab_abt<D>(qf, Ks, Ss + warp * 16 * LDS);
-    __syncwarp();
-    const float* srow = Ss + row * LDS + half * 32;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      if (visible(q0 + row, k0 + half * 32 + j, len, causal)) m = fmaxf(m, srow[j]);
-    }
-    __syncthreads();
-  }
-  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int len,
-                 int heads, int causal) {
-  using L = Dims<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::H);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 2 * L::H);
-  float* Ss = reinterpret_cast<float*>(smem + 3 * L::H);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + 3 * L::H + L::S);
-  float* Os = reinterpret_cast<float*>(smem + 3 * L::H + L::S + L::P);
-  float* Zs = reinterpret_cast<float*>(smem + 3 * L::H + L::S + L::P + L::O);
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest causal tiles first
-  const int b = blockIdx.y / heads, head = blockIdx.y % heads;
-  const size_t stride = (size_t)heads * D;
-  const size_t off = ((size_t)b * len * heads + head) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-
-  load_tile<D>(Qs, q + off, q0, len, stride);
-  for (int i = threadIdx.x; i < TILE * L::LDO; i += THREADS) Os[i] = 0.f;
-  __syncthreads();
-  FragA qf[D / 16];
-  load_frags<D>(qf, Qs);
-
-  const float m = row_max<D>(qf, Ks, Ss, k + off, stride, q0, len, causal, row, half);
-  const float m_safe = m == NEG_INF ? 0.f : m;
-  float z = 0.f;
-  for (int k0 = 0; k0 < key_end(q0, len, causal); k0 += TILE) {
-    load_tile<D>(Ks, k + off, k0, len, stride);
-    load_tile<D>(Vs, v + off, k0, len, stride);
-    __syncthreads();
-    slab_abt<D>(qf, Ks, Ss + warp * 16 * LDS);
-    __syncwarp();
-    const float* srow = Ss + row * LDS + half * 32;
-    bf16* prow = Ps + row * LDP + half * 32;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const float e = visible(q0 + row, k0 + half * 32 + j, len, causal)
-                          ? exp2f(srow[j] - m_safe) : 0.f;
-      z += e;
-      prow[j] = __float2bfloat16(e);
-    }
-    __syncwarp();
-    slab_acc<D>(Os + warp * 16 * L::LDO, Ps + warp * 16 * LDP, Vs);
-    __syncthreads();
-  }
-  z += __shfl_xor_sync(0xffffffffu, z, 1);
-  if (half == 0) Zs[row] = z;
-  __syncthreads();
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < TILE * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    if (q0 + r >= len) continue;
-    const float zr = fmaxf(Zs[r], 1e-30f);
-    alignas(16) bf16 out[8];
+// scores of one 64 x N accumulator (this thread's rows r0 and r0 + 8) of
+// the (q0, k0) tile pair: hidden and out-of-range pairs to -inf
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&sc)[N / 2], int q0, int k0, int r0,
+                                            int col_lane, int len, int causal) {
+  if (!needs_mask(q0, k0, len, causal)) return;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = __float2bfloat16(Os[r * L::LDO + c + j] / zr);
-    *reinterpret_cast<uint4*>(o + off + (q0 + r) * stride + c) =
-        *reinterpret_cast<const uint4*>(out);
+  for (int i = 0; i < N / 2; ++i) {
+    const int q = q0 + r0 + 8 * ((i >> 1) & 1);
+    if (!visible(q, k0 + (i / 4) * 8 + col_lane + (i & 1), len, causal)) sc[i] = -INFINITY;
   }
+}
+
+// e = exp2(s - m) of one 64 x N accumulator against the rows' final maxima
+// mu, summed unrounded into z and rounded to bf16 pairs in the A-operand
+// layout of issue_ab
+template <int N>
+__device__ __forceinline__ void exp_pack(uint32_t (&ea)[N / 4], const float (&sc)[N / 2],
+                                         const float (&mu)[2], float (&z)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    const float e0 = ex2(sc[i] - mu[h]), e1 = ex2(sc[i + 1] - mu[h]);
+    z[h] += e0 + e1;
+    ea[i / 2] = pack_bf16(e0, e1);
+  }
+}
+
+// O / z of one 64-query tile (this thread's rows r0 and r0 + 8) as bf16
+// into `tile` (whose wgmma reads are done), then stored by TMA from the
+// first thread (rows past the sequence clipped); rows that saw nothing (z
+// = 0) are past the sequence
+template <int D>
+__device__ __forceinline__ void store_out(float (&o)[D / 2], const float (&z)[2], uint32_t tile,
+                                          const CUtensorMap* o_map, int head, int q0, int b,
+                                          int r0, int col_lane) {
+  float zr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float zh = quad_sum(z[h]);
+    zr[h] = zh > 0.f ? zh : 1.f;
+  }
+  // one division a row, then products: within an fp32 ulp of o / z before
+  // the bf16 rounding (a division per value took a third of the time at
+  // ViT-B)
+  const float inv[2] = {1.f / zr[0], 1.f / zr[1]};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  bar_sync(1, 128);
+  stage_rows<D>(tile, o, r0, col_lane);
+  fence_async_shared();
+  bar_sync(1, 128);
+  if (threadIdx.x == 0) {
+    store_rows<D>(o_map, tile, head, q0, b);
+    bulk_commit();
+  }
+}
+
+// Resident form: head_dim 64 and S <= 256 keys in NC chunks, the last TW
+// wide (16 when it holds at most 16 keys, as ViT's 197 = 3 x 64 + 5 does,
+// else 64). One CTA (one warpgroup, no producer warp) per 64-query tile:
+// its first thread issues every load at once (the Q tile, every K chunk,
+// every V chunk, each on its own barrier); S of all chunks in registers,
+// the exact row max, e in place as bf16, O = e V, O / z stored over the Q
+// tile. Three CTAs an SM (168 registers a thread).
+template <int NC>
+struct Res {
+  static constexpr int D = 64;
+  static constexpr int TILE = BT * D * 2;          // one 64-row tile, 8 KB
+  static constexpr int K_OFF = TILE;               // Q (then O), K chunks, V chunks
+  static constexpr int V_OFF = (1 + NC) * TILE;
+  static constexpr int BAR = (1 + 2 * NC) * TILE;
+  static constexpr int SMEM = BAR + 8 * (1 + 2 * NC) + 1024;  // + alignment slack
+};
+
+template <int NC, int TW>
+__global__ void __launch_bounds__(128, 3)
+fused_fwd_resident_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap o_map, int len, int heads,
+                          int causal) {
+  using C = Res<NC>;
+  constexpr int D = C::D;
+  constexpr int NF = NC - 1;  // full 64-key chunks before the last
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  auto k_tile = [&](int j) { return base + C::K_OFF + j * C::TILE; };
+  auto v_tile = [&](int j) { return base + C::V_OFF + j * C::TILE; };
+  const uint32_t q_full = base + C::BAR;
+  auto k_full = [&](int j) { return q_full + 8 * (1 + j); };
+  auto v_full = [&](int j) { return q_full + 8 * (1 + NC + j); };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal tiles first
+  const int bh = blockIdx.y, b = bh / heads, head = bh % heads;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * NC; ++i) mbar_init(q_full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_full, C::TILE);
+    load_rows<D>(q_s, &q_map, q_full, head, q0, b);
+    for (int j = 0; j < NC; ++j) {
+      mbar_expect_tx(k_full(j), C::TILE);
+      load_rows<D>(k_tile(j), &k_map, k_full(j), head, j * BT, b);
+    }
+    for (int j = 0; j < NC; ++j) {
+      mbar_expect_tx(v_full(j), C::TILE);
+      load_rows<D>(v_tile(j), &v_map, v_full(j), head, j * BT, b);
+    }
+  }
+
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+  const int col_lane = 2 * (lane % 4);        // its first column of each 8
+  // S of every chunk (chunks a causal tile cannot see are masked whole)
+  float sc[NF > 0 ? NF : 1][32], st[TW / 2];
+  mbar_wait(q_full, 0);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) mbar_wait(k_full(j), 0);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NF; ++j) issue_abt<D, BT>(sc[j], q_s, k_tile(j));
+  issue_abt<D, TW>(st, q_s, k_tile(NF));
+  wgmma_commit();
+  wgmma_wait<0>();
+  float mx[2] = {-INFINITY, -INFINITY}, mu[2], z[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    fence_regs(sc[j]);
+    mask_scores<BT>(sc[j], q0, j * BT, r0, col_lane, len, causal);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[j][i]);
+  }
+  fence_regs(st);
+  mask_scores<TW>(st, q0, NF * BT, r0, col_lane, len, causal);
+#pragma unroll
+  for (int i = 0; i < TW / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], st[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m = quad_max(mx[h]);
+    mu[h] = m == -INFINITY ? 0.f : m;  // nothing visible: e = 0
+  }
+  uint32_t ea[NF > 0 ? NF : 1][16], et[TW / 4];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) exp_pack<BT>(ea[j], sc[j], mu, z);
+  exp_pack<TW>(et, st, mu, z);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) mbar_wait(v_full(j), 0);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < NF; ++j) fence_regs(ea[j]);
+  fence_regs(et);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NF; ++j) issue_ab<D, BT>(o, ea[j], v_tile(j));
+  issue_ab<D, TW>(o, et, v_tile(NF));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < NF; ++j) fence_regs(ea[j]);
+  fence_regs(et);
+  store_out<D>(o, z, q_s, &o_map, head, q0, b, r0, col_lane);
+  if (tid == 0) bulk_wait_read();
+}
+
+// Two-pass form (S > 256, or head_dim 128): one 64-query tile of one
+// (batch, head) a CTA, one consumer warpgroup and a producer warp that
+// streams K chunks through a ring of full / empty slots for the row max
+// (pass 1), then K and V for e and O += e V chunk by chunk (pass 2).
+template <int D>
+struct Fwd {
+  static constexpr int TILE = BT * D * 2;          // one 64-row tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;   // (K, V) slots
+  static constexpr int RING = TILE;                // after the Q tile
+  static constexpr int BAR = RING + STAGES * 2 * TILE;
+  static constexpr int SMEM = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  // blocks per SM, set by registers (at most 136 a thread for three) and
+  // shared memory
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, Fwd<D>::MIN_BLOCKS)
+fused_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map, int len, int heads, int causal) {
+  using C = Fwd<D>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  auto slot = [&](int s) { return base + C::RING + s * 2 * C::TILE; };  // K, then V
+  const uint32_t in_full = base + C::BAR;     // then full[ST], empty[ST]
+  auto full = [&](int s) { return in_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return in_full + 8 * (1 + ST + s); };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal tiles first
+  const int bh = blockIdx.y, b = bh / heads, head = bh % heads;
+  const int n_chunks = ((causal ? min(len, q0 + BT) : len) + BT - 1) / BT;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(in_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---------------- producer: one thread issues every load ----------------
+    if (tid == 128) {
+      mbar_expect_tx(in_full, C::TILE);
+      load_rows<D>(q_s, &q_map, in_full, head, q0, b);
+      for (int it = 0; it < 2 * n_chunks; ++it) {
+        const int s = it % ST;
+        const bool pass2 = it >= n_chunks;
+        const int k0 = (pass2 ? it - n_chunks : it) * BT;
+        if (it >= ST) mbar_wait(empty(s), ((it / ST) - 1) & 1);
+        mbar_expect_tx(full(s), (pass2 ? 2 : 1) * C::TILE);
+        load_rows<D>(slot(s), &k_map, full(s), head, k0, b);
+        if (pass2) load_rows<D>(slot(s) + C::TILE, &v_map, full(s), head, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroup ----------------
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+  const int col_lane = 2 * (lane % 4);        // its first column of each 8
+  mbar_wait(in_full, 0);
+
+  // pass 1: the row max over the visible chunks
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int j = 0; j < n_chunks; ++j) {
+    const int s = j % ST;
+    mbar_wait(full(s), (j / ST) & 1);
+    float sc[32];
+    wgmma_fence();
+    issue_abt<D, BT>(sc, q_s, slot(s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(empty(s));
+    mask_scores<BT>(sc, q0, j * BT, r0, col_lane, len, causal);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], sc[i]);
+  }
+  float mu[2], z[2] = {0.f, 0.f}, o[D / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mh = quad_max(m[h]);
+    mu[h] = mh == -INFINITY ? 0.f : mh;
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // pass 2: S again, e against the final max, O += e V
+  for (int j = 0; j < n_chunks; ++j) {
+    const int it = n_chunks + j, s = it % ST;
+    mbar_wait(full(s), (it / ST) & 1);
+    float sc[32];
+    wgmma_fence();
+    issue_abt<D, BT>(sc, q_s, slot(s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mask_scores<BT>(sc, q0, j * BT, r0, col_lane, len, causal);
+    uint32_t ea[16];
+    exp_pack<BT>(ea, sc, mu, z);
+    fence_regs(o);
+    fence_regs(ea);
+    wgmma_fence();
+    issue_ab<D, BT>(o, ea, slot(s) + C::TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(ea);
+    mbar_arrive(empty(s));
+  }
+  store_out<D>(o, z, q_s, &o_map, head, q0, b, r0, col_lane);
+  if (tid == 0) bulk_wait_read();
 }
 
 // --------------------------------------------------------------------- //
 // backward (row 13): TMA-fed tiles, wgmma, everything else in registers
 // --------------------------------------------------------------------- //
-
-constexpr int BT = TILE_ROWS;      // rows of every backward tile (queries or keys)
-constexpr int BWD_THREADS = 160;   // one consumer warpgroup, then one producer warp
 
 template <int D>
 struct Bwd {
@@ -298,29 +452,13 @@ struct Bwd {
   static constexpr int B_SMEM = B_BAR + 8 * (1 + 2 * B_STAGES) + 1024;
 };
 
-// some (query, key) pair of the (q0, k0) tile pair is hidden (causal) or
-// past the sequence
-__device__ __forceinline__ bool needs_mask(int q0, int k0, int len, int causal) {
-  return q0 + BT > len || k0 + BT > len || (causal && k0 + BT - 1 > q0);
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
 // Kernel A: one 64-query tile of one (batch, head). Pass 1 streams the
 // visible 64-key chunks of K for the row max m and sum z (online). Then
 // delta = rowsum(dO * O) and dO / z (bf16, stored by TMA into the scratch
 // for kernel B), and m, ln2 / z and delta into the stats. Pass 2 streams K
 // and V again: S = Q K^T and dP = dO V^T, ds in registers, dq += ds K.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, Bwd<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, Bwd<D>::MIN_BLOCKS)
 fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
@@ -514,7 +652,7 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 // S^T = K Q^T and dP^T = V dO^T with the keys as rows, e and ds in
 // registers as the A operand, dv += e^T (dO / z), dk += ds^T Q.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, Bwd<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, Bwd<D>::MIN_BLOCKS)
 fused_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
@@ -662,15 +800,52 @@ cudaError_t prepare(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int NC, int TW>
+cudaError_t fwd_resident(const CUtensorMap (&maps)[4], int b, int len, int heads, int causal,
+                         cudaStream_t st) {
+  cudaError_t err = prepare(fused_fwd_resident_kernel<NC, TW>, Res<NC>::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((len + BT - 1) / BT, b * heads);
+  fused_fwd_resident_kernel<NC, TW><<<grid, 128, Res<NC>::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], len, heads, causal);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t fwd_resident_tail(const CUtensorMap (&maps)[4], int b, int len, int heads,
+                              int causal, cudaStream_t st) {
+  // the last chunk's keys: at most 16 take a 16-wide product
+  if (len - (NC - 1) * BT <= 16) return fwd_resident<NC, 16>(maps, b, len, heads, causal, st);
+  return fwd_resident<NC, BT>(maps, b, len, heads, causal, st);
+}
+
 template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, int b, int len,
                 int heads, int causal, cudaStream_t st) {
-  cudaError_t err = prepare(fused_fwd_kernel<D>, Dims<D>::FWD);
+  const void* bases[4] = {q, k, v, o};
+  for (const void* p : bases) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;  // TMA
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap maps[4];  // q, k, v, o
+  for (int i = 0; i < 4; ++i) {
+    if (!make_map(encode, &maps[i], bases[i], D, heads, len, b, BT)) return cudaErrorInvalidValue;
+  }
+  if constexpr (D == 64) {
+    switch ((len + BT - 1) / BT) {  // the key chunks a score row holds
+      case 1: return fwd_resident_tail<1>(maps, b, len, heads, causal, st);
+      case 2: return fwd_resident_tail<2>(maps, b, len, heads, causal, st);
+      case 3: return fwd_resident_tail<3>(maps, b, len, heads, causal, st);
+      case 4: return fwd_resident_tail<4>(maps, b, len, heads, causal, st);
+      default: break;
+    }
+  }
+  cudaError_t err = prepare(fused_fwd_kernel<D>, Fwd<D>::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((len + TILE - 1) / TILE, b * heads);
-  fused_fwd_kernel<D><<<grid, THREADS, Dims<D>::FWD, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), len, heads, causal);
+  dim3 grid((len + BT - 1) / BT, b * heads);
+  fused_fwd_kernel<D><<<grid, THREADS, Fwd<D>::SMEM, st>>>(maps[0], maps[1], maps[2], maps[3],
+                                                           len, heads, causal);
   return cudaGetLastError();
 }
 
@@ -696,12 +871,12 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   err = prepare(fused_bwd_dkv_kernel<D>, Bwd<D>::B_SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(tiles, b * heads);
-  fused_bwd_dq_kernel<D><<<grid, BWD_THREADS, Bwd<D>::A_SMEM, st>>>(
+  fused_bwd_dq_kernel<D><<<grid, THREADS, Bwd<D>::A_SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], stats, len, len_pad,
       heads, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused_bwd_dkv_kernel<D><<<grid, BWD_THREADS, Bwd<D>::B_SMEM, st>>>(
+  fused_bwd_dkv_kernel<D><<<grid, THREADS, Bwd<D>::B_SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[4], maps[5], maps[7], maps[8], stats, len, len_pad,
       heads, causal);
   return cudaGetLastError();
@@ -710,7 +885,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q (pre-scaled by scale * log2 e), k, v, o: [b, len, heads, d] bf16,
-// contiguous; d is 64 or 128. Returns the launch's cudaError_t.
+// contiguous, 16-byte aligned; d is 64 or 128. Returns the launch's
+// cudaError_t.
 extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int b, int len, int heads, int d, int causal,
                                    void* stream) {

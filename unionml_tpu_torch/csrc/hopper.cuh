@@ -214,6 +214,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 16, fp32) += A (64 x 16, shared, K-major) . B (16 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  wgmma_ss_n16(d, a, b, accumulate);
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
   wgmma_ss_n32(d, a, b, accumulate);
 }
@@ -307,7 +322,7 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* map, uint32_t src,
 }
 
 // acc (64 x N) = A (the 64 x D tile at a) . B (N rows of a 64 x D tile,
-// from b)^T, both K-major; N is 32 or 64 (issued, not waited)
+// from b)^T, both K-major; N is 16, 32 or 64 (issued, not waited)
 template <int D, int N>
 __device__ __forceinline__ void issue_abt(float (&acc)[N / 2], uint32_t a, uint32_t b) {
 #pragma unroll

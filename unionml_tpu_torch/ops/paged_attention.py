@@ -14,11 +14,14 @@ owns the pool blocks ``block_table[b, :]`` and sees its first
   engine's cached-decode math (``_grouped_cache_attention`` with the
   same ``-1e30`` bias), so it is bit-identical to the contiguous cache
   path on the same rows.
-- :func:`paged_attention_cuda` — the kernel of ``csrc/paged_attention.cu``
-  (the port of the reference's ``_paged_kernel``): it reads the pool
-  blocks in place through the table (no gathered copy), keeps fp32
-  online-softmax statistics, reads K/V at kv-head width (GQA) and folds
-  int8 scales into the scores (k) and the weights (v).
+- :func:`paged_attention_cuda` — the kernels of ``csrc/paged_attention.cu``
+  (the port of the reference's ``_paged_kernel``): they read the pool
+  blocks in place through the table (no gathered copy), keep fp32
+  online-softmax statistics, read K/V at kv-head width (GQA) and fold
+  int8 scales into the scores (k) and the weights (v). Each row's visible
+  rows are cut into splits of :func:`split_blocks` pool blocks, one CTA
+  each, whose fp32 statistics a second kernel merges in split order
+  (flash-decoding; one launch of :data:`KERNEL` runs both).
 
 :func:`paged_attention` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors. A row with nothing visible
@@ -41,13 +44,23 @@ NEG_INF = -1e30
 
 KERNEL = Kernel(
     "paged_attention", "paged_attention_fwd",
-    [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 8          # q heads per kv head the kernel holds in shared memory
+MAX_GROUP = 8          # q heads per kv head the kernel holds in registers
 IMPLS = ("auto", "pallas", "reference")
+# The kernel cuts each row's visible rows into splits of whole pool blocks,
+# about this many rows, one CTA each (flash-decoding).
+SPLIT_ROWS = 128
+
+
+def split_blocks(block: int) -> int:
+    """Pool blocks per split of the kernel: fixed by the block size alone,
+    never by ``lengths`` (reading those would make the host wait for the
+    card)."""
+    return max(1, -(-SPLIT_ROWS // block))
 
 
 def _check_shapes(q, k, v, block_table, lengths, k_scale, v_scale):
@@ -165,21 +178,30 @@ def paged_attention_cuda(
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_cuda needs contiguous tensors")
-    if hk > 65535 or batch >= 2**31 or n_blocks * block * hk * d >= 2**62:
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("paged_attention_cuda needs 16-byte aligned q and pools "
+                         "(16-byte asynchronous copies)")
+    width = block_table.shape[1]
+    splits = split_blocks(block)
+    n_splits = -(-width // splits)
+    if batch * max(hk * n_splits, hq) >= 2**31 or n_blocks * block * hk * d >= 2**62:
         raise ValueError(f"paged_attention_cuda grid out of range: batch {batch}, kv heads {hk}")
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
     if batch == 0:
         return out
+    # each split's fp32 (m, l, acc[D]) per (batch row, q head), merged by
+    # the second kernel
+    part = torch.empty(batch * hq * n_splits * (d + 2), dtype=torch.float32, device=q.device)
     null = 0
     with torch.cuda.device(q.device):
         KERNEL(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else null,
             v_scale.data_ptr() if quantized else null,
-            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            batch, hq, hk, d, n_blocks, block, block_table.shape[1],
+            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            batch, hq, hk, d, n_blocks, block, width, splits,
             float(scale), int(q.dtype == torch.bfloat16), int(quantized),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
