@@ -15,13 +15,18 @@ Phases, each of which fails the run with a non-zero exit:
              PyTorch library call computing the same function (yardstick
              only; the port never calls it); check that waiting on a CUDA
              event lets other Python threads run (the engine's harvester
-             waits so while its dispatcher launches); row 6 (paged
-             decode, bf16 and int8 pools) also row by row against a
-             planted dropped-block fault and timed cold, each call on its
-             own copy of the pools; the ViT rows
-             (LayerNorm, add-LayerNorm and norm backward at ViT-B/16's
-             12608 x 768, fused attention forward and backward at S = 197,
-             512 and 1024; the backward run twice for the same bits);
+             waits so while its dispatcher launches); row 1 (the padded
+             prefill) also row by row against a skipped left-pad start
+             tile; row 6 (paged decode, bf16 and int8 pools) also row by
+             row against a planted dropped-block fault and timed cold,
+             each call on its own copy of the pools; rows 7 and 8 (int4,
+             per-channel and g=128) bit for bit against planted faults of
+             each scale form, timed cold; the ViT rows (LayerNorm,
+             add-LayerNorm and norm backward at ViT-B/16's 12608 x 768,
+             the backward row by row and column by column against two
+             planted faults and run twice for the same bits; fused
+             attention forward and backward at S = 197, 512 and 1024; the
+             backward run twice for the same bits);
 3b. vit    — train ViT-B/16 (bf16 compute, fp32 params, fused attention and
              fused norms) through the ported vision_tpu template's
              model.train at batch 64 for 54 steps (2 warm-up): samples/s,
@@ -81,7 +86,8 @@ Phases, each of which fails the run with a non-zero exit:
              layers: int4 paged vs contiguous, speculative (draft and self)
              vs plain (at most one flip in 12 requests); last, every int4
              launch shape these phases gave the kernel is run again on
-             random inputs and held against the plain version;
+             random inputs and held against the plain version (grouped
+             bf16 also bit for bit);
 9. report  — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
@@ -118,7 +124,7 @@ INT4_TOL = {                              # the same fp32 products in another su
     torch.bfloat16: dict(rtol=1 / 64, atol=1e-2),   # <= 2 bf16 ulps after the one final rounding
     torch.float32: dict(rtol=1e-4, atol=1e-4),      # fp32 FMA (kernel) vs fp32 GEMM (plain), no TF32
 }
-INT4_MISMATCH_MAX = 0.02                  # per-channel bf16: share of outputs whose rounding differs
+INT4_MISMATCH_MAX = 0.02                  # bf16, both scale forms: share of outputs rounding apart
 LOGIT_COSINE_MIN = 0.99                   # 8B kernel path vs plain path, bf16 through every layer
 SPEC_SELF_ACCEPT_MIN = 0.99               # self-speculation: draft == target
 
@@ -252,6 +258,13 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
     for row, p in enumerate(pads):  # queries inside the padding return zeros
         if p and bool(got[row, :p].any()):
             raise AssertionError(f"flash: padded query rows of batch row {row} are not zero")
+    # row by row (each (batch row, query, head)), against the padded start
+    # tile dropped; the queries inside the padding are all zero on both sides
+    checks = check_rows_with_fault(
+        f"flash B={b} S={s}", {"out": got}, {"out": want},
+        {"out": padded_start_tile_fault(q, k, v, pad, scale=scale)}, {"out": FLASH_ROW_LIMIT},
+        "each row's first visible key tile (its left-pad start tile) skipped")
+    del want
     if not torch.equal(got, again):
         raise AssertionError(f"flash B={b} S={s}: two forward runs differ")
     # work this data needs: visible (q, kv) pairs under causal + left padding
@@ -264,7 +277,7 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
     ms = time_ms(lambda: fa.flash_fwd_padded_cuda(q, k, v, pad, causal=True, scale=scale))
     return {
         "shape": f"q[{b},{s},{h},{d}] kv[{b},{s},{kvh},{d}] bf16, pads {list(pads)}",
-        "max_abs_err": err, "rerun_same_bits": True,
+        "max_abs_err": err, "rerun_same_bits": True, "row_checks": checks,
         "ms": ms, "tflop_s": ops / ms / 1e9,
         "plain_ms": time_ms(
             lambda: fa.flash_fwd_padded_plain(q, k, v, pad, causal=True, scale=scale), iters=3
@@ -274,6 +287,24 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis, enable_gqa=True)
         ),
     }
+
+
+def padded_start_tile_fault(q, k, v, pad, *, scale: float) -> torch.Tensor:
+    """A planted fault the row check of row 1 must reject: the plain padded
+    forward with each batch row's first visible key tile (the
+    :data:`FLASH_TILE`-key tile that holds its pad count, where the
+    kernel's key loop starts) skipped, for queries that see past that tile,
+    as a kernel that started its key loop one tile late would compute."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    s = q.shape[1]
+    vis = fa._visible(pad, s, s, True)                                 # [B, 1, 1, Sq, Skv]
+    pos = torch.arange(s, device=q.device)
+    start_end = ((pad.long() // FLASH_TILE + 1) * FLASH_TILE)[:, None, None]   # [B, 1, 1]
+    in_start = (pos[None, None, :] < start_end) & vis[:, 0, 0]         # keys of the start tile
+    sees_past = pos[None, :, None] >= start_end                        # [B, Sq, 1]
+    vis = vis & ~(in_start & sees_past)[:, None, None]
+    return fa._plain_forward(q, k, v, vis, scale)[0]
 
 
 PAGED_LENGTHS = (1, 15, 16, 17, 300, 1000, 1100)
@@ -440,14 +471,171 @@ def int4_slice_faults(x, packed, scale, tile: int) -> dict:
     return {"last_slice_dropped": dropped, "bf16_reverse_rank_sum": reordered}
 
 
+def int4_group_faults(x, packed, scale, tile: int, group: int) -> dict:
+    """Three planted faults of the grouped kernel, computed from the plain
+    version's math on the same inputs (each K group's fp32 partial, times
+    its scale row, rounded as the reference rounds it): the last K group
+    dropped; each group's partial times the scale row of the next group
+    inside its K-slice (an off-by-one in a slice's scale offset, the last
+    group of a slice taking the slice's first row); the slices' scaled
+    partials rounded to bf16 and summed in reverse rank order in bf16. The
+    bit check must reject all three."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    k, n = x.shape[1], scale.shape[-1]
+    w = i4.unpack_int4(packed, tile).float()
+    xf = x.float()
+    groups = k // group
+    parts = [xf[:, g * group:(g + 1) * group] @ w[g * group:(g + 1) * group]
+             for g in range(groups)]
+    slices = [(a // group, b // group) for a, b in i4._k_slices(k, i4._k_splits(k, n, group),
+                                                                 group)]
+
+    def summed(pairs):   # in order: each (group, scale row), the partial times the row
+        total = None
+        for g, row in pairs:
+            term = parts[g] * scale[row]
+            total = term if total is None else total + term
+        return total
+
+    dropped = summed((g, g) for g in range(groups - 1))
+    shifted = summed((g, a + (g - a + 1) % (b - a)) for a, b in slices for g in range(a, b))
+    slice_sums = [summed((g, g) for g in range(a, b)).to(x.dtype) for a, b in slices]
+    reordered = slice_sums[-1]
+    for t in reversed(slice_sums[:-1]):
+        reordered = reordered + t
+    return {"last_group_dropped": dropped.to(x.dtype),
+            "scale_row_off_by_one": shifted.to(x.dtype),
+            "bf16_reverse_rank_sum": reordered.to(x.dtype)}
+
+
+def int4_fma_scale(x, packed, scale, tile: int, group: int) -> torch.Tensor:
+    """The grouped plain math with each group's scale applied by an FMA:
+    the running total plus the group's fp32 partial times its scale row,
+    rounded once (emulated in fp64, where the product of two fp32 values is
+    exact), in group order, then one rounding to x's dtype. The rounding
+    point the kernel must not take: the reference multiplies, rounds, then
+    adds (:func:`int4_rounding_probe` tells the two apart)."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    rows, k = x.shape
+    groups = k // group
+    w = i4.unpack_int4(packed, tile).float()
+    partial = torch.bmm(x.float().reshape(rows, groups, group).transpose(0, 1),
+                        w.reshape(groups, group, -1))     # as int4_matmul_plain forms it
+    total = torch.zeros_like(partial[0])
+    for g in range(groups):
+        total = (partial[g].double() * scale[g].double() + total.double()).float()
+    return total.to(x.dtype)
+
+
+def int4_rounding_probe(rows: int, k: int, n: int, tile: int, group: int, dtype, gen) -> tuple:
+    """Grouped inputs on which the kernel's rounding point shows bit for bit.
+    x is 1 at the first K row of groups 0 and 1 and 0 elsewhere, and those
+    weight rows hold the nibbles 1 and 3, so each output's partials are the
+    exact integers 1 and 3 (every other group's is 0). Scale row 1 is s1 in
+    [2/3, 1), so 3 * s1 is inexact in fp32; scale row 0 is m - fl(3 * s1),
+    with m a tie between two bf16 values. Multiplying, rounding, then adding
+    (the reference) gives m exactly in every summation order; an FMA gives
+    m + (3 * s1 - fl(3 * s1)) instead, which is another fp32 value for about
+    3/4 of the outputs and rounds to the other bf16 for about half of those.
+    Returns ``(x, packed, scale, want, fma)``: the plain version's output
+    and the planted fault's (:func:`int4_fma_scale`), on ``gen``'s
+    device."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    dev = gen.device
+    nib = torch.randint(-7, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    nib[0], nib[group] = 1, 3
+    packed = i4.pack_int4(nib, tile)
+    scale = 0.5 + 0.5 * torch.rand(k // group, n, generator=gen, device=dev)
+    s1 = 2 / 3 + torch.rand(n, generator=gen, device=dev) / 3
+    c = (3 * s1).double()          # fl(3 * s1): one fp32 multiply, exact in fp64
+    odd = 2 * torch.randint(0, 128, (n,), generator=gen, device=dev) + 1
+    m = (1 + odd.double() / 256) / 16
+    s0 = (m - c).float()
+    if not torch.equal(s0.double() + c, m):
+        raise AssertionError("int4 rounding probe: m - fl(3 * s1) is not exact in fp32")
+    scale[0], scale[1] = s0, s1
+    x = torch.zeros(rows, k, device=dev)
+    x[:, 0] = x[:, group] = 1
+    x = x.to(dtype)
+    want = i4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype, group_size=group)
+    return x, packed, scale, want, int4_fma_scale(x, packed, scale, tile, group)
+
+
+def int4_rounding_check(name: str, got, want, fma) -> dict:
+    """The rounding probe's check: the kernel gives the plain version's bits
+    on every output (every value but the planted rounding is exact), and
+    the FMA fault does not."""
+    checks = {"mismatch": rounding_mismatch(got, want),
+              "fma_fault_mismatch": rounding_mismatch(fma, want)}
+    if checks["mismatch"] != 0:
+        raise AssertionError(f"{name}: {checks['mismatch']:.4f} of outputs differ from the "
+                             "plain version on the rounding probe (not multiply, then add)")
+    if checks["fma_fault_mismatch"] == 0:
+        raise AssertionError(f"{name}: the probe does not tell an FMA from multiply, then add")
+    return checks
+
+
+def int4_rounding_cases(gen) -> list:
+    """The rounding probe through the grouped kernel at the int4 paged
+    engine's q/o shape (bf16, 16 rows, g=128: groups 0 and 1 share the
+    first of 8 K-slices) and at its fp32 LM head (16 rows, tile 256)."""
+    from unionml_tpu_torch.ops import int4_matmul as i4
+
+    cases = []
+    for rows, k, n, tile, dtype in ((16, 4096, 4096, 512, torch.bfloat16),
+                                    (16, 4096, 128256, 256, torch.float32)):
+        first_slice = i4._k_slices(k, i4._k_splits(k, n, 128), 128)[0]
+        if dtype == torch.bfloat16 and first_slice[1] < 2 * 128:
+            raise AssertionError("int4 rounding probe: groups 0 and 1 fall in two K-slices")
+        x, packed, scale, want, fma = int4_rounding_probe(rows, k, n, tile, 128, dtype, gen)
+        got = i4.int4_matmul_cuda(x, packed, scale, tile_n=tile, group_size=128)
+        name = f"int4_matmul g128 rounding probe x[{rows},{k}] {str(dtype).split('.')[-1]} N={n}"
+        checks = int4_rounding_check(name, got, want, fma)
+        log(f"{name}: {checks}")
+        cases.append({"shape": name, **checks})
+        del x, packed, scale, want, fma, got
+    return cases
+
+
+def int4_bit_check(name: str, got, want, checks: dict) -> None:
+    """The bf16 bit check: at most :data:`INT4_MISMATCH_MAX` of outputs may
+    round apart from the plain version."""
+    checks["mismatch"] = rounding_mismatch(got, want)
+    if checks["mismatch"] > INT4_MISMATCH_MAX:
+        raise AssertionError(f"{name}: {checks['mismatch']:.4f} of outputs round apart from the "
+                             f"plain version (limit {INT4_MISMATCH_MAX})")
+
+
+def int4_fault_checks(name: str, faults: dict, want, checks: dict) -> None:
+    """Each planted fault must fail the bit check (more than
+    :data:`INT4_MISMATCH_MAX` of outputs apart); records its share and
+    whether the elementwise :data:`INT4_TOL` check alone would pass it."""
+    tol = INT4_TOL[want.dtype]
+    for fault, bad in faults.items():
+        share = rounding_mismatch(bad, want)
+        checks[f"fault_{fault}"] = share
+        limit = tol["atol"] + tol["rtol"] * want.float().abs()
+        checks[f"fault_{fault}_passes_int4_tol"] = bool(
+            ((bad.float() - want.float()).abs() <= limit).all())
+        if share <= INT4_MISMATCH_MAX:
+            raise AssertionError(
+                f"{name}: the planted fault {fault} passes the bit check ({share:.4f} apart)")
+
+
 def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = None,
               faults: bool = False) -> dict:
     """One int4 matmul at a main-path shape: the kernel against its plain
     version, the per-row independence of its result (the first 8 rows of a
     ``rows``-row launch equal an 8-row launch bit for bit), warm and cold
-    times beside the library call's; per-channel bf16 also bit for bit
-    (:func:`rounding_mismatch`), and with ``faults`` the planted K-split
-    faults, which that check must reject."""
+    times beside the library call's; bf16 also bit for bit
+    (:func:`int4_bit_check`), and with ``faults`` the planted faults of its
+    scale form (per-channel: :func:`int4_slice_faults`; grouped:
+    :func:`int4_group_faults`), which that check must reject; grouped, the
+    share of outputs the FMA fault (:func:`int4_fma_scale`) puts apart is
+    recorded beside the kernel's, as ``fma_scale_mismatch``."""
     from unionml_tpu_torch.ops import int4_matmul as i4
 
     tile = tile or i4.tile_for(n, k)
@@ -461,19 +649,17 @@ def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = Non
     name = f"int4_matmul {form} x[{rows},{k}] {str(dtype).split('.')[-1]} N={n}"
     err = check_close(name, got, want, INT4_TOL[dtype])
     checks = {}
-    if not group and dtype == torch.bfloat16:
-        checks["mismatch"] = rounding_mismatch(got, want)
-        if checks["mismatch"] > INT4_MISMATCH_MAX:
-            raise AssertionError(f"{name}: {checks['mismatch']:.4f} of outputs round apart from "
-                                 f"the plain version (limit {INT4_MISMATCH_MAX})")
+    if dtype == torch.bfloat16:
+        int4_bit_check(name, got, want, checks)
         if faults:
-            for fault, bad in int4_slice_faults(x, packed, scale, tile).items():
-                share = rounding_mismatch(bad, want)
-                checks[f"fault_{fault}"] = share
-                if share <= INT4_MISMATCH_MAX:
-                    raise AssertionError(f"{name}: the planted fault {fault} passes the bit "
-                                         f"check ({share:.4f} of outputs apart)")
-            log(f"{name}: {checks}")
+            planted = (int4_group_faults(x, packed, scale, tile, group) if group
+                       else int4_slice_faults(x, packed, scale, tile))
+            int4_fault_checks(name, planted, want, checks)
+            if group:
+                checks["fma_scale_mismatch"] = rounding_mismatch(
+                    int4_fma_scale(x, packed, scale, tile, group), want)
+            del planted
+        log(f"{name}: {checks}")
     if rows > 8:
         head = i4.int4_matmul_cuda(x[:8].contiguous(), packed, scale, tile_n=tile, group_size=group)
         if not torch.equal(head, got[:8]):
@@ -537,6 +723,19 @@ SCALED_LIMIT = {
     "norm_dx": 1e-2,        # bf16 dx, fp32 statistics in another sum order
     "norm_params": 1e-4,    # fp32 dgamma/dbeta: per-block partials vs one sum
 }
+# row 5 (the norm backward): dx row by row within NORM_BWD_ROW_LIMIT of the
+# row's max |plain|: one bf16 rounding of the output is up to 2**-8 (0.0039)
+# of the row's max, the fp32 statistics summed in another order add ~1e-6;
+# 1e-2 is ~2.5 bf16 ulps of the row's largest entry. dgamma and dbeta
+# column by column within NORM_PARAM_COL_LIMIT of the column's own |plain|
+# (floored at ROW_FLOOR x the tensor's max): fp32 sums over 12608 rows in
+# another order differ by ~1e-4 of the smallest columns at ViT-B
+# (emulated), 1e-3 leaves 10x that. Both beside the whole-tensor
+# SCALED_LIMIT checks.
+NORM_BWD_ROW_LIMIT = 1e-2
+NORM_PARAM_COL_LIMIT = 1e-3
+NORM_FAULT_BLOCK = 16   # the planted faults' row period and dropped block
+
 # rows 12-13 against their plain versions, row by row (check_rows: query
 # rows of out and dq, key rows of dk and dv, each against its own max
 # |plain|): out within 1e-2 (e rounded to bf16 against the same final row
@@ -689,6 +888,86 @@ def log_row_checks(checks: dict) -> None:
             f"{chk['fault_rows_over_limit']} of rows beyond the limit")
 
 
+def norm_bwd_faults(x, gamma, dy, eps: float, rms: bool, with_beta: bool) -> dict:
+    """Three planted faults of row 5, each built from the plain backward's
+    arithmetic (:func:`norm_bwd_plain`): ``c2_dropped``, dx with the
+    ``mean(dyg * xhat)`` term left out of one row in 16 (rows 0, 16, ...);
+    ``c2_dropped_one_row``, the same term left out of one row only, the row
+    (of those it moves by more than 1.5x :data:`NORM_BWD_ROW_LIMIT` of
+    their max) that it moves least: a fault a check against the whole
+    tensor's max can miss; ``partial_dropped``, dgamma / dbeta without the
+    last 16-row block's partial. Each maps "dx", "dgamma", "dbeta" to its
+    tensors (the untouched ones are the plain version's)."""
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    dx, dg, db = fn.norm_bwd_plain(x, gamma, dy, eps, rms, with_beta)
+    x32, dy32 = x.float(), dy.float()
+    mu, rstd = fn._stats(x32, rms, eps)
+    xhat = (x32 - mu) * rstd
+    dyg = dy32 * gamma.float()
+    c1 = 0.0 if rms else dyg.mean(dim=-1, keepdim=True)
+    no_c2 = (rstd * (dyg - c1)).to(x.dtype)
+    hit = (torch.arange(x.shape[0], device=x.device) % NORM_FAULT_BLOCK == 0)[:, None]
+    bad_dx = torch.where(hit, no_c2, dx)
+    moved = (no_c2.float() - dx.float()).abs().amax(dim=-1)
+    seen = row_rel_err(no_c2, dx) > 1.5 * NORM_BWD_ROW_LIMIT
+    row = int(torch.where(seen, moved, torch.full_like(moved, float("inf"))).argmin())
+    one_dx = dx.clone()
+    one_dx[row] = no_c2[row]
+    keep = (x.shape[0] - 1) // NORM_FAULT_BLOCK * NORM_FAULT_BLOCK   # the last block's first row
+    bad_dg = (dy32[:keep] * xhat[:keep]).sum(dim=0)
+    bad_db = dy32[:keep].sum(dim=0) if with_beta else None
+    return {"c2_dropped": {"dx": bad_dx, "dgamma": dg, "dbeta": db},
+            "c2_dropped_one_row": {"dx": one_dx, "dgamma": dg, "dbeta": db},
+            "partial_dropped": {"dx": dx, "dgamma": bad_dg, "dbeta": bad_db}}
+
+
+def check_norm_bwd(name: str, got: dict, want: dict, faults: dict) -> dict:
+    """Row 5 ("dx", "dgamma", "dbeta"; dbeta may be None): dx row by row
+    within :data:`NORM_BWD_ROW_LIMIT`, dgamma and dbeta column by column
+    within :data:`NORM_PARAM_COL_LIMIT` (each column a row of
+    :func:`row_rel_err`) and against the tensor's max within
+    ``SCALED_LIMIT``. Each planted fault of :func:`norm_bwd_faults` must
+    fail the row or column check; the share of its rows (columns) beyond
+    the limit is recorded, and whether the whole-tensor check alone
+    (:func:`check_scaled`) would have passed it."""
+    limits = {"dx": NORM_BWD_ROW_LIMIT, "dgamma": NORM_PARAM_COL_LIMIT,
+              "dbeta": NORM_PARAM_COL_LIMIT}
+    scaled = {"dx": SCALED_LIMIT["norm_dx"], "dgamma": SCALED_LIMIT["norm_params"],
+              "dbeta": SCALED_LIMIT["norm_params"]}
+
+    def rows_of(t_name, t):
+        return t if t_name == "dx" else t[:, None]
+
+    def scaled_passes(t_name, bad):
+        try:
+            check_scaled(t_name, bad, want[t_name], scaled[t_name])
+            return True
+        except AssertionError:
+            return False
+
+    checks = {}
+    for t_name, limit in limits.items():
+        if want[t_name] is None:
+            continue
+        check_scaled(f"{name} {t_name}", got[t_name], want[t_name], scaled[t_name])
+        checks[t_name] = check_rows(f"{name} {t_name}", rows_of(t_name, got[t_name]),
+                                    rows_of(t_name, want[t_name]), limit)
+    for fault, bad in faults.items():
+        over = {t_name: float((row_rel_err(rows_of(t_name, bad[t_name]),
+                                           rows_of(t_name, want[t_name])) > limit).float().mean())
+                for t_name, limit in limits.items() if want[t_name] is not None}
+        if not any(over.values()):
+            raise AssertionError(f"{name}: the row and column check passed a planted fault "
+                                 f"({fault})")
+        checks[f"fault_{fault}"] = {
+            "rows_over_limit": over,
+            "passes_scaled_check": all(scaled_passes(t_name, bad[t_name])
+                                       for t_name in over),
+        }
+    return checks
+
+
 def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
     """Rows 3, 4 and 5 at the ViT-B shape (bf16 activations, fp32 gamma
     and beta, eps 1e-6, the LayerNorm mode)."""
@@ -714,9 +993,15 @@ def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
         raise AssertionError("add_layer_norm_fwd: s differs from the plain x + r")
     add_err = check_close("add_layer_norm_fwd", ys, pys, NORM_TOL)
     pdx, pdg, pdb = fn.norm_bwd_plain(s, g, dy, eps, False, True)
-    bwd_err = max(check_scaled("norm_bwd dx", dx, pdx, SCALED_LIMIT["norm_dx"]),
-                  check_scaled("norm_bwd dgamma", dg, pdg, SCALED_LIMIT["norm_params"]),
-                  check_scaled("norm_bwd dbeta", db, pdb, SCALED_LIMIT["norm_params"]))
+    names = ("dx", "dgamma", "dbeta")
+    bwd_checks = check_norm_bwd("norm_bwd", dict(zip(names, (dx, dg, db))),
+                                dict(zip(names, (pdx, pdg, pdb))),
+                                norm_bwd_faults(s, g, dy, eps, False, True))
+    bwd_err = max(bwd_checks[t]["max_abs_err"] for t in names)
+    again = fn.norm_bwd_cuda(s, g, dy, eps, False, True)
+    if not all(torch.equal(a, b) for a, b in zip((dx, dg, db), again)):
+        raise AssertionError("norm_bwd: two runs differ")
+    log(f"norm_bwd x[{rows},{d}]: {bwd_checks}")
 
     xr = s.detach().requires_grad_()
     w, wb = gb.detach().requires_grad_(), bb.detach().requires_grad_()
@@ -740,6 +1025,7 @@ def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
             "plain_ms": time_ms(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lib), "library_call": call,
         }]
+    cases["norm_bwd"][0].update(checks=bwd_checks, rerun_same_bits=True)
     return cases
 
 
@@ -1397,17 +1683,21 @@ def kernel_phase(batch: int, bucket: int) -> dict:
     flashes.append(flash_case(batch, 256, 16, 8, 64, [0, 17, 100, 200][:batch], gen))
     # int4 at Llama-3-8B shapes: per-channel at the speculative verify's
     # 40 rows (8 slots x 5), grouped at the paged engine's 16-slot decode;
-    # q/o, gate/up, down and the fp32 LM head (tile 256) of each, and the
-    # per-channel k/v (the narrowest grid, 8 K-slices; its planted faults
-    # with q/o's). The 4-row LM-head cases are extras, off the main paths.
+    # q/o, k/v, gate/up, down and the fp32 LM head (tile 256). Planted
+    # faults: per-channel at q/o and k/v (the narrowest grid, 8 K-slices),
+    # grouped at every bf16 shape; the grouped rounding probe at q/o and the
+    # LM head. The 4-row LM-head cases are extras, off the main paths.
     bf16, fp32 = torch.bfloat16, torch.float32
     per_channel = [int4_case(40, 4096, 4096, 0, bf16, gen, faults=True),
                    int4_case(40, 4096, 1024, 0, bf16, gen, faults=True),
                    int4_case(40, 4096, 14336, 0, bf16, gen),
                    int4_case(40, 14336, 4096, 0, bf16, gen), int4_case(40, 4096, 128256, 0, fp32, gen),
                    int4_case(4, 4096, 128256, 0, fp32, gen)]
-    grouped = [int4_case(16, 4096, 14336, 128, bf16, gen), int4_case(16, 14336, 4096, 128, bf16, gen),
-               int4_case(16, 4096, 128256, 128, fp32, gen), int4_case(4, 4096, 128256, 128, fp32, gen)]
+    grouped = [int4_case(16, k, n, 128, bf16, gen, faults=True)
+               for k, n in ((4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))]
+    grouped += [int4_case(16, 4096, 128256, 128, fp32, gen),
+                int4_case(4, 4096, 128256, 128, fp32, gen)]
+    grouped[0]["rounding_probe"] = int4_rounding_cases(gen)
     out = {"rms_norm_fwd": norms, "flash_fwd_padded": flashes, "paged_attention": pageds,
            "int4_matmul": per_channel, "int4_matmul_grouped": grouped}
     for name, cases in out.items():
@@ -1578,8 +1868,9 @@ def int4_launch_shape_checks(shapes, seed: int = 3) -> dict:
     :class:`Int4Probe` recorded them), run again on seeded random inputs of
     that shape and held against the plain version, so each instance the
     engines ran (row-tile count, per-channel or grouped, bf16 or fp32, LM
-    head included) is checked on the card at its own shape. Returns
-    ``{kernel name: [{"shape", "max_abs_err"}]}``."""
+    head included) is checked on the card at its own shape; grouped bf16
+    shapes also by the bit check. Returns ``{kernel name: [{"shape",
+    "max_abs_err" (, "mismatch")}]}``."""
     from unionml_tpu_torch.ops import int4_matmul as i4
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1596,12 +1887,15 @@ def int4_launch_shape_checks(shapes, seed: int = 3) -> dict:
         want = i4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype, group_size=group)
         form = f"g{group}" if group else "per-channel"
         shape = f"x[{rows},{k}] {str(dtype).split('.')[-1]} @ W4[{k},{n}] tile {tile}, {form}"
-        err = check_close(f"int4_matmul launch shape {shape}", got, want, INT4_TOL[dtype])
-        out["int4_matmul_grouped" if group else "int4_matmul"].append(
-            {"shape": shape, "max_abs_err": err})
+        name = f"int4_matmul launch shape {shape}"
+        checked = {"shape": shape, "max_abs_err": check_close(name, got, want, INT4_TOL[dtype])}
+        if group and dtype == torch.bfloat16:
+            int4_bit_check(name, got, want, checked)
+        out["int4_matmul_grouped" if group else "int4_matmul"].append(checked)
     for name, checked in out.items():
         log(f"int4 launch shapes: {name}: {len(checked)} shapes held against the plain version, "
-            f"max abs err {max((c['max_abs_err'] for c in checked), default=None)}")
+            f"max abs err {max((c['max_abs_err'] for c in checked), default=None)}, worst bf16 "
+            f"mismatch {max((c['mismatch'] for c in checked if 'mismatch' in c), default=None)}")
     return out
 
 
@@ -2412,7 +2706,8 @@ def main(argv=None) -> int:
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
-            **{key: main_case[key] for key in ("ms_cold", "library_ms_cold") if key in main_case},
+            **{key: main_case[key] for key in ("ms_cold", "library_ms_cold", "rounding_probe")
+               if key in main_case},
             "serve_launches": served["launches"].get(name),
             "launches_per_train_step": per_train_step.get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),

@@ -50,7 +50,7 @@ CLASSES = (
     ("port: flash attention fwd", ("flash_fwd_kernel",)),
     ("port: flash attention dq", ("flash_dq_kernel",)),
     ("port: flash attention dk/dv", ("flash_dkv_kernel",)),
-    ("port: fused norm", ("norm_fwd_kernel", "norm_bwd_kernel")),
+    ("port: fused norm", ("norm_fwd_kernel", "norm_bwd_kernel", "norm_bwd_sum_kernel")),
     ("GEMM fp32 (cuBLAS, no TF32)", ("sgemm", "f32f32_f32f32", "gemmSN", "gemv2T")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),

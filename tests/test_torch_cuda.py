@@ -230,13 +230,20 @@ def test_paged_engine_runs_the_kernel_and_matches_contiguous_on_card(cuda):
     (1, 256, 512, 512, 0), (16, 4096, 1024, 512, 0), (40, 1024, 4096, 512, 0),
     (64, 256, 768, 256, 128), (16, 4096, 14336, 512, 128), (5, 96, 200, 200, 0),
     (3, 384, 640, 128, 0), (7, 256, 1536, 256, 256),
+    # the int4 paged engine's g=128 projections of Llama-3-8B (q/o, k/v,
+    # down) at one to 64 rows; a single-tile width, a 128-channel tile and
+    # unaligned widths (the simple path) with group scales
+    (1, 4096, 4096, 512, 128), (33, 4096, 1024, 512, 128), (64, 14336, 4096, 512, 128),
+    (9, 512, 96, 96, 128), (24, 640, 1280, 128, 128), (5, 256, 200, 200, 128),
+    (3, 384, 512, 512, 128), (2, 1024, 1536, 256, 512),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int4_kernel_matches_plain_on_card(cuda, rows, k, n, tile, group, dtype):
     """Aligned and unaligned widths (N/2 not a multiple of 16, K not of 8,
     a single 200-channel tile), one to 64 rows, per-channel and grouped,
     both compute dtypes; the first rows of a launch equal a smaller
-    launch bit for bit (no reduction order depends on the row count)."""
+    launch bit for bit (no reduction order depends on the row count); the
+    grouped bf16 form also passes chip_smoke's bit check."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     packed = torch.randint(-128, 128, (k, n // 2), device=cuda, generator=gen, dtype=torch.int8)
     scale = torch.rand((k // group, n) if group else (n,), device=cuda, generator=gen) * 0.05
@@ -250,6 +257,9 @@ def test_int4_kernel_matches_plain_on_card(cuda, rows, k, n, tile, group, dtype)
     # the same fp32 products in another summation order, then (bf16) one rounding
     tol = dict(rtol=1 / 64, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got, want, **tol)
+    if group and dtype == torch.bfloat16:
+        smoke = _chip_smoke()
+        assert smoke.rounding_mismatch(got, want) <= smoke.INT4_MISMATCH_MAX
     head = tint4.int4_matmul_cuda(x[:1].contiguous(), packed, scale, tile_n=tile,
                                   group_size=group)
     assert torch.equal(head, got[:1])
@@ -270,39 +280,47 @@ def _chip_smoke():
     return chip_smoke
 
 
-def _int4_channel_inputs(cuda, rows, k, n, dtype, seed=0):
+def _int4_channel_inputs(cuda, rows, k, n, dtype, seed=0, group=0):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     packed = torch.randint(-128, 128, (k, n // 2), device=cuda, generator=gen, dtype=torch.int8)
-    scale = torch.rand(n, device=cuda, generator=gen) * 0.05
+    scale = torch.rand((k // group, n) if group else (n,), device=cuda, generator=gen) * 0.05
     x = torch.randn(rows, k, device=cuda, generator=gen).to(dtype)
     return x, packed, scale
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,n,tile,dtype,splits", [
-    (4096, 1024, 512, torch.bfloat16, 8),      # the k/v projection: the narrowest grid
-    (14336, 4096, 512, torch.bfloat16, 8),     # down: long K slices
-    (4096, 14336, 512, torch.bfloat16, 2),     # gate/up: the widest bf16 grid
-    (4096, 2048, 256, torch.float32, 1),       # the LM head's fp32 form at a reduced N
+@pytest.mark.parametrize("k,n,tile,dtype,splits,group", [
+    (4096, 1024, 512, torch.bfloat16, 8, 0),      # the k/v projection: the narrowest grid
+    (14336, 4096, 512, torch.bfloat16, 8, 0),     # down: long K slices
+    (4096, 14336, 512, torch.bfloat16, 2, 0),     # gate/up: the widest bf16 grid
+    (4096, 2048, 256, torch.float32, 1, 0),       # the LM head's fp32 form at a reduced N
+    # the int4 paged engine's g=128 shapes, and the grouped fp32 LM head
+    (4096, 4096, 512, torch.bfloat16, 8, 128),
+    (4096, 1024, 512, torch.bfloat16, 8, 128),
+    (4096, 14336, 512, torch.bfloat16, 2, 128),
+    (14336, 4096, 512, torch.bfloat16, 8, 128),
+    (4096, 2048, 256, torch.float32, 1, 128),
 ])
-def test_int4_channel_rows_are_bit_invariant_on_card(cuda, k, n, tile, dtype, splits):
+def test_int4_channel_rows_are_bit_invariant_on_card(cuda, k, n, tile, dtype, splits, group):
     """Every row count 1..64 gives each row the bits it gets in a one-row
     launch and in the 64-row launch (the K split and every summation order
-    follow (K, N) alone; the wgmma width follows the row count), and a
-    rerun gives the same bits."""
+    follow (K, N) and the group alone; the wgmma width follows the row
+    count), and a rerun gives the same bits; per-channel and g=128."""
     if dtype == torch.bfloat16:   # the fp32 form walks all of K in every CTA
-        assert tint4._k_splits(k, n) == splits
-    x, packed, scale = _int4_channel_inputs(cuda, 64, k, n, dtype)
+        assert tint4._k_splits(k, n, group) == splits
+    x, packed, scale = _int4_channel_inputs(cuda, 64, k, n, dtype, group=group)
 
     def run(rows):
-        return tint4.int4_matmul_cuda(x[:rows].contiguous(), packed, scale, tile_n=tile)
+        return tint4.int4_matmul_cuda(x[:rows].contiguous(), packed, scale, tile_n=tile,
+                                      group_size=group)
 
     full = run(64)
-    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype)
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=dtype, group_size=group)
     tol = dict(rtol=1 / 64, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(full, want, **tol)
     singles = torch.cat([
-        tint4.int4_matmul_cuda(x[r:r + 1].contiguous(), packed, scale, tile_n=tile)
+        tint4.int4_matmul_cuda(x[r:r + 1].contiguous(), packed, scale, tile_n=tile,
+                               group_size=group)
         for r in range(64)
     ])
     assert torch.equal(singles, full)
@@ -362,7 +380,7 @@ def test_int4_channel_simple_path_on_card(cuda, rows, k, n, tile, x_off, w_off, 
     out = torch.empty(rows, n, dtype=dtype, device=cuda)
     with pytest.raises(RuntimeError, match="failed to launch"):
         tint4.KERNEL(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
-                     k, n, tile, 1, int(dtype == torch.float32), 0,
+                     k, n, tile, 0, 1, int(dtype == torch.float32), 0,
                      torch.cuda.current_stream().cuda_stream)
 
 
@@ -381,6 +399,50 @@ def test_int4_channel_bit_check_rejects_planted_faults_on_card(cuda, k, n):
     assert smoke.rounding_mismatch(got, want) <= smoke.INT4_MISMATCH_MAX
     for fault, bad in smoke.int4_slice_faults(x, packed, scale, 512).items():
         assert smoke.rounding_mismatch(bad, want) > smoke.INT4_MISMATCH_MAX, fault
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 512), (4096, 1024)])
+def test_int4_grouped_bit_check_rejects_planted_faults_on_card(cuda, k, n):
+    """chip_smoke's grouped bit check at the engine's 16 rows, g=128, at a
+    K with 8 slices: the kernel passes it, and the three planted faults
+    (the last group dropped, each slice's scale rows one group off, the
+    slices rounded to bf16 and summed in reverse rank order), emulated
+    from the plain math, fail it."""
+    smoke = _chip_smoke()
+    assert tint4._k_splits(k, n, 128) == 8
+    x, packed, scale = _int4_channel_inputs(cuda, 16, k, n, torch.bfloat16, seed=3, group=128)
+    scale = scale / (k ** 0.5)
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=512, dtype=torch.bfloat16,
+                                   group_size=128)
+    got = tint4.int4_matmul_cuda(x, packed, scale, tile_n=512, group_size=128)
+    checks = {}
+    smoke.int4_bit_check("grouped", got, want, checks)
+    smoke.int4_fault_checks("grouped", smoke.int4_group_faults(x, packed, scale, 512, 128),
+                            want, checks)
+    assert len([key for key in checks if key.endswith("_passes_int4_tol")]) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n,tile,tma", [
+    (16, 4096, 4096, 512, True),   # the engine's q/o: groups 0 and 1 in the first of 8 K-slices
+    (1, 2048, 512, 512, True), (64, 2048, 512, 512, True),
+    (5, 256, 200, 200, False),     # the simple path
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_grouped_rounding_point_on_card(cuda, rows, k, n, tile, tma, dtype):
+    """chip_smoke's grouped rounding probe through the kernel: on inputs
+    where every value but the group-scale rounding is exact, the kernel
+    gives the plain version's bits on every output (multiply, then add),
+    and the FMA fault does not."""
+    smoke = _chip_smoke()
+    if dtype == torch.bfloat16 and tma:
+        assert tint4._k_slices(k, tint4._k_splits(k, n, 128), 128)[0][1] >= 256
+    gen = torch.Generator(device=cuda).manual_seed(rows + k)
+    x, packed, scale, want, fma = smoke.int4_rounding_probe(rows, k, n, tile, 128, dtype, gen)
+    assert tint4._tma_path(x, packed, scale, tile, 128) == tma
+    got = tint4.int4_matmul_cuda(x, packed, scale, tile_n=tile, group_size=128)
+    smoke.int4_rounding_check("probe", got, want, fma)
 
 
 @pytest.mark.cuda
@@ -480,6 +542,38 @@ def test_norm_kernels_match_plain_on_card(cuda, rows, d, dtype, rms):
         assert _max_rel_err(db, pdb) < 1e-4
     else:
         assert db is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 12608])
+@pytest.mark.parametrize("d", [768, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rms", [False, True])
+def test_norm_backward_rows_and_columns_on_card(cuda, rows, d, dtype, rms):
+    """Row 5 held as chip_smoke holds it: dx row by row, dgamma / dbeta
+    column by column (and against the tensor's max), the three planted
+    faults rejected at the ViT-B row count (a fault on one or two rows of
+    random data can fall below the limit), the one-row fault also passing
+    the whole-tensor check; a rerun gives the same bits; one launch a
+    call."""
+    smoke = _chip_smoke()
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x, dy = (torch.randn(rows, d, device=cuda, generator=gen).to(dtype) for _ in range(2))
+    g = 1 + 0.1 * torch.randn(d, device=cuda, generator=gen)
+    before = tnorm.BWD_KERNEL.launches
+    got = tnorm.norm_bwd_cuda(x, g, dy, 1e-6, rms, not rms)
+    again = tnorm.norm_bwd_cuda(x, g, dy, 1e-6, rms, not rms)
+    torch.cuda.synchronize()
+    assert tnorm.BWD_KERNEL.launches == before + 2
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    names = ("dx", "dgamma", "dbeta")
+    want = dict(zip(names, tnorm.norm_bwd_plain(x, g, dy, 1e-6, rms, not rms)))
+    faults = smoke.norm_bwd_faults(x, g, dy, 1e-6, rms, not rms) if rows > 1000 else {}
+    checks = smoke.check_norm_bwd(f"norm_bwd rows={rows} d={d} {dtype} rms={rms}",
+                                  dict(zip(names, got)), want, faults)
+    if faults:   # the one-row fault is seen by the row check alone
+        assert checks["fault_c2_dropped_one_row"]["passes_scaled_check"]
 
 
 def _max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:

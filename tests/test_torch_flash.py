@@ -168,3 +168,33 @@ def test_flash_refusals():
         tfa.flash_bwd_cuda(q, k, v, q, q, lse, causal=True, scale=0.25)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tfa.flash_attention(q[:, :, :3], k, v, causal=True)
+
+
+@pytest.mark.parametrize("pads", [[0, 17], [63, 100], [64, 5]])
+def test_chip_smoke_padded_row_check_rejects_a_skipped_start_tile(pads):
+    """chip_smoke.py's check of row 1 (the padded serving prefill) on the
+    CPU: the plain padded forward passes its row check against itself,
+    and the planted fault (each batch row's first visible 64-key tile, the
+    one that holds its pad count, skipped for queries that see past it)
+    fails it; queries inside the padding stay zero in both."""
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    q, k, v, _ = (torch.from_numpy(x).bfloat16() for x in _inputs(2, 200, 200, 4, 2, 32))
+    pad = torch.tensor(pads, dtype=torch.int32)
+    want = tfa.flash_fwd_padded_plain(q, k, v, pad, causal=True, scale=32**-0.5)
+    fault = chip_smoke.padded_start_tile_fault(q, k, v, pad, scale=32**-0.5)
+    for row, p in enumerate(pads):
+        assert not fault[row, :p].any()
+        start_end = (p // chip_smoke.FLASH_TILE + 1) * chip_smoke.FLASH_TILE
+        assert torch.equal(fault[row, p:start_end], want[row, p:start_end])
+    checks = chip_smoke.check_rows_with_fault(
+        "plain", {"out": want}, {"out": want}, {"out": fault},
+        {"out": chip_smoke.FLASH_ROW_LIMIT}, "start tile skipped")
+    assert checks["out"]["max_row_rel_err"] == 0 and checks["out"]["fault_rows_over_limit"] > 0

@@ -203,6 +203,103 @@ def test_chip_smoke_int4_bit_check_rejects_planted_faults_on_cpu():
         assert chip_smoke.rounding_mismatch(bad, want) > chip_smoke.INT4_MISMATCH_MAX
 
 
+@pytest.mark.parametrize("k,n,group,splits", [
+    (4096, 14336, 128, 2), (14336, 4096, 128, 8), (4096, 4096, 128, 8), (4096, 1024, 128, 8),
+    (2048, 512, 128, 8), (256, 1536, 256, 1), (1024, 512, 256, 4),
+])
+def test_grouped_k_split_cuts_whole_groups(k, n, group, splits):
+    """The grouped kernel's K split: the per-channel rule over whole scale
+    groups (a 128-row group is one chunk, so the engines' g=128 shapes
+    split as the per-channel form does), every slice a run of whole
+    groups in rank order."""
+    assert tint4._k_splits(k, n, group) == splits
+    if group == tint4.K_CHUNK:
+        assert splits == tint4._k_splits(k, n)
+    slices = tint4._k_slices(k, splits, group)
+    assert len(slices) == splits and slices[0][0] == 0 and slices[-1][1] == k
+    for a, b in slices:
+        assert a < b and a % group == 0 and b % group == 0
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(repo))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(repo))
+    return chip_smoke
+
+
+def test_chip_smoke_int4_grouped_bit_check_rejects_planted_faults_on_cpu():
+    """chip_smoke's grouped (g=128) bit check on the CPU, at 8 K-slices of
+    two groups: the plain version passes against itself, and each of the
+    three planted faults (the last group dropped, each slice's scale rows
+    one group off, the slices rounded to bf16 and summed in reverse rank
+    order) fails it; whether the elementwise tolerance alone would pass
+    each is recorded."""
+    chip_smoke = _chip_smoke()
+    k, n, tile, group = 2048, 512, 512, 128
+    assert tint4._k_splits(k, n, group) == 8
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(16, k)).astype(np.float32)).bfloat16()
+    packed = torch.from_numpy(rng.integers(-128, 128, size=(k, n // 2)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.0, size=(k // group, n)).astype(np.float32))
+    scale = scale / k ** 0.5
+    want = tint4.int4_matmul_plain(x, packed, scale, tile_n=tile, dtype=torch.bfloat16,
+                                   group_size=group)
+    checks = {}
+    chip_smoke.int4_bit_check("plain", want, want, checks)
+    assert checks["mismatch"] == 0.0
+    faults = chip_smoke.int4_group_faults(x, packed, scale, tile, group)
+    assert set(faults) == {"last_group_dropped", "scale_row_off_by_one", "bf16_reverse_rank_sum"}
+    for bad in faults.values():
+        assert chip_smoke.rounding_mismatch(bad, want) > chip_smoke.INT4_MISMATCH_MAX
+    chip_smoke.int4_fault_checks("plain", faults, want, checks)
+    assert all(isinstance(checks[f"fault_{f}_passes_int4_tol"], bool) for f in faults)
+    assert not checks["fault_last_group_dropped_passes_int4_tol"]
+    # a fault that passes the bit check fails the run
+    with pytest.raises(AssertionError, match="planted fault"):
+        chip_smoke.int4_fault_checks("plain", {"none": want}, want, {})
+    # the FMA fault passes the bit check on random inputs (here no output
+    # rounds apart): only the rounding probe tells it apart
+    fma = chip_smoke.int4_fma_scale(x, packed, scale, tile, group)
+    assert chip_smoke.rounding_mismatch(fma, want) <= chip_smoke.INT4_MISMATCH_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,k,n,tile", [(16, 2048, 512, 512), (3, 512, 768, 256),
+                                           (5, 256, 200, 200)])
+def test_chip_smoke_int4_rounding_probe_on_cpu(rows, k, n, tile, dtype):
+    """chip_smoke's grouped rounding probe on the CPU: the plain version
+    passes against itself, and so does the plain math summed as the bf16
+    kernel sums it (each K-slice's groups in order, then the slices in rank
+    order), because every value but the planted rounding is exact; the
+    FMA fault (the group scale applied by one FMA) fails it, in about 3/8
+    of the bf16 outputs and 3/4 of the fp32 ones."""
+    chip_smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(rows + k)
+    x, packed, scale, want, fma = chip_smoke.int4_rounding_probe(rows, k, n, tile, 128, dtype,
+                                                                 gen)
+    assert chip_smoke.int4_rounding_check("plain", want, want, fma) == {
+        "mismatch": 0.0, "fma_fault_mismatch": chip_smoke.rounding_mismatch(fma, want)}
+    w = tint4.unpack_int4(packed, tile).float()
+    slices = []
+    for a, b in tint4._k_slices(k, tint4._k_splits(k, n, 128), 128):
+        total = torch.zeros(rows, n)
+        for g in range(a, b, 128):
+            total = total + (x[:, g:g + 128].float() @ w[g:g + 128]) * scale[g // 128]
+        slices.append(total)
+    assert torch.equal(sum(slices[1:], slices[0]).to(dtype), want)
+    share = chip_smoke.rounding_mismatch(fma, want)
+    assert share > (0.2 if dtype == torch.bfloat16 else 0.5)
+    with pytest.raises(AssertionError, match="rounding probe"):
+        chip_smoke.int4_rounding_check("fma", fma, want, fma)
+
+
 def test_routing_plain_fallback_and_warning(monkeypatch):
     """Decode rows with a conforming tile take the kernel's plain version
     on the CPU; prefill rows, 128 tiles and small groups take the

@@ -243,6 +243,56 @@ def test_rms_norm_backward_mode():
     assert dbeta is None
 
 
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("rows,d", [(300, 128), (64 * 197 // 16, 768)])
+def test_chip_smoke_norm_bwd_check_rejects_planted_faults(rows, d, rms):
+    """chip_smoke.py's check of row 5 on the CPU: the plain backward passes
+    its row (dx) and column (dgamma, dbeta) check against itself, and the
+    three planted faults (the mean(dyg * xhat) term dropped from one row in
+    16, or from one row only; the last 16-row block's dgamma / dbeta
+    partial dropped) fail it, in a share of rows or columns the check
+    reports. The one-row fault passes the whole-tensor check_scaled: the
+    row check is the one that sees it."""
+    repo = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    rng = np.random.default_rng(6)
+    x, dy = (torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).bfloat16()
+             for _ in range(2))
+    g = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32))
+    names = ("dx", "dgamma", "dbeta")
+    want = dict(zip(names, tnorm.norm_bwd_plain(x, g, dy, 1e-6, rms, not rms)))
+    faults = chip_smoke.norm_bwd_faults(x, g, dy, 1e-6, rms, not rms)
+    assert set(faults) == {"c2_dropped", "c2_dropped_one_row", "partial_dropped"}
+    checks = chip_smoke.check_norm_bwd("plain", want, want, faults)
+    assert set(checks) == {"dx", "dgamma", "fault_c2_dropped", "fault_c2_dropped_one_row",
+                           "fault_partial_dropped"} | (set() if rms else {"dbeta"})
+    assert checks["dx"]["limit"] == chip_smoke.NORM_BWD_ROW_LIMIT
+    assert checks["dgamma"]["limit"] == chip_smoke.NORM_PARAM_COL_LIMIT
+    for name in names:
+        if name in checks:
+            assert checks[name]["max_row_rel_err"] == 0
+    assert checks["fault_c2_dropped"]["rows_over_limit"]["dx"] > 0
+    assert checks["fault_partial_dropped"]["rows_over_limit"]["dgamma"] > 0
+    one_row = checks["fault_c2_dropped_one_row"]
+    assert one_row["rows_over_limit"]["dx"] * rows == pytest.approx(1)
+    assert one_row["passes_scaled_check"]
+    chip_smoke.check_scaled("dx", faults["c2_dropped_one_row"]["dx"], want["dx"],
+                            chip_smoke.SCALED_LIMIT["norm_dx"])
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.check_rows("dx", faults["c2_dropped_one_row"]["dx"], want["dx"],
+                              chip_smoke.NORM_BWD_ROW_LIMIT)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.check_rows("dx", faults["c2_dropped"]["dx"], want["dx"],
+                              chip_smoke.NORM_BWD_ROW_LIMIT)
+    # the check passes a fault only by failing: the plain version as the fault
+    with pytest.raises(AssertionError, match="planted fault"):
+        chip_smoke.check_norm_bwd("plain", want, want, {"none": want})
+
+
 # --------------------------------------------------------------------- #
 # the ViT forward
 # --------------------------------------------------------------------- #

@@ -7,8 +7,8 @@
 //   - _fwd_kernel via _norm_fwd, LayerNorm with beta  (ViT ln1 / ln_final)
 //   - _add_fwd_kernel via _norm_add_fwd              (ViT ln2: s = x + r,
 //     y = norm(s), statistics from the fp32 sum, s written in x's dtype)
-//   - _bwd_kernel via _norm_bwd                       (both modes: dx plus
-//     per-row-block dgamma / dbeta partials, summed outside the kernel)
+//   - _bwd_kernel via _norm_bwd                       (both modes: dx, and
+//     dgamma / dbeta summed over all rows)
 //
 // What they compute: over the last axis of x [rows, d], fp32 statistics
 // (mean and variance E[(x - mu)^2] for LayerNorm; mean(x^2) for RMS, mu = 0),
@@ -17,23 +17,47 @@
 // form passes the stored, rounded s), then
 //   dx = rstd * (dyg - mean(dyg) - xhat * mean(dyg * xhat))   (LayerNorm)
 //   dx = rstd * (dyg - xhat * mean(dyg * xhat))               (RMS)
-// with dyg = dy * g, and per block of rows the column sums dy * xhat and dy.
+// with dyg = dy * g, and the column sums of dy * xhat (dgamma) and dy
+// (dbeta) over every row.
 //
 // Bound on the H100: memory. Every element is read once and written once
 // with a handful of flops, far below the ~295 flops per byte at which the
 // card's arithmetic would limit it.
 //
-// Design: a block of T threads (a multiple of 32, at most 256) owns a row:
-// thread t holds the 16-byte vectors t, t + T, ... of the row in registers
-// (NV of them, NV <= 8), so the row is read from device memory once;
-// neighbouring threads read neighbouring 16 bytes. Block reductions are a
-// warp shuffle plus a fixed-order pass over the warps' partials, so results
-// do not depend on scheduling. The backward gives each block a fixed run of
-// rows and keeps its column sums in registers across them (a thread owns the
-// same columns in every row), writing one fp32 partial row of dgamma (and
-// dbeta) per block: deterministic, no atomics. On the TPU one grid step
-// covered a 256-row VMEM block and masked its ragged tail; here rows past
-// the end are simply never visited.
+// Forward design: a block of T threads (a multiple of 32, at most 256) owns
+// a row: thread t holds the 16-byte vectors t, t + T, ... of the row in
+// registers (NV of them, NV <= 8), so the row is read from device memory
+// once; neighbouring threads read neighbouring 16 bytes. Block reductions
+// are a warp shuffle plus a fixed-order pass over the warps' partials, so
+// results do not depend on scheduling.
+//
+// Backward design (norm_bwd_kernel, then norm_bwd_sum_kernel). A CTA of 8
+// warps owns a fixed run of 64 rows. A row belongs to R warps (R = 1 up to
+// 128 16-byte vectors a row: ViT-B's 768 bf16 columns are 96 vectors, three
+// a lane; wider rows take 2, 4 or 8 warps); with R = 1 every reduction of a
+// row is a warp shuffle, with no shared memory and no barrier on the row
+// path (R > 1 adds a fixed-order pass over the R warps' sums behind a named
+// barrier of those warps). Each warp walks its 8 (R = 1) rows in order
+// through a two-row cp.async ring of its own in shared memory: the next
+// row's x and dy are in flight while the current row is reduced. A lane
+// copies, and later reads, only its own 16-byte vectors, so the ring needs
+// no barrier either. The row is reduced from shared memory: the mean, then
+// the centred variance (the reference's two passes; RMS: the mean square),
+// then the sums of dyg and dyg * xhat, then dx is written; a lane sums
+// each 16-byte vector as a tree, so its dependency chains stay short (on
+// the H100 that and g in registers took 7% off; a three-row ring and
+// 32-row CTAs were slower: PERF.md, section 6). A lane keeps its
+// columns of g, and the dgamma / dbeta column partials, in registers
+// across the warp's rows (it owns the same columns in every row); at the
+// end the CTA's warps write
+// them over the ring and one pass sums them in warp order into one fp32
+// partial row per CTA. norm_bwd_sum_kernel then sums the CTAs' partial rows
+// in CTA order (32 warps a column tile, each a fixed stride of rows, then
+// the warps in order): no atomics, and every order is fixed by (rows, d),
+// so reruns give the same bits. On the TPU one grid step covered a 256-row
+// VMEM block and carried the dgamma / dbeta sums across steps; here rows
+// past the end are never visited and the sums cross CTAs in the second
+// kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,114 +195,277 @@ norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ r,
   }
 }
 
-// Backward over rows [blockIdx.x * rpb, min(rows, (blockIdx.x + 1) * rpb)):
-// dx for each row, and this block's partial column sums of dy * xhat
-// (dg_parts) and dy (db_parts, skipped when nullptr), one fp32 row each.
-template <typename TX, int NV>
-__global__ void __launch_bounds__(MAX_THREADS)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_MAX_NV = 4;       // 16-byte vectors a lane holds of a row
+constexpr int BWD_MAX_R = 8;        // warps a row: at most 8 x 32 x 4 = 1024 vectors
+constexpr int BWD_DEPTH = 2;        // rows in a warp's ring: one in flight while one is reduced
+
+// Sum of (a, b) over the R warps of this thread's row group, in warp order,
+// returned to every thread of the group. R = 1: a warp shuffle. R > 1: lane
+// 0 of each warp writes the warp's sums to its slot of `slot` (BWD_WARPS
+// float2), a named barrier of the group's warps, then every thread adds the
+// R slots in order; successive reductions use other slots, so the next
+// write to a slot always follows a barrier every thread of the group
+// passed after reading it.
+__device__ __forceinline__ float2 group_sum2(float a, float b, int r_warps, float2* slot) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (r_warps == 1) return make_float2(a, b);
+  const int warp = threadIdx.x >> 5, first = warp - warp % r_warps;
+  if ((threadIdx.x & 31) == 0) slot[warp] = make_float2(a, b);
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + first / r_warps), "r"(32 * r_warps) : "memory");
+  float2 t = make_float2(0.f, 0.f);
+  for (int w = first; w < first + r_warps; ++w) {
+    t.x += slot[w].x;
+    t.y += slot[w].y;
+  }
+  return t;
+}
+
+// 16 bytes of TX from shared memory as VEC floats
+template <typename TX>
+__device__ __forceinline__ void lds_vec(const unsigned char* p, float* out) {
+  Pack<TX> v;
+  *reinterpret_cast<uint4*>(v.v) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int j = 0; j < Pack<TX>::N; ++j) out[j] = to_f(v.v[j]);
+}
+
+// the sum of v[0 .. N), as a balanced tree (short dependency chains)
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* v) {
+  if constexpr (N == 1) {
+    return v[0];
+  } else {
+    return tree_sum<N / 2>(v) + tree_sum<N - N / 2>(v + N / 2);
+  }
+}
+
+// Backward over rows [blockIdx.x * rpb, min(rows, (blockIdx.x + 1) * rpb))
+// by BWD_WARPS / r_warps row groups of r_warps warps, group i walking rows
+// i * rpb / groups onwards in order: dx for each row, and this CTA's column
+// sums of dy * xhat (dg_parts) and dy (db_parts, skipped when nullptr), one
+// fp32 row each. Dynamic shared memory: the warps' rings [warp][slot][x,
+// dy][NV][32] x 16 bytes (reused for the warps' column partials at the
+// end), then the reduction slots. A lane keeps its columns of g in
+// registers; each row's sums over a lane's 16-byte vector are trees.
+template <typename TX, int NV, bool RMS>
+__global__ void __launch_bounds__(BWD_THREADS, NV <= 3 ? 2 : 1)
 norm_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                 const TX* __restrict__ dy, TX* __restrict__ dx,
                 float* __restrict__ dg_parts, float* __restrict__ db_parts,
-                int rows, int d, float eps, int rms, int rpb) {
+                int rows, int d, float eps, int rpb, int r_warps) {
   constexpr int VEC = Pack<TX>::N;
-  __shared__ float2 scratch[MAX_WARPS];
+  constexpr int TENSOR = NV * 32 * 16;          // one tensor's share of a ring slot
+  constexpr int SLOT = 2 * TENSOR;               // x, then dy
+  constexpr int RING = BWD_DEPTH * SLOT;         // BWD_DEPTH rows a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float2* red = reinterpret_cast<float2*>(smem + BWD_WARPS * RING);   // [3][BWD_WARPS]
+  unsigned char* ring = smem + warp * RING;
   const int nvec = d / VEC;
-  float dg[NV][VEC], db[NV][VEC], gv[NV][VEC];
+  const int groups = BWD_WARPS / r_warps, group = warp / r_warps;
+  const int gl = (warp % r_warps) * 32 + lane;  // this lane's index in its row group
+
+  float gv[NV][VEC];
 #pragma unroll
   for (int u = 0; u < NV; ++u) {
-    const int i = threadIdx.x + u * blockDim.x;
+    const int v = gl + u * 32 * r_warps;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      dg[u][j] = 0.f;
-      db[u][j] = 0.f;
-      gv[u][j] = i < nvec ? g[i * VEC + j] : 0.f;
-    }
+    for (int j = 0; j < VEC; ++j) gv[u][j] = v < nvec ? __ldg(g + v * VEC + j) : 0.f;
   }
-  const int row0 = blockIdx.x * rpb;
-  const int row1 = min(rows, row0 + rpb);
-  for (int row = row0; row < row1; ++row) {
+
+  const int per = rpb / groups;
+  const int row0 = blockIdx.x * rpb + group * per;
+  const int row1 = min(rows, row0 + per);
+
+  // a lane's vectors gl + u * 32 R, u < NV, at (slot, tensor, u, lane) in its warp's ring
+  auto issue = [&](int row, int slot) {
     const size_t base = (size_t)row * d;
-    float xv[NV][VEC], gy[NV][VEC];
-    float sum = 0.f, sq = 0.f;
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
-      const int i = threadIdx.x + u * blockDim.x;
-      if (i < nvec) {
-        load_vec(x + base, i, xv[u]);
-        load_vec(dy + base, i, gy[u]);
+      const int v = gl + u * 32 * r_warps;
+      if (v < nvec) {
+        const uint32_t dst = smem_u32(ring + slot * SLOT + (u * 32 + lane) * 16);
+        cp_async16(dst, x + base + v * VEC);
+        cp_async16(dst + TENSOR, dy + base + v * VEC);
+      }
+    }
+  };
+
+  float dg[NV][VEC], db[NV][VEC];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          sum += xv[u][j];
-          sq += xv[u][j] * xv[u][j];
+  for (int u = 0; u < NV; ++u) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dg[u][j] = db[u][j] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < BWD_DEPTH - 1; ++i) {
+    if (row0 + i < row1) issue(row0 + i, i);
+    cp_async_commit();
+  }
+  for (int row = row0; row < row1; ++row) {
+    const int slot = (row - row0) % BWD_DEPTH;
+    // the ring's free slot held row - 1, whose reads this lane has done
+    const int ahead = row + BWD_DEPTH - 1;
+    if (ahead < row1) issue(ahead, (slot + BWD_DEPTH - 1) % BWD_DEPTH);
+    cp_async_commit();
+    cp_async_wait<BWD_DEPTH - 1>();  // this lane's copies of `row` have landed
+    const unsigned char* xs = ring + slot * SLOT + lane * 16;
+    const unsigned char* ys = xs + TENSOR;
+
+    // the statistics: LayerNorm the mean, then the centred variance (two
+    // passes over the row, as the reference); RMS the mean square
+    float first = 0.f;   // LayerNorm: sum of x; RMS: sum of x^2
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      if (gl + u * 32 * r_warps < nvec) {
+        float xv[VEC];
+        lds_vec<TX>(xs + u * 512, xv);
+        if (RMS) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) xv[j] *= xv[j];
         }
+        first += tree_sum<VEC>(xv);
       }
     }
     float mu = 0.f, var;
-    if (rms) {
-      var = block_sum2(sq, 0.f, scratch).x / (float)d;
+    if (RMS) {
+      var = group_sum2(first, 0.f, r_warps, red).x / (float)d;
     } else {
-      mu = block_sum2(sum, 0.f, scratch).x / (float)d;
+      mu = group_sum2(first, 0.f, r_warps, red).x / (float)d;
       float c = 0.f;
 #pragma unroll
       for (int u = 0; u < NV; ++u) {
-        if (threadIdx.x + u * blockDim.x < nvec) {
+        if (gl + u * 32 * r_warps < nvec) {
+          float xv[VEC];
+          lds_vec<TX>(xs + u * 512, xv);
 #pragma unroll
           for (int j = 0; j < VEC; ++j) {
-            const float t = xv[u][j] - mu;
-            c += t * t;
+            const float t = xv[j] - mu;
+            xv[j] = t * t;
           }
+          c += tree_sum<VEC>(xv);
         }
       }
-      var = block_sum2(c, 0.f, scratch).x / (float)d;
+      var = group_sum2(c, 0.f, r_warps, red + BWD_WARPS).x / (float)d;
     }
     const float rstd = rsqrtf(var + eps);
-    // xv becomes xhat; gy keeps dy, and the column sums take their share
+
+    // the row's sums of dyg and dyg * xhat; the column sums take their share
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
-      if (threadIdx.x + u * blockDim.x < nvec) {
+      const int v = gl + u * 32 * r_warps;
+      if (v < nvec) {
+        float xv[VEC], yv[VEC], t1[VEC], t2[VEC];
+        lds_vec<TX>(xs + u * 512, xv);
+        lds_vec<TX>(ys + u * 512, yv);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float xh = (xv[u][j] - mu) * rstd;
-          const float dyv = gy[u][j];
-          const float dyg = dyv * gv[u][j];
-          xv[u][j] = xh;
-          dg[u][j] += dyv * xh;
-          db[u][j] += dyv;
-          s1 += dyg;
-          s2 += dyg * xh;
+          const float xh = (xv[j] - mu) * rstd;
+          const float dyg = yv[j] * gv[u][j];
+          dg[u][j] += yv[j] * xh;
+          db[u][j] += yv[j];
+          t1[j] = dyg;
+          t2[j] = dyg * xh;
         }
+        s1 += tree_sum<VEC>(t1);
+        s2 += tree_sum<VEC>(t2);
       }
     }
-    const float2 c12 = block_sum2(s1, s2, scratch);
-    const float c1 = rms ? 0.f : c12.x / (float)d;
+    const float2 c12 = group_sum2(s1, s2, r_warps, red + 2 * BWD_WARPS);
+    const float c1 = RMS ? 0.f : c12.x / (float)d;
     const float c2 = c12.y / (float)d;
+    const size_t base = (size_t)row * d;
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
-      const int i = threadIdx.x + u * blockDim.x;
-      if (i < nvec) {
-        float out[VEC];
+      const int v = gl + u * 32 * r_warps;
+      if (v < nvec) {
+        float xv[VEC], yv[VEC], out[VEC];
+        lds_vec<TX>(xs + u * 512, xv);
+        lds_vec<TX>(ys + u * 512, yv);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float dyg = gy[u][j] * gv[u][j];
-          out[j] = rms ? rstd * (dyg - xv[u][j] * c2)
-                       : rstd * (dyg - c1 - xv[u][j] * c2);
+          const float xh = (xv[j] - mu) * rstd;
+          const float dyg = yv[j] * gv[u][j];
+          out[j] = RMS ? rstd * (dyg - xh * c2) : rstd * (dyg - c1 - xh * c2);
         }
-        store_vec(dx + base, i, out);
+        store_vec(dx + base, v, out);
       }
     }
   }
-  const size_t pbase = (size_t)blockIdx.x * d;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is past its ring: it holds the column partials now
+
+  // group i's partials at rows i (dgamma) and groups + i (dbeta) of [2
+  // groups][d] fp32, then one pass adds the groups in order
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int u = 0; u < NV; ++u) {
-    const int i = threadIdx.x + u * blockDim.x;
-    if (i < nvec) {
+    const int v = gl + u * 32 * r_warps;
+    if (v < nvec) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        dg_parts[pbase + i * VEC + j] = dg[u][j];
-        if (db_parts != nullptr) db_parts[pbase + i * VEC + j] = db[u][j];
+        part[group * d + v * VEC + j] = dg[u][j];
+        part[(groups + group) * d + v * VEC + j] = db[u][j];
       }
     }
+  }
+  __syncthreads();
+  const size_t pbase = (size_t)blockIdx.x * d;
+  for (int col = threadIdx.x; col < d; col += BWD_THREADS) {
+    float a = part[col], b = part[groups * d + col];
+    for (int i = 1; i < groups; ++i) {
+      a += part[i * d + col];
+      b += part[(groups + i) * d + col];
+    }
+    dg_parts[pbase + col] = a;
+    if (db_parts != nullptr) db_parts[pbase + col] = b;
+  }
+}
+
+constexpr int SUM_THREADS = 1024;
+constexpr int SUM_COLS = 32;
+
+// out[col] = sum over p of parts[p][col], p in a fixed order: warp w adds
+// rows w, w + 32, ... in order, then the 32 warps' sums are added in warp
+// order. Grid (ceil(d / 32), 1 or 2): y = 0 sums dg_parts into dg, y = 1
+// db_parts into db.
+__global__ void __launch_bounds__(SUM_THREADS)
+norm_bwd_sum_kernel(const float* __restrict__ dg_parts, const float* __restrict__ db_parts,
+                    float* __restrict__ dg, float* __restrict__ db, int parts, int d) {
+  __shared__ float warp_sums[SUM_THREADS / 32][SUM_COLS];
+  const float* src = blockIdx.y ? db_parts : dg_parts;
+  float* dst = blockIdx.y ? db : dg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = blockIdx.x * SUM_COLS + lane;
+  float a = 0.f;
+  if (col < d) {
+#pragma unroll 4
+    for (int p = warp; p < parts; p += SUM_THREADS / 32) a += src[(size_t)p * d + col];
+  }
+  warp_sums[warp][lane] = a;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    float t = warp_sums[0][lane];
+    for (int w = 1; w < SUM_THREADS / 32; ++w) t += warp_sums[w][lane];
+    dst[col] = t;
   }
 }
 
@@ -318,28 +505,54 @@ cudaError_t fwd_dispatch(const void* x, const void* r, const void* g, const void
   }
 }
 
-template <typename TX, int NV>
+// which of the backward's kernels have had their shared-memory limit raised,
+// by [bf16][rms][NV - 1] (a library-local table: a static inside a template
+// would be one object across every loaded copy of the library)
+bool bwd_smem_set[2][2][BWD_MAX_NV];
+
+template <typename TX, int NV, bool RMS>
 cudaError_t bwd_launch(const void* x, const float* g, const void* dy, void* dx,
-                       float* dg, float* db, int rows, int d, float eps, int rms,
-                       int rpb, int threads, cudaStream_t stream) {
+                       float* dg_parts, float* db_parts, float* dg, float* db, int rows, int d,
+                       float eps, int rpb, int r_warps, cudaStream_t stream) {
+  constexpr int SMEM = BWD_WARPS * 2 * BWD_DEPTH * NV * 32 * 16 + 3 * BWD_WARPS * 8;
+  bool& ready = bwd_smem_set[sizeof(TX) == 2][RMS][NV - 1];
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(norm_bwd_kernel<TX, NV, RMS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
   const int blocks = (rows + rpb - 1) / rpb;
-  norm_bwd_kernel<TX, NV><<<blocks, threads, 0, stream>>>(
-      static_cast<const TX*>(x), g, static_cast<const TX*>(dy),
-      static_cast<TX*>(dx), dg, db, rows, d, eps, rms, rpb);
+  norm_bwd_kernel<TX, NV, RMS><<<blocks, BWD_THREADS, SMEM, stream>>>(
+      static_cast<const TX*>(x), g, static_cast<const TX*>(dy), static_cast<TX*>(dx), dg_parts,
+      db_parts, rows, d, eps, rpb, r_warps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  norm_bwd_sum_kernel<<<dim3((d + SUM_COLS - 1) / SUM_COLS, db != nullptr ? 2 : 1), SUM_THREADS,
+                        0, stream>>>(dg_parts, db_parts, dg, db, blocks, d);
   return cudaGetLastError();
 }
 
 template <typename TX>
 cudaError_t bwd_dispatch(const void* x, const float* g, const void* dy, void* dx,
-                         float* dg, float* db, int rows, int d, float eps, int rms,
-                         int rpb, cudaStream_t stream) {
-  int threads, nv;
-  row_shape(d / Pack<TX>::N, &threads, &nv);
+                         float* dg_parts, float* db_parts, float* dg, float* db, int rows, int d,
+                         float eps, int rms, int rpb, cudaStream_t stream) {
+  const int nvec = d / Pack<TX>::N;
+  int r_warps = 1;
+  while (r_warps < BWD_MAX_R && 32 * r_warps * BWD_MAX_NV < nvec) r_warps *= 2;
+  const int nv = (nvec + 32 * r_warps - 1) / (32 * r_warps);
   switch (nv) {
-    case 1: return bwd_launch<TX, 1>(x, g, dy, dx, dg, db, rows, d, eps, rms, rpb, threads, stream);
-    case 2: return bwd_launch<TX, 2>(x, g, dy, dx, dg, db, rows, d, eps, rms, rpb, threads, stream);
-    case 3:
-    case 4: return bwd_launch<TX, 4>(x, g, dy, dx, dg, db, rows, d, eps, rms, rpb, threads, stream);
+#define NORM_BWD_CASE(NV)                                                                     \
+  case NV:                                                                                    \
+    return rms ? bwd_launch<TX, NV, true>(x, g, dy, dx, dg_parts, db_parts, dg, db, rows, d,  \
+                                          eps, rpb, r_warps, stream)                          \
+               : bwd_launch<TX, NV, false>(x, g, dy, dx, dg_parts, db_parts, dg, db, rows, d, \
+                                           eps, rpb, r_warps, stream);
+    NORM_BWD_CASE(1)
+    NORM_BWD_CASE(2)
+    NORM_BWD_CASE(3)
+    NORM_BWD_CASE(4)
+#undef NORM_BWD_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -363,18 +576,29 @@ extern "C" int norm_fwd(const void* x, const void* r, const void* g, const void*
   return fwd_dispatch<float, float>(x, r, g, b, s, y, rows, d, eps, rms, st);
 }
 
-// Backward. x, dy, dx: [rows, d] contiguous in one dtype (bf16 when x_bf16);
-// g: [d] fp32; dg_parts (and db_parts unless nullptr): [ceil(rows / rpb), d]
-// fp32, one partial row per block of rpb rows. d at most 1024 vectors.
+// Backward. x, dy, dx: [rows, d] contiguous in one dtype (bf16 when x_bf16),
+// 16-byte aligned; g: [d] fp32; dg_parts (and db_parts unless nullptr):
+// [ceil(rows / rpb), d] fp32 scratch, one partial row per CTA of rpb rows
+// (a multiple of 8); dg (and db, nullptr exactly when db_parts is): [d] fp32,
+// the column sums over all rows. d a multiple of 16 / sizeof(x element), at
+// most 1024 such vectors. Launches the row kernel, then the sum kernel.
 extern "C" int norm_bwd(const void* x, const void* g, const void* dy, void* dx,
-                        void* dg_parts, void* db_parts, int rows, int d, float eps,
-                        int rms, int x_bf16, int rpb, void* stream) {
+                        void* dg_parts, void* db_parts, void* dg, void* db, int rows, int d,
+                        float eps, int rms, int x_bf16, int rpb, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows <= 0) return 0;
-  if (rpb <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = x_bf16 ? 8 : 4;
+  if (rpb <= 0 || rpb % BWD_WARPS || d <= 0 || d % vec ||
+      d / vec > 32 * BWD_MAX_R * BWD_MAX_NV || (db_parts == nullptr) != (db == nullptr))
+    return (int)cudaErrorInvalidValue;
   const float* gf = static_cast<const float*>(g);
-  float* dg = static_cast<float*>(dg_parts);
-  float* db = static_cast<float*>(db_parts);
-  if (x_bf16) return bwd_dispatch<__nv_bfloat16>(x, gf, dy, dx, dg, db, rows, d, eps, rms, rpb, st);
-  return bwd_dispatch<float>(x, gf, dy, dx, dg, db, rows, d, eps, rms, rpb, st);
+  float* dgp = static_cast<float*>(dg_parts);
+  float* dbp = static_cast<float*>(db_parts);
+  float* dgo = static_cast<float*>(dg);
+  float* dbo = static_cast<float*>(db);
+  if (x_bf16) {
+    return bwd_dispatch<__nv_bfloat16>(x, gf, dy, dx, dgp, dbp, dgo, dbo, rows, d, eps, rms,
+                                       rpb, st);
+  }
+  return bwd_dispatch<float>(x, gf, dy, dx, dgp, dbp, dgo, dbo, rows, d, eps, rms, rpb, st);
 }

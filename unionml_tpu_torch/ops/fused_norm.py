@@ -8,7 +8,8 @@ backward recomputes them). The ``add`` form computes ``s = x + r`` in fp32,
 writes ``s`` in ``x``'s dtype and normalizes the fp32 sum; its backward
 recomputes the statistics from the stored, rounded ``s`` and sends ``dx +
 ds_in`` to both ``x`` and ``r``. The backward returns ``dx`` and fp32
-``dgamma`` / ``dbeta`` (per-block partial rows summed outside the kernel).
+``dgamma`` / ``dbeta`` (per-CTA partial rows summed in a fixed order by the
+kernel's second pass).
 
 Four kernel rows, all in ``csrc/fused_norm.cu``: the RMS forward
 (:data:`KERNEL`), the LayerNorm forward (:data:`LN_KERNEL`, the same CUDA
@@ -34,10 +35,9 @@ _FWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-_BWD_ARGS = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)          # RMS forward
 LN_KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)       # LayerNorm forward
@@ -47,8 +47,8 @@ _DTYPES = (torch.bfloat16, torch.float32)
 # the kernels hold a row in registers: at most this many 16-byte vectors
 _MAX_VECS_FWD = 2048
 _MAX_VECS_BWD = 1024
-# rows per block of the backward: one fp32 partial row of dgamma/dbeta each
-_BWD_ROWS_PER_BLOCK = 16
+# rows per CTA of the backward: one fp32 partial row of dgamma/dbeta each
+_BWD_ROWS_PER_CTA = 64
 
 
 # --------------------------------------------------------------------- #
@@ -213,9 +213,10 @@ def norm_bwd_cuda(
     x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float, rms: bool,
     with_beta: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the norm backward: ``x``, ``dy`` [rows, D] in one dtype,
-    ``gamma`` [D] (taken in fp32). Returns ``dx`` and the fp32 column sums
-    of the kernel's per-block partials."""
+    """Launch the norm backward: ``x``, ``dy`` [rows, D] in one dtype
+    (16-byte aligned), ``gamma`` [D] (taken in fp32). Returns ``dx`` and
+    the fp32 column sums ``dgamma`` (and ``dbeta``), which the kernel's
+    second pass sums from its per-CTA partial rows."""
     g32 = gamma.float().contiguous()
     _check_rows("norm_bwd_cuda", x, _MAX_VECS_BWD, g32, dy)
     _check_params("norm_bwd_cuda", x.shape[1], g32, None)
@@ -224,20 +225,25 @@ def norm_bwd_cuda(
             f"norm_bwd_cuda needs dy like x, got {tuple(dy.shape)} {dy.dtype} and "
             f"{tuple(x.shape)} {x.dtype}"
         )
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("norm_bwd_cuda needs x and dy 16-byte aligned")
     rows, d = x.shape
-    blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
     dx = torch.empty_like(x)
-    dg = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
-    db = torch.empty_like(dg) if with_beta else None
     if rows == 0:
-        return dx, dg.sum(0), None if db is None else db.sum(0)
+        zeros = torch.zeros(d, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone() if with_beta else None
+    ctas = -(-rows // _BWD_ROWS_PER_CTA)
+    parts = torch.empty(2 if with_beta else 1, ctas, d, dtype=torch.float32, device=x.device)
+    dg = torch.empty(d, dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dg) if with_beta else None
     with torch.cuda.device(x.device):
         BWD_KERNEL(
-            x.data_ptr(), g32.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg.data_ptr(),
-            _ptr(db), rows, d, float(eps), int(rms), int(x.dtype == torch.bfloat16),
-            _BWD_ROWS_PER_BLOCK, torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), g32.data_ptr(), dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr() if with_beta else None, dg.data_ptr(), _ptr(db), rows, d,
+            float(eps), int(rms), int(x.dtype == torch.bfloat16), _BWD_ROWS_PER_CTA,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
-    return dx, dg.sum(0), None if db is None else db.sum(0)
+    return dx, dg, db
 
 
 # --------------------------------------------------------------------- #

@@ -18,12 +18,13 @@ carried over from the JAX package must get the same answers here.
   the fp32-accumulated product then ``* scale``; grouped, each K-group's
   fp32 partial times its ``scale_g`` row, summed in fp32 in group order;
   one cast to ``dtype`` at the end.
-- :func:`int4_matmul_cuda` — the kernels of ``csrc/int4_matmul.cu``: the
-  per-channel kernel (the port of ``_kernel``: bf16 ``wgmma`` products
-  with fp32 accumulation over a K split fixed by ``(K, N)`` and summed in
-  a thread block cluster, or fp32 FMA for an fp32 compute dtype) and the
-  group-wise kernel (the port of ``_kernel_grouped``). A row's result
-  never depends on how many rows share the launch.
+- :func:`int4_matmul_cuda` — the kernel of ``csrc/int4_matmul.cu``, one
+  design for both scale forms (the port of ``_kernel`` and of
+  ``_kernel_grouped``): bf16 ``wgmma`` products with fp32 accumulation
+  over a K split fixed by ``(K, N)`` and the group, grouped partials
+  scaled at each group end, the slices summed in a thread block cluster;
+  fp32 FMA for an fp32 compute dtype. A row's result never depends on how
+  many rows share the launch.
 - :func:`int4_matmul` routes as the reference's ``use_pallas`` test does:
   ``0 < rows <= MAX_PALLAS_ROWS``, a tile, a K block, and a tile that is a
   multiple of 256 or the whole width take the kernel for CUDA tensors and
@@ -63,50 +64,58 @@ MAX_PALLAS_ROWS = 64  # decode/verify row counts; larger rows -> the fallback
 # are part of the parameter layout
 _VMEM_WEIGHT_BYTES = 11_000_000
 
-# one library, a C entry per kernel, each with its own launch count: the
-# per-channel form (the port of ``_kernel``) and the group-wise form (the
-# port of ``_kernel_grouped``)
-KERNEL = Kernel("int4_matmul", "int4_matmul_channel_fwd",
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-KERNEL_GROUPED = Kernel("int4_matmul", "int4_matmul_fwd",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# one C entry for both scale forms, bound twice so that each kernel row
+# keeps its own launch count: the per-channel form (the port of
+# ``_kernel``) and the group-wise form (the port of ``_kernel_grouped``)
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+KERNEL = Kernel("int4_matmul", "int4_matmul_fwd", _ARGS)
+KERNEL_GROUPED = Kernel("int4_matmul", "int4_matmul_fwd", _ARGS)
 KERNEL_GROUP_ALIGN = 128   # the kernel's K chunk: a group is a multiple of it or all of K
 
-# the per-channel kernel's K split: its CTAs own 128 output channels of one
-# K-slice of whole 128-row chunks, and the slices of a channel tile are
-# summed in rank order. The split is a function of (K, N) alone, so a row's
-# result never depends on the row count.
+# the bf16 kernel's K split: its CTAs own 128 output channels of one K-slice
+# of whole units (128-row chunks, or whole scale groups), and the slices of
+# a channel tile are summed in rank order. The split is a function of (K,
+# N) and the group alone, so a row's result never depends on the row
+# count.
 CHANNEL_TILE = 128
 K_CHUNK = 128
 MAX_K_SPLITS = 8
 _SMS = 132    # the H100's SMs: the split fills the card with CTAs
 
 
-def _k_splits(k: int, n: int) -> int:
-    """The per-channel bf16 kernel's number of K-slices for ``K``, ``N``:
-    the smallest power of two that gives ``ceil(N / 128) * S >= 132`` CTAs,
-    at most 8 and at most one 128-row chunk a slice."""
-    tiles, chunks = -(-n // CHANNEL_TILE), -(-k // K_CHUNK)
+def _k_splits(k: int, n: int, group: int = 0) -> int:
+    """The bf16 kernel's number of K-slices for ``K``, ``N`` and the scale
+    group (0: per-channel): the smallest power of two that gives
+    ``ceil(N / 128) * S >= 132`` CTAs, at most 8 and at least one unit a
+    slice, a unit being a 128-row chunk (per-channel) or a whole group."""
+    tiles, units = -(-n // CHANNEL_TILE), -(-k // (group or K_CHUNK))
     s = 1
-    while s < MAX_K_SPLITS and tiles * s < _SMS and 2 * s <= chunks:
+    while s < MAX_K_SPLITS and tiles * s < _SMS and 2 * s <= units:
         s *= 2
     return s
 
 
-def _k_slices(k: int, splits: int):
+def _k_slices(k: int, splits: int, group: int = 0):
     """The ``[start, end)`` K rows of each slice, in rank order, as the
-    kernel cuts them: whole 128-row chunks, the tail in the last."""
-    chunks = -(-k // K_CHUNK)
-    cuts = [r * chunks // splits * K_CHUNK for r in range(splits + 1)]
+    kernel cuts them: whole units (128-row chunks, or whole groups), the
+    tail in the last."""
+    unit = group or K_CHUNK
+    units = -(-k // unit)
+    cuts = [r * units // splits * unit for r in range(splits + 1)]
     return [(a, min(b, k)) for a, b in zip(cuts, cuts[1:])]
 
 
-def _tma_path(x: torch.Tensor, packed: torch.Tensor) -> bool:
-    """Whether the per-channel kernel reads x and the weights by TMA:
-    16-byte aligned bases and row strides. Any other call takes the
-    kernel's simple path."""
+def _tma_path(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor = None,
+              tile_n: int = 0, group_size: int = 0) -> bool:
+    """Whether the kernel reads x and the weights by TMA: 16-byte aligned
+    bases and row strides; grouped bf16 also reads a tile's low (high)
+    channels' scales by TMA as one run of 64 (a 16-byte aligned scale
+    base, and a half tile a multiple of 64 channels or the tile all of N).
+    Any other call takes the kernel's simple path."""
     k, half = packed.shape
-    return (half % 16 == 0 and (k * x.element_size()) % 16 == 0
+    scale_runs = (not group_size or x.dtype == torch.float32) or (
+        scale.data_ptr() % 16 == 0 and ((tile_n // 2) % 64 == 0 or tile_n == 2 * half))
+    return (half % 16 == 0 and (k * x.element_size()) % 16 == 0 and scale_runs
             and x.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0)
 
 
@@ -311,15 +320,13 @@ def int4_matmul_cuda(
         raise ValueError(f"int4_matmul_cuda index range exceeded: rows {rows}, K {k}, N {n}")
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     fp32 = int(x.dtype == torch.float32)
+    splits = 1 if fp32 else _k_splits(k, n, group_size)
+    simple = int(not _tma_path(x, packed, scale, tile_n, group_size))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr())
-        if group_size:
-            KERNEL_GROUPED(*ptrs, rows, k, n, tile_n, group, fp32, stream)
-        else:
-            splits = 1 if fp32 else _k_splits(k, n)
-            KERNEL(*ptrs, rows, k, n, tile_n, splits, fp32, int(not _tma_path(x, packed)),
-                   stream)
+        (KERNEL_GROUPED if group_size else KERNEL)(
+            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, k, n,
+            tile_n, group_size, splits, fp32, simple,
+            torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
