@@ -21,9 +21,15 @@ Phases, each of which fails the run with a non-zero exit:
              row against a planted dropped-block fault and timed cold,
              each call on its own copy of the pools; rows 7 and 8 (int4,
              per-channel and g=128) bit for bit against planted faults of
-             each scale form, timed cold; the ViT rows (LayerNorm,
+             each scale form, timed cold; rows 2-4 (the norm forward:
+             RMSNorm at 4096 x 4096, 4 x 4096 and the paged engine's
+             16 x 4096, LayerNorm and add-LayerNorm at ViT-B/16's
+             12608 x 768) bit for bit and row by row, on random inputs and
+             on a statistics probe, against four planted faults, a row's
+             bits the same alone, in 16 rows and in the full call; the ViT
+             rows (LayerNorm,
              add-LayerNorm and norm backward at ViT-B/16's 12608 x 768,
-             the backward row by row and column by column against two
+             the backward row by row and column by column against three
              planted faults and run twice for the same bits; fused
              attention forward and backward at S = 197, 512 and 1024; the
              backward run twice for the same bits);
@@ -219,20 +225,26 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> 
 
 
 def norm_case(rows: int, d: int, gen: torch.Generator) -> dict:
+    """Row 2 (RMSNorm, bf16 x and gamma, eps 1e-5) at one shape: the
+    checks of :func:`norm_fwd_cases` (bit for bit, row by row, the
+    statistics probe, the planted faults, a row's bits independent of the
+    call), then timed beside its bound and ``F.rms_norm``."""
     import torch.nn.functional as F
 
     from unionml_tpu_torch.ops import fused_norm
 
     eps = 1e-5
-    x = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
     g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
-    got = fused_norm.rms_norm_cuda(x, g, eps)
-    torch.cuda.synchronize()
-    err = check_close(f"rms_norm rows={rows}", got, fused_norm.rms_norm_plain(x, g, eps), NORM_TOL)
+    name = f"rms_norm rows={rows}"
+    case = norm_fwd_cases(name, lambda x, r: {"y": fused_norm.rms_norm_cuda(x, g, eps)},
+                          rows, d, torch.bfloat16, g, None, eps, True, False, gen)
+    log_norm_fwd_checks(name, case["checks"])
+    x, _ = case["inputs"]
+    err = check_close(name, case["got"]["y"], fused_norm.rms_norm_plain(x, g, eps), NORM_TOL)
     b_ms, b_by = bound(2 * rows * d * 2 + d * 2, 4 * rows * d, PEAK_FP32_OPS_S)
     return {
         "shape": f"x[{rows},{d}] bf16, g[{d}] bf16",
-        "max_abs_err": err,
+        "max_abs_err": err, "checks": case["checks"], "rows_invariant": True,
         "ms": time_ms(lambda: fused_norm.rms_norm_cuda(x, g, eps)),
         "plain_ms": time_ms(lambda: fused_norm.rms_norm_plain(x, g, eps)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -968,30 +980,223 @@ def check_norm_bwd(name: str, got: dict, want: dict, faults: dict) -> dict:
     return checks
 
 
+# rows 2-4 (the norm forward) bit for bit. The kernel and its plain version
+# compute the same fp32 statistics (LayerNorm: the mean, then the centred
+# variance; RMS: the mean square), the same (v - mu) * rstd * g (+ b) and
+# round once; only the order of the fp32 sums differs. That moves mu or
+# rstd by an ulp in some rows, which puts a bf16 output apart only at a
+# near-tie: at most 3e-5 of outputs (emulated on the CPU with seeded bf16
+# inputs). NORM_FWD_MISMATCH_MAX leaves 30x that; the mildest planted fault
+# (the last vector left out of the statistics of one row in 16) puts ~4e-3
+# of outputs apart at x[4096, 4096]. fp32 outputs are held by the row
+# check alone: there an ulp of mu or rstd moves most of a row's bits.
+NORM_FWD_MISMATCH_MAX = 1e-3
+# ... and row by row (check_rows: each row against its own max |plain|):
+# one bf16 output rounding apart is up to 2**-7 (0.0078) of its row's max,
+# so bf16 is held within 1e-2; fp32 statistics summed in another order move
+# an fp32 row by ~1e-6 of its max at d = 8192, so fp32 within 1e-5
+NORM_FWD_ROW_LIMIT = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+NORM_SPIKE = 16.0       # the statistics probe's spike: exact in bf16
+
+
+def norm_stats_probe(rows: int, d: int, dtype, gen, add: bool = False) -> tuple:
+    """Inputs on which every 16-byte vector of a row weighs in its
+    statistics: ``x`` random, with two of row i's vectors (``vec``
+    elements of x's dtype each) scaled by :data:`NORM_SPIKE`: vector ``i
+    mod n`` and its mirror ``n - 1 - (i mod n)``, ``n = d / vec``. The
+    spikes walk over every vector position as the rows go on (from both
+    ends, so a call of a few rows still spikes the first and the last
+    vectors), and a vector left out of the sums moves its rows far past
+    every limit, at every width. Returns ``(x, r)``; ``r`` (random, no
+    spike) is None unless ``add``."""
+    dev = gen.device
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    n = d // vec
+    x = torch.randn(rows, d, device=dev, generator=gen)
+    at = torch.arange(rows, device=dev) % n
+    lanes = torch.arange(vec, device=dev)[None, :]
+    cols = torch.cat([at[:, None] * vec + lanes, (n - 1 - at)[:, None] * vec + lanes], dim=1)
+    x.scatter_(1, cols, x.gather(1, cols) * NORM_SPIKE)
+    r = torch.randn(rows, d, device=dev, generator=gen).to(dtype) if add else None
+    return x.to(dtype), r
+
+
+def norm_fwd_faults(x, r, g, b, eps: float, rms: bool) -> dict:
+    """The planted faults of rows 2-4, each ``y`` built from the plain
+    forward's arithmetic (:func:`norm_fwd_plain` / :func:`norm_add_fwd_plain`)
+    on the same inputs: ``last_vector_dropped``, the row's last 16-byte
+    vector left out of the statistics (the sums still divided by d);
+    ``last_vector_dropped_1_in_16``, the same in rows 0, 16, ... only;
+    ``next_row_stats``, rows 0, 16, ... normalized with the next row's
+    statistics (a ring slot off by one; rows with a next row only); with
+    ``r`` in bf16, ``rounded_sum_normalized``: y from the bf16-rounded
+    ``s`` instead of the fp32 sum."""
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    s32 = x.float() if r is None else x.float() + r.float()
+    rows, d = s32.shape
+    vec = 16 // x.element_size()
+
+    def apply(mu, rstd):
+        out = (s32 - mu) * rstd * g.float()
+        return (out if b is None else out + b.float()).to(x.dtype)
+
+    kept = s32[:, :d - vec]
+    if rms:
+        mu = torch.zeros_like(s32[:, :1])
+        var = (kept * kept).sum(dim=-1, keepdim=True) / d
+    else:
+        mu = kept.sum(dim=-1, keepdim=True) / d
+        var = ((kept - mu) ** 2).sum(dim=-1, keepdim=True) / d
+    dropped = apply(mu, torch.rsqrt(var + eps))
+    want = fn._normalize(s32, g, b, eps, rms).to(x.dtype)
+    hit = (torch.arange(rows, device=x.device) % NORM_FAULT_BLOCK == 0)[:, None]
+    faults = {"last_vector_dropped": dropped,
+              "last_vector_dropped_1_in_16": torch.where(hit, dropped, want)}
+    if rows > 1:
+        mu, rstd = fn._stats(s32, rms, eps)
+        nxt = torch.arange(rows, device=x.device).add(1).clamp_max(rows - 1)
+        shifted = apply(mu if rms else mu[nxt], rstd[nxt])
+        faults["next_row_stats"] = torch.where(hit & (nxt != torch.arange(
+            rows, device=x.device))[:, None], shifted, want)
+    if r is not None and x.dtype == torch.bfloat16:
+        faults["rounded_sum_normalized"] = fn._normalize(
+            s32.to(x.dtype).float(), g, b, eps, rms).to(x.dtype)
+    return faults
+
+
+def norm_fwd_check(name: str, got: dict, want: dict, faults: dict) -> dict:
+    """Hold one forward call (``got``: "y", and "s" for the add form) to its
+    plain version (``want``): s bit for bit (one fp32 add, one rounding),
+    y row by row within :data:`NORM_FWD_ROW_LIMIT` and, in bf16, at most
+    :data:`NORM_FWD_MISMATCH_MAX` of its outputs off the plain version's
+    bits. For each planted fault (``faults``: name -> y) the same measures
+    are recorded, with ``fails``: whether this check rejects it, and
+    ``passes_norm_tol``: whether the elementwise :data:`NORM_TOL` alone
+    would pass it."""
+    y, wy = got["y"], want["y"]
+    if "s" in want and not torch.equal(got["s"], want["s"]):
+        raise AssertionError(f"{name}: s differs from the plain x + r")
+    limit = NORM_FWD_ROW_LIMIT[wy.dtype]
+    bits = wy.dtype == torch.bfloat16
+    checks = {"rows": check_rows(f"{name} y", y, wy, limit)}
+    if bits:
+        checks["mismatch"] = rounding_mismatch(y, wy)
+        if checks["mismatch"] > NORM_FWD_MISMATCH_MAX:
+            raise AssertionError(f"{name}: {checks['mismatch']:.2e} of outputs are off the plain "
+                                 f"version's bits (limit {NORM_FWD_MISMATCH_MAX})")
+    tol = NORM_TOL["atol"] + NORM_TOL["rtol"] * wy.float().abs()
+    for fault, bad in faults.items():
+        share = rounding_mismatch(bad, wy)
+        worst = float(row_rel_err(bad, wy).max())
+        checks[f"fault_{fault}"] = {
+            "mismatch": share, "max_row_rel_err": worst,
+            "fails": worst > limit or (bits and share > NORM_FWD_MISMATCH_MAX),
+            "passes_norm_tol": bool(((bad.float() - wy.float()).abs() <= tol).all()),
+        }
+    return checks
+
+
+def norm_row_invariance(name: str, fwd, x, r, full: dict) -> None:
+    """A row's output bits depend neither on the call's row count nor on
+    where the row sits: rows 0, rows / 2 and the last alone, a 16-row call
+    of rows spread over the tensor (the paged engine's decode shape), each
+    equal to the full call's rows (``full``); and a rerun of the full call
+    gives the same bits. ``fwd(x, r)`` returns {"y": ...} (and "s")."""
+    rows = x.shape[0]
+    picks = [torch.tensor([i], device=x.device) for i in sorted({0, rows // 2, rows - 1})]
+    if rows >= 16:
+        step = rows // 16
+        picks.append(torch.arange(16, device=x.device) * step + step - 1)
+    for idx in picks:
+        part = fwd(x[idx].contiguous(), None if r is None else r[idx].contiguous())
+        for t_name, t in part.items():
+            if not torch.equal(t, full[t_name][idx]):
+                raise AssertionError(f"{name}: {t_name} of rows {idx.tolist()[:4]}... depends on "
+                                     f"the call's row count or on where the rows sit")
+    again = fwd(x, r)
+    if not all(torch.equal(again[k], full[k]) for k in full):
+        raise AssertionError(f"{name}: two runs differ")
+
+
+def norm_fwd_cases(name: str, fwd, rows: int, d: int, dtype, g, b, eps: float, rms: bool,
+                   add: bool, gen) -> dict:
+    """Rows 2-4 at one shape: ``fwd(x, r)`` (the kernel, or on the CPU the
+    plain version) on random inputs and on :func:`norm_stats_probe`, each
+    held by :func:`norm_fwd_check` against the plain version; every
+    planted fault (:func:`norm_fwd_faults`) must fail that check on one of
+    the two; a row's bits must not depend on the call
+    (:func:`norm_row_invariance`). Returns the checks by input, with the
+    random inputs and the full call's outputs under "inputs" / "got"."""
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    def plain(x, r):
+        if r is None:
+            return {"y": fn.norm_fwd_plain(x, g, b, eps, rms)}
+        return dict(zip(("s", "y"), fn.norm_add_fwd_plain(x, r, g, b, eps, rms)))
+
+    dev = gen.device
+    x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
+    r = torch.randn(rows, d, device=dev, generator=gen).to(dtype) if add else None
+    inputs = {"random": (x, r), "probe": norm_stats_probe(rows, d, dtype, gen, add)}
+    checks, full = {}, None
+    for kind, (xi, ri) in inputs.items():
+        got = fwd(xi, ri)
+        if full is None:
+            full = got
+        checks[kind] = norm_fwd_check(f"{name} {kind}", got, plain(xi, ri),
+                                      norm_fwd_faults(xi, ri, g, b, eps, rms))
+    for fault in checks["random"]:
+        if fault.startswith("fault_") and not any(checks[k][fault]["fails"] for k in checks):
+            raise AssertionError(f"{name}: the bit and row check passed the planted fault "
+                                 f"{fault[6:]} on random inputs and on the probe")
+    norm_row_invariance(name, fwd, x, r, full)
+    return {"checks": checks, "inputs": (x, r), "got": full}
+
+
+def log_norm_fwd_checks(name: str, checks: dict) -> None:
+    for kind, chk in checks.items():
+        faults = {k[6:]: (v["mismatch"], v["max_row_rel_err"], v["passes_norm_tol"])
+                  for k, v in chk.items() if k.startswith("fault_")}
+        log(f"  {name} {kind}: mismatch {chk.get('mismatch')} worst row "
+            f"{chk['rows']['max_row_rel_err']}; faults (mismatch, worst row, passes "
+            f"NORM_TOL): {faults}")
+
+
 def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
     """Rows 3, 4 and 5 at the ViT-B shape (bf16 activations, fp32 gamma
-    and beta, eps 1e-6, the LayerNorm mode)."""
+    and beta, eps 1e-6, the LayerNorm mode): rows 3 and 4 through
+    :func:`norm_fwd_cases`."""
     import torch.nn.functional as F
 
     from unionml_tpu_torch.ops import fused_norm as fn
 
     eps = 1e-6
-    x, r, dy = (torch.randn(rows, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
     g = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
     b = 0.1 * torch.randn(d, device="cuda", generator=gen)
     gb, bb = g.bfloat16(), b.bfloat16()    # the library call's bf16 affine params
     shape = f"x[{rows},{d}] bf16, gamma/beta[{d}] fp32"
     n = rows * d
 
-    y = fn.norm_fwd_cuda(x, g, b, eps, False)
-    s, ys = fn.norm_add_fwd_cuda(x, r, g, b, eps, False)
+    fwd_cases = {}
+    for name, fwd in (
+        ("layer_norm_fwd", lambda x, r: {"y": fn.norm_fwd_cuda(x, g, b, eps, False)}),
+        ("add_layer_norm_fwd",
+         lambda x, r: dict(zip(("s", "y"), fn.norm_add_fwd_cuda(x, r, g, b, eps, False)))),
+    ):
+        fwd_cases[name] = norm_fwd_cases(name, fwd, rows, d, torch.bfloat16, g, b, eps, False,
+                                         name.startswith("add"), gen)
+        log_norm_fwd_checks(f"{name} {shape}", fwd_cases[name]["checks"])
+    xl = fwd_cases["layer_norm_fwd"]["inputs"][0]
+    x, r = fwd_cases["add_layer_norm_fwd"]["inputs"]
+    s, ys = (fwd_cases["add_layer_norm_fwd"]["got"][k] for k in ("s", "y"))
+    ln_err = check_close("layer_norm_fwd", fwd_cases["layer_norm_fwd"]["got"]["y"],
+                         fn.norm_fwd_plain(xl, g, b, eps, False), NORM_TOL)
+    add_err = check_close("add_layer_norm_fwd", ys, fn.norm_add_fwd_plain(x, r, g, b, eps, False)[1],
+                          NORM_TOL)
+    dy = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
     dx, dg, db = fn.norm_bwd_cuda(s, g, dy, eps, False, True)
     torch.cuda.synchronize()
-    ln_err = check_close("layer_norm_fwd", y, fn.norm_fwd_plain(x, g, b, eps, False), NORM_TOL)
-    ps, pys = fn.norm_add_fwd_plain(x, r, g, b, eps, False)
-    if not torch.equal(s, ps):
-        raise AssertionError("add_layer_norm_fwd: s differs from the plain x + r")
-    add_err = check_close("add_layer_norm_fwd", ys, pys, NORM_TOL)
     pdx, pdg, pdb = fn.norm_bwd_plain(s, g, dy, eps, False, True)
     names = ("dx", "dgamma", "dbeta")
     bwd_checks = check_norm_bwd("norm_bwd", dict(zip(names, (dx, dg, db))),
@@ -1008,9 +1213,9 @@ def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
     lib_y = F.layer_norm(xr, (d,), w, wb, eps)
     cases = {}
     for name, err, run, plain, nbytes, ops, lib, call in (
-        ("layer_norm_fwd", ln_err, lambda: fn.norm_fwd_cuda(x, g, b, eps, False),
-         lambda: fn.norm_fwd_plain(x, g, b, eps, False), 2 * n * 2 + 2 * d * 4, 8 * n,
-         lambda: F.layer_norm(x, (d,), gb, bb, eps), "F.layer_norm, bf16 affine params"),
+        ("layer_norm_fwd", ln_err, lambda: fn.norm_fwd_cuda(xl, g, b, eps, False),
+         lambda: fn.norm_fwd_plain(xl, g, b, eps, False), 2 * n * 2 + 2 * d * 4, 8 * n,
+         lambda: F.layer_norm(xl, (d,), gb, bb, eps), "F.layer_norm, bf16 affine params"),
         ("add_layer_norm_fwd", add_err, lambda: fn.norm_add_fwd_cuda(x, r, g, b, eps, False),
          lambda: fn.norm_add_fwd_plain(x, r, g, b, eps, False), 4 * n * 2 + 2 * d * 4, 9 * n,
          lambda: F.layer_norm(x + r, (d,), gb, bb, eps), "x + r, then F.layer_norm"),
@@ -1026,6 +1231,8 @@ def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
             "library_ms": time_ms(lib), "library_call": call,
         }]
     cases["norm_bwd"][0].update(checks=bwd_checks, rerun_same_bits=True)
+    for name, case in fwd_cases.items():
+        cases[name][0].update(checks=case["checks"], rows_invariant=True, rerun_same_bits=True)
     return cases
 
 
@@ -1671,7 +1878,10 @@ def lm_grad_agreement(config, *, device: str = "cuda", batch: int = 2, seq: int 
 
 def kernel_phase(batch: int, bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    norms = [norm_case(batch * bucket, 4096, gen), norm_case(batch, 4096, gen)]
+    # row 2 at the micro-batcher's prefill and decode and the paged
+    # engine's 16-slot decode step
+    norms = [norm_case(batch * bucket, 4096, gen), norm_case(batch, 4096, gen),
+             norm_case(16, 4096, gen)]
     flashes = [
         flash_case(batch, bucket, 32, 8, 128, [0, 17, 333, bucket - 24][:batch], gen),
         flash_case(1, 4096, 32, 8, 128, [0], gen),

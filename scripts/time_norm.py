@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Time the ViT norm kernels (rows 3, 4 and 5) at ViT-B/16's shape, on one card.
+"""Time the norm kernels (rows 2-5) at their main-path shapes, on one card.
 
     python3 scripts/time_norm.py [--root DIR] [--out FILE]
 
-Runs ``chip_smoke.vit_norm_cases`` at ``x[12608, 768]`` bf16 (ViT-B/16 at
+Runs ``chip_smoke.norm_case`` for row 2 (RMSNorm, bf16 x and gamma) at
+``x[4096, 4096]`` (the micro-batcher's 4 x 1024 prefill at Llama-3-8B
+width) and ``x[16, 4096]`` (the 16-slot paged engine's decode step), then
+``chip_smoke.vit_norm_cases`` at ``x[12608, 768]`` bf16 (ViT-B/16 at
 batch 64, fp32 gamma / beta, the LayerNorm mode): the LayerNorm forward,
-the add-LayerNorm forward and the norm backward, each held against its
-plain version (the backward row by row and column by column, against its
-two planted faults, and run twice for the same bits) and timed beside its
-bound and the library call. Prints the card's name and power limit, then
-one JSON line of the cases. ``--root`` imports the package of another
+the add-LayerNorm forward and the norm backward. Each forward is held bit
+for bit and row by row against its plain version, on random inputs and on
+the statistics probe, against its planted faults, with a row's bits
+independent of the call; the backward row by row and column by column,
+against its planted faults, and run twice for the same bits. Each is
+timed beside its bound and the library call. Prints the card's name and
+power limit, then one line a case, then one JSON line of the cases. ``--root`` imports the package of another
 checkout (its own kernels, built into its own ``build/``) under this
 checkout's ``chip_smoke.vit_norm_cases``, so two trees can be compared in
 one call. Needs a CUDA device.
@@ -45,11 +50,13 @@ def main() -> int:
     print("root:", args.root.resolve(), flush=True)
     _build.build_all(["fused_norm"])
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = cs.vit_norm_cases(cs.VIT_B * cs.VIT_S, cs.VIT_D, gen)
-    for name, (case,) in cases.items():
-        print(f"{name} {case['shape']}: ms {case['ms']} plain_ms {case['plain_ms']} bound_ms "
-              f"{case['bound_ms']} ({case['bound_by']}) library_ms {case['library_ms']} "
-              f"max_abs_err {case['max_abs_err']}", flush=True)
+    cases = {"rms_norm_fwd": [cs.norm_case(rows, 4096, gen) for rows in (4096, 16)]}
+    cases.update(cs.vit_norm_cases(cs.VIT_B * cs.VIT_S, cs.VIT_D, gen))
+    for name, shapes in cases.items():
+        for case in shapes:
+            print(f"{name} {case['shape']}: ms {case['ms']} plain_ms {case['plain_ms']} "
+                  f"bound_ms {case['bound_ms']} ({case['bound_by']}) library_ms "
+                  f"{case['library_ms']} max_abs_err {case['max_abs_err']}", flush=True)
     line = json.dumps({"root": str(args.root.resolve()), "card": cs.card_line(), "cases": cases})
     print(line, flush=True)
     if args.out is not None:

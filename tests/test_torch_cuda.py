@@ -576,6 +576,80 @@ def test_norm_backward_rows_and_columns_on_card(cuda, rows, d, dtype, rms):
         assert checks["fault_c2_dropped_one_row"]["passes_scaled_check"]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 4096, 12608])
+@pytest.mark.parametrize("d", [64, 768, 4096, 8192])
+@pytest.mark.parametrize("dtype,gdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+])
+@pytest.mark.parametrize("mode", ["rms", "layer_norm", "add"])
+def test_norm_forward_bits_rows_and_faults_on_card(cuda, rows, d, dtype, gdtype, mode):
+    """Rows 2-4 held as chip_smoke holds them (``norm_fwd_cases``): bf16
+    outputs within NORM_FWD_MISMATCH_MAX of the plain version's bits,
+    every row within NORM_FWD_ROW_LIMIT, on random inputs and on the
+    statistics probe; every planted fault rejected on one of the two; a
+    row's bits the same alone, in a 16-row call and in the full call, and
+    on a rerun; one launch a call, on the mode's counter only."""
+    smoke = _chip_smoke()
+    rms, add = mode == "rms", mode == "add"
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    g = (1 + 0.1 * torch.randn(d, device=cuda, generator=gen)).to(gdtype)
+    b = None if rms else (0.1 * torch.randn(d, device=cuda, generator=gen)).to(gdtype)
+    counters = (tnorm.KERNEL, tnorm.LN_KERNEL, tnorm.ADD_KERNEL)
+    mine = counters[2 if add else int(not rms)]
+    calls = []
+
+    def fwd(x, r):
+        calls.append(1)
+        if r is None:
+            return {"y": tnorm.norm_fwd_cuda(x, g, b, 1e-6, rms)}
+        return dict(zip(("s", "y"), tnorm.norm_add_fwd_cuda(x, r, g, b, 1e-6, rms)))
+
+    before = [k.launches for k in counters]
+    smoke.norm_fwd_cases(f"norm_fwd {mode} x[{rows},{d}] {dtype} g {gdtype}", fwd, rows, d,
+                         dtype, g, b, 1e-6, rms, add, gen)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(counters, before)] == [
+        len(calls) if k is mine else 0 for k in counters]
+
+
+@pytest.mark.cuda
+def test_norm_forward_widths_and_refusals_on_card(cuda):
+    """Every width the port's models and tests use is taken (64, 128, 768,
+    4096, 8192, and the 2048-vector limit); wider rows, widths that are not
+    whole 16-byte vectors and x not 16-byte aligned are refused; gamma and
+    beta at any alignment are taken."""
+    for d, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (768, torch.bfloat16),
+                     (4096, torch.bfloat16), (8192, torch.bfloat16), (16384, torch.bfloat16),
+                     (8192, torch.float32)):
+        x = torch.randn(3, d, device=cuda).to(dtype)
+        g = torch.randn(d, device=cuda)
+        y = tnorm.norm_fwd_cuda(x, g, None, 1e-6, True)
+        assert torch.equal(y, tnorm.norm_fwd_cuda(x, g, None, 1e-6, True))
+        torch.testing.assert_close(y, tnorm.norm_fwd_plain(x, g, None, 1e-6, True),
+                                   **(dict(rtol=1 / 64, atol=1e-3) if dtype == torch.bfloat16
+                                      else dict(rtol=1e-5, atol=1e-5)))
+    g = torch.randn(16392, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        tnorm.norm_fwd_cuda(torch.randn(2, 16392, device=cuda).bfloat16(), g, None, 1e-6, True)
+    with pytest.raises(ValueError, match="multiple of"):
+        tnorm.norm_fwd_cuda(torch.randn(2, 100, device=cuda).bfloat16(), g[:100], None, 1e-6,
+                            True)
+    flat = torch.randn(2 * 768 + 1, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        tnorm.norm_fwd_cuda(flat[1:].view(2, 768), g[:768], None, 1e-6, True)
+    with pytest.raises(ValueError, match="aligned"):
+        x = torch.randn(2, 768, device=cuda).bfloat16()
+        tnorm.norm_add_fwd_cuda(x, flat[1:].view(2, 768), g[:768], None, 1e-6, True)
+    x = torch.randn(5, 768, device=cuda).bfloat16()
+    params = torch.randn(2 * 768 + 1, device=cuda)
+    g1, b1 = params[1:769], params[769:]   # 4-byte aligned views
+    torch.testing.assert_close(tnorm.norm_fwd_cuda(x, g1, b1, 1e-6, False),
+                               tnorm.norm_fwd_plain(x, g1, b1, 1e-6, False),
+                               rtol=1 / 64, atol=1e-3)
+
+
 def _max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max over rows (the last dim) of |got - want| over the row's max
     |want|: under causal attention a row's scale falls with the positions

@@ -24,12 +24,39 @@
 // with a handful of flops, far below the ~295 flops per byte at which the
 // card's arithmetic would limit it.
 //
-// Forward design: a block of T threads (a multiple of 32, at most 256) owns
-// a row: thread t holds the 16-byte vectors t, t + T, ... of the row in
-// registers (NV of them, NV <= 8), so the row is read from device memory
-// once; neighbouring threads read neighbouring 16 bytes. Block reductions
-// are a warp shuffle plus a fixed-order pass over the warps' partials, so
-// results do not depend on scheduling.
+// Forward design (norm_fwd_kernel; the RMS, LayerNorm and add forms in one
+// kernel). What bounds it is keeping enough bytes in flight with little
+// work between them: a row is 1.5 KB at ViT-B (768 bf16 columns) and 8 KB
+// at Llama's 4096, and the reductions between a row's load and its store
+// are short dependency chains. A CTA of 8 warps walks a run of rows, each
+// row owned by R warps, R chosen from d alone: R = 1 up to 128 16-byte
+// vectors a row (ViT-B's 96 vectors are three a lane, and every reduction
+// is a warp shuffle, with no barrier), else the fewest warps (2, 4 or 8)
+// that leave at most two vectors a lane (Llama's 4096 bf16 columns: 8
+// warps, two vectors a lane), their sums added in warp order behind a
+// named barrier of those warps (R is a power of two, so the index
+// arithmetic is shifts: a division by a run-time R cost the 16-row call
+// measurable time). Each warp has a two-row cp.async ring of its own in
+// shared memory (x, and r in the add form): the next row's bytes are in
+// flight while the current row is reduced; a lane copies and reads only
+// its own vectors, so the ring needs no barrier. A lane keeps its columns
+// of g and b in registers across its rows, loaded once as 16-byte words
+// after the first row's copies are issued and converted only where used
+// (converted at load time, they held the first row's copies back: 0.55
+// us of a 16-row call). The grid follows the row count: the fewest rows a
+// row group that fill the card's resident CTAs once, so a 16-row decode
+// call spreads over 16 CTAs and ViT-B's 12608 rows give each warp four.
+// Arithmetic, as the plain version: fp32 statistics (the mean, then the
+// centred variance; RMS the mean square), each sum a tree over a lane's
+// vector, then the lane's vectors in order, then the lanes (shuffle) and
+// the warps in order, so a row's bits depend on d alone (not on the call's
+// row count or the row's place in it); means as sum * (1 / d), as torch's
+// mean; rsqrtf(var + eps); ((v - mu) * rstd) * g, then + b, each rounded
+// (no FMA); one rounding to x's dtype. The add form writes s in x's dtype
+// and normalizes the fp32 sum x + r, recomputed from the ring in every
+// pass, never s read back rounded. A register double buffer in place of
+// the ring, R = 4 at Llama's width, a three-row ring, streaming stores and
+// tighter launch bounds were each no faster (PERF.md, section 6, PR 12).
 //
 // Backward design (norm_bwd_kernel, then norm_bwd_sum_kernel). A CTA of 8
 // warps owns a fixed run of 64 rows. A row belongs to R warps (R = 1 up to
@@ -65,9 +92,6 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_WARPS = MAX_THREADS / 32;
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -86,24 +110,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of (a, b) over the block, returned to every thread. `scratch` holds
-// MAX_WARPS float2; the trailing barrier lets the caller reuse it at once.
-__device__ __forceinline__ float2 block_sum2(float a, float b, float2* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) scratch[warp] = make_float2(a, b);
-  __syncthreads();
-  float2 t = make_float2(0.f, 0.f);
-  const int warps = blockDim.x >> 5;
-  for (int w = 0; w < warps; ++w) {
-    t.x += scratch[w].x;
-    t.y += scratch[w].y;
-  }
-  __syncthreads();
-  return t;
-}
-
 template <typename T>
 struct Pack {
   static constexpr int N = 16 / sizeof(T);
@@ -111,88 +117,11 @@ struct Pack {
 };
 
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* row, int i, float* out) {
-  Pack<T> p;
-  *reinterpret_cast<uint4*>(p.v) = reinterpret_cast<const uint4*>(row)[i];
-#pragma unroll
-  for (int j = 0; j < Pack<T>::N; ++j) out[j] = to_f(p.v[j]);
-}
-
-template <typename T>
 __device__ __forceinline__ void store_vec(T* row, int i, const float* in) {
   Pack<T> p;
 #pragma unroll
   for (int j = 0; j < Pack<T>::N; ++j) p.v[j] = from_f<T>(in[j]);
   reinterpret_cast<uint4*>(row)[i] = *reinterpret_cast<const uint4*>(p.v);
-}
-
-// Forward: y = norm(x) (r == nullptr), or s = x + r, y = norm(s32) with s
-// written in TX. b may be nullptr (RMS, or LayerNorm without a shift).
-template <typename TX, typename TG, int NV>
-__global__ void __launch_bounds__(MAX_THREADS)
-norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ r,
-                const TG* __restrict__ g, const TG* __restrict__ b,
-                TX* __restrict__ s, TX* __restrict__ y, int d, float eps,
-                int rms) {
-  constexpr int VEC = Pack<TX>::N;
-  __shared__ float2 scratch[MAX_WARPS];
-  const size_t base = (size_t)blockIdx.x * d;
-  const int nvec = d / VEC;
-  float v[NV][VEC];
-  float sum = 0.f, sq = 0.f;
-#pragma unroll
-  for (int u = 0; u < NV; ++u) {
-    const int i = threadIdx.x + u * blockDim.x;
-    if (i < nvec) {
-      load_vec(x + base, i, v[u]);
-      if (r != nullptr) {
-        float rv[VEC];
-        load_vec(r + base, i, rv);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) v[u][j] += rv[j];
-        store_vec(s + base, i, v[u]);
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        sum += v[u][j];
-        sq += v[u][j] * v[u][j];
-      }
-    }
-  }
-  float mu = 0.f, var;
-  if (rms) {
-    var = block_sum2(sq, 0.f, scratch).x / (float)d;
-  } else {
-    mu = block_sum2(sum, 0.f, scratch).x / (float)d;
-    float c = 0.f;
-#pragma unroll
-    for (int u = 0; u < NV; ++u) {
-      if (threadIdx.x + u * blockDim.x < nvec) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float t = v[u][j] - mu;
-          c += t * t;
-        }
-      }
-    }
-    var = block_sum2(c, 0.f, scratch).x / (float)d;
-  }
-  const float rstd = rsqrtf(var + eps);
-#pragma unroll
-  for (int u = 0; u < NV; ++u) {
-    const int i = threadIdx.x + u * blockDim.x;
-    if (i < nvec) {
-      float out[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const int col = i * VEC + j;
-        float o = (v[u][j] - mu) * rstd * to_f(g[col]);
-        if (b != nullptr) o += to_f(b[col]);
-        out[j] = o;
-      }
-      store_vec(y + base, i, out);
-    }
-  }
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
@@ -226,9 +155,10 @@ __device__ __forceinline__ float2 group_sum2(float a, float b, int r_warps, floa
   a = warp_sum(a);
   b = warp_sum(b);
   if (r_warps == 1) return make_float2(a, b);
-  const int warp = threadIdx.x >> 5, first = warp - warp % r_warps;
+  const int warp = threadIdx.x >> 5, first = warp & -r_warps;   // r_warps: a power of two
   if ((threadIdx.x & 31) == 0) slot[warp] = make_float2(a, b);
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + first / r_warps), "r"(32 * r_warps) : "memory");
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + (warp >> (__ffs(r_warps) - 1))), "r"(32 * r_warps)
+               : "memory");
   float2 t = make_float2(0.f, 0.f);
   for (int w = first; w < first + r_warps; ++w) {
     t.x += slot[w].x;
@@ -254,6 +184,185 @@ __device__ __forceinline__ float tree_sum(const float* v) {
   } else {
     return tree_sum<N / 2>(v) + tree_sum<N - N / 2>(v + N / 2);
   }
+}
+
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_WARPS = FWD_THREADS / 32;
+constexpr int FWD_MAX_R = 8;        // warps a row: at most 8 x 32 x 8 = 2048 vectors
+constexpr int FWD_DEPTH = 2;        // rows in a warp's ring: one in flight while one is reduced
+
+// g (or b) for the VEC columns of one 16-byte vector of x, kept as loaded:
+// VEC values of TG in 16-byte words (bf16 beside fp32 x: half a word), so
+// the loads never hold the warp up; a value is converted where it is used
+template <typename TG, int VEC>
+struct Params {
+  static constexpr int BYTES = VEC * (int)sizeof(TG);
+  static constexpr int WORDS = BYTES >= 16 ? BYTES / 16 : 1;
+  uint4 w[WORDS];
+
+  __device__ __forceinline__ void load(const TG* p) {
+    if constexpr (BYTES >= 16) {
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) w[k] = __ldg(reinterpret_cast<const uint4*>(p) + k);
+    } else {
+      static_assert(BYTES == 8, "bf16 g beside fp32 x");
+      const uint2 h = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = make_uint4(h.x, h.y, 0u, 0u);
+    }
+  }
+
+  // value j (j a compile-time constant after unrolling) in fp32, exactly
+  __device__ __forceinline__ float operator[](int j) const {
+    constexpr int PER_WORD = 16 / (int)sizeof(TG);
+    const uint4& q = w[j / PER_WORD];
+    const int i = (j % PER_WORD) * (int)sizeof(TG) / 4;
+    const uint32_t c = i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+    if constexpr (sizeof(TG) == 4) {
+      return __uint_as_float(c);
+    } else {   // bf16: the high 16 bits of an fp32
+      return __uint_as_float(j % 2 ? c & 0xffff0000u : c << 16);
+    }
+  }
+};
+
+// Forward over rows: y = norm(x) (r == nullptr), or s = x + r written in TX
+// and y = norm(x + r) from the fp32 sum; b may be nullptr. Row group i
+// (r_warps warps) of the grid's gridDim.x * (8 / r_warps) walks rows i, i +
+// that count, ... in order through its warps' rings. Dynamic shared memory:
+// the warps' rings [warp][slot][x, r][NV][32] x 16 bytes, then two sets of
+// reduction slots (LayerNorm: one set a reduction; RMS: one a row, in
+// turn, so a slot is written again only after a barrier that every reader
+// of it has passed).
+template <typename TX, typename TG, int NV>
+__global__ void __launch_bounds__(FWD_THREADS)
+norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ r,
+                const TG* __restrict__ g, const TG* __restrict__ b,
+                TX* __restrict__ s, TX* __restrict__ y, int rows, int d, float inv_d,
+                float eps, int rms, int r_warps) {
+  constexpr int VEC = Pack<TX>::N;
+  constexpr int TENSOR = NV * 32 * 16;          // one tensor's share of a ring slot
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool add = r != nullptr;
+  const int slot_bytes = add ? 2 * TENSOR : TENSOR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float2* red = reinterpret_cast<float2*>(smem + FWD_WARPS * FWD_DEPTH * slot_bytes);
+  unsigned char* ring = smem + warp * FWD_DEPTH * slot_bytes;
+  const int nvec = d / VEC;
+  const int shift = __ffs(r_warps) - 1;         // r_warps: 1, 2, 4 or 8
+  const int groups = FWD_WARPS >> shift, group = warp >> shift;
+  const int gl = ((warp & (r_warps - 1)) << 5) + lane;  // this lane's index in its row group
+  const int stride = 32 * r_warps;              // a lane's vectors: gl, gl + stride, ...
+
+  // a lane's vector u of a row at (slot, tensor, u, lane) in its warp's ring
+  auto issue = [&](int row, int slot) {
+    const size_t base = (size_t)row * d;
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int v = gl + u * stride;
+      if (v < nvec) {
+        const uint32_t dst = smem_u32(ring + slot * slot_bytes + (u * 32 + lane) * 16);
+        cp_async16(dst, x + base + (size_t)v * VEC);
+        if (add) cp_async16(dst + TENSOR, r + base + (size_t)v * VEC);
+      }
+    }
+  };
+
+  const int step = gridDim.x * groups;
+  const int row0 = blockIdx.x * groups + group;
+#pragma unroll
+  for (int i = 0; i < FWD_DEPTH - 1; ++i) {
+    if (row0 + i * step < rows) issue(row0 + i * step, i);
+    cp_async_commit();
+  }
+  // g and b load while the first rows are in flight
+  Params<TG, VEC> gv[NV], bv[NV];
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int v = gl + u * stride;
+    if (v < nvec) {
+      gv[u].load(g + v * VEC);
+      if (b != nullptr) bv[u].load(b + v * VEC);
+    }
+  }
+  int slot = 0, turn = 0;
+  for (int row = row0; row < rows; row += step) {
+    // the ring's free slot held the previous row, whose reads this lane has done
+    const int ahead = row + (FWD_DEPTH - 1) * step;
+    if (ahead < rows) issue(ahead, (slot + FWD_DEPTH - 1) % FWD_DEPTH);
+    cp_async_commit();
+    cp_async_wait<FWD_DEPTH - 1>();  // this lane's copies of `row` have landed
+    const unsigned char* xs = ring + slot * slot_bytes + lane * 16;
+    const size_t base = (size_t)row * d;
+
+    // vector u of the row from the ring: x, or the fp32 sum x + r
+    auto load = [&](int u, float* v) {
+      lds_vec<TX>(xs + u * 512, v);
+      if (add) {
+        float rv[VEC];
+        lds_vec<TX>(xs + TENSOR + u * 512, rv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[j] = __fadd_rn(v[j], rv[j]);
+      }
+    };
+
+    // the statistics: LayerNorm the mean, then the centred variance (two
+    // passes over the row, as the reference); RMS the mean square. The
+    // add form writes s on the first pass.
+    float first = 0.f;   // LayerNorm: sum of v; RMS: sum of v^2
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int v = gl + u * stride;
+      if (v < nvec) {
+        float t[VEC];
+        load(u, t);
+        if (add) store_vec(s + base, v, t);
+        if (rms) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) t[j] = __fmul_rn(t[j], t[j]);
+        }
+        first += tree_sum<VEC>(t);
+      }
+    }
+    float mu = 0.f, var;
+    if (rms) {
+      var = __fmul_rn(group_sum2(first, 0.f, r_warps, red + turn * FWD_WARPS).x, inv_d);
+      turn ^= 1;
+    } else {
+      mu = __fmul_rn(group_sum2(first, 0.f, r_warps, red).x, inv_d);
+      float c = 0.f;
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        if (gl + u * stride < nvec) {
+          float t[VEC];
+          load(u, t);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float e = __fsub_rn(t[j], mu);
+            t[j] = __fmul_rn(e, e);
+          }
+          c += tree_sum<VEC>(t);
+        }
+      }
+      var = __fmul_rn(group_sum2(c, 0.f, r_warps, red + FWD_WARPS).x, inv_d);
+    }
+    const float rstd = rsqrtf(__fadd_rn(var, eps));
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int v = gl + u * stride;
+      if (v < nvec) {
+        float t[VEC];
+        load(u, t);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float o = __fmul_rn(__fmul_rn(__fsub_rn(t[j], mu), rstd), gv[u][j]);
+          t[j] = b != nullptr ? __fadd_rn(o, bv[u][j]) : o;
+        }
+        store_vec(y + base, v, t);
+      }
+    }
+    slot = (slot + 1) % FWD_DEPTH;
+  }
+  cp_async_wait<0>();
 }
 
 // Backward over rows [blockIdx.x * rpb, min(rows, (blockIdx.x + 1) * rpb))
@@ -469,38 +578,75 @@ norm_bwd_sum_kernel(const float* __restrict__ dg_parts, const float* __restrict_
   }
 }
 
-// Threads per row and registers per thread for a row of nvec vectors:
-// T = nvec rounded up to a warp, at most 256; NV = ceil(nvec / T).
-inline void row_shape(int nvec, int* threads, int* nv) {
-  int t = ((nvec + 31) / 32) * 32;
-  *threads = t < MAX_THREADS ? t : MAX_THREADS;
-  *nv = (nvec + *threads - 1) / *threads;
-}
+// which of the forward's kernels have had their shared-memory limit raised,
+// and how many CTAs of each (plain, add form) an SM holds (0: not asked
+// yet), by [bf16 x][bf16 g][NV index] (library-local tables: a static
+// inside a template would be one object across every loaded copy of the
+// library)
+bool fwd_smem_set[2][2][5];
+int fwd_resident[2][2][5][2];
 
-template <typename TX, typename TG, int NV>
-cudaError_t fwd_launch(const void* x, const void* r, const void* g, const void* b,
-                       void* s, void* y, int rows, int d, float eps, int rms,
-                       int threads, cudaStream_t stream) {
-  norm_fwd_kernel<TX, TG, NV><<<rows, threads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(r),
-      static_cast<const TG*>(g), static_cast<const TG*>(b),
-      static_cast<TX*>(s), static_cast<TX*>(y), d, eps, rms);
+template <typename TX, typename TG, int NV, int NVI>
+cudaError_t fwd_rows_launch(const void* x, const void* r, const void* g, const void* b, void* s,
+                            void* y, int rows, int d, float eps, int rms, int r_warps,
+                            cudaStream_t stream) {
+  constexpr int RING = FWD_WARPS * FWD_DEPTH * NV * 32 * 16;   // one tensor's rings
+  constexpr int RED = 2 * FWD_WARPS * 8;
+  const bool add = r != nullptr;
+  const int smem = (add ? 2 : 1) * RING + RED;
+  const int bx = sizeof(TX) == 2, bg = sizeof(TG) == 2;
+  auto kernel = norm_fwd_kernel<TX, TG, NV>;
+  if (!fwd_smem_set[bx][bg][NVI]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           2 * RING + RED);
+    if (err != cudaSuccess) return err;
+    fwd_smem_set[bx][bg][NVI] = true;
+  }
+  int& resident = fwd_resident[bx][bg][NVI][add];
+  if (resident == 0) {
+    cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, FWD_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+  }
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // the fewest rows a row group that fill the resident CTAs once
+  const int groups = FWD_WARPS / r_warps;
+  const long long slots = (long long)sms * resident * groups;
+  const long long per = (rows + slots - 1) / slots;
+  const int blocks = (int)((rows + groups * per - 1) / (groups * per));
+  kernel<<<blocks, FWD_THREADS, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(r), static_cast<const TG*>(g),
+      static_cast<const TG*>(b), static_cast<TX*>(s), static_cast<TX*>(y), rows, d,
+      1.f / (float)d, eps, rms, r_warps);
   return cudaGetLastError();
 }
 
+// R warps a row (1 up to 128 vectors; else the fewest of 2, 4, 8 leaving at
+// most two vectors a lane), then NV = a lane's vectors, rounded up to 1, 2,
+// 3, 4 or 8
 template <typename TX, typename TG>
-cudaError_t fwd_dispatch(const void* x, const void* r, const void* g, const void* b,
-                         void* s, void* y, int rows, int d, float eps, int rms,
-                         cudaStream_t stream) {
-  int threads, nv;
-  row_shape(d / Pack<TX>::N, &threads, &nv);
+cudaError_t fwd_dispatch(const void* x, const void* r, const void* g, const void* b, void* s,
+                         void* y, int rows, int d, float eps, int rms, cudaStream_t stream) {
+  const int nvec = d / Pack<TX>::N;
+  int r_warps = 1;
+  if (nvec > 128) {
+    r_warps = 2;
+    while (r_warps < FWD_MAX_R && 64 * r_warps < nvec) r_warps *= 2;
+  }
+  const int nv = (nvec + 32 * r_warps - 1) / (32 * r_warps);
   switch (nv) {
-    case 1: return fwd_launch<TX, TG, 1>(x, r, g, b, s, y, rows, d, eps, rms, threads, stream);
-    case 2: return fwd_launch<TX, TG, 2>(x, r, g, b, s, y, rows, d, eps, rms, threads, stream);
-    case 3:
-    case 4: return fwd_launch<TX, TG, 4>(x, r, g, b, s, y, rows, d, eps, rms, threads, stream);
-    case 5: case 6: case 7:
-    case 8: return fwd_launch<TX, TG, 8>(x, r, g, b, s, y, rows, d, eps, rms, threads, stream);
+#define NORM_FWD_CASE(NV, NVI)                                                                \
+  return fwd_rows_launch<TX, TG, NV, NVI>(x, r, g, b, s, y, rows, d, eps, rms, r_warps, stream);
+    case 1: NORM_FWD_CASE(1, 0)
+    case 2: NORM_FWD_CASE(2, 1)
+    case 3: NORM_FWD_CASE(3, 2)
+    case 4: NORM_FWD_CASE(4, 3)
+    case 5: case 6: case 7: case 8: NORM_FWD_CASE(8, 4)
+#undef NORM_FWD_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -560,15 +706,18 @@ cudaError_t bwd_dispatch(const void* x, const float* g, const void* dy, void* dx
 }  // namespace
 
 // Forward. x, y (and r, s for the add form; else both nullptr): [rows, d]
-// contiguous, bf16 (x_bf16 = 1) or fp32; g, b: [d] bf16 (g_bf16 = 1) or
-// fp32, b may be nullptr. rms = 1 drops the mean. d must be a multiple of
-// 16 / sizeof(x element) and at most 2048 such vectors. Returns the
-// launch's cudaError_t.
+// contiguous, 16-byte aligned, bf16 (x_bf16 = 1) or fp32; g, b: [d] bf16
+// (g_bf16 = 1) or fp32, 16-byte aligned, b may be nullptr. rms = 1 drops the
+// mean. d must be a multiple of 16 / sizeof(x element) and at most 2048
+// such vectors. Returns the launch's cudaError_t.
 extern "C" int norm_fwd(const void* x, const void* r, const void* g, const void* b,
                         void* s, void* y, int rows, int d, float eps, int rms,
                         int x_bf16, int g_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows <= 0) return 0;
+  const int vec = x_bf16 ? 8 : 4;
+  if (d <= 0 || d % vec || d / vec > 32 * FWD_MAX_R * 8 || (r == nullptr) != (s == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (x_bf16 && g_bf16)
     return fwd_dispatch<__nv_bfloat16, __nv_bfloat16>(x, r, g, b, s, y, rows, d, eps, rms, st);
   if (x_bf16) return fwd_dispatch<__nv_bfloat16, float>(x, r, g, b, s, y, rows, d, eps, rms, st);

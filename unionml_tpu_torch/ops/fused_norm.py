@@ -44,7 +44,8 @@ LN_KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)       # LayerNorm forwar
 ADD_KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)      # residual add + norm
 BWD_KERNEL = Kernel("fused_norm", "norm_bwd", _BWD_ARGS)      # backward, both modes
 _DTYPES = (torch.bfloat16, torch.float32)
-# the kernels hold a row in registers: at most this many 16-byte vectors
+# 16-byte vectors a row: the forward's 8 warps hold at most 8 a lane, the
+# backward's 4
 _MAX_VECS_FWD = 2048
 _MAX_VECS_BWD = 1024
 # rows per CTA of the backward: one fp32 partial row of dgamma/dbeta each
@@ -159,10 +160,19 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a 16-byte aligned copy of it (the forward reads gamma and
+    beta as 16-byte vectors; they are [D], so a copy costs little)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_fwd(kernel: Kernel, x, r, gamma, beta, s, y, eps: float, rms: bool) -> None:
     rows, d = x.shape
+    if x.data_ptr() % 16 or (r is not None and r.data_ptr() % 16):
+        raise ValueError("the norm forward needs x (and r) 16-byte aligned")
     if rows == 0:
         return
+    gamma, beta = _aligned(gamma), _aligned(beta)
     with torch.cuda.device(x.device):
         kernel(
             x.data_ptr(), _ptr(r), gamma.data_ptr(), _ptr(beta), _ptr(s), y.data_ptr(),
