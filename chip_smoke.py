@@ -74,6 +74,22 @@ Phases, each of which fails the run with a non-zero exit:
              requests and that no operation made the host wait for the
              card meanwhile (torch.cuda.set_sync_debug_mode), and count the requests whose tokens equal a
              contiguous engine's (printed; bf16 near-ties may flip);
+5b. prefix — the same weights behind DecodeEngine(paged, system_prefix of 512 seeded
+             ids, RadixPrefixCache(block_size=16, max_bytes=1 GiB), a 320-block pool,
+             mix_prefill_tokens=512) and ServingApp(batch=False): a cold seed request,
+             then 8 three-turn chat conversations (each turn the previous prompt, its
+             reply and a new user turn, sent when the reply arrives) beside 8 one-shot
+             prompts; check every reply, /health, tokens saved equal to what the prompt
+             lengths imply (no eviction), a pool_pressure flight record (the pool
+             filled), pool blocks and leases back at 0, the 32 pinned prefix blocks, no
+             host wait, rows 1 / 2 / 6 launched; then a warm admission's spliced pool
+             rows, read through its block table, against the host store bit for bit
+             (two planted splice faults must fail), its first-token logits against its
+             cold twin's (cosine), cold / warm TTFT pairs on the idle engine, splice and
+             extract device times; a 4-layer int8-KV run of the splice-bit check (scale
+             planes included); after phase 7, fp32 parity of a prefix-cache engine and a
+             plain one at 8 layers, and a stream preempted at a full pool and resumed
+             with its unpreempted tokens;
 6. int8 kv — a 4-layer paged engine with kv_quant=True serves a few
              requests through the kernel's int8 form;
 7. fp32    — an 8-layer fp32-activation model: a paged engine (the kernel
@@ -2562,6 +2578,602 @@ def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda", laye
     return {"layers": layers, "match": f"{matching}/{len(prompts)}", "launches": launches}
 
 
+# --------------------------------------------------------------------- #
+# prefix phase: the prefix cache and shared-prefix serving on the paged
+# engine (ServingApp(batch=False) -> DecodeEngine(paged, prefix_cache,
+# system_prefix) -> splice + suffix prefill -> paged decode -> insert)
+# --------------------------------------------------------------------- #
+
+PREFIX_SYSTEM_TOKENS = 512
+PREFIX_BLOCK = 16
+PREFIX_POOL_BLOCKS = 320                  # the traffic below fills it
+PREFIX_STORE_BYTES = 1 << 30              # the host store: ~512 blocks at 8B width
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s raw bits as an integer tensor of the same element size."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def slot_pool_rows(engine, slot: int, n: int) -> list:
+    """The first ``n`` pool blocks of ``slot``, read through its block
+    table: per layer, per buffer, one ``[n, block, ...]`` host tensor."""
+    with engine._lock:
+        ids = torch.from_numpy(engine._table[slot, :n].astype(np.int64))
+        pool = engine._state["pool"]
+    return [[buf[ids.to(buf.device)].cpu() for buf in layer] for layer in pool]
+
+
+def host_store_rows(blocks: list) -> list:
+    """Host block trees stacked the same way: per layer, per buffer
+    ``[n, block, ...]``."""
+    return [[torch.cat([b[li][bi] for b in blocks]) for bi in range(len(blocks[0][li]))]
+            for li in range(len(blocks[0]))]
+
+
+def splice_bit_mismatches(pool_rows: list, host_rows: list) -> list:
+    """Blocks whose pool rows differ from the host store's in any bit of
+    any buffer (scale planes included)."""
+    n = pool_rows[0][0].shape[0]
+    bad = torch.zeros(n, dtype=torch.bool)
+    for p_layer, h_layer in zip(pool_rows, host_rows):
+        for p, h in zip(p_layer, h_layer):
+            if p.dtype != h.dtype or p.shape != h.shape:
+                raise AssertionError(f"pool rows {p.dtype} {tuple(p.shape)} vs host store "
+                                     f"{h.dtype} {tuple(h.shape)}")
+            bad |= (_bits(p) != _bits(h)).reshape(n, -1).any(1)
+    return torch.nonzero(bad).flatten().tolist()
+
+
+def splice_faults(pool_rows: list) -> dict:
+    """The pool rows a faulty splice would have left: every unit one unit
+    off (unit i written at row (i + 1) * unit), or units 0 and 1 swapped."""
+    def reorder(order):
+        return [[buf[order] for buf in layer] for layer in pool_rows]
+
+    n = pool_rows[0][0].shape[0]
+    return {
+        "one_unit_off": reorder([0] + list(range(n - 1))),
+        "units_swapped": reorder([1, 0] + list(range(2, n))),
+    }
+
+
+def check_splice_bits(name: str, engine, slot: int, host_blocks: list) -> dict:
+    """A warm admission's spliced rows in the pool, read through the
+    slot's block table, equal the host store's blocks bit for bit; each
+    planted splice fault must fail the same check."""
+    n = len(host_blocks)
+    if n < 2:
+        raise AssertionError(f"{name}: {n} spliced blocks, the check needs at least 2")
+    pool_rows = slot_pool_rows(engine, slot, n)
+    host_rows = host_store_rows(host_blocks)
+    bad = splice_bit_mismatches(pool_rows, host_rows)
+    if bad:
+        raise AssertionError(f"{name}: spliced blocks {bad} differ from the host store")
+    caught = {}
+    for fault, rows in splice_faults(pool_rows).items():
+        caught[fault] = len(splice_bit_mismatches(rows, host_rows))
+        if not caught[fault]:
+            raise AssertionError(f"{name}: the splice-bit check passes the planted fault {fault}")
+    leaves = sum(len(layer) for layer in host_blocks[0])
+    log(f"{name}: {n} spliced blocks ({leaves} buffers each) equal the host store bit for "
+        f"bit; planted faults caught in {caught} blocks")
+    return {"blocks": n, "buffers_per_block": leaves, "faults_caught": caught}
+
+
+def warm_splice_check(name: str, engine, params, prompt: list) -> dict:
+    """Admit ``prompt`` (already cached) on an otherwise idle engine, and
+    while it is resident hold its spliced pool rows against the host
+    store's blocks (:func:`check_splice_bits`)."""
+    cache = engine.prefix_cache
+    row = engine._canonical_row(prompt)
+    blk = cache.block_size
+    used = min(cache.peek(row) // blk, (len(row) - 1) // blk)
+    stream = engine.generate_stream(params, prompt)
+    try:
+        first = next(stream)   # the prefill (its scatter included) has landed
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        with engine._lock:
+            slots = [s for s, r in enumerate(engine._occupant) if r is not None]
+        if len(slots) != 1:
+            raise AssertionError(f"{name}: expected one resident request, found {slots}")
+        lease = cache.lease(row)
+        try:
+            out = check_splice_bits(name, engine, slots[0], lease.rows[:used])
+        finally:
+            lease.release()
+        tokens = list(first) + [t for chunk in stream for t in chunk]
+    finally:
+        stream.close()
+    out["tokens"] = len(tokens)
+    return out
+
+
+def expected_saved_tokens(rows: list, matched_blocks: list, blk: int) -> int:
+    """Prompt tokens a cached admission skips: the matched blocks, capped
+    one token short of the prompt, in whole units (the engine's
+    ``_start_admission``; the unit is one block without prefill_chunk)."""
+    return sum(min(m, (n - 1) // blk) * blk for n, m in zip(rows, matched_blocks))
+
+
+def warm_cold_logit_cosine(engine, params, prompt: list) -> float:
+    """First-token logits of ``prompt``'s cold admission (one monolithic
+    prefill: the padded flash kernel) and of its warm twin (the cached
+    blocks spliced through the engine's own programs, the suffix in
+    block-sized chunks through the cached path), min cosine."""
+    dev = engine.device
+    row = engine._canonical_row(prompt)
+    n = len(row)
+    bucket = engine._bucket_for(n)
+    blk = engine.prefix_cache.block_size
+    lease = engine.prefix_cache.lease(row)
+    try:
+        used = min(lease.n_blocks, (n - 1) // blk)
+        if used < 1:
+            raise AssertionError("the warm twin has no cached block to splice")
+        padded = np.zeros(bucket, np.int64)
+        padded[:n] = row
+        toks = torch.from_numpy(padded).to(dev)[None]
+        kv_mask = (torch.arange(bucket, device=dev) < n)[None]
+        outs = []
+        with torch.inference_mode():
+            fresh = engine._init_fresh(bucket=bucket)
+            logits, _ = engine.module(
+                params, toks, positions=torch.arange(bucket, device=dev)[None], cache=fresh,
+                cache_index=0, kv_mask=kv_mask,
+                logit_index=torch.full((1,), n - 1, device=dev), full_prefill=True,
+            )
+            outs.append(logits[:, 0].float())
+            fresh = engine._init_fresh(bucket=bucket)
+            for u in range(used):
+                fresh = engine._splice_block(
+                    fresh, engine._device_splice_rows((lease.rows[u],)), u * blk)
+            n_chunks = -(-n // blk)
+            for c in range(used, n_chunks - 1):
+                fresh = engine._prefill_step(params, fresh, toks[:, c * blk:(c + 1) * blk], c * blk)
+            start = (n_chunks - 1) * blk
+            logits, _ = engine.module(
+                params, toks[:, start:start + blk],
+                positions=start + torch.arange(blk, device=dev)[None], cache=fresh,
+                cache_index=start, kv_mask=kv_mask,
+                logit_index=torch.full((1,), n - 1 - start, device=dev),
+            )
+            outs.append(logits[:, 0].float())
+    finally:
+        lease.release()
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("warm / cold first-token logits are not finite")
+    return float(torch.nn.functional.cosine_similarity(outs[0], outs[1], dim=-1).min())
+
+
+def conversation_turns(rng, vocab: int, conversations: int, turns: int, lengths: tuple) -> list:
+    """Each conversation's user turns (token lists, ``lengths`` inclusive)."""
+    return [[rng.integers(1, vocab, size=int(rng.integers(lengths[0], lengths[1] + 1))).tolist()
+             for _ in range(turns)] for _ in range(conversations)]
+
+
+def prefix_phase(
+    config, max_new_tokens: int, *, device: str = "cuda", model=None, params=None,
+    slots: int = 16, buckets: tuple = ENGINE_BUCKETS, chunk_steps: int = 8,
+    system_tokens: int = PREFIX_SYSTEM_TOKENS, pool_blocks: int = PREFIX_POOL_BLOCKS,
+    store_bytes: int = PREFIX_STORE_BYTES, conversations: int = 8, turns: int = 3,
+    turn_lengths: tuple = (20, 250), one_shots: int = 8, one_shot_lengths: tuple = (5, 500),
+    pairs: int = 4, mix_prefill_tokens: int = 512,
+) -> dict:
+    """Serve ``config`` through DecodeEngine(paged, system_prefix, prefix
+    cache) behind ServingApp(batch=False): a cold seed request, then chat
+    conversations (each turn is the previous prompt + its reply + a new
+    user turn, sent when the reply arrives) beside a concurrent wave of
+    one-shot prompts, all under one system prefix, into a pool they fill.
+    A cached admission's suffix runs in block-sized chunks, so the engine
+    gets a stall-free mixing budget of ``mix_prefill_tokens`` (its splices
+    and suffix chunks dispatch together, not one per dispatcher pass).
+    ``device="cpu"`` rehearses the phase at a small config, with the
+    kernels' plain versions."""
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import DecodeEngine, ServingApp
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+    from unionml_tpu_torch.serving.scheduler import SchedulerConfig
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    config = serving_config(config)
+    if model is None:
+        model, params = build_template(config, max_new_tokens, buckets, device)
+    counters = {"paged_attention": pa.KERNEL, "flash_fwd_padded": fa.KERNEL,
+                "rms_norm_fwd": fused_norm.KERNEL}
+    rng = np.random.default_rng(13)
+    system = rng.integers(1, config.vocab_size, size=system_tokens).tolist()
+    block_bytes = (config.num_layers * 2 * PREFIX_BLOCK * config.num_kv_heads
+                   * config.head_dim * 2)
+    flight = telemetry.FlightRecorder()
+    cache = RadixPrefixCache(block_size=PREFIX_BLOCK, max_bytes=store_bytes)
+    engine = DecodeEngine(
+        Llama(config), paged=True, slots=slots, prompt_buckets=buckets,
+        max_new_tokens=max_new_tokens, chunk_steps=chunk_steps, system_prefix=system,
+        prefix_cache=cache, kv_pool_bytes=pool_blocks * block_bytes, flight=flight,
+        scheduler=SchedulerConfig(mix_prefill_tokens=mix_prefill_tokens), device=device,
+    )
+
+    @model.predictor
+    def predictor(params: dict, prompts: list) -> list:
+        return engine.generate(params, prompts)
+
+    app = None
+    try:
+        t0 = time.perf_counter()
+        engine.warmup(params)
+        sync()
+        log(f"prefix: warmup ({len(engine.buckets)} buckets {engine.buckets}, cold + hit + "
+            f"partial hit each) {time.perf_counter() - t0:.2f} s, cache_len {engine.cache_len}, "
+            f"pool {engine.kv_pool.capacity} blocks of {engine.kv_pool.block_size}")
+        engine.reset_stats()
+        app = ServingApp(model, batch=False, health=engine.health, stats=engine.stats,
+                         flight=flight)
+        host, port = app.serve(host="127.0.0.1", port=0, blocking=False)
+        base = f"http://{host}:{port}"
+        user_max = engine.buckets[-1] - system_tokens
+        seed = rng.integers(1, config.vocab_size, size=40).tolist()
+        convs = conversation_turns(rng, config.vocab_size, conversations, turns, turn_lengths)
+        shots = [rng.integers(1, config.vocab_size, size=int(n)).tolist()
+                 for n in rng.integers(one_shot_lengths[0], one_shot_lengths[1] + 1,
+                                       size=one_shots)]
+        sent, errors = [], []   # (user prompt, matched blocks the traffic implies)
+        lock = threading.Lock()
+
+        def ask(prompt, matched):
+            status, body = post(f"{base}/predict", {"features": [prompt]})
+            if status != 200 or len(body) != 1 or len(body[0]) != max_new_tokens or not all(
+                    isinstance(t, int) and 0 <= t < config.vocab_size for t in body[0]):
+                raise AssertionError(f"bad /predict reply for a {len(prompt)}-token prompt: "
+                                     f"{status} {body}")
+            with lock:
+                sent.append((prompt, matched))
+            return body[0]
+
+        def conversation(turns_):
+            try:
+                history, matched = [], system_tokens // PREFIX_BLOCK
+                for turn in turns_:
+                    prompt = history + turn
+                    if len(prompt) > user_max:
+                        raise AssertionError(f"a {len(prompt)}-token turn exceeds {user_max}")
+                    reply = ask(prompt, matched)
+                    # the next turn matches every full block of this prompt
+                    # (its insert lands before its reply)
+                    matched = (system_tokens + len(prompt)) // PREFIX_BLOCK
+                    history = prompt + reply
+            except Exception as exc:
+                errors.append(f"conversation: {exc!r}")
+
+        def one_shot(prompt):
+            try:
+                ask(prompt, system_tokens // PREFIX_BLOCK)
+            except Exception as exc:
+                errors.append(f"one-shot ({len(prompt)} tokens): {exc!r}")
+
+        for counter in counters.values():
+            counter.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        warm_events = len(flight.dump())
+        sync_warnings = warnings.catch_warnings(record=True)
+        caught = sync_warnings.__enter__()
+        warnings.simplefilter("always")
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t_start = time.perf_counter()
+            ask(seed, 0)    # cold: the store is empty, it prefills the system prefix
+            threads = [threading.Thread(target=conversation, args=(c,)) for c in convs]
+            threads += [threading.Thread(target=one_shot, args=(p,)) for p in shots]
+            for th in threads:
+                th.start()
+            give_up = time.monotonic() + 400
+            for th in threads:
+                th.join(timeout=max(0.0, give_up - time.monotonic()))
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("the prefix phase's requests did not finish in 400 s")
+            sync()
+            wall_s = time.perf_counter() - t_start
+            launches = {name: c.launches for name, c in counters.items()}
+            with urllib.request.urlopen(f"{base}/health", timeout=60) as resp:
+                health_status, health = resp.status, json.loads(resp.read())
+            deadline = time.monotonic() + 60
+            while (engine.stats()["kv_pool"]["blocks_in_use"] or cache.refcounts()) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+                in_use = _pool_blocks_in_use(resp.read().decode())
+            with urllib.request.urlopen(f"{base}/debug/flight?kind=pool_pressure",
+                                        timeout=60) as resp:
+                pressure = json.loads(resp.read())["events"]
+            stats = engine.stats()
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+            sync_warnings.__exit__(None, None, None)
+        host_syncs = [str(w.message) for w in caught
+                      if "synchronizing CUDA operation" in str(w.message)]
+        if errors:
+            raise AssertionError("; ".join(errors))
+        pc = stats["prefix_cache"]
+        rows = [system_tokens + len(p) for p, _ in sent]
+        expected = expected_saved_tokens(rows, [m for _, m in sent], PREFIX_BLOCK)
+        log(f"prefix: {len(sent)} requests (1 cold seed, {conversations} conversations x "
+            f"{turns} turns, {one_shots} one-shots) in {wall_s} s; prefill tokens saved "
+            f"{pc['prefill_tokens_saved']} (the traffic implies {expected}); hits {pc['hits']} "
+            f"partial {pc['partial_hits']} misses {pc['misses']}, store {pc['entries']} blocks "
+            f"{pc['bytes']} bytes, evictions {pc['evictions']}, rejected "
+            f"{pc['insert_rejected_blocks']}")
+        log(f"prefix: kv pool {stats['kv_pool']}; scheduler {stats['scheduler']}")
+        if pc["evictions"] or pc["insert_rejected_blocks"]:
+            raise AssertionError(f"the host store evicted or rejected blocks: {pc}")
+        if pc["prefill_tokens_saved"] != expected:
+            raise AssertionError(f"prefill tokens saved {pc['prefill_tokens_saved']}, the "
+                                 f"traffic implies {expected}")
+        if health_status != 200 or health.get("status") != "ok":
+            raise AssertionError(f"/health not ok: {health_status} {health}")
+        if host_syncs:
+            raise AssertionError(f"{len(host_syncs)} operations waited for the card while the "
+                                 "prefix engine served")
+        if not in_use or any(in_use):
+            raise AssertionError(f"kv pool blocks in use after the drain: {in_use}")
+        leases = cache.refcounts()
+        pinned = cache.pinned_blocks()
+        if leases:
+            raise AssertionError(f"{leases} prefix-cache leases still held after the drain")
+        if pinned != system_tokens // PREFIX_BLOCK:
+            raise AssertionError(f"{pinned} pinned blocks, the system prefix has "
+                                 f"{system_tokens // PREFIX_BLOCK}")
+        pressure = [e for e in pressure if e.get("engine") == engine.instance]
+        if not pressure:
+            raise AssertionError("no pool_pressure flight record: the pool never filled")
+        if on_card:
+            for name, n in launches.items():
+                if n == 0:
+                    raise AssertionError(f"kernel {name} was never launched on the prefix path")
+        events = flight.dump()[warm_events:]     # the traffic's, not the warmup's
+        cached = {e["rid"]: e.get("cached_tokens", 0) for e in events if e["kind"] == "prefill"}
+        ttft = {"cold": [], "warm": []}
+        for e in events:
+            if e["kind"] == "finish" and e["rid"] in cached:
+                ttft["warm" if cached[e["rid"]] else "cold"].append(e["ttft_ms"])
+
+        # splice bits, logits, then cold / warm pairs on the idle engine
+        splice = warm_splice_check("prefix splice bits", engine, params, convs[0][0])
+        cos = warm_cold_logit_cosine(engine, params, convs[1][0] + convs[1][1])
+        log(f"prefix: warm vs cold first-token logits, min cosine {cos}")
+        if cos < LOGIT_COSINE_MIN:
+            raise AssertionError(f"warm admission's logits disagree with its cold twin ({cos})")
+        engine.reset_stats()
+        pair_ttft = {"cold": [], "warm": []}
+        pair_rows = []
+        for p in shots[:pairs]:
+            cache.clear()
+            row = engine._canonical_row(p)
+            for kind in ("cold", "warm"):
+                t0 = time.perf_counter()
+                for _ in engine.generate_stream(params, p, max_new_tokens=1):
+                    pass
+                pair_ttft[kind].append((time.perf_counter() - t0) * 1e3)
+                # a 1-token request finishes at its prefill harvest, before
+                # its insert: the warm twin waits for the stored blocks
+                deadline = time.monotonic() + 60
+                while cache.peek(row) < len(row) // PREFIX_BLOCK * PREFIX_BLOCK \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            pair_rows.append(len(row))
+        pair_saved = engine.stats()["prefix_cache"]["prefill_tokens_saved"]
+        pair_expected = expected_saved_tokens(pair_rows, [n // PREFIX_BLOCK for n in pair_rows],
+                                              PREFIX_BLOCK)
+        if pair_saved != pair_expected:
+            raise AssertionError(f"cold / warm pairs saved {pair_saved} tokens, expected "
+                                 f"{pair_expected}")
+        timing = {}
+        if on_card:
+            # device time of one unit's splice (upload + copy, and from the
+            # device memo) and of one block's extract to the host
+            lease = cache.lease(engine._canonical_row(shots[0]))
+            try:
+                unit = (lease.rows[0],)
+                fresh = engine._init_fresh(bucket=engine.buckets[0])
+
+                def splice_cold():
+                    engine._dev_splice.clear()
+                    engine._splice_block(fresh, engine._device_splice_rows(unit), 0)
+
+                timing["splice_ms_per_unit"] = time_ms(splice_cold)
+                timing["splice_ms_per_unit_memo"] = time_ms(
+                    lambda: engine._splice_block(fresh, engine._device_splice_rows(unit), 0))
+                st = engine._state
+                ids = np.arange(1, 9, dtype=np.int32)
+                # few calls: each one allocates pinned buffers the host
+                # cannot reuse until the card has copied into them
+                timing["extract_ms_per_block"] = time_ms(
+                    lambda: engine._extract_blocks(st, 0, ids, 0, len(ids)),
+                    iters=3) / len(ids)
+            finally:
+                lease.release()
+                engine._dev_splice.clear()
+    finally:
+        if app is not None:
+            app.shutdown()
+        engine.close()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if xs else None
+
+    out = {
+        "layers": config.num_layers,
+        "requests": len(sent),
+        "wall_s": wall_s,
+        "system_prefix_tokens": system_tokens,
+        "pool_blocks": engine.kv_pool.capacity,
+        "pool_pressure_events": len(pressure),
+        "prefill_tokens_saved": pc["prefill_tokens_saved"],
+        "expected_tokens_saved": expected,
+        "hits": pc["hits"], "partial_hits": pc["partial_hits"], "misses": pc["misses"],
+        "host_store_bytes": pc["bytes"], "host_store_blocks": pc["entries"],
+        "insert_host_ms": pc.get("insert_ms"),
+        "lookup_host_ms": pc.get("lookup_ms"),
+        "ttft_ms_traffic": {k: {"n": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                            for k, v in ttft.items()},
+        "ttft_ms_idle_pairs": {k: {"n": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                               for k, v in pair_ttft.items()},
+        "warm_cold_logit_cosine": cos,
+        "splice_bits": splice,
+        "leases_after": leases, "pinned_blocks": pinned,
+        "host_syncs": len(host_syncs),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        "launches": launches,
+        **timing,
+    }
+    log(f"prefix: ttft ms (traffic) {out['ttft_ms_traffic']}; idle cold / warm pairs "
+        f"{out['ttft_ms_idle_pairs']}; insert host ms {out['insert_host_ms']}; device "
+        f"{timing}; pool_pressure events {len(pressure)}; launches {launches}; leases "
+        f"{leases}, pinned {pinned}; host waits {len(host_syncs)}")
+    return out
+
+
+def prefix_kv_quant_check(config, params, *, device: str = "cuda", layers: int = 4,
+                          buckets: tuple = (64, 256)) -> dict:
+    """A short kv_quant run: a paged prefix-cache engine over the int8
+    cache serves a prompt cold, then warm; the warm admission's spliced
+    rows — int8 k / v and their fp32 scale planes — equal the host
+    store's bit for bit."""
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+    config = dataclasses.replace(serving_config(config), num_layers=layers, kv_quant=True)
+    engine = DecodeEngine(Llama(config), paged=True, slots=4, prompt_buckets=buckets,
+                          max_new_tokens=8, chunk_steps=8, device=device,
+                          prefix_cache=RadixPrefixCache(block_size=PREFIX_BLOCK))
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(1, config.vocab_size, size=150).tolist()
+    try:
+        p = layer_subset(params, layers)
+        engine.generate(p, [prompt])
+        deadline = time.monotonic() + 60
+        while engine.prefix_cache.refcounts() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out = warm_splice_check("int8 kv splice bits", engine, p, prompt)
+    finally:
+        engine.close()
+    if out["buffers_per_block"] != 4 * layers:
+        raise AssertionError(f"int8 KV blocks carry {out['buffers_per_block']} buffers, "
+                             f"expected k, v and both scale planes of {layers} layers")
+    return out
+
+
+def prefix_fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda",
+                             layers: int = 8, buckets: tuple = ENGINE_BUCKETS,
+                             shared: tuple = (300, 120, 600), per_group: int = 4,
+                             suffix: tuple = (5, 200), preempt_prompt: int = 40,
+                             preempt_new_tokens: int = 64) -> dict:
+    """fp32 activations at ``layers`` layers: a paged prefix-cache engine
+    and a plain paged engine give the same tokens on prompts that share
+    prefixes (sent in turn, so later ones splice; at most one flip), and a
+    low-priority stream preempted at a full pool by a high-priority
+    request resumes and gives the tokens of its unpreempted run."""
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+    config = fp32_config(config, layers)
+    _, params = build_template(config, max_new_tokens, buckets, device)
+    rng = np.random.default_rng(19)
+    prompts = []
+    for n in shared:
+        head = rng.integers(1, config.vocab_size, size=n).tolist()
+        prompts += [head + rng.integers(1, config.vocab_size, size=int(k)).tolist()
+                    for k in rng.integers(suffix[0], suffix[1], size=per_group)]
+    kw = dict(slots=4, prompt_buckets=buckets, max_new_tokens=max_new_tokens, chunk_steps=8,
+              device=device)
+    outs = {}
+    for cached in (True, False):
+        engine = DecodeEngine(Llama(config), paged=True, **kw,
+                              prefix_cache=RadixPrefixCache(block_size=PREFIX_BLOCK)
+                              if cached else None)
+        try:
+            outs[cached] = [engine.generate(params, [p])[0] for p in prompts]
+            saved = engine.stats()["prefix_cache"]["prefill_tokens_saved"] if cached else 0
+        finally:
+            engine.close()
+        if cached:
+            cached_saved = saved
+    matching = sum(a == b for a, b in zip(outs[True], outs[False]))
+    log(f"prefix fp32: {matching}/{len(prompts)} requests token-identical, prefix-cache engine "
+        f"({cached_saved} prefill tokens saved) vs plain engine, {layers} layers")
+    if matching < len(prompts) - 1:
+        raise AssertionError(f"fp32 prefix-cache engine disagrees with the plain engine: "
+                             f"{matching}/{len(prompts)}")
+    if cached_saved == 0:
+        raise AssertionError("the fp32 prefix-cache engine spliced nothing")
+
+    # preemption: a pool that holds ONE resident; short chunks and a
+    # shallow pipeline keep the low stream resident while the high
+    # request arrives
+    low_prompt = rng.integers(1, config.vocab_size, size=preempt_prompt).tolist()
+    high_prompt = rng.integers(1, config.vocab_size, size=preempt_prompt).tolist()
+    pkw = dict(slots=2, prompt_buckets=buckets, max_new_tokens=preempt_new_tokens,
+               chunk_steps=2, pipeline_depth=2, device=device)
+    solo = DecodeEngine(Llama(config), paged=True, **pkw)
+    try:
+        want_low = solo.generate(params, [low_prompt])[0]
+        want_high = solo.generate(params, [high_prompt], max_new_tokens=8)[0]
+    finally:
+        solo.close()
+    engine = DecodeEngine(
+        Llama(config), paged=True, **pkw, kv_block_size=PREFIX_BLOCK,
+        # room for the low stream's worst case and one block more: the high
+        # request cannot admit beside it
+        kv_pool_blocks=2 + -(-(preempt_prompt + preempt_new_tokens) // PREFIX_BLOCK),
+        prefix_cache=RadixPrefixCache(block_size=PREFIX_BLOCK),
+    )
+    low_out, low_err = [], []
+    try:
+        def low_client():
+            try:
+                for chunk in engine.generate_stream(params, low_prompt, priority="low"):
+                    low_out.extend(chunk)
+            except Exception as exc:
+                low_err.append(exc)
+
+        t = threading.Thread(target=low_client)
+        t.start()
+        deadline = time.monotonic() + 120
+        while not low_out and time.monotonic() < deadline:
+            time.sleep(0.002)
+        high_out = engine.generate(params, [high_prompt], max_new_tokens=8, priority="high")[0]
+        t.join(timeout=300)
+        if t.is_alive() or low_err:
+            raise AssertionError(f"the preempted stream failed: {low_err}")
+        preemptions = engine.stats()["scheduler"]["preemptions"]
+    finally:
+        engine.close()
+    log(f"prefix fp32: preemptions {preemptions}; resumed stream "
+        f"{'equals' if low_out == want_low else 'DIFFERS from'} its unpreempted run, the "
+        f"high-priority request {'equals' if high_out == want_high else 'DIFFERS from'} its own")
+    if preemptions < 1:
+        raise AssertionError("the high-priority request did not preempt the low-priority stream")
+    if low_out != want_low or high_out != want_high:
+        raise AssertionError("a preempted / preempting request's tokens differ from its "
+                             "unpreempted run")
+    return {"layers": layers, "match": f"{matching}/{len(prompts)}",
+            "tokens_saved": cached_saved, "preemptions": preemptions}
+
+
 # the 0.3B draft of the JAX package's speculative benchmark
 DRAFT_WIDTHS = dict(hidden_dim=1024, num_layers=10, num_heads=16, num_kv_heads=8, mlp_dim=2816)
 
@@ -2828,10 +3440,14 @@ def main(argv=None) -> int:
     model, params = build_template(config, ENGINE_NEW_TOKENS, ENGINE_BUCKETS, "cuda")
     engine = engine_phase(config, ENGINE_NEW_TOKENS, model=model, params=params)
     log(f"time: engine done at {time.perf_counter() - t_run:.1f} s")
+    prefix = prefix_phase(config, ENGINE_NEW_TOKENS, model=model, params=params)
+    prefix["int8_kv"] = prefix_kv_quant_check(config, params)
+    log(f"time: prefix done at {time.perf_counter() - t_run:.1f} s")
     int8_kv = kv_quant_phase(config, params, 16)
     del model, params
     log(f"time: int8 kv done at {time.perf_counter() - t_run:.1f} s")
     fp32 = fp32_parity_phase(base, 32)
+    prefix["fp32"] = prefix_fp32_parity_phase(base, 32)
     log(f"time: fp32 parity done at {time.perf_counter() - t_run:.1f} s")
 
     from unionml_tpu_torch import ModelArtifact
@@ -2922,7 +3538,8 @@ def main(argv=None) -> int:
             "launches_per_train_step": per_train_step.get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
-    print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "int8_kv": int8_kv,
+    print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
+                      "int8_kv": int8_kv,
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
                       "vit_train": vit, "llama_train": llama,

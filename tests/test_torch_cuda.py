@@ -999,3 +999,83 @@ def test_llama_flash_training_step_on_card(cuda):
         losses[remat] = float(metrics["loss"])
     assert all(map(lambda x: x == x, losses.values()))
     assert losses[True] == losses[False]
+
+
+def _wait_stored(cache, prompt, tokens, timeout=30.0):
+    """Wait for the insert that follows a request's prefill harvest."""
+    import time
+
+    t_end = time.monotonic() + timeout
+    while cache.peek(prompt) < tokens and time.monotonic() < t_end:
+        time.sleep(0.01)
+    assert cache.peek(prompt) == tokens
+
+
+def _prefix_engine(cuda, *, kv_quant=False, **kw):
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           prefill_impl="flash", norm_impl="fused", kv_quant=kv_quant)
+    params = init_params(cfg, seed=0, device=cuda)
+    engine = DecodeEngine(Llama(cfg), paged=True, slots=2, max_new_tokens=8,
+                          prompt_buckets=(64, 128), chunk_steps=4, device=cuda,
+                          prefix_cache=RadixPrefixCache(block_size=16), **kw)
+    return engine, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_prefix_splice_bits_and_planted_faults_on_card(cuda, kv_quant):
+    """A warm admission's spliced pool rows — bf16 k / v, or int8 k / v
+    with their fp32 scale planes — equal the host store's blocks bit for
+    bit, read through the slot's block table; a unit spliced one unit off
+    and two swapped units fail the same check (chip_smoke's)."""
+    smoke = _chip_smoke()
+    engine, params = _prefix_engine(cuda, kv_quant=kv_quant)
+    prompt = torch.randint(1, 512, (100,), generator=torch.Generator().manual_seed(1)).tolist()
+    try:
+        cold = engine.generate(params, [prompt])[0]
+        _wait_stored(engine.prefix_cache, prompt, 96)
+        out = smoke.warm_splice_check("card splice bits", engine, params, prompt)
+        assert out["blocks"] == 6
+        assert out["buffers_per_block"] == (4 if kv_quant else 2) * 2
+        assert all(n > 0 for n in out["faults_caught"].values())
+        assert engine.generate(params, [prompt])[0] == cold
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_prefix_insert_and_splice_never_make_the_host_wait_on_card(cuda):
+    """With CUDA's sync debug mode raising, a cold admission (prefill,
+    scatter, extract to pinned host blocks) and its warm twin (upload from
+    pinned memory, splice, suffix prefill) complete without a recovery and
+    give the same tokens; the warm twin saved its 4 blocks, and every
+    stored block lies in pinned memory."""
+    engine, params = _prefix_engine(cuda)
+    engine.warmup(params)
+    engine.reset_stats()
+    prompt = torch.randint(1, 512, (70,), generator=torch.Generator().manual_seed(2)).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cold = engine.generate(params, [prompt])[0]
+        _wait_stored(engine.prefix_cache, prompt, 64)
+        warm = engine.generate(params, [prompt])[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    try:
+        assert int(engine._m_recoveries.value) == 0
+        assert warm == cold
+        assert engine.stats()["prefix_cache"]["prefill_tokens_saved"] == 64
+        lease = engine.prefix_cache.lease(prompt)
+        try:
+            assert lease.n_blocks == 4
+            for rows in lease.rows:
+                for layer in rows:
+                    for buf in layer:
+                        assert buf.is_pinned()
+        finally:
+            lease.release()
+    finally:
+        engine.close()

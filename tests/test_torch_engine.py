@@ -458,21 +458,31 @@ def test_bind_refuses_hot_swap_while_busy(weights):
 
 
 def test_unported_engine_options_raise(weights):
+    """The options the port refuses, as the reference does: the
+    speculative engine with the paged pool or the prefix cache,
+    preemption without its prerequisites, a kv_block_size that contradicts
+    the prefix cache, an empty system prefix, a cache past max_len."""
     _, cfg = _configs()
     module = Llama(cfg)
-    for kw in (dict(prefix_cache=True), dict(system_prefix=[1, 2])):
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(module, device="cpu", **kw)
-    # the speculative engine is contiguous only, as in the reference
     with pytest.raises(ValueError, match="paged"):
         DecodeEngine(module, device="cpu", draft_module=module, paged=True)
+    with pytest.raises(ValueError, match="prefix KV-cache"):
+        DecodeEngine(module, device="cpu", draft_module=module, prefix_cache=True)
     with pytest.raises(ValueError, match="prefix cache"):
         DecodeEngine(module, device="cpu", paged=True,
                      scheduler=SchedulerConfig(preempt=True))
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+    with pytest.raises(ValueError, match="block_size"):
+        DecodeEngine(module, device="cpu", paged=True, kv_block_size=8,
+                     prefix_cache=RadixPrefixCache(block_size=16,
+                                                   registry=telemetry.MetricsRegistry()))
+    with pytest.raises(ValueError, match="non-empty"):
+        DecodeEngine(module, device="cpu", system_prefix=[])
     engine = _engine(cfg, slots=1, max_new_tokens=2, prompt_buckets=(8,))
     try:
-        for call in (engine.prefill_export, engine.kv_export, engine.kv_import):
-            with pytest.raises(NotImplementedError):
+        for call in (engine.kv_export, engine.kv_import):
+            with pytest.raises(ValueError, match="prefix cache"):
                 call([1, 2])
     finally:
         engine.close()

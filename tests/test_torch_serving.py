@@ -152,11 +152,15 @@ def test_serving_app_routes(port_app_model):
         assert f'torch_version="{torch.__version__}"' in body
         status, body = _get(base, "/stats")
         assert status == 200 and json.loads(body)["engine"] == "micro-batch"
-        # introspection and KV handoff routes are not ported: 501
-        assert _get(base, "/debug/memory")[0] == 501
-        assert _post(base, "/debug/profile", {})[0] == 501
-        assert _post(base, "/debug/kv/export", {"prompt": [1, 2]})[0] == 501
-        assert _post(base, "/debug/kv/import", {"entries": []})[0] == 501
+        # introspection routes answer; the KV handoff routes are unwired
+        # on a micro-batch app: 422
+        status, body = _get(base, "/debug/memory")
+        assert status == 200 and json.loads(body)["live_tensors"]["count"] > 0
+        status, body = _post(base, "/debug/profile", {"seconds": 0.05})
+        assert status == 200 and body["file_count"] >= 1
+        assert _post(base, "/debug/profile", {"seconds": -1})[0] == 422
+        assert _post(base, "/debug/kv/export", {"prompt": [1, 2]})[0] == 422
+        assert _post(base, "/debug/kv/import", {"entries": []})[0] == 422
         status, body = _post(base, "/predict", {"features": [[4, 5]], "max_new_tokens": 2})
         assert status == 422
     finally:
@@ -182,8 +186,9 @@ def test_template_trains_saves_and_loads_on_cpu(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of unionml_tpu_torch imports without JAX or the JAX
-    package (checked in a fresh interpreter)."""
+    """Every module of unionml_tpu_torch imports without JAX, the JAX
+    package or ``ml_dtypes`` (bf16 host rows are torch tensors; checked in
+    a fresh interpreter), the prefix cache among them."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -191,8 +196,10 @@ def test_port_imports_neither_jax_nor_reference():
         "mods = [m[: -len('.__init__')] if m.endswith('.__init__') else m for m in mods]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "assert 'unionml_tpu_torch.serving.prefix_cache' in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.'))\n"
+        "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -8,22 +8,36 @@ records its count into the same ``unionml_program_*`` series the
 reference publishes, and its host wall time into
 ``unionml_program_call_ms``; flops and bytes per call are ``(0, 0)``
 and :meth:`ProgramTracker.peaks` reports the peaks as unknown, so the
-MFU / roofline gauges read 0 rather than a made-up ratio. Giving the
-programs analytic costs, and the reference's ``capture_profile`` /
-``device_memory_breakdown`` (the ``/debug/profile`` and ``/debug/memory``
-routes), are not ported yet (ROADMAP.md).
+MFU / roofline gauges read 0 rather than a made-up ratio (giving the
+programs analytic costs is not ported yet, ROADMAP.md).
+
+Also here, as in the reference: :func:`capture_profile` (``POST
+/debug/profile``, on :mod:`torch.profiler`) and
+:func:`device_memory_breakdown` (``GET /debug/memory``, on
+``torch.cuda.memory_stats`` and a census of live tensors).
 """
 
 from __future__ import annotations
 
+import gc
+import os
+import tempfile
 import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import torch
+
 from unionml_tpu_torch import telemetry
 
-__all__ = ["ProgramTracker"]
+__all__ = [
+    "MAX_CAPTURE_SECONDS",
+    "ProfileInProgress",
+    "ProgramTracker",
+    "capture_profile",
+    "device_memory_breakdown",
+]
 
 
 class _Program:
@@ -300,3 +314,110 @@ class ProgramTracker:
             for m in (prog.m_calls, prog.m_compiles, prog.m_flops,
                       prog.m_bytes, prog.h_compile, prog.h_call):
                 m.reset()
+
+
+# --------------------------------------------------------------------- #
+# on-demand profiler capture (POST /debug/profile)
+# --------------------------------------------------------------------- #
+
+
+class ProfileInProgress(RuntimeError):
+    """A capture is already running (the transport answers 409): the
+    profiler is process-global and nested captures corrupt the trace."""
+
+
+_capture_lock = threading.Lock()
+
+MAX_CAPTURE_SECONDS = 120.0
+
+
+def capture_profile(seconds: float = 2.0, log_dir: Optional[str] = None) -> dict:
+    """Capture a :mod:`torch.profiler` trace (CPU, and CUDA activity with a
+    card) for ``seconds`` (clamped to :data:`MAX_CAPTURE_SECONDS`) and
+    return its artifact directory. Blocks the calling thread for the
+    window; the traffic in flight meanwhile is what the trace shows.
+    Raises :class:`ProfileInProgress` while another capture runs, and
+    ``ValueError`` for a non-positive duration."""
+    seconds = float(seconds)
+    if not seconds > 0:
+        raise ValueError(f"seconds must be positive, got {seconds}")
+    seconds = min(seconds, MAX_CAPTURE_SECONDS)
+    if not _capture_lock.acquire(blocking=False):
+        raise ProfileInProgress("a profiler capture is already in progress; retry when it finishes")
+    try:
+        from unionml_tpu_torch.diagnostics import trace
+
+        if log_dir is None:
+            log_dir = tempfile.mkdtemp(prefix="unionml-tpu-torch-profile-")
+        t0 = time.perf_counter()
+        with trace(log_dir):
+            time.sleep(seconds)
+        captured_s = time.perf_counter() - t0
+        files = []
+        for root, _, names in os.walk(log_dir):
+            files.extend(os.path.relpath(os.path.join(root, n), log_dir) for n in names)
+        return {
+            "trace_dir": log_dir,
+            "seconds": round(captured_s, 3),
+            "file_count": len(files),
+            "files": sorted(files)[:50],
+        }
+    finally:
+        _capture_lock.release()
+
+
+# --------------------------------------------------------------------- #
+# device-memory breakdown (GET /debug/memory)
+# --------------------------------------------------------------------- #
+
+
+def device_memory_breakdown(top: int = 10) -> dict:
+    """Per-device memory truth: ``torch.cuda.memory_stats()`` of every
+    card (none on a CPU-only host) plus a census of the live tensors —
+    count, bytes (each storage counted once), per-dtype totals and the
+    ``top`` largest (dtype, shape) groups, where a leaked KV cache or a
+    forgotten weight tree shows up by name."""
+    devices = []
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            stats = torch.cuda.memory_stats(i)
+            devices.append({
+                "id": i,
+                "platform": "gpu",
+                "kind": torch.cuda.get_device_name(i),
+                "memory_stats": {str(k): int(v) for k, v in stats.items()
+                                 if isinstance(v, (int, float))},
+            })
+    groups: Dict[Tuple[str, str, Tuple[int, ...]], Dict[str, int]] = {}
+    by_dtype: Dict[str, int] = {}
+    seen = set()
+    total_bytes = count = 0
+    for obj in gc.get_objects():
+        if not issubclass(type(obj), torch.Tensor):   # type(): no lazy-module __class__ hooks
+            continue
+        try:
+            storage = obj.untyped_storage()
+            key = (str(obj.device), storage.data_ptr())
+            nbytes = 0 if key in seen else int(storage.nbytes())
+        except (RuntimeError, NotImplementedError):
+            continue  # meta / exotic tensors: skip, never fail the census
+        seen.add(key)
+        count += 1
+        total_bytes += nbytes
+        dtype = str(obj.dtype).removeprefix("torch.")
+        by_dtype[dtype] = by_dtype.get(dtype, 0) + nbytes
+        group = groups.setdefault((dtype, str(obj.device), tuple(obj.shape)),
+                                  {"count": 0, "bytes": 0})
+        group["count"] += 1
+        group["bytes"] += nbytes
+    top_groups = [
+        {"dtype": dtype, "device": device, "shape": list(shape), **info}
+        for (dtype, device, shape), info in sorted(
+            groups.items(), key=lambda kv: kv[1]["bytes"], reverse=True
+        )[: max(0, int(top))]
+    ]
+    return {
+        "devices": devices,
+        "live_tensors": {"count": count, "bytes": total_bytes, "by_dtype": by_dtype,
+                         "top": top_groups},
+    }

@@ -11,15 +11,17 @@ chunked prefill, bucketed prompt lengths with a cache sized per bucket,
 and power-of-two batch padding. Random draws come from a
 :class:`torch.Generator` in place of the reference's PRNG key.
 
-Generation runs on the device of the weights it is given. The shared
-system-prefix cache (``system_prefix`` / ``make_prefix_cache``) is not
-ported yet and raises.
+Generation runs on the device of the weights it is given. Shared-prefix
+serving (``make_prefix_cache``, ``make_generator(prefix_len=)``,
+``make_lm_predictor(system_prefix=)``) prefills a system prompt once per
+weights and copies its rows into each request batch's cache.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -84,8 +86,9 @@ def make_generator(
     prefill_chunk: Optional[int] = None,
     prefix_len: int = 0,
 ) -> Callable:
-    """Build ``generate(params, tokens, generator=None, prompt_mask=None)
-    -> tokens[B, max_new_tokens]`` (int64, on the weights' device).
+    """Build ``generate(params, tokens, generator=None, prompt_mask=None,
+    prefix_cache=None) -> tokens[B, max_new_tokens]`` (int64, on the
+    weights' device).
 
     ``tokens``: int [B, prompt_len] (equal lengths per call);
     ``prompt_mask``: bool [B, prompt_len], False marks left padding
@@ -93,23 +96,45 @@ def make_generator(
     ``prefill_chunk`` bounds the cached-attention score buffer by
     prefilling in chunks; with ``prefill_impl="flash"`` the prefill goes
     through the flash kernel exactly when one call covers the whole
-    prompt.
+    prompt and no shared prefix precedes it.
+
+    ``prefix_len > 0`` enables shared-prefix serving: ``generate`` then
+    takes a :class:`PrefixCache` from :func:`make_prefix_cache` holding the
+    prefix's KV rows at ``[0, prefix_len)``; each call copies them into its
+    batch's cache and prefills only the prompts.
     """
-    if prefix_len:
-        raise NotImplementedError("shared-prefix generation is not ported (see ROADMAP.md)")
     cfg: LlamaConfig = module.config
     total_len = max_len or cfg.max_len
     sample = make_sampler(temperature=temperature, top_k=top_k, top_p=top_p)
 
     @torch.inference_mode()
-    def generate(params, tokens, generator=None, prompt_mask=None) -> torch.Tensor:
+    def generate(params, tokens, generator=None, prompt_mask=None,
+                 prefix_cache=None) -> torch.Tensor:
+        if (prefix_cache is None) != (prefix_len == 0):
+            raise ValueError(
+                "prefix_cache must be passed exactly when the generator was "
+                f"built with prefix_len > 0 (prefix_len={prefix_len})"
+            )
+        if prefix_cache is not None:
+            if not isinstance(prefix_cache, PrefixCache):
+                raise TypeError(
+                    "prefix_cache must come from make_prefix_cache "
+                    f"(got {type(prefix_cache).__name__})"
+                )
+            if prefix_cache.length != prefix_len or prefix_cache.total_len != total_len:
+                raise ValueError(
+                    f"prefix_cache was built for prefix_len={prefix_cache.length}, "
+                    f"max_len={prefix_cache.total_len}; this generator needs "
+                    f"prefix_len={prefix_len}, max_len={total_len}"
+                )
         device = _params_device(params)
         tokens = torch.as_tensor(tokens, device=device).long()
         batch, prompt_len = tokens.shape
-        if prompt_len + max_new_tokens > total_len:
+        if prefix_len + prompt_len + max_new_tokens > total_len:
             raise ValueError(
-                f"prompt_len {prompt_len} + max_new_tokens {max_new_tokens} "
-                f"exceeds the KV cache length {total_len}; raise max_len"
+                f"prefix_len {prefix_len} + prompt_len {prompt_len} + "
+                f"max_new_tokens {max_new_tokens} exceeds the KV cache length "
+                f"{total_len}; raise max_len"
             )
         if temperature != 0.0 and generator is None:
             raise ValueError(
@@ -120,15 +145,26 @@ def make_generator(
             prompt_mask = torch.ones((batch, prompt_len), dtype=torch.bool, device=device)
         prompt_mask = torch.as_tensor(prompt_mask, device=device).bool()
         pad_counts = prompt_len - prompt_mask.sum(dim=1)               # [B]
-        positions = torch.clamp(
+        # logical (RoPE) positions continue from the prefix's real tokens
+        positions = prefix_len + torch.clamp(
             torch.arange(prompt_len, device=device)[None, :] - pad_counts[:, None], min=0
         )
         kv_mask = torch.cat(
-            [prompt_mask,
-             torch.ones((batch, total_len - prompt_len), dtype=torch.bool, device=device)],
+            [torch.ones((batch, prefix_len), dtype=torch.bool, device=device),
+             prompt_mask,
+             torch.ones((batch, total_len - prefix_len - prompt_len), dtype=torch.bool,
+                        device=device)],
             dim=1,
         )
-        cache = init_cache(cfg, batch, total_len, device=device)
+        if prefix_cache is not None:
+            # the prefix rows were prefilled once; each call writes its own
+            # copy (the port's cache is written in place)
+            cache = tuple(
+                tuple(buf.expand((batch,) + tuple(buf.shape[1:])).clone() for buf in layer)
+                for layer in prefix_cache.cache
+            )
+        else:
+            cache = init_cache(cfg, batch, total_len, device=device)
 
         # prefill: optional lead chunks fill cache rows only; the tail's
         # head runs on the LAST position (prompts are left-padded)
@@ -140,20 +176,20 @@ def make_generator(
             _, cache = module(
                 params, tokens[:, start:start + step_size],
                 positions=positions[:, start:start + step_size],
-                cache=cache, cache_index=start, kv_mask=kv_mask,
+                cache=cache, cache_index=prefix_len + start, kv_mask=kv_mask,
                 logit_index=torch.zeros(batch, dtype=torch.long, device=device),
             )
         tail_len = prompt_len - tail_start
         logits, cache = module(
             params, tokens[:, tail_start:], positions=positions[:, tail_start:],
-            cache=cache, cache_index=tail_start, kv_mask=kv_mask,
+            cache=cache, cache_index=prefix_len + tail_start, kv_mask=kv_mask,
             logit_index=torch.full((batch,), tail_len - 1, dtype=torch.long, device=device),
-            full_prefill=cfg.prefill_impl == "flash" and tail_start == 0,
+            full_prefill=cfg.prefill_impl == "flash" and prefix_len + tail_start == 0,
         )
         tok = sample(logits[:, -1], generator)
         done = (tok == eos_id) if eos_id is not None else None
         out = [tok]
-        index = prompt_len
+        index = prefix_len + prompt_len
         for _ in range(max_new_tokens - 1):
             pos = (index - pad_counts)[:, None]                         # logical [B, 1]
             logits, cache = module(
@@ -169,6 +205,66 @@ def make_generator(
         return torch.stack(out, dim=1)
 
     return generate
+
+
+@dataclass(frozen=True)
+class PrefixCache:
+    """A prefilled shared-prefix KV cache plus the geometry it was built
+    for: :func:`make_generator`'s prefixed form checks ``length`` and
+    ``total_len`` against its own, so a cache built for another prefix or
+    cache size is refused."""
+
+    cache: Any
+    length: int
+    total_len: int
+
+
+def make_prefix_cache(
+    module: Llama,
+    params,
+    prefix_tokens,
+    *,
+    max_len: Optional[int] = None,
+    prefill_chunk: Optional[int] = None,
+) -> PrefixCache:
+    """Prefill a shared prefix (system prompt) ONCE into a ``[1, max_len]``
+    KV cache, on the weights' device, for :func:`make_generator`'s
+    ``prefix_len`` mode. Rows ``[0, len(prefix_tokens))`` are filled (bf16,
+    or int8 + scales under ``config.kv_quant``); rebuild whenever the
+    params change (the predictor's ``system_prefix`` mode memoizes per
+    state identity)."""
+    cfg: LlamaConfig = module.config
+    total_len = max_len or cfg.max_len
+    device = _params_device(params)
+    toks = torch.as_tensor(np.asarray(prefix_tokens, np.int64), device=device)[None]
+    prefix_len = toks.shape[1]
+    if prefix_len == 0:
+        raise ValueError("prefix_tokens must be non-empty")
+    if prefix_len >= total_len:
+        raise ValueError(
+            f"prefix of {prefix_len} tokens leaves no cache room within max_len {total_len}"
+        )
+    with torch.inference_mode():
+        cache = init_cache(cfg, 1, total_len, device=device)
+        step_size = prefill_chunk or prefix_len
+        n_chunks = max(0, (prefix_len - 1) // step_size)
+        tail_start = n_chunks * step_size
+        positions = torch.arange(prefix_len, device=device)[None, :]
+        zero = torch.zeros((1,), dtype=torch.long, device=device)
+        for c in range(n_chunks):
+            start = c * step_size
+            _, cache = module(
+                params, toks[:, start:start + step_size],
+                positions=positions[:, start:start + step_size],
+                cache=cache, cache_index=start, logit_index=zero,
+            )
+        # the tail covers the whole prefix exactly when nothing precedes it
+        _, cache = module(
+            params, toks[:, tail_start:], positions=positions[:, tail_start:],
+            cache=cache, cache_index=tail_start, logit_index=zero,
+            full_prefill=cfg.prefill_impl == "flash" and tail_start == 0,
+        )
+    return PrefixCache(cache=cache, length=prefix_len, total_len=total_len)
 
 
 def make_lm_predictor(
@@ -190,26 +286,74 @@ def make_lm_predictor(
     generates on the weights' device, and returns one token list per
     prompt. With ``temperature > 0`` a :class:`torch.Generator` seeded by
     ``seed`` (one per device) advances across calls.
+
+    ``system_prefix`` (token ids): a shared prefix every request is
+    conditioned on. Its KV rows are prefilled ONCE per weights
+    (:func:`make_prefix_cache`, one cache per bucket, memoized on the
+    STATE object's identity) and copied into each request batch, so the
+    per-request prefill covers only the user prompt — outputs are exactly
+    those of prepending the prefix to every prompt. Serving must hold one
+    state object per weight set: a new wrapper around the same weights
+    re-prefills the prefix (logged).
     """
-    if system_prefix is not None:
-        raise NotImplementedError("system_prefix is not ported (see ROADMAP.md)")
+    prefix = None if system_prefix is None else np.asarray(system_prefix, np.int32).ravel()
+    if prefix is not None and prefix.size == 0:
+        raise ValueError("system_prefix must be non-empty when given")
+    prefix_len = 0 if prefix is None else len(prefix)
     total_len = max_len or module.config.max_len
-    usable = tuple(sorted(b for b in bucket_lens if b + max_new_tokens <= total_len))
+    usable = tuple(sorted(
+        b for b in bucket_lens if prefix_len + b + max_new_tokens <= total_len
+    ))
     if not usable:
         raise ValueError(
             f"no bucket in {bucket_lens} leaves room for {max_new_tokens} new "
-            f"tokens within max_len {total_len}"
+            f"tokens{f' + a {prefix_len}-token system_prefix' if prefix_len else ''} "
+            f"within max_len {total_len}"
         )
     # one generator per bucket, each with a cache sized to the bucket:
     # decode attention reads the whole cache every step
     generators = {
         b: make_generator(
-            module, max_new_tokens=max_new_tokens, max_len=b + max_new_tokens,
-            pad_id=pad_id, **gen_kwargs,
+            module, max_new_tokens=max_new_tokens,
+            max_len=prefix_len + b + max_new_tokens, pad_id=pad_id,
+            prefix_len=prefix_len, **gen_kwargs,
         )
         for b in usable
     }
     rngs: dict = {}
+    # single-slot memo keyed on the STATE object, with a strong reference
+    # held (an id() key could be recycled once the state is freed)
+    prefix_state: dict = {"ref": None, "caches": {}, "leaf_id": None}
+
+    def _prefix_cache(state, params, bucket):
+        if prefix is None:
+            return None
+        if prefix_state["ref"] is not state:
+            leaf = params
+            while isinstance(leaf, Mapping):
+                leaf = next(iter(leaf.values()), None)
+            leaf_id = id(leaf) if leaf is not None else None
+            if (
+                prefix_state["ref"] is not None
+                and leaf_id is not None
+                and leaf_id == prefix_state["leaf_id"]
+            ):
+                from unionml_tpu_torch._logging import logger
+
+                logger.info(
+                    "system_prefix cache rebuilt for a state wrapping the SAME "
+                    "weight tensors — hold one state object per weight set or "
+                    "every request re-prefills the prefix"
+                )
+            prefix_state.update(ref=state, caches={}, leaf_id=leaf_id)
+        caches = prefix_state["caches"]
+        if bucket not in caches:
+            caches[bucket] = make_prefix_cache(
+                module, params, prefix,
+                max_len=prefix_len + bucket + max_new_tokens,
+                prefill_chunk=gen_kwargs.get("prefill_chunk"),
+            )
+        return caches[bucket]
 
     def predictor(state, prompts) -> list:
         params = resolve_params(state)
@@ -232,7 +376,8 @@ def make_lm_predictor(
         if device not in rngs:
             rngs[device] = torch.Generator(device=device).manual_seed(seed)
         out = generators[bucket](
-            params, torch.from_numpy(batch), rngs[device], torch.from_numpy(mask)
+            params, torch.from_numpy(batch), rngs[device], torch.from_numpy(mask),
+            prefix_cache=_prefix_cache(state, params, bucket),
         )
         return out[:n].cpu().tolist()
 

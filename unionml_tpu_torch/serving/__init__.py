@@ -4,6 +4,10 @@
   ``DecodeEngine`` (contiguous and block-paged KV);
 - :mod:`~unionml_tpu_torch.serving.kv_pool` — the paged pool's host
   allocator (``KVBlockPool``, ``PoolExhausted``);
+- :mod:`~unionml_tpu_torch.serving.prefix_cache` — cross-request
+  prompt-prefix reuse (``RadixPrefixCache``): a radix tree of KV blocks in
+  a byte-budgeted host store; engine admissions splice the longest cached
+  prefix and prefill only the uncovered suffix;
 - :mod:`~unionml_tpu_torch.serving.perf` — the serving goodput plane;
 - :mod:`~unionml_tpu_torch.serving.batcher` — the micro-batcher that
   coalesces concurrent requests into one device call;
@@ -14,8 +18,8 @@
   :mod:`~unionml_tpu_torch.serving.usage` — the fault, priority and
   usage vocabularies the transport speaks.
 
-The prefix cache, router and the rest of the reference's serving tier
-are not ported yet (ROADMAP.md).
+The router and the rest of the reference's serving tier are not ported
+yet (ROADMAP.md).
 """
 
 from unionml_tpu_torch.serving.batcher import MicroBatcher
@@ -29,12 +33,14 @@ from unionml_tpu_torch.serving.faults import (
 )
 from unionml_tpu_torch.serving.http import ServingApp, create_app
 from unionml_tpu_torch.serving.kv_pool import KVBlockPool, PoolExhausted
+from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
 
 __all__ = [
     "DecodeEngine",
     "KVBlockPool",
     "MicroBatcher",
     "PoolExhausted",
+    "RadixPrefixCache",
     "ServingApp",
     "create_app",
     "DeadlineExceeded",

@@ -32,15 +32,25 @@ forward of the target, with greedy acceptance, eos truncation and fill
 advance kept on the device; the host reads each round's emissions through
 the same pinned copy and event.
 
-On the CPU (the tests) the same code runs synchronously.
+With a :class:`~unionml_tpu_torch.serving.prefix_cache.RadixPrefixCache`
+(``prefix_cache=``, or the ``system_prefix`` shim) admission leases the
+longest cached block-prefix of the prompt, splices its host blocks into
+the fresh cache (one host→device copy per block from pinned memory,
+memoized on the device, then one multi-tensor copy into the fresh rows),
+and prefills only the uncovered suffix through the cached path. Right
+after a prefill's scatter the prompt's new full blocks are gathered on
+the same stream into one staging buffer and copied without blocking into
+one pinned host buffer per block; the harvester waits on that copy's
+event, then inserts the blocks. Preemption
+(``SchedulerConfig(preempt=...)``, on by default with a paged pool and a
+prefix cache) saves a victim's blocks through the same path and resumes
+it by splicing them back. ``prefill_export`` / ``kv_export`` /
+``kv_import`` hand a request's blocks to another engine.
 
-Not ported yet, and refused at construction (ROADMAP.md): the prefix
-cache and ``system_prefix`` with
-``prefill_export`` / ``kv_export`` / ``kv_import``, and preemption
-(``SchedulerConfig(preempt=True)``, which needs the prefix cache). An
-injected fault (``FaultInjector``) is recovered as in the reference; a
-real CUDA error is sticky for the process and cannot be recovered by
-rebuilding state — the engine then fails every later request.
+On the CPU (the tests) the same code runs synchronously. An injected
+fault (``FaultInjector``) is recovered as in the reference; a real CUDA
+error is sticky for the process and cannot be recovered by rebuilding
+state — the engine then fails every later request.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ import math
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence
@@ -67,6 +77,14 @@ from unionml_tpu_torch.serving.faults import (
     current_deadline_ms,
 )
 from unionml_tpu_torch.serving.kv_pool import KVBlockPool, PoolExhausted
+from unionml_tpu_torch.serving.prefix_cache import (
+    block_specs,
+    carve,
+    host_empty,
+    pack_rows,
+    packed_base,
+    packed_nbytes,
+)
 from unionml_tpu_torch.serving.scheduler import (
     DEFAULT_PRIORITY,
     PRIORITIES,
@@ -121,6 +139,78 @@ class _Readback:
         return self._host.numpy()
 
 
+class _HostBlocks:
+    """Full KV blocks on their way to the host store. ``srcs`` holds one
+    block tree of ``[1, block, ...]`` device views per block, read in
+    stream order behind the program that wrote them. On CUDA they are
+    gathered into one staging buffer (one multi-tensor copy), copied
+    without blocking into ONE pinned host buffer per block, and an event
+    is recorded; :meth:`wait` blocks on that event alone and returns the
+    host block trees (views into each block's buffer, the layout
+    :func:`~unionml_tpu_torch.serving.prefix_cache.carve` gives)."""
+
+    __slots__ = ("_flats", "_specs", "_event")
+
+    def __init__(self, srcs: list):
+        self._specs = block_specs(srcs[0])
+        nbytes = packed_nbytes(self._specs)
+        self._flats = [host_empty(nbytes) for _ in srcs]
+        self._event = None
+        device = srcs[0][0][0].device
+        if device.type == "cuda":
+            staging = torch.empty((len(srcs), nbytes), dtype=torch.uint8, device=device)
+            stages = [carve(staging[j], self._specs) for j in range(len(srcs))]
+        else:
+            stages = [carve(flat, self._specs) for flat in self._flats]
+        torch._foreach_copy_(
+            [buf for tree in stages for layer in tree for buf in layer],
+            [buf for tree in srcs for layer in tree for buf in layer],
+        )
+        if device.type == "cuda":
+            for j, flat in enumerate(self._flats):
+                flat.copy_(staging[j], non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [carve(flat, self._specs) for flat in self._flats]
+
+
+def _upload_rows(rows, device: torch.device):
+    """One host block tree on ``device`` without waiting for the device:
+    ONE copy of its packed pinned buffer (the engine's own blocks), else
+    one copy per buffer from a pinned copy. On the CPU, the tree itself."""
+    if device.type != "cuda":
+        return rows
+    base = packed_base(rows)
+    if base is not None and base.is_pinned():
+        return carve(base.to(device, non_blocking=True), block_specs(rows))
+    return tuple(
+        tuple((buf if buf.is_pinned() else buf.pin_memory()).to(device, non_blocking=True)
+              for buf in layer)
+        for layer in rows
+    )
+
+
+def _splice_rows(fresh, blocks, start: int) -> None:
+    """Write block trees into the fresh ``[1, bucket]`` cache at rows
+    ``start``, ``start + block``, ... in ONE multi-tensor copy — per
+    layer, per buffer, rank-generic (the int8 cache's scale planes
+    alike)."""
+    dst, src = [], []
+    r0 = start
+    for tree in blocks:
+        n = tree[0][0].shape[1]
+        for f_layer, s_layer in zip(fresh, tree):
+            for fbuf, sbuf in zip(f_layer, s_layer):
+                dst.append(fbuf[:, r0:r0 + n])
+                src.append(sbuf)
+        r0 += n
+    torch._foreach_copy_(dst, src)
+
+
 @dataclass
 class _Admission:
     """A chunked prefill in progress: host cursor over the lead chunks.
@@ -132,7 +222,8 @@ class _Admission:
     req: "_Request"
     slot: int
     bucket: int
-    chunk: int                      # tokens per program (prefill_chunk)
+    chunk: int                      # tokens per program (prefill_chunk,
+    #                                 or the splice unit of a cache hit)
     n_chunks: int                   # total programs incl. the final
     padded: np.ndarray              # [bucket] right-padded prompt
     fresh: Any                      # [1, bucket] cache being filled
@@ -140,6 +231,11 @@ class _Admission:
     # ([bucket/block] int32; uncovered tail entries = trash block)
     pool_ids: Optional[np.ndarray] = None
     next_chunk: int = 0
+    # prefix-cache hit: one entry per chunk-sized splice unit (a tuple of
+    # cached host block trees covering rows [i*chunk, (i+1)*chunk)),
+    # spliced before the remaining chunks run (next_chunk starts past them)
+    splice_rows: List[Any] = field(default_factory=list)
+    next_splice: int = 0
 
 
 @dataclass(eq=False)  # identity semantics: the waiting room's parked
@@ -171,7 +267,10 @@ class _Request:
     _dispatch_t: float = 0.0
     _expected: int = 0                  # tokens covered by dispatched work
     _chunk_i: int = 0                   # harvested decode chunks (trace names)
+    _lease: Optional[Any] = None        # PrefixLease pinning matched blocks
+    _matched_blocks: int = 0            # radix-tree blocks found at admission
     _prefilled_tokens: int = 0          # prompt tokens actually prefilled
+    _saved_tokens: int = 0              # prompt tokens spliced from cache
     # paged mode: device pool bookkeeping (engine lock guards all three)
     _block_ids: List[int] = field(default_factory=list)  # taken pool blocks
     _resv_blocks: int = 0               # reserved, not yet taken
@@ -182,6 +281,20 @@ class _Request:
     # FLOPs (0 until programs carry analytic costs)
     _block_t0: List[float] = field(default_factory=list)
     _attr_flops: float = 0.0
+    # preemption: times evicted, when the last eviction happened (the
+    # resume-wait span anchor; also marks the request as resumed so its
+    # ttft and queue timings stay the first segment's), and the lease
+    # pinning the evicted blocks in the host store until the resume
+    # admission takes its own
+    _preempts: int = 0
+    _preempted_at: float = 0.0
+    _resume_lease: Optional[Any] = None
+    # generated tokens already folded into ``prompt`` by a previous
+    # resume: the next eviction appends only tokens[_prompt_incl:]
+    _prompt_incl: int = 0
+    # prefill_export: set once the request's KV blocks landed in the
+    # host store (the insert entry's lease release, or any terminal path)
+    _kv_event: Optional[threading.Event] = None
     # serving goodput plane: host-side admission span and ITL anchors
     admission_ms: float = 0.0
     _itl_anchor: float = 0.0
@@ -240,8 +353,13 @@ class DecodeEngine:
             attention runs through :mod:`~unionml_tpu_torch.ops
             .paged_attention` (``paged_impl`` of the module's config).
         scheduler: a :class:`~unionml_tpu_torch.serving.scheduler
-            .SchedulerConfig` for the waiting room (preemption is not
-            ported).
+            .SchedulerConfig` for the waiting room. Preemption (evicting a
+            strictly lower-priority resident's blocks to the host prefix
+            store so a higher-priority waiter can admit, resuming it later
+            through the splice path) is on by default when the engine is
+            ``paged`` and has a ``prefix_cache``;
+            ``SchedulerConfig(preempt=True)`` makes a missing
+            prerequisite a construction error.
         device: where the resident state lives; ``None`` = CUDA, raising
             without a card. The params passed to :meth:`generate` must
             live there.
@@ -252,13 +370,26 @@ class DecodeEngine:
             acceptance advancing per-slot fills — token-identical to
             plain greedy decoding of the target for any draft.
             ``bind``/``generate`` then take the ``{"target": ...,
-            "draft": ...}`` params mapping. Greedy only; not with
-            ``paged`` or ``prefix_cache``.
+            "draft": ...}`` params mapping. Greedy only; composes with
+            ``system_prefix`` (the prefix rides through both prefills),
+            not with ``paged`` or ``prefix_cache``.
         speculate_k: draft tokens proposed per round (k+1 emitted at
             most; a round costs k+1 draft steps and one (k+1)-token
             verify).
-        system_prefix/prefix_cache: not ported; anything but the
-            defaults raises ``NotImplementedError``.
+        system_prefix: token ids prepended to EVERY request's prompt.
+            The shim over the prefix cache: its blocks are pinned there,
+            so after the first admission computes them they are spliced,
+            never prefilled again, and never evicted. Buckets are widened
+            by the prefix length (and rounded to the block unit).
+        prefix_cache: a :class:`~unionml_tpu_torch.serving.prefix_cache
+            .RadixPrefixCache` (or ``True`` for a default one) enabling
+            cross-request prefix reuse: admission splices the longest
+            cached block-prefix of the prompt and prefills only the
+            uncovered suffix; completion inserts the prompt's new blocks.
+            Buckets are rounded up to ``lcm(block_size, prefill_chunk)``
+            multiples. One cache per weight binding: ``bind`` to other
+            params clears it. Defaults to a private cache when
+            ``system_prefix`` is set, else off.
     """
 
     def __init__(
@@ -341,11 +472,6 @@ class DecodeEngine:
         # rows a dispatched chunk can advance a slot: 1 per decode step,
         # or k+1 per speculative round
         self._round_stride = 1 if self.draft is None else self.speculate_k + 1
-        if system_prefix is not None or prefix_cache not in (None, False):
-            raise NotImplementedError(
-                "the prefix KV cache (prefix_cache / system_prefix) is not "
-                "ported to unionml_tpu_torch (see ROADMAP.md)"
-            )
         if slots < 1:
             raise ValueError("need at least one slot")
         if not prompt_buckets:
@@ -409,6 +535,24 @@ class DecodeEngine:
         # harvester-thread clock: end of the previous readback
         self._last_harvest_end = 0.0
         self._programs = None
+        # shared system prefix (the shim over the prefix cache): its tokens
+        # are PREPENDED to every prompt and its blocks pinned in the cache
+        self._prefix_tokens = (
+            None if system_prefix is None
+            else np.asarray(system_prefix, np.int32).ravel()
+        )
+        if self._prefix_tokens is not None and self._prefix_tokens.size == 0:
+            raise ValueError("system_prefix must be non-empty when given")
+        self.prefix_len = 0 if self._prefix_tokens is None else len(self._prefix_tokens)
+        if prefix_cache is None and self._prefix_tokens is not None and self.draft is None:
+            prefix_cache = True
+        if prefix_cache is True:
+            from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+            prefix_cache = RadixPrefixCache(registry=self._registry)
+        self.prefix_cache = prefix_cache or None
+        if self._prefix_tokens is not None and self.prefix_cache is not None:
+            self.prefix_cache.pin(self._prefix_tokens)
         self.paged = bool(
             paged or kv_pool_bytes is not None or kv_pool_blocks is not None
         )
@@ -417,15 +561,23 @@ class DecodeEngine:
         )
         if self._kv_block_size_arg is not None and self._kv_block_size_arg < 1:
             raise ValueError("kv_block_size must be >= 1")
-        # a shared block unit rounds buckets up to lcm(block,
-        # prefill_chunk) so paged block scatters and chunked prefill keep
-        # evenly-covered shapes
+        # device copies of recently spliced units (dispatcher thread
+        # only): a hot prefix uploads host→device once, not per admission.
+        # Entries hold the host block tuples too, so an id() key can never
+        # be recycled while its entry lives.
+        self._dev_splice: "OrderedDict" = OrderedDict()
+        self._dev_splice_cap = 8
+        # the prefix widens every bucket (prompts include it), and a
+        # shared block unit (prefix cache and/or paged pool) rounds buckets
+        # up to lcm(block, prefill_chunk) so cached admissions, paged block
+        # scatters and chunked prefill keep evenly-covered shapes
         self._kv_block_size, align = self._block_geometry()
         raw = sorted(set(int(b) for b in prompt_buckets))
-        if self.paged:
-            raw = sorted(set(-(-b // align) * align for b in raw))
+        if self.prefix_len or self.prefix_cache is not None or self.paged:
+            raw = sorted(set(-(-(b + self.prefix_len) // align) * align for b in raw))
         self.buckets = tuple(raw)
-        self._user_max = self.buckets[-1]
+        # prompts are truncated to this BEFORE the prefix is prepended
+        self._user_max = self.buckets[-1] - self.prefix_len
         if self.prefill_chunk is not None:
             bad = [
                 b for b in self.buckets
@@ -506,14 +658,17 @@ class DecodeEngine:
         # chunked admission in progress (dispatcher thread only)
         self._admission: Optional[_Admission] = None
         sched_cfg = scheduler if scheduler is not None else SchedulerConfig()
-        if sched_cfg.preempt:
+        can_preempt = self.paged and self.prefix_cache is not None
+        if sched_cfg.preempt and not can_preempt:
             raise ValueError(
                 "SchedulerConfig(preempt=True) needs a paged engine with a "
                 "prefix cache — eviction stores the victim's pool blocks in "
                 "the host prefix-cache store and resume splices them back; "
-                "the prefix cache is not ported to unionml_tpu_torch yet "
-                "(see ROADMAP.md)"
+                "pass paged=True and prefix_cache=..."
             )
+        self._preempt_enabled = (
+            can_preempt if sched_cfg.preempt is None else bool(sched_cfg.preempt)
+        )
         self._mix_budget = sched_cfg.mix_prefill_tokens
         self._sched = PreemptiveScheduler(
             sched_cfg, registry=self._registry,
@@ -717,6 +872,15 @@ class DecodeEngine:
             "engine.init_fresh", self._init_fresh,
             sig_fn=lambda **k: k.get("bucket"),
         )
+        if self.prefix_cache is not None:
+            self._splice_block = tr.wrap(
+                "engine.splice_block", self._splice_block,
+                sig_fn=lambda fresh, rows, start: len(rows),
+            )
+            self._extract_blocks = tr.wrap(
+                "engine.extract_blocks", self._extract_blocks,
+                sig_fn=lambda st, slot, ids, first, n: n - first,
+            )
 
     def _flight_rec(self, kind: str, **fields) -> None:
         """O(1) flight-recorder append (no-op when introspect=False).
@@ -970,11 +1134,24 @@ class DecodeEngine:
 
 
     def _block_geometry(self):
-        """``(block, align)``: the paged pool's block unit (``kv_block_size``,
-        default 16) and the bucket rounding unit ``lcm(block,
-        prefill_chunk)`` (the reference's single home for block geometry,
-        without the prefix cache it shares the unit with)."""
-        block = (self._kv_block_size_arg or 16) if self.paged else None
+        """The single home for KV block geometry: ``(block, align)``.
+
+        ``block`` is the shared unit of the paged pool AND the prefix
+        cache's host store (splice and extract are per-block copies), so
+        an explicit ``kv_block_size`` that contradicts the attached cache
+        raises. ``align`` is the bucket rounding unit ``lcm(block,
+        prefill_chunk)``."""
+        cache_blk = self.prefix_cache.block_size if self.prefix_cache is not None else None
+        pool_blk = self._kv_block_size_arg if self.paged else None
+        if pool_blk is not None and cache_blk is not None and pool_blk != cache_blk:
+            raise ValueError(
+                f"kv_block_size {pool_blk} != prefix cache block_size "
+                f"{cache_blk} — the device pool and the host block store "
+                "share one block unit (admission splice and harvest "
+                "extract are per-block copies); drop kv_block_size or "
+                "rebuild the cache with the matching block_size"
+            )
+        block = pool_blk or cache_blk or (16 if self.paged else None)
         align = block or 1
         if self.prefill_chunk is not None:
             align = math.lcm(align, self.prefill_chunk)
@@ -1116,6 +1293,7 @@ class DecodeEngine:
             return torch.stack(out)
 
         self._decode_chunk = decode_chunk
+        self._build_cache_programs()
 
     def _lead_chunk(self, module, params, fresh, toks, start) -> None:
         """One lead prefill chunk of ``module`` into its fresh cache, in
@@ -1138,6 +1316,46 @@ class DecodeEngine:
             return fresh
 
         return prefill_step
+
+    def _build_cache_programs(self):
+        """Prefix-cache device programs (cache-enabled engines only):
+
+        - ``_splice_block(fresh, rows, start)``: one splice unit's device
+          block trees written into the fresh cache from row ``start``
+          (:func:`_splice_rows`);
+        - ``_extract_blocks(st, slot, ids, first, n)``: blocks ``[first,
+          n)`` of a slot on their way to the host store
+          (:class:`_HostBlocks`), by pool block id ``ids[j]`` (paged) or
+          by row window (contiguous). Enqueued on the stream right behind
+          the program that wrote them, so they read its rows and nothing
+          later.
+
+        Both are rank-generic over the cache tree, so the int8 cache's
+        scale planes ride along."""
+        if self.prefix_cache is None:
+            return
+        blk = self._kv_block_size
+
+        def splice_block(fresh, rows, start):
+            _splice_rows(fresh, rows, start)
+            return fresh
+
+        def extract_blocks(st, slot, ids, first, n):
+            if self.paged:
+                srcs = [
+                    tuple(tuple(buf[b:b + 1] for buf in layer) for layer in st["pool"])
+                    for b in (int(i) for i in ids[first:n])
+                ]
+            else:
+                srcs = [
+                    tuple(tuple(buf[slot:slot + 1, j * blk:(j + 1) * blk] for buf in layer)
+                          for layer in st["cache"])
+                    for j in range(first, n)
+                ]
+            return _HostBlocks(srcs)
+
+        self._splice_block = splice_block
+        self._extract_blocks = extract_blocks
 
     def _build_paged_programs(self):
         """Paged-mode device programs: same attribute names and dispatcher
@@ -1226,6 +1444,7 @@ class DecodeEngine:
             return torch.stack(out)
 
         self._decode_chunk = decode_chunk
+        self._build_cache_programs()
 
     def _build_spec_programs(self):
         """Speculative-mode device programs (``draft_module`` set): the
@@ -1546,30 +1765,120 @@ class DecodeEngine:
 
 
     def _canonical_row(self, prompt) -> np.ndarray:
-        """The engine's canonical prompt row: int32, left-truncated to
-        the largest bucket."""
+        """The engine's canonical prompt row: int32, left-truncated to the
+        user budget, system prefix prepended — ONE home shared by the
+        generate paths and the KV export, so a disaggregated prefill engine
+        and its decode peer (configured alike) key the same bytes under
+        the same tokens."""
         row = np.asarray(prompt, dtype=np.int32).ravel()
         if row.size == 0:
             raise ValueError("empty prompt")
-        return row[-self._user_max:]
+        row = row[-self._user_max:]
+        if self._prefix_tokens is not None:
+            row = np.concatenate([self._prefix_tokens, row])
+        return row
 
-    def prefill_export(self, *args, **kwargs):
-        raise NotImplementedError(
-            "prefill_export needs the prefix cache, which is not ported to "
-            "unionml_tpu_torch (see ROADMAP.md)"
-        )
+    def prefill_export(
+        self,
+        params,
+        prompt: Sequence[int],
+        *,
+        deadline_ms: Optional[float] = None,
+        tenant: Optional[str] = None,
+        priority: Optional[str] = None,
+    ) -> dict:
+        """Prefill-only admission — the disaggregated serving prefill leg:
+        run the prompt's prefill through the normal admission machinery,
+        let the harvest store the prompt's full KV blocks in the host
+        prefix store, and return a handle instead of streaming:
 
-    def kv_export(self, *args, **kwargs):
-        raise NotImplementedError(
-            "kv_export needs the prefix cache, which is not ported to "
-            "unionml_tpu_torch (see ROADMAP.md)"
-        )
+        ``{"tokens": [first_token], "prompt": [...canonical row...],
+        "cached_tokens": N, "lease": PrefixLease, "rid": ..., "engine":
+        ...}``
 
-    def kv_import(self, *args, **kwargs):
-        raise NotImplementedError(
-            "kv_import needs the prefix cache, which is not ported to "
-            "unionml_tpu_torch (see ROADMAP.md)"
-        )
+        ``lease`` pins the exported path until the decode leg has spliced
+        it (release it exactly once; it is idempotent); ``cached_tokens``
+        is how much of the prompt an engine sharing this store will splice.
+        Blocks the byte budget could not store shrink the match — the
+        decode leg recomputes the difference. Billed as a 1-token
+        request."""
+        if self.prefix_cache is None:
+            raise ValueError(
+                "prefill_export needs a prefix cache — the harvested KV "
+                "blocks land in its host block store for the decode leg to "
+                "splice; construct the engine with prefix_cache=True (or a "
+                "shared RadixPrefixCache)"
+            )
+        self.bind(params)
+        tenant = validate_tenant(tenant) if tenant is not None else current_tenant()
+        priority = validate_priority(priority) if priority is not None else current_priority()
+        if deadline_ms is None:
+            deadline_ms = current_deadline_ms()
+        row = self._canonical_row(prompt)
+        req = _Request(prompt=row, max_new_tokens=1, tenant=tenant, priority=priority)
+        req._kv_event = threading.Event()
+        if deadline_ms is not None:
+            req.deadline = req.submitted + deadline_ms / 1e3
+        req.rid = self._tracer.new_request("prefill")
+        try:
+            self._gated_submit([req])
+        except BaseException:
+            self._tracer.finish_request(req.rid)  # no leak on rejection
+            raise
+        if not req.event.wait(self.submit_timeout):
+            self._m_timeouts.inc()
+            req.abandoned = True
+            raise TimeoutError("prefill did not finish in time")
+        if req.error is not None:
+            raise req.error
+        # the insert entry carrying the blocks is FIFO right behind the
+        # prefill: wait for the lease release that marks it processed (a
+        # timeout degrades to a shorter match, never an error)
+        req._kv_event.wait(self.submit_timeout)
+        lease = self.prefix_cache.lease(row)
+        return {
+            "tokens": list(req.tokens),
+            "prompt": [int(t) for t in row],
+            "cached_tokens": int(lease.n_tokens),
+            "lease": lease,
+            "rid": req.rid,
+            "engine": self.instance,
+        }
+
+    def kv_export(self, prompt: Sequence[int], *, wait_s: float = 0.25) -> List[dict]:
+        """The host prefix-store entries covering ``prompt`` — the donor
+        half of the cross-process KV handoff (``POST /debug/kv/export``).
+        ``wait_s`` bounds a short poll for inserts still in flight;
+        whatever is covered when it expires is exported."""
+        cache = self.prefix_cache
+        if cache is None:
+            raise ValueError(
+                "no prefix cache on this engine — KV export needs the host "
+                "block store; construct with prefix_cache=True"
+            )
+        row = self._canonical_row(prompt)
+        target = (len(row) // cache.block_size) * cache.block_size
+        deadline = time.monotonic() + max(0.0, wait_s)
+        while cache.peek(row) < target and time.monotonic() < deadline:
+            time.sleep(0.005)
+        return cache.export_request(row)
+
+    def kv_import(self, entries: Sequence[dict]) -> int:
+        """Attach a donor's exported entries to this engine's host prefix
+        store (``POST /debug/kv/import``); returns blocks newly attached.
+        Rows that are not packed host blocks (a numpy tree, another
+        package's entries) are packed first."""
+        cache = self.prefix_cache
+        if cache is None:
+            raise ValueError(
+                "no prefix cache on this engine — KV import needs the host "
+                "block store; construct with prefix_cache=True"
+            )
+        return int(cache.import_blocks([
+            entry if packed_base(entry["rows"]) is not None
+            else {**entry, "rows": pack_rows(entry["rows"])}
+            for entry in entries
+        ]))
 
     def bind(self, params):
         """Set (or swap) the served weights (on the engine's device);
@@ -1596,17 +1905,40 @@ class DecodeEngine:
                     "cannot swap engine params while requests are in "
                     "flight — drain the engine (or create a new one) first"
                 )
+            if self._params is not None and self.prefix_cache is not None:
+                # stored blocks belong to the OLD weights (pin
+                # registrations survive; the prefix re-pins on reinsert),
+                # and the device splice memo goes with them
+                self.prefix_cache.clear()
+                self._dev_splice.clear()
             self._params = params
 
     def warmup(self, params) -> int:
         """Run one request per bucket (2 tokens: a 1-token request would
-        finish at prefill and never run a decode chunk), so a live
-        request never pays first-use costs (kernel builds, allocator
-        growth). Returns the number of programs exercised."""
+        finish at prefill and never run a decode chunk), so a live request
+        never pays first-use costs (kernel builds, allocator growth) — with
+        a prefix cache also that bucket's cached admission (a full hit,
+        and a partial hit where the bucket has room). Returns the number
+        of cold-path programs; the cache is left empty."""
         self.bind(params)
         n = min(2, self.max_new_tokens)
         for b in self.buckets:
-            self.generate(params, [np.ones(b, np.int32)], max_new_tokens=n)
+            if self.prefix_cache is not None:
+                # each bucket must MISS first (the warmup prompts share
+                # prefixes across buckets)
+                self.prefix_cache.clear()
+            ones = np.ones(b - self.prefix_len, np.int32)
+            self.generate(params, [ones], max_new_tokens=n)
+            if self.prefix_cache is not None:
+                blk = self.prefix_cache.block_size
+                self.generate(params, [ones], max_new_tokens=n)   # full hit
+                if b >= 3 * blk:
+                    # partial hit: >= 1 matched block, >= 2 uncovered
+                    part = ones.copy()
+                    part[-2 * blk:] = 2
+                    self.generate(params, [part], max_new_tokens=n)
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
         return len(self.buckets) + 1
 
     def stats(self) -> dict:
@@ -1640,6 +1972,8 @@ class DecodeEngine:
                     spec_accepted / max(1, spec_rounds * self.speculate_k), 3
                 ),
             }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
         if self.kv_pool is not None:
             out["kv_pool"] = self.kv_pool.stats()
         if self._usage is not None:
@@ -1745,6 +2079,8 @@ class DecodeEngine:
             m.reset()
         if self._perf is not None:
             self._perf.reset()
+        if self.prefix_cache is not None:
+            self.prefix_cache.reset_stats()
         if self.kv_pool is not None:
             self.kv_pool.reset_stats()
         if self._usage is not None:
@@ -1766,15 +2102,22 @@ class DecodeEngine:
             if parked is None:
                 break
             self._drop_admission(parked, RuntimeError("decode engine closed"))
-        # the in-flight pipeline the harvester no longer owns holds
-        # readbacks of requests failed below
+        # the in-flight pipeline the harvester no longer owns: stranded
+        # insert entries still hold lease refcounts (leaking them would pin
+        # blocks in a user-supplied cache forever), and a stranded preempt
+        # entry holds a request no queue or slot can see
         while True:
             try:
-                self._inflight.get_nowait()
+                entry = self._inflight.get_nowait()
             except queue.Empty:
                 break
+            if entry[0] == "insert":
+                self._release_lease(entry[2])
+            elif entry[0] == "preempt":
+                self._fail_orphan(entry[2], RuntimeError("decode engine closed"))
         for req in self._room.pop_all():
             req.error = RuntimeError("decode engine closed")
+            self._release_lease(req)   # a resumed-queued stream's pin
             self._tracer.finish_request(req.rid)
             req.event.set()
             req.finish_stream()
@@ -1782,6 +2125,7 @@ class DecodeEngine:
             if req is not None:
                 req.error = RuntimeError("decode engine closed")
                 self._tracer.finish_request(req.rid)
+                self._release_lease(req)
                 req.event.set()
                 req.finish_stream()
         self._occupant = [None] * self.slots
@@ -1805,8 +2149,15 @@ class DecodeEngine:
         with self._lock:
             slot = self._occupant.index(None)
         t0 = time.perf_counter()
-        req.queue_wait_ms = (t0 - req.submitted) * 1e3
-        self._tracer.record_span(req.rid, "queue", req.submitted, t0)
+        if req._preempted_at:
+            # a resumed stream: its queue wait already landed; record the
+            # evict→re-admit gap as its own span
+            self._tracer.record_span(
+                req.rid, f"resume-wait[{req._preempts - 1}]", req._preempted_at, t0,
+            )
+        else:
+            req.queue_wait_ms = (t0 - req.submitted) * 1e3
+            self._tracer.record_span(req.rid, "queue", req.submitted, t0)
         req._dispatch_t = t0
         bucket = self._bucket_for(len(req.prompt))
         padded = np.full(bucket, self.pad_id, np.int32)
@@ -1851,14 +2202,92 @@ class DecodeEngine:
             self._state = st
             self._occupant[slot] = req
             self._slot_gen[slot] += 1
+            # resumed streams already hold harvested tokens
             req._expected = len(req.tokens) + 1
             self._m_slots_busy.set(self._slots_in_use_locked())
         req.admission_ms = (time.perf_counter() - req._dispatch_t) * 1e3
         self._flight_rec(
             "prefill", rid=req.rid, tenant=req.tenant, slot=slot,
-            bucket=bucket, tokens=req._prefilled_tokens, cached_tokens=0,
+            bucket=bucket, tokens=req._prefilled_tokens,
+            cached_tokens=req._saved_tokens,
         )
         self._inflight.put(("prefill", ep0, slot, req, readback))
+        self._schedule_insert(req, st, slot, ids, ep0)
+
+    def _device_splice_rows(self, blocks):
+        """Device copies of one splice unit (a tuple of cached host block
+        trees), LRU-memoized on the blocks' identity: a hot prefix — the
+        pinned ``system_prefix`` above all — uploads host→device once.
+        Each entry keeps the host tuples alive, so an ``id()`` key is never
+        recycled while its entry lives. Dispatcher thread only."""
+        key = tuple(id(b) for b in blocks)
+        hit = self._dev_splice.get(key)
+        if hit is not None:
+            self._dev_splice.move_to_end(key)
+            return hit[1]
+        dev = [_upload_rows(b, self.device) for b in blocks]
+        self._dev_splice[key] = (blocks, dev)
+        while len(self._dev_splice) > self._dev_splice_cap:
+            self._dev_splice.popitem(last=False)
+        return dev
+
+    def _schedule_insert(self, req: _Request, st, slot: int, ids, epoch: int) -> None:
+        """Dispatcher, right after a prefill dispatch: the prompt's full
+        blocks past the matched ones on their way to the host
+        (:class:`_HostBlocks`, enqueued behind the prefill's writes on the
+        same stream), and the tree insert queued behind the in-flight
+        readbacks — the harvester waits on the copy's event and attaches
+        them. ``ids`` is the admission's own scatter id vector (paged), not
+        the table row, which a retirement on the harvester may already have
+        cleared. The entry always carries the request, so its lease is
+        released only after the insert could build on live ancestors."""
+        cache = self.prefix_cache
+        if cache is None:
+            return
+        nb = len(req.prompt) // cache.block_size
+        first_new = min(req._matched_blocks, nb)
+        inserted = None   # nothing new to store: a release-only entry
+        if first_new < nb and st is not None:
+            inserted = first_new, self._extract_blocks(st, slot, ids, first_new, nb)
+        self._inflight.put(("insert", epoch, req, inserted))
+
+    def _release_lease(self, req: _Request) -> None:
+        """Unpin the request's matched blocks AND any resume pin
+        (idempotent: error paths and the insert path may both get here),
+        and wake a ``prefill_export`` waiter."""
+        lease, req._lease = req._lease, None
+        if lease is not None:
+            lease.release()
+        self._release_resume_lease(req)
+        if req._kv_event is not None:
+            req._kv_event.set()
+
+    def _release_resume_lease(self, req: _Request) -> None:
+        """Drop the pin holding a preempted stream's saved blocks — once
+        the resume admission holds its own lease over the same path, or on
+        any terminal path (idempotent)."""
+        lease, req._resume_lease = req._resume_lease, None
+        if lease is not None:
+            lease.release()
+
+    def _fail_orphan(self, req: _Request, exc: BaseException) -> None:
+        """Fail a request stranded between its preemption and its
+        requeue: it lives only in the in-flight pipeline there, so recovery
+        and close reach it through the preempt entry alone. Its pool blocks
+        were released at eviction."""
+        with self._lock:
+            if req.event.is_set():
+                return
+            req.error = exc
+        self._release_lease(req)
+        self._m_errors.inc()
+        if self._usage is not None:
+            self._usage.record_drop(req.tenant, "error")
+        self._flight_rec("drop", rid=req.rid, tenant=req.tenant,
+                         cause=f"error:{type(exc).__name__}")
+        self._tracer.finish_request(req.rid)
+        req.event.set()
+        req.finish_stream()
 
     # ------------------------------------------------------------------ #
     # usage metering helpers (no-ops when usage=None)
@@ -2070,7 +2499,7 @@ class DecodeEngine:
                     self._usage.finish_request(
                         req.tenant, queue_ms=req.queue_wait_ms,
                         prefill_tokens=req._prefilled_tokens,
-                        cached_tokens=0,
+                        cached_tokens=req._saved_tokens,
                         priority=req.priority,
                         phase=self.phase,
                         version=self.model_version,
@@ -2103,16 +2532,67 @@ class DecodeEngine:
         with self._lock:
             cur_epoch = self._epoch
         if entry[1] != cur_epoch:
-            # poisoned-era readback: _recover already failed its requests
+            # poisoned-era readback: _recover already failed its requests.
+            # An insert entry still releases its lease, and a preempt entry
+            # must FAIL its evicted stream (recovery could not see it)
+            if entry[0] == "insert":
+                self._release_lease(entry[2])
+            elif entry[0] == "preempt":
+                self._fail_orphan(entry[2], RuntimeError(
+                    "engine recovered while this stream was preempted; its "
+                    "evicted device state belonged to the poisoned era"
+                ))
             return
         self._fire("engine.harvest")
+        if entry[0] == "insert":
+            # the prompt's new blocks into the radix tree once their copy
+            # to the host has landed. A failed insert never fails the
+            # request (its own prefill readback came first)
+            _, _, req, inserted = entry
+            try:
+                if inserted is not None:
+                    first_new, host = inserted
+                    self.prefix_cache.insert(req.prompt, first_new, host.wait())
+            except Exception as exc:
+                logger.info(f"prefix-cache insert skipped: {exc!r}")
+            finally:
+                self._release_lease(req)
+            return
+        if entry[0] == "preempt":
+            # a preempted stream's saved blocks land in the host store, the
+            # path is pinned against LRU, and the stream re-enters the
+            # waiting room at the FRONT of its queue; FIFO entry order puts
+            # the insert before its re-admission can match
+            _, _, req, nb, saved, resume_prompt, incl = entry
+            cache = self.prefix_cache
+            try:
+                if saved is not None:
+                    cache.insert(resume_prompt, 0, saved.wait())
+            except Exception as exc:
+                # the resume admission simply matches fewer blocks
+                logger.info(f"preempt KV save skipped: {exc!r}")
+            self._release_resume_lease(req)   # a prior preemption's
+            req._resume_lease = cache.lease(resume_prompt)
+            req.prompt = resume_prompt
+            req._prompt_incl = incl
+            req._matched_blocks = 0
+            req._park_logged = False
+            self._flight_rec(
+                "resume", rid=req.rid, tenant=req.tenant, priority=req.priority,
+                tokens=len(req.tokens), cached_blocks=int(nb),
+            )
+            self._room.put(req, front=True)
+            self._g_queue_depth.set(self._room.qsize())
+            return
         if entry[0] == "prefill":
             _, _, slot, req, readback = entry
             tok = int(readback.wait()[()])
             now = time.perf_counter()  # after the readback: prefill_ms
             with self._lock:           # includes its in-flight lag
                 req.prefill_ms = (now - req._dispatch_t) * 1e3
-                req.ttft_ms = (now - req.submitted) * 1e3
+                if req.ttft_ms == 0.0:
+                    # a RESUMED stream keeps its first segment's ttft
+                    req.ttft_ms = (now - req.submitted) * 1e3
                 req._prefill_end = now
                 # ITL anchor: the next decode chunk's harvest spacing
                 # measures from this first token
@@ -2361,6 +2841,7 @@ class DecodeEngine:
                 # chunk carried active=False for it (writes trash-routed
                 # on device) — immediate free is safe
                 self._drop_blocks_now_locked(req)
+        self._release_lease(req)
         if req.abandoned:
             self._m_abandoned.inc()
             cause = "abandoned"
@@ -2380,6 +2861,106 @@ class DecodeEngine:
         self._tracer.finish_request(req.rid)
         req.event.set()
         req.finish_stream()
+
+    # ------------------------------------------------------------------ #
+    # preemption
+    # ------------------------------------------------------------------ #
+
+    def _eligible_victims_locked(self) -> List:
+        """Residents the scheduler may evict (lock held): prefill harvested
+        (a token-exact resume point), waiter still listening, and the
+        resume prompt — prompt plus every harvested token — still fits an
+        admission bucket."""
+        out = []
+        for slot, r in enumerate(self._occupant):
+            if r is None or r.abandoned or not r.tokens:
+                continue
+            if len(r.prompt) + len(r.tokens) - r._prompt_incl > self.buckets[-1]:
+                continue
+            out.append((slot, r))
+        return out
+
+    def _maybe_preempt(self, waiter: _Request) -> bool:
+        """A parked (pool-exhausted) admission asks the scheduler to act:
+        evict at most ONE strictly-lower-priority resident per dispatcher
+        pass. Returns True when a victim was evicted."""
+        if not self._preempt_enabled:
+            return False
+        with self._lock:
+            # anti-cascade: blocks already on the deferred fence land once
+            # the in-flight chunks harvest — if they cover the waiter, a
+            # further eviction would thrash a second victim
+            pending = sum(len(ids) for _, ids in self._deferred_free)
+            needed = self.kv_pool.blocks_for_rows(min(
+                len(waiter.prompt) + waiter.max_new_tokens - len(waiter.tokens),
+                self.cache_len,
+            ))
+            if self.kv_pool.available + pending >= needed:
+                return False
+            victim = self._sched.select_victim(waiter, self._eligible_victims_locked())
+        if victim is None:
+            return False
+        return self._preempt_victim(victim[0], victim[1], waiter)
+
+    def _preempt_victim(self, slot: int, victim: _Request, waiter: _Request) -> bool:
+        """Evict ``victim`` from its slot so ``waiter`` can admit
+        (dispatcher thread): its full blocks whose every row is covered by
+        harvested tokens go to the host (the extract path, enqueued behind
+        every chunk already dispatched), the slot retires with fenced
+        block frees, and the harvester's ``preempt`` entry stores the
+        blocks and requeues the stream at the front of its queue. The
+        resume admission splices the same bytes back."""
+        t0 = time.perf_counter()
+        blk = self._kv_block_size
+        with self._lock:
+            if self._occupant[slot] is not victim or self._state is None:
+                return False
+            ep0 = self._epoch
+            st = self._state
+            # rows past prompt + tokens[:-1] may still be written by chunks
+            # in flight: only FULL blocks below them are saved (a resumed
+            # victim's prompt already holds its first _prompt_incl tokens)
+            nb = min(
+                (len(victim.prompt) + len(victim.tokens) - victim._prompt_incl - 1) // blk,
+                self._slot_covered[slot],
+            )
+            ids = self._table[slot, :nb].copy()
+        saved = self._extract_blocks(st, slot, ids, 0, nb) if nb > 0 else None
+        with self._lock:
+            if self._epoch != ep0 or self._occupant[slot] is not victim:
+                return False  # recovery or retirement raced: nothing evicted
+            if len(victim.prompt) + len(victim.tokens) - victim._prompt_incl > self.buckets[-1]:
+                # tokens harvested since the eligibility check pushed the
+                # resume prompt past the largest bucket: leave it resident
+                return False
+            # tokens of chunks already in flight for this slot are
+            # discarded at harvest (recomputed after resume)
+            self._slot_gen[slot] += 1
+            self._occupant[slot] = None
+            victim._preempts += 1
+            victim._preempted_at = time.perf_counter()
+            # the evict→resume gap is queueing, not decode cadence
+            victim._itl_anchor = 0.0
+            resume_prompt = np.concatenate([
+                victim.prompt, np.asarray(victim.tokens[victim._prompt_incl:], np.int32),
+            ])
+            incl = len(victim.tokens)
+            freed = len(victim._block_ids)
+            self._release_blocks_locked(victim, slot)
+            self.kv_pool.note_preempted(freed)
+            self._m_slots_busy.set(self._slots_in_use_locked())
+        self._sched.record_preemption("priority")
+        self._flight_rec(
+            "preempt", rid=victim.rid, tenant=victim.tenant, priority=victim.priority,
+            slot=slot, by=waiter.rid, by_priority=waiter.priority, blocks_saved=int(nb),
+            blocks_freed=freed, tokens=len(victim.tokens),
+        )
+        self._tracer.record_span(
+            victim.rid, f"preempt[{victim._preempts - 1}]", t0, time.perf_counter(),
+            tokens=len(victim.tokens),
+        )
+        self._inflight.put(("preempt", ep0, victim, nb, saved, resume_prompt, incl))
+        return True
 
     def _start_admission(self, req: _Request) -> None:
         """Dispatcher: begin admitting a dequeued request (counted in
@@ -2449,25 +3030,61 @@ class DecodeEngine:
                     req._rows_cap = rows_cap
                     req._park_logged = False
                     req._pool_gen = self.kv_pool.generation
+            cache, m_used = self.prefix_cache, 0
             bucket = self._bucket_for(len(req.prompt))
             chunk = self.prefill_chunk
-            req._prefilled_tokens = len(req.prompt)
-            if chunk is None or bucket <= chunk:
+            # cached-admission granularity: the cache block for
+            # monolithic-class buckets, lcm(block, prefill_chunk) for
+            # chunked ones (a cached long prompt never degrades its suffix
+            # to block-sized programs)
+            unit = None
+            if cache is not None:
+                unit = cache.block_size
+                if chunk is not None and bucket > chunk:
+                    unit = math.lcm(unit, chunk)
+                lease = cache.match(req.prompt)
+                req._lease = lease
+                req._matched_blocks = lease.n_blocks
+                # the resume pin's job is done: the match lease covers it
+                self._release_resume_lease(req)
+                blk = cache.block_size
+                # usable match: unit-quantized, and one token short of the
+                # prompt — the final chunk must run the last real token to
+                # sample token 0 from it
+                m_used = (
+                    min(lease.n_blocks, (len(req.prompt) - 1) // blk) * blk // unit * unit
+                )
+            # credited to the tokens-saved counter when the admission
+            # completes: a dropped one saved nothing
+            req._saved_tokens = m_used
+            req._prefilled_tokens = len(req.prompt) - m_used
+            if m_used == 0 and (chunk is None or bucket <= chunk):
                 self._admit(req)
                 with self._lock:
                     self._admitting -= 1
                 return
             slot, bucket, padded = self._admission_preamble(req)
-            # only the chunks covering the TRUE length run
-            n_chunks = -(-len(req.prompt) // chunk)
+            # only the chunks covering the TRUE length run (and of a
+            # cached admission only the uncovered suffix)
+            chunk_use = unit if m_used else chunk
+            if m_used:
+                # matched blocks grouped into unit-sized splice entries
+                g = unit // cache.block_size
+                splice_rows = [
+                    tuple(req._lease.rows[u * g:(u + 1) * g]) for u in range(m_used // unit)
+                ]
+            else:
+                splice_rows = []
+            n_chunks = -(-len(req.prompt) // chunk_use)
             pool_ids = None
             if self.paged:
                 with self._lock:
                     pool_ids = self._take_covered_locked(req, slot, bucket)
             adm = _Admission(
-                req=req, slot=slot, bucket=bucket, chunk=chunk,
+                req=req, slot=slot, bucket=bucket, chunk=chunk_use,
                 n_chunks=n_chunks, padded=padded,
                 fresh=self._init_fresh(bucket=bucket), pool_ids=pool_ids,
+                next_chunk=m_used // chunk_use, splice_rows=splice_rows,
             )
             with self._lock:
                 self._admission = adm
@@ -2495,6 +3112,20 @@ class DecodeEngine:
                 )
                 return
             self._fire("engine.prefill")
+            if adm.next_splice < len(adm.splice_rows):
+                # a cached unit: its device copies (memoized upload)
+                # spliced into the fresh cache in place of the prefill
+                # program that would have recomputed them
+                i = adm.next_splice
+                t0 = time.perf_counter()
+                rows = self._device_splice_rows(adm.splice_rows[i])
+                adm.fresh = self._splice_block(adm.fresh, rows, i * adm.chunk)
+                adm.next_splice += 1
+                self._tracer.record_span(
+                    req.rid, f"prefix-splice[{i}]", t0, time.perf_counter(),
+                    tokens=adm.chunk,
+                )
+                return
             start = adm.next_chunk * adm.chunk
             toks = _upload(adm.padded[None, start: start + adm.chunk], self.device).long()
             if adm.next_chunk < adm.n_chunks - 1:
@@ -2549,13 +3180,20 @@ class DecodeEngine:
                 req._expected = len(req.tokens) + 1
                 self._admitting -= 1
                 self._m_slots_busy.set(self._slots_in_use_locked())
+            # admission segment: dispatch start → final chunk enqueued
+            # (every interleaved lead chunk and splice included)
             req.admission_ms = (time.perf_counter() - req._dispatch_t) * 1e3
             self._flight_rec(
                 "prefill", rid=req.rid, tenant=req.tenant, slot=adm.slot,
                 bucket=adm.bucket, tokens=req._prefilled_tokens,
-                cached_tokens=0, chunks=adm.n_chunks,
+                cached_tokens=req._saved_tokens, chunks=adm.n_chunks,
             )
             self._inflight.put(("prefill", ep0, adm.slot, req, readback))
+            self._schedule_insert(req, st, adm.slot, adm.pool_ids, ep0)
+            if self.prefix_cache is not None and req._saved_tokens:
+                # the admission completed on spliced rows: NOW the skipped
+                # prefill work is real
+                self.prefix_cache.record_saved_tokens(req._saved_tokens)
         except BaseException as exc:
             with self._lock:
                 if self._admission is adm:
@@ -2573,10 +3211,13 @@ class DecodeEngine:
             return
         remaining = budget
         while self._admission is adm:
+            # splices are copies of stored rows and never charge the budget
+            was_splice = adm.next_splice < len(adm.splice_rows)
             self._advance_admission(adm)
-            remaining -= adm.chunk
-            if remaining <= 0:
-                break
+            if not was_splice:
+                remaining -= adm.chunk
+                if remaining <= 0:
+                    break
 
     def _run(self):
         """Dispatcher: admit queued requests into free slots and keep up
@@ -2615,12 +3256,20 @@ class DecodeEngine:
             if req is not None:
                 self._start_admission(req)
                 if self._room.is_parked(req):
-                    # pool exhausted: a strictly-higher-priority request
-                    # may admit past the parked head (it may itself park)
+                    # pool exhausted: EVICTING a strictly lower-priority
+                    # resident is progress; else retry once retirements
+                    # free blocks
+                    progressed = self._maybe_preempt(req)
+                    # a strictly-higher-priority request may admit past
+                    # the parked head (it may itself park, and preempt on
+                    # its own behalf)
                     breq = self._pop_bypass(req)
                     if breq is not None:
                         self._start_admission(breq)
-                        progressed = not self._room.is_parked(breq)
+                        if self._room.is_parked(breq):
+                            progressed = self._maybe_preempt(breq) or progressed
+                        else:
+                            progressed = True
                 else:
                     progressed = True
         if self._dispatch_chunk():
@@ -2675,6 +3324,7 @@ class DecodeEngine:
                     req.error = exc
                     self._m_errors.inc()
                     self._tracer.finish_request(req.rid)
+                    self._release_lease(req)
                     if self._usage is not None:
                         # close the hold window and bill the drop before
                         # the pool bookkeeping is reset under it

@@ -1,11 +1,9 @@
 """Dependency-free HTTP serving transport (stdlib only).
 
 The PyTorch port of :mod:`unionml_tpu.serving.http`. The routes below
-behave as in the reference, except that the introspection routes
-(``/debug/profile``, ``/debug/memory``) and the KV handoff routes
-(``/debug/kv/export``, ``/debug/kv/import``) answer **501** until their
-modules are ported (ROADMAP.md), and the remote artifact loader and the
-OTLP exporter raise ``NotImplementedError``.
+behave as in the reference, except that the remote artifact loader and
+the OTLP exporter raise ``NotImplementedError``, and ``/debug/profile``
+captures a :mod:`torch.profiler` trace.
 
 Same endpoint surface as the reference's FastAPI app
 (reference: unionml/fastapi.py:15-70):
@@ -39,7 +37,15 @@ Same endpoint surface as the reference's FastAPI app
   HTTP-layer, trainer, and per-program cost-analysis/MFU series in one
   scrape surface, plus the standard ``process_start_time_seconds`` /
   ``unionml_tpu_torch_build_info`` gauges),
-- ``POST /debug/profile``, ``GET /debug/memory`` — 501 (not ported),
+- ``POST /debug/profile?seconds=N`` — a blocking on-demand
+  :mod:`torch.profiler` capture (409 while another runs);
+  ``GET /debug/memory`` — ``torch.cuda.memory_stats`` of every card plus
+  a census of the live tensors,
+- ``POST /debug/kv/export`` / ``/debug/kv/import`` — the cross-host KV
+  handoff (``ServingApp(kv_export=engine.kv_export,
+  kv_import=engine.kv_import)``), wire-encoded by
+  :func:`~unionml_tpu_torch.serving.prefix_cache.encode_entries`; 422
+  when unwired,
 - ``GET /debug/flight?n=K&tenant=`` — the request flight recorder's
   newest events (admissions, decode chunks, sheds, recoveries) for
   after-the-fact explanation of a 429/504/recovery
@@ -224,6 +230,8 @@ class ServingApp:
         slo: Optional[Any] = None,
         usage: Optional[Any] = None,
         cache_peek: Optional[Any] = None,
+        kv_export: Optional[Any] = None,
+        kv_import: Optional[Any] = None,
         goodput: Optional[Any] = None,
         **batcher_kwargs,
     ):
@@ -300,6 +308,12 @@ class ServingApp:
         :class:`~unionml_tpu_torch.serving.router.HttpReplica` can make
         cache-affinity routing decisions across hosts.
 
+        ``kv_export`` / ``kv_import``: the cross-host KV handoff hooks —
+        wire ``engine.kv_export`` and ``engine.kv_import``. ``POST
+        /debug/kv/export`` serves the cached block entries covering a
+        prompt, wire-encoded; ``POST /debug/kv/import`` attaches them to
+        this process's host block store. Unwired, both answer 422.
+
         ``goodput``: a zero-arg callable returning the serving goodput
         plane's report — wire ``engine.goodput_report`` — served at
         ``GET /debug/goodput``: batch-occupancy classification
@@ -332,6 +346,8 @@ class ServingApp:
         self._slo = slo
         self._usage = usage
         self._cache_peek = cache_peek
+        self._kv_export = kv_export
+        self._kv_import = kv_import
         self._goodput = goodput
         endpoint = otlp_endpoint or os.getenv("UNIONML_TPU_OTLP_ENDPOINT")
         if endpoint:
@@ -485,18 +501,22 @@ class ServingApp:
     # -- debug/introspection surface (shared by both transports) ----------
 
     def debug_profile(self, seconds: float = 2.0) -> dict:
-        """``POST /debug/profile``: the reference's on-demand profiler
-        capture. Not ported yet (→ 501)."""
-        raise NotImplementedError(
-            "/debug/profile is not ported to unionml_tpu_torch yet"
-        )
+        """``POST /debug/profile?seconds=N``: capture an on-demand
+        :mod:`torch.profiler` trace and return its artifact directory.
+        Raises :class:`~unionml_tpu_torch.introspection.ProfileInProgress`
+        (→ 409) while a capture runs, ``ValueError`` (→ 422) for a
+        non-positive duration."""
+        from unionml_tpu_torch.introspection import capture_profile
+
+        return capture_profile(seconds)
 
     def debug_memory(self) -> dict:
-        """``GET /debug/memory``: the reference's device memory census.
-        Not ported yet (→ 501)."""
-        raise NotImplementedError(
-            "/debug/memory is not ported to unionml_tpu_torch yet"
-        )
+        """``GET /debug/memory``: every card's ``torch.cuda.memory_stats``
+        plus a census of the live tensors (count and bytes by dtype, top
+        shapes)."""
+        from unionml_tpu_torch.introspection import device_memory_breakdown
+
+        return device_memory_breakdown()
 
     def debug_flight(
         self, n: Optional[int] = None, kind: Optional[str] = None,
@@ -560,18 +580,39 @@ class ServingApp:
         return {"cached_prefix_len": int(self._cache_peek(tokens))}
 
     def debug_kv_export(self, prompt: Any) -> dict:
-        """``POST /debug/kv/export``: the reference's cross-host KV
-        handoff (donor half). Not ported yet (→ 501)."""
-        raise NotImplementedError(
-            "/debug/kv/export is not ported to unionml_tpu_torch yet"
-        )
+        """``POST /debug/kv/export`` (body ``{"prompt": [...]}``): the
+        cached KV block entries covering ``prompt``, wire-encoded — the
+        donor half of the cross-host handoff. Raises ``ValueError`` (→
+        422) when the app has no export source or the prompt doesn't
+        parse."""
+        from unionml_tpu_torch.serving.prefix_cache import encode_entries
+
+        if self._kv_export is None:
+            raise ValueError(
+                "no KV export on this app — construct "
+                "ServingApp(kv_export=engine.kv_export) with a prefix-cached engine"
+            )
+        tokens = [int(t) for t in prompt]
+        if not tokens:
+            raise ValueError("prompt must be non-empty token ids")
+        entries = self._kv_export(tokens)
+        return {"entries": encode_entries(entries), "blocks": len(entries)}
 
     def debug_kv_import(self, entries: Any) -> dict:
-        """``POST /debug/kv/import``: the reference's cross-host KV
-        handoff (import half). Not ported yet (→ 501)."""
-        raise NotImplementedError(
-            "/debug/kv/import is not ported to unionml_tpu_torch yet"
-        )
+        """``POST /debug/kv/import`` (body ``{"entries": [...]}``): attach
+        wire-encoded donor entries to this process's host block store.
+        Raises ``ValueError`` (→ 422) when the app has no import sink or
+        the body is malformed."""
+        from unionml_tpu_torch.serving.prefix_cache import decode_entries
+
+        if self._kv_import is None:
+            raise ValueError(
+                "no KV import on this app — construct "
+                "ServingApp(kv_import=engine.kv_import) with a prefix-cached engine"
+            )
+        if not isinstance(entries, (list, tuple)):
+            raise ValueError("'entries' must be a list of KV entries")
+        return {"attached": int(self._kv_import(decode_entries(entries)))}
 
     def debug_trace(
         self,
@@ -1072,10 +1113,7 @@ class ServingApp:
                         content_type=telemetry.EXPOSITION_CONTENT_TYPE,
                     )
                 elif path == "/debug/memory":
-                    try:
-                        self._send(200, app.debug_memory())
-                    except NotImplementedError as exc:
-                        self._send(501, {"error": str(exc)})
+                    self._send(200, app.debug_memory())
                 elif path == "/debug/flight":
                     try:
                         n = (
@@ -1268,8 +1306,6 @@ class ServingApp:
                         self._send(200, app.debug_kv_import(
                             payload.get("entries")
                         ))
-                except NotImplementedError as exc:
-                    self._send(501, {"error": str(exc)})
                 except (ValueError, KeyError, TypeError) as exc:
                     self._send(422, {"error": str(exc)})
                 except Exception as exc:
@@ -1277,12 +1313,32 @@ class ServingApp:
                     self._send(500, {"error": str(exc)})
 
             def _debug_profile(self, query):
-                """POST /debug/profile: 501 until the profiler capture
-                is ported."""
+                """POST /debug/profile?seconds=N (or a {"seconds": N}
+                JSON body): blocking on-demand profiler capture; 409
+                while another capture runs."""
+                from unionml_tpu_torch.introspection import ProfileInProgress
+
                 try:
-                    app.debug_profile()
-                except NotImplementedError as exc:
-                    self._send(501, {"error": str(exc)})
+                    seconds = None
+                    if "seconds" in query:
+                        seconds = float(query["seconds"][0])
+                    else:
+                        length = int(self.headers.get("Content-Length", 0))
+                        if length:
+                            body = json.loads(self.rfile.read(length))
+                            if "seconds" in body:
+                                seconds = float(body["seconds"])
+                    result = app.debug_profile(
+                        **({} if seconds is None else {"seconds": seconds})
+                    )
+                    self._send(200, result)
+                except ProfileInProgress as exc:
+                    self._send(409, {"error": str(exc)})
+                except (ValueError, TypeError, json.JSONDecodeError) as exc:
+                    self._send(422, {"error": str(exc)})
+                except Exception as exc:
+                    logger.info(f"profile capture error: {exc!r}")
+                    self._send(500, {"error": str(exc)})
 
         return Handler
 
