@@ -6,8 +6,10 @@
 Phases, each of which fails the run with a non-zero exit:
 
 1. card    — print the card's name and power limit (nvidia-smi);
-2. build   — build every CUDA kernel under unionml_tpu_torch/csrc/ with
-             nvcc (one process per source, in parallel) into build/kernels/;
+2. build   — build the C++ host loader (unionml_tpu_torch/data/_native/
+             hostloader.cpp, g++) into build/host/ and every CUDA kernel
+             under unionml_tpu_torch/csrc/ with nvcc (one process per
+             source, in parallel) into build/kernels/;
 3. kernels — run each kernel's wrapper at the main path's shapes, hold it
              against its plain PyTorch version on the same inputs within
              the stated tolerance, and time kernel, plain version, the
@@ -41,6 +43,21 @@ Phases, each of which fails the run with a non-zero exit:
              step's loss and gradients against the plain path (per-tensor
              cosine) and two 3-step runs from one state (the same loss
              bits);
+3d. feed   — 3b's run again with train_step(double_buffer=True, goodput=...):
+             the feed on a feeder thread with its own copy stream, batches
+             from the C++ host loader (which must be the one in use): the
+             same per-step loss bits and final state bits as 3b's inline
+             run, the same launches per step, the goodput buckets
+             explaining >= 0.95 of the trainer's wall time; step ms and
+             samples/s of both feeds; then 16 steps with
+             train_step(checkpoint_dir=<temporary dir under build/>,
+             save_every=4, double_buffer=True, goodput=...) uninterrupted,
+             the same run preempted after step 10 (the elastic trainer's
+             fault hook) and relaunched from a fresh state: it resumes at
+             step 8 and ends at the uninterrupted run's bits (params and
+             AdamW state); the checkpoint's bytes, the save stall on the
+             loop, the commit, the restore and the checkpoint /
+             preemption buckets;
 3c. llama — rows 9-11 (the flash-attention training forward with its
              logsumexp, the dq and the dk/dv backward kernels) at the
              llama_lc shape (q[2,4095,12,64], kv[2,4095,4,64], causal), at
@@ -1500,29 +1517,34 @@ def marked_training(build, kernels: dict, *, steps: int, warmup: int, on_card: b
 
 
 def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
-                    batches_per_epoch: int = 18, epochs: int = 3, warmup: int = 2) -> dict:
+                    batches_per_epoch: int = 18, epochs: int = 3, warmup: int = 2,
+                    train_step_options: dict = None, name: str = "vit",
+                    keep_state: bool = False) -> dict:
     """Train ``config`` through the ported vision_tpu template
-    (``build_model``, ``@model.train_step``, ``model.train``) on synthetic
-    images with learnable labels: ``epochs`` x ``batches_per_epoch`` steps
-    of ``batch`` (54 steps by default, so the trainer's 50-step throughput
-    window closes and sets the ``unionml_trainer_samples_per_sec`` gauge).
-    The steps after the first ``warmup`` are timed (host clock between two
-    waits for the card); the kernels' launches per timed step must be
-    :data:`VIT_LAUNCHES_PER_STEP` and the last loss below the first."""
+    (``build_model``, ``@model.train_step(**train_step_options)``,
+    ``model.train``) on synthetic images with learnable labels: ``epochs``
+    x ``batches_per_epoch`` steps of ``batch`` (54 steps by default, so the
+    trainer's 50-step throughput window closes and sets the
+    ``unionml_trainer_samples_per_sec`` gauge). The steps after the first
+    ``warmup`` are timed (host clock between two waits for the card); the
+    kernels' launches per timed step must be :data:`VIT_LAUNCHES_PER_STEP`
+    and the last loss below the first. ``keep_state`` keeps the trained
+    state under ``"state"`` (not JSON: the caller takes it out)."""
     from unionml_tpu_torch.templates.vision_tpu.app import build_model
 
     on_card = device == "cuda"
     steps = batches_per_epoch * epochs
     run = marked_training(
-        lambda on_step: build_model(config, name="chip_smoke_vit", reader_cache=False,
-                                    on_step=on_step),
+        lambda on_step: build_model(config, name=f"chip_smoke_{name}", reader_cache=False,
+                                    on_step=on_step, train_step_options=train_step_options),
         vit_kernels(), steps=steps, warmup=warmup, on_card=on_card,
         hyperparameters={"device": device, "learning_rate": 3e-4},
         # the template's split keeps 80% for training
         trainer_kwargs={"num_epochs": epochs, "batch_size": batch},
         n=batch * batches_per_epoch * 5 // 4, seed=0,
     )
-    del run["state"]
+    if not keep_state:
+        del run["state"]
     step_ms, per_step, gauge = run["step_ms"], run["launches_per_step"], run[
         "samples_per_sec_gauge"]
     losses = run["losses"]
@@ -1534,11 +1556,11 @@ def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
         "batch": batch, "steps": steps, "samples_per_s": batch / step_ms * 1e3,
         "first_loss": losses[0], "last_loss": losses[-1], **run,
     }
-    log(f"vit: {steps} steps of batch {batch} ({warmup} warm-up): step_ms {step_ms} "
+    log(f"{name}: {steps} steps of batch {batch} ({warmup} warm-up): step_ms {step_ms} "
         f"samples/s {out['samples_per_s']} gauge unionml_trainer_samples_per_sec {gauge} "
         f"peak memory {out['peak_mem_gib']} GiB, wall {out['wall_s']} s (reader, split, "
         f"evaluation included)")
-    log(f"vit: loss first {losses[0]} last {losses[-1]}; eval {out['eval']}; launches per "
+    log(f"{name}: loss first {losses[0]} last {losses[-1]}; eval {out['eval']}; launches per "
         f"timed step {per_step}; launches in the run {out['launches']}")
     if on_card:
         if per_step != VIT_LAUNCHES_PER_STEP:
@@ -1546,6 +1568,176 @@ def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
                                  f"{VIT_LAUNCHES_PER_STEP}")
         if not gauge > 0:
             raise AssertionError("the trainer set no unionml_trainer_samples_per_sec gauge")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 3d: the threaded feed, goodput and checkpoints on ViT-B/16
+# --------------------------------------------------------------------- #
+
+GOODPUT_ATTRIBUTED_MIN = 0.95   # share of the trainer's wall time the goodput buckets explain
+
+
+def same_state_bits(a, b) -> bool:
+    """Whether two states (or trees) hold the same leaves: tensors bit for
+    bit, counters equal."""
+    from unionml_tpu_torch.checkpoint.pytree_io import state_tree
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    la, lb = tree_leaves(state_tree(a)), tree_leaves(state_tree(b))
+    return len(la) == len(lb) and all(
+        (isinstance(y, torch.Tensor) and x.dtype == y.dtype and x.shape == y.shape
+         and torch.equal(_bits(x), _bits(y))) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb)
+    )
+
+
+def vit_feed_phase(config, inline: dict, inline_state, *, device: str = "cuda", batch: int = 64,
+                   batches_per_epoch: int = 18, epochs: int = 3, warmup: int = 2) -> dict:
+    """3b's run again with ``train_step(double_buffer=True, goodput=tracker)``:
+    the feed on a feeder thread with its own copy stream, batches from the
+    C++ host loader. The per-step losses and the final state must be the
+    bits of the inline run (``inline``, ``inline_state``: the same seeded
+    init and batch stream, kernels without atomics), the ViT launches per
+    step :data:`VIT_LAUNCHES_PER_STEP` (checked by :func:`vit_train_phase`
+    on the card), and the goodput buckets must explain at least
+    :data:`GOODPUT_ATTRIBUTED_MIN` of the trainer's wall time."""
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.data.native import get_library
+    from unionml_tpu_torch.goodput import GoodputTracker
+
+    if device == "cuda" and get_library() is None:
+        raise AssertionError("the C++ host loader did not build: the feed would take the "
+                             "numpy path")
+    tracker = GoodputTracker(registry=telemetry.MetricsRegistry())
+    run = vit_train_phase(config, device=device, batch=batch,
+                          batches_per_epoch=batches_per_epoch, epochs=epochs, warmup=warmup,
+                          train_step_options={"double_buffer": True, "goodput": tracker},
+                          name="vit_feed", keep_state=True)
+    same_state = same_state_bits(run.pop("state"), inline_state)
+    same_losses = run["losses"] == inline["losses"]
+    report = tracker.report()
+    buckets = report["buckets_s"]
+    out = {"native_loader": get_library() is not None, "threaded": run,
+           "inline_step_ms": inline["step_ms"], "threaded_step_ms": run["step_ms"],
+           "inline_samples_per_s": inline["samples_per_s"],
+           "threaded_samples_per_s": run["samples_per_s"],
+           "same_loss_bits": same_losses, "same_state_bits": same_state, "goodput": report}
+    log(f"vit_feed: step_ms inline {inline['step_ms']} threaded {run['step_ms']}; samples/s "
+        f"inline {inline['samples_per_s']} threaded {run['samples_per_s']}; native loader "
+        f"{out['native_loader']}")
+    log(f"vit_feed: goodput wall {report['wall_s']} s, attributed "
+        f"{report['attributed_fraction']}, goodput ratio {report['goodput_ratio']}; compute "
+        f"{buckets['compute']} s, data_wait {buckets['data_wait']} s, host_to_device "
+        f"{buckets['host_to_device']} s")
+    log(f"vit_feed: threaded vs inline: same loss bits {same_losses}, same state bits "
+        f"{same_state}")
+    if not (same_losses and same_state):
+        raise AssertionError("the threaded feed's run differs from the inline run's bits")
+    if report["attributed_fraction"] < GOODPUT_ATTRIBUTED_MIN:
+        raise AssertionError(f"goodput attributes {report['attributed_fraction']} of the "
+                             f"wall time, below {GOODPUT_ATTRIBUTED_MIN}")
+    return out
+
+
+def vit_elastic_phase(config, *, device: str = "cuda", batch: int = 64, steps: int = 16,
+                      save_every: int = 4, preempt_at: int = 10) -> dict:
+    """ViT ``config`` through the template's ``model.train`` with
+    ``train_step(checkpoint_dir=..., save_every=4, double_buffer=True,
+    goodput=tracker)`` for ``steps`` steps, uninterrupted; then the same
+    run with a :class:`Preemption` raised by the elastic trainer's fault
+    hook after step ``preempt_at``, and a relaunch from a fresh state,
+    which must resume at the newest checkpoint before it and end at the
+    uninterrupted run's bits (params and optimizer state). Records the
+    checkpoint's bytes, the save stall on the loop, the background commit,
+    the restore, and the ``checkpoint`` / ``preemption`` buckets. The
+    checkpoints live in a temporary directory under ``build/``, deleted at
+    the end."""
+    import shutil
+    import tempfile
+
+    from unionml_tpu_torch import elastic, telemetry
+    from unionml_tpu_torch.checkpoint._metrics import checkpoint_metrics, tree_nbytes
+    from unionml_tpu_torch.checkpoint.async_writer import AsyncCheckpointManager
+    from unionml_tpu_torch.checkpoint.pytree_io import state_tree
+    from unionml_tpu_torch.goodput import GoodputTracker
+    from unionml_tpu_torch.templates.vision_tpu.app import build_model
+
+    (HERE / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="elastic-", dir=HERE / "build"))
+
+    def train(ckpt: Path) -> tuple:
+        tracker = GoodputTracker(registry=telemetry.MetricsRegistry())
+        model = build_model(config, name="chip_smoke_vit_elastic", reader_cache=False,
+                            train_step_options=dict(checkpoint_dir=str(ckpt),
+                                                    save_every=save_every, max_checkpoints=2,
+                                                    double_buffer=True, goodput=tracker))
+        state, _ = model.train(hyperparameters={"device": device, "learning_rate": 3e-4},
+                               trainer_kwargs={"num_epochs": 1, "batch_size": batch},
+                               # the template's split keeps 80% for training
+                               n=batch * steps * 5 // 4, seed=0)
+        return state, tracker
+
+    def samples(tracker, series: str) -> list:
+        return checkpoint_metrics(tracker.registry)[series].labels("async").samples()
+
+    real = elastic.run_elastic_trainer
+
+    def with_fault(**kwargs):
+        def hook(step: int) -> None:
+            if step == preempt_at:
+                raise elastic.Preemption(f"preempted after step {step}")
+
+        return real(fault_hook=hook, **kwargs)
+
+    try:
+        whole, whole_tracker = train(root / "whole")
+        elastic.run_elastic_trainer = with_fault
+        try:
+            train(root / "preempted")
+            raise AssertionError("the injected preemption did not stop the run")
+        except elastic.Preemption:
+            pass
+        finally:
+            elastic.run_elastic_trainer = real
+        resume_step = AsyncCheckpointManager(root / "preempted").latest_step()
+        resumed, resumed_tracker = train(root / "preempted")
+        same = same_state_bits(whole, resumed)
+        nbytes = tree_nbytes(state_tree(whole))
+        whole_report, resumed_report = whole_tracker.report(), resumed_tracker.report()
+        out = {
+            "steps": steps, "save_every": save_every, "preempt_at": preempt_at,
+            "resume_step": resume_step, "final_step": resumed.step,
+            "optimizer_count": resumed.opt_state["count"], "same_state_bits": same,
+            "checkpoint_bytes": nbytes,
+            "save_stall_ms": samples(whole_tracker, "save_ms"),
+            "commit_ms": samples(whole_tracker, "commit_ms"),
+            "restore_ms": samples(resumed_tracker, "restore_ms"),
+            "whole_checkpoint_s": whole_report["badput_s"]["checkpoint"],
+            "resumed_checkpoint_s": resumed_report["badput_s"]["checkpoint"],
+            "resumed_preemption_s": resumed_report["badput_s"]["preemption"],
+            "whole_attributed": whole_report["attributed_fraction"],
+            "whole_wall_s": whole_report["wall_s"], "resumed_wall_s": resumed_report["wall_s"],
+        }
+        del whole, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"vit_elastic: {steps} steps, a save every {save_every}: checkpoint {nbytes} bytes; "
+        f"save stall on the loop ms {out['save_stall_ms']}; commit ms {out['commit_ms']}; "
+        f"buckets: checkpoint {out['whole_checkpoint_s']} s of {out['whole_wall_s']} s wall "
+        f"(attributed {out['whole_attributed']})")
+    log(f"vit_elastic: preempted after step {preempt_at}, resumed at step {resume_step}: "
+        f"restore ms {out['restore_ms']}; buckets: preemption {out['resumed_preemption_s']} s, "
+        f"checkpoint {out['resumed_checkpoint_s']} s; final step {out['final_step']}, "
+        f"optimizer count {out['optimizer_count']}; same bits as the uninterrupted run {same}")
+    expected_resume = preempt_at - preempt_at % save_every
+    if resume_step != expected_resume or out["final_step"] != steps \
+            or out["optimizer_count"] != steps:
+        raise AssertionError(f"the relaunch resumed at step {resume_step} (expected "
+                             f"{expected_resume}) and ended at step {out['final_step']}")
+    if not same:
+        raise AssertionError("the preempted and resumed run ended at other bits than the "
+                             "uninterrupted run")
     return out
 
 
@@ -3406,6 +3598,14 @@ def main(argv=None) -> int:
 
     from unionml_tpu_torch.ops import _build
 
+    from unionml_tpu_torch.data import native
+
+    t_host = time.perf_counter()
+    if native.get_library() is None:
+        raise AssertionError("the C++ host loader (unionml_tpu_torch/data/_native/"
+                             "hostloader.cpp) did not build")
+    log(f"build: the host loader built in {time.perf_counter() - t_host:.2f} s "
+        f"({native.library_path().name})")
     log(f"build: {len(_build.SOURCES)} kernel sources built in {_build.build_all():.2f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
@@ -3421,9 +3621,14 @@ def main(argv=None) -> int:
     from unionml_tpu_torch.models import ViTConfig
 
     vit_cfg = dataclasses.replace(ViTConfig.base16(num_classes=1000), norm_impl="fused")
-    vit = vit_train_phase(vit_cfg)
+    vit = vit_train_phase(vit_cfg, keep_state=True)
+    inline_state = vit.pop("state")
     vit["agreement"] = vit_grad_agreement(vit_cfg)
     log(f"time: vit training done at {time.perf_counter() - t_run:.1f} s")
+    vit["feed"] = vit_feed_phase(vit_cfg, vit, inline_state)
+    del inline_state
+    vit["elastic"] = vit_elastic_phase(vit_cfg)
+    log(f"time: vit feed and checkpoints done at {time.perf_counter() - t_run:.1f} s")
 
     from unionml_tpu_torch.models import LlamaConfig
 

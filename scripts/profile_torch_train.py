@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port's training step, on one card.
 
     python3 scripts/profile_torch_train.py [--model vit_b16] [--layers 12]
-        [--batch 64] [--steps 10] [--impl fused]
+        [--batch 64] [--steps 10] [--impl fused] [--feed resident]
     python3 scripts/profile_torch_train.py --model llama_lc [--batch 2]
 
 ``--model vit_b16`` (the default) builds ViT-B/16 (``ViTConfig.base16``,
@@ -14,7 +14,13 @@ builds ``LlamaConfig.llama_lc()`` (the long-context Llama of
 ``benchmarks/train_throughput.py``: 12 x 768, flash attention; ``--impl
 xla`` for the plain attention) and ``lm_step`` over one resident batch of
 ``--batch`` random sequences of 4096 tokens (AdamW at lr 1e-3).
-Weights are random, from a seeded generator on the card. Then:
+Weights are random, from a seeded generator on the card. ``--feed
+resident`` (the default) steps over one batch already on the card;
+``--feed inline`` / ``--feed threaded`` feed the step from 8 host batches
+(seeded numpy arrays, cycled) through the C++ host loader and
+``prefetch_to_device``, inline on the step loop's thread or on a feeder
+thread with its own copy stream (``double_buffer=True``), as
+``model.train`` does. Then:
 
 1. runs 3 warm-up steps, then ``--steps`` steps between two waits for the
    card, and prints the step time, samples/s (ViT) or tokens/s (Llama)
@@ -68,6 +74,26 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def host_feed(arrays: list, batch_size: int, *, threaded: bool):
+    """Endless shuffled batches of ``arrays`` from the C++ host loader
+    through ``prefetch_to_device``, as ``run_step_trainer`` feeds them."""
+    from unionml_tpu_torch.data.native import BatchLoader, get_library
+    from unionml_tpu_torch.data.pipeline import prefetch_to_device
+
+    if get_library() is None:
+        raise RuntimeError("the C++ host loader did not build")
+    loader = BatchLoader(arrays, batch_size=batch_size, seed=0, drop_remainder=True,
+                         copy=False)
+
+    def host_batches():
+        epoch = 0
+        while True:
+            yield from loader.epoch(epoch)
+            epoch += 1
+
+    return prefetch_to_device(host_batches(), device="cuda", double_buffer=threaded)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("vit_b16", "llama_lc"), default="vit_b16")
@@ -77,6 +103,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--impl", choices=("fused", "xla"), default="fused",
                     help="the port's kernels (fused; flash attention for llama_lc) or plain")
+    ap.add_argument("--feed", choices=("resident", "inline", "threaded"), default="resident",
+                    help="one resident batch, or host batches fed inline or threaded")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
@@ -106,10 +134,12 @@ def main() -> int:
         step = classification_step(module)
         rng = np.random.default_rng(0)
         size = config.image_size
-        images = torch.from_numpy(
-            rng.normal(size=(batch_size, size, size, 3)).astype(np.float32)).cuda()
-        batch = (images, (images.mean(dim=(1, 2, 3)) > 0).long())
-        shape = f"ViT-B/16 {args.layers} layers, batch {batch_size}, impl {args.impl}"
+        host = rng.normal(size=(batch_size * 8, size, size, 3)).astype(np.float32)
+        labels = (host.mean(axis=(1, 2, 3)) > 0).astype(np.int64)
+        batch = (torch.from_numpy(host[:batch_size]).cuda(),
+                 torch.from_numpy(labels[:batch_size]).cuda())
+        shape = (f"ViT-B/16 {args.layers} layers, batch {batch_size}, impl {args.impl}, "
+                 f"feed {args.feed}")
         unit, per_step = "samples", batch_size
     else:
         from unionml_tpu_torch.models import Llama, LlamaConfig, init_params, lm_step
@@ -128,12 +158,19 @@ def main() -> int:
                  f"{config.attn_impl}")
         unit, per_step = "tokens", batch_size * 4095
 
+    if args.feed == "resident":
+        batches = iter(lambda: batch, None)
+    elif args.model == "vit_b16":
+        batches = host_feed([host, labels], batch_size, threaded=args.feed == "threaded")
+    else:
+        print("profile_torch_train: --feed applies to vit_b16", file=sys.stderr)
+        return 2
     for _ in range(3):
-        state, metrics = step(state, batch)
+        state, metrics = step(state, next(batches))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        state, metrics = step(state, batch)
+        state, metrics = step(state, next(batches))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
     print(f"shape: {shape}")
@@ -146,7 +183,7 @@ def main() -> int:
     traced = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(traced):
-            state, metrics = step(state, batch)
+            state, metrics = step(state, next(batches))
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \

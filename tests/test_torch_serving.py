@@ -188,7 +188,8 @@ def test_template_trains_saves_and_loads_on_cpu(tmp_path):
 def test_port_imports_neither_jax_nor_reference():
     """Every module of unionml_tpu_torch imports without JAX, the JAX
     package or ``ml_dtypes`` (bf16 host rows are torch tensors; checked in
-    a fresh interpreter), the prefix cache among them."""
+    a fresh interpreter), the prefix cache, the feed, goodput, checkpoint and
+    elastic modules among them."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -196,10 +197,14 @@ def test_port_imports_neither_jax_nor_reference():
         "mods = [m[: -len('.__init__')] if m.endswith('.__init__') else m for m in mods]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert 'unionml_tpu_torch.serving.prefix_cache' in mods, mods\n"
+        "for new in ('serving.prefix_cache', 'elastic', 'goodput', 'checkpoint',\n"
+        "            'checkpoint.async_writer', 'checkpoint.pytree_io', 'checkpoint._metrics',\n"
+        "            'data.native', 'data.pipeline'):\n"
+        "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"
-        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
+        "             or m.split('.')[0] in ('orbax', 'msgpack'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -234,9 +239,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, served_params):
 
 def test_unported_model_paths_raise():
     model = template.build_model(name="unported")
-    # train_step is ported; its checkpoint / elastic option is not yet
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        model.train_step(lambda state, batch: (state, {}), checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError):
         model.remote(project="p")
     with pytest.raises(NotImplementedError):

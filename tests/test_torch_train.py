@@ -5,7 +5,8 @@ steps from the same bridged params and batches (plain and fused
 implementations, gradient accumulation, a bf16 first moment), the batch
 loader's order, and the ported ``vision_tpu`` template's ``model.train``
 against the JAX template's; then the synthesized trainer's streaming
-rules and the options that are not ported yet.
+rules, its feed, goodput and checkpoint options, and the options that are
+not ported yet.
 """
 
 import dataclasses
@@ -240,9 +241,10 @@ def test_prefetch_to_device_and_refusals():
     out = list(prefetch_to_device(iter(items), device="cpu"))
     assert len(out) == 5 and all(isinstance(t, torch.Tensor) for t in out[4])
     assert float(out[3][0][0, 0]) == 3.0
-    with pytest.raises(NotImplementedError, match="double_buffer"):
-        next(prefetch_to_device(iter(items), device="cpu", double_buffer=True))
-    with pytest.raises(NotImplementedError, match="A11"):
+    threaded = list(prefetch_to_device(iter(items), device="cpu", double_buffer=True))
+    assert [float(t[0][0, 0]) for t in threaded] == [float(t[0][0, 0]) for t in out]
+    assert all(isinstance(t, torch.Tensor) for t in threaded[4])
+    with pytest.raises(NotImplementedError, match="A6"):
         next(prefetch_to_device(iter(items), device="cpu", sharding=object()))
 
 
@@ -393,20 +395,35 @@ def test_trainer_accumulates_and_traces(tmp_path):
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"sharding": object()}, "A11"),
-    ({"overlap_grads": True}, "A11"),
-    ({"checkpoint_dir": "ckpt"}, "checkpoint"),
-    ({"goodput": True}, "GoodputTracker"),
-    ({"double_buffer": True}, "threaded feed"),
+    ({"sharding": object()}, "A6"),
+    ({"overlap_grads": True}, "A6"),
+    ({"checkpoint_dir": "ckpt"}, None),
+    ({"goodput": True}, None),
+    ({"double_buffer": True}, None),
 ])
-def test_train_step_options_not_ported_raise(option, match):
-    model = Model(name="refusals")
-    with pytest.raises(NotImplementedError, match=match):
-        model.train_step(lambda state, batch: (state, {}), **option)
-    if "checkpoint_dir" not in option:
+def test_train_step_options_not_ported_raise(option, match, tmp_path):
+    """Sharding and gradient overlap wait for the parallelism port and
+    raise; the feed, goodput and checkpoint options register and train
+    (to the plain run's params)."""
+    model = Model(name="options")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            model.train_step(lambda state, batch: (state, {}), **option)
         step, state, x, y = _stream_problem()
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=match):
             run_step_trainer(step_fn=step, state=state, features=x, targets=y, **option)
+        return
+    if "checkpoint_dir" in option:
+        option = {"checkpoint_dir": str(tmp_path / "ckpt"), "save_every": 2}
+    step, state, x, y = _stream_problem()
+    model.train_step(step, **option)
+    got = model._trainer(state, x, targets=y, batch_size=32)
+    want = run_step_trainer(step_fn=step, state=state, features=x, targets=y, batch_size=32)
+    assert got.step == want.step == 4
+    for a, b in zip(tree_leaves(got.params), tree_leaves(want.params)):
+        assert torch.equal(a, b)
+    if "checkpoint_dir" in option:
+        assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["step_2", "step_4"]
 
 
 def test_train_step_guard_is_wired():

@@ -3,17 +3,20 @@
 The port of :mod:`unionml_tpu.execution`'s plain route:
 :func:`run_step_trainer` drives ``step(state, batch) -> (state, metrics)``
 over epochs of static-shape batches (remainders dropped), fed from the
-deterministic :class:`~unionml_tpu_torch.data.native.BatchLoader` (or from
-a stream) through :func:`~unionml_tpu_torch.data.pipeline
-.prefetch_to_device`, onto the device of the state's params. PyTorch runs
-eagerly, so there is no compile step: each step enqueues its kernels and
-returns; a window boundary (or ``measure_device_time``) waits for the card.
-The loop publishes the ``unionml_trainer_*`` metric families into the
-port's telemetry registry.
+deterministic :class:`~unionml_tpu_torch.data.native.BatchLoader` (the C++
+host loader, or its numpy path; or from a stream) through
+:func:`~unionml_tpu_torch.data.pipeline.prefetch_to_device`, inline or on
+a feeder thread with its own copy stream (``double_buffer=True``), onto
+the device of the state's params. PyTorch runs eagerly, so there is no
+compile step: each step enqueues its kernels and returns; a window
+boundary (or ``measure_device_time``) waits for the card. The loop
+publishes the ``unionml_trainer_*`` metric families into the port's
+telemetry registry, and with ``goodput=`` the
+:class:`~unionml_tpu_torch.goodput.GoodputTracker`'s attribution of its
+wall time.
 
 Not ported yet (each raises ``NotImplementedError``): ``sharding=`` and
-``overlap_grads=True`` (parallelism, A11), ``goodput=`` (the
-``GoodputTracker``) and ``double_buffer=True`` (the threaded feed).
+``overlap_grads=True`` (parallelism, A6).
 """
 
 from __future__ import annotations
@@ -137,6 +140,7 @@ def run_step_trainer(
     registry: Optional[Any] = None,
     goodput: Any = None,
     measure_device_time: bool = False,
+    skew_every: int = 50,
 ) -> Any:
     """Run ``step_fn(state, batch) -> (state, metrics)`` over ``num_epochs``
     of shuffled ``batch_size`` batches of ``(features, targets)`` (or of
@@ -151,17 +155,23 @@ def run_step_trainer(
     step, so ``unionml_trainer_step_ms`` samples device step latency
     rather than the host's enqueue time. ``profile_dir`` writes a
     :mod:`torch.profiler` trace of the loop there.
+
+    ``double_buffer=True`` runs the feed (host batch pull, pin, copy
+    enqueue) on a feeder thread with its own copy stream, in the same
+    batch order. ``goodput=True`` (or a
+    :class:`~unionml_tpu_torch.goodput.GoodputTracker`) attributes the
+    loop's wall time: the step, its waits for the card and the trailing
+    drain in ``compute``, the feed in ``data_wait`` / ``host_to_device``;
+    it publishes ``unionml_train_goodput_ratio`` and
+    ``unionml_train_badput_seconds_total{cause}``, per-phase trace spans
+    and the step-time regression detector. Every ``skew_every`` steps the
+    step time is gathered across processes for the skew monitor, which in
+    the port's single process is a no-op.
     """
     if sharding is not None or overlap_grads:
         raise NotImplementedError(
-            "sharding= and overlap_grads=True need the parallelism port (ROADMAP.md, A11)"
+            "sharding= and overlap_grads=True need the parallelism port (ROADMAP.md, A6)"
         )
-    if goodput:
-        raise NotImplementedError(
-            "goodput= needs the GoodputTracker, not ported yet (ROADMAP.md)"
-        )
-    if double_buffer:
-        raise NotImplementedError("the threaded double_buffer feed is not ported yet (ROADMAP.md)")
     streaming = is_stream(features)
     if streaming:
         if targets is not None:
@@ -185,6 +195,8 @@ def run_step_trainer(
             "gradient accumulation needs at least accumulate_steps * "
             f"batch_size = {feed_rows} examples per step, got {n}"
         )
+    device = tree_device(resolve_params(state))
+    on_card = device.type == "cuda"
 
     def fed(out: Any) -> Any:
         return to_microbatches(out, accumulate_steps, batch_size) if accumulate_steps > 1 else out
@@ -211,16 +223,23 @@ def run_step_trainer(
             and (not has_targets or _is_plain_array(targets))
             and n >= feed_rows
         ):
-            # the reference's loader contract: the same seed gives the
-            # same batch order
+            # plain arrays go through the host loader, whose stream is the
+            # reference loader's: the same seed gives the same batch order.
+            # The feed pins (so copies) each batch before it pulls the next,
+            # so on the card the loader may lend its staging buffers
+            # (copy=False); on the CPU the fed tensor shares the numpy
+            # batch's memory, which must then be a fresh copy
             from unionml_tpu_torch.data.native import BatchLoader
 
             arrays = [_host(features)] + ([_host(targets)] if has_targets else [])
             loader = BatchLoader(arrays, batch_size=feed_rows, seed=seed, shuffle=True,
-                                 drop_remainder=True)
-            for epoch in range(num_epochs):
-                for batch in loader.epoch(epoch):
-                    yield fed(batch if has_targets else batch[0])
+                                 drop_remainder=True, copy=not on_card)
+            try:
+                for epoch in range(num_epochs):
+                    for batch in loader.epoch(epoch):
+                        yield fed(batch if has_targets else batch[0])
+            finally:
+                loader.close()
             return
         for epoch in range(num_epochs):
             for idx in batch_indices(n, feed_rows, shuffle=True, seed=seed + epoch):
@@ -229,10 +248,9 @@ def run_step_trainer(
 
     from unionml_tpu_torch.data.pipeline import prefetch_to_device
     from unionml_tpu_torch.diagnostics import StepTimer, trace
+    from unionml_tpu_torch.goodput import GoodputTracker, allgather_step_times, phase_scope
     from unionml_tpu_torch.introspection import ProgramTracker
 
-    device = tree_device(resolve_params(state))
-    on_card = device.type == "cuda"
     reg = registry if registry is not None else telemetry.get_registry()
     h_step = reg.histogram(
         "unionml_trainer_step_ms",
@@ -251,6 +269,9 @@ def run_step_trainer(
     c_steps = reg.counter("unionml_trainer_steps_total", "Train steps dispatched.")
     c_examples = reg.counter("unionml_trainer_examples_total", "Training examples consumed.")
     step = ProgramTracker(registry=reg, component="trainer").wrap("trainer.step", step_fn)
+    tracker = None
+    if goodput:
+        tracker = goodput if isinstance(goodput, GoodputTracker) else GoodputTracker(registry=reg)
 
     def wait() -> None:
         if on_card:
@@ -259,41 +280,67 @@ def run_step_trainer(
     timer = StepTimer()
     steps = 0
     metrics = None
+    if tracker is not None:
+        tracker.start()
     ctx = trace(profile_dir) if profile_dir else contextlib.nullcontext()
-    with ctx:
-        for batch in prefetch_to_device(host_batches(), device=device):
-            t_step = time.perf_counter()
-            state, metrics = step(state, batch)
-            window_closed = timer.closes_window()
-            if measure_device_time or window_closed:
+    feed = prefetch_to_device(host_batches(), device=device, goodput=tracker,
+                              double_buffer=double_buffer)
+    # finish() runs on the exception path too: a raising stream must not
+    # leave the trainer timeline open, nor a retry with the same tracker
+    # count the gap as unattributed wall time
+    try:
+        with ctx, contextlib.closing(feed):
+            for batch in feed:
+                t_step = time.perf_counter()
+                with phase_scope(tracker, "compute"):
+                    state, metrics = step(state, batch)
+                    window_closed = timer.closes_window()
+                    if measure_device_time or window_closed:
+                        wait()
+                # the wait above is step time; the publishes below are host
+                # bookkeeping and must not inflate the sample
+                step_s = time.perf_counter() - t_step
+                h_step.observe(step_s * 1e3)
+                if tracker is not None:
+                    # a window boundary's wait drains a whole window of
+                    # enqueued steps into one sample: keep it out of the
+                    # regression detector (with measure_device_time every
+                    # sample is comparable)
+                    tracker.step_complete(step_s, detect=measure_device_time or not window_closed)
+                    if skew_every > 0 and (steps + 1) % skew_every == 0:
+                        times = allgather_step_times(step_s)
+                        if times is not None:
+                            tracker.record_step_skew(steps + 1, times)
+                if window_closed:
+                    _publish_loss(metrics, g_loss)
+                    publish_memory_gauges(reg)
+                leaf = next((x for x in tree_leaves(batch) if getattr(x, "ndim", 0) >= 1), None)
+                if leaf is None:
+                    rows = batch_size
+                elif accumulate_steps > 1 and leaf.ndim >= 2:
+                    rows = leaf.shape[0] * leaf.shape[1]
+                else:
+                    rows = leaf.shape[0]
+                timer.tick(rows)
+                c_steps.inc()
+                c_examples.inc(rows)
+                if timer.rates:
+                    g_rate.set(timer.rates[-1])
+                steps += 1
+        if steps:
+            # the trailing wait is device compute still in flight
+            with phase_scope(tracker, "compute"):
                 wait()
-            step_s = time.perf_counter() - t_step
-            h_step.observe(step_s * 1e3)
-            if window_closed:
-                _publish_loss(metrics, g_loss)
-                publish_memory_gauges(reg)
-            leaf = next((x for x in tree_leaves(batch) if getattr(x, "ndim", 0) >= 1), None)
-            if leaf is None:
-                rows = batch_size
-            elif accumulate_steps > 1 and leaf.ndim >= 2:
-                rows = leaf.shape[0] * leaf.shape[1]
-            else:
-                rows = leaf.shape[0]
-            timer.tick(rows)
-            c_steps.inc()
-            c_examples.inc(rows)
-            if timer.rates:
-                g_rate.set(timer.rates[-1])
-            steps += 1
-    if steps:
-        wait()
-        _publish_loss(metrics, g_loss)
-        publish_memory_gauges(reg)
-        rate = timer.summary().get("samples_per_sec_median")
-        if rate:
-            g_rate.set(rate)
-        last = {k: float(v) if np.ndim(v) == 0 else v for k, v in metrics.items()} \
-            if isinstance(metrics, dict) else metrics
-        suffix = f", ~{rate:.0f} samples/sec" if rate else ""
-        logger.info(f"step trainer: {steps} steps, final metrics: {last}{suffix}")
+            _publish_loss(metrics, g_loss)
+            publish_memory_gauges(reg)
+            rate = timer.summary().get("samples_per_sec_median")
+            if rate:
+                g_rate.set(rate)
+            last = {k: float(v) if np.ndim(v) == 0 else v for k, v in metrics.items()} \
+                if isinstance(metrics, dict) else metrics
+            suffix = f", ~{rate:.0f} samples/sec" if rate else ""
+            logger.info(f"step trainer: {steps} steps, final metrics: {last}{suffix}")
+    finally:
+        if tracker is not None:
+            tracker.finish()
     return state

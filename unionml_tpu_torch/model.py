@@ -5,9 +5,12 @@ The PyTorch port of :mod:`unionml_tpu.model` (reference: unionml/model.py
 function ``(model_object, *data, **kwargs) -> model_object``, run
 host-side. The second tier, ``@model.train_step`` (a per-batch step with a
 synthesized epoch/batch loop,
-:func:`~unionml_tpu_torch.execution.run_step_trainer`), is ported without
-its sharding, overlap, goodput and checkpoint options; the remote
-lifecycle is not ported yet: it raises ``NotImplementedError``.
+:func:`~unionml_tpu_torch.execution.run_step_trainer`, or with
+``checkpoint_dir`` the preemption-safe
+:func:`~unionml_tpu_torch.elastic.run_elastic_trainer`), is ported with its
+threaded feed, goodput and checkpoint options and without its sharding and
+overlap options (parallelism, A6); the remote lifecycle is not ported yet:
+it raises ``NotImplementedError``.
 
 Everything else mirrors the reference surface: hyperparameter dataclass
 synthesis (model.py:137-161), three compiled tasks (model.py:377-502),
@@ -281,6 +284,9 @@ class Model(TrackedInstance):
         overlap_grads: bool = False,
         double_buffer: bool = False,
         checkpoint_dir: Optional[str] = None,
+        save_every: int = 100,
+        max_checkpoints: int = 3,
+        checkpoint_backend: str = "auto",
         goodput: Any = None,
         measure_device_time: bool = False,
         **train_task_kwargs,
@@ -296,33 +302,50 @@ class Model(TrackedInstance):
         (:func:`~unionml_tpu_torch.execution.run_step_trainer`).
         ``accumulate_steps=N`` feeds ``[N, batch_size, ...]`` microbatched
         batches for a step that accumulates them into one update;
-        ``measure_device_time`` waits for the card after every step.
+        ``measure_device_time`` waits for the card after every step (plain
+        route only).
+
+        ``double_buffer=True`` moves the data feed (host batch pull, pin,
+        copy enqueue) onto a feeder thread with its own copy stream.
+        ``goodput=True`` (or a
+        :class:`~unionml_tpu_torch.goodput.GoodputTracker`) attributes the
+        synthesized loop's wall time into compute and badput buckets on
+        both routes.
+
+        ``checkpoint_dir``: preemption safety — the synthesized trainer
+        routes through :func:`unionml_tpu_torch.elastic.run_elastic_trainer`:
+        the state is checkpointed every ``save_every`` optimizer steps
+        (keeping ``max_checkpoints``; ``checkpoint_backend`` ``"auto"`` /
+        ``"async"`` / ``"sync"``), and a killed-and-relaunched run resumes
+        from the newest checkpoint to the bit-identical final state of an
+        uninterrupted run. A relative path resolves against the working
+        directory.
 
         Not ported yet: ``sharding=`` and ``overlap_grads=True``
-        (parallelism, A11), ``double_buffer=True`` (the threaded feed),
-        ``goodput=`` (the ``GoodputTracker``) and ``checkpoint_dir=`` (the
-        checkpoint / elastic trainer); each raises ``NotImplementedError``
-        when the step is registered.
+        (parallelism, A6), which raise ``NotImplementedError`` when the step
+        is registered.
         """
         if fn is None:
             return lambda f: self.train_step(
                 f, sharding=sharding, accumulate_steps=accumulate_steps,
                 overlap_grads=overlap_grads, double_buffer=double_buffer,
-                checkpoint_dir=checkpoint_dir, goodput=goodput,
-                measure_device_time=measure_device_time, **train_task_kwargs,
+                checkpoint_dir=checkpoint_dir, save_every=save_every,
+                max_checkpoints=max_checkpoints, checkpoint_backend=checkpoint_backend,
+                goodput=goodput, measure_device_time=measure_device_time,
+                **train_task_kwargs,
             )
-        if checkpoint_dir:
-            raise _not_ported("train_step(checkpoint_dir=...) (the checkpoint / elastic trainer)")
         if sharding is not None or overlap_grads:
-            raise _not_ported("train_step(sharding=..., overlap_grads=True) (parallelism, A11)")
-        if goodput:
-            raise _not_ported("train_step(goodput=...) (the GoodputTracker)")
-        if double_buffer:
-            raise _not_ported("train_step(double_buffer=True) (the threaded feed)")
+            raise _not_ported("train_step(sharding=..., overlap_grads=True) (parallelism, A6)")
         type_guards.guard_train_step(fn)
         self._train_step = fn
         self._train_step_options = {
             "accumulate_steps": accumulate_steps,
+            "double_buffer": double_buffer,
+            "checkpoint_dir": checkpoint_dir,
+            "save_every": save_every,
+            "max_checkpoints": max_checkpoints,
+            "checkpoint_backend": checkpoint_backend,
+            "goodput": goodput,
             "measure_device_time": measure_device_time,
         }
         self._trainer = self._make_step_trainer()
@@ -347,6 +370,10 @@ class Model(TrackedInstance):
             seed: int = 0,
         ):
             opts = model._train_step_options
+            if opts["checkpoint_dir"]:
+                return model._run_checkpointed(model_object, features, targets,
+                                               num_epochs=num_epochs, batch_size=batch_size,
+                                               seed=seed)
             return run_step_trainer(
                 step_fn=model._train_step,
                 state=model_object,
@@ -356,11 +383,64 @@ class Model(TrackedInstance):
                 batch_size=batch_size,
                 seed=seed,
                 accumulate_steps=opts["accumulate_steps"],
+                double_buffer=opts["double_buffer"],
+                goodput=opts["goodput"],
                 measure_device_time=opts["measure_device_time"],
             )
 
         trainer.__name__ = "synthesized_step_trainer"
         return trainer
+
+    def _run_checkpointed(self, state, features, targets, *, num_epochs: int, batch_size: int,
+                          seed: int):
+        """The preemption-safe route of the synthesized trainer: periodic
+        checkpoints, and a resume from the newest one on relaunch."""
+        # looked up at call time, so a test can wrap it (a fault hook)
+        from unionml_tpu_torch import elastic
+        from unionml_tpu_torch.execution import _host, is_stream
+
+        opts = self._train_step_options
+        common = dict(
+            step_fn=self._train_step,
+            state=state,
+            checkpoint_dir=opts["checkpoint_dir"],
+            checkpoint_every=opts["save_every"],
+            max_to_keep=opts["max_checkpoints"],
+            checkpoint_backend=opts["checkpoint_backend"],
+            batch_size=batch_size,
+            seed=seed,
+            accumulate_steps=opts["accumulate_steps"],
+            double_buffer=opts["double_buffer"],
+            goodput=opts["goodput"],
+        )
+        if is_stream(features):
+            # a resumable stream must be a SEEKABLE or REPLAYABLE callable: a
+            # one-shot iterator cannot reproduce consumed batches after a
+            # preemption, and epochs don't apply to a step-indexed stream
+            if not callable(features):
+                raise ValueError(
+                    "checkpoint_dir training needs a CALLABLE stream — stream() "
+                    "replayable or stream(start_step) seekable — so a relaunch can "
+                    "resume; a one-shot iterator cannot reproduce consumed batches"
+                )
+            if targets is not None:
+                raise ValueError(
+                    "streaming trainers take batches from `features` alone — yield "
+                    "(x, y) tuples from the stream instead of passing targets"
+                )
+            if num_epochs != 1:
+                raise ValueError(
+                    "a checkpointed stream is ONE step-indexed sequence (got "
+                    f"num_epochs={num_epochs}); bound it with the stream itself and "
+                    "keep num_epochs=1"
+                )
+            state, _step = elastic.run_elastic_trainer(stream=features, **common)
+            return state
+
+        arrays = [_host(features)] + ([_host(targets)] if targets is not None else [])
+        state, _step = elastic.run_elastic_trainer(arrays=arrays, num_epochs=num_epochs,
+                                                   **common)
+        return state
 
     def predictor(self, fn: Optional[Callable] = None, **predict_task_kwargs):
         """Register the predictor (reference: model.py:230-252).

@@ -40,12 +40,15 @@ def build_model(
     name: str = "{{app_name}}",
     reader_cache: bool = True,
     on_step: Optional[Callable] = None,
+    train_step_options: Optional[dict] = None,
 ) -> Model:
     """The template's Dataset/Model spec for ``config``. ``reader_cache``
     caches the reader's output on disk (the stage cache);
     ``on_step(state, metrics)``, when given, is called after
     every step with the new state and the step's metrics (still on the
-    device), e.g. to log losses."""
+    device), e.g. to log losses. ``train_step_options`` are passed to
+    ``@model.train_step`` (e.g. ``double_buffer``, ``goodput``,
+    ``checkpoint_dir``)."""
     module = ViT(config)
     size = config.image_size
     dataset = Dataset(name=f"{name}_dataset", test_size=0.2)
@@ -103,7 +106,7 @@ def build_model(
 
     step = classification_step(module)
 
-    @model.train_step
+    @model.train_step(**(train_step_options or {}))
     def train_step(state, batch) -> tuple:
         state, metrics = step(state, batch)
         if on_step is not None:
