@@ -61,9 +61,10 @@ Phases, each of which fails the run with a non-zero exit:
 3c. llama — rows 9-11 (the flash-attention training forward with its
              logsumexp, the dq and the dk/dv backward kernels) at the
              llama_lc shape (q[2,4095,12,64], kv[2,4095,4,64], causal), at
-             the Llama-3-8B head geometry and at small non-causal and
-             cross-length shapes, each against its plain version, the
-             backward twice (the same bits); then the long-context Llama of
+             the Llama-3-8B head geometry (S = 2048, and S = 1023, the
+             QLoRA phase's) and at small non-causal and cross-length
+             shapes, each against its plain version, the backward twice
+             (the same bits); then the long-context Llama of
              benchmarks/train_throughput.py (12 x 768, 125M params, flash
              attention) trained through an LM app's model.train
              (@model.train_step -> lm_step) at batch 2 x 4096 tokens for 54
@@ -72,6 +73,21 @@ Phases, each of which fails the run with a non-zero exit:
              then, at 2 layers and full width, one step's loss and gradients
              against the plain path (per-tensor cosine) and two 3-step runs
              from one state (the same loss bits);
+3e. qlora — the qlora_8b preset of benchmarks/train_throughput.py: rank-16
+             LoRA adapters on q/k/v/o and gate/up/down over a frozen random
+             int8 Llama-3-8B base (32 layers, fp32 embedding and norm scales,
+             built leaf by leaf on the card), remat, flash attention, trained
+             through an LM app's model.train (create_lora_train_state ->
+             @model.train_step -> lm_step) for 12 steps of one repeated
+             1 x 1024-token batch: step ms, tokens/s, peak memory, the loss
+             falling, the base's bits unchanged (per-leaf checksums), AdamW
+             state of exactly 2 x 41,943,040 adapter elements, rows 9/10/11
+             launched 64/32/32 times a step; then, at 4 layers, the adapters'
+             gradients against the plain path (per-tensor cosine), two 3-step
+             runs from one state (the same loss bits), the merged tree
+             (merge_lora) on the rank-0 model against the unmerged forward
+             and 4 tokens served from it; the phase frees its state before
+             phase 4;
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
@@ -1390,24 +1406,29 @@ def vit_batches(config, batch: int, count: int, device: str, seed: int) -> list:
 
 
 def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_factory, params,
-                   batches, *, lr: float, cosine_min: float) -> dict:
+                   batches, *, lr: float, cosine_min: float, frozen=None) -> dict:
     """One step's loss and gradients of ``module_cls(kernel_cfg)`` against
     ``module_cls(plain_cfg)`` from the same ``params`` and first batch
     (``loss(outputs, labels)``; per-tensor cosine at least
     ``cosine_min``), then two runs of ``step_factory(module)`` over all
     ``batches`` from one AdamW state, whose losses must be the same bits
-    (the kernels use no atomics)."""
+    (the kernels use no atomics). With ``frozen`` (a LoRA base), ``params``
+    are the adapters: the gradients are theirs and the runs train a
+    ``LoRATrainState``."""
     import torch.nn.functional as F
 
-    from unionml_tpu_torch.models import TrainState, adamw
+    from unionml_tpu_torch.models import LoRATrainState, TrainState, adamw, merge_param_trees
     from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
+
+    def full(p):
+        return p if frozen is None else merge_param_trees(frozen, p)
 
     results = {}
     for path, cfg in (("kernel", kernel_cfg), ("plain", plain_cfg)):
         module = module_cls(cfg)
 
         def loss_fn(p, b, module=module):
-            return loss(module(p, b[0]), b[1]), {}
+            return loss(module(full(p), b[0]), b[1]), {}
 
         (value, _), grads = value_and_grad(loss_fn, params, batches[0])
         results[path] = (float(value), [g.float().flatten() for g in tree_leaves(grads)])
@@ -1424,7 +1445,12 @@ def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_fact
     step = step_factory(module_cls(kernel_cfg))
     runs = []
     for _ in range(2):
-        state = TrainState.create(apply_fn=module_cls(kernel_cfg), params=params, tx=adamw(lr))
+        if frozen is None:
+            state = TrainState.create(apply_fn=module_cls(kernel_cfg), params=params,
+                                      tx=adamw(lr))
+        else:
+            state = LoRATrainState.create(apply_fn=module_cls(kernel_cfg), params=params,
+                                          tx=adamw(lr), frozen_params=frozen)
         losses = []
         for b in batches:
             state, metrics = step(state, b)
@@ -1909,11 +1935,13 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
 
 def flash_train_kernel_phase() -> dict:
     """Rows 9-11 at the llama_lc training shape (S = 4095: lm_step trains
-    on tokens[:, :-1]), at the Llama-3-8B head geometry, and at small
-    non-causal and cross-length shapes."""
+    on tokens[:, :-1]), at the Llama-3-8B head geometry (S = 2048, and
+    S = 1023, the QLoRA phase's shape), and at small non-causal and
+    cross-length shapes."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for shape in ((2, 4095, 4095, 12, 4, 64, True), (1, 2048, 2048, 32, 8, 128, True),
+                  (1, 1023, 1023, 32, 8, 128, True),
                   (2, 200, 200, 4, 2, 64, False), (2, 40, 200, 4, 2, 64, True)):
         for name, case in flash_train_case(*shape, gen).items():
             out.setdefault(name, []).append(case)
@@ -1939,16 +1967,19 @@ def lm_tokens(n: int, seq: int, vocab: int, seed: int) -> np.ndarray:
     return (start + stride * np.arange(seq)[None]) % vocab
 
 
-def build_lm_app(config, *, name: str, on_step=None, eval_batch: int = 2):
+def build_lm_app(config, *, name: str, on_step=None, eval_batch: int = 2, make_state=None):
     """The LM app's Dataset/Model spec for ``config``: the reader makes
-    ``n`` sequences of ``seq`` tokens and returns the shifted pairs
+    ``n`` sequences of ``seq`` tokens (``rows > 0``: the first ``rows``
+    of them repeated, a repeated batch) and returns the shifted pairs
     (``features = tokens[:, :-1]``, ``targets = tokens[:, 1:]``), a seeded
     splitter cuts them, the parser returns the pair; the Model's ``init=``
     builds an AdamW ``TrainState`` of ``Llama(config)`` on the ``device``
-    hyperparameter (``None`` = CUDA), ``@model.train_step`` runs
-    ``lm_step`` on the ``(inputs, labels)`` batches the trainer feeds, and
-    the evaluator returns the mean cross entropy (``eval_batch`` rows at a
-    time). ``on_step(state, metrics)`` is called after every step."""
+    hyperparameter (``None`` = CUDA), or ``make_state(learning_rate,
+    device)`` when given (a LoRA state over a base built beforehand),
+    ``@model.train_step`` runs ``lm_step`` on the ``(inputs, labels)``
+    batches the trainer feeds, and the evaluator returns the mean cross
+    entropy (``eval_batch`` rows at a time). ``on_step(state, metrics)`` is
+    called after every step."""
     from typing import Optional
 
     from unionml_tpu_torch import Dataset, Model
@@ -1959,14 +1990,17 @@ def build_lm_app(config, *, name: str, on_step=None, eval_batch: int = 2):
         create_train_state,
         lm_step,
         masked_cross_entropy,
+        resolve_params,
     )
 
     module = Llama(config)
     dataset = Dataset(name=f"{name}_dataset", test_size=0.2)
 
     @dataset.reader
-    def reader(n: int = 64, seq: int = 4096, seed: int = 0) -> dict:
-        tokens = lm_tokens(n, seq, config.vocab_size, seed)
+    def reader(n: int = 64, seq: int = 4096, seed: int = 0, rows: int = 0) -> dict:
+        tokens = lm_tokens(rows or n, seq, config.vocab_size, seed)
+        if rows:
+            tokens = np.resize(tokens, (n, seq))
         return {"features": tokens[:, :-1], "targets": tokens[:, 1:]}
 
     @dataset.splitter
@@ -1983,6 +2017,8 @@ def build_lm_app(config, *, name: str, on_step=None, eval_batch: int = 2):
         return (data["features"], data["targets"])
 
     def init(learning_rate: float = 1e-3, device: Optional[str] = None) -> TrainState:
+        if make_state is not None:
+            return make_state(learning_rate, device)
         example = torch.zeros(1, 8, dtype=torch.long, device=resolve_device(device))
         return create_train_state(module, example, learning_rate=learning_rate)
 
@@ -1998,13 +2034,14 @@ def build_lm_app(config, *, name: str, on_step=None, eval_batch: int = 2):
 
     @model.evaluator
     def evaluator(state: TrainState, features: np.ndarray, targets: np.ndarray) -> float:
-        device = state.params["lm_head"]["kernel"].device
+        params = resolve_params(state)
+        device = params["final_norm"]["scale"].device
         total = 0.0
         with torch.no_grad():
             for i in range(0, len(features), eval_batch):
                 x = torch.as_tensor(features[i:i + eval_batch], device=device)
                 y = torch.as_tensor(targets[i:i + eval_batch], device=device)
-                total += float(masked_cross_entropy(module(state.params, x), y)) * len(x)
+                total += float(masked_cross_entropy(module(params, x), y)) * len(x)
         return total / len(features)
 
     return model
@@ -2082,6 +2119,208 @@ def lm_grad_agreement(config, *, device: str = "cuda", batch: int = 2, seq: int 
         cosine_min=LM_GRAD_COSINE_MIN,
     )
     return {"layers": layers, **out}
+
+
+# --------------------------------------------------------------------- #
+# QLoRA fine-tuning of Llama-3-8B (qlora_8b)
+# --------------------------------------------------------------------- #
+
+# the qlora_8b preset of benchmarks/train_throughput.py: a frozen int8
+# Llama-3-8B base (fp32 embedding and norm scales, as the reference's
+# training tree holds them), rank-16 adapters on q/k/v/o and gate/up/down,
+# per-block recomputation, flash attention, batch 1 x 1024 tokens
+QLORA_RANK = 16
+QLORA_SEQ = 1024
+# AdamW on the adapters at 1e-3: the loss must fall over 12 steps of one
+# repeated batch (the reference's preset trains at 1e-4 and only times)
+QLORA_LR = 1e-3
+# adapter-tree gradients, bf16 kernel path vs bf16 plain (xla attention)
+# path, per tensor
+QLORA_GRAD_COSINE_MIN = 0.99
+# logits of the merged tree on the rank-0 model vs the unmerged forward:
+# max |merged - unmerged| over max |unmerged| (int8 requantization of the
+# delta-shifted weights on top of bf16 noise; the reference's own bound)
+QLORA_MERGE_LIMIT = 0.05
+# lora_b's std in the agreement's adapters: non-zero so both factors get a
+# gradient (lora_b = 0 gives lora_a none), the delta ~8% of a base product
+QLORA_AGREEMENT_B_STD = 0.02
+
+
+def qlora_config(**overrides):
+    from unionml_tpu_torch.models import LlamaConfig
+
+    kwargs = dict(quantized=True, remat=True, attn_impl="flash", max_len=2048,
+                  lora_rank=QLORA_RANK)
+    kwargs.update(overrides)
+    return LlamaConfig(**kwargs)
+
+
+def adapter_count(config) -> int:
+    """Adapter elements of a Llama config: r (K + N) per dense site of
+    every block."""
+    from unionml_tpu_torch.models.convert import _dense_shapes
+
+    return config.num_layers * sum(config.lora_rank * (k + n)
+                                   for _, (k, n) in _dense_shapes(config).values())
+
+
+def leaf_checksums(tree, chunk: int = 1 << 24) -> list:
+    """One checksum of the bits of each tensor leaf of ``tree``, computed
+    where the leaf lives, ``chunk`` words at a time (no copy of the tree):
+    the sum of its 32-bit words (16- or 8-bit when its size asks) and their
+    sum weighted by position (mod 8191, plus 1), in int64 (wrapping), as a
+    list of integer pairs."""
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    sums = []
+    for leaf in tree_leaves(tree):
+        flat = leaf.contiguous().flatten()
+        nbytes = flat.numel() * flat.element_size()
+        word = torch.int32 if nbytes % 4 == 0 else (
+            torch.int16 if flat.element_size() == 2 else torch.int8)
+        words = flat.view(word)
+        total = torch.zeros(2, dtype=torch.long, device=words.device)
+        for start in range(0, words.numel(), chunk):
+            w = words[start:start + chunk].long()
+            pos = torch.arange(start, start + w.numel(), device=w.device) % 8191 + 1
+            total += torch.stack([w.sum(), (w * pos).sum()])
+        sums.append(total)
+    return torch.stack(sums).tolist()
+
+
+def qlora_train_phase(config, *, device: str = "cuda", seq: int = QLORA_SEQ, steps: int = 12,
+                      warmup: int = 2) -> dict:
+    """QLoRA fine-tuning through the LM app's ``model.train``
+    (``@model.train_step`` -> ``run_step_trainer`` -> ``lm_step``) of
+    rank-``config.lora_rank`` adapters on a frozen random int8 base built
+    leaf by leaf on ``device``, batch 1 x ``seq`` tokens, ``steps`` steps of
+    one repeated sequence at lr :data:`QLORA_LR`, the steps after
+    ``warmup`` timed. Checks: the base's bits unchanged (per-leaf
+    checksums), AdamW state of exactly twice the adapter elements (plus
+    the step counter), the loss falling, and (on the card) rows 9 / 10 /
+    11 launched twice / once / once per layer per timed step (the forward
+    twice under ``remat``)."""
+    from unionml_tpu_torch.models import Llama, create_lora_train_state
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    base = random_quantized_params(config, 7, device=device, float_dtype=torch.float32)
+    base_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(base))
+    before = leaf_checksums(base)
+    build_s = time.perf_counter() - t0
+
+    def make_state(learning_rate, device_arg):
+        example = torch.zeros(1, 8, dtype=torch.long, device=device)
+        return create_lora_train_state(Llama(config), example, base_params=base,
+                                       learning_rate=learning_rate)
+
+    run = marked_training(
+        lambda on_step: build_lm_app(config, name="chip_smoke_qlora", on_step=on_step,
+                                     make_state=make_state),
+        lm_kernels(), steps=steps, warmup=warmup, on_card=on_card,
+        hyperparameters={"device": device, "learning_rate": QLORA_LR},
+        # the splitter keeps 80% for training: `steps` rows of batch 1
+        trainer_kwargs={"num_epochs": 1, "batch_size": 1},
+        n=steps * 5 // 4, seq=seq, seed=0, rows=1,
+    )
+    state = run.pop("state")
+    del base
+    adapters = sum(t.numel() for t in tree_leaves(state.params))
+    moments = sum(t.numel() for t in tree_leaves((state.opt_state["mu"], state.opt_state["nu"])))
+    counters = [k for k, v in state.opt_state.items() if not isinstance(v, dict)]
+    same_base = leaf_checksums(state.frozen_params) == before
+    if adapters != adapter_count(config):
+        raise AssertionError(f"{adapters} adapter elements, expected {adapter_count(config)}")
+    if moments != 2 * adapters or counters != ["count"]:
+        raise AssertionError(f"AdamW state of {moments} elements and counters {counters}, "
+                             f"expected {2 * adapters} and ['count']")
+    if not same_base:
+        raise AssertionError("the frozen base's bits changed in training")
+    del state
+    step_ms, per_step, losses = run["step_ms"], run["launches_per_step"], run["losses"]
+    out = {
+        "config": f"Llama vocab {config.vocab_size}, width {config.hidden_dim}, "
+                  f"{config.num_layers} layers, {config.num_heads}/{config.num_kv_heads} heads, "
+                  f"mlp {config.mlp_dim}, int8 base (fp32 embedding, norms and scales), "
+                  f"{config.dtype} compute, LoRA rank {config.lora_rank} alpha "
+                  f"{config.lora_alpha} on q/k/v/o/gate/up/down, attn {config.attn_impl}, "
+                  f"norm {config.norm_impl}, remat {config.remat}",
+        "base_bytes": base_bytes, "base_build_s": build_s, "adapters": adapters,
+        "adamw_moment_elements": moments, "adamw_counters": counters,
+        "base_bits_unchanged": same_base, "batch": 1, "seq": seq, "steps": steps,
+        "learning_rate": QLORA_LR, "tokens_per_s": (seq - 1) / step_ms * 1e3,
+        "first_loss": losses[0], "last_loss": losses[-1], **run,
+    }
+    log(f"qlora: {config.num_layers} layers, base {base_bytes} bytes built in {build_s:.2f} s, "
+        f"{adapters} adapter params, AdamW moments {moments}; {steps} steps of 1 x {seq} tokens "
+        f"({warmup} warm-up): step_ms {step_ms} tokens/s {out['tokens_per_s']} peak memory "
+        f"{out['peak_mem_gib']} GiB, wall {out['wall_s']} s")
+    log(f"qlora: loss first {losses[0]} last {losses[-1]}; eval {out['eval']}; base bits "
+        f"unchanged {same_base}; launches per timed step {per_step}")
+    if on_card:
+        layers = float(config.num_layers)
+        want = {"flash_fwd": 2 * layers if config.remat else layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers}
+        if per_step != want:
+            raise AssertionError(f"QLoRA kernel launches per step {per_step}, expected {want}")
+    return out
+
+
+def qlora_agreement(config, *, device: str = "cuda", seq: int = QLORA_SEQ,
+                    layers: int = 4) -> dict:
+    """At ``layers`` layers and full width: one step's adapter gradients
+    of the kernel path against the plain path (``attn_impl="xla"``) from
+    one random int8 base and adapters with a non-zero ``lora_b``
+    (per-tensor cosine at least :data:`QLORA_GRAD_COSINE_MIN`), two 3-step
+    ``lm_step`` runs from one LoRA state with the same loss bits; then the
+    adapters folded in with ``merge_lora``: the merged tree's logits on the
+    rank-0 model within :data:`QLORA_MERGE_LIMIT` of the unmerged forward,
+    and 4 tokens served from it through ``make_lm_predictor``."""
+    from unionml_tpu_torch.models import (
+        Llama,
+        lm_step,
+        make_lm_predictor,
+        masked_cross_entropy,
+        merge_lora,
+        merge_param_trees,
+    )
+    from unionml_tpu_torch.models.lora import init_lora_params
+
+    config = dataclasses.replace(config, num_layers=layers)
+    base = random_quantized_params(config, 8, device=device, float_dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(9)
+    adapters = init_lora_params(config, gen)
+    for block in adapters.values():
+        for part in block.values():
+            for site in part.values():
+                site["lora_b"] = QLORA_AGREEMENT_B_STD * torch.randn(
+                    site["lora_b"].shape, generator=gen, device=device)
+    tokens = torch.from_numpy(lm_tokens(3, seq, config.vocab_size, seed=9)).to(device)
+    out = path_agreement(
+        f"qlora ({layers} layers)", Llama, config, dataclasses.replace(config, attn_impl="xla"),
+        masked_cross_entropy, lm_step, adapters,
+        [(t[:, :-1], t[:, 1:]) for t in tokens.split(1)], lr=QLORA_LR,
+        cosine_min=QLORA_GRAD_COSINE_MIN, frozen=base,
+    )
+    full = merge_param_trees(base, adapters)
+    merged = merge_lora(full, alpha=config.lora_alpha)
+    serve_cfg = dataclasses.replace(config, lora_rank=0)
+    with torch.no_grad():
+        want = Llama(config)(full, tokens[:1, :128]).float()
+        got = Llama(serve_cfg)(merged, tokens[:1, :128]).float()
+    merge_err = float((got - want).abs().max() / want.abs().max())
+    predictor = make_lm_predictor(Llama(serve_cfg), max_new_tokens=4, bucket_lens=(16,))
+    served = predictor(merged, [[5, 6, 7, 8]])
+    if not merge_err <= QLORA_MERGE_LIMIT:
+        raise AssertionError(f"merged-tree logits off the unmerged forward by {merge_err} of "
+                             f"their max, limit {QLORA_MERGE_LIMIT}")
+    if len(served) != 1 or len(served[0]) != 4 or not all(
+            0 <= t < config.vocab_size for t in served[0]):
+        raise AssertionError(f"the merged tree served {served}, expected 4 token ids")
+    log(f"qlora ({layers} layers): merged-tree logits max err / max {merge_err}; served "
+        f"{served[0]} from the merged tree")
+    return {"layers": layers, **out, "merge_rel_err": merge_err, "merged_served": served[0]}
 
 
 def kernel_phase(batch: int, bucket: int) -> dict:
@@ -2204,16 +2443,20 @@ def build_template(config, max_new_tokens: int, buckets: tuple, device: str):
     return model, params
 
 
-def random_quantized_params(config, seed: int, device: str = "cuda") -> dict:
+def random_quantized_params(config, seed: int, device: str = "cuda",
+                            float_dtype: torch.dtype = None) -> dict:
     """Random serving weights in the layout ``quantize_params`` writes for
     ``config`` (int8 everywhere, or packed int4 with the per-site int8
     fallback for ``weight_bits=4``), made straight from a seeded
-    ``torch.Generator`` on ``device``: no fp weights are quantized."""
+    ``torch.Generator`` on ``device``, leaf by leaf: no fp weights are
+    quantized. The embedding and the norm scales are in ``float_dtype``
+    (default the config's compute dtype, serving residency; fp32 is the
+    reference's training tree)."""
     from unionml_tpu_torch._device import torch_dtype
     from unionml_tpu_torch.models.convert import _dense_shapes, _int4_site
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    dtype = torch_dtype(config.dtype)
+    dtype = float_dtype or torch_dtype(config.dtype)
     d = config.hidden_dim
 
     def dense(path, k, n):
@@ -3637,6 +3880,12 @@ def main(argv=None) -> int:
     llama["agreement"] = lm_grad_agreement(llama_cfg)
     log(f"time: llama training done at {time.perf_counter() - t_run:.1f} s")
 
+    qlora_cfg = qlora_config()
+    qlora = qlora_train_phase(qlora_cfg)
+    qlora["agreement"] = qlora_agreement(qlora_cfg)
+    torch.cuda.empty_cache()   # the phase's base and states are gone: hand their blocks back
+    log(f"time: qlora done at {time.perf_counter() - t_run:.1f} s")
+
     base = LlamaConfig.llama3_8b()
     served = serve_phase(dataclasses.replace(base, num_layers=args.layers),
                          args.max_new_tokens)
@@ -3741,13 +3990,14 @@ def main(argv=None) -> int:
                if key in main_case},
             "serve_launches": served["launches"].get(name),
             "launches_per_train_step": per_train_step.get(name),
+            "launches_per_qlora_step": qlora["launches_per_step"].get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
                       "int8_kv": int8_kv,
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
-                      "vit_train": vit, "llama_train": llama,
+                      "vit_train": vit, "llama_train": llama, "qlora_train": qlora,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

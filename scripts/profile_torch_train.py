@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_train.py [--model vit_b16] [--layers 12]
         [--batch 64] [--steps 10] [--impl fused] [--feed resident]
     python3 scripts/profile_torch_train.py --model llama_lc [--batch 2]
+    python3 scripts/profile_torch_train.py --model qlora_8b [--norm fused]
 
 ``--model vit_b16`` (the default) builds ViT-B/16 (``ViTConfig.base16``,
 bf16 compute, fp32 params; with ``--impl fused`` the fused attention and
@@ -14,6 +15,15 @@ builds ``LlamaConfig.llama_lc()`` (the long-context Llama of
 ``benchmarks/train_throughput.py``: 12 x 768, flash attention; ``--impl
 xla`` for the plain attention) and ``lm_step`` over one resident batch of
 ``--batch`` random sequences of 4096 tokens (AdamW at lr 1e-3).
+``--model qlora_8b`` builds the ``qlora_8b`` preset of
+``benchmarks/train_throughput.py`` as ``chip_smoke.py``'s QLoRA phase does
+(a frozen random int8 Llama-3-8B base of ``--layers`` layers, default 32,
+with fp32 embedding and norm scales; rank-16 adapters; ``remat``; flash
+attention) and ``lm_step`` over a LoRA train state (AdamW at lr 1e-3 on
+the adapters) and one resident batch of ``--batch`` (default 1) random
+sequences of 1024 tokens. ``--norm fused`` runs the Llama models' RMSNorm
+through the fused norm kernels (rows 2 and 5), ``--norm xla`` (the
+default) in plain PyTorch.
 Weights are random, from a seeded generator on the card. ``--feed
 resident`` (the default) steps over one batch already on the card;
 ``--feed inline`` / ``--feed threaded`` feed the step from 8 host batches
@@ -96,10 +106,12 @@ def host_feed(arrays: list, batch_size: int, *, threaded: bool):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("vit_b16", "llama_lc"), default="vit_b16")
-    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--model", choices=("vit_b16", "llama_lc", "qlora_8b"), default="vit_b16")
+    ap.add_argument("--layers", type=int, default=None, help="12, or 32 for qlora_8b")
     ap.add_argument("--batch", type=int, default=None,
-                    help="64 images for vit_b16, 2 sequences for llama_lc")
+                    help="64 images for vit_b16, 2 sequences for llama_lc, 1 for qlora_8b")
+    ap.add_argument("--norm", choices=("xla", "fused"), default="xla",
+                    help="the Llama models' RMSNorm: plain PyTorch or the fused norm kernels")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--impl", choices=("fused", "xla"), default="fused",
                     help="the port's kernels (fused; flash attention for llama_lc) or plain")
@@ -120,12 +132,13 @@ def main() -> int:
     from unionml_tpu_torch.models import TrainState, adamw
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    layers = args.layers or (32 if args.model == "qlora_8b" else 12)
     if args.model == "vit_b16":
         from unionml_tpu_torch.models import ViT, ViTConfig, classification_step
         from unionml_tpu_torch.models import init_vit_params
 
         batch_size = args.batch or 64
-        config = dataclasses.replace(ViTConfig.base16(num_classes=1000), num_layers=args.layers,
+        config = dataclasses.replace(ViTConfig.base16(num_classes=1000), num_layers=layers,
                                      attn_impl=args.impl, norm_impl=args.impl)
         module = ViT(config)
         state = TrainState.create(apply_fn=module,
@@ -138,14 +151,14 @@ def main() -> int:
         labels = (host.mean(axis=(1, 2, 3)) > 0).astype(np.int64)
         batch = (torch.from_numpy(host[:batch_size]).cuda(),
                  torch.from_numpy(labels[:batch_size]).cuda())
-        shape = (f"ViT-B/16 {args.layers} layers, batch {batch_size}, impl {args.impl}, "
+        shape = (f"ViT-B/16 {layers} layers, batch {batch_size}, impl {args.impl}, "
                  f"feed {args.feed}")
         unit, per_step = "samples", batch_size
-    else:
+    elif args.model == "llama_lc":
         from unionml_tpu_torch.models import Llama, LlamaConfig, init_params, lm_step
 
         batch_size = args.batch or 2
-        config = LlamaConfig.llama_lc(num_layers=args.layers,
+        config = LlamaConfig.llama_lc(num_layers=layers, norm_impl=args.norm,
                                       attn_impl="flash" if args.impl == "fused" else "xla")
         module = Llama(config)
         state = TrainState.create(apply_fn=module,
@@ -154,9 +167,30 @@ def main() -> int:
         step = lm_step(module)
         batch = torch.randint(0, config.vocab_size, (batch_size, 4096), generator=gen,
                               device="cuda")
-        shape = (f"llama_lc {args.layers} layers, batch {batch_size} x 4096 tokens, attn "
-                 f"{config.attn_impl}")
+        shape = (f"llama_lc {layers} layers, batch {batch_size} x 4096 tokens, attn "
+                 f"{config.attn_impl}, norm {args.norm}")
         unit, per_step = "tokens", batch_size * 4095
+    else:
+        import chip_smoke
+
+        from unionml_tpu_torch.models import Llama, create_lora_train_state, lm_step
+
+        batch_size = args.batch or 1
+        config = chip_smoke.qlora_config(num_layers=layers, norm_impl=args.norm,
+                                         attn_impl="flash" if args.impl == "fused" else "xla")
+        module = Llama(config)
+        base = chip_smoke.random_quantized_params(config, 7, float_dtype=torch.float32)
+        state = create_lora_train_state(module, torch.zeros(1, 8, dtype=torch.long,
+                                                            device="cuda"),
+                                        base_params=base, learning_rate=1e-3)
+        del base
+        step = lm_step(module)
+        seq = chip_smoke.QLORA_SEQ
+        batch = torch.randint(0, config.vocab_size, (batch_size, seq), generator=gen,
+                              device="cuda")
+        shape = (f"qlora_8b {layers} layers, int8 base, LoRA rank {config.lora_rank}, remat, "
+                 f"batch {batch_size} x {seq} tokens, attn {config.attn_impl}, norm {args.norm}")
+        unit, per_step = "tokens", batch_size * (seq - 1)
 
     if args.feed == "resident":
         batches = iter(lambda: batch, None)
@@ -200,6 +234,15 @@ def main() -> int:
         ms = getattr(e, attr) / 1e3 / traced
         print(f"  {ms:9.3f} ms/step {100 * ms / busy_ms:6.2f}% x{e.count // traced:<5d} "
               f"[{kernel_class(e.key)}] {e.key[:80]}")
+    # the host side: device kernels launched a step, and the operators with
+    # the most self time on the host (the traced step's, profiler included)
+    host = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
+    print(f"host: {sum(e.count for e in events) // traced} device kernels a step; "
+          f"{sum(e.self_cpu_time_total for e in host) / 1e3 / traced} ms of operator self "
+          f"time a step (traced)")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        ms = e.self_cpu_time_total / 1e3 / traced
+        print(f"  host {ms:9.3f} ms/step x{e.count // traced:<6d} {e.key[:70]}")
     return 0
 
 

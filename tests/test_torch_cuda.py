@@ -1163,3 +1163,68 @@ def test_cuda_train_state_checkpoint_restores_onto_cuda_bit_exact(cuda, tmp_path
             assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
         else:
             assert x == y
+
+
+@pytest.mark.cuda
+def test_int8_weight_product_backward_on_card(cuda):
+    """The weight-only product's gradients on the card against its CPU form
+    on the same bf16 inputs: dx through an int8 weight with its scale, and
+    dx and dw through a float (LoRA factor) weight. Both round the scaled
+    cotangent to bf16 and accumulate in fp32 (another order on the card),
+    then round to bf16: within 2 bf16 ulps of the largest entry."""
+    from unionml_tpu_torch.models.quantization import weight_product
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(300, 512, generator=gen).bfloat16()
+    w_q = torch.randint(-127, 128, (512, 384), generator=gen, dtype=torch.int8)
+    scale = torch.rand(384, generator=gen) / 500 + 1e-3
+    w_f = torch.randn(512, 16, generator=gen).bfloat16()
+    dy = torch.randn(300, 384, generator=gen).bfloat16()
+    dz = torch.randn(300, 16, generator=gen).bfloat16()
+
+    def grads(device):
+        xs = x.to(device).requires_grad_()
+        wf = w_f.to(device).requires_grad_()
+        y = weight_product(xs, w_q.to(device), scale.to(device)).to(torch.bfloat16)
+        z = weight_product(xs, wf).to(torch.bfloat16)
+        loss = (y.float() * dy.to(device).float()).sum() + (z.float() * dz.to(device).float()).sum()
+        return [t.detach().cpu().float() for t in (y, z, *torch.autograd.grad(loss, (xs, wf)))]
+
+    for got, want in zip(grads(cuda), grads("cpu")):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got, want, rtol=2**-7, atol=want.abs().max().item() * 2**-7)
+
+
+@pytest.mark.cuda
+def test_qlora_lm_step_on_card(cuda):
+    """Two lm_steps of a small QLoRA Llama (int8 base, rank-4 adapters,
+    remat, flash attention) on the card: rows 9, 10 and 11 launch twice /
+    once / once per layer a step, the loss is finite, every adapter moves
+    (lora_b gets a gradient at the first step, lora_a once lora_b is
+    non-zero) and the frozen base keeps its bits."""
+    from unionml_tpu_torch.models import create_lora_train_state, lm_step
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           max_len=512, attn_impl="flash", remat=True, quantized=True,
+                           lora_rank=4)
+    base = quantize_params(init_params(dataclasses.replace(cfg, lora_rank=0), seed=0,
+                                       device=cuda), LLAMA_QUANT_PATTERNS)
+    frozen = [t.clone() for t in tree_leaves(base)]
+    tokens = torch.randint(0, 512, (2, 301), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    module = Llama(cfg)
+    state = create_lora_train_state(module, tokens[:1, :8], base_params=base,
+                                    learning_rate=1e-2)
+    start = [t.clone() for t in tree_leaves(state.params)]
+    step = lm_step(module)
+    kernels = (tflash.FWD_KERNEL, tflash.DQ_KERNEL, tflash.DKV_KERNEL)
+    for _ in range(2):
+        before = [kern.launches for kern in kernels]
+        state, metrics = step(state, tokens)
+        torch.cuda.synchronize()
+        assert [kern.launches - n for kern, n in zip(kernels, before)] == \
+            [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers]
+        assert torch.isfinite(metrics["loss"])
+    assert all(not torch.equal(a, b) for a, b in zip(start, tree_leaves(state.params)))
+    assert all(torch.equal(a, b) for a, b in zip(frozen, tree_leaves(state.frozen_params)))

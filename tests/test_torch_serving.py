@@ -188,8 +188,8 @@ def test_template_trains_saves_and_loads_on_cpu(tmp_path):
 def test_port_imports_neither_jax_nor_reference():
     """Every module of unionml_tpu_torch imports without JAX, the JAX
     package or ``ml_dtypes`` (bf16 host rows are torch tensors; checked in
-    a fresh interpreter), the prefix cache, the feed, goodput, checkpoint and
-    elastic modules among them."""
+    a fresh interpreter), the prefix cache, the feed, goodput, checkpoint,
+    elastic and LoRA modules among them."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -199,7 +199,7 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m)\n"
         "for new in ('serving.prefix_cache', 'elastic', 'goodput', 'checkpoint',\n"
         "            'checkpoint.async_writer', 'checkpoint.pytree_io', 'checkpoint._metrics',\n"
-        "            'data.native', 'data.pipeline'):\n"
+        "            'data.native', 'data.pipeline', 'models.lora'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"
@@ -246,7 +246,7 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError):
         model.predictor(lambda params, prompts: prompts, jit=True)
     with pytest.raises(NotImplementedError):
-        LlamaConfig.tiny(lora_rank=4)
+        LlamaConfig.tiny(num_experts=2)
 
 
 def test_batcher_array_mode_coalesces_trees():

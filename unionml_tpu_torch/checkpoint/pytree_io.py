@@ -64,8 +64,10 @@ def restore_into(target: Any, saved: Any) -> Any:
         out.append(t)
     tree = tree_unflatten(like, out)
     if isinstance(target, TrainState):
-        return dataclasses.replace(target, step=int(tree["step"]), params=tree["params"],
-                                   opt_state=tree["opt_state"])
+        # every tree of the state's state_dict(): params and opt_state, and
+        # a LoRA state's frozen_params
+        return dataclasses.replace(target, step=int(tree["step"]),
+                                   **{key: val for key, val in tree.items() if key != "step"})
     return tree
 
 

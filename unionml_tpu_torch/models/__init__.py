@@ -1,8 +1,13 @@
-"""The port's model zoo: the Llama model (serving and LM training) and the
-ViT training model with their train-state and step factories (the
-reference's zoo is ported one model at a time; ROADMAP.md)."""
+"""The port's model zoo: the Llama model (serving, LM training and LoRA /
+QLoRA fine-tuning) and the ViT training model with their train-state and
+step factories (the reference's zoo is ported one model at a time;
+ROADMAP.md)."""
 
-from unionml_tpu_torch.models.convert import from_jax_params, vit_from_jax_params
+from unionml_tpu_torch.models.convert import (
+    from_jax_params,
+    lora_from_jax_state,
+    vit_from_jax_params,
+)
 from unionml_tpu_torch.models.generate import (
     make_generator,
     make_lm_predictor,
@@ -10,6 +15,14 @@ from unionml_tpu_torch.models.generate import (
     serving_params,
 )
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig, init_cache, init_params
+from unionml_tpu_torch.models.lora import (
+    LoRADenseGeneral,
+    LoRATrainState,
+    create_lora_train_state,
+    merge_lora,
+    merge_param_trees,
+    split_lora_params,
+)
 from unionml_tpu_torch.models.quantization import (
     LLAMA_QUANT_PATTERNS,
     Int4DenseGeneral,
@@ -41,6 +54,13 @@ __all__ = [
     "init_cache",
     "init_params",
     "from_jax_params",
+    "lora_from_jax_state",
+    "LoRADenseGeneral",
+    "LoRATrainState",
+    "create_lora_train_state",
+    "merge_lora",
+    "merge_param_trees",
+    "split_lora_params",
     "make_generator",
     "make_lm_predictor",
     "make_sampler",

@@ -13,9 +13,12 @@ packed int4 ``kernel_p`` ``[K, N/2]`` + ``scale`` ``[N]`` or ``scale_g``
 numbers. For a ``weight_bits=4`` config each site must carry the form
 the config's layer declares there (int4 where ``tile_for`` gives a tile
 and the group divides K, the int8 fallback elsewhere); a tree packed for
-another tile or group is refused rather than decoded wrong. The rest
-of the reference's converter (HF safetensors import/export) is not
-ported yet.
+another tile or group is refused rather than decoded wrong. For a
+``lora_rank > 0`` config a dense site may also carry its adapters,
+``lora_a`` ``[K, r]`` and ``lora_b`` ``[r, N]``, beside an fp or int8 base;
+:func:`lora_from_jax_state` turns a JAX ``LoRATrainState`` (adapters and
+frozen base) into the port's. The rest of the reference's converter (HF
+safetensors import/export) is not ported yet.
 
 :func:`vit_from_jax_params` does the same for a ``unionml_tpu`` ViT tree
 (fp32 params): the flax Conv kernel ``[p, p, C, D]`` (HWIO), Dense kernels
@@ -92,6 +95,9 @@ def _check_dense(config: LlamaConfig, path, node, shapes, leaf_shape, seen) -> N
         leaves = {"kernel_q": (k, n), "scale": (n,)}
     else:
         leaves = {"kernel": fp_shape}
+    r = config.lora_rank
+    if r > 0 and path[-1] != "lm_head" and ("lora_a" in node or "lora_b" in node):
+        leaves.update(lora_a=(k, r), lora_b=(r, n))
     for name, want in leaves.items():
         _check(path + (name,), leaf_shape(path + (name,)), want)
         seen.add(path + (name,))
@@ -143,6 +149,37 @@ def from_jax_params(params: Mapping, config: LlamaConfig, device: DeviceLike = N
         return _to_tensor(node, dev)
 
     return convert(params, ())
+
+
+def lora_from_jax_state(state: Any, config: LlamaConfig, device: DeviceLike = None, *,
+                        learning_rate: float = 1e-4):
+    """A fresh JAX ``LoRATrainState`` (``unionml_tpu.models.lora``: its
+    ``params`` the adapters, its ``frozen_params`` the base; any leaves
+    ``np.asarray`` reads) as the port's
+    :class:`~unionml_tpu_torch.models.lora.LoRATrainState` on ``device``:
+    both trees through :func:`from_jax_params` (the adapters checked in
+    their sites), the module ``Llama(config)``, a new AdamW state at
+    ``learning_rate``. The JAX optimizer state is not carried over, so a
+    state past step 0 is refused."""
+    from unionml_tpu_torch.models.llama import Llama
+    from unionml_tpu_torch.models.lora import LoRATrainState, merge_param_trees, split_lora_params
+    from unionml_tpu_torch.models.train import adamw
+
+    if int(np.asarray(state.step)) != 0:
+        raise ValueError(
+            f"lora_from_jax_state carries a fresh state only (step 0), got step "
+            f"{int(np.asarray(state.step))}: the JAX optimizer state is not bridged"
+        )
+    full = merge_param_trees(_numpy_tree(state.frozen_params), _numpy_tree(state.params))
+    adapters, frozen = split_lora_params(from_jax_params(full, config, device))
+    return LoRATrainState.create(apply_fn=Llama(config), params=adapters,
+                                 tx=adamw(learning_rate), frozen_params=frozen)
+
+
+def _numpy_tree(tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
 
 
 def _get(tree: Mapping, path: Tuple[str, ...]):

@@ -23,7 +23,8 @@ the block-paged decode step (``block_table=``, through
 :class:`LayerNorm` (flax's statistics, or ``impl="fused"`` through
 :mod:`unionml_tpu_torch.ops.fused_norm`), q/k/v/o biases, and the gated
 and GELU :class:`MlpBlock`, with int8 or packed-int4 (``weight_bits=4``)
-weight-only projections. Cross attention raises ``NotImplementedError``.
+weight-only projections and LoRA adapters (``lora_rank``) on q/k/v/o and
+gate/up/down. Cross attention raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,16 +59,33 @@ def make_dense(
     int4_group: int = 0,
     int4_shards: int = 1,
     use_bias: bool = False,
+    lora_rank: int = 0,
+    lora_alpha: float = 16.0,
 ) -> nn.Module:
     """Dense-projection factory shared by every matmul site of the
     serving path (attention q/k/v/o, gated MLP, lm_head): when
     ``quantized``, int8 :class:`QuantizedDenseGeneral` or, with
     ``weight_bits=4``, packed-int4 :class:`Int4DenseGeneral` (group-wise
     scales with ``int4_group``, a packing that survives ``int4_shards``-way
-    column sharding); else the fp :class:`DenseGeneral`. (The reference's
-    LoRA sites are not ported; :class:`~unionml_tpu_torch.models.llama
-    .LlamaConfig` refuses them.) ``use_bias`` adds the fp layer's
-    ``bias``; quantized layers are bias-free."""
+    column sharding); else the fp :class:`DenseGeneral`. ``use_bias`` adds
+    the fp layer's ``bias``; quantized layers are bias-free.
+
+    ``lora_rank > 0`` builds :class:`~unionml_tpu_torch.models.lora
+    .LoRADenseGeneral` instead: the same base params (fp ``kernel`` or
+    int8 ``kernel_q`` + ``scale``) plus trainable ``lora_a`` / ``lora_b``
+    adapters (QLoRA with ``quantized``). Adapters compose with the fp or
+    int8 base only."""
+    if lora_rank > 0:
+        if weight_bits != 8:
+            # silently dropping an int4 request would train against the
+            # wrong base
+            raise ValueError("LoRA/QLoRA requires weight_bits=8")
+        from unionml_tpu_torch.models.lora import LoRADenseGeneral
+
+        return LoRADenseGeneral(
+            features, lora_rank, lora_alpha, axis=axis, quantized=quantized,
+            use_bias=use_bias, dtype=dtype,
+        )
     if quantized:
         if use_bias:
             raise ValueError("quantized dense layers are bias-free")
@@ -247,7 +265,8 @@ class Attention(nn.Module):
     Params: ``q``/``k``/``v`` dense kernels with features ``(heads,
     head_dim)`` and ``o`` contracting ``(heads, head_dim)`` — the
     reference's layout, fp (``kernel``), int8 (``kernel_q`` + ``scale``)
-    or packed int4 (``kernel_p`` + ``scale`` / ``scale_g``).
+    or packed int4 (``kernel_p`` + ``scale`` / ``scale_g``); with
+    ``lora_rank > 0`` each also carries ``lora_a`` / ``lora_b``.
     """
 
     def __init__(
@@ -269,6 +288,8 @@ class Attention(nn.Module):
         int4_group: int = 0,
         int4_tp: int = 1,
         use_bias: bool = False,
+        lora_rank: int = 0,
+        lora_alpha: float = 16.0,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
@@ -296,7 +317,7 @@ class Attention(nn.Module):
             return make_dense(
                 quantized=quantized, features=feats, dtype=self.dtype, axis=axis,
                 weight_bits=weight_bits, int4_group=int4_group, int4_shards=shards,
-                use_bias=use_bias,
+                use_bias=use_bias, lora_rank=lora_rank, lora_alpha=lora_alpha,
             )
 
         # q/k/v are column-parallel under tensor parallelism: their int4
@@ -483,6 +504,8 @@ class MlpBlock(nn.Module):
         int4_group: int = 0,
         int4_tp: int = 1,
         gelu_approximate: bool = True,
+        lora_rank: int = 0,
+        lora_alpha: float = 16.0,
         dtype: Any = torch.bfloat16,
     ):
         super().__init__()
@@ -496,6 +519,7 @@ class MlpBlock(nn.Module):
             return make_dense(
                 quantized=quantized, features=feats, dtype=dtype, weight_bits=weight_bits,
                 int4_group=int4_group, int4_shards=shards, use_bias=not gated,
+                lora_rank=lora_rank, lora_alpha=lora_alpha,
             )
 
         # gate/up are column-parallel under tensor parallelism, down is not

@@ -9,8 +9,9 @@ random tree of that layout on a device, and :func:`init_cache` the KV
 cache. Only the dense model is ported, with int8 or packed-int4
 (``weight_bits=4``) weight-only matmuls, the int8 KV cache
 (``kv_quant``), the block-paged decode step (``block_table=``) and, for
-training, per-block recomputation (``remat``): MoE and LoRA raise
-``NotImplementedError``.
+training, per-block recomputation (``remat``) and LoRA adapters on an fp
+or int8 base (``lora_rank``, :mod:`~unionml_tpu_torch.models.lora`): MoE
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,7 +69,11 @@ class LlamaConfig:
     # backward instead of keeping them
     remat: bool = False
     num_experts: int = 0
+    # > 0: trainable rank-r adapters on q/k/v/o and gate/up/down
+    # (models/lora.py); with quantized=True the QLoRA configuration. The
+    # LM head and the embedding carry none.
     lora_rank: int = 0
+    lora_alpha: float = 16.0
     # int8 KV cache (generation paths): per-(position, kv_head) fp32
     # scales; init_cache builds the quantized layout and Attention infers
     # it from the cache structure
@@ -76,15 +81,11 @@ class LlamaConfig:
     dtype: str = "bfloat16"
 
     def __post_init__(self):
-        for name, unported in (
-            ("num_experts", self.num_experts),
-            ("lora_rank", self.lora_rank),
-        ):
-            if unported:
-                raise NotImplementedError(
-                    f"LlamaConfig {name} is not ported to unionml_tpu_torch "
-                    "(see ROADMAP.md)"
-                )
+        if self.num_experts:
+            raise NotImplementedError(
+                "LlamaConfig num_experts is not ported to unionml_tpu_torch "
+                "(see ROADMAP.md)"
+            )
         if self.weight_bits not in (4, 8):
             raise ValueError(f"weight_bits must be 8 or 4, got {self.weight_bits}")
 
@@ -131,13 +132,14 @@ class LlamaBlock(nn.Module):
             rope_scaling=cfg.rope_scaling, causal=True, attn_impl=cfg.attn_impl,
             prefill_impl=cfg.prefill_impl, paged_impl=cfg.paged_impl,
             quantized=cfg.quantized, weight_bits=cfg.weight_bits,
-            int4_group=cfg.int4_group, int4_tp=cfg.int4_tp, dtype=dtype,
+            int4_group=cfg.int4_group, int4_tp=cfg.int4_tp, lora_rank=cfg.lora_rank,
+            lora_alpha=cfg.lora_alpha, dtype=dtype,
         )
         self.mlp_norm = RMSNorm(eps=cfg.norm_eps, dtype=dtype, impl=cfg.norm_impl)
         self.mlp = MlpBlock(
             cfg.mlp_dim, cfg.hidden_dim, gated=True, quantized=cfg.quantized,
             weight_bits=cfg.weight_bits, int4_group=cfg.int4_group, int4_tp=cfg.int4_tp,
-            dtype=dtype,
+            lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha, dtype=dtype,
         )
 
     def forward(self, params, x, *, positions=None, cache=None, cache_index=None,
@@ -294,10 +296,12 @@ def init_params(
     """A random fp param tree in the reference's layout, made on ``device``
     (``None`` = CUDA, raising without one) from a generator there seeded
     with ``seed``: kernels normal with std 1/sqrt(fan_in),
-    embedding normal with std 1/sqrt(hidden), norm scales one. (The
-    reference draws flax's initializers from a JAX key; the two give
-    different numbers, so parity tests carry JAX weights over with
-    :func:`~unionml_tpu_torch.models.convert.from_jax_params`.)"""
+    embedding normal with std 1/sqrt(hidden), norm scales one; with
+    ``lora_rank > 0`` also the adapters of
+    :func:`~unionml_tpu_torch.models.lora.init_lora_params`, drawn after
+    the base. (The reference draws flax's initializers from a JAX key; the
+    two give different numbers, so parity tests carry JAX weights over
+    with :func:`~unionml_tpu_torch.models.convert.from_jax_params`.)"""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     cfg = config
@@ -329,6 +333,10 @@ def init_params(
         }
     params["final_norm"] = {"scale": ones(d)}
     params["lm_head"] = {"kernel": normal((d, cfg.vocab_size), d)}
+    if cfg.lora_rank > 0:
+        from unionml_tpu_torch.models.lora import init_lora_params, merge_param_trees
+
+        params = merge_param_trees(params, init_lora_params(cfg, gen, dtype=dtype))
     return params
 
 

@@ -10,8 +10,10 @@ group-wise ``scale_g [K/g, N]``, through
 runs as a plain matrix product with fp32 accumulation and an fp32
 result, then ``* scale``, then ONE cast to the compute dtype — the
 reference's rounding point (a product that rounds to bf16 before the
-scale would be a different result). MoE expert blocks are not ported yet
-and raise.
+scale would be a different result). :func:`weight_product` carries the
+gradient of that product to its input (QLoRA trains adapters through a
+frozen int8 base) and, for a float weight, to the weight. MoE expert
+blocks are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -65,6 +67,54 @@ def _dense_geometry(x: torch.Tensor, axis, features):
     return xt, tuple(xt.shape[:-1]), feats, k, n
 
 
+class _WeightProduct(torch.autograd.Function):
+    """``fp32_product(x, w) [* scale]`` with its gradients, in the
+    reference's rounding. The fp32 cotangent (times ``scale``) rounds to
+    ``x``'s dtype, as the activations do on the way in, and meets ``w`` in
+    a product accumulated in fp32, cast once to ``x``'s dtype: on the card
+    a bf16 product on the tensor cores, as the reference's fp32-by-bf16
+    transpose product runs on its TPU (default precision, one bf16 pass);
+    in fp32 the exact transpose. A float ``w`` gets ``x^T @ g`` the same
+    way, cast to its dtype; an integer ``w`` and ``scale`` get none. ``w``
+    is cast per call, never kept cast; ``x`` is kept only when ``w`` needs
+    a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale):
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, scale)
+        return _scaled_product(x, w, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale = ctx.saved_tensors
+        g = g.float() if scale is None else g.float() * scale.float()
+        g = g.to(ctx.x_dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = fp32_product(g, w.t()).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = fp32_product(x.t(), g).to(w.dtype)
+        return dx, dw, None
+
+
+def _scaled_product(x, w, scale):
+    y = fp32_product(x, w)
+    return y if scale is None else y * scale.float()
+
+
+def weight_product(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor = None) -> torch.Tensor:
+    """``x @ w`` (``x`` [M, K] in the compute dtype, ``w`` [K, N] int8 or
+    float) accumulated in fp32 with an fp32 result, times ``scale`` [N]
+    when given, NOT rounded: the product of the weight-only layers and of
+    the LoRA branch, differentiable in ``x`` (and in a float ``w``). With
+    nothing to differentiate (serving) the same product runs without the
+    autograd node."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _WeightProduct.apply(x, w, scale)
+    return _scaled_product(x, w, scale)
+
+
 class DenseGeneral(nn.Module):
     """fp dense layer with flax ``DenseGeneral`` geometry: the kernel is
     ``[*contracted dims, *features]``; input, kernel and (with
@@ -110,7 +160,7 @@ class QuantizedDenseGeneral(nn.Module):
         # inputs round to the compute dtype as in the reference; the
         # product then accumulates in fp32 and is NOT rounded before the
         # scale
-        y = fp32_product(xt.reshape(-1, k).to(self.dtype), kernel_q) * scale.float()
+        y = weight_product(xt.reshape(-1, k).to(self.dtype), kernel_q, scale)
         return y.to(self.dtype).reshape(lead + feats)
 
 

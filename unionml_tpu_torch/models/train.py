@@ -11,8 +11,10 @@ scale_by_learning_rate``, ``mu_dtype`` for the first moment only),
 metrics)`` as in the reference; autograd takes the place of
 ``jax.value_and_grad`` and the optimizer builds new param tensors (the
 reference's functional update), with the multi-tensor ``torch._foreach``
-ops where the dtypes allow. The gradient-overlap modes wait for
-parallelism (ROADMAP.md, A11); the LoRA train state with A12.
+ops where the dtypes allow. A state with ``frozen_params`` (the LoRA
+train state of :mod:`~unionml_tpu_torch.models.lora`) is differentiated
+in its ``params`` only, the frozen tree merged in inside the loss. The
+gradient-overlap modes wait for parallelism (ROADMAP.md, A6).
 """
 
 from __future__ import annotations
@@ -189,17 +191,16 @@ class TrainState:
 
     def load_state_dict(self, state: dict) -> "TrainState":
         """A copy of this state (same apply function and optimizer) holding
-        ``state``'s values, each tensor moved onto this state's device."""
+        ``state``'s values (every tree ``state_dict()`` gives), each tensor
+        moved onto this state's device and dtype."""
         def take(mine, saved):
             if isinstance(mine, torch.Tensor):
                 return saved.to(device=mine.device, dtype=mine.dtype)
             return saved
 
-        return dataclasses.replace(
-            self, step=int(state["step"]),
-            params=tree_map(take, self.params, state["params"]),
-            opt_state=tree_map(take, self.opt_state, state["opt_state"]),
-        )
+        trees = {key: tree_map(take, getattr(self, key), saved)
+                 for key, saved in state.items() if key != "step"}
+        return dataclasses.replace(self, step=int(state["step"]), **trees)
 
 
 def create_train_state(
@@ -281,6 +282,21 @@ def accumulated_value_and_grad(
     return (loss_acc / n, tree_map(lambda a: a / n, aux_acc)), grads
 
 
+def _bind_frozen(loss_fn: Callable, state: Any) -> Callable:
+    """A loss over FULL params adapted to a state that differentiates a
+    subset: for a state with ``frozen_params`` (the LoRA train state) the
+    trainable tree (``state.params``, the adapters) is merged over the
+    frozen base inside the loss, so autograd sees only the adapters (the
+    int8 base could not require a gradient) and the optimizer state stays
+    adapter-sized."""
+    frozen = getattr(state, "frozen_params", None)
+    if frozen is None:
+        return loss_fn
+    from unionml_tpu_torch.models.lora import merge_param_trees
+
+    return lambda params, batch: loss_fn(merge_param_trees(frozen, params), batch)
+
+
 def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(dim=-1) == labels).float().mean()
 
@@ -312,10 +328,11 @@ def classification_step(module: torch.nn.Module, *, accumulate_steps: int = 1) -
         return loss, {"accuracy": _accuracy(logits, labels)}
 
     def step(state: TrainState, batch: Tuple[Any, Any]):
+        bound = _bind_frozen(loss_fn, state)
         if accumulate_steps > 1:
-            (loss, aux), grads = accumulated_value_and_grad(loss_fn, state.params, batch)
+            (loss, aux), grads = accumulated_value_and_grad(bound, state.params, batch)
         else:
-            (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
+            (loss, aux), grads = value_and_grad(bound, state.params, batch)
         state = state.apply_gradients(grads=grads)
         return state, {"loss": loss, "accuracy": aux["accuracy"]}
 
@@ -351,10 +368,11 @@ def lm_step(
         return ce + aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
     def step(state: TrainState, batch):
+        bound = _bind_frozen(loss_fn, state)
         if accumulate_steps > 1:
-            (_, aux), grads = accumulated_value_and_grad(loss_fn, state.params, batch)
+            (_, aux), grads = accumulated_value_and_grad(bound, state.params, batch)
         else:
-            (_, aux), grads = value_and_grad(loss_fn, state.params, batch)
+            (_, aux), grads = value_and_grad(bound, state.params, batch)
         state = state.apply_gradients(grads=grads)
         loss = aux["ce"]
         return state, {"loss": loss, "perplexity": torch.exp(loss), "aux_loss": aux["aux"]}
