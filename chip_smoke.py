@@ -33,8 +33,10 @@ Phases, each of which fails the run with a non-zero exit:
              add-LayerNorm and norm backward at ViT-B/16's 12608 x 768,
              the backward row by row and column by column against three
              planted faults and run twice for the same bits; fused
-             attention forward and backward at S = 197, 512 and 1024; the
-             backward run twice for the same bits);
+             attention forward and backward at S = 197, at BERT-base's
+             32 x 128, at S = 512 and 1024; the backward run twice for the
+             same bits; rows 12-13 row by row against a planted skipped
+             key chunk at each shape);
 3b. vit    — train ViT-B/16 (bf16 compute, fp32 params, fused attention and
              fused norms) through the ported vision_tpu template's
              model.train at batch 64 for 54 steps (2 warm-up): samples/s,
@@ -88,6 +90,32 @@ Phases, each of which fails the run with a non-zero exit:
              (merge_lora) on the rank-0 model against the unmerged forward
              and 4 tokens served from it; the phase frees its state before
              phase 4;
+3f. bert  — BERT-base (vocab 30522, 12 x 768, 12 heads, MLP 3072,
+             max_len 512, bf16 compute, fp32 params and heads; seeded random
+             weights made on the card): fine-tuned through a Dataset/Model
+             spec's model.train (@model.train_step -> classification_step)
+             on one repeated 32 x 128 batch of unmasked ids, 22 steps (2
+             warm-up), once with attn_impl="xla" and once with "fused":
+             step ms, samples/s, the loss falling, rows 12/13 launched
+             12/12 times a step under fused and never under xla; rows 12-13
+             on every block's own q, k, v and do of one fused step (the
+             step's attention output again bit for bit, then row by row
+             against the same arithmetic with fp64 sums, the planted
+             skipped chunk failing); that step's gradients fused vs xla
+             (per-tensor cosine >= 0.99) and two 3-step runs with the same
+             loss bits; then masked-LM training (mlm_step) on
+             one repeated 16 x 512 batch padded to lengths in [128, 512]
+             (the full-score path with the padding bias; rows 12-13 never
+             launched): the loss falling over 10 steps, the shortest row's
+             logits at its real positions against the row run alone, and
+             one unmasked 16 x 512 step with attn_impl="fused" (rows 12/13
+             12/12 times, the two-pass forward);
+3g. basic_tpu — the ported basic_tpu template (a two-layer MLP through
+             @model.train_step) on the card over digit-shaped synthetic
+             data: its first 5 steps against the same steps on the CPU
+             from one initial state (params within rtol 1e-4, atol 2e-5),
+             then model.train: params on the card, test accuracy above
+             0.7, model.predict of two rows;
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
@@ -869,35 +897,44 @@ def check_rows_with_fault(name: str, got: dict, want: dict, fault: dict, limits:
     return checks
 
 
-def skipped_chunk_fault(q, k, v, do, o, *, causal: bool):
-    """A planted fault the row check of rows 12-13 must reject: the plain
-    forward and backward (the arithmetic of ``fused_attention_*_plain``)
-    with each query's last visible 64-key chunk skipped, for queries that
-    see more than one chunk, as kernels whose key loop stops one chunk
-    short would compute. ``(out, dq, dk, dv)``; the backward uses the given
-    ``o``, as the backward kernel does."""
+def fused_exact(q, k, v, do, *, causal: bool, skip_last_chunk: bool = False):
+    """The arithmetic of rows 12-13 (``fused_attention_*_plain``: e rounded
+    to bf16 before P.V, do / z and ds rounded before their products) with
+    every sum in fp64: ``(out, dq, dk, dv)`` in the inputs' dtypes. With
+    ``skip_last_chunk`` each query's last visible 64-key chunk is hidden,
+    for queries that see more than one chunk (:func:`skipped_chunk_fault`)."""
     from unionml_tpu_torch.ops import fused_attention as tfa
 
+    f64 = torch.float64
     pos = torch.arange(q.shape[1], device=q.device)
     vis = pos[None, :] <= pos[:, None] if causal else \
         torch.ones(len(pos), len(pos), dtype=torch.bool, device=q.device)
-    last = (pos if causal else torch.full_like(pos, len(pos) - 1)) // FUSED_CHUNK
-    vis = vis & ~((pos[None, :] // FUSED_CHUNK == last[:, None]) & (last[:, None] > 0))
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if skip_last_chunk:
+        last = (pos if causal else torch.full_like(pos, len(pos) - 1)) // FUSED_CHUNK
+        vis = vis & ~((pos[None, :] // FUSED_CHUNK == last[:, None]) & (last[:, None] > 0))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f64), k.to(f64))
     s = torch.where(vis, s, torch.full_like(s, tfa.NEG_INF))
     e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     z = e.sum(dim=-1, keepdim=True)
-    bad_out = (torch.einsum("bhqk,bkhd->bhqd", e.to(v.dtype).float(), v.float()) / z)
+    out = torch.einsum("bhqk,bkhd->bhqd", e.to(v.dtype).to(f64), v.to(f64)) / z
     do_bh = do.permute(0, 2, 1, 3)
-    do_n = (do_bh.float() / z).to(do.dtype)
-    dv = torch.einsum("bhqk,bhqd->bkhd", e.to(do.dtype).float(), do_n.float())
-    delta = (do_bh.float() * o.permute(0, 2, 1, 3).float()).sum(dim=-1, keepdim=True)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = (e * (dp - delta) * (tfa.LN2 / z)).to(q.dtype).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    return (bad_out.permute(0, 2, 1, 3).to(q.dtype), dq.to(q.dtype), dk.to(k.dtype),
+    do_n = (do_bh.to(f64) / z).to(do.dtype)
+    dv = torch.einsum("bhqk,bhqd->bkhd", e.to(do.dtype).to(f64), do_n.to(f64))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f64), v.to(f64))
+    delta = (e * dp).sum(dim=-1, keepdim=True) / z
+    ds = (e * (dp - delta) * (tfa.LN2 / z)).to(q.dtype).to(f64)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f64))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f64))
+    return (out.permute(0, 2, 1, 3).to(q.dtype), dq.to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def skipped_chunk_fault(q, k, v, do, *, causal: bool):
+    """A planted fault the row check of rows 12-13 must reject: their
+    arithmetic with each query's last visible 64-key chunk skipped, for
+    queries that see more than one chunk, as kernels whose key loop stops
+    one chunk short would compute. ``(out, dq, dk, dv)``."""
+    return fused_exact(q, k, v, do, causal=causal, skip_last_chunk=True)
 
 
 def check_fused_rows(name: str, got: dict, want: dict, fault: dict) -> dict:
@@ -1299,13 +1336,13 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
     q = q * float(torch.tensor(d**-0.5 * tfa.LOG2E, dtype=torch.bfloat16))
     fwd = lambda: tfa.fused_attention_fwd_cuda(q, k, v, causal=False)  # noqa: E731
     o = fwd()
-    bwd = lambda: tfa.fused_attention_bwd_cuda(q, k, v, do, o, causal=False)  # noqa: E731
+    bwd = lambda: tfa.fused_attention_bwd_cuda(q, k, v, do, causal=False)  # noqa: E731
     grads, again = bwd(), bwd()
     torch.cuda.synchronize()
     want = dict(zip(("out", "dq", "dk", "dv"),
                     (tfa.fused_attention_fwd_plain(q, k, v, causal=False),
-                     *tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False))))
-    fault = dict(zip(want, skipped_chunk_fault(q, k, v, do, o, causal=False)))
+                     *tfa.fused_attention_bwd_plain(q, k, v, do, causal=False))))
+    fault = dict(zip(want, skipped_chunk_fault(q, k, v, do, causal=False)))
     checks = check_fused_rows(f"fused_attention S={s}", dict(zip(want, (o, *grads))), want,
                               fault)
     del want, fault
@@ -1326,7 +1363,8 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
 
     shape = f"q/k/v[{b},{s},{h},{d}] bf16, non-causal"
     f_ms, fb_ms = bound(4 * numel * 2, 4 * pairs * d, PEAK_BF16_OPS_S)
-    b_ms, bb_ms = bound(8 * numel * 2, 10 * pairs * d, PEAK_BF16_OPS_S)
+    # the backward reads q, k, v, do and writes dq, dk, dv
+    b_ms, bb_ms = bound(7 * numel * 2, 10 * pairs * d, PEAK_BF16_OPS_S)
     fwd_case = {
         "shape": shape, "max_abs_err": fwd_err, "row_checks": {"out": checks["out"]},
         "ms": time_ms(fwd),
@@ -1340,7 +1378,7 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
         "shape": shape, "max_abs_err": bwd_err,
         "row_checks": {name: checks[name] for name in ("dq", "dk", "dv")},
         "ms": time_ms(bwd),
-        "plain_ms": time_ms(lambda: tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=False),
+        "plain_ms": time_ms(lambda: tfa.fused_attention_bwd_plain(q, k, v, do, causal=False),
                             iters=3),
         "bound_ms": b_ms, "bound_by": bb_ms,
         "library_ms": time_ms(lambda: torch.autograd.grad(lib_o, (lq, lk, lv), dot,
@@ -1355,10 +1393,11 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
 
 def vit_kernel_phase() -> dict:
     """Rows 3, 4, 5, 12, 13 at the ViT-B shapes; rows 12-13 also at
-    S = 512 (BERT-base) and 1024 (the fused limit)."""
+    BERT-base's fine-tune shape (32 x 128, the resident form), at S = 512
+    (BERT-base's max_len, the two-pass form) and 1024 (the fused limit)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = vit_norm_cases(VIT_B * VIT_S, VIT_D, gen)
-    for b, s in ((VIT_B, VIT_S), (16, 512), (8, 1024)):
+    for b, s in ((VIT_B, VIT_S), (BERT_BATCH, BERT_SEQ), (16, 512), (8, 1024)):
         for name, case in fused_attention_case(b, s, VIT_H, VIT_HD, gen).items():
             out.setdefault(name, []).append(case)
     for name, cases in out.items():
@@ -1405,8 +1444,17 @@ def vit_batches(config, batch: int, count: int, device: str, seed: int) -> list:
     return out
 
 
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """The key path of every leaf of a nested dict, in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, prefix + (k,))]
+    return [prefix]
+
+
 def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_factory, params,
-                   batches, *, lr: float, cosine_min: float, frozen=None) -> dict:
+                   batches, *, lr: float, cosine_min: float, frozen=None,
+                   null_grads: tuple = ()) -> dict:
     """One step's loss and gradients of ``module_cls(kernel_cfg)`` against
     ``module_cls(plain_cfg)`` from the same ``params`` and first batch
     (``loss(outputs, labels)``; per-tensor cosine at least
@@ -1414,7 +1462,9 @@ def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_fact
     ``batches`` from one AdamW state, whose losses must be the same bits
     (the kernels use no atomics). With ``frozen`` (a LoRA base), ``params``
     are the adapters: the gradients are theirs and the runs train a
-    ``LoRATrainState``."""
+    ``LoRATrainState``. A leaf whose path ends with one of ``null_grads``
+    has a gradient that is zero in exact arithmetic, so both paths hold
+    rounding only: its norms are reported, not held to the cosine."""
     import torch.nn.functional as F
 
     from unionml_tpu_torch.models import LoRATrainState, TrainState, adamw, merge_param_trees
@@ -1423,22 +1473,29 @@ def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_fact
     def full(p):
         return p if frozen is None else merge_param_trees(frozen, p)
 
-    results = {}
-    for path, cfg in (("kernel", kernel_cfg), ("plain", plain_cfg)):
+    paths = ["/".join(p) for p in tree_paths(params)]
+    null = [any(p.endswith("/".join(n)) for n in null_grads) for p in paths]
+    results = []
+    for cfg in (kernel_cfg, plain_cfg):
         module = module_cls(cfg)
 
         def loss_fn(p, b, module=module):
             return loss(module(full(p), b[0]), b[1]), {}
 
         (value, _), grads = value_and_grad(loss_fn, params, batches[0])
-        results[path] = (float(value), [g.float().flatten() for g in tree_leaves(grads)])
+        results.append((float(value), [g.float().flatten() for g in tree_leaves(grads)]))
         del grads
-    (k_loss, k_grads), (p_loss, p_grads) = results["kernel"], results["plain"]
-    cosines = [float(F.cosine_similarity(a, b, dim=0)) for a, b in zip(k_grads, p_grads)]
-    if not all(np.isfinite([k_loss, p_loss])) or min(cosines) < cosine_min:
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    null_norms = {p: (float(a.norm()), float(b.norm()))
+                  for p, a, b, skip in zip(paths, k_grads, p_grads, null) if skip}
+    per_tensor = [float(F.cosine_similarity(a, b, dim=0)) if not skip else None
+                  for a, b, skip in zip(k_grads, p_grads, null)]
+    cosines = [c for c in per_tensor if c is not None]
+    bad = [(p, c) for p, c in zip(paths, per_tensor) if c is not None and not c >= cosine_min]
+    if not all(np.isfinite([k_loss, p_loss])) or bad:
         raise AssertionError(
             f"{name} kernel-path gradients disagree with the plain path: losses {k_loss} vs "
-            f"{p_loss}, min per-tensor cosine {min(cosines)}"
+            f"{p_loss}, tensors under cosine {cosine_min} (path, cosine) {bad[:5]}"
         )
     del results, k_grads, p_grads
 
@@ -1466,10 +1523,14 @@ def path_agreement(name: str, module_cls, kernel_cfg, plain_cfg, loss, step_fact
             f"{runs[1][0].tolist()}"
         )
     out = {"kernel_loss": k_loss, "plain_loss": p_loss, "min_grad_cosine": min(cosines),
-           "grad_tensors": len(cosines), "rerun_losses": losses,
-           "rerun_same_loss_bits": same_losses, "rerun_same_param_bits": same_params}
+           "grad_tensors": len(cosines), "null_grad_norms": null_norms,
+           "rerun_losses": losses, "rerun_same_loss_bits": same_losses,
+           "rerun_same_param_bits": same_params}
     log(f"{name}: one step, kernel path vs plain path: loss {k_loss} vs {p_loss}, min cosine "
-        f"over {len(cosines)} gradient tensors {min(cosines)}; two {len(batches)}-step runs: "
+        f"over {len(cosines)} gradient tensors {min(cosines)}"
+        + (f" (norms of the {len(null_norms)} null gradients, kernel / plain: {null_norms})"
+           if null_norms else "")
+        + f"; two {len(batches)}-step runs: "
         f"losses {losses}, same loss bits {same_losses}, same param bits {same_params}")
     return out
 
@@ -2321,6 +2382,463 @@ def qlora_agreement(config, *, device: str = "cuda", seq: int = QLORA_SEQ,
     log(f"qlora ({layers} layers): merged-tree logits max err / max {merge_err}; served "
         f"{served[0]} from the merged tree")
     return {"layers": layers, **out, "merge_rel_err": merge_err, "merged_served": served[0]}
+
+
+# --------------------------------------------------------------------- #
+# 3f: BERT-base fine-tuning and masked-LM training
+# --------------------------------------------------------------------- #
+
+# benchmarks/train_throughput.py's BERT-base fine-tune: 32 x 128 ids and
+# random binary labels, no padding mask, AdamW
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_LR = 1e-4
+# the MLM batches: 16 rows of max_len ids, right-padded to lengths drawn in
+# [128, 512], the BERT masking rule with [MASK] = 103
+BERT_MLM_BATCH, BERT_MLM_MIN_LEN, BERT_MASK_ID = 16, 128, 103
+BERT_GRAD_COSINE_MIN = 0.99   # bf16 kernel path vs bf16 plain path, per gradient tensor
+# a padded row's logits against the row run alone: the tolerance of the
+# reference's padding test (tests/unit/test_models.py:76), bf16 through
+# every layer
+BERT_PAD_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def bert_kernels() -> dict:
+    """The wrappers (launch counters) of BERT's unmasked training path."""
+    from unionml_tpu_torch.ops import fused_attention as tfa
+
+    return {"fused_attention_fwd": tfa.FWD_KERNEL, "fused_attention_bwd": tfa.BWD_KERNEL}
+
+
+def bert_launches_per_step(config, seq: int) -> dict:
+    """Rows 12-13 a training step of an unmasked batch: once a layer each
+    under ``fused`` (or ``auto`` up to the fused limit), else none."""
+    from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ
+
+    fused = config.attn_impl == "fused" or (config.attn_impl == "auto" and seq <= MAX_FUSED_SEQ)
+    return dict.fromkeys(bert_kernels(), float(config.num_layers) if fused else 0.0)
+
+
+def bert_batch(n: int, seq: int, config, seed: int) -> tuple:
+    """``n`` rows of ``seq`` uniform token ids and uniform class labels
+    (the benchmark's batch), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, config.vocab_size, size=(n, seq)),
+            rng.integers(0, config.num_classes, size=(n,)))
+
+
+def build_bert_app(config, *, name: str, on_step=None):
+    """The BERT fine-tune app's Dataset/Model spec for ``config``: the
+    reader makes ``n`` rows of ``seq`` ids with labels
+    (:func:`bert_batch`), a seeded splitter cuts them, the parser returns
+    ``(ids, labels)``; the Model's ``init=`` builds an AdamW ``TrainState``
+    of ``BertClassifier(config)`` on the ``device`` hyperparameter
+    (``None`` = CUDA), ``@model.train_step`` runs ``classification_step``
+    and the evaluator returns the accuracy. ``on_step(state, metrics)`` is
+    called after every step."""
+    from typing import Optional
+
+    from unionml_tpu_torch import Dataset, Model
+    from unionml_tpu_torch._device import resolve_device
+    from unionml_tpu_torch.models import (
+        BertClassifier,
+        TrainState,
+        classification_step,
+        create_train_state,
+        make_evaluator,
+    )
+
+    module = BertClassifier(config)
+    dataset = Dataset(name=f"{name}_dataset", test_size=0.2)
+
+    @dataset.reader
+    def reader(n: int = 40, seq: int = BERT_SEQ, seed: int = 0) -> dict:
+        ids, labels = bert_batch(n, seq, config, seed)
+        return {"features": ids, "targets": labels}
+
+    @dataset.splitter
+    def splitter(data: dict, test_size: float, shuffle: bool, random_state: int):
+        idx = np.arange(len(data["features"]))
+        if shuffle:
+            np.random.default_rng(random_state).shuffle(idx)
+        cut = int(len(idx) * (1 - test_size))
+        return ({key: val[idx[:cut]] for key, val in data.items()},
+                {key: val[idx[cut:]] for key, val in data.items()})
+
+    @dataset.parser
+    def parser(data: dict, features, targets):
+        return (data["features"], data["targets"])
+
+    def init(learning_rate: float = BERT_LR, device: Optional[str] = None) -> TrainState:
+        example = torch.zeros(1, 8, dtype=torch.long, device=resolve_device(device))
+        return create_train_state(module, example, learning_rate=learning_rate)
+
+    model = Model(name=name, init=init, dataset=dataset)
+    step = classification_step(module)
+
+    @model.train_step
+    def train_step(state, batch):
+        state, metrics = step(state, batch)
+        if on_step is not None:
+            on_step(state, metrics)
+        return state, metrics
+
+    model.evaluator(make_evaluator(module))
+    return model
+
+
+def bert_finetune_phase(config, *, device: str = "cuda", batch: int = BERT_BATCH,
+                        seq: int = BERT_SEQ, steps: int = 22, warmup: int = 2) -> dict:
+    """Fine-tune ``BertClassifier(config)`` through the app's
+    ``model.train`` (``@model.train_step`` -> ``run_step_trainer`` ->
+    ``classification_step``) on one repeated batch: the reader's ``batch *
+    5 / 4`` rows split to ``batch`` training rows, so each of the ``steps``
+    epochs is one step over the same rows, shuffled. The steps after the
+    first ``warmup`` are timed; rows 12-13 must launch
+    :func:`bert_launches_per_step` times a timed step and the last loss
+    must be below the first."""
+    on_card = device == "cuda"
+    run = marked_training(
+        lambda on_step: build_bert_app(config, name=f"chip_smoke_bert_{config.attn_impl}",
+                                       on_step=on_step),
+        bert_kernels(), steps=steps, warmup=warmup, on_card=on_card,
+        hyperparameters={"device": device, "learning_rate": BERT_LR},
+        trainer_kwargs={"num_epochs": steps, "batch_size": batch},
+        n=batch * 5 // 4, seq=seq, seed=0,
+    )
+    del run["state"]
+    step_ms, per_step, losses = run["step_ms"], run["launches_per_step"], run["losses"]
+    out = {"attn_impl": config.attn_impl, "batch": batch, "seq": seq, "steps": steps,
+           "samples_per_s": batch / step_ms * 1e3, "first_loss": losses[0],
+           "last_loss": losses[-1], **run}
+    log(f"bert fine-tune ({config.attn_impl}): {steps} steps of {batch} x {seq} ids ({warmup} "
+        f"warm-up): step_ms {step_ms} samples/s {out['samples_per_s']} peak memory "
+        f"{out['peak_mem_gib']} GiB, wall {out['wall_s']} s; loss first {losses[0]} last "
+        f"{losses[-1]}; eval {out['eval']}; launches per timed step {per_step}")
+    want = bert_launches_per_step(config, seq)
+    if on_card and per_step != want:
+        raise AssertionError(f"BERT ({config.attn_impl}) kernel launches per step {per_step}, "
+                             f"expected {want}")
+    return out
+
+
+def capture_attention(module, params, batch, loss) -> list:
+    """One forward and backward of ``module`` (a BERT model, unmasked) on
+    ``batch`` (``(ids, labels)``) with each block's attention recorded
+    through the block's own layers: forward hooks on ``attn_q`` /
+    ``attn_k`` / ``attn_v`` take q, k and v, a pre-hook on ``attn_o``
+    takes the attention output o, and a gradient hook on o takes do. One
+    dict a block."""
+    from unionml_tpu_torch.models.train import value_and_grad
+
+    layers = [{} for _ in module.encoder.blocks]
+    handles = []
+
+    def keep(rec, name):
+        return lambda mod, args, out: rec.__setitem__(name, out.detach())
+
+    def keep_o(rec):
+        def hook(mod, args):
+            rec["o"] = args[1].detach()
+            args[1].register_hook(lambda g: rec.__setitem__("do", g.detach()))
+        return hook
+
+    for rec, block in zip(layers, module.encoder.blocks):
+        for name in ("q", "k", "v"):
+            handles.append(getattr(block, f"attn_{name}").register_forward_hook(keep(rec, name)))
+        handles.append(block.attn_o.register_forward_pre_hook(keep_o(rec)))
+    try:
+        value_and_grad(lambda p, b: (loss(module(p, b[0]), b[1]), {}), params, batch)
+    finally:
+        for h in handles:
+            h.remove()
+    if any(set(rec) != {"q", "k", "v", "o", "do"} for rec in layers):
+        raise AssertionError(f"the capture missed a block's attention: {[sorted(r) for r in layers]}")
+    return layers
+
+
+def bert_layer_rows(layers: list, *, on_card: bool) -> list:
+    """Rows 12-13 on each BERT block's own attention (``capture_attention``
+    of the kernel path): the forward again on the captured q (times the
+    op's bf16 factor), k and v must give the captured o bit for bit; then
+    the kernels' forward and backward (at the captured do) row by row
+    within :data:`FUSED_ROW_LIMIT` of the same arithmetic with fp64 sums
+    (:func:`fused_exact`), where the skipped-chunk fault must fail
+    (:func:`check_fused_rows`). In the last blocks ``dp - delta`` and the
+    rows of dq and dk cancel, and the plain version's own fp32 sums move a
+    row of dk by up to 2.3% of its max there, so the kernel is held to the
+    exact sums, not to a second rounding of them; the plain version's and
+    the kernel's distances from each other are reported. On the CPU the
+    plain versions stand in for the kernels, as the op's own CPU path
+    does."""
+    from unionml_tpu_torch.ops import fused_attention as tfa
+
+    fwd, bwd = ((tfa.fused_attention_fwd_cuda, tfa.fused_attention_bwd_cuda) if on_card else
+                (tfa.fused_attention_fwd_plain, tfa.fused_attention_bwd_plain))
+    names = ("out", "dq", "dk", "dv")
+    out = []
+    for i, rec in enumerate(layers):
+        k, v, do = (rec[n].contiguous() for n in ("k", "v", "do"))
+        q = rec["q"]
+        q = q * float(torch.tensor(q.shape[-1] ** -0.5 * tfa.LOG2E, dtype=q.dtype))
+        o = fwd(q, k, v, causal=False)
+        if not torch.equal(o, rec["o"]):
+            raise AssertionError(f"bert block {i}: the forward on the captured inputs differs "
+                                 f"from the step's attention output")
+        got = dict(zip(names, (o, *bwd(q, k, v, do, causal=False))))
+        plain = dict(zip(names, (tfa.fused_attention_fwd_plain(q, k, v, causal=False),
+                                 *tfa.fused_attention_bwd_plain(q, k, v, do, causal=False))))
+        want = dict(zip(names, fused_exact(q, k, v, do, causal=False)))
+        fault = dict(zip(names, skipped_chunk_fault(q, k, v, do, causal=False)))
+        checks = check_fused_rows(f"bert block {i} attention", got, want, fault)
+        plain_err = {n: float(row_rel_err(plain[n], want[n]).max()) for n in names}
+        vs_plain = {n: float(row_rel_err(got[n], plain[n]).max()) for n in names}
+        out.append({"kernel": checks, "plain_version_vs_exact": plain_err,
+                    "kernel_vs_plain_version": vs_plain})
+        log(f"bert block {i} attention, rows 12-13 on the step's own inputs against fp64 "
+            f"sums: kernel max row err "
+            + ", ".join(f"{n} {checks[n]['max_row_rel_err']}" for n in names)
+            + f" (limits {FUSED_ROW_LIMIT}); planted fault: rows over "
+            f"{min(c['fault_rows_over_limit'] for c in checks.values())}; not held: plain "
+            f"version vs fp64 sums {plain_err}, kernel vs plain version {vs_plain}")
+    return out
+
+
+def bert_grad_agreement(config, *, device: str = "cuda", batch: int = BERT_BATCH,
+                        seq: int = BERT_SEQ) -> dict:
+    """Rows 12-13 on every block's own attention of one kernel-path step
+    (:func:`bert_layer_rows`), then that step's loss and gradients of
+    ``BertClassifier(config)`` against ``attn_impl="xla"`` from the same
+    params and batch (per-tensor cosine :data:`BERT_GRAD_COSINE_MIN`,
+    :func:`path_agreement`), then two 3-step ``classification_step`` runs
+    of the kernel path from one state, whose losses must be the same bits.
+    The key projection's bias adds one constant to every score of a row,
+    which the softmax cancels: its gradient is rounding only, reported
+    beside the cosines."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import BertClassifier, classification_step, init_bert_params
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    ids, labels = bert_batch(3 * batch, seq, config, seed=5)
+    ids, labels = torch.from_numpy(ids).to(device), torch.from_numpy(labels).to(device)
+    params = init_bert_params(config, head="classifier", generator=gen, device=device)
+    batches = list(zip(ids.split(batch), labels.split(batch)))
+    loss = lambda logits, y: F.cross_entropy(logits.float(), y)  # noqa: E731
+    layers = capture_attention(BertClassifier(config), params, batches[0], loss)
+    rows = bert_layer_rows(layers, on_card=device == "cuda")
+    del layers
+    out = path_agreement(
+        f"bert ({config.attn_impl} vs xla)", BertClassifier, config,
+        dataclasses.replace(config, attn_impl="xla"), loss, classification_step, params,
+        batches, lr=BERT_LR, cosine_min=BERT_GRAD_COSINE_MIN, null_grads=(("attn_k", "bias"),),
+    )
+    out["layer_rows"] = rows
+    return out
+
+
+def bert_mlm_batch(config, *, batch: int, seq: int, min_len: int, seed: int) -> tuple:
+    """``batch`` rows of ``seq`` ids (ids 4 and up), right-padded with id
+    0 to lengths drawn in ``[min_len, seq]`` (the shortest first), through
+    the BERT masking rule: ``(inputs, labels, attention_mask, lengths)``,
+    numpy, pads never supervised."""
+    from unionml_tpu_torch.models import make_mlm_batch
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(4, config.vocab_size, size=(batch, seq))
+    lengths = np.sort(rng.integers(min_len, seq + 1, size=batch))
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int64)
+    tokens = np.where(mask == 1, tokens, 0)
+    inputs, labels = make_mlm_batch(tokens, mask_id=BERT_MASK_ID, vocab_size=config.vocab_size,
+                                    rng=rng, special_ids=(0,))
+    return inputs, labels, mask, lengths
+
+
+def bert_mlm_phase(config, *, device: str = "cuda", batch: int = BERT_MLM_BATCH,
+                   seq: int = None, min_len: int = BERT_MLM_MIN_LEN, steps: int = 10) -> dict:
+    """Masked-LM training of ``BertMlm(config)`` (``seq`` = ``max_len``
+    by default): ``steps`` ``mlm_step``s over one repeated padded batch
+    (:func:`bert_mlm_batch`), the full-score reference with the padding
+    bias whatever ``attn_impl`` says (rows 12-13 must not launch); the
+    loss must fall. Then the shortest row's logits at its real positions
+    against the same row run alone without padding (``BERT_PAD_TOL``),
+    and one unmasked ``mlm_step`` at ``batch x seq`` (every row at full
+    length), where ``attn_impl="fused"`` runs rows 12-13 once a layer
+    each (the two-pass forward above 256 tokens)."""
+    from unionml_tpu_torch.models import BertMlm, create_train_state, mlm_step
+
+    on_card = device == "cuda"
+    seq = seq or config.max_len
+    module = BertMlm(config)
+    inputs, labels, mask, lengths = bert_mlm_batch(config, batch=batch, seq=seq,
+                                                   min_len=min_len, seed=7)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    padded = (to(inputs), to(labels), to(mask))
+    state = create_train_state(module, padded[0][:1], learning_rate=BERT_LR, seed=7)
+    step = mlm_step(module)
+    kernels = bert_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, t0 = [], time.perf_counter()
+    for i in range(steps):
+        state, metrics = step(state, padded)
+        losses.append(metrics["loss"])
+        if i == 0:
+            if on_card:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    if on_card:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    masked_launches = {name: k.launches for name, k in kernels.items()}
+    losses = torch.stack(losses).float().tolist()
+    step_ms = (t2 - t1) / max(steps - 1, 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the MLM loss did not fall: {losses}")
+    if any(masked_launches.values()):
+        raise AssertionError(f"padded MLM steps launched rows 12-13: {masked_launches}")
+
+    row = 0   # the shortest row
+    length = int(lengths[row])
+    with torch.no_grad():
+        batch_logits = module(state.params, padded[0], attention_mask=padded[2])
+        got = batch_logits[row, :length].float()
+        del batch_logits
+        alone = module(state.params, padded[0][row:row + 1, :length],
+                       attention_mask=padded[2][row:row + 1, :length])[0].float()
+    pad_err = float((got - alone).abs().max())
+    outside = float((~torch.isclose(got, alone, **BERT_PAD_TOL)).float().mean())
+    pad_cos = float(torch.nn.functional.cosine_similarity(got.flatten(), alone.flatten(), dim=0))
+    del got, alone
+    if outside:
+        raise AssertionError(f"a padded row's logits differ from the row run alone beyond "
+                             f"{BERT_PAD_TOL}: max |diff| {pad_err}, share outside {outside}")
+
+    # every row at full length, no mask: the unmasked path of attn_impl
+    full_inputs, full_labels = to(np.where(inputs == 0, BERT_MASK_ID, inputs)), to(labels)
+    for k in kernels.values():
+        k.launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    state, metrics = step(state, (full_inputs, full_labels, None))
+    if on_card:
+        torch.cuda.synchronize()
+    unmasked_ms = (time.perf_counter() - t3) * 1e3
+    unmasked_launches = {name: float(k.launches) for name, k in kernels.items()}
+    want = bert_launches_per_step(config, seq)
+    if on_card and unmasked_launches != want:
+        raise AssertionError(f"unmasked MLM step launched {unmasked_launches}, expected {want}")
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"the unmasked MLM step's loss is {float(metrics['loss'])}")
+    out = {"batch": batch, "seq": seq, "lengths": lengths.tolist(), "steps": steps,
+           "step_ms": step_ms, "tokens_per_s": float(mask.sum()) / step_ms * 1e3,
+           "supervised_per_step": int((labels != -100).sum()), "losses": losses,
+           "first_loss": losses[0], "last_loss": losses[-1], "peak_mem_gib": peak,
+           "masked_launches": masked_launches, "pad_row_length": length,
+           "pad_max_abs_err": pad_err, "pad_logit_cosine": pad_cos,
+           "unmasked_step_ms": unmasked_ms, "unmasked_loss": float(metrics["loss"]),
+           "launches_per_unmasked_step": unmasked_launches}
+    log(f"bert mlm: {steps} steps of {batch} x {seq} padded ids (lengths {lengths.tolist()}): "
+        f"step_ms {step_ms} (first step excluded) real tokens/s {out['tokens_per_s']} peak "
+        f"memory {peak} GiB; loss first {losses[0]} last {losses[-1]}; launches of rows 12-13 "
+        f"{masked_launches}")
+    log(f"bert mlm: padded row {row} (length {length}) vs alone: max |diff| {pad_err}, cosine "
+        f"{pad_cos}; unmasked step ({config.attn_impl}) {unmasked_ms} ms, loss "
+        f"{out['unmasked_loss']}, launches {unmasked_launches}")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 3g: the basic_tpu template on the card
+# --------------------------------------------------------------------- #
+
+BASIC_TPU_ACCURACY_MIN = 0.7   # the template's own test (tests/test_app.py)
+# the template's first steps on the card against the same steps on CPU
+# tensors from one initial state: fp32 throughout (TF32 off), so the
+# tolerance of the CPU parity test (tests/test_torch_templates.py)
+BASIC_TPU_PARAM_TOL = dict(rtol=1e-4, atol=2e-5)
+BASIC_TPU_HYPERPARAMETERS = {"hidden": 128, "learning_rate": 1e-3}
+
+
+def digit_like(n: int = 1797, seed: int = 0) -> dict:
+    """Digit-shaped data without scikit-learn: ``n`` 8 x 8 images of 10
+    classes (the digits' 1797 rows, 64 features in [0, 1], int32 labels),
+    each a class prototype of integer intensities 0-16 plus Gaussian noise,
+    clipped and rounded as the digits are, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    prototypes = rng.integers(0, 17, size=(10, 64))
+    targets = rng.integers(0, 10, size=n).astype(np.int32)
+    images = np.clip(np.rint(prototypes[targets] + rng.normal(0, 5, size=(n, 64))), 0, 16)
+    return {"features": (images / 16.0).astype(np.float32), "targets": targets}
+
+
+def basic_tpu_steps_against_cpu(app, data: dict, *, device: str, steps: int,
+                                batch: int) -> float:
+    """The template's ``init`` and ``train_step`` for ``steps`` batches of
+    ``data`` on ``device`` and on the CPU from the CPU's initial state:
+    every param within :data:`BASIC_TPU_PARAM_TOL`. Returns the largest
+    |card - cpu| over the params."""
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    cpu = app.init({**BASIC_TPU_HYPERPARAMETERS, "device": "cpu"})
+    card = app.init({**BASIC_TPU_HYPERPARAMETERS, "device": device})
+    card = card.load_state_dict(cpu.state_dict())
+    x, y = torch.from_numpy(data["features"]), torch.from_numpy(data["targets"])
+    for i in range(steps):
+        rows = slice(i * batch, (i + 1) * batch)
+        cpu, _ = app.train_step(cpu, (x[rows], y[rows]))
+        card, _ = app.train_step(card, (x[rows].to(device), y[rows].to(device)))
+    pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params))]
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    if not all(torch.allclose(a, b, **BASIC_TPU_PARAM_TOL) for a, b in pairs):
+        raise AssertionError(f"basic_tpu: {steps} steps on {device} leave params off the "
+                             f"CPU's beyond {BASIC_TPU_PARAM_TOL} (max |diff| {worst})")
+    return worst
+
+
+def basic_tpu_phase(*, device: str = "cuda", epochs: int = 5, batch: int = 64,
+                    steps_vs_cpu: int = 5) -> dict:
+    """The ported basic_tpu template (an MLP through ``@model.train_step``)
+    trained by ``model.train`` on ``device``, with its reader swapped for
+    :func:`digit_like` (the template's reader loads scikit-learn's digits,
+    an optional dependency of the port): its first ``steps_vs_cpu`` steps
+    against the same steps on the CPU
+    (:func:`basic_tpu_steps_against_cpu`), then params on ``device``, test
+    accuracy above ``BASIC_TPU_ACCURACY_MIN``, two predictions from
+    ``model.predict``."""
+    import importlib
+
+    app = importlib.import_module("unionml_tpu_torch.templates.basic_tpu.app")
+    app.dataset.reader(digit_like)
+    vs_cpu = basic_tpu_steps_against_cpu(app, digit_like(), device=device, steps=steps_vs_cpu,
+                                         batch=batch)
+    t0 = time.perf_counter()
+    state, metrics = app.model.train(
+        hyperparameters={**BASIC_TPU_HYPERPARAMETERS, "device": device},
+        trainer_kwargs={"num_epochs": epochs, "batch_size": batch},
+    )
+    wall_s = time.perf_counter() - t0
+    devices = {str(p.device.type) for p in (state.params["Dense_0"]["kernel"],
+                                            state.params["Dense_1"]["bias"])}
+    preds = np.asarray(app.model.predict(features=np.zeros((2, 64), np.float32)))
+    out = {"steps": state.step, "metrics": metrics, "params_on": sorted(devices),
+           "predict_shape": list(preds.shape), "wall_s": wall_s,
+           "steps_vs_cpu": steps_vs_cpu, "max_param_diff_vs_cpu": vs_cpu}
+    log(f"basic_tpu: {steps_vs_cpu} steps on {device} vs the CPU from one state: max param "
+        f"|diff| {vs_cpu} (tolerance {BASIC_TPU_PARAM_TOL}); {state.step} steps of {batch} in "
+        f"{wall_s} s on {sorted(devices)}; metrics {metrics}; predict shape {preds.shape}")
+    if devices != {torch.device(device).type}:
+        raise AssertionError(f"basic_tpu params live on {devices}, expected {device}")
+    if not metrics["test"] > BASIC_TPU_ACCURACY_MIN:
+        raise AssertionError(f"basic_tpu test accuracy {metrics['test']} <= "
+                             f"{BASIC_TPU_ACCURACY_MIN}")
+    if preds.shape != (2,):
+        raise AssertionError(f"basic_tpu predicted shape {preds.shape}, expected (2,)")
+    return out
 
 
 def kernel_phase(batch: int, bucket: int) -> dict:
@@ -3886,6 +4404,27 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()   # the phase's base and states are gone: hand their blocks back
     log(f"time: qlora done at {time.perf_counter() - t_run:.1f} s")
 
+    from unionml_tpu_torch.models import BertConfig
+
+    t_phase = time.perf_counter()
+    bert_cfg = BertConfig.base()
+    bert = {impl: bert_finetune_phase(dataclasses.replace(bert_cfg, attn_impl=impl))
+            for impl in ("xla", "fused")}
+    bert["agreement"] = bert_grad_agreement(dataclasses.replace(bert_cfg, attn_impl="fused"))
+    bert["mlm"] = bert_mlm_phase(dataclasses.replace(bert_cfg, attn_impl="fused"))
+    bert["config"] = (f"BERT vocab {bert_cfg.vocab_size}, max_len {bert_cfg.max_len}, width "
+                      f"{bert_cfg.hidden_dim}, {bert_cfg.num_layers} layers, "
+                      f"{bert_cfg.num_heads} heads, mlp {bert_cfg.mlp_dim}, {bert_cfg.dtype} "
+                      "compute, fp32 params and heads")
+    bert["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    log(f"time: bert done at {time.perf_counter() - t_run:.1f} s (phase {bert['seconds']:.1f} s)")
+    t_phase = time.perf_counter()
+    basic_tpu = basic_tpu_phase()
+    basic_tpu["seconds"] = time.perf_counter() - t_phase
+    log(f"time: basic_tpu done at {time.perf_counter() - t_run:.1f} s (phase "
+        f"{basic_tpu['seconds']:.1f} s)")
+
     base = LlamaConfig.llama3_8b()
     served = serve_phase(dataclasses.replace(base, num_layers=args.layers),
                          args.max_new_tokens)
@@ -3991,6 +4530,8 @@ def main(argv=None) -> int:
             "serve_launches": served["launches"].get(name),
             "launches_per_train_step": per_train_step.get(name),
             "launches_per_qlora_step": qlora["launches_per_step"].get(name),
+            "launches_per_bert_step": bert["fused"]["launches_per_step"].get(name),
+            "launches_per_bert_mlm_step": bert["mlm"]["launches_per_unmasked_step"].get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
@@ -3998,6 +4539,7 @@ def main(argv=None) -> int:
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
                       "vit_train": vit, "llama_train": llama, "qlora_train": qlora,
+                      "bert_train": bert, "basic_tpu": basic_tpu,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

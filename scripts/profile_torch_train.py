@@ -5,6 +5,7 @@
         [--batch 64] [--steps 10] [--impl fused] [--feed resident]
     python3 scripts/profile_torch_train.py --model llama_lc [--batch 2]
     python3 scripts/profile_torch_train.py --model qlora_8b [--norm fused]
+    python3 scripts/profile_torch_train.py --model bert_base [--impl xla]
 
 ``--model vit_b16`` (the default) builds ViT-B/16 (``ViTConfig.base16``,
 bf16 compute, fp32 params; with ``--impl fused`` the fused attention and
@@ -21,7 +22,13 @@ xla`` for the plain attention) and ``lm_step`` over one resident batch of
 with fp32 embedding and norm scales; rank-16 adapters; ``remat``; flash
 attention) and ``lm_step`` over a LoRA train state (AdamW at lr 1e-3 on
 the adapters) and one resident batch of ``--batch`` (default 1) random
-sequences of 1024 tokens. ``--norm fused`` runs the Llama models' RMSNorm
+sequences of 1024 tokens. ``--model bert_base`` builds BERT-base
+(``BertConfig.base``, bf16 compute, fp32 params and heads; ``--impl
+fused`` runs rows 12-13, ``--impl xla`` the plain attention) and the
+fine-tune step of ``benchmarks/train_throughput.py``
+(``classification_step`` of ``BertClassifier``, AdamW at lr 1e-4) over one
+resident batch of ``--batch`` (default 32) rows of 128 random ids and
+random binary labels, no padding mask. ``--norm fused`` runs the Llama models' RMSNorm
 through the fused norm kernels (rows 2 and 5), ``--norm xla`` (the
 default) in plain PyTorch.
 Weights are random, from a seeded generator on the card. ``--feed
@@ -106,10 +113,12 @@ def host_feed(arrays: list, batch_size: int, *, threaded: bool):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("vit_b16", "llama_lc", "qlora_8b"), default="vit_b16")
+    ap.add_argument("--model", choices=("vit_b16", "llama_lc", "qlora_8b", "bert_base"),
+                    default="vit_b16")
     ap.add_argument("--layers", type=int, default=None, help="12, or 32 for qlora_8b")
     ap.add_argument("--batch", type=int, default=None,
-                    help="64 images for vit_b16, 2 sequences for llama_lc, 1 for qlora_8b")
+                    help="64 images for vit_b16, 2 sequences for llama_lc, 1 for qlora_8b, "
+                         "32 rows for bert_base")
     ap.add_argument("--norm", choices=("xla", "fused"), default="xla",
                     help="the Llama models' RMSNorm: plain PyTorch or the fused norm kernels")
     ap.add_argument("--steps", type=int, default=10)
@@ -170,6 +179,27 @@ def main() -> int:
         shape = (f"llama_lc {layers} layers, batch {batch_size} x 4096 tokens, attn "
                  f"{config.attn_impl}, norm {args.norm}")
         unit, per_step = "tokens", batch_size * 4095
+    elif args.model == "bert_base":
+        from unionml_tpu_torch.models import (
+            BertClassifier,
+            BertConfig,
+            classification_step,
+            init_bert_params,
+        )
+
+        batch_size, seq = args.batch or 32, 128
+        config = dataclasses.replace(BertConfig.base(), num_layers=layers, attn_impl=args.impl)
+        module = BertClassifier(config)
+        state = TrainState.create(
+            apply_fn=module,
+            params=init_bert_params(config, head="classifier", generator=gen, device="cuda"),
+            tx=adamw(1e-4))
+        step = classification_step(module)
+        batch = (torch.randint(0, config.vocab_size, (batch_size, seq), generator=gen,
+                               device="cuda"),
+                 torch.randint(0, 2, (batch_size,), generator=gen, device="cuda"))
+        shape = f"BERT-base {layers} layers, batch {batch_size} x {seq} ids, attn {args.impl}"
+        unit, per_step = "samples", batch_size
     else:
         import chip_smoke
 

@@ -683,8 +683,8 @@ def test_fused_attention_kernels_match_plain_on_card(cuda, b, s, h, d, causal):
     before = (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches)
     o = tfused.fused_attention_fwd_cuda(q, k, v, causal=causal)
     o_again = tfused.fused_attention_fwd_cuda(q, k, v, causal=causal)
-    grads = tfused.fused_attention_bwd_cuda(q, k, v, do, o, causal=causal)
-    again = tfused.fused_attention_bwd_cuda(q, k, v, do, o, causal=causal)
+    grads = tfused.fused_attention_bwd_cuda(q, k, v, do, causal=causal)
+    again = tfused.fused_attention_bwd_cuda(q, k, v, do, causal=causal)
     torch.cuda.synchronize()
     assert (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches) == (
         before[0] + 2, before[1] + 2)
@@ -692,13 +692,13 @@ def test_fused_attention_kernels_match_plain_on_card(cuda, b, s, h, d, causal):
     # the same rounding points; bf16 outputs and fp32 sums in another order
     # (query rows of o and dq, key rows of dk and dv)
     assert _max_row_rel_err(o, tfused.fused_attention_fwd_plain(q, k, v, causal=causal)) < 1e-2
-    want = tfused.fused_attention_bwd_plain(q, k, v, do, o, causal=causal)
+    want = tfused.fused_attention_bwd_plain(q, k, v, do, causal=causal)
     for name, got, ref, same in zip(("dq", "dk", "dv"), grads, want, again):
         assert torch.isfinite(got.float()).all()
         if s == 1 and name != "dv":
             # one key: ds = p (dp - delta) is 0 in exact arithmetic (delta =
-            # do . o = do . v = dp), so both sides hold fp32 cancellation
-            # residues only, far below dv's scale
+            # p dp = dp), so both sides hold fp32 cancellation residues
+            # only, far below dv's scale
             assert float(got.float().abs().max()) < 1e-3 * float(want[2].float().abs().max())
         else:
             assert _max_row_rel_err(got, ref) < 2e-2
@@ -716,7 +716,7 @@ def test_fused_attention_kernels_refuse_misaligned_bases_on_card(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfused.fused_attention_fwd_cuda(off, q, q, causal=False)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tfused.fused_attention_bwd_cuda(q, q, q, off, q, causal=False)
+        tfused.fused_attention_bwd_cuda(q, q, q, off, causal=False)
     assert (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches) == before
 
 
@@ -1228,3 +1228,73 @@ def test_qlora_lm_step_on_card(cuda):
         assert torch.isfinite(metrics["loss"])
     assert all(not torch.equal(a, b) for a, b in zip(start, tree_leaves(state.params)))
     assert all(torch.equal(a, b) for a, b in zip(frozen, tree_leaves(state.frozen_params)))
+
+
+@pytest.mark.cuda
+def test_bert_base_block_fused_matches_plain_on_card(cuda):
+    """One BERT-base-width block (bf16, 32 x 128 unmasked) with
+    attn_impl="fused" against the same block with the plain attention:
+    the output and every input and param gradient at per-tensor cosine
+    >= 0.99 (the key bias, whose gradient the softmax cancels, apart);
+    rows 12 and 13 launch once each."""
+    from unionml_tpu_torch.models import BertConfig, init_bert_params
+    from unionml_tpu_torch.models.bert import BertBlock
+    from unionml_tpu_torch.models.train import tree_leaves, tree_unflatten
+
+    cfg = dataclasses.replace(BertConfig.base(), num_layers=1, attn_impl="fused")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_bert_params(cfg, head=None, generator=gen, device=cuda)["block_0"]
+    x = torch.randn(32, 128, cfg.hidden_dim, device=cuda, generator=gen).bfloat16()
+    dy = torch.randn(32, 128, cfg.hidden_dim, device=cuda, generator=gen).bfloat16()
+    paths = [p for p, leaf in _leaf_paths(params)]
+
+    def run(impl):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        xs = x.detach().requires_grad_(True)
+        y = BertBlock(dataclasses.replace(cfg, attn_impl=impl))(
+            tree_unflatten(params, leaves), xs, None)
+        grads = torch.autograd.grad(y, [xs, *leaves], dy)
+        return [y.float(), *(g.float() for g in grads)]
+
+    before = (tfused.FWD_KERNEL.launches, tfused.BWD_KERNEL.launches)
+    fused = run("fused")
+    torch.cuda.synchronize()
+    assert (tfused.FWD_KERNEL.launches - before[0], tfused.BWD_KERNEL.launches - before[1]) == \
+        (1, 1)
+    plain = run("xla")
+    names = ["out", "dx", *("/".join(p) for p in paths)]
+    for name, a, b in zip(names, fused, plain):
+        assert torch.isfinite(a).all(), name
+        if name.endswith("attn_k/bias"):
+            continue
+        cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+        assert cos >= 0.99, (name, cos)
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items() for pl in _leaf_paths(v, prefix + (k,))]
+    return [(prefix, tree)]
+
+
+@pytest.mark.cuda
+def test_bert_padding_invariance_on_card(cuda):
+    """tests/unit/test_models.py:66 on the card: a padded row's [CLS]
+    logits equal the row run without its padding, within the bf16
+    tolerance of the reference's test; the padded batch never launches
+    rows 12-13."""
+    from unionml_tpu_torch.models import BertClassifier, BertConfig
+
+    cfg = dataclasses.replace(BertConfig.tiny(vocab_size=100, num_classes=4), attn_impl="fused")
+    module = BertClassifier(cfg)
+    ids = torch.ones((2, 10), dtype=torch.int32, device=cuda)
+    mask = torch.tensor([[1] * 10, [1] * 5 + [0] * 5], device=cuda)
+    params = module.init(torch.Generator(device=cuda).manual_seed(0), ids)
+    before = tfused.FWD_KERNEL.launches
+    with torch.no_grad():
+        logits = module(params, ids, attention_mask=mask)
+        short = module(params, ids[:, :5], attention_mask=mask[:, :5])
+    torch.cuda.synchronize()
+    assert tfused.FWD_KERNEL.launches == before
+    assert logits.shape == (2, 4) and logits.device.type == "cuda"
+    torch.testing.assert_close(logits[1], short[1], rtol=2e-2, atol=2e-2)

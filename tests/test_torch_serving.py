@@ -189,7 +189,8 @@ def test_port_imports_neither_jax_nor_reference():
     """Every module of unionml_tpu_torch imports without JAX, the JAX
     package or ``ml_dtypes`` (bf16 host rows are torch tensors; checked in
     a fresh interpreter), the prefix cache, the feed, goodput, checkpoint,
-    elastic and LoRA modules among them."""
+    elastic, LoRA, MLP and BERT modules and the templates' scaffolded
+    tests among them."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -199,7 +200,11 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m)\n"
         "for new in ('serving.prefix_cache', 'elastic', 'goodput', 'checkpoint',\n"
         "            'checkpoint.async_writer', 'checkpoint.pytree_io', 'checkpoint._metrics',\n"
-        "            'data.native', 'data.pipeline', 'models.lora'):\n"
+        "            'data.native', 'data.pipeline', 'models.lora', 'models.mlp',\n"
+        "            'models.bert', 'templates.basic.app', 'templates.basic_tpu.app',\n"
+        "            'templates.basic.tests.test_app', 'templates.basic_tpu.tests.test_app',\n"
+        "            'templates.llm_serving.tests.test_app',\n"
+        "            'templates.vision_tpu.tests.test_app'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"

@@ -114,7 +114,7 @@ def test_fused_attention_plain_backward_is_the_kernels_arithmetic():
     o = tfa.fused_attention_fwd_plain(q, k, v, causal=True)
     o.backward(g)
     dq, dk, dv = tfa.fused_attention_bwd_plain(q.detach(), k.detach(), v.detach(), g,
-                                               o.detach(), causal=True)
+                                               causal=True)
     for got, t in zip((dq, dk, dv), (q, k, v)):
         torch.testing.assert_close(got, t.grad, **FP32)
 
@@ -137,8 +137,8 @@ def test_chip_smoke_row_check_rejects_a_skipped_chunk(s, causal):
     q = q * float(torch.tensor(64 ** -0.5 * tfa.LOG2E, dtype=torch.bfloat16))
     o = tfa.fused_attention_fwd_plain(q, k, v, causal=causal)
     want = dict(zip(("out", "dq", "dk", "dv"),
-                    (o, *tfa.fused_attention_bwd_plain(q, k, v, do, o, causal=causal))))
-    fault = dict(zip(want, chip_smoke.skipped_chunk_fault(q, k, v, do, o, causal=causal)))
+                    (o, *tfa.fused_attention_bwd_plain(q, k, v, do, causal=causal))))
+    fault = dict(zip(want, chip_smoke.skipped_chunk_fault(q, k, v, do, causal=causal)))
     checks = chip_smoke.check_fused_rows("plain", want, want, fault)
     assert set(checks) == {"out", "dq", "dk", "dv"}
     for name, chk in checks.items():

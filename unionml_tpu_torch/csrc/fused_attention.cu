@@ -8,17 +8,22 @@
 // scale * log2(e) by the caller (so scores are in log2 space):
 //   forward   s = q k^T (fp32), causal mask, m = rowmax(s), e = exp2(s - m),
 //             z = rowsum(e), o = (bf16(e) v) / z;
-//   backward  dv = bf16(e)^T bf16(do / z), delta = rowsum(do * o),
-//             dp = do v^T, ds = bf16(e * (dp - delta) * (ln2 / z)),
+//   backward  dv = bf16(e)^T bf16(do / z), dp = do v^T,
+//             delta = rowsum(e * dp) / z, ds = bf16(e * (dp - delta) * (ln2 / z)),
 //             dq = ds k, dk = ds^T q,
 // with every product accumulated in fp32 and rounded to bf16 where the TPU
-// kernel rounds (e before P.V, do / z and ds before their products).
+// kernel rounds (e before P.V, do / z and ds before their products). The TPU
+// kernel takes delta = rowsum(do * o) from the bf16 output instead; where a
+// row's value vectors are nearly equal (the last layers of a randomly
+// initialised post-LN encoder) dp - delta cancels and o's rounding then
+// outweighs what is left, so dq and dk lose their direction. The sum over
+// e * dp is delta before any rounding, and the backward needs no o.
 //
 // Bound on the H100: at the ViT-B shape (S = 197, head_dim 64) the bytes of
-// q, k, v, o (and do, dq, dk, dv) outweigh the tensor-core operations
-// (4 * S^2 * D per head forward, 10 * S^2 * D backward), so device memory
-// bounds both directions: 0.0231 ms for the forward and 0.0462 ms for the
-// backward at q/k/v[64,197,12,64].
+// q, k, v, o (and q, k, v, do, dq, dk, dv) outweigh the tensor-core
+// operations (4 * S^2 * D per head forward, 10 * S^2 * D backward), so
+// device memory bounds both directions: 0.0231 ms for the forward and
+// 0.0405 ms for the backward at q/k/v[64,197,12,64].
 //
 // Forward design (row 12). The TPU kernel held a whole S x S fp32 score
 // tile per program (155 KB at S = 197); here every block owns a 64-row
@@ -65,11 +70,12 @@
 // a wgmma with fp32 sums in registers: S, dP, e, ds and the dq / dk / dv
 // sums never pass through shared memory.
 // - Kernel A (fused_bwd_dq_kernel), one 64-query tile: pass 1 streams the
-//   visible 64-key chunks of K and keeps the row max m and sum z online
-//   (S = Q K^T by wgmma m64n64k16 from shared memory); then delta =
-//   rowsum(dO * O) in fp32 and dO / z rounded to bf16 once per query row,
-//   staged over O's tile and stored by TMA into the scratch, and m, ln2 / z
-//   and delta into the stats; pass 2 streams K and V again: S and dP =
+//   visible 64-key chunks of K and V and keeps the row max m, the sum z and
+//   the sum of e * dP online (S = Q K^T and dP = dO V^T by wgmma
+//   m64n64k16 from shared memory); then delta = that sum / z in fp32 and
+//   dO / z rounded to bf16 once per query row, staged in a tile of its own
+//   and stored by TMA into the scratch, and m, ln2 / z and delta into the
+//   stats; pass 2 streams K and V again: S and dP =
 //   dO V^T by wgmma (two groups: e = exp2(s - m) against the final m is
 //   computed while dP is in flight), ds in registers, converted to bf16 in
 //   place (the accumulator layout is the A-operand layout), and dq += ds K
@@ -80,10 +86,10 @@
 //   V dO^T with the keys as rows, so e and ds come out with the keys as the
 //   M side and feed dv += e^T (dO / z) and dk += ds^T Q straight from
 //   registers; e and dv's product run while dP^T is in flight.
-// Products per (64 x 64) tile pair: 4 on the query side (S twice, dP, dq),
-// 4 on the key side (S^T, dP^T, dv, dk): 8, against 9 plus a row-max pass
-// of S in the WMMA version this replaces (the TPU kernel's 5 on a whole
-// S x S tile). Causal tiles wholly above the diagonal are never loaded;
+// Products per (64 x 64) tile pair: 5 on the query side (S and dP twice,
+// dq), 4 on the key side (S^T, dP^T, dv, dk): 9, against 9 plus a row-max
+// pass of S in the WMMA version this replaces (the TPU kernel's 5 on a
+// whole S x S tile). Causal tiles wholly above the diagonal are never loaded;
 // tiles that hold a hidden or out-of-range pair are masked. Each tile's
 // dq, dk and dv are staged as bf16 over a tile the block no longer reads
 // and stored by TMA.
@@ -91,7 +97,7 @@
 // warpgroup runs one chain (wait for a tile, wgmma, wait, exp2 and FMAs,
 // wgmma, wait), so time falls with the warpgroups resident on an SM. At
 // head_dim 64 three blocks fit (shared memory: kernel A 24 KB of Q / dO /
-// O and 3 (K, V) slots of 16 KB, 73 KB with barriers and slack; kernel B
+// dO / z and 3 (K, V) slots of 16 KB, 73 KB with barriers and slack; kernel B
 // 16 KB of K / V and 2 slots of (Q, dO, dO / z, stats) of 24.75 KB, 67 KB;
 // registers at most 136 a thread, which kernel B's 32-row steps keep). At
 // 128 one block fits (kernel A 113 KB, kernel B 131 KB). Issuing the next
@@ -439,7 +445,7 @@ struct Bwd {
   // query rows per step of kernel B: 32 at head_dim 64 keeps its registers
   // under that bound, 64 at 128 (one block per SM either way)
   static constexpr int QW = D == 64 ? 32 : 64;
-  // kernel A: Q, dO, O (then dO / z), and a ring of (K, V) slots
+  // kernel A: Q, dO, dO / z, and a ring of (K, V) slots
   static constexpr int A_STAGES = D == 64 ? 3 : 2;
   static constexpr int A_RING = 3 * TILE;
   static constexpr int A_BAR = A_RING + A_STAGES * 2 * TILE;
@@ -453,16 +459,16 @@ struct Bwd {
 };
 
 // Kernel A: one 64-query tile of one (batch, head). Pass 1 streams the
-// visible 64-key chunks of K for the row max m and sum z (online). Then
-// delta = rowsum(dO * O) and dO / z (bf16, stored by TMA into the scratch
-// for kernel B), and m, ln2 / z and delta into the stats. Pass 2 streams K
-// and V again: S = Q K^T and dP = dO V^T, ds in registers, dq += ds K.
+// visible 64-key chunks of K and V for the row max m, the sum z and the
+// sum of e * dP (online). Then delta = rowsum(e * dP) / z and dO / z (bf16,
+// stored by TMA into the scratch for kernel B), and m, ln2 / z and delta
+// into the stats. Pass 2 streams K and V again: S = Q K^T and dP = dO V^T,
+// ds in registers, dq += ds K.
 template <int D>
 __global__ void __launch_bounds__(THREADS, Bwd<D>::MIN_BLOCKS)
 fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
-                    const __grid_constant__ CUtensorMap o_map,
                     const __grid_constant__ CUtensorMap do_map,
                     const __grid_constant__ CUtensorMap don_map,
                     const __grid_constant__ CUtensorMap dq_map, float* __restrict__ stats,
@@ -471,7 +477,7 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr int ST = C::A_STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base, do_s = base + C::TILE, o_s = base + 2 * C::TILE;
+  const uint32_t q_s = base, do_s = base + C::TILE, don_s = base + 2 * C::TILE;
   const uint32_t ring = base + C::A_RING;       // slot s: K, then V
   const uint32_t in_full = base + C::A_BAR;     // then full[ST], empty[ST]
   auto full = [&](int s) { return in_full + 8 * (1 + s); };
@@ -494,18 +500,16 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   if (tid >= 128) {
     // ---------------- producer: one thread issues every load ----------------
     if (tid == 128) {
-      mbar_expect_tx(in_full, 3 * C::TILE);
+      mbar_expect_tx(in_full, 2 * C::TILE);
       load_rows<D>(q_s, &q_map, in_full, head, q0, b);
       load_rows<D>(do_s, &do_map, in_full, head, q0, b);
-      load_rows<D>(o_s, &o_map, in_full, head, q0, b);
       for (int it = 0; it < 2 * n_chunks; ++it) {
         const int s = it % ST;
-        const bool pass2 = it >= n_chunks;
-        const int k0 = (pass2 ? it - n_chunks : it) * BT;
+        const int k0 = (it < n_chunks ? it : it - n_chunks) * BT;
         if (it >= ST) mbar_wait(empty(s), ((it / ST) - 1) & 1);
-        mbar_expect_tx(full(s), (pass2 ? 2 : 1) * C::TILE);
+        mbar_expect_tx(full(s), 2 * C::TILE);
         load_rows<D>(ring + s * 2 * C::TILE, &k_map, full(s), head, k0, b);
-        if (pass2) load_rows<D>(ring + s * 2 * C::TILE + C::TILE, &v_map, full(s), head, k0, b);
+        load_rows<D>(ring + s * 2 * C::TILE + C::TILE, &v_map, full(s), head, k0, b);
       }
     }
     return;
@@ -518,17 +522,21 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int qp[2] = {q0 + r0, q0 + r0 + 8};
   mbar_wait(in_full, 0);
 
-  // pass 1: m and z, online over the key chunks
-  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
+  // pass 1: m, z and the sum of e * dp, online over the key chunks
+  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
   for (int j = 0; j < n_chunks; ++j) {
     const int s = j % ST, k0 = j * BT;
+    const uint32_t ks = ring + s * 2 * C::TILE;
     mbar_wait(full(s), (j / ST) & 1);
-    float sc[32];
+    float sc[32], dp[32];
     wgmma_fence();
-    issue_abt<D, BT>(sc, q_s, ring + s * 2 * C::TILE);
+    issue_abt<D, BT>(sc, q_s, ks);
+    wgmma_commit();
+    issue_abt<D, BT>(dp, do_s, ks + C::TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
+    fence_regs(dp);
     mbar_arrive(empty(s));
     if (needs_mask(q0, k0, len, causal)) {
 #pragma unroll
@@ -545,35 +553,40 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int h = 0; h < 2; ++h) {
       const float mn = fmaxf(m[h], quad_max(mx[h]));
       mu[h] = mn == -INFINITY ? 0.f : mn;  // nothing visible yet: e = 0
-      z[h] *= ex2(m[h] - mu[h]);
+      const float r = ex2(m[h] - mu[h]);
+      z[h] *= r;
+      dl[h] *= r;
       m[h] = mn;
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) z[(i >> 1) & 1] += ex2(sc[i] - mu[(i >> 1) & 1]);
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float e = ex2(sc[i] - mu[h]);  // 0 where masked: dp there adds nothing
+      z[h] += e;
+      dl[h] += e * dp[i];
+    }
   }
 
-  // delta = rowsum(dO * O); dO / z over O's tile; the rows' statistics
-  float mu[2], cz[2], zz[2], dl[2] = {0.f, 0.f};
+  // delta = rowsum(e * dp) / z; dO / z into its own tile; the rows' statistics
+  float mu[2], cz[2], zz[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     z[h] = quad_sum(z[h]);
+    dl[h] = quad_sum(dl[h]);
     mu[h] = m[h] == -INFINITY ? 0.f : m[h];
     cz[h] = z[h] > 0.f ? LN2 / z[h] : 0.f;  // rows past the sequence see nothing
     zz[h] = z[h] > 0.f ? z[h] : 1.f;
+    dl[h] = dl[h] / zz[h];
   }
 #pragma unroll
   for (int g = 0; g < D / 8; ++g) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const uint32_t off = tile_off(r0 + 8 * h, g * 8 + col_lane);
-      const float2 ov = unpack_bf16(ld_shared_b32(o_s + off));
       const float2 dv = unpack_bf16(ld_shared_b32(do_s + off));
-      dl[h] += dv.x * ov.x + dv.y * ov.y;
-      st_shared_b32(o_s + off, pack_bf16(dv.x / zz[h], dv.y / zz[h]));
+      st_shared_b32(don_s + off, pack_bf16(dv.x / zz[h], dv.y / zz[h]));
     }
   }
-  dl[0] = quad_sum(dl[0]);
-  dl[1] = quad_sum(dl[1]);
   if (lane % 4 == 0) {
     const size_t plane = (size_t)gridDim.y * len_pad;
     float* row = stats + (size_t)bh * len_pad + q0 + r0;
@@ -587,7 +600,7 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   fence_async_shared();
   bar_sync(1, 128);
   if (tid == 0) {
-    store_rows<D>(&don_map, o_s, head, q0, b);
+    store_rows<D>(&don_map, don_s, head, q0, b);
     bulk_commit();
   }
 
@@ -850,20 +863,20 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, int b, int
 }
 
 template <int D>
-cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, void* dq, void* dk, void* dv, void* scratch, int b,
-                int len, int heads, int causal, cudaStream_t st) {
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                void* dk, void* dv, void* scratch, int b, int len, int heads, int causal,
+                cudaStream_t st) {
   const int tiles = (len + BT - 1) / BT, len_pad = tiles * BT;
   float* stats = static_cast<float*>(scratch);
   void* don = stats + (size_t)3 * b * heads * len_pad;
-  const void* bases[9] = {q, k, v, o, dout, don, dq, dk, dv};
+  const void* bases[8] = {q, k, v, dout, don, dq, dk, dv};
   for (const void* p : bases) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;  // TMA
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  CUtensorMap maps[9];  // q, k, v, o, do, dO / z, dq, dk, dv
-  for (int i = 0; i < 9; ++i) {
+  CUtensorMap maps[8];  // q, k, v, do, dO / z, dq, dk, dv
+  for (int i = 0; i < 8; ++i) {
     if (!make_map(encode, &maps[i], bases[i], D, heads, len, b, BT)) return cudaErrorInvalidValue;
   }
   cudaError_t err = prepare(fused_bwd_dq_kernel<D>, Bwd<D>::A_SMEM);
@@ -872,12 +885,12 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   dim3 grid(tiles, b * heads);
   fused_bwd_dq_kernel<D><<<grid, THREADS, Bwd<D>::A_SMEM, st>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], stats, len, len_pad,
-      heads, causal);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], stats, len, len_pad, heads,
+      causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fused_bwd_dkv_kernel<D><<<grid, THREADS, Bwd<D>::B_SMEM, st>>>(
-      maps[0], maps[1], maps[2], maps[4], maps[5], maps[7], maps[8], stats, len, len_pad,
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[6], maps[7], stats, len, len_pad,
       heads, causal);
   return cudaGetLastError();
 }
@@ -897,18 +910,18 @@ extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v, 
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward of fused_attention_fwd: q, k, v, o, dout and the outputs dq,
-// dk, dv are [b, len, heads, d] bf16 contiguous, 16-byte aligned; scratch
+// The backward of fused_attention_fwd: q, k, v, dout and the outputs dq, dk,
+// dv are [b, len, heads, d] bf16 contiguous, 16-byte aligned; scratch
 // holds 3 * b * heads * len_pad floats (m, ln2 / z, delta per query row;
 // len_pad = len rounded up to 64) and then b * len * heads * d bf16 (dO /
 // z). Launches kernel A then kernel B on `stream`.
 extern "C" int fused_attention_bwd(const void* q, const void* k, const void* v,
-                                   const void* o, const void* dout, void* dq, void* dk,
-                                   void* dv, void* scratch, int b, int len, int heads,
-                                   int d, int causal, void* stream) {
+                                   const void* dout, void* dq, void* dk, void* dv,
+                                   void* scratch, int b, int len, int heads, int d, int causal,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || len <= 0) return 0;
-  if (d == 64) return bwd<64>(q, k, v, o, dout, dq, dk, dv, scratch, b, len, heads, causal, st);
-  if (d == 128) return bwd<128>(q, k, v, o, dout, dq, dk, dv, scratch, b, len, heads, causal, st);
+  if (d == 64) return bwd<64>(q, k, v, dout, dq, dk, dv, scratch, b, len, heads, causal, st);
+  if (d == 128) return bwd<128>(q, k, v, dout, dq, dk, dv, scratch, b, len, heads, causal, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -75,8 +75,9 @@ def prefetch_to_device(
     stream of its own on CUDA). The batch order is the inline feed's,
     every yielded tensor is fresh, a raising source re-raises at the
     consumer, and an abandoned generator stops its feeder. Only the
-    consumer's wait for a ready batch lands in ``data_wait``; the
-    feeder's work overlaps the step, so ``host_to_device`` stays 0.
+    consumer's wait for a ready batch, its hand-off from the copy stream
+    included, lands in ``data_wait``; the feeder's work overlaps the step,
+    so ``host_to_device`` stays 0.
     """
     if sharding is not None:
         raise NotImplementedError(
@@ -160,28 +161,37 @@ def _threaded_prefetch(iterator: Iterable[Any], *, buffer_size: int, device: tor
         except BaseException as exc:  # re-raised at the consumer
             offer(_FeedError(exc))
 
+    def take() -> Any:
+        item = q.get()
+        if item is _EXHAUSTED or isinstance(item, _FeedError):
+            return item
+        batch, ready = item
+        if ready is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(ready)
+            for t in _cuda_leaves(batch):
+                # allocated on the copy stream, read on the consumer's
+                t.record_stream(consumer)
+        return batch
+
     thread = threading.Thread(target=producer, name="prefetch-feed", daemon=True)
     thread.start()
     try:
         while True:
             if goodput is None:
-                item = q.get()
+                item = take()
             else:
-                # only the consumer's wait is badput: the feeder fell behind
+                # only the consumer's wait is badput: the feeder fell behind,
+                # or holds the interpreter lock when the hand-off returns
+                # (the event wait releases it, and the feeder, woken by the
+                # freed slot, takes it for its next batch's host work)
                 with goodput.phase("data_wait"):
-                    item = q.get()
+                    item = take()
             if item is _EXHAUSTED:
                 return
             if isinstance(item, _FeedError):
                 raise item.exc
-            batch, ready = item
-            if ready is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(ready)
-                for t in _cuda_leaves(batch):
-                    # allocated on the copy stream, read on the consumer's
-                    t.record_stream(consumer)
-            yield batch
+            yield item
     finally:
         stop.set()
         thread.join(timeout=5.0)

@@ -1,11 +1,23 @@
 """The port's model zoo: the Llama model (serving, LM training and LoRA /
-QLoRA fine-tuning) and the ViT training model with their train-state and
+QLoRA fine-tuning), the ViT training model, the MLP classifier and the
+BERT encoder (fine-tune and masked-LM heads) with their train-state and
 step factories (the reference's zoo is ported one model at a time;
 ROADMAP.md)."""
 
+from unionml_tpu_torch.models.bert import (
+    BertClassifier,
+    BertConfig,
+    BertEncoder,
+    BertMlm,
+    make_mlm_batch,
+    mlm_step,
+)
+from unionml_tpu_torch.models.bert import init_params as init_bert_params
 from unionml_tpu_torch.models.convert import (
+    bert_from_jax_params,
     from_jax_params,
     lora_from_jax_state,
+    mlp_from_jax_params,
     vit_from_jax_params,
 )
 from unionml_tpu_torch.models.generate import (
@@ -15,6 +27,8 @@ from unionml_tpu_torch.models.generate import (
     serving_params,
 )
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig, init_cache, init_params
+from unionml_tpu_torch.models.mlp import Mlp, MlpConfig
+from unionml_tpu_torch.models.mlp import init_params as init_mlp_params
 from unionml_tpu_torch.models.lora import (
     LoRADenseGeneral,
     LoRATrainState,
@@ -49,6 +63,18 @@ from unionml_tpu_torch.models.vit import ViT, ViTConfig
 from unionml_tpu_torch.models.vit import init_params as init_vit_params
 
 __all__ = [
+    "Mlp",
+    "MlpConfig",
+    "init_mlp_params",
+    "mlp_from_jax_params",
+    "BertEncoder",
+    "BertClassifier",
+    "BertMlm",
+    "BertConfig",
+    "init_bert_params",
+    "bert_from_jax_params",
+    "make_mlm_batch",
+    "mlm_step",
     "Llama",
     "LlamaConfig",
     "init_cache",

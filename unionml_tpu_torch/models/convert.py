@@ -1,4 +1,5 @@
-"""The weight bridges: a JAX Llama or ViT param tree → the port's state.
+"""The weight bridges: a JAX Llama, ViT, BERT or MLP param tree → the
+port's state.
 
 :func:`from_jax_params` takes the reference's param tree (nested dicts
 of numpy arrays — ``jax.tree_util.tree_map(np.asarray, params)`` of a
@@ -26,6 +27,9 @@ safetensors import/export) is not ported yet.
 under ``qkv_bias``), LayerNorm ``scale`` / ``bias``, ``cls``, ``pos_embed``
 and ``head``, every leaf checked against the shape the
 :class:`~unionml_tpu_torch.models.vit.ViTConfig` declares.
+:func:`bert_from_jax_params` and :func:`mlp_from_jax_params` do the same
+for a ``unionml_tpu`` BERT tree (``BertClassifier``, ``BertMlm`` or a bare
+encoder, with or without ``type_embed``) and an ``Mlp`` tree.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
+from unionml_tpu_torch.models.bert import BertConfig
 from unionml_tpu_torch.models.llama import LlamaConfig
+from unionml_tpu_torch.models.mlp import MlpConfig
 from unionml_tpu_torch.models.quantization import INT4_COLUMN_PARALLEL, int4_tile
 from unionml_tpu_torch.models.vit import ViTConfig
 
@@ -230,6 +236,22 @@ def _vit_shapes(config: ViTConfig, channels: int) -> Dict[Tuple[str, ...], Tuple
     return out
 
 
+def _convert_checked(params: Mapping, expected: Mapping, dev: torch.device, what: str) -> dict:
+    """Every leaf of ``expected`` checked for its shape, then the tree
+    as torch tensors on ``dev``; a leaf ``expected`` lacks raises."""
+    for path, shape in expected.items():
+        _check(path, tuple(np.shape(_get(params, path))), shape)
+
+    def convert(node, path):
+        if isinstance(node, Mapping):
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
+        if path not in expected:
+            raise ValueError(f"unexpected leaf {'/'.join(path)} for this {what}")
+        return _to_tensor(node, dev)
+
+    return convert(params, ())
+
+
 def vit_from_jax_params(params: Mapping, config: ViTConfig, device: DeviceLike = None) -> dict:
     """The reference's ViT param tree (numpy leaves) as torch tensors on
     ``device`` (``None`` = CUDA, raising without one), same nesting and
@@ -240,15 +262,89 @@ def vit_from_jax_params(params: Mapping, config: ViTConfig, device: DeviceLike =
     kernel = np.shape(_get(params, ("patch_embed", "kernel")))
     if len(kernel) != 4:
         raise ValueError(f"param patch_embed/kernel has shape {kernel}, expected [p, p, C, D]")
-    expected = _vit_shapes(config, kernel[2])
-    for path, shape in expected.items():
-        _check(path, tuple(np.shape(_get(params, path))), shape)
+    return _convert_checked(params, _vit_shapes(config, kernel[2]), dev, "ViTConfig")
 
-    def convert(node, path):
-        if isinstance(node, Mapping):
-            return {k: convert(v, path + (k,)) for k, v in node.items()}
-        if path not in expected:
-            raise ValueError(f"unexpected leaf {'/'.join(path)} for this ViTConfig")
-        return _to_tensor(node, dev)
 
-    return convert(params, ())
+def _bert_encoder_shapes(config: BertConfig, prefix: Tuple[str, ...],
+                         token_types: bool) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """Every leaf of a BERT encoder tree under ``prefix`` and its shape."""
+    c = config
+    d, h, m = c.hidden_dim, c.num_heads, c.mlp_dim
+    hd = d // h
+    out: Dict[Tuple[str, ...], Tuple[int, ...]] = {
+        prefix + ("tok_embed", "embedding"): (c.vocab_size, d),
+        prefix + ("pos_embed", "embedding"): (c.max_len, d),
+        prefix + ("ln_embed", "scale"): (d,),
+        prefix + ("ln_embed", "bias"): (d,),
+    }
+    if token_types:
+        out[prefix + ("type_embed", "embedding")] = (c.num_types, d)
+    for i in range(c.num_layers):
+        b = prefix + (f"block_{i}",)
+        for name in ("attn_q", "attn_k", "attn_v"):
+            out[b + (name, "kernel")] = (d, h, hd)
+            out[b + (name, "bias")] = (h, hd)
+        out[b + ("attn_o", "kernel")] = (h, hd, d)
+        out[b + ("attn_o", "bias")] = (d,)
+        for ln in ("ln1", "ln2"):
+            out[b + (ln, "scale")] = (d,)
+            out[b + (ln, "bias")] = (d,)
+        out[b + ("mlp", "up", "kernel")] = (d, m)
+        out[b + ("mlp", "up", "bias")] = (m,)
+        out[b + ("mlp", "down", "kernel")] = (m, d)
+        out[b + ("mlp", "down", "bias")] = (d,)
+    return out
+
+
+def bert_from_jax_params(params: Mapping, config: BertConfig, device: DeviceLike = None) -> dict:
+    """The reference's BERT param tree (numpy leaves) as torch tensors on
+    ``device`` (``None`` = CUDA, raising without one), same nesting and
+    layout: a ``BertClassifier`` tree (``encoder``, ``pooler``, ``head``),
+    a ``BertMlm`` tree (``encoder``, ``mlm_dense``, ``mlm_ln``,
+    ``mlm_head``) or a bare ``BertEncoder`` tree, each with or without
+    ``type_embed``. Raises ``ValueError`` on a missing or extra leaf or a
+    shape that does not match ``config``."""
+    dev = resolve_device(device)
+    c = config
+    d = c.hidden_dim
+    wrapped = "encoder" in params
+    prefix = ("encoder",) if wrapped else ()
+    encoder = params["encoder"] if wrapped else params
+    expected = _bert_encoder_shapes(c, prefix, "type_embed" in encoder)
+    if not wrapped:
+        what = "BertConfig (a bare encoder tree)"
+    elif "mlm_head" in params:
+        what = "BertConfig (a BertMlm tree)"
+        expected.update({
+            ("mlm_dense", "kernel"): (d, d), ("mlm_dense", "bias"): (d,),
+            ("mlm_ln", "scale"): (d,), ("mlm_ln", "bias"): (d,),
+            ("mlm_head", "kernel"): (d, c.vocab_size), ("mlm_head", "bias"): (c.vocab_size,),
+        })
+    else:
+        what = "BertConfig (a BertClassifier tree)"
+        expected.update({
+            ("pooler", "kernel"): (d, d), ("pooler", "bias"): (d,),
+            ("head", "kernel"): (d, c.num_classes), ("head", "bias"): (c.num_classes,),
+        })
+    return _convert_checked(params, expected, dev, what)
+
+
+def mlp_from_jax_params(params: Mapping, config: MlpConfig, device: DeviceLike = None) -> dict:
+    """The reference's ``Mlp`` param tree (numpy leaves) as torch tensors
+    on ``device`` (``None`` = CUDA, raising without one): ``dense_{i}``
+    per hidden width and ``head``, each ``kernel`` ``[in, out]`` and
+    ``bias`` ``[out]``. The input width comes from the tree (the first
+    kernel's rows); every other dimension must match ``config``. Raises
+    ``ValueError`` on a missing or extra leaf or a wrong shape."""
+    dev = resolve_device(device)
+    names = [f"dense_{i}" for i in range(len(config.hidden_dims))] + ["head"]
+    first = np.shape(_get(params, (names[0], "kernel")))
+    if len(first) != 2:
+        raise ValueError(f"param {names[0]}/kernel has shape {first}, expected [in, out]")
+    expected: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+    fan_in = first[0]
+    for name, width in zip(names, [*config.hidden_dims, config.num_classes]):
+        expected[(name, "kernel")] = (fan_in, width)
+        expected[(name, "bias")] = (width,)
+        fan_in = width
+    return _convert_checked(params, expected, dev, "MlpConfig")

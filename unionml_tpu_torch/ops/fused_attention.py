@@ -6,9 +6,12 @@ of ``attn_impl="fused"``: full-row softmax attention over ``[B, S, H, D]``
 tensors for ``S <= MAX_FUSED_SEQ``, scores in log2 space (``scale *
 log2(e)`` rides q outside the autograd function, so autograd gives dq that
 factor), normalization after the P.V product, and a backward that
-recomputes the softmax and uses ``delta = rowsum(do * o)`` over the saved
-output. GQA repeats the kv heads outside the function, so the repeat's own
-backward group-sums dk/dv.
+recomputes the softmax and sums ``delta = rowsum(e * dp) / z`` in fp32.
+The reference kernel takes ``delta = rowsum(do * o)`` from the bf16
+output; where a row's value vectors are nearly equal ``dp - delta``
+cancels, and that rounding then turns dq and dk (ROADMAP.md C7). The
+backward needs no saved output. GQA repeats the kv heads outside the
+function, so the repeat's own backward group-sums dk/dv.
 
 :data:`FWD_KERNEL` and :data:`BWD_KERNEL` (``csrc/fused_attention.cu``)
 count their launches; :func:`fused_attention_fwd_plain` and
@@ -43,7 +46,7 @@ FWD_KERNEL = Kernel(
 )
 BWD_KERNEL = Kernel(
     "fused_attention", "fused_attention_bwd",
-    [ctypes.c_void_p] * 9
+    [ctypes.c_void_p] * 8
     + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p],
 )
@@ -76,16 +79,15 @@ def fused_attention_fwd_plain(
 
 
 def fused_attention_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    o: torch.Tensor, *, causal: bool,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *, causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward (the kernel's reference): ``(dq, dk, dv)``."""
     e, z = _softmax_parts(q, k, causal)
     do_bh = do.permute(0, 2, 1, 3)                                   # [B, H, S, D]
     do_n = (do_bh.float() / z).to(do.dtype)
     dv = torch.einsum("bhqk,bhqd->bkhd", e.to(do.dtype).float(), do_n.float())
-    delta = (do_bh.float() * o.permute(0, 2, 1, 3).float()).sum(dim=-1, keepdim=True)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    delta = (e * dp).sum(dim=-1, keepdim=True) / z
     ds = (e * (dp - delta) * (LN2 / z)).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
@@ -140,24 +142,23 @@ def fused_attention_fwd_cuda(
 
 
 def fused_attention_bwd_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    o: torch.Tensor, *, causal: bool,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *, causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (a dq pass over query tiles, then a
     dk/dv pass over key tiles, ordered on the current stream). The scratch
     holds the dq pass's per-row m, ln2 / z and delta (fp32, rows padded to
     a multiple of 64) and its ``do / z`` (bf16, do's shape) for the dk/dv
     pass."""
-    b, s, h, d = _check("fused_attention_bwd_cuda", q, k, v, do, o)
+    b, s, h, d = _check("fused_attention_bwd_cuda", q, k, v, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     s_pad = -(-s // 64) * 64
     scratch = torch.empty(3 * b * h * s_pad * 4 + q.numel() * 2, dtype=torch.uint8,
                           device=q.device)
     with torch.cuda.device(q.device):
         BWD_KERNEL(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, s, h, d,
-            int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, s, h, d, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     return dq, dk, dv
 
@@ -185,23 +186,21 @@ def _fwd(q, k, v, causal):
 class _Fused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o = _fwd(q, k, v, causal)
-        # residuals as the TPU kernel keeps them: the backward's delta term
-        # needs rowsum(do * o), not the S x S probabilities
-        ctx.save_for_backward(q, k, v, o)
+        # the backward recomputes the softmax (and delta) from q, k, v
+        ctx.save_for_backward(q, k, v)
         ctx.causal = causal
-        return o
+        return _fwd(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v = ctx.saved_tensors
         if _on_card(q):
             grads = fused_attention_bwd_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(), o,
+                q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
                 causal=ctx.causal,
             )
         else:
-            grads = fused_attention_bwd_plain(q, k, v, do, o, causal=ctx.causal)
+            grads = fused_attention_bwd_plain(q, k, v, do, causal=ctx.causal)
         return (*grads, None)
 
 
