@@ -1851,25 +1851,128 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-4)   # fp32 statistics, exp and sums in anothe
 FLASH_TILE = 64
 
 
-def dropped_tile_fault(q, k, v, do, out, lse, *, causal: bool, scale: float):
-    """A planted fault the row check must reject: the plain forward and
-    backward with each query's last visible key tile skipped (for queries
-    that see more than one tile), as a kernel with its key loop one tile
-    short would compute. ``(out, dq, dk, dv)``; the backward recomputes on
-    the given ``out`` and ``lse``, as the kernels do."""
+# the delta pass (sum_j p_ij dp_ij in fp32) row by row against the same sum
+# in fp64 on the same lse: |kernel - fp64| over the row's sum of |p_ij
+# dp_ij|. fp32 sums of a few thousand terms in another order, and p from
+# exp2 in fp32, stay near 1e-5 of it; a row whose last visible key tile is
+# skipped loses that tile's share of its terms.
+DELTA_ROW_LIMIT = 1e-3
+
+
+def _dropped_tile_visible(q_len: int, kv_len: int, causal: bool, device) -> torch.Tensor:
+    """bool [Sq, Skv]: the pairs a kernel sees whose key loop stops one
+    tile short: each query's last visible key tile hidden (for queries that
+    see more than one tile)."""
     from unionml_tpu_torch.ops import flash_attention as fa
 
-    q_len, kv_len = q.shape[1], k.shape[1]
-    rows = torch.arange(q_len, device=q.device)
+    rows = torch.arange(q_len, device=device)
     last = (rows + (kv_len - q_len)).clamp(0, kv_len - 1) if causal else \
         torch.full_like(rows, kv_len - 1)
     last_tile = (last // FLASH_TILE)[:, None]
-    key_tile = (torch.arange(kv_len, device=q.device) // FLASH_TILE)[None, :]
-    vis = fa._causal_visible(q_len, kv_len, q.device) if causal else \
-        torch.ones(q_len, kv_len, dtype=torch.bool, device=q.device)
-    vis = vis & ~((key_tile == last_tile) & (last_tile > 0))
+    key_tile = (torch.arange(kv_len, device=device) // FLASH_TILE)[None, :]
+    vis = fa._causal_visible(q_len, kv_len, device) if causal else \
+        torch.ones(q_len, kv_len, dtype=torch.bool, device=device)
+    return vis & ~((key_tile == last_tile) & (last_tile > 0))
+
+
+def dropped_tile_fault(q, k, v, do, lse, *, causal: bool, scale: float):
+    """A planted fault the row check must reject: the plain forward and
+    backward with each query's last visible key tile skipped (for queries
+    that see more than one tile), as a kernel with its key loop one tile
+    short would compute. ``(out, dq, dk, dv)``; the backward recomputes p
+    on the given ``lse`` and sums its delta over the same pairs, as the
+    kernels do."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    vis = _dropped_tile_visible(q.shape[1], k.shape[1], causal, q.device)
     bad_out = fa._plain_forward(q, k, v, vis, scale)[0]
-    return (bad_out, *fa._plain_backward(q, k, v, do, out, lse, vis, scale))
+    return (bad_out, *fa._plain_backward(q, k, v, do, lse, None, vis, scale))
+
+
+def delta_exact(q, k, v, do, lse, *, causal: bool, scale: float,
+                skip_last_tile: bool = False) -> tuple:
+    """The delta pass's sum in fp64 on the given ``lse``: ``(delta, row
+    scale)``, both fp64 [B, H, Sq], the scale being the row's sum of
+    |p_ij dp_ij| (1e-30 for a row that sees nothing). With
+    ``skip_last_tile`` each query's last visible key tile is hidden (the
+    planted fault of :func:`check_delta_rows`). Summed one kv head at a time."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    b, q_len, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    vis = (_dropped_tile_visible(q_len, k.shape[1], causal, q.device) if skip_last_tile else
+           fa._causal_visible(q_len, k.shape[1], q.device) if causal else None)
+    f64 = torch.float64
+    lse_g = lse.reshape(b, kvh, g, q_len, 1).to(f64)
+    sums, scales = [], []
+    for j in range(kvh):
+        qj = q[:, :, j * g:(j + 1) * g].to(f64)
+        doj = do[:, :, j * g:(j + 1) * g].to(f64)
+        kj, vj = k[:, :, j].to(f64), v[:, :, j].to(f64)
+        p = torch.exp(torch.einsum("bqgd,bkd->bgqk", qj, kj) * scale - lse_g[:, j])
+        if vis is not None:
+            p = torch.where(vis, p, torch.zeros_like(p))
+        t = p * torch.einsum("bqgd,bkd->bgqk", doj, vj)
+        sums.append(t.sum(-1))
+        scales.append(t.abs().sum(-1))
+        del p, t
+    return (torch.cat(sums, 1).reshape(b, h, q_len),
+            torch.cat(scales, 1).reshape(b, h, q_len).clamp_min(1e-30))
+
+
+def check_delta_rows(name: str, got: torch.Tensor, q, k, v, do, lse, *, causal: bool,
+                     scale: float) -> dict:
+    """The delta pass row by row within :data:`DELTA_ROW_LIMIT` of the fp64
+    sum (:func:`delta_exact`); the planted fault (each query's last visible
+    key tile skipped) must fail the same check."""
+    kw = dict(causal=causal, scale=scale)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name} delta: kernel output is not finite")
+    exact, row_scale = delta_exact(q, k, v, do, lse, **kw)
+    rel = (got.double() - exact).abs() / row_scale
+    stats = {"max_row_rel_err": float(rel.max()), "limit": DELTA_ROW_LIMIT,
+             "plain_abs_max": float(exact.abs().max()),
+             "plain_abs_median": float(exact.abs().median()),
+             "max_abs_err": float((got.double() - exact).abs().max())}
+    if stats["max_row_rel_err"] > DELTA_ROW_LIMIT:
+        worst = int(rel.argmax())
+        raise AssertionError(
+            f"{name} delta: kernel disagrees with the fp64 sum: row {worst} (flat index over "
+            f"{tuple(rel.shape)}) is off by {stats['max_row_rel_err']} of its sum of |p dp|, "
+            f"beyond {DELTA_ROW_LIMIT}")
+    fault = delta_exact(q, k, v, do, lse, skip_last_tile=True, **kw)[0]
+    over = (fault - exact).abs() / row_scale > DELTA_ROW_LIMIT
+    stats["fault_rows_over_limit"] = float(over.float().mean())
+    if not bool(over.any()):
+        raise AssertionError(f"{name} delta: the row check passed a planted fault (the last "
+                             f"visible key tile skipped)")
+    return stats
+
+
+@contextlib.contextmanager
+def output_delta_fault():
+    """A planted fault for the flash backward's gradient checks: the
+    reference kernel's ``delta = rowsum(dO * O)`` from the bf16 output
+    (the forward run again for O) in place of the delta pass on the card,
+    and of the plain version's sum on the CPU."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    delta_cuda, bwd_plain = fa.flash_delta_cuda, fa.flash_bwd_plain
+
+    def planted_cuda(q, k, v, do, lse, *, causal, scale):
+        return fa.output_delta(do, fa.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)[0])
+
+    def planted_plain(q, k, v, do, lse, *, causal, scale, delta=None):
+        out = fa.flash_fwd_plain(q, k, v, causal=causal, scale=scale)[0]
+        return bwd_plain(q, k, v, do, lse, causal=causal, scale=scale,
+                         delta=fa.output_delta(do, out))
+
+    fa.flash_delta_cuda, fa.flash_bwd_plain = planted_cuda, planted_plain
+    try:
+        yield
+    finally:
+        fa.flash_delta_cuda, fa.flash_bwd_plain = delta_cuda, bwd_plain
 
 
 def check_flash_rows(name: str, got: dict, want: dict, fault: dict) -> dict:
@@ -1884,8 +1987,8 @@ def lm_kernels() -> dict:
     """The wrappers (launch counters) of the Llama training path's kernels."""
     from unionml_tpu_torch.ops import flash_attention as fa
 
-    return {"flash_fwd": fa.FWD_KERNEL, "flash_bwd_dq": fa.DQ_KERNEL,
-            "flash_bwd_dkv": fa.DKV_KERNEL}
+    return {"flash_fwd": fa.FWD_KERNEL, "flash_bwd_delta": fa.DELTA_KERNEL,
+            "flash_bwd_dq": fa.DQ_KERNEL, "flash_bwd_dkv": fa.DKV_KERNEL}
 
 
 def _visible_pairs(q_len: int, kv_len: int, causal: bool) -> int:
@@ -1899,11 +2002,15 @@ def _visible_pairs(q_len: int, kv_len: int, causal: bool) -> int:
 def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal: bool,
                      gen) -> dict:
     """Rows 9, 10 and 11 at one shape: the lse forward against its plain
-    version (out and lse), the dq and dk/dv kernels against the plain
-    backward on the kernel's own out and lse, the forward and the backward
-    each run twice (the same bits); times of each kernel, the plain versions, the bounds and
-    the SDPA yardsticks (its forward for row 9, its backward alone for
-    rows 10 and 11, and forward + backward against rows 9-11's total)."""
+    version (out and lse), the delta pass row by row against fp64 sums
+    (:func:`check_delta_rows`), the dq and dk/dv kernels against the plain
+    backward on the kernel's own lse and delta, the forward, the delta
+    pass and the backward each run twice (the same bits); times of each
+    kernel, the plain versions, the bounds and the SDPA yardsticks (its
+    forward for row 9, its backward alone for rows 10 and 11, and forward +
+    backward against rows 9-11's total), and the backward (delta, dq,
+    dk/dv) beside the same dq and dk/dv on the reference's ``delta =
+    rowsum(dO * O)`` (one torch expression), the cost of the C7 repair."""
     import torch.nn.functional as F
 
     from unionml_tpu_torch.ops import flash_attention as fa
@@ -1916,7 +2023,8 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
     kw = dict(causal=causal, scale=scale)
     fwd = lambda: fa.flash_fwd_cuda(q, k, v, **kw)  # noqa: E731
     (out, lse), (out_again, lse_again) = fwd(), fwd()
-    delta = fa.flash_delta(do, out)
+    delta_run = lambda: fa.flash_delta_cuda(q, k, v, do, lse, **kw)  # noqa: E731
+    delta, delta_again = delta_run(), delta_run()
     dq_run = lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)  # noqa: E731
     dkv_run = lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)  # noqa: E731
     grads, again = (dq_run(), *dkv_run()), (dq_run(), *dkv_run())
@@ -1924,13 +2032,16 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
     name = f"flash b={b} sq={sq} skv={skv} h={h}/{kvh} d={d} causal={causal}"
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
     check_close(f"{name} lse", lse, want_lse, LSE_TOL)
+    delta_check = check_delta_rows(name, delta, q, k, v, do, lse, **kw)
     want = dict(zip(("out", "dq", "dk", "dv"),
-                    (want_out, *fa.flash_bwd_plain(q, k, v, do, out, lse, **kw))))
-    fault = dict(zip(want, dropped_tile_fault(q, k, v, do, out, lse, **kw)))
+                    (want_out, *fa.flash_bwd_plain(q, k, v, do, lse, **kw))))
+    fault = dict(zip(want, dropped_tile_fault(q, k, v, do, lse, **kw)))
     checks = check_flash_rows(name, dict(zip(want, (out, *grads))), want, fault)
     if not (torch.equal(out, out_again) and torch.equal(lse, lse_again)):
         raise AssertionError(f"{name}: two forward runs differ")
-    del out_again, lse_again
+    if not torch.equal(delta, delta_again):
+        raise AssertionError(f"{name}: two delta passes differ")
+    del out_again, lse_again, delta_again
     for g_name, got, same in zip(("dq", "dk", "dv"), grads, again):
         if not torch.equal(got, same):
             raise AssertionError(f"{name} {g_name}: two backward runs differ")
@@ -1940,6 +2051,8 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
     pairs = b * h * _visible_pairs(sq, skv, causal)
     q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, b * h * sq * 4
     bounds = {
+        "flash_bwd_delta": bound(2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,  # q, do, k, v
+                                 4 * pairs * d, PEAK_BF16_OPS_S),          # S and dP
         "flash_fwd": bound(2 * q_bytes + 2 * kv_bytes + stat_bytes,          # q, out, k, v, lse
                            4 * pairs * d, PEAK_BF16_OPS_S),
         "flash_bwd_dq": bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,   # q, do, dq, k, v
@@ -1948,8 +2061,9 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
                                8 * pairs * d, PEAK_BF16_OPS_S),
     }
     plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1)
-    plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, out, lse, **kw), iters=3,
+    plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse, **kw), iters=3,
                            warmup=1)
+    plain_delta_ms = time_ms(lambda: fa.flash_delta(q, k, v, do, lse, **kw), iters=3, warmup=1)
     # yardsticks: SDPA over [B, H, S, D] (top-left causal alignment, the
     # same as bottom-right for equal lengths; unequal lengths get a mask)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -1974,6 +2088,12 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
                           lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)),
                       "library_call": "F.scaled_dot_product_attention(enable_gqa) forward",
                       "row_checks": {"out": checks["out"]}},
+        "flash_bwd_delta": {"max_abs_err": delta_check["max_abs_err"], "ms": time_ms(delta_run),
+                            "plain_ms": plain_delta_ms, "library_ms": None,
+                            "plain_call": "flash_delta",
+                            "library_call": "none: no PyTorch call computes sum_j p_ij dp_ij "
+                                            "alone",
+                            "row_checks": {"delta": delta_check}},
         "flash_bwd_dq": {"max_abs_err": errs["dq"], "ms": time_ms(dq_run),
                          "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
                          "row_checks": {"dq": checks["dq"]}},
@@ -1983,14 +2103,24 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
     }
     for row, case in cases.items():
         case.update(shape=shape, bound_ms=bounds[row][0], bound_by=bounds[row][1])
-        if row != "flash_fwd":
+        if row in ("flash_bwd_dq", "flash_bwd_dkv"):
             case["plain_call"] = "flash_bwd_plain (dq, dk and dv together)"
             case["library_call"] = ("the backward of F.scaled_dot_product_attention(enable_gqa) "
                                     "alone (dq, dk and dv together; autograd.grad over a "
                                     "recorded forward)")
-    total = lambda: (fwd(), fa.flash_bwd_cuda(q, k, v, do, out, lse, **kw))  # noqa: E731
+    total = lambda: (fwd(), fa.flash_bwd_cuda(q, k, v, do, lse, **kw))  # noqa: E731
     cases["flash_bwd_dkv"]["fwd_bwd_ms"] = time_ms(total)
     cases["flash_bwd_dkv"]["library_fwd_bwd_ms"] = time_ms(lib_fwd_bwd)
+    # the backward with the delta pass, and the same dq and dk/dv kernels on
+    # the reference's delta from the output (before the C7 repair), in turns
+    bwd = lambda: fa.flash_bwd_cuda(q, k, v, do, lse, **kw)  # noqa: E731
+    bwd_out = lambda: fa.flash_bwd_cuda(  # noqa: E731
+        q, k, v, do, lse, delta=fa.output_delta(do, out), **kw)
+    times = [time_ms(fn) for fn in (bwd_out, bwd, bwd, bwd_out)]
+    cases["flash_bwd_delta"].update(
+        bwd_ms=(times[1] + times[2]) / 2, bwd_output_delta_ms=(times[0] + times[3]) / 2,
+        bwd_note="delta pass + dq + dk/dv against output delta (one torch expression) + "
+                 "dq + dk/dv, timed in turns (output, pass, pass, output)")
     return cases
 
 
@@ -2013,7 +2143,9 @@ def flash_train_kernel_phase() -> dict:
                 f"library_ms {c['library_ms']}"
                 + (f" TFLOP/s {c['tflop_s']}" if "tflop_s" in c else "")
                 + (f" rows 9-11 ms {c['fwd_bwd_ms']} library fwd+bwd ms "
-                   f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else ""))
+                   f"{c['library_fwd_bwd_ms']}" if "fwd_bwd_ms" in c else "")
+                + (f" backward (delta, dq, dk/dv) ms {c['bwd_ms']}, on the output's delta "
+                   f"{c['bwd_output_delta_ms']}" if "bwd_ms" in c else ""))
             log_row_checks(c["row_checks"])
     return out
 
@@ -2116,8 +2248,8 @@ def lm_train_phase(config, *, device: str = "cuda", batch: int = 2, seq: int = 4
     ``batch`` sequences of ``seq`` tokens (54 steps by default, so the
     trainer's 50-step window sets ``unionml_trainer_samples_per_sec``).
     The steps after the first ``warmup`` are timed (host clock between two
-    waits for the card); rows 9, 10 and 11 must launch once per layer per
-    timed step (the forward twice under ``remat``) and the last loss must
+    waits for the card); rows 9, 10 and 11 and the delta pass must launch
+    once per layer per timed step (the forward twice under ``remat``) and the last loss must
     be below the first."""
     from unionml_tpu_torch.models.train import tree_leaves
 
@@ -2152,8 +2284,8 @@ def lm_train_phase(config, *, device: str = "cuda", batch: int = 2, seq: int = 4
         f"timed step {per_step}; launches in the run {out['launches']}")
     if on_card:
         layers = float(config.num_layers)
-        want = {"flash_fwd": layers * (2 if config.remat else 1), "flash_bwd_dq": layers,
-                "flash_bwd_dkv": layers}
+        want = {"flash_fwd": layers * (2 if config.remat else 1), "flash_bwd_delta": layers,
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
         if per_step != want:
             raise AssertionError(f"Llama kernel launches per step {per_step}, expected {want}")
         if not gauge > 0:
@@ -2321,8 +2453,8 @@ def qlora_train_phase(config, *, device: str = "cuda", seq: int = QLORA_SEQ, ste
         f"unchanged {same_base}; launches per timed step {per_step}")
     if on_card:
         layers = float(config.num_layers)
-        want = {"flash_fwd": 2 * layers if config.remat else layers, "flash_bwd_dq": layers,
-                "flash_bwd_dkv": layers}
+        want = {"flash_fwd": 2 * layers if config.remat else layers, "flash_bwd_delta": layers,
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
         if per_step != want:
             raise AssertionError(f"QLoRA kernel launches per step {per_step}, expected {want}")
     return out
@@ -2604,16 +2736,20 @@ def bert_layer_rows(layers: list, *, on_card: bool) -> list:
 
 
 def bert_grad_agreement(config, *, device: str = "cuda", batch: int = BERT_BATCH,
-                        seq: int = BERT_SEQ) -> dict:
-    """Rows 12-13 on every block's own attention of one kernel-path step
-    (:func:`bert_layer_rows`), then that step's loss and gradients of
-    ``BertClassifier(config)`` against ``attn_impl="xla"`` from the same
-    params and batch (per-tensor cosine :data:`BERT_GRAD_COSINE_MIN`,
-    :func:`path_agreement`), then two 3-step ``classification_step`` runs
-    of the kernel path from one state, whose losses must be the same bits.
-    The key projection's bias adds one constant to every score of a row,
-    which the softmax cancels: its gradient is rounding only, reported
-    beside the cosines."""
+                        seq: int = BERT_SEQ, delta_fault: bool = True) -> dict:
+    """Under ``fused``: rows 12-13 on every block's own attention of one
+    kernel-path step (:func:`bert_layer_rows`). Then that step's loss and
+    gradients of ``BertClassifier(config)`` against ``attn_impl="xla"``
+    from the same params and batch (per-tensor cosine
+    :data:`BERT_GRAD_COSINE_MIN`, :func:`path_agreement`), then two 3-step
+    ``classification_step`` runs of the kernel path from one state, whose
+    losses must be the same bits. The key projection's bias adds one
+    constant to every score of a row, which the softmax cancels: its
+    gradient is rounding only, reported beside the cosines. Under
+    ``flash`` (rows 9-11 and the delta pass) with ``delta_fault``, the same
+    step again with the reference's delta from the bf16 output planted
+    (:func:`bert_flash_delta_fault`): it must read under the cosine on the
+    last blocks, which is what the delta pass repairs (ROADMAP.md C7)."""
     import torch.nn.functional as F
 
     from unionml_tpu_torch.models import BertClassifier, classification_step, init_bert_params
@@ -2624,16 +2760,71 @@ def bert_grad_agreement(config, *, device: str = "cuda", batch: int = BERT_BATCH
     params = init_bert_params(config, head="classifier", generator=gen, device=device)
     batches = list(zip(ids.split(batch), labels.split(batch)))
     loss = lambda logits, y: F.cross_entropy(logits.float(), y)  # noqa: E731
-    layers = capture_attention(BertClassifier(config), params, batches[0], loss)
-    rows = bert_layer_rows(layers, on_card=device == "cuda")
-    del layers
+    rows = None
+    if config.attn_impl == "fused":
+        layers = capture_attention(BertClassifier(config), params, batches[0], loss)
+        rows = bert_layer_rows(layers, on_card=device == "cuda")
+        del layers
     out = path_agreement(
         f"bert ({config.attn_impl} vs xla)", BertClassifier, config,
         dataclasses.replace(config, attn_impl="xla"), loss, classification_step, params,
         batches, lr=BERT_LR, cosine_min=BERT_GRAD_COSINE_MIN, null_grads=(("attn_k", "bias"),),
     )
-    out["layer_rows"] = rows
+    if rows is not None:
+        out["layer_rows"] = rows
+    if config.attn_impl == "flash" and delta_fault:
+        out["output_delta_fault"] = bert_flash_delta_fault(config, params, batches[0], loss)
     return out
+
+
+def block_cosines(module_cls, config, plain_config, loss, params, batch,
+                  null_grads: tuple = ()) -> dict:
+    """One step's gradients of ``module_cls(config)`` against
+    ``module_cls(plain_config)``: the cosine of every tensor (but those
+    whose path ends with one of ``null_grads``), by path."""
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
+
+    paths = ["/".join(p) for p in tree_paths(params)]
+    grads = []
+    for cfg in (config, plain_config):
+        module = module_cls(cfg)
+        g = value_and_grad(lambda p, b, m=module: (loss(m(p, b[0]), b[1]), {}), params, batch)[1]
+        grads.append([t.float().flatten() for t in tree_leaves(g)])
+        del g
+    return {p: float(F.cosine_similarity(a, b, dim=0)) for p, a, b in zip(paths, *grads)
+            if not any(p.endswith("/".join(n)) for n in null_grads)}
+
+
+def bert_flash_delta_fault(config, params, batch, loss, *, deep: int = 2) -> dict:
+    """The flash backward with the reference's ``delta = rowsum(dO * O)``
+    from the bf16 output planted (:func:`output_delta_fault`), one step of
+    ``BertClassifier(config)`` against ``attn_impl="xla"``: the least
+    cosine of each block's gradients; the last ``deep`` blocks' least must
+    be under :data:`BERT_GRAD_COSINE_MIN`, or the check could not tell the
+    repaired backward from the reference's."""
+    from unionml_tpu_torch.models import BertClassifier
+
+    with output_delta_fault():
+        cos = block_cosines(BertClassifier, config, dataclasses.replace(config, attn_impl="xla"),
+                            loss, params, batch, null_grads=(("attn_k", "bias"),))
+    blocks = {}
+    for path, c in cos.items():
+        part = path.split("/")
+        if len(part) > 1 and part[1].startswith("block_"):
+            blocks[part[1]] = min(blocks.get(part[1], 1.0), c)
+    deep_min = min(blocks[f"block_{i}"] for i in range(config.num_layers - deep,
+                                                       config.num_layers))
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:4]
+    log(f"bert (flash, planted: delta from the bf16 output) vs xla: least cosine per block "
+        f"{blocks}; worst tensors {worst}")
+    if not deep_min < BERT_GRAD_COSINE_MIN:
+        raise AssertionError(
+            f"the flash gradient check passed a planted fault (delta from the bf16 output): "
+            f"the last {deep} blocks' least cosine {deep_min} is not under "
+            f"{BERT_GRAD_COSINE_MIN}")
+    return {"least_cosine_per_block": blocks, "deep_blocks_least": deep_min, "worst": worst}
 
 
 def bert_mlm_batch(config, *, batch: int, seq: int, min_len: int, seed: int) -> tuple:
@@ -4127,6 +4318,787 @@ def prefix_fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda
             "tokens_saved": cached_saved, "preemptions": preemptions}
 
 
+# --------------------------------------------------------------------- #
+# fleet phase: the fleet tier over two paged Llama-3-8B engines on one
+# card (FleetRouter with a SloWatchdog per replica, failover, the
+# FleetAutoscaler's warm join and scale-in, DisaggRouter, make_router_app
+# over an HttpReplica with OTLP export, choose_serving_mode)
+# --------------------------------------------------------------------- #
+
+FLEET_PREFIX_TOKENS = 256          # each traffic family's shared prefix
+FLEET_FAMILIES = 4
+FLEET_FOLLOW_UPS = 3               # requests per family after its first
+FLEET_SUFFIX_LENGTHS = (16, 200)
+FLEET_NEW_TOKENS = 32
+FLEET_SHORT_NEW_TOKENS = 16        # the failover, disaggregation and burst requests
+FLEET_SLOTS = 8
+FLEET_POOL_BLOCKS = 256            # per engine: 512 MiB at 8B width
+FLEET_STORE_BYTES = 1 << 30        # per engine's host block store
+FLEET_TTFT_OBJECTIVE_MS = 5000.0   # each replica's TTFT p90 objective
+FLEET_WARM_BLOCKS = 32             # a joiner's import from the warmest donor
+FLEET_BURST = 4                    # concurrent requests timed for ITL / idle share
+DISAGG_PROMPTS = 8
+DISAGG_LENGTHS = (300, 1000)
+
+
+def kv_block_bytes(config) -> int:
+    """Bytes of one ``PREFIX_BLOCK``-token KV block of ``config`` (every
+    layer, K and V; fp32 KV under fp32 activations, else bf16)."""
+    kv = 4 if config.dtype == "float32" else 2
+    return config.num_layers * 2 * PREFIX_BLOCK * config.num_kv_heads * config.head_dim * kv
+
+
+def fleet_engine(config, *, device: str, phase: str = "colocated", fault_injector=None,
+                 buckets: tuple = ENGINE_BUCKETS, max_new_tokens: int = FLEET_NEW_TOKENS):
+    """One fleet member: a paged ``DecodeEngine`` with its own pool,
+    ``RadixPrefixCache``, registry, flight and trace recorders."""
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+    reg = telemetry.MetricsRegistry()
+    return DecodeEngine(
+        Llama(config), paged=True, slots=FLEET_SLOTS, prompt_buckets=buckets,
+        max_new_tokens=max_new_tokens, chunk_steps=8,
+        prefix_cache=RadixPrefixCache(block_size=PREFIX_BLOCK, max_bytes=FLEET_STORE_BYTES,
+                                      registry=reg),
+        kv_pool_bytes=FLEET_POOL_BLOCKS * kv_block_bytes(config), registry=reg,
+        flight=telemetry.FlightRecorder(), tracer=telemetry.TraceRecorder(registry=reg),
+        fault_injector=fault_injector, phase=phase, device=device,
+    )
+
+
+def engine_app(engine, params, *, name: str, **kw):
+    """A stdlib ``ServingApp`` over ``engine``: /predict through
+    ``engine.generate``, /predict/stream, health, stats, drain, the cache
+    peek and KV routes, on the engine's own registry and recorders."""
+    from unionml_tpu_torch import Dataset, Model
+    from unionml_tpu_torch.model import ModelArtifact
+    from unionml_tpu_torch.serving import ServingApp
+
+    dataset = Dataset(name=f"{name}_dataset", targets=[])
+
+    @dataset.reader
+    def reader() -> list:
+        return []
+
+    lm = Model(name=name, init=lambda: params, dataset=dataset)
+
+    @lm.trainer
+    def trainer(p: dict, features: list) -> dict:
+        return p
+
+    @lm.predictor
+    def predictor(p: dict, prompts: list) -> list:
+        return engine.generate(p, prompts)
+
+    lm.artifact = ModelArtifact(params, {}, {})
+    return ServingApp(
+        lm, batch=False, stats=engine.stats, health=engine.health, drain=engine.drain,
+        stream=lambda p, prompts: engine.generate_stream(p, prompts[0]),
+        cache_peek=engine.prefix_cache.peek, kv_export=engine.kv_export,
+        kv_import=engine.kv_import, registry=engine.registry, tracer=engine.tracer,
+        flight=engine.flight, **kw,
+    )
+
+
+def wait_until(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def engine_at_rest(engine) -> bool:
+    """No pool block in use or reserved, no prefix-cache lease held."""
+    pool = engine.stats()["kv_pool"]
+    return (pool["blocks_in_use"] == 0 and pool["blocks_reserved"] == 0
+            and not engine.prefix_cache.refcounts())
+
+
+def store_bit_mismatches(got_blocks: list, want_blocks: list) -> int:
+    """Blocks (host block trees) whose buffers differ from the other list's
+    in any bit."""
+    if len(got_blocks) != len(want_blocks):
+        raise AssertionError(f"{len(got_blocks)} blocks vs {len(want_blocks)}")
+    if not got_blocks:
+        return 0
+    return len(splice_bit_mismatches(host_store_rows(got_blocks), host_store_rows(want_blocks)))
+
+
+def fleet_routing(router, engines, prompts_by_family: list, *, max_new_tokens: int,
+                  prefix_tokens: int, vocab: int) -> dict:
+    """Each family's first request, then its follow-ups, one at a time
+    through ``router``: the first request of a family lands by the
+    round-robin tie-break of two cold replicas; every follow-up must route
+    to the replica that holds the family's prefix (the router's route
+    events and ``unionml_router_requests_total``), the prefill tokens the
+    engines saved must equal what the prompt lengths imply, and every
+    reply has its full length."""
+    names = [f"r{i}" for i in range(len(engines))]
+    flight = router._flight
+    home, misroutes, rows, matched = [], [], [], []
+
+    def ask(prompt):
+        out = router.generate(prompt)
+        if len(out) != max_new_tokens or not all(0 <= t < vocab for t in out):
+            raise AssertionError(f"bad fleet reply for a {len(prompt)}-token prompt: {out}")
+        return flight.dump(kind="route")[-1]["replica"]
+
+    for fam in prompts_by_family:
+        first = fam[0]
+        where = ask(first)
+        home.append(where)
+        cache = engines[names.index(where)].prefix_cache
+        # the first request's blocks land after its reply: the follow-ups
+        # are routed on them
+        wait_until(lambda: cache.peek(first) >= prefix_tokens // PREFIX_BLOCK * PREFIX_BLOCK,
+                   f"the prefix of a family stored on {where}")
+    for f, fam in enumerate(prompts_by_family):
+        for prompt in fam[1:]:
+            where = ask(prompt)
+            if where != home[f]:
+                misroutes.append((f, where, home[f]))
+            rows.append(len(prompt))
+            matched.append(prefix_tokens // PREFIX_BLOCK)
+    routed = router._registry.snapshot().get("unionml_router_requests_total", {})
+    saved = sum(e.stats()["prefix_cache"]["prefill_tokens_saved"] for e in engines)
+    expected = expected_saved_tokens(rows, matched, PREFIX_BLOCK)
+    out = {"home": home, "misroutes": misroutes, "route_counters": routed,
+           "prefill_tokens_saved": saved, "expected_tokens_saved": expected,
+           "requests": sum(len(f) for f in prompts_by_family)}
+    log(f"fleet routing: {out['requests']} requests of {len(prompts_by_family)} families, homes "
+        f"{home}; follow-ups off their family's replica {misroutes}; router counters {routed}; "
+        f"prefill tokens saved {saved} (the prompt lengths imply {expected})")
+    if misroutes:
+        raise AssertionError(f"follow-ups routed off their prefix's replica: {misroutes}")
+    if set(home) != set(names):
+        raise AssertionError(f"the families' first requests all landed on {home}")
+    if saved != expected:
+        raise AssertionError(f"prefill tokens saved {saved}, the prompt lengths imply {expected}")
+    return out
+
+
+def fleet_failover(router, engines, fis, prompts: list, *, max_new_tokens: int,
+                   victim: str = "r1") -> dict:
+    """Kill ``victim`` mid-stream (its FaultInjector fails its second
+    decode dispatch with an OOM-shaped error) under ``prompts`` streamed
+    concurrently: every caller gets a full answer with no error, the
+    router's eject and retry counters and flight events show the
+    failover, the victim's pool blocks and leases go back to 0, and after
+    its cooldown the half-open probe rejoins it."""
+    from unionml_tpu_torch.serving.faults import xla_oom_error
+
+    names = [f"r{i}" for i in range(len(engines))]
+    vi = names.index(victim)
+    flight = router._flight
+    before = len(flight.dump())
+    fis[vi].arm("engine.dispatch", nth=2, exc=xla_oom_error())
+    results, errors = [None] * len(prompts), []
+
+    def call(i, prompt):
+        try:
+            results[i] = [t for chunk in router.generate_stream(
+                prompt, max_new_tokens=max_new_tokens) for t in chunk]
+        except Exception as exc:
+            errors.append(f"{len(prompt)}-token prompt: {exc!r}")
+
+    threads = [threading.Thread(target=call, args=(i, p)) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("the failover callers did not finish in 300 s")
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"callers saw errors in the failover: {errors}")
+    short = [len(r) for r in results if r is None or len(r) != max_new_tokens]
+    if short:
+        raise AssertionError(f"failover replies of {short} tokens, expected {max_new_tokens}")
+    injected = fis[vi].injected("engine.dispatch")
+    events = flight.dump()[before:]
+    kinds = [e["kind"] for e in events]
+    snap = router._registry.snapshot()
+    ejections = int(router._m_ejections.labels(victim).value)
+    retries = sum(snap.get("unionml_router_retries_total", {}).values())
+    if injected != 1 or ejections < 1 or retries < 1 or "retry" not in kinds \
+            or "eject" not in kinds:
+        raise AssertionError(f"the failover left no trace: injected {injected}, ejections "
+                             f"{ejections}, retries {retries}, events {sorted(set(kinds))}")
+    wait_until(lambda: engine_at_rest(engines[vi]), f"{victim}'s pool and leases at rest")
+    pool_after = engines[vi].stats()["kv_pool"]["blocks_in_use"]
+    leases_after = engines[vi].prefix_cache.refcounts()
+    # the cooldown, then traffic until the half-open probe rejoins it
+    cooldown = router.policy.eject_cooldown_s
+    time.sleep(cooldown)
+    t_probe = time.perf_counter()
+    probes = 0
+    while router.health()["replicas"][victim]["state"] != "live":
+        if probes >= 24:
+            raise AssertionError(f"{victim} did not rejoin after {probes} requests past its "
+                                 f"cooldown: {router.health()['replicas'][victim]}")
+        router.generate(prompts[probes % len(prompts)])
+        probes += 1
+    rejoin_s = time.perf_counter() - t_probe
+    later = [e["kind"] for e in flight.dump()[before:]]
+    if "probe" not in later or "rejoin" not in later:
+        raise AssertionError(f"no probe / rejoin flight event: {sorted(set(later))}")
+    wait_until(lambda: all(engine_at_rest(e) for e in engines), "the fleet at rest")
+    out = {"callers": len(prompts), "wall_s": wall_s, "injected": injected,
+           "ejections": ejections, "retries": retries,
+           "rejoins": int(router._m_rejoins.labels(victim).value),
+           "victim_pool_blocks_after": pool_after, "victim_leases_after": leases_after,
+           "requests_to_rejoin": probes, "rejoin_s": rejoin_s,
+           "recoveries": int(engines[vi]._m_recoveries.value)}
+    log(f"fleet failover: {victim} killed mid-stream under {len(prompts)} concurrent streams, "
+        f"all answered in full in {wall_s} s; ejections {ejections}, retries {retries}, "
+        f"engine recoveries {out['recoveries']}; {victim} pool blocks {pool_after}, leases "
+        f"{leases_after} after; rejoined through the half-open probe after {probes} requests "
+        f"({rejoin_s} s past its {cooldown} s cooldown)")
+    return out
+
+
+def sample_utilization(interval_ms: int = 200):
+    """Start ``nvidia-smi`` sampling card 0's ``utilization.gpu`` (the share
+    of each sample period in which a kernel ran) every ``interval_ms``;
+    returns a ``stop()`` that ends the process and gives the samples (%),
+    or None without ``nvidia-smi``."""
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", f"--loop-ms={interval_ms}"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        return None
+
+    def stop() -> list:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        return [float(x) for x in out.split() if x.strip().replace(".", "", 1).isdigit()]
+
+    return stop
+
+
+def fleet_burst(router, engines, prompts: list, *, on_card: bool, max_new_tokens: int) -> dict:
+    """``prompts`` through ``router`` from as many threads at once: each
+    replica's ITL and TTFT summaries, and the card's idle share over the
+    burst (one minus the mean of ``nvidia-smi``'s ``utilization.gpu``
+    sampled every 200 ms), reported, not held. Held: no thread waits for
+    the whole card while the two engines serve (``torch.cuda.synchronize``
+    is counted; an engine waits on its own events), and the implicit host
+    waits CUDA's sync debug mode reports are counted."""
+    for e in engines:
+        e.reset_stats()
+    errors, device_syncs = [], []
+
+    def call(p):
+        try:
+            router.generate(p, max_new_tokens=max_new_tokens)
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    real_sync = torch.cuda.synchronize
+
+    def counted_sync(*args, **kwargs):
+        device_syncs.append(threading.current_thread().name)
+        return real_sync(*args, **kwargs)
+
+    threads = [threading.Thread(target=call, args=(p,)) for p in prompts]
+    if on_card:
+        real_sync()
+    stop = sample_utilization() if on_card else None
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize = counted_sync
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+        finally:
+            torch.cuda.synchronize = real_sync
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+                real_sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    util = stop() if stop is not None else []
+    host_syncs = [str(w.message) for w in caught
+                  if "synchronizing CUDA operation" in str(w.message)]
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"the burst's requests failed: {errors}")
+    if device_syncs:
+        raise AssertionError(f"{len(device_syncs)} waits for the whole card while two engines "
+                             f"served ({sorted(set(device_syncs))})")
+    per = {}
+    for i, e in enumerate(engines):
+        st = e.stats()
+        per[f"r{i}"] = {"itl_ms": st.get("itl_ms"), "ttft_ms": st.get("ttft_ms")}
+    busy = sum(util) / len(util) / 100 if util else None
+    out = {"requests": len(prompts), "wall_ms": wall_ms, "utilization_samples": len(util),
+           "idle_share": None if busy is None else 1 - busy,
+           "device_syncs": len(device_syncs), "host_syncs": len(host_syncs), "replicas": per}
+    log(f"fleet burst: {len(prompts)} concurrent requests in {wall_ms} ms; idle share "
+        f"{out['idle_share']} ({len(util)} nvidia-smi utilization samples); waits for the "
+        f"whole card 0, implicit host waits {len(host_syncs)}; per replica {per}")
+    return out
+
+
+def fleet_autoscale(router, config, params, engines, *, device: str, warm_blocks: int,
+                    flight, **engine_kw) -> dict:
+    """``FleetAutoscaler`` with an ``EngineReplicaProvisioner`` whose
+    factory shares the weight tree: one scale-out (below its floor of
+    three) imports the warmest donor's hot blocks, bit-equal to the
+    donor's, and a request on the joiner splices them into its pool bit
+    for bit; then, the floor lowered to two, one scale-in drains and
+    releases the joiner, and the card's allocated bytes fall by at least
+    its pool's."""
+    import gc
+
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.serving import (
+        AutoscalerPolicy,
+        EngineReplicaProvisioner,
+        FleetAutoscaler,
+    )
+
+    on_card = device == "cuda"
+    made = []
+
+    def factory():
+        engine = fleet_engine(config, device=device, **engine_kw)
+        made.append(engine)
+        return engine, params
+
+    auto = FleetAutoscaler(
+        router, EngineReplicaProvisioner(factory),
+        policy=AutoscalerPolicy(min_replicas=3, max_replicas=3, cooldown_out_s=0.0,
+                                cooldown_in_s=0.0, warm_blocks=warm_blocks),
+        registry=telemetry.MetricsRegistry(), flight=flight,
+    )
+    try:
+        out_d = auto.evaluate()
+        if out_d["decision"] != "scale_out" or not made:
+            raise AssertionError(f"the autoscaler did not scale out below its floor: {out_d}")
+        joiner = made[0]
+        name = next(n for n in router.health()["replicas"] if n not in ("r0", "r1"))
+        donor = out_d.get("donor")
+        warmed = int(out_d.get("warmed_blocks") or 0)
+        if donor not in ("r0", "r1") or warmed < 2:
+            raise AssertionError(f"the joiner was not warmed from a donor: {out_d}")
+        donor_cache = engines[int(donor[1:])].prefix_cache
+        entries = joiner.prefix_cache.export_hot(max_blocks=1 << 20)
+        if len(entries) != warmed:
+            raise AssertionError(f"the joiner holds {len(entries)} blocks, {warmed} were warmed")
+        mine, theirs = [], []
+        for entry in entries:
+            lease = donor_cache.lease(entry["tokens"])
+            try:
+                if lease.n_blocks <= entry["first_block"]:
+                    raise AssertionError("a warmed block is not in the donor's store")
+                theirs.append(lease.rows[entry["first_block"]])
+            finally:
+                lease.release()
+            mine.append(entry["rows"])
+        bad = store_bit_mismatches(mine, theirs)
+        if bad:
+            raise AssertionError(f"{bad} warmed blocks differ from the donor's")
+        # a request on the joiner splices its deepest warmed path into its pool
+        deepest = max(entries, key=lambda e: e["first_block"])
+        splice = warm_splice_check("fleet warm join splice bits", joiner, params,
+                                   deepest["tokens"].tolist() + [1])
+        wait_until(lambda: engine_at_rest(joiner), "the joiner at rest")
+        if on_card:
+            torch.cuda.synchronize()
+        mem_joined = torch.cuda.memory_allocated() if on_card else None
+        pool_bytes = joiner.stats()["kv_pool"]["capacity_blocks"] * kv_block_bytes(config)
+        auto.policy.min_replicas = 2
+        in_d = auto.evaluate()
+        if in_d["decision"] != "scale_in" or in_d.get("replica") != name:
+            raise AssertionError(f"the scale-in did not remove the joiner {name}: {in_d}")
+        if name in router.health()["replicas"]:
+            raise AssertionError(f"{name} is still a fleet member after its scale-in")
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        freed = None if mem_joined is None else mem_joined - torch.cuda.memory_allocated()
+        if on_card and freed < pool_bytes:
+            raise AssertionError(f"the scale-in gave back {freed} bytes of the card, the "
+                                 f"joiner's pool held {pool_bytes}")
+        kinds = [e["kind"] for e in flight.dump()]
+        if "scale_out" not in kinds or "scale_in" not in kinds:
+            raise AssertionError(f"no scale_out / scale_in flight events: {sorted(set(kinds))}")
+    finally:
+        auto.close()
+        for engine in made:
+            engine.close()
+    out = {"scale_out": {k: out_d.get(k) for k in ("reason", "donor", "warmed_blocks")},
+           "joiner": name, "warmed_blocks_bit_equal": warmed, "joiner_splice_bits": splice,
+           "scale_in": {k: in_d.get(k) for k in ("reason", "replica")},
+           "bytes_freed": freed, "pool_bytes": pool_bytes}
+    log(f"fleet autoscaler: scale-out ({out_d.get('reason')}) warmed {name} with {warmed} "
+        f"blocks from {donor}, bit-equal to the donor's; the joiner's pool rows equal its "
+        f"store; scale-in ({in_d.get('reason')}) removed {name} and gave back {freed} bytes of "
+        f"the card (its pool held {pool_bytes})")
+    return out
+
+
+def fleet_disagg(config, params, prompts: list, *, device: str, colocated,
+                 max_new_tokens: int, buckets: tuple = ENGINE_BUCKETS) -> dict:
+    """``DisaggRouter`` over a ``phase="prefill"`` engine and a
+    ``phase="decode"`` engine with separate host stores, the prompts sent
+    at once: each prompt prefills on the first, its KV blocks move device
+    -> the prefill store -> the decode store, and the decode leg splices
+    them. Every
+    reply has its full length; the decode store's blocks equal the
+    prefill engine's export bit for bit, and a decode admission's pool
+    rows equal its store; handoff leases and both pools go back to 0.
+    The handoff's ms and bytes and the tokens' agreement with the
+    colocated engine ``colocated`` (bf16: reported) are returned."""
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.serving import DisaggRouter, EngineReplica, RouterPolicy
+
+    kw = dict(device=device, buckets=buckets, max_new_tokens=max_new_tokens)
+    pre = fleet_engine(config, phase="prefill", **kw)
+    dec = fleet_engine(config, phase="decode", **kw)
+    flight = telemetry.FlightRecorder()
+    router = DisaggRouter(
+        [EngineReplica(pre, params, name="p0"), EngineReplica(dec, params, name="d0")],
+        policy=RouterPolicy(health_ttl_s=0.0, backoff_base_s=0.0, jitter_s=0.0),
+        registry=telemetry.MetricsRegistry(), flight=flight,
+    )
+    try:
+        outs, errors = [None] * len(prompts), []
+
+        def call(i, p):
+            try:
+                outs[i] = [t for chunk in router.generate_stream(p) for t in chunk]
+            except Exception as exc:
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=call, args=(i, p)) for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"disaggregated requests failed: {errors}")
+        short = [len(o) for o in outs if len(o) != max_new_tokens]
+        if short:
+            raise AssertionError(f"disagg replies of {short} tokens, expected {max_new_tokens}")
+        handoffs = flight.dump(kind="handoff")
+        results = [h["result"] for h in handoffs]
+        if results != ["transfer"] * len(prompts):
+            raise AssertionError(f"handoff outcomes {results}, expected a transfer each")
+        wait_until(lambda: engine_at_rest(pre) and engine_at_rest(dec), "both pools at rest")
+        bad, blocks = 0, 0
+        for p in prompts:
+            exported = pre.kv_export(p)
+            lease = dec.prefix_cache.lease(dec._canonical_row(p))
+            try:
+                if lease.n_blocks < len(exported):
+                    raise AssertionError(f"the decode store holds {lease.n_blocks} of the "
+                                         f"{len(exported)} exported blocks")
+                bad += store_bit_mismatches([e["rows"] for e in exported],
+                                            list(lease.rows[:len(exported)]))
+                blocks += len(exported)
+            finally:
+                lease.release()
+        if bad:
+            raise AssertionError(f"{bad} of {blocks} transferred blocks differ from the export")
+        splice = warm_splice_check("disagg decode splice bits", dec, params,
+                                   max(prompts, key=len))
+        wait_until(lambda: engine_at_rest(pre) and engine_at_rest(dec), "both pools at rest")
+        pools = [e.stats()["kv_pool"]["blocks_in_use"] for e in (pre, dec)]
+        leases = [e.prefix_cache.refcounts() for e in (pre, dec)]
+        block_bytes = kv_block_bytes(config)
+        ms = [h["handoff_ms"] for h in handoffs]
+        moved = [h["blocks"] for h in handoffs]
+    finally:
+        pre.close()
+        dec.close()
+    solo = (colocated.generate(params, prompts, max_new_tokens=max_new_tokens)
+            if colocated is not None else None)
+    same = None if solo is None else sum(a == b for a, b in zip(outs, solo))
+    lead = None if solo is None else [
+        next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+        for x, y in zip(outs, solo)]
+    out = {"prompts": len(prompts), "lengths": [len(p) for p in prompts], "wall_s": wall_s,
+           "handoff_ms": ms, "handoff_blocks": moved,
+           "handoff_bytes": [b * block_bytes for b in moved],
+           "transferred_blocks_bit_equal": blocks, "decode_splice_bits": splice,
+           "pool_blocks_after": pools, "leases_after": leases,
+           "token_identical_to_colocated": same, "leading_tokens_equal": lead,
+           "outputs": outs}
+    log(f"fleet disagg: {len(prompts)} prompts of {out['lengths']} ids in {wall_s} s; handoff "
+        f"ms {ms}, blocks {moved} ({out['handoff_bytes']} bytes); {blocks} transferred blocks "
+        f"equal the prefill export bit for bit; pools {pools} and leases {leases} after; "
+        f"token-identical to the colocated engine {same}/{len(prompts)} (leading tokens equal "
+        f"{lead})")
+    return out
+
+
+def post_traced(url: str, payload: dict, headers: dict, timeout: float = 600.0):
+    """POST ``payload`` with ``headers``: ``(status, body, response headers)``."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json", **headers})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read()), dict(resp.headers)
+
+
+def fleet_http(engines, params, prompts: list, *, max_new_tokens: int) -> dict:
+    """``make_router_app`` on loopback over ``r0`` in process and ``r1`` as
+    an ``HttpReplica`` over a stdlib ``ServingApp`` of the second engine
+    that exports to an ``OtlpCollectorStub``: each prompt (of a family
+    that ``r1`` holds) is one ``POST /predict`` with its own
+    ``traceparent``, through two hops. Each reply has its full length and
+    echoes the trace id with an ``X-Request-ID``; the front door's ``GET
+    /debug/trace?rid=`` of that id answers with the caller's trace,
+    stitched across the hop (``r1``'s server span parented to one of the
+    front door's attempt spans); the stub receives ``r1``'s spans of every
+    trace."""
+    import uuid
+
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.exporters import OtlpCollectorStub
+    from unionml_tpu_torch.serving import (
+        EngineReplica,
+        FleetRouter,
+        HttpReplica,
+        RouterPolicy,
+        make_router_app,
+    )
+
+    stub = OtlpCollectorStub()
+    app = engine_app(engines[1], params, name="chip_smoke_fleet_r1", otlp_endpoint=stub.endpoint)
+    front = None
+    try:
+        host, port = app.serve(host="127.0.0.1", port=0, blocking=False)
+        tracer = telemetry.TraceRecorder()
+        router = FleetRouter(
+            [EngineReplica(engines[0], params, name="r0"),
+             HttpReplica(f"http://{host}:{port}", name="r1")],
+            policy=RouterPolicy(health_ttl_s=0.0, backoff_base_s=0.0, jitter_s=0.0),
+            registry=telemetry.MetricsRegistry(), flight=telemetry.FlightRecorder(),
+            tracer=tracer,
+        )
+        front = make_router_app(router, registry=router._registry, tracer=tracer,
+                                flight=router._flight)
+        fhost, fport = front.serve(host="127.0.0.1", port=0, blocking=False)
+        traces, rids = [], []
+        for prompt in prompts:
+            trace_id = uuid.uuid4().hex
+            status, body, hdrs = post_traced(
+                f"http://{fhost}:{fport}/predict", {"features": [prompt]},
+                {"traceparent": f"00-{trace_id}-{uuid.uuid4().hex[:16]}-01"})
+            echo = {k.lower(): v for k, v in hdrs.items()}
+            if status != 200 or len(body) != 1 or len(body[0]) != max_new_tokens:
+                raise AssertionError(f"bad front-door reply: {status} {body}")
+            if trace_id not in echo.get("traceparent", "") or not echo.get("x-request-id"):
+                raise AssertionError(f"the reply does not echo the trace / a request id: {echo}")
+            traces.append(trace_id)
+            rids.append(echo["x-request-id"])
+        routes = [e["replica"] for e in router._flight.dump(kind="route")]
+        if routes != ["r1"] * len(prompts):
+            raise AssertionError(f"the front door routed {routes}, expected r1 (its prefix) "
+                                 f"each time")
+        stitched = []
+        for trace_id, rid in zip(traces, rids):
+            wait_until(lambda: engines[1].tracer.requests_for_trace(trace_id),
+                       "r1's server timeline in the trace")
+            with urllib.request.urlopen(f"http://{fhost}:{fport}/debug/trace?rid={rid}",
+                                        timeout=60) as resp:
+                doc = json.loads(resp.read())
+            if doc.get("trace_id") != trace_id:
+                raise AssertionError(f"/debug/trace?rid={rid} answers trace "
+                                     f"{doc.get('trace_id')}, the caller's is {trace_id}")
+            attempts = {s["span_id"] for s in doc["spans"] if s.get("name") == "attempt"}
+            remote = [s for s in doc["spans"] if s.get("root") and s.get("kind") == "http"
+                      and s.get("replica") == "r1"]
+            if not attempts or len(remote) != 1 or remote[0]["parent_span_id"] not in attempts:
+                raise AssertionError(f"trace {trace_id} does not stitch across the hop: "
+                                     f"attempts {attempts}, r1 server spans {remote}")
+            stitched.append(len(doc["spans"]))
+        seen = set()
+        deadline = time.monotonic() + 30
+        while not set(traces) <= seen and time.monotonic() < deadline:
+            app._otlp.flush()
+            seen = {s["traceId"] for p in stub.payloads("/v1/traces")
+                    for rs in p["resourceSpans"] for ss in rs["scopeSpans"] for s in ss["spans"]}
+            time.sleep(0.05)
+        if not set(traces) <= seen:
+            raise AssertionError(f"the OTLP stub received {len(seen & set(traces))} of the "
+                                 f"{len(traces)} traces")
+        n_spans = sum(len(ss["spans"]) for p in stub.payloads("/v1/traces")
+                      for rs in p["resourceSpans"] for ss in rs["scopeSpans"])
+    finally:
+        if front is not None:
+            front.shutdown()
+        app.shutdown()
+        stub.close()
+    out = {"requests": len(prompts), "routes": routes, "stitched_spans": stitched,
+           "otlp_traces": len(seen & set(traces)), "otlp_spans": n_spans}
+    log(f"fleet http: {len(prompts)} POST /predict through the front door and r1's "
+        f"ServingApp, each one stitched trace ({stitched} spans); the OTLP stub received "
+        f"{n_spans} spans of all {len(traces)} traces")
+    return out
+
+
+def fleet_phase(config, params, *, device: str = "cuda", families: int = FLEET_FAMILIES,
+                follow_ups: int = FLEET_FOLLOW_UPS, prefix_tokens: int = FLEET_PREFIX_TOKENS,
+                suffix_lengths: tuple = FLEET_SUFFIX_LENGTHS,
+                max_new_tokens: int = FLEET_NEW_TOKENS,
+                short_new_tokens: int = FLEET_SHORT_NEW_TOKENS, burst: int = FLEET_BURST,
+                warm_blocks: int = FLEET_WARM_BLOCKS, disagg_prompts: int = DISAGG_PROMPTS,
+                disagg_lengths: tuple = DISAGG_LENGTHS, fp32_layers: int = 4,
+                buckets: tuple = ENGINE_BUCKETS) -> dict:
+    """The fleet tier over two paged engines of ``config`` that share
+    ``params`` (one weight tree), in this order: locality routing, the
+    autoscaler's warm join and scale-in, the HTTP front door with OTLP
+    export, failover, disaggregated prefill / decode, a concurrent burst
+    (ITL per replica, idle share), the serving-mode choice on the card,
+    then the disaggregation again in fp32 activations at ``fp32_layers``
+    layers held token for token against a colocated engine (at most one
+    near-tie flip). The routing and HTTP requests ask for
+    ``max_new_tokens``, the failover, disaggregation and burst requests for
+    ``short_new_tokens``. Rows 1, 2 and 6 are counted over the bf16 fleet
+    traffic (routing to the burst). Each step's seconds are logged.
+    ``device="cpu"`` rehearses the phase at a small config."""
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import EngineReplica, FleetRouter, RouterPolicy
+    from unionml_tpu_torch.serving.auto import choose_serving_mode
+    from unionml_tpu_torch.serving.faults import FaultInjector
+    from unionml_tpu_torch.slo import LatencyObjective, SloWatchdog
+
+    on_card = device == "cuda"
+    config = serving_config(config)
+    t_phase = time.perf_counter()
+    counters = {"paged_attention": pa.KERNEL, "flash_fwd_padded": fa.KERNEL,
+                "rms_norm_fwd": fused_norm.KERNEL}
+    rng = np.random.default_rng(17)
+    vocab = config.vocab_size
+
+    def prompt_of(prefix):
+        n = int(rng.integers(suffix_lengths[0], suffix_lengths[1] + 1))
+        return prefix + rng.integers(1, vocab, size=n).tolist()
+
+    prefixes = [rng.integers(1, vocab, size=prefix_tokens).tolist() for _ in range(families)]
+    by_family = [[prompt_of(p) for _ in range(1 + follow_ups)] for p in prefixes]
+    fis = [FaultInjector(), FaultInjector()]
+    engines = [fleet_engine(config, device=device, fault_injector=fi, buckets=buckets,
+                            max_new_tokens=max_new_tokens) for fi in fis]
+    watchdogs = [SloWatchdog([LatencyObjective("ttft_p90", "unionml_engine_ttft_ms",
+                                               FLEET_TTFT_OBJECTIVE_MS, target=0.9)],
+                             registry=e.registry) for e in engines]
+    flight = telemetry.FlightRecorder()
+    router = FleetRouter(
+        [EngineReplica(e, params, name=f"r{i}", slo=w)
+         for i, (e, w) in enumerate(zip(engines, watchdogs))],
+        policy=RouterPolicy(health_ttl_s=0.0, backoff_base_s=0.0, jitter_s=0.0,
+                            eject_consecutive=1, eject_cooldown_s=1.0),
+        registry=telemetry.MetricsRegistry(), flight=flight,
+    )
+    out = {"layers": config.num_layers, "families": families, "prefix_tokens": prefix_tokens,
+           "step_s": {}}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["step_s"][name] = time.perf_counter() - t0
+        log(f"time: fleet {name} done in {out['step_s'][name]:.1f} s")
+        return out[name]
+
+    try:
+        # no warm-up: the prefix phase served this config, kernels and
+        # buckets, in this process
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        step("routing", lambda: fleet_routing(router, engines, by_family,
+                                              max_new_tokens=max_new_tokens,
+                                              prefix_tokens=prefix_tokens, vocab=vocab))
+        r1_families = [f for f, h in enumerate(out["routing"]["home"]) if h == "r1"]
+        # before any burst: a scale-in waits for every replica's SLO burn to
+        # clear, and a burst's queueing burns the TTFT objective
+        step("autoscaler", lambda: fleet_autoscale(
+            router, config, params, engines, device=device, warm_blocks=warm_blocks,
+            flight=flight, buckets=buckets, max_new_tokens=max_new_tokens))
+        # the front door while r1 alone holds its families' prefixes
+        step("http", lambda: fleet_http(
+            engines, params, [prompt_of(prefixes[r1_families[-1]]) for _ in range(4)],
+            max_new_tokens=max_new_tokens))
+        step("failover", lambda: fleet_failover(
+            router, engines, fis, [prompt_of(prefixes[r1_families[0]]) for _ in range(4)],
+            max_new_tokens=short_new_tokens))
+        lengths = rng.integers(disagg_lengths[0], disagg_lengths[1] + 1, size=disagg_prompts)
+        dprompts = [rng.integers(1, vocab, size=int(n)).tolist() for n in lengths]
+        step("disagg", lambda: fleet_disagg(config, params, dprompts, device=device,
+                                            colocated=engines[0],
+                                            max_new_tokens=short_new_tokens, buckets=buckets))
+        step("burst", lambda: fleet_burst(
+            router, engines, [prompt_of(prefixes[i % families]) for i in range(burst)],
+            on_card=on_card, max_new_tokens=short_new_tokens))
+        if on_card:
+            torch.cuda.synchronize()
+        out["launches"] = {name: c.launches for name, c in counters.items()}
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        mode = step("mode", lambda: choose_serving_mode(Llama(config), params, device=device))
+        log(f"fleet mode choice: rtt_ms {mode['rtt_ms']} decode_chunk_ms "
+            f"{mode['decode_chunk_ms']} -> {mode['mode']} ({mode['rule']})")
+    finally:
+        router.close()
+        for e in engines:
+            e.close()
+    out["disagg"].pop("outputs")
+    if on_card:
+        for name, n in out["launches"].items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was never launched on the fleet path")
+
+    # fp32 activations at reduced depth: disaggregated vs colocated, token for token
+    t_fp32 = time.perf_counter()
+    cfg32 = fp32_config(config, fp32_layers)
+    _, params32 = build_template(cfg32, max_new_tokens, buckets, device)
+    solo = fleet_engine(cfg32, device=device, buckets=buckets, max_new_tokens=max_new_tokens)
+    try:
+        fp32 = fleet_disagg(cfg32, params32, dprompts, device=device, colocated=solo,
+                            max_new_tokens=short_new_tokens, buckets=buckets)
+    finally:
+        solo.close()
+    if fp32["token_identical_to_colocated"] < len(dprompts) - 1:
+        raise AssertionError(f"fp32 disaggregated serving disagrees with the colocated engine: "
+                             f"{fp32['token_identical_to_colocated']}/{len(dprompts)}")
+    fp32.pop("outputs")
+    out["disagg_fp32"] = {"layers": fp32_layers,
+                          "match": f"{fp32['token_identical_to_colocated']}/{len(dprompts)}",
+                          "handoff_ms": fp32["handoff_ms"]}
+    out["step_s"]["disagg_fp32"] = time.perf_counter() - t_fp32
+    log(f"time: fleet disagg_fp32 done in {out['step_s']['disagg_fp32']:.1f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"fleet: fp32 disaggregated vs colocated at {fp32_layers} layers "
+        f"{out['disagg_fp32']['match']} token-identical; launches {out['launches']}; peak "
+        f"memory {out['peak_mem_gib']} GiB; phase {out['seconds']:.1f} s")
+    return out
+
+
 # the 0.3B draft of the JAX package's speculative benchmark
 DRAFT_WIDTHS = dict(hidden_dim=1024, num_layers=10, num_heads=16, num_kv_heads=8, mlp_dim=2816)
 
@@ -4411,6 +5383,8 @@ def main(argv=None) -> int:
     bert = {impl: bert_finetune_phase(dataclasses.replace(bert_cfg, attn_impl=impl))
             for impl in ("xla", "fused")}
     bert["agreement"] = bert_grad_agreement(dataclasses.replace(bert_cfg, attn_impl="fused"))
+    bert["agreement_flash"] = bert_grad_agreement(dataclasses.replace(bert_cfg,
+                                                                      attn_impl="flash"))
     bert["mlm"] = bert_mlm_phase(dataclasses.replace(bert_cfg, attn_impl="fused"))
     bert["config"] = (f"BERT vocab {bert_cfg.vocab_size}, max_len {bert_cfg.max_len}, width "
                       f"{bert_cfg.hidden_dim}, {bert_cfg.num_layers} layers, "
@@ -4436,6 +5410,10 @@ def main(argv=None) -> int:
     prefix = prefix_phase(config, ENGINE_NEW_TOKENS, model=model, params=params)
     prefix["int8_kv"] = prefix_kv_quant_check(config, params)
     log(f"time: prefix done at {time.perf_counter() - t_run:.1f} s")
+    fleet = fleet_phase(config, params)
+    torch.cuda.empty_cache()
+    log(f"time: fleet done at {time.perf_counter() - t_run:.1f} s (phase "
+        f"{fleet['seconds']:.1f} s)")
     int8_kv = kv_quant_phase(config, params, 16)
     del model, params
     log(f"time: int8 kv done at {time.perf_counter() - t_run:.1f} s")
@@ -4494,6 +5472,8 @@ def main(argv=None) -> int:
                                 "unionml_tpu/ops/fused_attention.py:92"),
         "flash_fwd": ("unionml_tpu_torch/csrc/flash_attention.cu",
                       "unionml_tpu/ops/flash_attention.py:63"),
+        "flash_bwd_delta": ("unionml_tpu_torch/csrc/flash_bwd.cu",
+                            "unionml_tpu/ops/flash_attention.py:464"),
         "flash_bwd_dq": ("unionml_tpu_torch/csrc/flash_bwd.cu",
                          "unionml_tpu/ops/flash_attention.py:262"),
         "flash_bwd_dkv": ("unionml_tpu_torch/csrc/flash_bwd.cu",
@@ -4532,9 +5512,11 @@ def main(argv=None) -> int:
             "launches_per_qlora_step": qlora["launches_per_step"].get(name),
             "launches_per_bert_step": bert["fused"]["launches_per_step"].get(name),
             "launches_per_bert_mlm_step": bert["mlm"]["launches_per_unmasked_step"].get(name),
+            "fleet_launches": fleet["launches"].get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
+                      "fleet": fleet,
                       "int8_kv": int8_kv,
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,

@@ -759,25 +759,25 @@ def _flash_inputs(cuda, b, sq, skv, h, kvh, d, seed=0):
     (1, 17, 17, 2, 1, 64, True),
 ])
 def test_flash_train_kernels_match_plain_on_card(cuda, b, sq, skv, h, kvh, d, causal):
-    """Rows 9-11: the lse forward, the dq and the dk/dv kernels against
-    their plain versions on the same inputs (the backward on the kernel's
-    own out and lse); the backward gives the same bits twice."""
+    """Rows 9-11: the lse forward, the delta pass, the dq and the dk/dv
+    kernels against their plain versions on the same inputs (the backward
+    on the kernel's own lse); the backward gives the same bits twice."""
     q, k, v, do = _flash_inputs(cuda, b, sq, skv, h, kvh, d)
     scale = d ** -0.5
-    kernels = (tflash.FWD_KERNEL, tflash.DQ_KERNEL, tflash.DKV_KERNEL)
+    kernels = (tflash.FWD_KERNEL, tflash.DELTA_KERNEL, tflash.DQ_KERNEL, tflash.DKV_KERNEL)
     before = [kern.launches for kern in kernels]
     out, lse = tflash.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
-    grads = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
-    again = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
+    grads = tflash.flash_bwd_cuda(q, k, v, do, lse, causal=causal, scale=scale)
+    again = tflash.flash_bwd_cuda(q, k, v, do, lse, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert [kern.launches - n for kern, n in zip(kernels, before)] == [1, 2, 2]
+    assert [kern.launches - n for kern, n in zip(kernels, before)] == [1, 2, 2, 2]
     want_out, want_lse = tflash.flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     # bf16 P rounds at the kernel's running max, the plain version's row
     # max: ~2.5 bf16 ulps of each query row's largest entry
     assert _max_row_rel_err(out, want_out) < 2e-2
     # fp32 statistics, exp and sums in another order
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
-    want = tflash.flash_bwd_plain(q, k, v, do, out, lse, causal=causal, scale=scale)
+    want = tflash.flash_bwd_plain(q, k, v, do, lse, causal=causal, scale=scale)
     for got, ref, same in zip(grads, want, again):
         assert torch.isfinite(got.float()).all()
         # the same rounding points; bf16 outputs and fp32 sums in another
@@ -814,12 +814,12 @@ def test_flash_backward_kernel_edges_on_card(cuda, b, sq, skv, h, kvh, d, causal
     scale = d ** -0.5
     out, lse = tflash.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
     before = (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches)
-    grads = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
-    again = tflash.flash_bwd_cuda(q, k, v, do, out, lse, causal=causal, scale=scale)
+    grads = tflash.flash_bwd_cuda(q, k, v, do, lse, causal=causal, scale=scale)
+    again = tflash.flash_bwd_cuda(q, k, v, do, lse, causal=causal, scale=scale)
     torch.cuda.synchronize()
     assert (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches) == (
         before[0] + 2, before[1] + 2)
-    want = tflash.flash_bwd_plain(q, k, v, do, out, lse, causal=causal, scale=scale)
+    want = tflash.flash_bwd_plain(q, k, v, do, lse, causal=causal, scale=scale)
     for got, ref, same in zip(grads, want, again):
         assert got.shape == ref.shape and torch.isfinite(got.float()).all()
         # the same rounding points; bf16 outputs and fp32 sums in another
@@ -836,21 +836,65 @@ def test_flash_backward_kernels_refuse_misaligned_bases_on_card(cuda):
     off a 16-byte boundary is refused before any launch."""
     q, k, v, do = _flash_inputs(cuda, 2, 65, 65, 4, 2, 64, seed=5)
     out, lse = tflash.flash_fwd_cuda(q, k, v, causal=True, scale=0.125)
-    delta = tflash.flash_delta(do, out)
+    delta = tflash.flash_delta(q, k, v, do, lse, causal=True, scale=0.125)
     buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
     off = buf[1:].view(q.shape)
     off.copy_(do)
     kbuf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
     koff = kbuf[1:].view(k.shape)
     koff.copy_(k)
-    before = (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches)
+    kernels = (tflash.DELTA_KERNEL, tflash.DQ_KERNEL, tflash.DKV_KERNEL)
+    before = [kern.launches for kern in kernels]
     kw = dict(causal=True, scale=0.125)
     for args in ((q, k, v, off), (off, k, v, do), (q, koff, v, do), (q, k, koff, do)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tflash.flash_delta_cuda(*args, lse, **kw)
         with pytest.raises(ValueError, match="16-byte aligned"):
             tflash.flash_bwd_dq_cuda(*args, lse, delta, **kw)
         with pytest.raises(ValueError, match="16-byte aligned"):
             tflash.flash_bwd_dkv_cuda(*args, lse, delta, **kw)
-    assert (tflash.DQ_KERNEL.launches, tflash.DKV_KERNEL.launches) == before
+    assert [kern.launches for kern in kernels] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal", [
+    (2, 4095, 4095, 12, 4, 64, True),     # the llama_lc training shape
+    (1, 1023, 1023, 32, 8, 128, True),    # the QLoRA phase's shape
+    (2, 191, 191, 4, 2, 64, True),        # around the CTA tiles
+    (2, 129, 129, 4, 4, 128, True),
+    (2, 300, 40, 4, 2, 64, True),         # q_len > kv_len: rows that see nothing
+    (2, 40, 300, 6, 2, 128, True),        # cross-length, bottom-right
+    (2, 300, 200, 4, 1, 64, False),       # non-causal
+])
+def test_flash_delta_kernel_matches_plain_on_card(cuda, b, sq, skv, h, kvh, d, causal):
+    """The delta pass (``sum_j p_ij dp_ij`` in fp32, the dq kernel in its
+    delta mode) against its plain version and against fp64 sums, row by
+    row within 1e-3 of the row's largest |p dp| term sum; rows that see no
+    key are 0; a rerun gives the same bits; sums over two halves of the keys
+    under the whole lse add up to the whole (non-causal)."""
+    chip_smoke = _chip_smoke()
+    q, k, v, do = _flash_inputs(cuda, b, sq, skv, h, kvh, d, seed=7)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    _, lse = tflash.flash_fwd_cuda(q, k, v, **kw)
+    before = tflash.DELTA_KERNEL.launches
+    got = tflash.flash_delta_cuda(q, k, v, do, lse, **kw)
+    again = tflash.flash_delta_cuda(q, k, v, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert tflash.DELTA_KERNEL.launches == before + 2 and torch.equal(got, again)
+    exact, scale_rows = chip_smoke.delta_exact(q, k, v, do, lse, **kw)
+    err = ((got.double() - exact).abs() / scale_rows).max().item()
+    assert err < chip_smoke.DELTA_ROW_LIMIT, err
+    plain = tflash.flash_delta(q, k, v, do, lse, **kw)
+    assert ((plain.double() - exact).abs() / scale_rows).max().item() < chip_smoke.DELTA_ROW_LIMIT
+    if causal and sq > skv:
+        assert not got[:, :, :sq - skv].any()
+    if not causal:
+        half = skv // 2 // 64 * 64 or skv // 2
+        parts = [tflash.flash_delta_cuda(q, k[:, s].contiguous(), v[:, s].contiguous(), do, lse,
+                                         **kw)
+                 for s in (slice(0, half), slice(half, skv))]
+        assert (((parts[0] + parts[1]).double() - exact).abs() / scale_rows).max().item() < \
+            chip_smoke.DELTA_ROW_LIMIT
 
 
 @pytest.mark.cuda

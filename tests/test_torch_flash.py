@@ -9,6 +9,14 @@ package's own flash tests (``tests/unit/test_ops.py``): causal and not,
 GQA 4/2, ragged S = 72, cross-length 8/40 and 16/32. The CUDA kernels are
 held against the plain versions on the card by ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``.
+
+The port's backward sums ``delta = sum_j p_ij dp_ij`` from its own p in
+fp32; the reference takes ``delta = rowsum(dO * O)`` from the output. In
+fp32 the two agree to the gradient tolerance. In bf16 they differ by O's
+rounding, so the tests that hold the rounding points against the JAX
+kernels feed the reference's delta (``output_delta``) to the plain
+backward, and the full op is held to 2**-6 of each gradient's largest
+entry.
 """
 
 import numpy as np
@@ -71,14 +79,24 @@ def _jax_side(q, k, v, g, *, causal, tile, dtype):
     return _f32(out), _f32(lse).reshape(b, h, sq), [_f32(x) for x in vjp(jg)]
 
 
-def _torch_side(q, k, v, g, *, causal, dtype):
+def _torch_side(q, k, v, g, *, causal, dtype, output_delta=False):
+    """The port's output, lse and (dq, dk, dv): through the op's autograd,
+    or with ``output_delta`` through the plain backward on the reference's
+    ``delta = rowsum(dO * O)`` from the op's output."""
     tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v))
+    tg = torch.from_numpy(g).to(dtype)
+    scale = q.shape[-1] ** -0.5
     out = tfa.flash_attention(tq, tk, tv, causal=causal)
-    out.backward(torch.from_numpy(g).to(dtype))
     _, lse = tfa.flash_fwd_plain(tq.detach(), tk.detach(), tv.detach(), causal=causal,
-                                 scale=q.shape[-1] ** -0.5)
-    grads = [t.grad.float().numpy() for t in (tq, tk, tv)]
-    return out.detach().float().numpy(), lse.numpy(), grads
+                                 scale=scale)
+    if output_delta:
+        grads = tfa.flash_bwd_plain(tq.detach(), tk.detach(), tv.detach(), tg, lse,
+                                    causal=causal, scale=scale,
+                                    delta=tfa.output_delta(tg, out.detach()))
+    else:
+        out.backward(tg)
+        grads = [t.grad for t in (tq, tk, tv)]
+    return out.detach().float().numpy(), lse.numpy(), [t.float().numpy() for t in grads]
 
 
 @pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,tile", CASES)
@@ -99,10 +117,13 @@ def test_flash_bf16_rounding_points_match_jax():
     """bf16 inputs, causal, ragged S = 72 at head_dim 64, one JAX tile:
     the plain versions round p (before p @ v and p^T @ dO) and ds (before
     ds @ k and ds^T @ q) where the Pallas kernels do, so the two agree to
-    a bf16 ulp (a rounding point left out would miss by far more)."""
+    a bf16 ulp (a rounding point left out would miss by far more). The
+    plain backward takes the reference's delta from the bf16 output here,
+    so only the rounding points differ."""
     q, k, v, g = _inputs(2, 72, 72, 4, 4, 64, seed=3)
     j_out, j_lse, j_grads = _jax_side(q, k, v, g, causal=True, tile=128, dtype=jnp.bfloat16)
-    t_out, t_lse, t_grads = _torch_side(q, k, v, g, causal=True, dtype=torch.bfloat16)
+    t_out, t_lse, t_grads = _torch_side(q, k, v, g, causal=True, dtype=torch.bfloat16,
+                                        output_delta=True)
     np.testing.assert_allclose(t_out, j_out, **BF16_TOL)
     np.testing.assert_allclose(t_lse, j_lse, rtol=1e-6, atol=1e-5)   # fp32 statistics
     for name, got, want in zip("qkv", t_grads, j_grads):
@@ -121,14 +142,101 @@ def test_flash_bf16_gqa_grads_match_jax(b, s, h, kvh, d):
     Summing the group in fp32 and rounding once instead misses by several
     ulps on about 1% of the elements. dk / dv are held at two bf16 ulps:
     one from each head's rounding landing on either side of a boundary,
-    one from the rounded sum."""
+    one from the rounded sum. The plain backward takes the reference's
+    delta from the bf16 output here."""
     q, k, v, g = _inputs(b, s, s, h, kvh, d, seed=3)
     j_out, _, j_grads = _jax_side(q, k, v, g, causal=True, tile=128, dtype=jnp.bfloat16)
-    t_out, _, t_grads = _torch_side(q, k, v, g, causal=True, dtype=torch.bfloat16)
+    t_out, _, t_grads = _torch_side(q, k, v, g, causal=True, dtype=torch.bfloat16,
+                                    output_delta=True)
     np.testing.assert_allclose(t_out, j_out, **BF16_TOL)
     np.testing.assert_allclose(t_grads[0], j_grads[0], err_msg="dq", **BF16_TOL)
     for name, got, want in zip("kv", t_grads[1:], j_grads[1:]):
         np.testing.assert_allclose(got, want, err_msg=f"d{name}", rtol=2**-6, atol=2**-9)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    pytest.param(2, 72, 4, 4, 64, id="mha-ragged72"),
+    pytest.param(2, 72, 12, 4, 64, id="gqa-12-4"),
+    pytest.param(1, 128, 8, 1, 64, id="gqa-8-1"),
+])
+def test_flash_bf16_op_grads_match_jax(b, s, h, kvh, d):
+    """bf16, causal, one JAX tile: the full op (the port's delta summed from
+    its own p) against the JAX op (delta from its bf16 output). Each
+    gradient within 2**-6 of its largest entry, the bound row 13's op is
+    held to (tests/test_torch_vit.py): the two deltas differ by O's
+    rounding, which moves a gradient element by a few bf16 ulps of its
+    row, far less than a dropped rounding point or a wrong delta would."""
+    q, k, v, g = _inputs(b, s, s, h, kvh, d, seed=3)
+    j_out, _, j_grads = _jax_side(q, k, v, g, causal=True, tile=128, dtype=jnp.bfloat16)
+    t_out, _, t_grads = _torch_side(q, k, v, g, causal=True, dtype=torch.bfloat16)
+    np.testing.assert_allclose(t_out, j_out, **BF16_TOL)
+    for name, got, want in zip("qkv", t_grads, j_grads):
+        np.testing.assert_array_less(np.abs(got - want).max(), 2**-6 * np.abs(want).max(),
+                                     err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal", [
+    pytest.param(2, 72, 72, 4, 4, 32, True, id="causal-ragged72"),
+    pytest.param(2, 72, 72, 12, 4, 16, True, id="causal-gqa-12-4"),
+    pytest.param(1, 12, 8, 4, 1, 16, True, id="causal-rows-that-see-nothing"),
+    pytest.param(2, 8, 40, 4, 2, 16, True, id="causal-cross-8-40"),
+    pytest.param(1, 16, 32, 4, 2, 8, False, id="full-gqa-cross-16-32"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_delta_plain_is_the_fp64_sum(b, sq, skv, h, kvh, d, causal, dtype):
+    """The delta pass's plain version, ``sum_j p_ij dp_ij`` in fp32 with
+    ``p = exp(s - lse)`` and ``dp = dO v^T``, against the same sum in fp64
+    on the same lse (chip_smoke.py's ``delta_exact``), row by row within
+    1e-5 of the row's sum of |p dp|: causal rows, GQA, cross-length, and
+    rows that see no key (delta 0). A sum over two halves of the keys under
+    the whole lse adds up to the whole (the composition ring attention
+    needs)."""
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    q, k, v, g = (torch.from_numpy(x).to(dtype) for x in _inputs(b, sq, skv, h, kvh, d, seed=8))
+    kw = dict(causal=causal, scale=d ** -0.5)
+    _, lse = tfa.flash_fwd_plain(q, k, v, **kw)
+    got = tfa.flash_delta(q, k, v, g, lse, **kw)
+    exact, row_scale = chip_smoke.delta_exact(q, k, v, g, lse, **kw)
+    assert got.dtype == torch.float32 and got.shape == (b, h, sq)
+    assert ((got.double() - exact).abs() / row_scale).max() < 1e-5
+    if causal and sq > skv:
+        assert not got[:, :, :sq - skv].any()
+    # the planted fault of the card's check (the last visible key tile
+    # skipped) is beyond chip_smoke's limit where a row sees two tiles
+    fault = chip_smoke.delta_exact(q, k, v, g, lse, skip_last_tile=True, **kw)[0]
+    over = (fault - exact).abs() / row_scale > chip_smoke.DELTA_ROW_LIMIT
+    assert bool(over.any()) == (skv > chip_smoke.FLASH_TILE)
+    if not causal:
+        half = skv // 2
+        parts = [tfa.flash_delta(q, k[:, sl], v[:, sl], g, lse, **kw)
+                 for sl in (slice(0, half), slice(half, skv))]
+        assert (((parts[0] + parts[1]).double() - exact).abs() / row_scale).max() < 1e-5
+
+
+def test_flash_backward_sums_delta_from_p_not_from_the_output():
+    """The op's backward (plain on the CPU) is the plain backward on
+    :func:`flash_delta`'s sum, the output is not kept for it, and the
+    reference's delta from the bf16 output gives other gradients."""
+    q, k, v, g = (torch.from_numpy(x).bfloat16() for x in _inputs(2, 72, 72, 4, 2, 32, seed=9))
+    kw = dict(causal=True, scale=32 ** -0.5)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=True)
+    assert len(out.grad_fn.saved_tensors) == 4   # q, k, v, lse
+    out.backward(g)
+    _, lse = tfa.flash_fwd_plain(q, k, v, **kw)
+    want = tfa.flash_bwd_plain(q, k, v, g, lse, delta=tfa.flash_delta(q, k, v, g, lse, **kw), **kw)
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        assert torch.equal(got, ref)
+    ref_delta = tfa.flash_bwd_plain(q, k, v, g, lse, delta=tfa.output_delta(g, out.detach()), **kw)
+    assert not torch.equal(ref_delta[0], want[0])
 
 
 def test_flash_lse_of_rows_that_see_nothing_is_zero():
@@ -165,7 +273,9 @@ def test_flash_refusals():
         tfa.flash_fwd_cuda(q, k, v, causal=True, scale=0.25)
     lse = torch.zeros(1, 4, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_bwd_cuda(q, k, v, q, q, lse, causal=True, scale=0.25)
+        tfa.flash_bwd_cuda(q, k, v, q, lse, causal=True, scale=0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_delta_cuda(q, k, v, q, lse, causal=True, scale=0.25)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tfa.flash_attention(q[:, :, :3], k, v, causal=True)
 

@@ -298,7 +298,7 @@ def test_chip_smoke_llama_phases_rehearsal_on_cpu():
                                     epochs=2)
     assert out["steps"] == 8 and out["timed_steps"] == 6
     assert out["last_loss"] < out["first_loss"]
-    assert out["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert out["launches"] == dict.fromkeys(chip_smoke.lm_kernels(), 0)
     assert out["params"] == sum(p.numel() for p in tree_leaves(init_params(cfg, device="cpu")))
     agree = chip_smoke.lm_grad_agreement(cfg, device="cpu", batch=2, seq=65)
     assert agree["grad_tensors"] == len(tree_leaves(init_params(cfg, device="cpu")))
@@ -343,8 +343,8 @@ def test_chip_smoke_row_check_rejects_a_dropped_tile(b, sq, skv, h, kvh, causal)
     kw = dict(causal=causal, scale=64**-0.5)
     out, lse = fa.flash_fwd_plain(q, k, v, **kw)
     want = dict(zip(("out", "dq", "dk", "dv"),
-                    (out, *fa.flash_bwd_plain(q, k, v, do, out, lse, **kw))))
-    fault = dict(zip(want, chip_smoke.dropped_tile_fault(q, k, v, do, out, lse, **kw)))
+                    (out, *fa.flash_bwd_plain(q, k, v, do, lse, **kw))))
+    fault = dict(zip(want, chip_smoke.dropped_tile_fault(q, k, v, do, lse, **kw)))
     checks = chip_smoke.check_flash_rows("plain", want, want, fault)
     for name, chk in checks.items():
         assert chk["max_row_rel_err"] == 0 and chk["fault_rows_over_limit"] > 0
@@ -353,3 +353,11 @@ def test_chip_smoke_row_check_rejects_a_dropped_tile(b, sq, skv, h, kvh, causal)
     # the check passes a fault only by failing: want against itself as the fault
     with pytest.raises(AssertionError, match="planted fault"):
         chip_smoke.check_flash_rows("plain", want, want, want)
+    # the delta pass's check: the plain sum passes, the fp64 sum with the
+    # last visible key tile skipped is the planted fault it must reject
+    delta = fa.flash_delta(q, k, v, do, lse, **kw)
+    stats = chip_smoke.check_delta_rows("plain", delta, q, k, v, do, lse, **kw)
+    assert stats["max_row_rel_err"] < 1e-5 and stats["fault_rows_over_limit"] > 0
+    fault_delta = chip_smoke.delta_exact(q, k, v, do, lse, skip_last_tile=True, **kw)[0]
+    with pytest.raises(AssertionError, match="disagrees with the fp64 sum"):
+        chip_smoke.check_delta_rows("plain", fault_delta.float(), q, k, v, do, lse, **kw)

@@ -189,8 +189,9 @@ def test_port_imports_neither_jax_nor_reference():
     """Every module of unionml_tpu_torch imports without JAX, the JAX
     package or ``ml_dtypes`` (bf16 host rows are torch tensors; checked in
     a fresh interpreter), the prefix cache, the feed, goodput, checkpoint,
-    elastic, LoRA, MLP and BERT modules and the templates' scaffolded
-    tests among them."""
+    elastic, LoRA, MLP and BERT modules, the templates' scaffolded tests
+    and the fleet tier (SLO watchdog, OTLP exporter, mode chooser, router,
+    autoscaler, disaggregation) among them."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -204,7 +205,9 @@ def test_port_imports_neither_jax_nor_reference():
         "            'models.bert', 'templates.basic.app', 'templates.basic_tpu.app',\n"
         "            'templates.basic.tests.test_app', 'templates.basic_tpu.tests.test_app',\n"
         "            'templates.llm_serving.tests.test_app',\n"
-        "            'templates.vision_tpu.tests.test_app'):\n"
+        "            'templates.vision_tpu.tests.test_app', 'slo', 'exporters',\n"
+        "            'serving.auto', 'serving.router', 'serving.autoscaler',\n"
+        "            'serving.disagg'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"

@@ -1,13 +1,24 @@
-// FlashAttention-2 backward for Hopper (sm_90a), GQA-aware: a dq kernel and a
-// dk/dv kernel.
+// FlashAttention-2 backward for Hopper (sm_90a), GQA-aware: a delta pass, a dq
+// kernel and a dk/dv kernel.
 //
 // Replaces: unionml_tpu/ops/flash_attention.py::_dq_kernel and ::_dkv_kernel
 // (both reached through _flash_bwd_bhsd -> pl.pallas_call), the backward of
 // the differentiable flash_attention (attn_impl="flash", long-context
-// training).
+// training), and the XLA expression delta = rowsum(dO * O) before them
+// (flash_attention.py:464).
 //
-// What they compute, per (batch, q head) with its kv head kvh = head / (H /
-// KVH), from the forward's lse (natural log) and delta = rowsum(dO * O):
+// delta is the sum over a row's visible keys of p * dp, in fp32 from the
+// backward's own p (the dq kernel in its DELTA mode: S and dP per tile, no
+// third product, one sum per query row). The reference takes it from the
+// bf16 output instead: where a row's value vectors are nearly equal, dp -
+// delta cancels and O's rounding then turns dq and dk (deep blocks of a
+// randomly initialised post-LN BERT, ROADMAP.md C7). The pass sums over the
+// keys it is given with the lse it is given, so sums over shards of the keys
+// under one global lse add up to the whole.
+//
+// What the dq and dk/dv kernels compute, per (batch, q head) with its kv
+// head kvh = head / (H / KVH), from the forward's lse (natural log) and
+// delta:
 //   s  = q k^T * scale (fp32),   p = exp(s - lse) over the visible pairs,
 //   dp = dO v^T (fp32),          ds = bf16(p * (dp - delta) * scale),
 //   dq = ds k,   dv_head = bf16(bf16(p)^T dO),   dk_head = bf16(ds^T q),
@@ -69,8 +80,9 @@
 // steps; here the loop inside the CTA takes its place.
 // Resources (ptxas -v): 128 registers at entry at head_dim 64
 // (512 threads; 160 in the consumers), 168 at 128 (384 threads; 240), no
-// spills in either kernel at either head dim; shared memory 113 KB (dq) /
-// 115 KB (dk/dv) at head_dim 64, 193 KB / 195 KB at 128, one CTA per SM.
+// spills in either kernel at either head dim (the dq kernel's delta mode
+// too); shared memory 113 KB (dq) / 115 KB (dk/dv) at head_dim 64, 193 KB /
+// 195 KB at 128, one CTA per SM.
 
 #include "hopper.cuh"
 
@@ -130,16 +142,18 @@ __device__ __forceinline__ void init_bars(uint32_t bars, int stages, int consume
 }
 
 // dq: one CTA per (batch * q head, BLOCK queries); q/dO/dq [B, Sq, H, D], k/v
-// [B, Skv, KVH, D], lse/delta [B, H, Sq]
-template <int D>
+// [B, Skv, KVH, D], lse/delta [B, H, Sq]. With DELTA the same walk over the
+// key tiles writes delta_out = rowsum(p * dP) (fp32, [B, H, Sq]) and
+// neither reads delta nor writes dq (dq_map is not used).
+template <int D, bool DELTA>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
                 const __grid_constant__ CUtensorMap do_map,
                 const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
-                const float* __restrict__ delta, int sq, int skv, int h, int kvh, float scale,
-                int causal) {
+                const float* __restrict__ delta, float* __restrict__ delta_out, int sq, int skv,
+                int h, int kvh, float scale, int causal) {
   using C = Cfg<D>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -194,12 +208,12 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t q_w = q_s + wg * C::TILE, do_w = do_s + wg * C::TILE;
   const int qp[2] = {qw + r0, qw + r0 + 8};
   const float scale_log2 = scale * LOG2E;
-  float l2[2], dl[2];  // lse log2 e and delta of the two rows
+  float l2[2], dl[2] = {0.f, 0.f};  // lse log2 e and delta of the two rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = qp[r] < sq;
     l2[r] = ok ? lse[(size_t)bh * sq + qp[r]] * LOG2E : 0.f;
-    dl[r] = ok ? delta[(size_t)bh * sq + qp[r]] : 0.f;
+    if constexpr (!DELTA) dl[r] = ok ? delta[(size_t)bh * sq + qp[r]] : 0.f;
   }
   // key tiles holding a position that a real row of this warpgroup sees:
   // a prefix of the CTA's tiles (the rest lie past its causal diagonal)
@@ -241,6 +255,37 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     issue_abt<D, TILE_ROWS>(dp_acc, do_w, k_slot(it % ST) + C::TILE);
     wgmma_commit();
   };
+  if constexpr (DELTA) {
+    // delta: per tile S and dP, then p * dP summed into the two rows; one
+    // tile's products at a time (nothing in flight across the back edge)
+    float acc[2] = {0.f, 0.f};
+    for (int it = 0; it < n_do; ++it) {
+      mbar_wait(full(it % ST), (it / ST) & 1);
+      wgmma_fence();
+      issue_sdp(sc, dp, it);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax(it);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      mbar_arrive(empty(it % ST));
+#pragma unroll
+      for (int i = 0; i < TILE_ROWS / 2; ++i) acc[(i >> 1) & 1] += sc[i] * dp[i];
+    }
+    for (int it = n_do; it < n_tiles; ++it) {
+      mbar_wait(full(it % ST), (it / ST) & 1);
+      mbar_arrive(empty(it % ST));
+    }
+    // the four lanes of a quad hold the columns of the same two rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+      if (lane % 4 == 0 && qp[r] < sq) delta_out[(size_t)bh * sq + qp[r]] = acc[r];
+    }
+    return;
+  }
+
   // Each step issues dq += ds K of the last tile and S, dP of this one
   // together, so the tensor cores run the three back to back while the
   // other warpgroup works on its exp2; nothing is in flight across the
@@ -517,13 +562,15 @@ bool aligned(const void* const (&ptrs)[N]) {
   return true;
 }
 
-template <int D>
+// DELTA: out is delta_out (fp32 [b, h, sq]) and delta is not read; else out
+// is dq (bf16 [b, sq, h, D])
+template <int D, bool DELTA>
 cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int b, int sq, int skv,
+                      const void* lse, const void* delta, void* out, int b, int sq, int skv,
                       int h, int kvh, float scale, int causal, cudaStream_t st) {
-  const void* const bases[5] = {q, k, v, dout, dq};
+  const void* const bases[5] = {q, k, v, dout, DELTA ? q : out};
   if (!aligned(bases)) return cudaErrorMisalignedAddress;
-  if (skv <= 0) return cudaMemsetAsync(dq, 0, (size_t)b * sq * h * D * 2, st);
+  if (skv <= 0) return cudaMemsetAsync(out, 0, (size_t)b * sq * h * (DELTA ? 4 : D * 2), st);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap q_map, k_map, v_map, do_map, dq_map;
@@ -531,15 +578,16 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* d
       !make_map(encode, &k_map, k, D, kvh, skv, b, TILE_ROWS) ||
       !make_map(encode, &v_map, v, D, kvh, skv, b, TILE_ROWS) ||
       !make_map(encode, &do_map, dout, D, h, sq, b, TILE_ROWS) ||
-      !make_map(encode, &dq_map, dq, D, h, sq, b, TILE_ROWS)) {
+      !make_map(encode, &dq_map, DELTA ? q : out, D, h, sq, b, TILE_ROWS)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = prepare(flash_dq_kernel<D>, Cfg<D>::DQ_SMEM);
+  cudaError_t err = prepare(flash_dq_kernel<D, DELTA>, Cfg<D>::DQ_SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(b * h, (sq + Cfg<D>::BLOCK - 1) / Cfg<D>::BLOCK);
-  flash_dq_kernel<D><<<grid, Cfg<D>::THREADS, Cfg<D>::DQ_SMEM, st>>>(
+  flash_dq_kernel<D, DELTA><<<grid, Cfg<D>::THREADS, Cfg<D>::DQ_SMEM, st>>>(
       q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), sq, skv, h, kvh, scale, causal);
+      static_cast<const float*>(delta), DELTA ? static_cast<float*>(out) : nullptr, sq, skv, h,
+      kvh, scale, causal);
   return cudaGetLastError();
 }
 
@@ -587,8 +635,23 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0) return 0;
-  if (d == 64) return dq_launch<64>(q, k, v, dout, lse, delta, dq, b, sq, skv, h, kvh, scale, causal, st);
-  if (d == 128) return dq_launch<128>(q, k, v, dout, lse, delta, dq, b, sq, skv, h, kvh, scale, causal, st);
+  if (d == 64) return dq_launch<64, false>(q, k, v, dout, lse, delta, dq, b, sq, skv, h, kvh, scale, causal, st);
+  if (d == 128) return dq_launch<128, false>(q, k, v, dout, lse, delta, dq, b, sq, skv, h, kvh, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// delta_out[b, h, i] = sum over the keys of k / v that query i sees of p * dp,
+// p = exp(s - lse) and dp = dO v^T (fp32), with lse given (natural log): the
+// operands of flash_bwd_dq but delta, delta_out fp32 [b, h, sq] contiguous.
+// Rows that see no key get 0. Sums over shards of the keys (each under the
+// same lse) add up to the sum over all of them.
+extern "C" int flash_bwd_delta(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, void* delta_out, int b, int sq, int skv, int h,
+                               int kvh, int d, float scale, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || sq <= 0) return 0;
+  if (d == 64) return dq_launch<64, true>(q, k, v, dout, lse, nullptr, delta_out, b, sq, skv, h, kvh, scale, causal, st);
+  if (d == 128) return dq_launch<128, true>(q, k, v, dout, lse, nullptr, delta_out, b, sq, skv, h, kvh, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

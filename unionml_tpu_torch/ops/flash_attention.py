@@ -16,19 +16,25 @@ last ``q_len`` positions).
   attention of ``attn_impl="flash"`` in long-context training: the
   forward writes ``out`` and the per-row logsumexp ``lse`` ([B, H, Sq]
   fp32, natural log, 0 for a row that sees nothing); the FlashAttention-2
-  backward recomputes ``p = exp(s - lse)`` tile by tile with ``delta =
-  rowsum(dO * O)`` (a torch expression outside the kernels, as the
-  reference leaves it to XLA) in a dq kernel over query tiles and a dk/dv
-  kernel over key tiles of each q head; each head's dk / dv is rounded to
-  the input dtype, then each GQA group is summed in fp32 and rounded once
-  (a torch sum outside the kernel, as in the reference). Kernels
-  :data:`FWD_KERNEL` (``flash_fwd_lse``, the padded kernel in its lse mode),
-  :data:`DQ_KERNEL` and :data:`DKV_KERNEL` (``csrc/flash_bwd.cu``);
-  :func:`flash_fwd_plain` and :func:`flash_bwd_plain` are the same
-  arithmetic in plain PyTorch, rounding where the TPU kernels round
-  (``p`` to the value dtype before ``p @ v`` and ``p^T @ dO``, ``ds`` to
-  the input dtype before ``ds @ k`` and ``ds^T @ q``, each q head's dk /
-  dv before the group sum).
+  backward recomputes ``p = exp(s - lse)`` tile by tile: first ``delta =
+  sum_j p_ij dp_ij`` in fp32 (``dp = dO v^T``) by a delta pass over query
+  tiles, then a dq kernel over query tiles and a dk/dv kernel over key
+  tiles of each q head; each head's dk / dv is rounded to the input dtype,
+  then each GQA group is summed in fp32 and rounded once (a torch sum
+  outside the kernel, as in the reference). The reference takes ``delta =
+  rowsum(dO * O)`` from the bf16 output (:func:`output_delta`, kept for
+  tests that hold the rounding points against it): where a row's value
+  rows are nearly equal, ``dp - delta`` cancels and O's rounding turns dq
+  and dk (ROADMAP.md C7), so the port sums the backward's own ``p``, as the
+  fused attention's backward does. Kernels :data:`FWD_KERNEL`
+  (``flash_fwd_lse``, the padded kernel in its lse mode),
+  :data:`DELTA_KERNEL` (the dq kernel in its delta mode), :data:`DQ_KERNEL`
+  and :data:`DKV_KERNEL` (``csrc/flash_bwd.cu``); :func:`flash_fwd_plain`,
+  :func:`flash_delta` and :func:`flash_bwd_plain` are the same arithmetic
+  in plain PyTorch, rounding where the TPU kernels round (``p`` to the
+  value dtype before ``p @ v`` and ``p^T @ dO``, ``ds`` to the input dtype
+  before ``ds @ k`` and ``ds^T @ q``, each q head's dk / dv before the
+  group sum).
 
 Every op launches the kernels for CUDA tensors (bf16, head_dim 64 or 128;
 anything else raises) and takes the plain versions only for CPU tensors.
@@ -48,6 +54,7 @@ NEG_INF = -1e30
 _SHAPE_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 KERNEL = Kernel("flash_attention", "flash_fwd_padded", [ctypes.c_void_p] * 5 + _SHAPE_ARGS)
 FWD_KERNEL = Kernel("flash_attention", "flash_fwd_lse", [ctypes.c_void_p] * 5 + _SHAPE_ARGS)
+DELTA_KERNEL = Kernel("flash_bwd", "flash_bwd_delta", [ctypes.c_void_p] * 6 + _SHAPE_ARGS)
 DQ_KERNEL = Kernel("flash_bwd", "flash_bwd_dq", [ctypes.c_void_p] * 7 + _SHAPE_ARGS)
 DKV_KERNEL = Kernel("flash_bwd", "flash_bwd_dkv", [ctypes.c_void_p] * 7 + _SHAPE_ARGS)
 HEAD_DIMS = (64, 128)
@@ -120,17 +127,17 @@ def flash_fwd_plain(
     return _plain_forward(q, k, v, vis, scale)
 
 
-def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``delta = rowsum(dO * O)`` in fp32, [B, H, Sq] (a torch expression,
-    as the reference leaves it to XLA)."""
+def output_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The reference's ``delta = rowsum(dO * O)`` from the output, fp32
+    [B, H, Sq]. No path of the op uses it: tests feed it to the plain
+    backward to hold the rounding points against the JAX kernels, and
+    ``chip_smoke.py`` plants it as the fault its BERT check must catch."""
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _plain_backward(q, k, v, do, out, lse, vis: Optional[torch.Tensor], scale: float):
-    """The FlashAttention-2 backward over the visible pairs (``vis`` as in
-    :func:`_plain_forward`): ``(dq, dk, dv)`` in the inputs' dtypes; each q
-    head's dk/dv rounded to the input dtype, then each GQA group summed in
-    fp32 and rounded once."""
+def _probs(q, k, v, do, lse, vis: Optional[torch.Tensor], scale: float):
+    """fp32 ``p = exp(s - lse)`` over the visible pairs and ``dp = dO v^T``,
+    both [B, KVH, G, Sq, Skv], and dO grouped as [B, Sq, KVH, G, D]."""
     b, q_len, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -138,8 +145,37 @@ def _plain_backward(q, k, v, do, out, lse, vis: Optional[torch.Tensor], scale: f
     if vis is not None:
         p = torch.where(vis, p, torch.zeros_like(p))
     dog = do.reshape(b, q_len, kvh, g, d).float()
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-    delta = flash_delta(do, out).reshape(b, kvh, g, q_len, 1)
+    return p, torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float()), dog
+
+
+def flash_delta(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch ``delta = sum_j p_ij dp_ij`` in fp32, [B, H, Sq] (the
+    delta kernel's reference): ``p = exp(s - lse)`` over the keys of ``k``
+    that query i sees, ``dp = dO v^T``; 0 for a row that sees nothing. For
+    one global ``lse``, sums over shards of the keys add up to the whole."""
+    vis = _causal_visible(q.shape[1], k.shape[1], q.device) if causal else None
+    p, dp, _ = _probs(q, k, v, do, lse, vis, scale)
+    b, q_len, h, _ = q.shape
+    return (p * dp).sum(-1).reshape(b, h, q_len)
+
+
+def _plain_backward(q, k, v, do, lse, delta, vis: Optional[torch.Tensor], scale: float):
+    """The FlashAttention-2 backward over the visible pairs (``vis`` as in
+    :func:`_plain_forward`; ``delta`` [B, H, Sq] fp32, None = summed here
+    from ``p`` and ``dp``): ``(dq, dk, dv)`` in the inputs' dtypes; each q
+    head's dk/dv rounded to the input dtype, then each GQA group summed in
+    fp32 and rounded once."""
+    b, q_len, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    p, dp, dog = _probs(q, k, v, do, lse, vis, scale)
+    if delta is None:
+        delta = (p * dp).sum(-1, keepdim=True)
+    else:
+        delta = delta.reshape(b, kvh, g, q_len, 1)
     ds = (p * (dp - delta) * scale).to(q.dtype).float()
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(b, q_len, h, d)
     # each q head's dk / dv rounds to the input dtype (the TPU kernels' output),
@@ -151,15 +187,16 @@ def _plain_backward(q, k, v, do, out, lse, vis: Optional[torch.Tensor], scale: f
 
 
 def flash_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    out: torch.Tensor, lse: torch.Tensor, *, causal: bool, scale: float,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    *, causal: bool, scale: float, delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch FlashAttention-2 backward (the dq and dk/dv kernels'
     reference): ``(dq, dk, dv)`` in the inputs' dtypes; each q head's dk/dv
     rounded to the input dtype, then each GQA group summed in fp32 and
-    rounded once (the reference's rounding points)."""
+    rounded once (the reference's rounding points). ``delta`` (fp32 [B, H,
+    Sq]) is :func:`flash_delta`'s sum when not given."""
     vis = _causal_visible(q.shape[1], k.shape[1], q.device) if causal else None
-    return _plain_backward(q, k, v, do, out, lse, vis, scale)
+    return _plain_backward(q, k, v, do, lse, delta, vis, scale)
 
 
 # --------------------------------------------------------------------- #
@@ -243,16 +280,35 @@ def flash_fwd_cuda(
     return out, lse
 
 
-def _check_bwd(name, q, k, v, do, lse, delta):
-    b, q_len, kv_len, h, kvh, d = _check(name, q, k, v, do, lse, delta)
+def _check_bwd(name, q, k, v, do, *stats):
+    """:func:`_check` of the backward's operands, then ``do`` against q and
+    each of ``stats`` (lse, and delta where given) as fp32 [B, H, Sq]."""
+    b, q_len, kv_len, h, kvh, d = _check(name, q, k, v, do, *stats)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do must match q {tuple(q.shape)} {q.dtype}, got "
                          f"{tuple(do.shape)} {do.dtype}")
-    for stat, t in (("lse", lse), ("delta", delta)):
+    for stat, t in zip(("lse", "delta"), stats):
         if t.dtype != torch.float32 or t.shape != (b, h, q_len):
             raise ValueError(f"{stat} must be fp32 [{b}, {h}, {q_len}], got "
                              f"{t.dtype} {tuple(t.shape)}")
     return b, q_len, kv_len, h, kvh, d
+
+
+def flash_delta_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> torch.Tensor:
+    """Launch the delta pass (the dq kernel in its delta mode): the
+    operands of :func:`flash_bwd_dq_cuda` without ``delta``; returns
+    :func:`flash_delta`'s sum, fp32 [B, H, Sq]."""
+    b, q_len, kv_len, h, kvh, d = _check_bwd("flash_delta_cuda", q, k, v, do, lse)
+    _check_aligned("flash_delta_cuda", q, k, v, do)
+    delta = torch.empty(b, h, q_len, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        DELTA_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), b, q_len, kv_len, h, kvh, d, float(scale), int(causal),
+                     _stream(q))
+    return delta
 
 
 def flash_bwd_dq_cuda(
@@ -302,15 +358,15 @@ def flash_bwd_dkv_cuda(
 
 
 def flash_bwd_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    out: torch.Tensor, lse: torch.Tensor, *, causal: bool, scale: float,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    *, causal: bool, scale: float, delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward on the card: :func:`flash_delta`, then the dq kernel
-    and the dk/dv kernel, ordered on the current stream."""
-    if out.shape != q.shape:
-        raise ValueError(f"out must match q {tuple(q.shape)}, got {tuple(out.shape)}")
-    delta = flash_delta(do, out)
+    """The backward on the card: the delta pass (unless ``delta`` is
+    given), then the dq kernel and the dk/dv kernel, ordered on the
+    current stream."""
     kw = dict(causal=causal, scale=scale)
+    if delta is None:
+        delta = flash_delta_cuda(q, k, v, do, lse, **kw)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
 
@@ -362,20 +418,21 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         out, lse = _fwd(q, k, v, causal, scale)
-        # the reference's residuals: the backward recomputes p from lse
-        ctx.save_for_backward(q, k, v, out, lse)
+        # the backward recomputes p from lse, and delta from p: the output
+        # is not a residual (the reference keeps it for its delta)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, scale=ctx.scale)
         if _on_card(q):
             grads = flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   do.contiguous(), out, lse, **kw)
+                                   do.contiguous(), lse, **kw)
         else:
-            grads = flash_bwd_plain(q, k, v, do, out, lse, **kw)
+            grads = flash_bwd_plain(q, k, v, do, lse, **kw)
         return (*grads, None, None)
 
 

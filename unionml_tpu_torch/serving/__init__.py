@@ -16,13 +16,32 @@
 - :mod:`~unionml_tpu_torch.serving.faults`,
   :mod:`~unionml_tpu_torch.serving.scheduler`,
   :mod:`~unionml_tpu_torch.serving.usage` — the fault, priority and
-  usage vocabularies the transport speaks.
+  usage vocabularies the transport speaks;
+- :mod:`~unionml_tpu_torch.serving.router` — the cluster front door
+  (``FleetRouter`` over ``EngineReplica`` / ``HttpReplica``: prefix
+  locality, retry budget, hedging, ejection and half-open rejoin, the
+  fleet timeline; ``make_router_app``);
+- :mod:`~unionml_tpu_torch.serving.autoscaler` — the closed loop that
+  adds and drains replicas (``FleetAutoscaler`` and its provisioners);
+- :mod:`~unionml_tpu_torch.serving.disagg` — disaggregated prefill /
+  decode (``DisaggRouter``: prefill leg, KV handoff, decode leg);
+- :mod:`~unionml_tpu_torch.serving.auto` — the engine-vs-batcher mode
+  choice from measured round trip and decode-chunk times.
 
-The router and the rest of the reference's serving tier are not ported
-yet (ROADMAP.md).
+The rollout controller, the serverless handler and the FastAPI seam of
+the reference's serving tier are not ported yet (ROADMAP.md).
 """
 
+from unionml_tpu_torch.serving.autoscaler import (
+    AutoscalerPolicy,
+    EngineReplicaProvisioner,
+    FleetAutoscaler,
+    HttpReplicaProvisioner,
+    ReplicaProvisioner,
+)
+
 from unionml_tpu_torch.serving.batcher import MicroBatcher
+from unionml_tpu_torch.serving.disagg import DisaggRouter
 from unionml_tpu_torch.serving.engine import DecodeEngine
 from unionml_tpu_torch.serving.faults import (
     DeadlineExceeded,
@@ -34,18 +53,44 @@ from unionml_tpu_torch.serving.faults import (
 from unionml_tpu_torch.serving.http import ServingApp, create_app
 from unionml_tpu_torch.serving.kv_pool import KVBlockPool, PoolExhausted
 from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+from unionml_tpu_torch.serving.router import (
+    EngineReplica,
+    FleetRouter,
+    HttpReplica,
+    ReplicaHandle,
+    RouterPolicy,
+    make_router_app,
+)
+from unionml_tpu_torch.serving.scheduler import (
+    PHASES,
+    PRIORITIES,
+    PreemptiveScheduler,
+    SchedulerConfig,
+    WaitingRoom,
+    current_priority,
+    priority_scope,
+    token_cap_scope,
+    validate_phase,
+    validate_priority,
+)
+from unionml_tpu_torch.serving.usage import (
+    UsageLedger,
+    current_tenant,
+    tenant_scope,
+    validate_tenant,
+)
 
 __all__ = [
-    "DecodeEngine",
-    "KVBlockPool",
-    "MicroBatcher",
-    "PoolExhausted",
-    "RadixPrefixCache",
-    "ServingApp",
-    "create_app",
-    "DeadlineExceeded",
-    "EngineUnavailable",
-    "FaultInjector",
-    "Overloaded",
-    "deadline_scope",
+    "AutoscalerPolicy", "DeadlineExceeded", "DecodeEngine",
+    "DisaggRouter", "EngineReplica", "EngineReplicaProvisioner",
+    "EngineUnavailable", "FaultInjector", "FleetAutoscaler",
+    "FleetRouter", "HttpReplica", "HttpReplicaProvisioner",
+    "KVBlockPool", "MicroBatcher", "Overloaded", "PHASES", "PRIORITIES",
+    "PoolExhausted", "PreemptiveScheduler", "RadixPrefixCache",
+    "ReplicaHandle", "ReplicaProvisioner", "RouterPolicy",
+    "SchedulerConfig", "ServingApp", "UsageLedger", "WaitingRoom",
+    "create_app", "current_priority", "current_tenant",
+    "deadline_scope", "make_router_app", "priority_scope",
+    "tenant_scope", "token_cap_scope", "validate_phase",
+    "validate_priority", "validate_tenant",
 ]

@@ -1,9 +1,9 @@
 """Dependency-free HTTP serving transport (stdlib only).
 
 The PyTorch port of :mod:`unionml_tpu.serving.http`. The routes below
-behave as in the reference, except that the remote artifact loader and
-the OTLP exporter raise ``NotImplementedError``, and ``/debug/profile``
-captures a :mod:`torch.profiler` trace.
+behave as in the reference, except that the remote artifact loader
+raises ``NotImplementedError``, and ``/debug/profile`` captures a
+:mod:`torch.profiler` trace.
 
 Same endpoint surface as the reference's FastAPI app
 (reference: unionml/fastapi.py:15-70):
@@ -108,8 +108,10 @@ callers can stitch the full request tree. ``POST /predict`` and
 ``/predict/stream`` additionally open a recorded server timeline and a
 :func:`~unionml_tpu_torch.telemetry.trace_scope` around the predictor call,
 so engine/batcher spans join the caller's trace with connected parent
-links. (The reference's OTLP exporter, ``otlp_endpoint=``, is not
-ported yet.)
+links. ``ServingApp(otlp_endpoint=...)`` (or
+``UNIONML_TPU_OTLP_ENDPOINT``) starts a background
+:class:`~unionml_tpu_torch.exporters.OtlpExporter` pushing spans and metric
+snapshots to an OTLP/HTTP collector.
 
 Fault tolerance at the transport boundary (docs/robustness.md): an
 ``X-Deadline-Ms`` request header opens a :func:`~unionml_tpu_torch.serving
@@ -284,9 +286,12 @@ class ServingApp:
         (where engines record), so the exported trace holds the
         transport AND engine spans of each request in one tree.
 
-        ``otlp_endpoint``: an OTLP/HTTP collector base URL (or the
-        ``UNIONML_TPU_OTLP_ENDPOINT`` env var). The exporter is not
-        ported yet, so setting either raises ``NotImplementedError``.
+        ``otlp_endpoint``: an OTLP/HTTP collector base URL (e.g.
+        ``http://collector:4318``) — when set (or via the
+        ``UNIONML_TPU_OTLP_ENDPOINT`` env var), the app runs a
+        background :class:`~unionml_tpu_torch.exporters.OtlpExporter`
+        pushing finished request spans and periodic metric snapshots;
+        :meth:`shutdown` closes it.
 
         ``slo``: a :class:`~unionml_tpu_torch.slo.SloWatchdog` — evaluated on
         every ``GET /health`` (the probe cadence is the sampling
@@ -349,11 +354,13 @@ class ServingApp:
         self._kv_export = kv_export
         self._kv_import = kv_import
         self._goodput = goodput
+        self._otlp = None
         endpoint = otlp_endpoint or os.getenv("UNIONML_TPU_OTLP_ENDPOINT")
         if endpoint:
-            raise NotImplementedError(
-                "the OTLP exporter is not ported to unionml_tpu_torch yet "
-                "(see ROADMAP.md)"
+            from unionml_tpu_torch.exporters import OtlpExporter
+
+            self._otlp = OtlpExporter(
+                endpoint, registry=self.registry, tracer=self._tracer
             )
         self._m_http_requests = self.registry.counter(
             "unionml_http_requests_total",
@@ -1369,6 +1376,9 @@ class ServingApp:
         if self._batcher is not None:
             self._batcher.close()
             self._batcher = None
+        if self._otlp is not None:
+            self._otlp.close()
+            self._otlp = None
         if self._slo is not None:
             self._slo.stop()
 
