@@ -153,6 +153,37 @@ Phases, each of which fails the run with a non-zero exit:
              with its unpreempted tokens;
 6. int8 kv — a 4-layer paged engine with kv_quant=True serves a few
              requests through the kernel's int8 form;
+6b. serverless — the llm_serving template over the engine phases'
+             32-layer int8 weights behind the serverless handlers: a POST
+             /predict gateway event (a 1000-token prompt) alone, then it and
+             a 300-token one sent at once, which must share one
+             micro-batch, and an object-upload event (5- and 200-token
+             prompts in a LocalObjectStore in a temporary directory) must
+             give the tokens of the same requests through
+             ServingApp.predict, with the request id, tenant and
+             traceparent headers back; the step where each row of the
+             shared batch leaves its tokens alone is reported (ROADMAP
+             C10); rows 1 and 2 launched; the handler's own ms around each
+             predict;
+6c. rollout — Llama-3-8B width, int8, the first 4 blocks: a VersionRegistry
+             publishes v1, v1b (the same bits) and v2 (the last block
+             reseeded); one live paged engine behind a FleetRouter serves 8
+             prompts without a rollout, then the RolloutController warm-joins
+             a canary for each version and shadows 8 live requests of 16
+             tokens: v1b must promote (drain, bind, rejoin) with 0 shadow
+             divergences at the default tolerance; v2 must roll back as
+             parity_regression with the live weights' checksums unchanged,
+             its pool at rest and the canary's device memory handed back;
+             publish, restore, join, promote and rollback ms, ITL p50 with
+             and without shadowing, rows 1, 2 and 6 launched;
+6d. remote — LocalBackend in a temporary root: an app written to a
+             temporary directory (an MLP, classification_step, a trainer
+             stage asking for one card) is deployed with an explicit
+             version, trained by the runner process on the card
+             (remote_train, remote_wait, remote_load; the runner's log
+             names the card), its params bit-equal to the same steps run
+             in this process, and predict / ServingApp(remote=True) equal
+             to the in-process model's;
 7. fp32    — an 8-layer fp32-activation model: a paged engine (the kernel
              with fp32 queries) and a contiguous engine must give the same
              tokens (at most one flip in 12 requests);
@@ -182,6 +213,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -214,6 +246,7 @@ SPEC_SELF_ACCEPT_MIN = 0.99               # self-speculation: draft == target
 # the engine phase's serving configuration
 ENGINE_BUCKETS = (64, 256, 1024)
 ENGINE_NEW_TOKENS = 64
+INT4_ENGINE_NEW_TOKENS = 32               # the int4 engine's requests: the int8 one's at half depth
 
 
 def log(msg: str) -> None:
@@ -4327,9 +4360,9 @@ def prefix_fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda
 
 FLEET_PREFIX_TOKENS = 256          # each traffic family's shared prefix
 FLEET_FAMILIES = 4
-FLEET_FOLLOW_UPS = 3               # requests per family after its first
+FLEET_FOLLOW_UPS = 1               # requests per family after its first
 FLEET_SUFFIX_LENGTHS = (16, 200)
-FLEET_NEW_TOKENS = 32
+FLEET_NEW_TOKENS = 16               # the routing and HTTP requests
 FLEET_SHORT_NEW_TOKENS = 16        # the failover, disaggregation and burst requests
 FLEET_SLOTS = 8
 FLEET_POOL_BLOCKS = 256            # per engine: 512 MiB at 8B width
@@ -5306,6 +5339,637 @@ def spec_fp32_parity_phase(target_cfg, draft_cfg, max_new_tokens: int, *, device
     return out
 
 
+# --------------------------------------------------------------------- #
+# the deployment front: serverless handlers, versioned rollouts with
+# shadow traffic, the remote backend
+# --------------------------------------------------------------------- #
+
+SERVERLESS_LENGTHS = (1000, 300)    # the gateway prompts: the first alone, then both at once
+SERVERLESS_UPLOAD_LENGTHS = (5, 200)  # the rows of the one uploaded object
+
+
+def first_difference(got, want):
+    """The index of the first token where ``got`` and ``want`` differ
+    (``None`` where they are equal)."""
+    if got == want:
+        return None
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def serverless_phase(config, params, *, device: str = "cuda", lengths: tuple = SERVERLESS_LENGTHS,
+                     upload_lengths: tuple = SERVERLESS_UPLOAD_LENGTHS,
+                     max_new_tokens: int = ENGINE_NEW_TOKENS, buckets: tuple = ENGINE_BUCKETS,
+                     ) -> dict:
+    """The serverless handlers over the llm_serving template's Model at
+    ``config`` with ``params`` (the weights the engine phases served) as
+    its artifact; a fresh spec, since those phases registered their
+    engines' predictors on theirs. ``POST /predict`` gateway events
+    (``X-Tenant-ID``, ``X-Request-ID`` and ``traceparent`` headers) go
+    through ``gateway_handler(model, batch=True, row_lists=True)``, the
+    micro-batcher set up: the first prompt of ``lengths`` alone, whose
+    tokens must equal the same request through the model's
+    ``ServingApp.predict``; then every prompt of ``lengths`` at once from
+    threads, which must share one batch and give the tokens of the same
+    prompts sent together through ``ServingApp.predict``. How far each of
+    those rows keeps its tokens alone is reported, not held: a row's bf16
+    tokens on the card depend on its batch neighbours (ROADMAP C10). Then
+    one object-upload event whose object (a JSON file of the
+    ``upload_lengths`` prompts in a ``LocalObjectStore`` in a temporary
+    directory) goes through ``object_event_handler`` and must give the
+    tokens of the same rows through ``ServingApp.predict``. Each header
+    must come back. Reports rows 1 and 2's launches over the handlers'
+    requests, each call's wall ms and the handler's own ms around its
+    predict (the wall less the predict inside). ``device="cpu"``
+    rehearses the phase."""
+    import tempfile
+    import threading
+
+    from unionml_tpu_torch import ModelArtifact
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.serving.serverless import (
+        LocalObjectStore,
+        gateway_handler,
+        object_event_handler,
+    )
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    from unionml_tpu_torch.templates.llm_serving.app import build_model
+
+    t_phase = time.perf_counter()
+    model = build_model(config, name="chip_smoke_serverless", max_new_tokens=max_new_tokens,
+                        bucket_lens=buckets)
+    model.artifact = ModelArtifact(params)
+    counters = {"flash_fwd_padded": fa.KERNEL, "rms_norm_fwd": fused_norm.KERNEL}
+    rng = np.random.default_rng(23)
+    vocab = config.vocab_size
+    prompts = [rng.integers(1, vocab, size=n).tolist() for n in lengths]
+    rows = [rng.integers(1, vocab, size=n).tolist() for n in upload_lengths]
+
+    def timed(app, into: dict):
+        """``into[thread id]``: the ms of that thread's last predict call."""
+        inner = app.predict
+
+        def predict(payload):
+            t0 = time.perf_counter()
+            try:
+                return inner(payload)
+            finally:
+                sync()
+                into[threading.get_ident()] = (time.perf_counter() - t0) * 1e3
+
+        app.predict = predict
+
+    # a batch leaves once it holds every prompt, or 200 ms after its first
+    handler = gateway_handler(model, batch=True, row_lists=True,
+                              max_batch_size=len(prompts), max_wait_ms=200.0)
+    app = handler.serving_app
+    app.setup_model()   # the artifact is loaded: build the micro-batcher
+    if app._batcher is None:
+        raise AssertionError("the gateway's ServingApp built no micro-batcher")
+    inner_ms, sent = {}, {}
+
+    def send(i, prompt):
+        trace = f"{i + 1:032x}"
+        event = {"httpMethod": "POST", "path": "/predict",
+                 "headers": {"X-Tenant-ID": "smoke", "X-Request-ID": f"serverless-{i}",
+                             "traceparent": f"00-{trace}-{i + 1:016x}-01"},
+                 "body": json.dumps({"features": [prompt]})}
+        t0 = time.perf_counter()
+        resp = handler(event)
+        wall = (time.perf_counter() - t0) * 1e3
+        h = resp["headers"]
+        if (resp["statusCode"] != 200 or h["X-Request-ID"] != f"serverless-{i}"
+                or h["X-Tenant-ID"] != "smoke" or trace not in h["traceparent"]):
+            raise AssertionError(f"bad gateway reply for a {len(prompt)}-token prompt: "
+                                 f"{resp['statusCode']} {h} {resp['body'][:200]}")
+        sent[i] = (json.loads(resp["body"])[0], wall, inner_ms[threading.get_ident()])
+
+    timed(app, inner_ms)
+    try:
+        sync()
+        for c in counters.values():
+            c.launches = 0
+        send(0, prompts[0])
+        app.reset_stats()
+        threads = [threading.Thread(target=send, args=(1 + i, p)) for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if len(sent) != 1 + len(prompts):
+            raise AssertionError("a gateway event sent at once failed or did not finish")
+        pair_stats = app.stats()
+        if pair_stats["batches"] != 1 or pair_stats["mean_batch_rows"] != len(prompts):
+            raise AssertionError(f"the {len(prompts)} gateway events sent at once did not share "
+                                 f"one batch: {pair_stats['batches']} batches, "
+                                 f"{pair_stats['mean_batch_rows']} rows each")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_objects_") as tmp:
+            store = LocalObjectStore(tmp)
+            store.put("uploads", "batch-001.json", json.dumps(rows).encode())
+            upload = object_event_handler(model, store)
+            upload_inner_ms = {}
+            timed(upload.serving_app, upload_inner_ms)
+            t0 = time.perf_counter()
+            resp = upload({"Records": [{"s3": {"bucket": {"name": "uploads"},
+                                               "object": {"key": "batch-001.json"}}}]})
+            upload_ms = (time.perf_counter() - t0) * 1e3
+            if resp["statusCode"] != 200:
+                raise AssertionError(f"object event failed: {resp}")
+            uploaded = json.loads(store.get("uploads", "batch-001.json.predictions.json"))
+        sync()
+        launches = {name: c.launches for name, c in counters.items()}
+        health = handler({"httpMethod": "GET", "path": "/health"})
+        metrics = handler({"httpMethod": "GET", "path": "/metrics"})
+    finally:
+        app.shutdown()
+    if health["statusCode"] != 200 or 'transport="serverless"' not in metrics["body"]:
+        raise AssertionError(f"serverless /health or /metrics wrong: {health}")
+    replies = [sent[i][0] for i in range(len(sent))]
+    direct = model.serve()
+    alone = [direct.predict({"features": [p]})[0] for p in prompts]
+    together = direct.predict({"features": prompts})
+    if replies[0] != alone[0]:
+        raise AssertionError("the gateway event's tokens differ from ServingApp.predict's: "
+                             f"{first_difference(replies[0], alone[0])}")
+    if replies[1:] != together:
+        raise AssertionError("the gateway events' shared batch differs from the same prompts "
+                             "through ServingApp.predict together: "
+                             f"{[first_difference(a, b) for a, b in zip(replies[1:], together)]}")
+    if uploaded != direct.predict({"features": rows}):
+        raise AssertionError("object-event tokens differ from ServingApp.predict's")
+    if on_card:
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was never launched on the serverless path")
+    calls = [sent[i][1] for i in range(len(sent))]
+    predict_ms = [sent[i][2] for i in range(len(sent))]
+    out = {
+        "gateway_events": len(sent), "prompt_lengths": list(lengths),
+        "upload_rows": len(rows), "tokens_equal_direct": True,
+        "batches": pair_stats["batches"], "batch_rows": pair_stats["mean_batch_rows"],
+        # the step at which each row of the shared batch leaves its tokens
+        # alone (None: it keeps them)
+        "batched_vs_alone": [first_difference(a, b) for a, b in zip(replies[1:], alone)],
+        "handler_ms": calls, "predict_ms": predict_ms,
+        "handler_own_ms": [a - b for a, b in zip(calls, predict_ms)],
+        "upload_ms": upload_ms, "upload_predict_ms": sum(upload_inner_ms.values()),
+        "upload_own_ms": upload_ms - sum(upload_inner_ms.values()),
+        "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"serverless: a gateway event alone, then {len(prompts)} at once in "
+        f"{out['batches']} batch of {out['batch_rows']} rows, "
+        f"{[round(x, 2) for x in calls]} ms (handler's own "
+        f"{[round(x, 3) for x in out['handler_own_ms']]} ms); one upload of {len(rows)} rows "
+        f"{upload_ms:.2f} ms (own {out['upload_own_ms']:.3f} ms); tokens equal to "
+        f"ServingApp.predict's for the same requests; the shared batch's rows leave their "
+        f"tokens alone at steps {out['batched_vs_alone']} (None: never); launches {launches}; "
+        f"phase {out['seconds']:.1f} s")
+    return out
+
+
+ROLLOUT_LAYERS = 4
+ROLLOUT_REQUESTS = 8                # live requests shadowed per version
+ROLLOUT_NEW_TOKENS = 16
+ROLLOUT_LENGTHS = (40, 400)         # the live prompts' lengths
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def rollout_phase(config, params, *, device: str = "cuda", layers: int = ROLLOUT_LAYERS,
+                  requests: int = ROLLOUT_REQUESTS, max_new_tokens: int = ROLLOUT_NEW_TOKENS,
+                  lengths: tuple = ROLLOUT_LENGTHS, buckets: tuple = ENGINE_BUCKETS) -> dict:
+    """Versioned rollouts at ``config``'s width over the first ``layers``
+    blocks of ``params`` (``layer_subset``): a ``VersionRegistry`` in a
+    temporary directory publishes v1 (those weights), v1b (the same bits
+    again) and v2 (v1 with its last block drawn from another seed); a
+    ``FleetRouter`` has one live paged ``EngineReplica`` ``r0`` on v1, which
+    first serves ``requests`` prompts without a rollout (the ITL baseline,
+    and the prefix blocks a canary warms from). Then, for each of v1b and
+    v2, ``RolloutController(router, EngineReplicaProvisioner(...),
+    registry, state_target=v1)`` with the default policy (divergence
+    tolerance 0, shadowing on, warm joins): ``start_rollout(v, percent=0)``
+    restores the version onto the card, one ``evaluate`` warm-joins a
+    canary engine, and ``requests`` fresh live prompts of
+    ``max_new_tokens`` each go to ``r0`` at once while the canary decodes
+    their shadows. v1b must bake with 0 divergences and promote (drain →
+    ``bind`` → rejoin, then the canary reaped); v2 must roll back as
+    ``parity_regression`` with ``r0``'s weight checksums unchanged, its
+    pool and leases at rest and the canary's device memory handed back.
+    Reports publish ms and bytes, restore and join ms, divergences (and
+    the first diverging step of each), promote and rollback ms, ``r0``'s
+    ITL p50 without and with shadowing, and rows 1, 2 and 6's launches.
+    ``device="cpu"`` rehearses the phase at a small config."""
+    import gc
+    import tempfile
+
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import paged_attention as pa
+    from unionml_tpu_torch.serving import (
+        EngineReplica,
+        EngineReplicaProvisioner,
+        FleetRouter,
+        RouterPolicy,
+    )
+    from unionml_tpu_torch.serving.rollout import (
+        RolloutController,
+        RolloutPolicy,
+        VersionRegistry,
+    )
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def allocated():
+        sync()
+        gc.collect()
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    t_phase = time.perf_counter()
+    cfg = serving_config(dataclasses.replace(config, num_layers=layers))
+    counters = {"paged_attention": pa.KERNEL, "flash_fwd_padded": fa.KERNEL,
+                "rms_norm_fwd": fused_norm.KERNEL}
+    v1 = layer_subset(params, layers)
+    other = random_quantized_params(dataclasses.replace(cfg, num_layers=1), 7, device=device,
+                                    float_dtype=v1[f"block_{layers - 1}"]["attn_norm"]["scale"].dtype)
+    v2 = {**v1, f"block_{layers - 1}": other["block_0"]}
+    rng = np.random.default_rng(31)
+
+    def fresh_prompts():
+        return [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+                for n in rng.integers(lengths[0], lengths[1] + 1, size=requests)]
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_versions_")
+    vreg = VersionRegistry(Path(tmp.name) / "versions")
+    out = {"layers": layers, "requests": requests, "max_new_tokens": max_new_tokens,
+           "publish_ms": {}, "publish_bytes": {}}
+    for vid, tree in (("v1", v1), ("v1b", v1), ("v2", v2)):
+        sync()
+        t0 = time.perf_counter()
+        vreg.publish(vid, tree, metadata={"note": {"v1b": "v1 republished",
+                                                   "v2": "last block reseeded"}.get(vid, "")})
+        out["publish_ms"][vid] = (time.perf_counter() - t0) * 1e3
+        out["publish_bytes"][vid] = dir_bytes(vreg.root / f"step_{vreg.resolve(vid)['step']}")
+    log(f"rollout: published {list(vreg.versions())}: ms {out['publish_ms']}, bytes "
+        f"{out['publish_bytes']}")
+
+    live = fleet_engine(cfg, device=device, buckets=buckets, max_new_tokens=max_new_tokens)
+    canaries = []
+
+    def factory():
+        engine = fleet_engine(cfg, device=device, buckets=buckets,
+                              max_new_tokens=max_new_tokens)
+        canaries.append(engine)
+        return engine, v1
+
+    flight = telemetry.FlightRecorder()
+    router = FleetRouter([EngineReplica(live, v1, name="r0")],
+                         policy=RouterPolicy(health_ttl_s=0.0, backoff_base_s=0.0, jitter_s=0.0),
+                         registry=telemetry.MetricsRegistry(), flight=flight)
+    r0 = router.replica_handle("r0")
+
+    def traffic(prompts):
+        """The prompts to the router at once; ``r0``'s ITL p50 over them."""
+        live.reset_stats()
+        replies, errors = [None] * len(prompts), []
+
+        def ask(i):
+            try:
+                replies[i] = router.generate(prompts[i])
+            except Exception as exc:  # reported below; any failure fails the run
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if errors or any(r is None or len(r) != max_new_tokens for r in replies):
+            raise AssertionError(f"rollout live traffic failed: {errors} {replies}")
+        return live.stats().get("itl_ms", {}).get("p50")
+
+    def controller():
+        return RolloutController(router, EngineReplicaProvisioner(factory), vreg,
+                                 policy=RolloutPolicy(), state_target=v1,
+                                 registry=router._registry, flight=flight)
+
+    def timed_eval(ctl):
+        t0 = time.perf_counter()
+        d = ctl.evaluate()
+        return d, (time.perf_counter() - t0) * 1e3
+
+    def start_and_join(ctl, vid):
+        sync()
+        t0 = time.perf_counter()
+        ctl.start_rollout(vid, percent=0.0)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        d, join_ms = timed_eval(ctl)
+        sync()
+        if d["reason"] != "canary_ready":
+            raise AssertionError(f"rollout of {vid}: the canary did not join: {d}")
+        return {"restore_ms": restore_ms, "join_ms": join_ms, "warmed_blocks": d["warmed_blocks"]}
+
+    def shadow_done(ctl, n):
+        s = ctl.dashboard()["shadow"]
+        return s["match"] + s["diverged"] + s["error"] + s["dropped"] >= n
+
+    def first_diffs():
+        return [e["first_diff"] for e in flight.dump(kind="rollout_shadow")]
+
+    try:
+        # no warm-up of kernels or buckets: the engine phases ran this config
+        sync()
+        for c in counters.values():
+            c.launches = 0
+        out["itl_p50_ms_without_shadow"] = traffic(fresh_prompts())
+        wait_until(lambda: engine_at_rest(live), "r0 at rest after the baseline")
+
+        # ---- v1b: the same bits republished must bake clean and promote
+        ctl = controller()
+        try:
+            v1b = start_and_join(ctl, "v1b")
+            v1b["itl_p50_ms_with_shadow"] = traffic(fresh_prompts())
+            wait_until(lambda: shadow_done(ctl, requests), "v1b's shadows", timeout=600)
+            v1b["shadow"] = {k: v for k, v in ctl.dashboard()["shadow"].items()
+                             if k in ("match", "diverged", "error", "dropped")}
+            v1b["first_diffs"] = first_diffs()
+            decisions = []
+            for _ in range(RolloutPolicy().bake_evals):
+                decisions.append(ctl.evaluate())
+            v1b["bake"] = [d["reason"] for d in decisions]
+            if decisions[-1]["reason"] != "bake_complete" or v1b["shadow"]["diverged"]:
+                raise AssertionError(f"v1b (v1's bits republished) did not bake clean: "
+                                     f"{v1b['shadow']} first diverging steps "
+                                     f"{v1b['first_diffs']} decisions {v1b['bake']}")
+            d, v1b["promote_ms"] = timed_eval(ctl)
+            if d["reason"] != "promote_replica" or r0.version != "v1b":
+                raise AssertionError(f"v1b did not promote r0: {d}")
+            d, v1b["reap_ms"] = timed_eval(ctl)
+            d2 = ctl.evaluate()
+            if (d["reason"], d2["reason"]) != ("reap_canary", "complete"):
+                raise AssertionError(f"v1b's promotion did not complete: {d} {d2}")
+            if router.live_version != "v1b" or set(router.members()) != {"r0"}:
+                raise AssertionError(f"after v1b: live {router.live_version}, members "
+                                     f"{router.members()}")
+        finally:
+            ctl.close()
+        out["v1b"] = v1b
+        if leaf_checksums(r0.params) != leaf_checksums(v1):
+            raise AssertionError("r0's promoted v1b weights are not v1's bits")
+        wait_until(lambda: engine_at_rest(live), "r0 at rest after v1b")
+
+        # ---- v2: a reseeded block must roll back on its shadow diffs
+        before = leaf_checksums(r0.params)
+        mem_before = allocated()
+        ctl = controller()
+        try:
+            v2r = start_and_join(ctl, "v2")
+            prompts = fresh_prompts()
+            box = {}
+            th = threading.Thread(target=lambda: box.update(itl=traffic(prompts)))
+            th.start()
+            decision, seen, rollback_ms = None, 0, None
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline:
+                diverged = ctl.dashboard()["shadow"]["diverged"]
+                if diverged > seen:
+                    seen = diverged
+                    decision, ms = timed_eval(ctl)
+                    if decision["decision"] == "rollout_rollback":
+                        rollback_ms = ms
+                        break
+                elif not th.is_alive() and shadow_done(ctl, requests):
+                    break
+                time.sleep(0.005)
+            th.join(timeout=600)
+            v2r["itl_p50_ms_with_shadow"] = box.get("itl")
+            v2r["shadow"] = {k: v for k, v in ctl.dashboard()["shadow"].items()
+                             if k in ("match", "diverged", "error", "dropped")}
+            v2r["first_diffs"] = first_diffs()[len(v1b["first_diffs"]):]
+            v2r["rollback_ms"] = rollback_ms
+            if decision is None or (decision["decision"], decision["reason"]) != (
+                    "rollout_rollback", "parity_regression"):
+                raise AssertionError(f"v2 did not roll back as parity_regression: {decision} "
+                                     f"{v2r['shadow']}")
+        finally:
+            ctl.close()
+        del ctl
+        wait_until(lambda: engine_at_rest(live), "r0 at rest after v2")
+        v2r["r0_checksums_unchanged"] = leaf_checksums(r0.params) == before
+        v2r["canaries_stopped"] = all(e._stop.is_set() for e in canaries)
+        mem_after = allocated()
+        v2r["allocated_before_gib"] = mem_before / 2**30
+        v2r["allocated_after_gib"] = mem_after / 2**30
+        if not v2r["canaries_stopped"]:
+            raise AssertionError("a reaped or rolled-back canary's engine was not closed")
+        if not v2r["r0_checksums_unchanged"]:
+            raise AssertionError("v2's rollback touched r0's weights")
+        if r0.version != "v1b" or router.live_version != "v1b" or set(router.members()) != {"r0"}:
+            raise AssertionError(f"after v2's rollback: r0 {r0.version}, live "
+                                 f"{router.live_version}, members {router.members()}")
+        if on_card and mem_after > mem_before + (64 << 20):
+            raise AssertionError(f"the v2 canary's device memory was not handed back: "
+                                 f"{mem_before} -> {mem_after} bytes")
+        out["v2"] = v2r
+        sync()
+        out["launches"] = {name: c.launches for name, c in counters.items()}
+    finally:
+        router.close()
+        live.close()
+        for e in canaries:
+            e.close()
+        vreg.close()
+        tmp.cleanup()
+    if on_card:
+        for name, n in out["launches"].items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was never launched on the rollout path")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"rollout: v1b restore {v1b['restore_ms']:.1f} ms, join {v1b['join_ms']:.1f} ms "
+        f"({v1b['warmed_blocks']} blocks warmed), shadows {v1b['shadow']}, promote "
+        f"{v1b['promote_ms']:.1f} ms; v2 shadows {v2r['shadow']} (first diverging steps "
+        f"{v2r['first_diffs']}), rollback {v2r['rollback_ms']:.1f} ms; r0 ITL p50 "
+        f"{out['itl_p50_ms_without_shadow']} ms without shadowing, "
+        f"{v1b['itl_p50_ms_with_shadow']} / {v2r['itl_p50_ms_with_shadow']} with; launches "
+        f"{out['launches']}; phase {out['seconds']:.1f} s")
+    return out
+
+
+REMOTE_APP = '''"""The remote phase's app (written by chip_smoke.py): an MLP trained
+with classification_step; its trainer stage asks for {chips} card(s)."""
+
+import numpy as np
+import torch
+
+from unionml_tpu_torch import Dataset, Model
+from unionml_tpu_torch._device import resolve_device
+from unionml_tpu_torch.defaults import Resources
+from unionml_tpu_torch.models import Mlp, MlpConfig, classification_step, create_train_state
+from unionml_tpu_torch.models.train import TrainState
+
+dataset = Dataset(name="smoke_remote_data", test_size=0.25)
+model = Model(name="smoke_remote_model", dataset=dataset)
+_module = Mlp(MlpConfig(num_classes=10, hidden_dims=(256, 256)))
+
+
+@dataset.reader
+def reader(n: int = 1024) -> dict:
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 64)).astype(np.float32)
+    return {{"features": x, "targets": x[:, :10].argmax(axis=1).astype(np.int64)}}
+
+
+@dataset.splitter
+def splitter(data: dict, test_size: float, shuffle: bool, random_state: int):
+    k = int(len(data["features"]) * (1 - test_size))
+    return (
+        {{"features": data["features"][:k], "targets": data["targets"][:k]}},
+        {{"features": data["features"][k:], "targets": data["targets"][k:]}},
+    )
+
+
+@dataset.parser
+def parser(data: dict, features, targets):
+    return (data["features"], data["targets"])
+
+
+@model.init
+def init(hyperparameters: dict) -> TrainState:
+    device = resolve_device(hyperparameters.get("device", {device!r}))
+    return create_train_state(_module, torch.zeros(1, 64, device=device),
+                              learning_rate=hyperparameters.get("learning_rate", 1e-2))
+
+
+@model.trainer(resources=Resources(cpu="4", mem="8Gi", chips={chips}))
+def trainer(state: TrainState, features: np.ndarray, targets: np.ndarray,
+            *, steps: int = 8, batch: int = 128) -> TrainState:
+    step = classification_step(_module)
+    device = state.params["head"]["kernel"].device
+    x = torch.as_tensor(features, device=device)
+    y = torch.as_tensor(targets, device=device)
+    for i in range(steps):
+        lo = i * batch % len(x)
+        state, _ = step(state, (x[lo:lo + batch], y[lo:lo + batch]))
+    return state
+
+
+@model.predictor
+def predictor(state: TrainState, features: np.ndarray) -> list:
+    device = state.params["head"]["kernel"].device
+    with torch.no_grad():
+        logits = state.apply_fn(state.params, torch.as_tensor(np.asarray(features), device=device))
+    return [int(i) for i in logits.argmax(dim=-1).tolist()]
+
+
+@model.evaluator
+def evaluator(state: TrainState, features: np.ndarray, targets: np.ndarray) -> float:
+    return float((np.asarray(predictor(state, features)) == np.asarray(targets)).mean())
+'''
+
+
+def remote_phase(*, device: str = "cuda", steps: int = 8) -> dict:
+    """The remote backend end to end: ``LocalBackend`` in a temporary root
+    deploys an app that this phase writes into a temporary directory (an
+    MLP trained with ``classification_step``; its trainer stage asks for
+    one card), with an explicit ``app_version`` (no git); then
+    ``remote_train(wait=False)``, ``remote_wait`` and ``remote_load``: the
+    runner (``python -m unionml_tpu_torch.remote.runner``, a process of its
+    own) trains ``steps`` steps on the card, and its log must name the
+    card. The trained params must equal, bit for bit, the same steps run
+    in this process; ``model.predict`` on the loaded artifact and
+    ``ServingApp(remote=True)`` (which loads the newest version through the
+    registry) must give the in-process model's predictions. ``device="cpu"``
+    rehearses the phase with a host-only stage (``chips=0``)."""
+    import importlib
+    import tempfile
+
+    from unionml_tpu_torch.models.train import tree_leaves
+    from unionml_tpu_torch.serving.http import ServingApp
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_remote_")
+    app_dir = Path(tmp.name) / "app"
+    app_dir.mkdir()
+    (app_dir / "smoke_remote_app.py").write_text(REMOTE_APP.format(
+        chips=1 if on_card else 0, device=None if on_card else "cpu"))
+    sys.path.insert(0, str(app_dir))
+    saved_home = os.environ.get("UNIONML_TPU_HOME")
+    os.environ["UNIONML_TPU_HOME"] = str(Path(tmp.name) / "backend")
+    try:
+        app = importlib.import_module("smoke_remote_app")
+        model = app.model
+        model.remote(project="chip-smoke")
+        hp = {"learning_rate": 1e-2}
+        t0 = time.perf_counter()
+        version = model.remote_deploy(app_version="smoke-1")
+        deploy_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        execution = model.remote_train(app_version=version, wait=False, hyperparameters=hp,
+                                       trainer_kwargs={"steps": steps})
+        execution = model.remote_wait(execution, timeout=300)
+        train_s = time.perf_counter() - t0
+        artifact = model.remote_load(execution)
+        runner_log = (Path(execution.exec_dir) / "runner.log").read_text()
+        want_line = (f"device cuda ({torch.cuda.get_device_name(0)})" if on_card
+                     else "device cpu")
+        if want_line not in runner_log:
+            raise AssertionError(f"the runner's log does not name {want_line!r}:\n"
+                                 f"{runner_log[-2000:]}")
+        remote_state = artifact.model_object
+        x = np.random.default_rng(5).normal(size=(16, 64)).astype(np.float32)
+        remote_preds = model.predict(features=x)
+
+        served = ServingApp(model, remote=True, app_version=version)
+        model.artifact = None
+        served.setup_model()
+        served_preds = served.predict({"features": x.tolist()})
+
+        local_state, _ = model.train(hyperparameters=hp, trainer_kwargs={"steps": steps})
+        local_preds = model.predict(features=x)
+        pairs = list(zip(tree_leaves(remote_state.params), tree_leaves(local_state.params)))
+        bit_equal = all(a.device == b.device and torch.equal(a, b) for a, b in pairs)
+        if not bit_equal:
+            raise AssertionError("remote-trained params differ from the in-process run's")
+        if remote_state.step != local_state.step or remote_state.step != steps:
+            raise AssertionError(f"steps: remote {remote_state.step}, local {local_state.step}")
+        if remote_preds != local_preds or served_preds != local_preds:
+            raise AssertionError("remote predictions differ from the in-process model's")
+        out = {"steps": steps, "leaves": len(pairs), "params_bit_equal": bit_equal,
+               "device": str(tree_leaves(remote_state.params)[0].device),
+               "deploy_ms": deploy_ms, "train_wait_s": train_s,
+               "versions": model.remote_list_model_versions(),
+               "runner_device_line": want_line}
+    finally:
+        sys.path.remove(str(app_dir))
+        sys.modules.pop("smoke_remote_app", None)
+        if saved_home is None:
+            os.environ.pop("UNIONML_TPU_HOME", None)
+        else:
+            os.environ["UNIONML_TPU_HOME"] = saved_home
+        tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"remote: deploy {deploy_ms:.1f} ms, train + wait {train_s:.1f} s ({steps} steps in the "
+        f"runner on {out['device']}), {len(pairs)} param leaves bit-equal to the in-process run, "
+        f"predictions equal (model.predict and ServingApp(remote=True)); phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--layers", type=int, default=32)
@@ -5415,8 +6079,15 @@ def main(argv=None) -> int:
     log(f"time: fleet done at {time.perf_counter() - t_run:.1f} s (phase "
         f"{fleet['seconds']:.1f} s)")
     int8_kv = kv_quant_phase(config, params, 16)
-    del model, params
     log(f"time: int8 kv done at {time.perf_counter() - t_run:.1f} s")
+    serverless = serverless_phase(config, params)
+    log(f"time: serverless done at {time.perf_counter() - t_run:.1f} s")
+    rollout = rollout_phase(config, params)
+    del model, params
+    torch.cuda.empty_cache()
+    log(f"time: rollout done at {time.perf_counter() - t_run:.1f} s")
+    remote = remote_phase()
+    log(f"time: remote done at {time.perf_counter() - t_run:.1f} s")
     fp32 = fp32_parity_phase(base, 32)
     prefix["fp32"] = prefix_fp32_parity_phase(base, 32)
     log(f"time: fp32 parity done at {time.perf_counter() - t_run:.1f} s")
@@ -5429,10 +6100,10 @@ def main(argv=None) -> int:
         cfg4 = serving_config(dataclasses.replace(base, num_layers=args.layers, weight_bits=4,
                                                   int4_group=128))
         params4 = random_quantized_params(cfg4, 0)
-        model4 = build_model(cfg4, name="chip_smoke_int4", max_new_tokens=ENGINE_NEW_TOKENS,
+        model4 = build_model(cfg4, name="chip_smoke_int4", max_new_tokens=INT4_ENGINE_NEW_TOKENS,
                              bucket_lens=ENGINE_BUCKETS)
         model4.artifact = ModelArtifact(params4)
-        int4_engine = engine_phase(cfg4, ENGINE_NEW_TOKENS, model=model4, params=params4,
+        int4_engine = engine_phase(cfg4, INT4_ENGINE_NEW_TOKENS, model=model4, params=params4,
                                    probe=probe)
         del model4, params4
         log(f"time: int4 paged engine done at {time.perf_counter() - t_run:.1f} s")
@@ -5513,11 +6184,13 @@ def main(argv=None) -> int:
             "launches_per_bert_step": bert["fused"]["launches_per_step"].get(name),
             "launches_per_bert_mlm_step": bert["mlm"]["launches_per_unmasked_step"].get(name),
             "fleet_launches": fleet["launches"].get(name),
+            "serverless_launches": serverless["launches"].get(name),
+            "rollout_launches": rollout["launches"].get(name),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
-                      "fleet": fleet,
-                      "int8_kv": int8_kv,
+                      "fleet": fleet, "serverless": serverless, "rollout": rollout,
+                      "remote": remote, "int8_kv": int8_kv,
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
                       "vit_train": vit, "llama_train": llama, "qlora_train": qlora,

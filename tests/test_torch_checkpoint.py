@@ -235,3 +235,21 @@ def test_restore_places_leaves_on_the_target_device_and_dtype():
     out = restore_into({"w": torch.zeros(4, dtype=torch.float64, device="meta"), "n": 0}, saved)
     assert out["w"].device.type == "meta" and out["w"].dtype == torch.float64
     assert out["n"] == 3
+
+
+def test_restore_pairs_leaves_by_key_not_by_insertion_order(tmp_path):
+    """A checkpoint of a tree whose dicts were built in another key order
+    (a block reassembled from another source, say) restores each leaf
+    into the target leaf of the same key: pairing in insertion order
+    handed the scale to the kernel and failed on the shapes."""
+    saved = {"block": {"scale": torch.arange(4.0), "kernel": torch.ones(4, 4)}}
+    target = {"block": {"kernel": torch.zeros(4, 4), "scale": torch.zeros(4)}}
+    out = restore_into(target, saved)
+    assert list(out["block"]) == ["kernel", "scale"]
+    assert torch.equal(out["block"]["kernel"], torch.ones(4, 4))
+    assert torch.equal(out["block"]["scale"], torch.arange(4.0))
+    mgr = make_checkpoint_manager(tmp_path, async_commit=False)
+    mgr.save(1, saved)
+    restored = mgr.restore(target)
+    assert torch.equal(restored["block"]["scale"], torch.arange(4.0))
+    mgr.close()

@@ -1342,3 +1342,32 @@ def test_bert_padding_invariance_on_card(cuda):
     assert tfused.FWD_KERNEL.launches == before
     assert logits.shape == (2, 4) and logits.device.type == "cuda"
     torch.testing.assert_close(logits[1], short[1], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_host_only_stage_cannot_see_the_card(cuda):
+    """A ``chips == 0`` stage's environment hides the card: in a process
+    started with it, torch sees no CUDA device, a tensor made with
+    ``device=None`` raises the port's no-CUDA-device error instead of
+    landing on the CPU, and the remote runner resolves the CPU."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from unionml_tpu_torch.defaults import Resources, resources_env
+
+    env = {**os.environ, **resources_env(Resources(chips=0))}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1])
+    code = (
+        "import torch\n"
+        "from unionml_tpu_torch._device import resolve_device\n"
+        "from unionml_tpu_torch.remote.runner import resolve_runner_device\n"
+        "print('devices', torch.cuda.device_count(), resolve_runner_device(), flush=True)\n"
+        "torch.zeros(1, device=resolve_device(None))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert "devices 0 cpu" in res.stdout
+    assert "no CUDA device is available" in res.stderr

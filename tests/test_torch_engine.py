@@ -601,3 +601,18 @@ def test_chip_smoke_engine_phases_rehearsal_on_cpu():
         cfg, 4, device="cpu", layers=2, buckets=(8, 32), lengths=(3, 20, 9)
     )
     assert out["match"] == "3/3"
+
+
+def test_closed_engine_drops_its_bound_weights(weights):
+    """``close()`` releases the weights ``bind()`` took along with the
+    device buffers: a reaped or rolled-back canary engine that something
+    still references holds no version's weights."""
+    _, tp = weights
+    _, cfg = _configs()
+    engine = _engine(cfg, slots=1, max_new_tokens=4, prompt_buckets=(8,), chunk_steps=2)
+    params = dict(tp)
+    engine.bind(params)
+    engine.generate(params, [[1, 2, 3]])
+    assert engine._params is params and engine._state is not None
+    engine.close()
+    assert engine._params is None and engine._state is None

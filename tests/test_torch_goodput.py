@@ -248,3 +248,46 @@ def test_trainer_finishes_the_tracker_on_a_raising_stream(double_buffer):
     # inline, the second pull (made before the first step) is the last
     # good one; threaded, the feeder reads ahead and both batches train
     assert tracker.report()["steps"] == (2 if double_buffer else 1)
+
+
+# -------------------------------------------------------- SLO coupling
+
+
+def test_goodput_collapse_breaches_gauge_objective():
+    """The port's goodput ratio gauge feeds the port's SLO watchdog: a
+    healthy ratio holds, an input-starved step collapses it and breaches
+    the gauge objective one fast window later (the twin of the JAX
+    package's case, with the same readings in both packages)."""
+    from unionml_tpu import slo as jslo
+
+    from unionml_tpu_torch import slo
+
+    reports = []
+    for mod, sl, tel in ((goodput, slo, telemetry), (jgoodput, jslo, jtelemetry)):
+        clock = FakeClock()
+        reg = tel.MetricsRegistry()
+        tracker = mod.GoodputTracker(registry=reg, tracer=tel.TraceRecorder(registry=reg),
+                                     flight=tel.FlightRecorder(), clock=clock)
+        watchdog = sl.SloWatchdog(
+            [sl.GaugeObjective("train_goodput", "unionml_train_goodput_ratio", min_value=0.5)],
+            registry=reg, fast_window_s=10.0, slow_window_s=10.0,
+        )
+        tracker.start()
+        with tracker.phase("compute"):
+            clock.advance(9.0)
+        with tracker.phase("data_wait"):
+            clock.advance(1.0)
+        tracker.step_complete(1.0)  # publishes ratio = 0.9
+        first = watchdog.evaluate(now=1000.0)
+        assert not first["breached"]
+
+        with tracker.phase("data_wait"):
+            clock.advance(90.0)  # input starvation: goodput collapses to 0.09
+        tracker.step_complete(90.0)
+        second = watchdog.evaluate(now=1015.0)
+        assert second["breached"] == ["train_goodput"]
+        snap = reg.snapshot()
+        assert snap["unionml_slo_breached"]["objective=train_goodput"] == 1.0
+        reports.append((first["breached"], second["breached"],
+                        snap["unionml_train_goodput_ratio"]))
+    assert reports[0] == reports[1]

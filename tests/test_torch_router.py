@@ -896,9 +896,18 @@ def test_http_replica_maps_typed_statuses():
         server.server_close()
 
 
-# The reference's test_fastapi_seam_accepts_prebuilt_core imports
-# serving/fastapi.py, which the port does not have yet (ROADMAP.md A5):
-# its twin lands with that module.
+def test_fastapi_seam_accepts_prebuilt_core():
+    """fastapi.serving_app(core=...) mounts a pre-built app (the router
+    front door) instead of constructing one — with app=None it hands the
+    core back unchanged (the dependency-free path; the FastAPI mount
+    itself is gated on the optional import)."""
+    from unionml_tpu_torch.serving.fastapi import serving_app
+
+    a = FakeReplica("a", tokens=(4, 2))
+    router = _router([a])
+    core = make_router_app(router, registry=telemetry.MetricsRegistry())
+    assert serving_app(None, core=core) is core
+    assert core.predict({"features": [1, 2, 3]}) == [[4, 2]]
 
 
 # ------------------------------------------------- HTTP front door e2e

@@ -8,6 +8,7 @@ near-tie flips).
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -190,8 +191,11 @@ def test_port_imports_neither_jax_nor_reference():
     package or ``ml_dtypes`` (bf16 host rows are torch tensors; checked in
     a fresh interpreter), the prefix cache, the feed, goodput, checkpoint,
     elastic, LoRA, MLP and BERT modules, the templates' scaffolded tests
-    and the fleet tier (SLO watchdog, OTLP exporter, mode chooser, router,
-    autoscaler, disaggregation) among them."""
+    the fleet tier (SLO watchdog, OTLP exporter, mode chooser, router,
+    autoscaler, disaggregation) and the deployment front (FastAPI seam,
+    serverless handlers and template, rollouts, the remote backend and
+    its runner, the CLI) among them. ``fastapi`` and ``yaml`` stay
+    unimported: the modules import them only where they are used."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -207,12 +211,15 @@ def test_port_imports_neither_jax_nor_reference():
         "            'templates.llm_serving.tests.test_app',\n"
         "            'templates.vision_tpu.tests.test_app', 'slo', 'exporters',\n"
         "            'serving.auto', 'serving.router', 'serving.autoscaler',\n"
-        "            'serving.disagg'):\n"
+        "            'serving.disagg', 'serving.fastapi', 'serving.serverless',\n"
+        "            'serving.rollout', 'remote', 'remote.artifacts', 'remote.backend',\n"
+        "            'remote.packaging', 'remote.runner', 'cli',\n"
+        "            'templates.serverless.app', 'templates.serverless.tests.test_app'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"
         "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
-        "             or m.split('.')[0] in ('orbax', 'msgpack'))\n"
+        "             or m.split('.')[0] in ('orbax', 'msgpack', 'fastapi', 'yaml'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -248,13 +255,38 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, served_params):
 def test_unported_model_paths_raise():
     model = template.build_model(name="unported")
     with pytest.raises(NotImplementedError):
-        model.remote(project="p")
-    with pytest.raises(NotImplementedError):
-        model.serve(app=object())
-    with pytest.raises(NotImplementedError):
         model.predictor(lambda params, prompts: prompts, jit=True)
     with pytest.raises(NotImplementedError):
         LlamaConfig.tiny(num_experts=2)
+
+
+def test_model_remote_configures_a_backend(tmp_path, monkeypatch):
+    """``Model.remote`` configures the port's backend (lazily built, the
+    local sandbox without a config file)."""
+    from unionml_tpu_torch.remote import LocalBackend
+
+    monkeypatch.setenv("UNIONML_TPU_HOME", str(tmp_path))
+    model = template.build_model(name="remote_cfg")
+    assert model.remote(project="p") is None
+    backend = model._remote
+    assert isinstance(backend, LocalBackend) and model._remote is backend
+    assert (backend.project, backend.domain, backend.root) == ("p", "development", tmp_path)
+
+
+def test_model_serve_with_an_app_raises_as_the_reference():
+    """``Model.serve(app=...)`` goes through the FastAPI seam and raises
+    what the JAX package's ``serving_app`` raises for the same argument
+    (``ImportError`` without fastapi, ``TypeError`` for a non-FastAPI app
+    with it)."""
+    from unionml_tpu.serving.fastapi import serving_app as jserving_app
+
+    model = template.build_model(name="serve_app")
+    with pytest.raises(Exception) as want:
+        jserving_app(model, object(), core=object())
+    with pytest.raises(type(want.value)):
+        model.serve(app=object())
+    if importlib.util.find_spec("fastapi") is None:
+        assert want.type is ImportError
 
 
 def test_batcher_array_mode_coalesces_trees():

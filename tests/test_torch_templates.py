@@ -24,7 +24,7 @@ import torch
 from unionml_tpu_torch.models import TrainState, adamw
 
 REPO = Path(__file__).resolve().parents[1]
-TEMPLATES = ("basic", "basic_tpu", "llm_serving", "vision_tpu")
+TEMPLATES = ("basic", "basic_tpu", "llm_serving", "serverless", "vision_tpu")
 # after Adam steps of lr 1e-3 (each moves a param by up to ~1e-3)
 PARAM_TOL = dict(rtol=1e-4, atol=2e-5)
 

@@ -43,15 +43,26 @@ def _skeleton(tree: Any) -> Any:
     return None
 
 
+def _in_order_of(like: Any, tree: Any) -> Any:
+    """``tree`` (of ``like``'s skeleton) with every dict's keys in
+    ``like``'s order, so the two flatten leaf for leaf by key."""
+    if isinstance(like, dict):
+        return {k: _in_order_of(v, tree[k]) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [_in_order_of(a, b) for a, b in zip(like, tree)]
+    return tree
+
+
 def restore_into(target: Any, saved: Any) -> Any:
     """``target`` (a state or tree) holding ``saved``'s values (a tree of
     :func:`state_tree`'s shape): each tensor goes onto its target leaf's
     device and dtype, so a CUDA state is never restored silently to the
-    CPU. Raises ``ValueError`` when the structures differ."""
+    CPU. Leaves pair by key, whatever order each tree's dicts were built
+    in. Raises ``ValueError`` when the structures differ."""
     like = state_tree(target)
     if _skeleton(like) != _skeleton(saved):
         raise ValueError("the checkpoint's tree does not have the target state's structure")
-    mine, theirs = tree_leaves(like), tree_leaves(saved)
+    mine, theirs = tree_leaves(like), tree_leaves(_in_order_of(like, saved))
     out = []
     for m, t in zip(mine, theirs):
         if isinstance(m, torch.Tensor):

@@ -2,17 +2,18 @@
 
 Reference: unionml/defaults.py:5 (``DEFAULT_RESOURCES = Resources(cpu="1",
 mem="1Gi")``), where Resources constrain the Flyte task container. The
-TPU-native resource model adds an accelerator request: ``chips`` is the
-number of TPU chips a stage asks for (0 = host-only stage).
+port's resource model adds an accelerator request: ``chips`` is the
+number of CUDA cards a stage asks for (0 = host-only stage).
 
-Resources are CONSUMED at launch (not decorative): both remote backends
+Resources are CONSUMED at launch (not decorative): the remote backends
 derive the runner's environment from the executed workflow's resource
 maxima via :func:`resources_env` — a ``chips=0`` workflow runs with
-``JAX_PLATFORMS=cpu`` (a host-only stage never grabs the accelerator a
-co-tenant serving process is using), and ``cpu`` caps the host math
-threadpools. ``mem`` is advisory on TPU VMs (no container boundary to
-enforce it; it documents the expected host footprint and is recorded in
-the deploy manifest for schedulers that can act on it).
+``CUDA_VISIBLE_DEVICES=""`` (a host-only stage never sees the card a
+co-tenant serving process is using, and a tensor it creates with
+``device=None`` raises instead of landing on the card), and ``cpu`` caps
+the host math threadpools. ``mem`` is advisory on GPU hosts (no container
+boundary to enforce it; it documents the expected host footprint and is
+recorded in the deploy manifest for schedulers that can act on it).
 """
 
 from dataclasses import dataclass
@@ -26,7 +27,7 @@ class Resources:
     cpu: str = "1"
     mem: str = "1Gi"
     chips: int = 0
-    accelerator: Optional[str] = None  # e.g. "tpu-v5e", "tpu-v5p"
+    accelerator: Optional[str] = None  # e.g. "nvidia-h100-80gb"
 
 
 def cpu_count(resources: "Resources") -> int:
@@ -44,24 +45,26 @@ def cpu_count(resources: "Resources") -> int:
 
 def resources_env(resources: "Resources") -> Dict[str, str]:
     """Launch-environment derivation — the consumer that makes a
-    resource request real on a TPU VM (reference parity anchor:
+    resource request real on a GPU host (reference parity anchor:
     unionml/defaults.py:5, where Resources size the task container):
 
-    - ``chips == 0`` → ``JAX_PLATFORMS=cpu``: host-only workflows (data
-      prep, registry ops) must not initialize the TPU runtime and evict
-      a serving process's HBM;
+    - ``chips == 0`` → ``CUDA_VISIBLE_DEVICES=""``: host-only workflows
+      (data prep, registry ops) must not see the card, create a CUDA
+      context on it, or take a serving process's device memory;
     - ``cpu`` → ``OMP_NUM_THREADS`` / ``OPENBLAS_NUM_THREADS`` host
-      threadpool caps (the 1-core TPU VM failure mode is oversubscribed
-      BLAS threads stalling the input pipeline).
+      threadpool caps (oversubscribed BLAS threads stall the input
+      pipeline).
     """
     env = {
         "OMP_NUM_THREADS": str(cpu_count(resources)),
         "OPENBLAS_NUM_THREADS": str(cpu_count(resources)),
     }
     if resources.chips == 0:
-        env["JAX_PLATFORMS"] = "cpu"
+        env["CUDA_VISIBLE_DEVICES"] = ""
     return env
 
 
 DEFAULT_RESOURCES = Resources(cpu="1", mem="1Gi", chips=0)
-DEFAULT_DEVICE_RESOURCES = Resources(cpu="4", mem="8Gi", chips=1, accelerator="tpu-v5e")
+DEFAULT_DEVICE_RESOURCES = Resources(
+    cpu="4", mem="8Gi", chips=1, accelerator="nvidia-h100-80gb"
+)

@@ -9,8 +9,9 @@ synthesized epoch/batch loop,
 ``checkpoint_dir`` the preemption-safe
 :func:`~unionml_tpu_torch.elastic.run_elastic_trainer`), is ported with its
 threaded feed, goodput and checkpoint options and without its sharding and
-overlap options (parallelism, A6); the remote lifecycle is not ported yet:
-it raises ``NotImplementedError``.
+overlap options (parallelism, A6). The remote lifecycle (``remote``,
+``remote_deploy`` / ``_train`` / ``_predict`` / ``_wait`` / ``_load``)
+runs on :mod:`unionml_tpu_torch.remote`.
 
 Everything else mirrors the reference surface: hyperparameter dataclass
 synthesis (model.py:137-161), three compiled tasks (model.py:377-502),
@@ -35,6 +36,7 @@ from unionml_tpu_torch.type_guards import signature
 from typing import IO, Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Type, Union
 
 from unionml_tpu_torch import type_guards
+from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.dataset import Dataset
 from unionml_tpu_torch.defaults import DEFAULT_DEVICE_RESOURCES, DEFAULT_RESOURCES
 from unionml_tpu_torch.stage import Stage, Workflow, stage_from_fn
@@ -141,6 +143,16 @@ class Model(TrackedInstance):
         self._predict_task_kwargs: Dict[str, Any] = {}
 
         self._hyperparameter_type: Optional[Type] = None
+
+        # deployment configuration (reference: model.py:96-102, 625-654)
+        self._registry: Optional[str] = None
+        self._image_name: Optional[str] = None
+        self._config_file: Optional[str] = None
+        self._dockerfile: Optional[str] = None
+        self._project: Optional[str] = None
+        self._domain: Optional[str] = None
+        self._backend = None  # unionml_tpu_torch.remote backend handle
+        self._patch_destination_dir: Optional[str] = None
 
     # ------------------------------------------------------------------ #
     # properties
@@ -264,14 +276,14 @@ class Model(TrackedInstance):
         return fn
 
     def _default_stage_resources(self):
-        """Host-only model families (sklearn / torch-cpu classes) default
+        """scikit-learn estimators, the one host-only model family, default
         to ``chips=0`` (:mod:`unionml_tpu_torch.defaults`); everything else
-        (tensor-tree apps) advertises a chip. Override per stage with
+        (``torch.nn.Module`` classes and tensor-tree apps, which the port
+        runs on the card) advertises a chip. Override per stage with
         ``resources=Resources(...)``. (The reference's Keras branch is not
         carried over: importing TensorFlow can pull in JAX, which the port
         never imports.)"""
-        mt = self.model_type
-        if is_sklearn_model(mt) or is_pytorch_model(mt):
+        if is_sklearn_model(self.model_type):
             return DEFAULT_RESOURCES
         return DEFAULT_DEVICE_RESOURCES
 
@@ -898,19 +910,19 @@ class Model(TrackedInstance):
         batch: bool = False,
         **batcher_kwargs,
     ):
-        """Build the serving app (reference: model.py:610-623).
+        """Mount serving endpoints (reference: model.py:610-623).
 
-        ``app`` must be ``None``: the dependency-free stdlib
-        :class:`~unionml_tpu_torch.serving.http.ServingApp` is returned
-        (the FastAPI transport is not ported yet). ``batch=True`` enables
-        the micro-batcher.
+        ``app`` may be a FastAPI instance (mounted by
+        :func:`~unionml_tpu_torch.serving.fastapi.serving_app`, which
+        imports fastapi only then) or ``None`` for the dependency-free
+        stdlib :class:`~unionml_tpu_torch.serving.http.ServingApp`.
+        ``batch=True`` enables the micro-batcher. Returns the app.
         """
-        if app is not None:
-            raise _not_ported("the FastAPI transport (Model.serve(app=...))")
-        from unionml_tpu_torch.serving.http import ServingApp
+        from unionml_tpu_torch.serving.fastapi import serving_app
 
-        return ServingApp(
+        return serving_app(
             self,
+            app,
             remote=remote,
             app_version=app_version,
             model_version=model_version,
@@ -945,28 +957,136 @@ class Model(TrackedInstance):
     # remote lifecycle (reference: model.py:625-917)
     # ------------------------------------------------------------------ #
 
-    def remote(self, *args, **kwargs):
-        """Configure the remote backend (reference: model.py:625-654).
-        Not ported yet."""
-        raise _not_ported("Model.remote (the remote backend)")
+    def remote(
+        self,
+        registry: Optional[str] = None,
+        image_name: Optional[str] = None,
+        config_file: Optional[str] = None,
+        project: Optional[str] = None,
+        domain: Optional[str] = None,
+        dockerfile: str = "Dockerfile",
+        patch_destination_dir: str = "/root",
+    ):
+        """Configure the remote backend (reference: model.py:625-654)."""
+        self._registry = registry
+        self._image_name = image_name
+        self._config_file = config_file
+        self._project = project or self.name.replace("_", "-")
+        self._domain = domain or "development"
+        self._dockerfile = dockerfile
+        self._patch_destination_dir = patch_destination_dir
+        self._backend = None
 
-    def remote_deploy(self, *args, **kwargs):
-        raise _not_ported("Model.remote_deploy")
+    @property
+    def _remote(self):
+        """Lazily construct the backend handle (reference: model.py:657-670)."""
+        if self._backend is not None:
+            return self._backend
+        from unionml_tpu_torch.remote import get_backend
 
-    def remote_train(self, *args, **kwargs):
-        raise _not_ported("Model.remote_train")
+        self._backend = get_backend(
+            config_file=self._config_file,
+            project=self._project or self.name.replace("_", "-"),
+            domain=self._domain or "development",
+        )
+        return self._backend
 
-    def remote_predict(self, *args, **kwargs):
-        raise _not_ported("Model.remote_predict")
+    def remote_deploy(
+        self, app_version: Optional[str] = None, allow_uncommitted: bool = False, patch: bool = False
+    ) -> str:
+        """Package and register the app (reference: model.py:672-730)."""
+        from unionml_tpu_torch import remote as remote_module
 
-    def remote_wait(self, *args, **kwargs):
-        raise _not_ported("Model.remote_wait")
+        app_version = app_version or remote_module.get_app_version(allow_uncommitted)
+        if patch:
+            app_version = f"{app_version}-patch{remote_module.patch_suffix()}"
+        self._remote.deploy(self, app_version=app_version, patch=patch)
+        logger.info(f"deployed {self.name} version {app_version}")
+        return app_version
 
-    def remote_load(self, *args, **kwargs):
-        raise _not_ported("Model.remote_load")
+    def remote_train(
+        self,
+        app_version: Optional[str] = None,
+        wait: bool = True,
+        *,
+        hyperparameters: Optional[Dict[str, Any]] = None,
+        loader_kwargs: Optional[Dict[str, Any]] = None,
+        splitter_kwargs: Optional[Dict[str, Any]] = None,
+        parser_kwargs: Optional[Dict[str, Any]] = None,
+        trainer_kwargs: Optional[Dict[str, Any]] = None,
+        **reader_kwargs,
+    ):
+        """Launch training on the backend (reference: model.py:732-796)."""
+        execution = self._remote.execute(
+            self,
+            workflow="train",
+            app_version=app_version,
+            inputs=dict(
+                hyperparameters=hyperparameters or {},
+                loader_kwargs=loader_kwargs,
+                splitter_kwargs=splitter_kwargs,
+                parser_kwargs=parser_kwargs,
+                trainer_kwargs=trainer_kwargs or {},
+                **reader_kwargs,
+            ),
+            wait=wait,
+        )
+        if wait:
+            self.remote_load(execution)
+            return self.artifact
+        return execution
 
-    def remote_list_model_versions(self, *args, **kwargs):
-        raise _not_ported("Model.remote_list_model_versions")
+    def remote_predict(
+        self,
+        app_version: Optional[str] = None,
+        model_version: Optional[str] = None,
+        wait: bool = True,
+        *,
+        features: Any = None,
+        **reader_kwargs,
+    ):
+        """Launch prediction on the backend (reference: model.py:798-864)."""
+        workflow = "predict" if features is None else "predict_from_features"
+        inputs: Dict[str, Any] = dict(reader_kwargs)
+        if features is not None:
+            inputs["features"] = features
+        execution = self._remote.execute(
+            self,
+            workflow=workflow,
+            app_version=app_version,
+            model_version=model_version,
+            inputs=inputs,
+            wait=wait,
+        )
+        if wait:
+            return self.remote_fetch_predictions(execution)
+        return execution
 
-    def remote_fetch_predictions(self, *args, **kwargs):
-        raise _not_ported("Model.remote_fetch_predictions")
+    def remote_wait(self, execution, **kwargs):
+        """Block until an execution completes (reference: model.py:866-870)."""
+        return self._remote.wait(execution, **kwargs)
+
+    def remote_load(self, execution):
+        """Load the model artifact from an execution
+        (reference: model.py:872-894)."""
+        from unionml_tpu_torch.remote.artifacts import decode_model_object
+
+        execution = self._remote.wait(execution)
+        outputs = self._remote.fetch_outputs(execution)
+        self.artifact = ModelArtifact(
+            decode_model_object(self, outputs.get("model_object")),
+            outputs.get("hyperparameters"),
+            outputs.get("metrics"),
+        )
+        return self.artifact
+
+    def remote_list_model_versions(self, app_version: Optional[str] = None, limit: int = 10):
+        """Model versions = successful train executions
+        (reference: model.py:896-906)."""
+        return self._remote.list_model_versions(self, app_version=app_version, limit=limit)
+
+    def remote_fetch_predictions(self, execution):
+        """Fetch predictions from an execution (reference: model.py:908-917)."""
+        execution = self._remote.wait(execution)
+        outputs = self._remote.fetch_outputs(execution)
+        return outputs.get("predictions")

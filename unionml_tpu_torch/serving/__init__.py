@@ -26,10 +26,14 @@
 - :mod:`~unionml_tpu_torch.serving.disagg` — disaggregated prefill /
   decode (``DisaggRouter``: prefill leg, KV handoff, decode leg);
 - :mod:`~unionml_tpu_torch.serving.auto` — the engine-vs-batcher mode
-  choice from measured round trip and decode-chunk times.
-
-The rollout controller, the serverless handler and the FastAPI seam of
-the reference's serving tier are not ported yet (ROADMAP.md).
+  choice from measured round trip and decode-chunk times;
+- :mod:`~unionml_tpu_torch.serving.rollout` — versioned rollouts
+  (``VersionRegistry`` on the port's checkpoints, ``RolloutController``:
+  canary pools, exact shadow diffs, promote and SLO-guarded rollback);
+- :mod:`~unionml_tpu_torch.serving.serverless` — API-Gateway and
+  object-store event handlers over ``ServingApp``;
+- :mod:`~unionml_tpu_torch.serving.fastapi` — the FastAPI mount
+  (``serving_app``; fastapi is imported only when an app is given).
 """
 
 from unionml_tpu_torch.serving.autoscaler import (

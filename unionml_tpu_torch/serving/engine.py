@@ -2130,11 +2130,13 @@ class DecodeEngine:
                 req.finish_stream()
         self._occupant = [None] * self.slots
         self._m_slots_busy.set(0)
-        # the device buffers (the KV cache or pool, the splice memo) go
-        # with the engine: a closed engine holds no card memory, so an
-        # autoscaler's scale-in hands its pool back
+        # the device buffers (the KV cache or pool, the splice memo) and
+        # the bound weights go with the engine: a closed engine holds no
+        # card memory, so an autoscaler's scale-in hands its pool back and
+        # a reaped or rolled-back canary its version's weights
         with self._lock:
             self._state = None
+            self._params = None
             self._dev_splice.clear()
 
 

@@ -1,9 +1,9 @@
 """Dependency-free HTTP serving transport (stdlib only).
 
 The PyTorch port of :mod:`unionml_tpu.serving.http`. The routes below
-behave as in the reference, except that the remote artifact loader
-raises ``NotImplementedError``, and ``/debug/profile`` captures a
-:mod:`torch.profiler` trace.
+behave as in the reference (``remote=True`` loads the newest artifact
+through :mod:`unionml_tpu_torch.remote`), except that ``/debug/profile``
+captures a :mod:`torch.profiler` trace.
 
 Same endpoint surface as the reference's FastAPI app
 (reference: unionml/fastapi.py:15-70):
@@ -386,9 +386,10 @@ class ServingApp:
         if model_path is not None and model_path != "":
             self.model.load(model_path)
         elif self.remote:
-            raise NotImplementedError(
-                "remote artifact loading is not ported to unionml_tpu_torch "
-                "yet (see ROADMAP.md)"
+            from unionml_tpu_torch.remote import load_latest_artifact
+
+            load_latest_artifact(
+                self.model, app_version=self.app_version, model_version=self.model_version
             )
         if self.model.artifact is None:
             raise RuntimeError(
