@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (unionml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--layers 32] [--max-new-tokens 32]
+    python3 chip_smoke.py [--layers 16] [--max-new-tokens 32]
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -116,6 +116,24 @@ Phases, each of which fails the run with a non-zero exit:
              from one initial state (params within rtol 1e-4, atol 2e-5),
              then model.train: params on the card, test accuracy above
              0.7, model.predict of two rows;
+3h. sharded — a one-rank NCCL process group over a local TCP store
+             (multihost_initialize(device="cuda")), then (a) ViT-B/16 twice
+             through a Dataset/Model spec's model.train, batch 64 as two
+             accumulated microbatches of 32, 6 steps (2 warm-up), plain and
+             with train_step(sharding=ShardingConfig(data=-1,
+             rules=VIT_PARTITION_RULES), overlap_grads=True): the params
+             after every step and at the end bit for bit the plain run's,
+             rows 3-5 and 12-13 launched twice their per-step counts; (b)
+             2 lm_steps of llama_lc at 2 x 4096 tokens plain and through
+             compile_step under ShardingConfig(data=-1, tensor=1,
+             rules=LLAMA_PARTITION_RULES): bit for bit after every step,
+             rows 9-11 and the delta pass launched; (c) an async sharded
+             CheckpointManager save of (a)'s placed state and a restore into
+             a fresh placed target, bit for bit (the save stall on the loop
+             and the commit in ms); (d) bucketed_psum over the NCCL group of
+             a ViT-B gradient tree equal to its input, the collective
+             counter above 0; step ms plain and sharded; the phase within
+             60 s;
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
@@ -154,7 +172,7 @@ Phases, each of which fails the run with a non-zero exit:
 6. int8 kv — a 4-layer paged engine with kv_quant=True serves a few
              requests through the kernel's int8 form;
 6b. serverless — the llm_serving template over the engine phases'
-             32-layer int8 weights behind the serverless handlers: a POST
+             --layers int8 weights behind the serverless handlers: a POST
              /predict gateway event (a 1000-token prompt) alone, then it and
              a 300-token one sent at once, which must share one
              micro-batch, and an object-upload event (5- and 200-token
@@ -3065,6 +3083,366 @@ def basic_tpu_phase(*, device: str = "cuda", epochs: int = 5, batch: int = 64,
     return out
 
 
+# --------------------------------------------------------------------- #
+# 3h: the sharded training step (parallelism on torch.distributed)
+# --------------------------------------------------------------------- #
+
+SHARDED_PHASE_MAX_S = 60.0   # the phase's own time limit
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def local_leaves(tree) -> list:
+    """A state's or tree's tensor leaves, each rank's block of a DTensor
+    (the whole tensor on one rank)."""
+    from unionml_tpu_torch.checkpoint.pytree_io import state_tree
+    from unionml_tpu_torch.models.train import tree_leaves
+    from unionml_tpu_torch.parallel.compat import is_dtensor
+
+    return [(x.to_local() if is_dtensor(x) else x) for x in tree_leaves(state_tree(tree))
+            if isinstance(x, torch.Tensor)]
+
+
+def leaves_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(a, b))
+
+
+def build_vit_app(config, *, name: str, on_step, train_step_options: dict,
+                  accumulate_steps: int):
+    """A Dataset/Model spec for ViT ``config`` (the vision template's reader
+    and seeded split) whose ``@model.train_step(**train_step_options)`` runs
+    ``classification_step(module, accumulate_steps=...)``, calling
+    ``on_step(state, metrics)`` after every step."""
+    from unionml_tpu_torch import Dataset, Model
+    from unionml_tpu_torch._device import resolve_device
+    from unionml_tpu_torch.models import ViT, classification_step, create_train_state
+
+    module = ViT(config)
+    size = config.image_size
+    dataset = Dataset(name=f"{name}_dataset", test_size=0.2)
+
+    @dataset.reader
+    def reader(n: int = 512, seed: int = 0) -> dict:
+        rng = np.random.default_rng(seed)
+        images = rng.normal(size=(n, size, size, 3)).astype(np.float32)
+        return {"features": images,
+                "targets": (images.mean(axis=(1, 2, 3)) > 0).astype(np.int64)}
+
+    @dataset.splitter
+    def splitter(data: dict, test_size: float, shuffle: bool, random_state: int):
+        idx = np.arange(len(data["features"]))
+        if shuffle:
+            np.random.default_rng(random_state).shuffle(idx)
+        cut = int(len(idx) * (1 - test_size))
+        return ({k: v[idx[:cut]] for k, v in data.items()},
+                {k: v[idx[cut:]] for k, v in data.items()})
+
+    @dataset.parser
+    def parser(data: dict, features, targets):
+        return (data["features"], data["targets"])
+
+    def init(learning_rate: float = 3e-4, device=None):
+        example = torch.zeros(1, size, size, 3, device=resolve_device(device))
+        return create_train_state(module, example, learning_rate=learning_rate)
+
+    model = Model(name=name, init=init, dataset=dataset)
+    step = classification_step(module, accumulate_steps=accumulate_steps)
+
+    @model.train_step(accumulate_steps=accumulate_steps, **train_step_options)
+    def train_step(state, batch):
+        state, metrics = step(state, batch)
+        on_step(state, metrics)
+        return state, metrics
+
+    @model.evaluator
+    def evaluator(state, features: np.ndarray, targets: np.ndarray) -> float:
+        params = state.params
+        device = params["cls"].device
+        with torch.no_grad():
+            logits = module(params, torch.as_tensor(features[:64], device=device))
+        return float((logits.argmax(-1).cpu().numpy() == targets[:64]).mean())
+
+    return model
+
+
+def sharded_vit(config, *, device: str, batch: int, steps: int, warmup: int,
+                accumulate_steps: int = 2) -> dict:
+    """(a): the ViT app's model.train with ``accumulate_steps=2`` twice from
+    one seed and one batch stream: plain, then under
+    ``train_step(sharding=ShardingConfig(data=-1, rules=VIT_PARTITION_RULES),
+    overlap_grads=True)``. The params after every step must be the plain
+    run's bits; the ViT kernels must launch on the sharded run, twice
+    VIT_LAUNCHES_PER_STEP a step on the card (two microbatches)."""
+    from unionml_tpu_torch.models.vit import VIT_PARTITION_RULES
+    from unionml_tpu_torch.parallel import ShardingConfig
+
+    on_card = device == "cuda"
+    kernels = vit_kernels()
+
+    def run(options: dict, name: str, check=None) -> dict:
+        per_step, marks, last = [], {}, {}
+
+        def on_step(state, metrics):
+            leaves = local_leaves(state.params)
+            if check is None:
+                per_step.append([x.clone() for x in leaves])
+            else:
+                per_step.append(leaves_equal(leaves, check[len(per_step)]))
+            last["state"] = state
+            if state.step in (warmup, steps):
+                if on_card:
+                    torch.cuda.synchronize()
+                marks[state.step] = (time.perf_counter(),
+                                     {k: kern.launches for k, kern in kernels.items()})
+
+        model = build_vit_app(config, name=name, on_step=on_step, train_step_options=options,
+                              accumulate_steps=accumulate_steps)
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        trained, metrics = model.train(
+            hyperparameters={"device": device, "learning_rate": 3e-4},
+            trainer_kwargs={"num_epochs": 1, "batch_size": batch // accumulate_steps},
+            n=batch * steps * 5 // 4, seed=0)
+        wall = time.perf_counter() - t0
+        if len(per_step) != steps:
+            raise AssertionError(f"{name}: the trainer ran {len(per_step)} steps, not {steps}")
+        (t_a, c_a), (t_b, c_b) = marks[warmup], marks[steps]
+        return {"per_step": per_step, "state": last["state"], "trained": trained,
+                "eval": metrics, "wall_s": wall,
+                "step_ms": (t_b - t_a) / (steps - warmup) * 1e3,
+                "launches": {k: kern.launches for k, kern in kernels.items()},
+                "launches_per_step": {k: (c_b[k] - c_a[k]) / (steps - warmup) for k in kernels}}
+
+    plain = run({}, "chip_smoke_vit_plain")
+    sharding = ShardingConfig(data=-1, rules=VIT_PARTITION_RULES)
+    sharded = run({"sharding": sharding, "overlap_grads": True}, "chip_smoke_vit_sharded",
+                  check=plain["per_step"])
+    final_equal = leaves_equal(local_leaves(sharded["trained"].params),
+                               plain["per_step"][-1])
+    out = {
+        "config": f"ViT patch {config.patch_size}, width {config.hidden_dim}, "
+                  f"{config.num_layers} layers, attn {config.attn_impl}, norm "
+                  f"{config.norm_impl}; batch {batch} as {accumulate_steps} microbatches, "
+                  f"{steps} steps ({warmup} warm-up)",
+        "plain_step_ms": plain["step_ms"], "sharded_step_ms": sharded["step_ms"],
+        "plain_wall_s": plain["wall_s"], "sharded_wall_s": sharded["wall_s"],
+        "bit_equal_per_step": sharded["per_step"], "final_bit_equal": final_equal,
+        "launches": sharded["launches"], "launches_per_step": sharded["launches_per_step"],
+        "plain_launches_per_step": plain["launches_per_step"], "eval": sharded["eval"],
+        "placements": sorted({str(tuple(p.placements))
+                              for p in local_placed(sharded["state"].params)}),
+    }
+    log(f"sharded_vit: step_ms plain {out['plain_step_ms']} sharded {out['sharded_step_ms']}; "
+        f"bit-equal per step {out['bit_equal_per_step']}, final {final_equal}; launches per "
+        f"step {out['launches_per_step']}; placements {out['placements']}")
+    if not (all(sharded["per_step"]) and final_equal):
+        raise AssertionError("the sharded ViT run's params left the plain run's bits")
+    want = {k: v * accumulate_steps for k, v in VIT_LAUNCHES_PER_STEP.items()}
+    if on_card and (sharded["launches_per_step"] != want
+                    or plain["launches_per_step"] != want):
+        raise AssertionError(f"ViT launches per step plain {plain['launches_per_step']} "
+                             f"sharded {sharded['launches_per_step']}, expected {want}")
+    if on_card and not all(sharded["launches"].values()):
+        raise AssertionError(f"a ViT kernel never launched on the sharded path: "
+                             f"{sharded['launches']}")
+    out["state"] = sharded["state"]
+    return out
+
+
+def local_placed(tree) -> list:
+    from unionml_tpu_torch.models.train import tree_leaves
+    from unionml_tpu_torch.parallel.compat import is_dtensor
+
+    return [x for x in tree_leaves(tree) if is_dtensor(x)]
+
+
+def sharded_lm(config, *, device: str, batch: int, seq: int, steps: int) -> dict:
+    """(b): ``steps`` lm_steps of ``config`` plain, then through
+    ``compile_step`` under ``ShardingConfig(data=-1, tensor=1,
+    rules=LLAMA_PARTITION_RULES)``, from one seeded state on the same
+    token batches: the params after every step must be the plain step's
+    bits; rows 9-11 and the delta pass must launch on the sharded steps."""
+    from unionml_tpu_torch.models import Llama, create_train_state, lm_step
+    from unionml_tpu_torch.models.llama import LLAMA_PARTITION_RULES
+    from unionml_tpu_torch.parallel import ShardingConfig, compile_step
+
+    on_card = device == "cuda"
+    module = Llama(config)
+    tokens = torch.from_numpy(lm_tokens(batch * steps, seq, config.vocab_size, 1)).to(device)
+    batches = [tokens[i * batch:(i + 1) * batch] for i in range(steps)]
+    kernels = lm_kernels()
+    example = torch.zeros(1, 8, dtype=torch.long, device=device)
+
+    def run(sharding):
+        state = create_train_state(module, example, learning_rate=1e-3)
+        step = lm_step(module)
+        if sharding is not None:
+            step, state = compile_step(step, state, sharding=sharding)
+        for kern in kernels.values():
+            kern.launches = 0
+        per_step, times = [], []
+        for b in batches:
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append([x.clone() for x in local_leaves(state.params)])
+        return per_step, times, {k: kern.launches for k, kern in kernels.items()}, \
+            float(metrics["loss"])
+
+    plain, plain_ms, _, plain_loss = run(None)
+    sharded, sharded_ms, launches, loss = run(
+        ShardingConfig(data=-1, tensor=1, rules=LLAMA_PARTITION_RULES))
+    equal = [leaves_equal(a, b) for a, b in zip(sharded, plain)]
+    out = {"config": f"Llama width {config.hidden_dim}, {config.num_layers} layers, "
+                     f"{config.num_heads}/{config.num_kv_heads} heads, attn {config.attn_impl}; "
+                     f"{steps} steps of {batch} x {seq} tokens",
+           "plain_step_ms": plain_ms, "sharded_step_ms": sharded_ms,
+           "bit_equal_per_step": equal, "launches": launches, "loss": loss,
+           "plain_loss": plain_loss}
+    log(f"sharded_lm: step_ms plain {plain_ms} sharded {sharded_ms}; bit-equal per step "
+        f"{equal}; loss {loss} (plain {plain_loss}); launches {launches}")
+    if not all(equal):
+        raise AssertionError("the sharded llama_lc steps left the plain steps' bits")
+    if on_card and not all(launches.values()):
+        raise AssertionError(f"a flash kernel never launched on the sharded path: {launches}")
+    return out
+
+
+def sharded_checkpoint(state, make_target, *, device: str) -> dict:
+    """(c): an async sharded CheckpointManager save of ``state`` (placed),
+    then a restore into a fresh placed target (other values): bit for bit.
+    The caller's stall and the background commit, in ms."""
+    import shutil
+    import tempfile
+
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.checkpoint._metrics import checkpoint_metrics
+    from unionml_tpu_torch.checkpoint.sharded import CheckpointManager
+
+    (HERE / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="sharded-", dir=HERE / "build"))
+    reg = telemetry.MetricsRegistry()
+    try:
+        manager = CheckpointManager(root, registry=reg)
+        t0 = time.perf_counter()
+        manager.save(state.step, state)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        manager.wait()
+        wait_ms = (time.perf_counter() - t1) * 1e3
+        target = make_target()
+        if leaves_equal(local_leaves(target), local_leaves(state)):
+            raise AssertionError("the fresh target already holds the saved bits")
+        restored = manager.restore(target)
+        manager.close()
+        equal = leaves_equal(local_leaves(restored), local_leaves(state))
+        metrics = checkpoint_metrics(reg)
+        out = {"stall_ms": stall_ms, "wait_ms": wait_ms,
+               "commit_ms": metrics["commit_ms"].labels("sharded").samples(),
+               "restore_ms": metrics["restore_ms"].labels("sharded").samples(),
+               "bytes": sum(p.stat().st_size for p in root.rglob("*") if p.is_file()),
+               "bit_equal": equal, "step": restored.step}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"sharded_ckpt: {out['bytes']} bytes; save stall on the loop {stall_ms} ms, commit "
+        f"{out['commit_ms']} ms, restore {out['restore_ms']} ms; bit-equal {equal}")
+    if not equal or out["step"] != state.step:
+        raise AssertionError("the sharded checkpoint did not restore the saved bits")
+    return out
+
+
+def sharded_collectives(grads, mesh) -> dict:
+    """(d): bucketed_psum over the mesh's data axis (the group's own
+    backend: NCCL on the card) of a gradient tree equals the tree on one
+    rank, and the collective counter moved."""
+    from unionml_tpu_torch.models.train import tree_leaves
+    from unionml_tpu_torch.parallel import bucketed_psum, shard_map
+    from unionml_tpu_torch.parallel.collectives import COLLECTIVES
+    from unionml_tpu_torch.parallel.sharding import PartitionSpec as P
+
+    COLLECTIVES.reset()
+    summed = shard_map(lambda t: bucketed_psum(t, "data"), mesh=mesh, in_specs=P(),
+                       out_specs=P())(grads)
+    equal = leaves_equal([x.to_local() for x in tree_leaves(summed)], tree_leaves(grads))
+    out = {"bit_equal": equal, "collectives": dict(COLLECTIVES.counts),
+           "leaves": len(tree_leaves(grads)),
+           "bytes": sum(g.nbytes for g in tree_leaves(grads))}
+    log(f"sharded_collectives: bucketed_psum of {out['leaves']} gradient tensors "
+        f"({out['bytes']} bytes) equal to its input {equal}; collectives issued "
+        f"{out['collectives']}")
+    if not equal or COLLECTIVES.total == 0:
+        raise AssertionError("bucketed_psum over the group changed the tree or issued nothing")
+    return out
+
+
+def sharded_phase(vit_cfg, llama_cfg, *, device: str = "cuda", vit_batch: int = 64,
+                  vit_steps: int = 6, warmup: int = 2, lm_batch: int = 2, lm_seq: int = 4096,
+                  lm_steps: int = 2) -> dict:
+    """3h: a one-rank process group (NCCL on the card, over a local TCP
+    store), then (a) :func:`sharded_vit`, (b) :func:`sharded_lm`, (c)
+    :func:`sharded_checkpoint` of (a)'s state and (d)
+    :func:`sharded_collectives` on a gradient tree of (a)'s model. The
+    group is destroyed at the end. Fails past :data:`SHARDED_PHASE_MAX_S`."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import ViT, create_train_state
+    from unionml_tpu_torch.models.train import value_and_grad
+    from unionml_tpu_torch.models.vit import VIT_PARTITION_RULES
+    from unionml_tpu_torch.parallel import ShardingConfig, multihost_initialize, shard_pytree
+
+    t0 = time.perf_counter()
+    if not multihost_initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device):
+        raise AssertionError("the process group did not start")
+    try:
+        backend = dist.get_backend()
+        if device == "cuda" and backend != "nccl":
+            raise AssertionError(f"the card's group runs {backend}, not NCCL")
+        vit = sharded_vit(vit_cfg, device=device, batch=vit_batch, steps=vit_steps,
+                          warmup=warmup)
+        state = vit.pop("state")
+        sharding = ShardingConfig(data=-1, rules=VIT_PARTITION_RULES)
+        module = ViT(vit_cfg)
+        example = torch.zeros(1, vit_cfg.image_size, vit_cfg.image_size, 3, device=device)
+        ckpt = sharded_checkpoint(
+            state, lambda: shard_pytree(create_train_state(module, example, seed=1), sharding),
+            device=device)
+        images, labels = vit_batches(vit_cfg, 8, 1, device, seed=3)[0]
+
+        def loss_fn(params, batch):
+            logits = module(params, batch[0])
+            return torch.nn.functional.cross_entropy(logits.float(), batch[1]), {}
+
+        from unionml_tpu_torch.parallel.sharding import gather_state
+
+        _, grads = value_and_grad(loss_fn, gather_state(state.params), (images, labels))
+        del state
+        collectives = sharded_collectives(grads, sharding.mesh())
+        del grads
+        lm = sharded_lm(llama_cfg, device=device, batch=lm_batch, seq=lm_seq, steps=lm_steps)
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    log(f"sharded: backend {backend}, phase {seconds:.1f} s")
+    if device == "cuda" and seconds > SHARDED_PHASE_MAX_S:
+        raise AssertionError(f"the sharded phase took {seconds:.1f} s, over "
+                             f"{SHARDED_PHASE_MAX_S} s")
+    return {"backend": backend, "vit": vit, "lm": lm, "checkpoint": ckpt,
+            "collectives": collectives, "seconds": seconds}
+
+
 def kernel_phase(batch: int, bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # row 2 at the micro-batcher's prefill and decode and the paged
@@ -5972,7 +6350,9 @@ def remote_phase(*, device: str = "cuda", steps: int = 8) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--layers", type=int, default=32)
+    # the serving phases' Llama-3-8B depth: half of its 32 layers keeps the
+    # run within its time on a slow host (every width is the model's)
+    parser.add_argument("--layers", type=int, default=16)
     parser.add_argument("--max-new-tokens", type=int, default=32)
     args = parser.parse_args(argv)
 
@@ -6062,6 +6442,10 @@ def main(argv=None) -> int:
     basic_tpu["seconds"] = time.perf_counter() - t_phase
     log(f"time: basic_tpu done at {time.perf_counter() - t_run:.1f} s (phase "
         f"{basic_tpu['seconds']:.1f} s)")
+    sharded = sharded_phase(vit_cfg, llama_cfg)
+    torch.cuda.empty_cache()
+    log(f"time: sharded done at {time.perf_counter() - t_run:.1f} s (phase "
+        f"{sharded['seconds']:.1f} s)")
 
     base = LlamaConfig.llama3_8b()
     served = serve_phase(dataclasses.replace(base, num_layers=args.layers),
@@ -6186,6 +6570,8 @@ def main(argv=None) -> int:
             "fleet_launches": fleet["launches"].get(name),
             "serverless_launches": serverless["launches"].get(name),
             "rollout_launches": rollout["launches"].get(name),
+            "sharded_launches": sharded["vit"]["launches"].get(
+                name, sharded["lm"]["launches"].get(name)),
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
@@ -6194,7 +6580,7 @@ def main(argv=None) -> int:
                       "fp32_parity": fp32, "int4_engine": int4_engine, "spec": spec,
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
                       "vit_train": vit, "llama_train": llama, "qlora_train": qlora,
-                      "bert_train": bert, "basic_tpu": basic_tpu,
+                      "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

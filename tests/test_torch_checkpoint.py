@@ -224,8 +224,20 @@ def test_backends(tmp_path):
     assert sync._writer._thread is None and sync.latest_step() == 3  # committed inline
     auto = make_checkpoint_manager(tmp_path / "auto", registry=reg)
     assert auto.async_commit
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_checkpoint_manager(tmp_path / "o", backend="orbax")
+    # the reference's name for sharded checkpoints gives the port's sharded
+    # manager, and "auto" stays with a directory of sharded checkpoints
+    from unionml_tpu_torch.checkpoint.sharded import CheckpointManager
+
+    sharded = make_checkpoint_manager(tmp_path / "o", backend="orbax", registry=reg)
+    assert isinstance(sharded, CheckpointManager)
+    sharded.save(2, {"w": torch.arange(3.0)})
+    sharded.wait()
+    again = make_checkpoint_manager(tmp_path / "o", registry=reg)
+    assert isinstance(again, CheckpointManager) and again.latest_step() == 2
+    assert torch.equal(again.restore({"w": torch.zeros(3)})["w"], torch.arange(3.0))
+    # the async backend forced onto that directory refuses it, naming the way in
+    with pytest.raises(ValueError, match="backend='orbax'"):
+        make_checkpoint_manager(tmp_path / "o", backend="async")
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         make_checkpoint_manager(tmp_path / "x", backend="tape")
 

@@ -1371,3 +1371,89 @@ def test_host_only_stage_cannot_see_the_card(cuda):
     assert res.returncode != 0
     assert "devices 0 cpu" in res.stdout
     assert "no CUDA device is available" in res.stderr
+
+
+@pytest.fixture
+def nccl_group(cuda):
+    """A one-rank NCCL process group over a local TCP store."""
+    import socket
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.parallel import multihost_initialize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert multihost_initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+def _step_bits(module, params, batches, step_factory, sharding, **kw):
+    """Params after each step of the zoo step (unsharded, or through
+    compile_step under ``sharding``), cloned."""
+    from unionml_tpu_torch.models.train import TrainState, adamw, tree_leaves, tree_map
+    from unionml_tpu_torch.parallel import compile_step
+    from unionml_tpu_torch.parallel.compat import is_dtensor
+
+    state = TrainState.create(apply_fn=module, params=tree_map(torch.clone, params),
+                              tx=adamw(1e-3))
+    step = step_factory(module, **kw)
+    if sharding is not None:
+        step, state = compile_step(step, state, sharding=sharding)
+    out = []
+    for batch in batches:
+        state, _ = step(state, batch)
+        out.append([(p.to_local() if is_dtensor(p) else p).clone()
+                    for p in tree_leaves(state.params)])
+    return out
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_compile_step_is_bit_equal_on_card(cuda, nccl_group):
+    """ViT-tiny (bf16, fused norms and attention: rows 3-5, 12-13) with
+    two accumulated microbatches and Llama-tiny (flash: rows 9-11) through
+    compile_step on a one-rank NCCL mesh, rules applied, against the plain
+    steps: the params bit for bit after every step, and the kernels
+    launched under the placements."""
+    import dataclasses
+
+    from unionml_tpu_torch.models import ViT, ViTConfig, lm_step
+    from unionml_tpu_torch.models.llama import LLAMA_PARTITION_RULES
+    from unionml_tpu_torch.models.train import classification_step
+    from unionml_tpu_torch.models.vit import VIT_PARTITION_RULES
+    from unionml_tpu_torch.models.vit import init_params as vit_init
+    from unionml_tpu_torch.parallel import ShardingConfig
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    # the fused attention kernels take head_dim 64 or 128
+    vcfg = dataclasses.replace(ViTConfig.tiny(), hidden_dim=128, num_heads=2, mlp_dim=256,
+                               norm_impl="fused", attn_impl="fused")
+    vit = ViT(vcfg)
+    vparams = vit_init(vcfg, generator=gen, device=cuda)
+    batches = [(torch.randn(2, 8, 32, 32, 3, device=cuda, generator=gen),
+                torch.randint(0, 10, (2, 8), device=cuda, generator=gen)) for _ in range(3)]
+    plain = _step_bits(vit, vparams, batches, classification_step, None, accumulate_steps=2)
+    before = tfused.FWD_KERNEL.launches
+    sharded = _step_bits(vit, vparams, batches, classification_step,
+                         ShardingConfig(data=-1, rules=VIT_PARTITION_RULES).microbatched(),
+                         accumulate_steps=2)
+    assert tfused.FWD_KERNEL.launches > before
+    for a, b in zip(plain, sharded):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # the flash kernels take head_dim 64 or 128
+    lcfg = LlamaConfig.tiny(attn_impl="flash", hidden_dim=256, norm_impl="fused")
+    llama = Llama(lcfg)
+    lparams = init_params(lcfg, seed=0, device=cuda)
+    tokens = [torch.randint(0, lcfg.vocab_size, (2, 129), device=cuda, generator=gen)
+              for _ in range(2)]
+    plain = _step_bits(llama, lparams, tokens, lm_step, None)
+    before = tflash.DQ_KERNEL.launches
+    sharded = _step_bits(llama, lparams, tokens, lm_step,
+                         ShardingConfig(data=-1, tensor=1, rules=LLAMA_PARTITION_RULES))
+    assert tflash.DQ_KERNEL.launches > before
+    for a, b in zip(plain, sharded):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -113,9 +113,13 @@ def test_replayed_stream_shorter_than_the_resume_point_raises(tmp_path):
     with pytest.raises(RuntimeError, match="before the resume position"):
         run_elastic_trainer(step_fn=step, state=fresh(), stream=short, batch_size=8,
                             checkpoint_dir=str(tmp_path), checkpoint_every=2)
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_elastic_trainer(step_fn=step, state=fresh(), arrays=[x, y], sharding=object(),
-                            checkpoint_dir=str(tmp_path / "s"))
+    # a sharded run needs the ranks' process group (the multi-rank elastic
+    # runs are in tests/test_torch_parallel.py)
+    from unionml_tpu_torch.parallel import ShardingConfig
+
+    with pytest.raises(RuntimeError, match="process group"):
+        run_elastic_trainer(step_fn=step, state=fresh(), arrays=[x, y],
+                            sharding=ShardingConfig(), checkpoint_dir=str(tmp_path / "s"))
     with pytest.raises(ValueError, match="exactly one"):
         run_elastic_trainer(step_fn=step, state=fresh(), checkpoint_dir=str(tmp_path / "n"))
 

@@ -293,9 +293,47 @@ def test_feed_goodput_phases(double_buffer):
         assert phases["phase=host_to_device"]["count"] == 5
 
 
+def test_threaded_feed_start_up_lands_in_the_first_data_wait(monkeypatch):
+    """The threaded feed starts its feeder inside the consumer's first
+    data_wait phase: the trainer waiting on its input's start-up is
+    attributed, not left between two phases."""
+    from unionml_tpu_torch.data import pipeline
+
+    events = []
+
+    class Tracker:
+        def phase(self, name):
+            class Scope:
+                def __enter__(self):
+                    events.append(("enter", name))
+
+                def __exit__(self, *exc):
+                    events.append(("exit", name))
+            return Scope()
+
+    class Thread(threading.Thread):
+        def start(self):
+            events.append(("start", self.name))
+            super().start()
+
+    monkeypatch.setattr(pipeline.threading, "Thread", Thread)
+    batches = [np.full((2, 2), float(i), np.float32) for i in range(3)]
+    out = list(prefetch_to_device(iter(batches), device="cpu", goodput=Tracker(),
+                                  double_buffer=True))
+    assert [float(t[0, 0]) for t in out] == [0.0, 1.0, 2.0]
+    assert events[:3] == [("enter", "data_wait"), ("start", "prefetch-feed"),
+                          ("exit", "data_wait")]
+    assert events.count(("enter", "data_wait")) == 4   # three batches and the end
+
+
 def test_sharded_placement_still_refused():
-    with pytest.raises(NotImplementedError, match="A6"):
-        next(prefetch_to_device(iter(_source()), device="cpu", sharding=object()))
+    """Sharded placement needs the ranks' process group: without one the
+    feed refuses, naming the bring-up call (the multi-rank feed runs in
+    tests/test_torch_parallel.py)."""
+    from unionml_tpu_torch.parallel import ShardingConfig
+
+    with pytest.raises(RuntimeError, match="multihost_initialize"):
+        next(prefetch_to_device(iter(_source()), device="cpu", sharding=ShardingConfig()))
 
 
 def test_chip_smoke_feed_phases_rehearsal_on_cpu():

@@ -7,8 +7,10 @@ exposition lists the reference's families. Then ``run_step_trainer(
 goodput=...)`` in both feeds, a raising stream, and a thread stress test.
 """
 
+import subprocess
 import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -291,3 +293,42 @@ def test_goodput_collapse_breaches_gauge_objective():
         reports.append((first["breached"], second["breached"],
                         snap["unionml_train_goodput_ratio"]))
     assert reports[0] == reports[1]
+
+
+def test_trace_ids_are_drawn_without_a_system_call(monkeypatch):
+    """Request, trace and span ids keep their widths (hex, never all
+    zero, distinct) and come from a seeded in-process generator: the
+    tracker's per-phase span costs no ``os.urandom`` call between two
+    goodput phases, and a forked child draws ids of its own."""
+    import os
+
+    def no_urandom(n):
+        raise AssertionError("an id drew on os.urandom")
+
+    monkeypatch.setattr(os, "urandom", no_urandom)
+    for fn, width in ((telemetry.new_request_id, 16), (telemetry.new_trace_id, 32),
+                      (telemetry.new_span_id, 16)):
+        ids = [fn() for _ in range(1000)]
+        assert all(len(i) == width and int(i, 16) != 0 and i == i.lower() for i in ids)
+        assert len(set(ids)) == len(ids)
+    monkeypatch.undo()
+
+    # the fork check runs in a fresh single-threaded interpreter
+    code = (
+        "import os\n"
+        "from unionml_tpu_torch import telemetry\n"
+        "read, write = os.pipe()\n"
+        "pid = os.fork()\n"
+        "if pid == 0:\n"
+        "    os.write(write, telemetry.new_span_id().encode())\n"
+        "    os._exit(0)\n"
+        "os.close(write)\n"
+        "child = os.read(read, 64).decode()\n"
+        "os.waitpid(pid, 0)\n"
+        "print(child, telemetry.new_span_id())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(Path(__file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stderr
+    child, parent = out.stdout.split()
+    assert len(child) == 16 and child != parent

@@ -194,7 +194,8 @@ def test_port_imports_neither_jax_nor_reference():
     the fleet tier (SLO watchdog, OTLP exporter, mode chooser, router,
     autoscaler, disaggregation) and the deployment front (FastAPI seam,
     serverless handlers and template, rollouts, the remote backend and
-    its runner, the CLI) among them. ``fastapi`` and ``yaml`` stay
+    its runner, the CLI) and the parallelism layer (mesh, collectives,
+    sharding, sharded checkpoints) among them. ``fastapi`` and ``yaml`` stay
     unimported: the modules import them only where they are used."""
     code = (
         "import importlib, pathlib, sys\n"
@@ -214,7 +215,9 @@ def test_port_imports_neither_jax_nor_reference():
         "            'serving.disagg', 'serving.fastapi', 'serving.serverless',\n"
         "            'serving.rollout', 'remote', 'remote.artifacts', 'remote.backend',\n"
         "            'remote.packaging', 'remote.runner', 'cli',\n"
-        "            'templates.serverless.app', 'templates.serverless.tests.test_app'):\n"
+        "            'templates.serverless.app', 'templates.serverless.tests.test_app',\n"
+        "            'parallel', 'parallel.mesh', 'parallel.compat', 'parallel.collectives',\n"
+        "            'parallel.sharding', 'checkpoint.sharded'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"

@@ -194,8 +194,17 @@ def test_accumulation_equals_one_big_batch():
     torch.testing.assert_close(aloss, loss, rtol=1e-5, atol=1e-6)
     for a, b in zip(tree_leaves(agrads), tree_leaves(grads)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A11"):
-        accumulated_value_and_grad(loss_fn, params, (x[None], y[None]), overlap=object())
+    # the deferred mode consumes each microbatch's grads one microbatch
+    # later: the same adds in the same order, so the same bits
+    from unionml_tpu_torch.models.train import GradOverlap
+
+    batch = (x.reshape(2, 4, 32, 32, 3), y.reshape(2, 4))
+    (dloss, _), dgrads = accumulated_value_and_grad(loss_fn, params, batch,
+                                                    overlap=GradOverlap(mode="defer"))
+    assert torch.equal(dloss, aloss)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(dgrads), tree_leaves(agrads)))
+    with pytest.raises(ValueError, match="unknown GradOverlap mode"):
+        accumulated_value_and_grad(loss_fn, params, batch, overlap=GradOverlap(mode="ring"))
 
 
 def test_evaluator_and_predictor_factories():
@@ -244,8 +253,11 @@ def test_prefetch_to_device_and_refusals():
     threaded = list(prefetch_to_device(iter(items), device="cpu", double_buffer=True))
     assert [float(t[0][0, 0]) for t in threaded] == [float(t[0][0, 0]) for t in out]
     assert all(isinstance(t, torch.Tensor) for t in threaded[4])
-    with pytest.raises(NotImplementedError, match="A6"):
-        next(prefetch_to_device(iter(items), device="cpu", sharding=object()))
+    # a sharded feed needs the ranks' process group; without one it refuses
+    from unionml_tpu_torch.parallel import ShardingConfig
+
+    with pytest.raises(RuntimeError, match="process group"):
+        next(prefetch_to_device(iter(items), device="cpu", sharding=ShardingConfig()))
 
 
 # --------------------------------------------------------------------- #
@@ -395,22 +407,27 @@ def test_trainer_accumulates_and_traces(tmp_path):
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"sharding": object()}, "A6"),
-    ({"overlap_grads": True}, "A6"),
+    ({"sharding": "dp"}, "process group"),
+    ({"overlap_grads": True}, None),
     ({"checkpoint_dir": "ckpt"}, None),
     ({"goodput": True}, None),
     ({"double_buffer": True}, None),
 ])
 def test_train_step_options_not_ported_raise(option, match, tmp_path):
-    """Sharding and gradient overlap wait for the parallelism port and
-    raise; the feed, goodput and checkpoint options register and train
-    (to the plain run's params)."""
+    """Every option registers. A sharded run needs the ranks' process
+    group and raises without one (its multi-rank runs are in
+    tests/test_torch_parallel_train.py); the overlap, feed, goodput and
+    checkpoint options train to the plain run's params."""
     model = Model(name="options")
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            model.train_step(lambda state, batch: (state, {}), **option)
+        from unionml_tpu_torch.parallel import ShardingConfig
+
+        option = {"sharding": ShardingConfig(data=-1)}
         step, state, x, y = _stream_problem()
-        with pytest.raises(NotImplementedError, match=match):
+        model.train_step(step, **option)
+        with pytest.raises(RuntimeError, match=match):
+            model._trainer(state, x, targets=y, batch_size=32)
+        with pytest.raises(RuntimeError, match=match):
             run_step_trainer(step_fn=step, state=state, features=x, targets=y, **option)
         return
     if "checkpoint_dir" in option:

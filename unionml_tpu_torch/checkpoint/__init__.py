@@ -9,11 +9,12 @@ The port of :mod:`unionml_tpu.checkpoint`:
   caller for the device-to-host snapshot's enqueue only; the wait for the
   copies, the write and the commit run on a background thread with an
   atomic rename and a commit marker, so a kill mid-commit always leaves
-  the previous checkpoint restorable (:func:`make_checkpoint_manager`).
+  the previous checkpoint restorable (:func:`make_checkpoint_manager`);
+- :mod:`unionml_tpu_torch.checkpoint.sharded` — sharded checkpoints of a
+  placed state, each rank writing its blocks, restored onto any target
+  placements (the reference's Orbax backend, in the port's own format).
 
-The reference's Orbax sharded checkpoints (``checkpoint/sharded.py``) and
-its ``registry`` module are not ported: the first waits for the
-parallelism port (ROADMAP.md, A6).
+The reference's ``registry`` module is not ported.
 """
 
 from unionml_tpu_torch.checkpoint.async_writer import (
@@ -22,11 +23,15 @@ from unionml_tpu_torch.checkpoint.async_writer import (
     make_checkpoint_manager,
 )
 from unionml_tpu_torch.checkpoint.pytree_io import load_pytree, save_pytree
+from unionml_tpu_torch.checkpoint.sharded import CheckpointManager, restore_sharded, save_sharded
 
 __all__ = [
     "AsyncCheckpointManager",
     "AsyncCheckpointWriter",
+    "CheckpointManager",
     "load_pytree",
     "make_checkpoint_manager",
+    "restore_sharded",
     "save_pytree",
+    "save_sharded",
 ]

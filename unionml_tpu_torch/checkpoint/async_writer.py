@@ -40,8 +40,9 @@ durable. A failed background commit is logged, counted out of
 ``pending`` and re-raised by the strict barrier
 (:meth:`~AsyncCheckpointWriter.wait`); ``close`` only logs, so a
 trainer's ``finally`` never masks the real exception with a checkpoint
-one. Sharded multi-process checkpoints wait for the parallelism port
-(ROADMAP.md, A6).
+one. Sharded multi-process checkpoints are
+:mod:`unionml_tpu_torch.checkpoint.sharded` (:func:`make_checkpoint_manager`
+picks them).
 """
 
 from __future__ import annotations
@@ -328,7 +329,8 @@ class AsyncCheckpointManager:
             raise ValueError(
                 f"{self.root} holds checkpoint dirs without commit markers "
                 f"({sorted(markerless)[:3]}…): a format this manager cannot restore "
-                "(sharded checkpoints wait for the parallelism port, ROADMAP.md, A6) — "
+                "(sharded checkpoints: open them with make_checkpoint_manager(backend="
+                "'orbax')) — "
                 "resuming here would silently restart from step 0"
             )
 
@@ -403,24 +405,43 @@ def make_checkpoint_manager(
     backend: str = "auto",
     async_commit: bool = True,
     registry: Optional[Any] = None,
-) -> AsyncCheckpointManager:
-    """The checkpoint manager the trainer loops use. ``"auto"`` and
-    ``"async"`` give :class:`AsyncCheckpointManager` (the port runs one
-    process); ``"sync"`` (or ``async_commit=False``) is the same manager
-    with INLINE commits — the caller pays serialize + write + rename, the
-    overlap-off baseline. ``"orbax"`` (sharded multi-process checkpoints)
-    raises ``NotImplementedError``: it waits for the parallelism port."""
+):
+    """The checkpoint manager the trainer loops use.
+
+    ``"auto"`` gives :class:`AsyncCheckpointManager` in one process and the
+    sharded :class:`~unionml_tpu_torch.checkpoint.sharded.CheckpointManager`
+    when the default process group has several ranks (each rank writes
+    only its blocks), and stays sharded when ``root`` already holds
+    sharded step dirs, so resuming an existing run never silently restarts
+    from step 0. ``"async"`` / ``"orbax"`` force a side: ``"orbax"`` is the
+    reference's name for the sharded manager, kept so app code carries
+    over (the port writes its own format, not Orbax's). ``"sync"`` (or
+    ``async_commit=False``) commits inline: the caller pays serialize +
+    write + rename, the overlap-off baseline."""
     if backend not in ("auto", "async", "orbax", "sync"):
         raise ValueError(
             f"unknown checkpoint backend {backend!r}: expected 'auto', 'async', "
             "'orbax' or 'sync'"
         )
-    if backend == "orbax":
-        raise NotImplementedError(
-            "the orbax checkpoint backend (sharded multi-process checkpoints) needs the "
-            "parallelism port (ROADMAP.md, A6)"
-        )
     if backend == "sync":
-        async_commit = False
-    return AsyncCheckpointManager(root, max_to_keep=max_to_keep, async_commit=async_commit,
-                                  registry=registry)
+        backend, async_commit = "async", False
+    if backend == "auto":
+        import torch.distributed as dist
+
+        multi = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+        backend = "orbax" if multi else "async"
+        if backend == "async":
+            for p in Path(root).absolute().glob("step_*"):
+                if "tmp" in p.name or not p.is_dir():
+                    continue
+                if not is_committed(p):
+                    # pre-existing sharded checkpoints: stay sharded
+                    backend = "orbax"
+                    break
+    if backend == "async":
+        return AsyncCheckpointManager(root, max_to_keep=max_to_keep,
+                                      async_commit=async_commit, registry=registry)
+    from unionml_tpu_torch.checkpoint.sharded import CheckpointManager
+
+    return CheckpointManager(root, max_to_keep=max_to_keep, async_save=async_commit,
+                             registry=registry)

@@ -19,8 +19,10 @@ Checkpoints are async (:func:`~unionml_tpu_torch.checkpoint
 enqueue only, and restore refuses torn checkpoints. Batches flow through
 :func:`~unionml_tpu_torch.data.pipeline.prefetch_to_device` (``double_buffer``
 moves the feed onto a feeder thread with its own copy stream).
-``sharding=`` and ``overlap_grads=True`` wait for the parallelism port
-(ROADMAP.md, A6).
+``sharding=`` places the state on the mesh (:func:`~unionml_tpu_torch
+.parallel.compile_step`) and checkpoints it with the sharded manager, each
+rank feeding its rows; ``overlap_grads=True`` overlaps the gradient
+collectives of accumulation.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.checkpoint.async_writer import make_checkpoint_manager
 from unionml_tpu_torch.data.native import BatchLoader
-from unionml_tpu_torch.data.pipeline import prefetch_to_device
+from unionml_tpu_torch.data.pipeline import local_batches, prefetch_to_device
 from unionml_tpu_torch.goodput import GoodputTracker
 from unionml_tpu_torch.goodput import phase_scope as _phase
 from unionml_tpu_torch.models.train import resolve_params, tree_device
@@ -70,9 +72,11 @@ def run_elastic_trainer(
     max_to_keep: int = 3,
     checkpoint_backend: str = "auto",
     sharding: Any = None,
+    donate_state: bool = True,
     accumulate_steps: int = 1,
     overlap_grads: bool = False,
     double_buffer: bool = False,
+    donate_batch: Optional[bool] = None,
     fault_hook: Optional[Callable[[int], None]] = None,
     goodput: Any = None,
 ) -> Tuple[Any, int]:
@@ -92,8 +96,14 @@ def run_elastic_trainer(
     The global step indexes the stream ``epoch * steps_per_epoch + batch``;
     checkpoints are written under ``checkpoint_dir/step_{global_step}``,
     where the state has consumed batch ``global_step - 1``.
-    ``checkpoint_backend`` is ``"auto"`` / ``"async"`` (background commit)
-    or ``"sync"`` (inline commit); ``"orbax"`` raises (A6).
+    ``checkpoint_backend`` is ``"auto"`` / ``"async"`` (background commit),
+    ``"sync"`` (inline commit) or ``"orbax"`` (the sharded manager, which
+    ``"auto"`` picks under ``sharding``).
+
+    ``sharding``: the step runs through :func:`~unionml_tpu_torch.parallel
+    .compile_step` on the placed state (microbatched under accumulation),
+    each rank feeding its rows; ``overlap_grads=True`` selects the
+    :func:`~unionml_tpu_torch.execution.resolve_grad_overlap` strategy.
 
     **Streaming sources**: pass ``stream`` instead of ``arrays`` — a
     callable producing ready batches, treated as ONE step-indexed sequence
@@ -114,15 +124,34 @@ def run_elastic_trainer(
     """
     if (arrays is None) == (stream is None):
         raise ValueError("pass exactly one of arrays= or stream=")
-    if sharding is not None or overlap_grads:
-        raise NotImplementedError(
-            "sharding= and overlap_grads=True need the parallelism port (ROADMAP.md, A6)"
-        )
     if accumulate_steps < 1:
         raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
-    from unionml_tpu_torch.execution import to_microbatches
+    from unionml_tpu_torch.execution import _world_size, resolve_grad_overlap, to_microbatches
+    from unionml_tpu_torch.models.train import grad_overlap_scope
 
     feed_rows = batch_size * accumulate_steps
+    overlap = resolve_grad_overlap(sharding, accumulate_steps) if overlap_grads else None
+    if donate_batch is None:
+        donate_batch = double_buffer
+    if sharding is not None:
+        if accumulate_steps > 1:
+            sharding = sharding.microbatched()
+        from unionml_tpu_torch.parallel import compile_step
+
+        step_fn, state = compile_step(step_fn, state, sharding=sharding,
+                                      donate_state=donate_state, donate_batch=donate_batch)
+        if checkpoint_backend == "auto":
+            checkpoint_backend = "orbax"
+    if overlap is not None:
+        inner = step_fn
+
+        def step_fn(state, batch):
+            with grad_overlap_scope(overlap):
+                return inner(state, batch)
+    process_rows = None
+    if sharding is not None and _world_size() > 1:
+        # the rows of the sharded batch dim (a microbatched batch's second)
+        process_rows = (sharding, batch_size)
     device = tree_device(resolve_params(state))
     tracker = None
     if goodput:
@@ -134,7 +163,8 @@ def run_elastic_trainer(
             if accumulate_steps > 1 else batch
 
     loop = dict(step_fn=step_fn, device=device, checkpoint_every=checkpoint_every,
-                fault_hook=fault_hook, tracker=tracker, double_buffer=double_buffer)
+                fault_hook=fault_hook, tracker=tracker, double_buffer=double_buffer,
+                sharding=sharding, process_rows=process_rows)
     if stream is not None:
         return _run_stream(state, stream, checkpoint_dir=checkpoint_dir, num_steps=num_steps,
                            max_to_keep=max_to_keep, checkpoint_backend=checkpoint_backend,
@@ -202,11 +232,16 @@ def run_elastic_trainer(
 def _loop(state: Any, batches: Iterator[Any], manager: Any, *, step_fn: Callable,
           device: torch.device, global_step: int, checkpoint_every: int,
           is_last: Callable[[int], bool], fault_hook: Optional[Callable[[int], None]],
-          tracker: Optional[GoodputTracker], double_buffer: bool) -> Tuple[Any, int]:
+          tracker: Optional[GoodputTracker], double_buffer: bool, sharding: Any = None,
+          process_rows: Any = None) -> Tuple[Any, int]:
     """The step loop shared by the array and stream routes: feed, step,
     checkpoint every ``checkpoint_every`` steps and at ``is_last``, then
-    the fault hook. Stops after the step ``is_last`` names."""
-    feed = prefetch_to_device(batches, device=device, goodput=tracker,
+    the fault hook. Stops after the step ``is_last`` names. With
+    ``process_rows`` (``(sharding, global rows)``) each rank feeds only
+    its rows of every batch."""
+    if process_rows is not None:
+        batches = local_batches(batches, *process_rows)
+    feed = prefetch_to_device(batches, device=device, sharding=sharding, goodput=tracker,
                               double_buffer=double_buffer)
     with contextlib.closing(feed):
         for batch in feed:
@@ -236,7 +271,8 @@ def _run_stream(state: Any, stream: Callable, *, checkpoint_dir: str,
                 num_steps: Optional[int], max_to_keep: int, checkpoint_backend: str,
                 prepare: Callable[[Any], Any], step_fn: Callable, device: torch.device,
                 checkpoint_every: int, fault_hook: Optional[Callable[[int], None]],
-                tracker: Optional[GoodputTracker], double_buffer: bool) -> Tuple[Any, int]:
+                tracker: Optional[GoodputTracker], double_buffer: bool, sharding: Any = None,
+                process_rows: Any = None) -> Tuple[Any, int]:
     """The step-indexed resumable loop over a streaming batch source."""
     try:
         manager = make_checkpoint_manager(
@@ -295,7 +331,8 @@ def _run_stream(state: Any, stream: Callable, *, checkpoint_dir: str,
             state, (prepare(batch) for batch in it), manager, global_step=global_step,
             is_last=lambda s: num_steps is not None and s >= num_steps, step_fn=step_fn,
             device=device, checkpoint_every=checkpoint_every, fault_hook=fault_hook,
-            tracker=tracker, double_buffer=double_buffer,
+            tracker=tracker, double_buffer=double_buffer, sharding=sharding,
+            process_rows=process_rows,
         )
         bounded = num_steps is not None and global_step >= num_steps
         if not bounded and global_step > start and global_step % checkpoint_every != 0:

@@ -15,8 +15,11 @@ telemetry registry, and with ``goodput=`` the
 :class:`~unionml_tpu_torch.goodput.GoodputTracker`'s attribution of its
 wall time.
 
-Not ported yet (each raises ``NotImplementedError``): ``sharding=`` and
-``overlap_grads=True`` (parallelism, A6).
+``sharding=`` (a :class:`~unionml_tpu_torch.parallel.ShardingConfig`)
+runs the step through :func:`~unionml_tpu_torch.parallel.compile_step` on
+the placed state, each rank feeding only its batch rows;
+``overlap_grads=True`` overlaps the gradient collectives of gradient
+accumulation with the next microbatch (:func:`resolve_grad_overlap`).
 """
 
 from __future__ import annotations
@@ -106,6 +109,33 @@ def batch_indices(
         yield order[i * batch_size:(i + 1) * batch_size]
 
 
+def resolve_grad_overlap(sharding: Any, accumulate_steps: int) -> Any:
+    """The :class:`~unionml_tpu_torch.models.train.GradOverlap` for a
+    trainer run with ``overlap_grads=True``, the reference's one selection
+    rule shared by :func:`run_step_trainer` and the elastic trainer:
+
+    - ``accumulate_steps == 1``: None (no microbatch pipeline to overlap);
+    - pure data parallelism (every mesh axis but ``data`` trivial, no
+      partition rules, ``data > 1``): ``mode="shard_map"``, explicit
+      bucketed all-reduces over ``data``;
+    - anything else (sharded params, or no mesh): ``mode="defer"``."""
+    from unionml_tpu_torch.models.train import GradOverlap
+
+    if accumulate_steps <= 1:
+        logger.info(
+            "overlap_grads: accumulate_steps=1 has no microbatch pipeline to overlap — "
+            "running the serial step"
+        )
+        return None
+    if sharding is None:
+        return GradOverlap(mode="defer")
+    shape = sharding.mesh_shape()
+    model_axes = {name: size for name, size in shape.items() if name != "data" and size > 1}
+    if not model_axes and not tuple(sharding.rules) and shape.get("data", 1) > 1:
+        return GradOverlap(mode="shard_map", mesh=sharding.mesh(), axes=("data",))
+    return GradOverlap(mode="defer")
+
+
 def _num_examples(features: Any) -> int:
     leaves = tree_leaves(features)
     if not leaves or not hasattr(leaves[0], "shape"):
@@ -117,6 +147,12 @@ def _is_plain_array(x: Any) -> bool:
     return not isinstance(x, (dict, list, tuple)) and (
         hasattr(x, "__array__") or isinstance(x, torch.Tensor)
     )
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _host(x: Any) -> np.ndarray:
@@ -133,9 +169,11 @@ def run_step_trainer(
     batch_size: int = 32,
     seed: int = 0,
     sharding: Any = None,
+    donate_state: bool = True,
     accumulate_steps: int = 1,
     overlap_grads: bool = False,
     double_buffer: bool = False,
+    donate_batch: Optional[bool] = None,
     profile_dir: Optional[str] = None,
     registry: Optional[Any] = None,
     goodput: Any = None,
@@ -165,13 +203,19 @@ def run_step_trainer(
     it publishes ``unionml_train_goodput_ratio`` and
     ``unionml_train_badput_seconds_total{cause}``, per-phase trace spans
     and the step-time regression detector. Every ``skew_every`` steps the
-    step time is gathered across processes for the skew monitor, which in
-    the port's single process is a no-op.
+    step time is gathered across processes for the skew monitor (a no-op
+    in one process).
+
+    ``sharding``: the step runs over the config's mesh through
+    :func:`~unionml_tpu_torch.parallel.compile_step` (the state placed
+    once; ``donate_state`` updates it in place), under accumulation with
+    the microbatch axis whole (:meth:`ShardingConfig.microbatched`); with
+    several ranks each rank feeds only its rows of every batch.
+    ``overlap_grads=True`` overlaps each microbatch's gradient collectives
+    with the next microbatch's backward (:func:`resolve_grad_overlap`).
+    ``donate_batch`` (default: ``double_buffer``) lets the step drop the
+    fed batch.
     """
-    if sharding is not None or overlap_grads:
-        raise NotImplementedError(
-            "sharding= and overlap_grads=True need the parallelism port (ROADMAP.md, A6)"
-        )
     streaming = is_stream(features)
     if streaming:
         if targets is not None:
@@ -195,6 +239,16 @@ def run_step_trainer(
             "gradient accumulation needs at least accumulate_steps * "
             f"batch_size = {feed_rows} examples per step, got {n}"
         )
+    overlap = resolve_grad_overlap(sharding, accumulate_steps) if overlap_grads else None
+    if donate_batch is None:
+        donate_batch = double_buffer
+    if sharding is not None and accumulate_steps > 1:
+        sharding = sharding.microbatched()
+    if sharding is not None:
+        from unionml_tpu_torch.parallel import compile_step
+
+        step_fn, state = compile_step(step_fn, state, sharding=sharding,
+                                      donate_state=donate_state, donate_batch=donate_batch)
     device = tree_device(resolve_params(state))
     on_card = device.type == "cuda"
 
@@ -246,10 +300,11 @@ def run_step_trainer(
                 xb = tree_map(lambda x: _host(x)[idx], features)
                 yield fed((xb, tree_map(lambda x: _host(x)[idx], targets)) if has_targets else xb)
 
-    from unionml_tpu_torch.data.pipeline import prefetch_to_device
+    from unionml_tpu_torch.data.pipeline import local_batches, prefetch_to_device
     from unionml_tpu_torch.diagnostics import StepTimer, trace
     from unionml_tpu_torch.goodput import GoodputTracker, allgather_step_times, phase_scope
     from unionml_tpu_torch.introspection import ProgramTracker
+    from unionml_tpu_torch.models.train import grad_overlap_scope
 
     reg = registry if registry is not None else telemetry.get_registry()
     h_step = reg.histogram(
@@ -283,13 +338,19 @@ def run_step_trainer(
     if tracker is not None:
         tracker.start()
     ctx = trace(profile_dir) if profile_dir else contextlib.nullcontext()
-    feed = prefetch_to_device(host_batches(), device=device, goodput=tracker,
+    overlap_ctx = grad_overlap_scope(overlap) if overlap is not None else contextlib.nullcontext()
+    source = host_batches()
+    if sharding is not None and _world_size() > 1:
+        # the rows of the sharded batch dim: a microbatched batch shards
+        # its second dim, of batch_size rows
+        source = local_batches(source, sharding, batch_size)
+    feed = prefetch_to_device(source, device=device, sharding=sharding, goodput=tracker,
                               double_buffer=double_buffer)
     # finish() runs on the exception path too: a raising stream must not
     # leave the trainer timeline open, nor a retry with the same tracker
     # count the gap as unattributed wall time
     try:
-        with ctx, contextlib.closing(feed):
+        with ctx, overlap_ctx, contextlib.closing(feed):
             for batch in feed:
                 t_step = time.perf_counter()
                 with phase_scope(tracker, "compute"):

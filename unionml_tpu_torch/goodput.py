@@ -27,11 +27,12 @@ guessed.
   detector over per-step wall times with hysteresis (also run by the
   serving goodput plane, :mod:`unionml_tpu_torch.serving.perf`).
 - :class:`StepSkewMonitor` — per-process step skew and straggler math
-  over injected timings. :func:`allgather_step_times` returns ``None`` in
-  one process; its multi-process form waits for the parallelism port
-  (ROADMAP.md, A6).
+  over injected timings. :func:`allgather_step_times` gathers every
+  rank's step time over ``torch.distributed`` (``None`` in one
+  process).
 
-Everything here is stdlib-only, thread-safe (the feed and the step loop
+Everything here but the gather (which imports torch when called) is
+stdlib-only, thread-safe (the feed and the step loop
 may run phases from different threads) and takes an injectable monotonic
 ``clock`` so the bucket math is testable on a synthetic clock.
 """
@@ -44,6 +45,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 from unionml_tpu_torch import telemetry
+from unionml_tpu_torch._logging import logger
 
 __all__ = [
     "BADPUT_CAUSES",
@@ -224,12 +226,26 @@ class StepSkewMonitor:
 
 
 def allgather_step_times(step_s: float) -> Optional[List[float]]:
-    """Every process's ``step_s``, the multi-process sync point feeding
-    :class:`StepSkewMonitor`. The port runs one process, so it returns
-    ``None`` (no collective, no cost); the gather over
-    ``torch.distributed`` waits for the parallelism port (ROADMAP.md,
-    A6)."""
-    return None
+    """Every rank's ``step_s`` over the default process group,
+    index-aligned with the rank: the multi-process sync point feeding
+    :class:`StepSkewMonitor`. Returns ``None`` in one process (no
+    collective, no cost) or when the gather fails (a skew sample must never
+    take training down)."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() <= 1:
+            return None
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend() == "nccl" else torch.device("cpu")
+        mine = torch.tensor([float(step_s)], dtype=torch.float64, device=device)
+        out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, mine)
+        return [float(t.item()) for t in out]
+    except Exception as exc:
+        logger.info(f"step-skew allgather unavailable: {exc!r}")
+        return None
 
 
 class _PhaseScope:

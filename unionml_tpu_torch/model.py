@@ -8,8 +8,7 @@ synthesized epoch/batch loop,
 :func:`~unionml_tpu_torch.execution.run_step_trainer`, or with
 ``checkpoint_dir`` the preemption-safe
 :func:`~unionml_tpu_torch.elastic.run_elastic_trainer`), is ported with its
-threaded feed, goodput and checkpoint options and without its sharding and
-overlap options (parallelism, A6). The remote lifecycle (``remote``,
+threaded feed, goodput, checkpoint, sharding and overlap options. The remote lifecycle (``remote``,
 ``remote_deploy`` / ``_train`` / ``_predict`` / ``_wait`` / ``_load``)
 runs on :mod:`unionml_tpu_torch.remote`.
 
@@ -292,9 +291,11 @@ class Model(TrackedInstance):
         fn: Optional[Callable] = None,
         *,
         sharding: Any = None,
+        donate_state: bool = True,
         accumulate_steps: int = 1,
         overlap_grads: bool = False,
         double_buffer: bool = False,
+        donate_batch: Optional[bool] = None,
         checkpoint_dir: Optional[str] = None,
         save_every: int = 100,
         max_checkpoints: int = 3,
@@ -333,26 +334,36 @@ class Model(TrackedInstance):
         uninterrupted run. A relative path resolves against the working
         directory.
 
-        Not ported yet: ``sharding=`` and ``overlap_grads=True``
-        (parallelism, A6), which raise ``NotImplementedError`` when the step
-        is registered.
+        ``sharding`` (a :class:`~unionml_tpu_torch.parallel.ShardingConfig`)
+        runs the step over the config's mesh through
+        :func:`~unionml_tpu_torch.parallel.compile_step`: the state is placed
+        once by the partition rules (``donate_state`` updates it in place)
+        and every rank feeds its rows; the trained state the evaluator,
+        predictor and artifact receive is gathered to whole tensors on every
+        rank. ``overlap_grads=True`` overlaps the
+        gradient collectives of microbatch *i* with the backward of *i + 1*
+        (the serial accumulation's values); ``donate_batch`` (default:
+        ``double_buffer``) lets the step drop each fed batch.
         """
         if fn is None:
             return lambda f: self.train_step(
-                f, sharding=sharding, accumulate_steps=accumulate_steps,
-                overlap_grads=overlap_grads, double_buffer=double_buffer,
+                f, sharding=sharding, donate_state=donate_state,
+                accumulate_steps=accumulate_steps, overlap_grads=overlap_grads,
+                double_buffer=double_buffer, donate_batch=donate_batch,
                 checkpoint_dir=checkpoint_dir, save_every=save_every,
                 max_checkpoints=max_checkpoints, checkpoint_backend=checkpoint_backend,
                 goodput=goodput, measure_device_time=measure_device_time,
                 **train_task_kwargs,
             )
-        if sharding is not None or overlap_grads:
-            raise _not_ported("train_step(sharding=..., overlap_grads=True) (parallelism, A6)")
         type_guards.guard_train_step(fn)
         self._train_step = fn
         self._train_step_options = {
+            "sharding": sharding,
+            "donate_state": donate_state,
             "accumulate_steps": accumulate_steps,
+            "overlap_grads": overlap_grads,
             "double_buffer": double_buffer,
+            "donate_batch": donate_batch,
             "checkpoint_dir": checkpoint_dir,
             "save_every": save_every,
             "max_checkpoints": max_checkpoints,
@@ -383,22 +394,33 @@ class Model(TrackedInstance):
         ):
             opts = model._train_step_options
             if opts["checkpoint_dir"]:
-                return model._run_checkpointed(model_object, features, targets,
-                                               num_epochs=num_epochs, batch_size=batch_size,
-                                               seed=seed)
-            return run_step_trainer(
-                step_fn=model._train_step,
-                state=model_object,
-                features=features,
-                targets=targets,
-                num_epochs=num_epochs,
-                batch_size=batch_size,
-                seed=seed,
-                accumulate_steps=opts["accumulate_steps"],
-                double_buffer=opts["double_buffer"],
-                goodput=opts["goodput"],
-                measure_device_time=opts["measure_device_time"],
-            )
+                state = model._run_checkpointed(model_object, features, targets,
+                                                num_epochs=num_epochs, batch_size=batch_size,
+                                                seed=seed)
+            else:
+                state = run_step_trainer(
+                    step_fn=model._train_step,
+                    state=model_object,
+                    features=features,
+                    targets=targets,
+                    num_epochs=num_epochs,
+                    batch_size=batch_size,
+                    seed=seed,
+                    sharding=opts["sharding"],
+                    donate_state=opts["donate_state"],
+                    accumulate_steps=opts["accumulate_steps"],
+                    overlap_grads=opts["overlap_grads"],
+                    double_buffer=opts["double_buffer"],
+                    donate_batch=opts["donate_batch"],
+                    goodput=opts["goodput"],
+                    measure_device_time=opts["measure_device_time"],
+                )
+            if opts["sharding"] is not None:
+                # the evaluator, predictor and artifact take whole tensors
+                from unionml_tpu_torch.parallel.sharding import gather_state
+
+                state = gather_state(state)
+            return state
 
         trainer.__name__ = "synthesized_step_trainer"
         return trainer
@@ -421,8 +443,12 @@ class Model(TrackedInstance):
             checkpoint_backend=opts["checkpoint_backend"],
             batch_size=batch_size,
             seed=seed,
+            sharding=opts["sharding"],
+            donate_state=opts["donate_state"],
             accumulate_steps=opts["accumulate_steps"],
+            overlap_grads=opts["overlap_grads"],
             double_buffer=opts["double_buffer"],
+            donate_batch=opts["donate_batch"],
             goodput=opts["goodput"],
         )
         if is_stream(features):

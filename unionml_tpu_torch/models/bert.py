@@ -13,15 +13,15 @@ Attention follows the reference's routing. A batch with an
 additive fp32 bias ``where(mask, 0, -1e30)`` ``[B, 1, 1, S]`` (a fully
 masked row softmaxes uniformly, as in the reference); without a mask
 ``config.attn_impl`` picks ``xla``, ``fused`` (kernel rows 12-13),
-``flash`` (rows 9-11) or ``auto``. ``blockwise`` waits for the
-parallelism port (A6) and raises ``NotImplementedError``; the
+``flash`` (rows 9-11) or ``auto``. ``blockwise`` waits for sequence
+parallelism (ROADMAP.md, A6b) and raises ``NotImplementedError``; the
 sequence-parallel impls raise ``ValueError`` as in the reference.
 
 A sequence longer than ``max_len`` raises ``ValueError`` from its shape
 (the reference's gather fills the missing positions with NaN rows;
 ROADMAP.md C5). :func:`mlm_step` and :func:`make_mlm_batch` are the
 reference's MLM step over padded corpora and its host-side masking rule.
-``BERT_PARTITION_RULES`` waits for parallelism (ROADMAP.md, A6).
+:data:`BERT_PARTITION_RULES` are the reference's tensor-parallel layout.
 """
 
 from __future__ import annotations
@@ -33,9 +33,16 @@ import torch
 from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
-from unionml_tpu_torch.models.layers import ATTN_IMPLS, LayerNorm, MlpBlock, _run_attention
+from unionml_tpu_torch.models.layers import (
+    ATTN_IMPLS,
+    LayerNorm,
+    MlpBlock,
+    _run_attention,
+    gather_rows,
+)
 from unionml_tpu_torch.models.quantization import DenseGeneral
 from unionml_tpu_torch.ops.attention import NEG_INF, mha_reference
+from unionml_tpu_torch.parallel.sharding import PartitionRule
 
 # the reference's impls without a sequence mesh axis, "blockwise" included
 SUPPORTED_ATTN_IMPLS = ("auto", "xla", "blockwise", "flash", "fused")
@@ -71,7 +78,7 @@ class BertConfig:
 def _check_attn_impl(impl: str) -> None:
     if impl == "blockwise":
         raise NotImplementedError(
-            "attn_impl 'blockwise' is not ported yet (parallelism, A6); the port's BERT "
+            "attn_impl 'blockwise' is not ported yet (sequence parallelism, A6b); the port's BERT "
             f"takes {tuple(i for i in SUPPORTED_ATTN_IMPLS if i in ATTN_IMPLS)}"
         )
     if impl not in SUPPORTED_ATTN_IMPLS:
@@ -115,7 +122,7 @@ class BertBlock(nn.Module):
 
 def _embed(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # flax's Embed(dtype=...) casts the table, then gathers
-    return table.to(dtype)[ids]
+    return gather_rows(table.to(dtype), ids)
 
 
 class BertEncoder(nn.Module):
@@ -341,3 +348,13 @@ def make_mlm_batch(
     random_slots = selected & (roll >= 0.8) & (roll < 0.9)
     inputs[random_slots] = rng.integers(0, vocab_size, size=int(random_slots.sum()))
     return inputs, labels
+
+
+BERT_PARTITION_RULES = (
+    PartitionRule(r"attn_(q|k|v)/kernel$", (None, "tensor", None)),
+    PartitionRule(r"attn_o/kernel$", ("tensor", None, None)),
+    PartitionRule(r"mlp/up/kernel$", (None, "tensor")),
+    PartitionRule(r"mlp/down/kernel$", ("tensor", None)),
+    PartitionRule(r"tok_embed/embedding$", (None, "tensor")),
+    PartitionRule(r"mlm_head/kernel$", (None, "tensor")),
+)

@@ -25,6 +25,14 @@ the block-paged decode step (``block_table=``, through
 and GELU :class:`MlpBlock`, with int8 or packed-int4 (``weight_bits=4``)
 weight-only projections and LoRA adapters (``lora_rank``) on q/k/v/o and
 gate/up/down. Cross attention raises ``NotImplementedError``.
+
+Under a sharded step (DTensor activations and params) the kernel-backed
+norms and the cache-free attention cross to local shards here
+(:func:`_sharded_norm`, :func:`_sharded_attention`): the kernel wrappers
+take plain tensors only. A rank holding q heads ``[h0, h0 + Hl)`` of a
+GQA layer whose kv heads stay whole (``num_kv_heads`` not divisible by
+``tensor``) attends each local head ``h`` with kv head ``(h0 + h) //
+group``, the offset GSPMD applies silently in the reference.
 """
 
 from __future__ import annotations
@@ -47,6 +55,129 @@ from unionml_tpu_torch.ops.attention import (
     mha_reference,
     quantized_cache_attention,
 )
+from unionml_tpu_torch.parallel.compat import is_dtensor, local_call
+
+
+# --------------------------------------------------------------------- #
+# the kernel boundary under placements
+# --------------------------------------------------------------------- #
+
+
+def _whole(t: Any, *dims: int) -> Any:
+    """``t``'s placements with every ``Partial`` resolved and the given
+    tensor dims whole (``Replicate`` where they were sharded)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    want = [Replicate() if isinstance(p, Partial)
+            or (isinstance(p, Shard) and p.dim % t.dim() in [d % t.dim() for d in dims])
+            else p for p in t.placements]
+    return t if list(t.placements) == want else t.redistribute(t.device_mesh, want)
+
+
+def _replicated(t: Any, mesh: Any) -> Any:
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate()] * mesh.ndim
+    return t if list(t.placements) == want else t.redistribute(mesh, want)
+
+
+def _row_grads(x: Any) -> list:
+    """Gradient placements of a whole param used on ``x``'s local rows:
+    a share of a sum over every mesh dim that splits ``x``, else whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return [Partial() if isinstance(p, Shard) else Replicate() for p in x.placements]
+
+
+def _sharded_norm(fn, x, others, params):
+    """``fn(*locals)`` for a row-wise norm: ``x`` and the ``others``
+    (residual addends) on their local rows with the last dim whole, the
+    norm ``params`` (scale, bias or None) whole on every rank."""
+    x = _whole(x, -1)
+    mesh = x.device_mesh
+    others = [o if not is_dtensor(o) or list(o.placements) == list(x.placements)
+              else o.redistribute(mesh, x.placements) for o in others]
+    params = [None if p is None else _replicated(p, mesh) for p in params]
+    args = [x, *others, *params]
+    grads = [x.placements] * (1 + len(others)) + [_row_grads(x)] * len(params)
+    return fn, args, grads, x.placements, mesh
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (an embedding lookup). Under placements the lookup
+    runs on each rank's ids with the table whole, so every rank indexes
+    as the plain path does (DTensor's own index strategy is not used)."""
+    if not (is_dtensor(table) or is_dtensor(ids)):
+        return table[ids]
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = (ids if is_dtensor(ids) else table).device_mesh
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    ids = _whole(ids)
+    whole = table if is_dtensor(table) else DTensor.from_local(
+        table, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    whole = _replicated(whole, mesh)
+    return local_call(lambda t, i: t[i], [whole, ids], [_row_grads(ids), ids.placements],
+                      ids.placements, mesh)
+
+
+def _local_kv_heads(num_local: int, offset: int, group: int, device) -> torch.Tensor:
+    """The kv head of each of a rank's ``num_local`` q heads, whose first
+    is global head ``offset``: ``(offset + h) // group``."""
+    return (torch.arange(num_local, device=device) + offset) // group
+
+
+class _GatherHeads(torch.autograd.Function):
+    """``kv[:, :, index]`` whose backward sums each kv head's copies in
+    fp32 and rounds once (the per-head dk / dv rounding point of the GQA
+    backward, C3, held on each shard)."""
+
+    @staticmethod
+    def forward(ctx, kv, index):
+        ctx.save_for_backward(index)
+        ctx.heads = kv.shape[2]
+        return kv.index_select(2, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        shape = list(grad.shape)
+        shape[2] = ctx.heads
+        total = torch.zeros(shape, dtype=torch.float32, device=grad.device)
+        total.index_add_(2, index, grad.float())
+        return total.to(grad.dtype), None
+
+
+def _sharded_attention(q, k, v, *, impl: str, causal: bool):
+    """Cache-free attention on each rank's local heads (see the module
+    docstring): batch rows and q heads as placed, sequence and head dims
+    whole; kv heads sharded as q's or whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    q = _whole(q, 1, 3)
+    mesh = q.device_mesh
+    k, v = (_whole(t, 1, 3) for t in (k, v))
+    head_dims = [i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2]
+    kv_placements = [p if i not in head_dims else Replicate() for i, p in enumerate(q.placements)]
+    if list(k.placements) != list(q.placements):
+        k, v = (t.redistribute(mesh, kv_placements) for t in (k, v))
+    expand = bool(head_dims) and list(k.placements) != list(q.placements)
+    kv_grads = [Partial() if i in head_dims and expand else p
+                for i, p in enumerate(k.placements)]
+    from unionml_tpu_torch.parallel.sharding import local_slices
+
+    offset = local_slices(q.shape, mesh, q.placements)[2].start
+    group = q.shape[2] // k.shape[2]
+
+    def attend(ql, kl, vl):
+        if expand:
+            index = _local_kv_heads(ql.shape[2], offset, group, ql.device)
+            kl, vl = _GatherHeads.apply(kl, index), _GatherHeads.apply(vl, index)
+        return _run_attention(ql, kl, vl, impl=impl, causal=causal)
+
+    return local_call(attend, [q, k, v], [q.placements, kv_grads, kv_grads],
+                      q.placements, mesh)
 
 
 def make_dense(
@@ -115,6 +246,10 @@ class RMSNorm(nn.Module):
         if self.impl == "fused":
             from unionml_tpu_torch.ops.fused_norm import fused_rms_norm
 
+            if is_dtensor(x):
+                return local_call(*_sharded_norm(
+                    lambda xl, g: fused_rms_norm(xl, g, eps=self.eps), x, [], [scale],
+                )).to(self.dtype)
             return fused_rms_norm(x, scale, eps=self.eps).to(self.dtype)
         x32 = x.float()
         normed = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + self.eps)
@@ -142,6 +277,10 @@ class LayerNorm(nn.Module):
         if self.impl == "fused":
             from unionml_tpu_torch.ops.fused_norm import fused_layer_norm
 
+            if is_dtensor(x):
+                return local_call(*_sharded_norm(
+                    lambda xl, g, b: fused_layer_norm(xl, g, b, self.eps), x, [], [scale, bias],
+                )).to(self.dtype)
             return fused_layer_norm(x, scale, bias, self.eps).to(self.dtype)
         x32 = x.float()
         mu = x32.mean(dim=-1, keepdim=True)
@@ -232,6 +371,8 @@ def _run_attention(q, k, v, *, impl: str, causal: bool) -> torch.Tensor:
     the reference picks."""
     from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ
 
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, impl=impl, causal=causal)
     if impl == "auto":
         impl = "fused" if q.shape[1] <= MAX_FUSED_SEQ and k.shape[1] == q.shape[1] else "flash"
     if impl == "xla":

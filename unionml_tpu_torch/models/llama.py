@@ -11,7 +11,9 @@ cache. Only the dense model is ported, with int8 or packed-int4
 (``kv_quant``), the block-paged decode step (``block_table=``) and, for
 training, per-block recomputation (``remat``) and LoRA adapters on an fp
 or int8 base (``lora_rank``, :mod:`~unionml_tpu_torch.models.lora`): MoE
-raises ``NotImplementedError``.
+raises ``NotImplementedError``. :data:`LLAMA_PARTITION_RULES`,
+:data:`LLAMA_QUANT_PARTITION_RULES` and :data:`LLAMA_LORA_PARTITION_RULES`
+are the reference's tensor-parallel layouts.
 """
 
 from __future__ import annotations
@@ -24,7 +26,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
-from unionml_tpu_torch.models.layers import Attention, MlpBlock, RMSNorm, make_dense
+from unionml_tpu_torch.models.layers import (
+    Attention,
+    MlpBlock,
+    RMSNorm,
+    gather_rows,
+    make_dense,
+)
+from unionml_tpu_torch.parallel.sharding import PartitionRule
 
 # per layer (k, v), or (k_q, v_q, k_scale, v_scale) under kv_quant
 Cache = Tuple[Tuple[torch.Tensor, ...], ...]
@@ -221,7 +230,7 @@ class Llama(nn.Module):
         .Attention`).
         """
         cfg = self.config
-        x = params["embed"]["embedding"][tokens.long()].to(self.dtype)
+        x = gather_rows(params["embed"]["embedding"], tokens.long()).to(self.dtype)
         if positions is None and cache_index is not None:
             if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
                 base = cache_index[:, None]
@@ -376,3 +385,41 @@ def init_cache(
          torch.zeros(shape, dtype=dtype, device=dev))
         for _ in range(config.num_layers)
     )
+
+
+LLAMA_PARTITION_RULES = (
+    # `$`-anchored so `kernel` never matches the quantized `kernel_q` params
+    PartitionRule(r"attn/(q|k|v)/kernel$", (None, "tensor", None)),
+    PartitionRule(r"attn/o/kernel$", ("tensor", None, None)),
+    PartitionRule(r"mlp/(gate|up)/kernel$", (None, "tensor")),
+    PartitionRule(r"mlp/down/kernel$", ("tensor", None)),
+    PartitionRule(r"embed/embedding$", ("tensor", None)),
+    PartitionRule(r"lm_head/kernel$", (None, "tensor")),
+)
+
+# int8 (LlamaConfig.quantized=True): kernels are 2D [K, N] with a
+# per-output-channel scale [N]. qkv/gate/up/lm_head shard N (their scales
+# shard with it); o/down shard K (their scales replicate).
+LLAMA_QUANT_PARTITION_RULES = LLAMA_PARTITION_RULES + (
+    PartitionRule(r"attn/(q|k|v)/kernel_q$", (None, "tensor")),
+    PartitionRule(r"attn/(q|k|v)/scale$", ("tensor",)),
+    PartitionRule(r"attn/o/kernel_q$", ("tensor", None)),
+    PartitionRule(r"mlp/(gate|up)/kernel_q$", (None, "tensor")),
+    PartitionRule(r"mlp/(gate|up)/scale$", ("tensor",)),
+    PartitionRule(r"mlp/down/kernel_q$", ("tensor", None)),
+    PartitionRule(r"lm_head/kernel_q$", (None, "tensor")),
+    PartitionRule(r"lm_head/scale$", ("tensor",)),
+)
+
+
+
+def __getattr__(name):
+    # LLAMA_LORA_PARTITION_RULES, for LoRA fine-tune configs (lora_rank >
+    # 0): adapter factors follow their base kernel's layout, the union
+    # covering fp and QLoRA (int8 base) alike. Built on first use, since
+    # models.lora imports this module.
+    if name == "LLAMA_LORA_PARTITION_RULES":
+        from unionml_tpu_torch.models.lora import LORA_PARTITION_RULES
+
+        return LORA_PARTITION_RULES + LLAMA_QUANT_PARTITION_RULES
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,8 +23,8 @@ carry gradients and optimizer state.
   exactly; int8 by dequantize, add, requantize), a tree the
   ``lora_rank=0`` config loads.
 
-Not ported yet: ``LORA_PARTITION_RULES`` (tensor parallelism, ROADMAP.md
-A6).
+:data:`LORA_PARTITION_RULES`: adapters follow their base kernel's
+Megatron layout under ``ShardingConfig(tensor=...)``.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from unionml_tpu_torch.models.quantization import (
     weight_product,
 )
 from unionml_tpu_torch.models.train import Optimizer, TrainState, adamw
+from unionml_tpu_torch.parallel.sharding import PartitionRule
 
 LORA_PARAM_NAMES = ("lora_a", "lora_b")
 
@@ -329,3 +330,19 @@ def merge_lora(params: Any, *, alpha: float) -> Any:
         return {key: walk(val) for key, val in tree.items()}
 
     return walk(params)
+
+
+# adapters follow their base kernel's Megatron layout: B shards N where the
+# base shards N (column-parallel q/k/v/gate/up), A shards K where the base
+# shards K (row-parallel o/down). The rank dim stays whole. lm_head and the
+# embedding carry no adapters.
+LORA_PARTITION_RULES = (
+    PartitionRule(r"attn/(q|k|v)/lora_b$", (None, "tensor")),
+    PartitionRule(r"attn/(q|k|v)/lora_a$", (None, None)),
+    PartitionRule(r"attn/o/lora_a$", ("tensor", None)),
+    PartitionRule(r"attn/o/lora_b$", (None, None)),
+    PartitionRule(r"mlp/(gate|up)/lora_b$", (None, "tensor")),
+    PartitionRule(r"mlp/(gate|up)/lora_a$", (None, None)),
+    PartitionRule(r"mlp/down/lora_a$", ("tensor", None)),
+    PartitionRule(r"mlp/down/lora_b$", (None, None)),
+)

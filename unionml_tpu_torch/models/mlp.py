@@ -8,8 +8,8 @@ per hidden width in ``config.dtype`` (bf16 by default), then an fp32
 JAX tree over unchanged. Dropout (``train=True`` with ``dropout > 0``)
 draws its keep mask from an explicit :class:`torch.Generator`; the
 reference's flax draws cannot be matched (ROADMAP.md, documented
-reference behaviours). ``MLP_PARTITION_RULES`` waits for parallelism
-(ROADMAP.md, A6).
+reference behaviours). :data:`MLP_PARTITION_RULES` is empty, as in the
+reference: the model replicates, and the FSDP fallback applies.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.quantization import DenseGeneral
+
+MLP_PARTITION_RULES = ()  # small enough to replicate; FSDP fallback applies
 
 
 @dataclass(frozen=True)

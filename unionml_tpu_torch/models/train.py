@@ -13,12 +13,22 @@ metrics)`` as in the reference; autograd takes the place of
 reference's functional update), with the multi-tensor ``torch._foreach``
 ops where the dtypes allow. A state with ``frozen_params`` (the LoRA
 train state of :mod:`~unionml_tpu_torch.models.lora`) is differentiated
-in its ``params`` only, the frozen tree merged in inside the loss. The
-gradient-overlap modes wait for parallelism (ROADMAP.md, A6).
+in its ``params`` only, the frozen tree merged in inside the loss.
+
+Under a :class:`~unionml_tpu_torch.parallel.ShardingConfig` the params are
+DTensors: :func:`value_and_grad` brings each gradient to its param's
+placements (the batch axes' sum) before anything consumes it, and an
+elementwise optimizer (``Optimizer.elementwise``, :func:`adamw`) updates
+each rank's local shards. :class:`GradOverlap` restructures gradient
+accumulation so the gradient collectives of one microbatch run during the
+next one's backward (``"defer"``, or ``"shard_map"`` with explicit
+:func:`~unionml_tpu_torch.parallel.collectives.bucketed_psum` buckets).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -79,10 +89,13 @@ def tree_device(tree: Any) -> torch.device:
 
 class Optimizer(NamedTuple):
     """An optax-style gradient transformation: ``init(params) -> state``,
-    ``update(grads, state, params) -> (updates, state)``."""
+    ``update(grads, state, params) -> (updates, state)``. ``elementwise``:
+    each output element depends on the same element of its inputs only
+    (no norm over a tensor), so sharded params update shard by shard."""
 
     init: Callable
     update: Callable
+    elementwise: bool = False
 
 
 def _foreach_add(a: List[torch.Tensor], b: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -149,7 +162,7 @@ def adamw(
         }
         return tree_unflatten(params, list(upd)), new_state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=True)
 
 
 def apply_updates(params: Any, updates: Any) -> Any:
@@ -179,10 +192,15 @@ class TrainState:
         return cls(step=0, apply_fn=apply_fn, params=params, tx=tx, opt_state=tx.init(params))
 
     def apply_gradients(self, *, grads: Any) -> "TrainState":
-        """One optimizer update; returns a new state (new tensors)."""
+        """One optimizer update; returns a new state (new tensors). Sharded
+        params under an elementwise optimizer update on each rank's local
+        shards (the same arithmetic as unsharded, no DTensor dispatch)."""
         with torch.no_grad():
-            updates, opt_state = self.tx.update(grads, self.opt_state, self.params)
-            params = apply_updates(self.params, updates)
+            if self.tx.elementwise and _any_dtensor(self.params):
+                params, opt_state = _local_update(self.tx, grads, self.opt_state, self.params)
+            else:
+                updates, opt_state = self.tx.update(grads, self.opt_state, self.params)
+                params = apply_updates(self.params, updates)
         return dataclasses.replace(self, step=self.step + 1, params=params, opt_state=opt_state)
 
     def state_dict(self) -> dict:
@@ -201,6 +219,45 @@ class TrainState:
         trees = {key: tree_map(take, getattr(self, key), saved)
                  for key, saved in state.items() if key != "step"}
         return dataclasses.replace(self, step=int(state["step"]), **trees)
+
+
+def _any_dtensor(tree: Any) -> bool:
+    from unionml_tpu_torch.parallel.compat import is_dtensor
+
+    return any(is_dtensor(leaf) for leaf in tree_leaves(tree))
+
+
+def _local_update(tx: Optimizer, grads: Any, opt_state: Any, params: Any):
+    """``tx`` applied to the local shards of DTensor params, grads and
+    optimizer state (each grad already at its param's placements), the
+    results wrapped back with the placements of the leaves they replace."""
+    from torch.distributed.tensor import DTensor
+
+    from unionml_tpu_torch.parallel.compat import is_dtensor
+
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+        if is_dtensor(p) and (not is_dtensor(g) or tuple(g.placements) != tuple(p.placements)
+                              or g.to_local().shape != p.to_local().shape):
+            raise ValueError(
+                f"a gradient ({getattr(g, 'placements', None)}, local "
+                f"{tuple(local(g).shape)}) is not laid out as its param ({p.placements}, "
+                f"local {tuple(p.to_local().shape)}): resolve it with "
+                "parallel.sharding.resolve_grads before the optimizer"
+            )
+
+    def wrap(old, new):
+        if not is_dtensor(old):
+            return new
+        return DTensor.from_local(new, old.device_mesh, old.placements, run_check=False,
+                                  shape=old.shape, stride=old.stride())
+
+    lp = tree_map(local, params)
+    updates, new_opt = tx.update(tree_map(local, grads), tree_map(local, opt_state), lp)
+    new_params = apply_updates(lp, updates)
+    return tree_map(wrap, params, new_params), tree_map(wrap, opt_state, new_opt)
 
 
 def create_train_state(
@@ -237,10 +294,9 @@ def resolve_params(state: Any) -> Any:
 # --------------------------------------------------------------------- #
 
 
-def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
-    """``((loss, aux), grads)`` of ``loss_fn(params, batch) -> (loss,
-    aux)`` with respect to every tensor of ``params`` (autograd; a param
-    the loss does not reach gets zeros)."""
+def _value_and_partial_grad(loss_fn: Callable, params: Any, batch: Any):
+    """:func:`value_and_grad` with each DTensor gradient as the backward
+    left it (a ``Partial`` sum over the batch axes not yet reduced)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, aux = loss_fn(tree_unflatten(params, leaves), batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -249,37 +305,182 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
     return (loss.detach(), aux), tree_unflatten(params, grads)
 
 
+def _pending_grads(params: Any, grads: Any):
+    """The reduction of ``grads`` to their params' placements, issued
+    (its ``wait()`` gives the tree; plain gradients need none)."""
+    from unionml_tpu_torch.parallel.sharding import PendingGrads
+
+    return PendingGrads(params, grads)
+
+
+def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
+    """``((loss, aux), grads)`` of ``loss_fn(params, batch) -> (loss,
+    aux)`` with respect to every tensor of ``params`` (autograd; a param
+    the loss does not reach gets zeros). DTensor gradients come laid out as
+    their params (:func:`~unionml_tpu_torch.parallel.sharding
+    .resolve_grads`)."""
+    (loss, aux), grads = _value_and_partial_grad(loss_fn, params, batch)
+    if _any_dtensor(grads):
+        grads = _pending_grads(params, grads).wait()
+    return (loss, aux), grads
+
+
+class GradOverlap(NamedTuple):
+    """How gradient accumulation overlaps the gradient collectives with
+    compute (the reference's :class:`unionml_tpu.models.train.GradOverlap`).
+
+    ``mode="defer"`` keeps the reduction of each microbatch's gradients
+    to their params' placements but issues it asynchronously
+    (:class:`~unionml_tpu_torch.parallel.sharding.PendingGrads`) and
+    consumes it in iteration *i + 1*, after that microbatch's backward.
+    Any mesh; the same adds in the same order as the serial loop.
+
+    ``mode="shard_map"`` takes the data-axis all-reduce manual: the loop
+    runs under :func:`~unionml_tpu_torch.parallel.compat.shard_map` over
+    ``axes`` (params replicated across them) on plain local tensors, and
+    each microbatch's fp32 gradients go out as asynchronous
+    :func:`~unionml_tpu_torch.parallel.collectives.bucketed_psum` buckets,
+    waited during the next microbatch. Valid only when every other mesh
+    axis is trivial."""
+
+    mode: str
+    mesh: Any = None
+    axes: Tuple[str, ...] = ()
+    #: None = bucketed_psum's own DEFAULT_PSUM_BUCKET_BYTES
+    bucket_bytes: Optional[int] = None
+
+
+_GRAD_OVERLAP: contextvars.ContextVar = contextvars.ContextVar(
+    "unionml_torch_grad_overlap", default=None
+)
+
+
+@contextlib.contextmanager
+def grad_overlap_scope(overlap: Optional[GradOverlap]):
+    """Make ``overlap`` the ambient accumulation strategy: every
+    :func:`accumulated_value_and_grad` run inside the scope (the zoo's
+    step factories under a trainer loop with ``overlap_grads=True``)
+    adopts it without the step author passing it through."""
+    token = _GRAD_OVERLAP.set(overlap)
+    try:
+        yield overlap
+    finally:
+        _GRAD_OVERLAP.reset(token)
+
+
+def current_grad_overlap() -> Optional[GradOverlap]:
+    """The ambient :class:`GradOverlap` (None = serial accumulation)."""
+    return _GRAD_OVERLAP.get()
+
+
+def _as_f32(a: Any, like: torch.Tensor) -> torch.Tensor:
+    return a.float() if isinstance(a, torch.Tensor) else \
+        torch.as_tensor(a, dtype=torch.float32, device=like.device)
+
+
 def accumulated_value_and_grad(
-    loss_fn: Callable, params: Any, batch: Any, *, overlap: Any = None
+    loss_fn: Callable, params: Any, batch: Any, *, overlap: Optional[GradOverlap] = None
 ) -> Tuple[Tuple[torch.Tensor, Any], Any]:
     """Mean ``(loss, aux)`` and grads of ``loss_fn(params, microbatch)``
     over the leading microbatch axis of ``batch`` (leaves ``[n_micro,
     micro_batch, ...]``): one forward + backward per microbatch in a Python
     loop, loss / aux / grads summed in fp32, then divided by ``n_micro``
     (grads cast back to their params' dtype), as the reference's serial
-    scan does. ``aux`` must be a tree of scalars."""
-    if overlap is not None:
-        raise NotImplementedError(
-            "GradOverlap accumulation modes need the parallelism port (ROADMAP.md, A11)"
+    scan does. ``aux`` must be a tree of scalars. ``overlap`` (default:
+    the ambient :func:`grad_overlap_scope`) selects a :class:`GradOverlap`
+    mode; each gives the serial loop's values."""
+    if overlap is None:
+        overlap = _GRAD_OVERLAP.get()
+    if overlap is not None and overlap.mode not in ("defer", "shard_map"):
+        raise ValueError(
+            f"unknown GradOverlap mode {overlap.mode!r}: expected 'defer' or 'shard_map'"
         )
+    if overlap is not None and overlap.mode == "shard_map":
+        return _shard_map_accumulated(loss_fn, params, batch, overlap)
+    defer = overlap is not None
     n = tree_leaves(batch)[0].shape[0]
-    loss_acc = aux_acc = grad_acc = None
+    loss_acc = aux_acc = grad_acc = pending = None
+
+    def consume(grad_acc, grads):
+        grads32 = [g.float() for g in tree_leaves(grads)]
+        return grads32 if grad_acc is None else _foreach_add(grad_acc, grads32)
+
     for i in range(n):
         micro = tree_map(lambda x: x[i], batch)
-        (loss, aux), grads = value_and_grad(loss_fn, params, micro)
+        if defer:
+            (loss, aux), grads = _value_and_partial_grad(loss_fn, params, micro)
+            if pending is not None:
+                # the previous microbatch's reduction ran behind this one's
+                # backward; consume it now, before issuing this one's
+                grad_acc = consume(grad_acc, pending.wait())
+            pending = _pending_grads(params, grads)
+        else:
+            (loss, aux), grads = value_and_grad(loss_fn, params, micro)
+            grad_acc = consume(grad_acc, grads)
         loss32 = loss.float()
-        aux32 = tree_map(lambda a: torch.as_tensor(a, dtype=torch.float32, device=loss.device),
-                         aux)
-        grads32 = [g.float() for g in tree_leaves(grads)]
+        aux32 = tree_map(lambda a: _as_f32(a, loss), aux)
         if loss_acc is None:
-            loss_acc, aux_acc, grad_acc = loss32, aux32, grads32
+            loss_acc, aux_acc = loss32, aux32
         else:
             loss_acc = loss_acc + loss32
             aux_acc = tree_map(torch.add, aux_acc, aux32)
-            grad_acc = _foreach_add(grad_acc, grads32)
+    if defer:
+        grad_acc = consume(grad_acc, pending.wait())
     p = tree_leaves(params)
     grads = tree_unflatten(params, [(g / n).to(x.dtype) for g, x in zip(grad_acc, p)])
     return (loss_acc / n, tree_map(lambda a: a / n, aux_acc)), grads
+
+
+def _shard_map_accumulated(
+    loss_fn: Callable, params: Any, batch: Any, overlap: GradOverlap
+) -> Tuple[Tuple[torch.Tensor, Any], Any]:
+    """The manual-collective accumulation: the loop inside
+    :func:`~unionml_tpu_torch.parallel.compat.shard_map` over the batch
+    axes on plain local tensors, each microbatch's fp32 gradients issued
+    as asynchronous :func:`bucketed_psum` buckets and waited in the next
+    iteration; loss and aux ``pmean``-ed. The sum over ``ndev`` ranks of
+    local-mean gradients is divided by ``n * ndev`` in one division."""
+    from unionml_tpu_torch.parallel.collectives import bucketed_psum, pmean
+    from unionml_tpu_torch.parallel.compat import axis_size, shard_map
+    from unionml_tpu_torch.parallel.sharding import PartitionSpec as P
+
+    axes = tuple(overlap.axes)
+    if overlap.mesh is None or not axes:
+        raise ValueError(
+            "GradOverlap(mode='shard_map') needs a mesh and at least one reduce axis "
+            "(the batch axes the grads all-reduce over)"
+        )
+    axis_arg = axes if len(axes) > 1 else axes[0]
+    bucket_kw = {} if overlap.bucket_bytes is None else {"bucket_bytes": overlap.bucket_bytes}
+
+    def local(params, batch):
+        n = tree_leaves(batch)[0].shape[0]
+        loss_acc = aux_acc = grad_acc = pending = None
+        for i in range(n):
+            micro = tree_map(lambda x: x[i], batch)
+            if pending is not None:
+                reduced = tree_leaves(pending.wait())
+                grad_acc = reduced if grad_acc is None else _foreach_add(grad_acc, reduced)
+            (loss, aux), grads = value_and_grad(loss_fn, params, micro)
+            pending = bucketed_psum([g.float() for g in tree_leaves(grads)], axis_arg,
+                                    wait=False, **bucket_kw)
+            loss32 = pmean(loss.float(), axis_arg)
+            aux32 = tree_map(lambda a: pmean(_as_f32(a, loss), axis_arg), aux)
+            if loss_acc is None:
+                loss_acc, aux_acc = loss32, aux32
+            else:
+                loss_acc = loss_acc + loss32
+                aux_acc = tree_map(torch.add, aux_acc, aux32)
+        reduced = tree_leaves(pending.wait())
+        grad_acc = reduced if grad_acc is None else _foreach_add(grad_acc, reduced)
+        scale = n * axis_size(axis_arg)
+        p = tree_leaves(params)
+        grads = tree_unflatten(params, [(g / scale).to(x.dtype) for g, x in zip(grad_acc, p)])
+        return (loss_acc / n, tree_map(lambda a: a / n, aux_acc)), grads
+
+    fn = shard_map(local, overlap.mesh, in_specs=(P(), P(None, axis_arg)),
+                   out_specs=((P(), P()), P()), check_rep=False)
+    return fn(params, batch)
 
 
 def _bind_frozen(loss_fn: Callable, state: Any) -> Callable:
@@ -352,7 +553,7 @@ def lm_step(
     unsupervised positions. The loss is :func:`masked_cross_entropy` plus
     ``aux_loss_weight`` times the layer-mean of the model's auxiliary
     losses, which the port's dense model does not have (its ``aux_loss``
-    is 0; MoE waits for A11). Metrics ``loss`` (the cross entropy),
+    is 0; MoE waits for A6b). Metrics ``loss`` (the cross entropy),
     ``perplexity`` and ``aux_loss`` stay on the device.
     ``accumulate_steps > 1``: the batch leaves carry a leading microbatch
     axis and one optimizer update follows the fp32 grad mean over it."""

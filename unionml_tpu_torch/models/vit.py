@@ -13,8 +13,10 @@ LayerNorm kernels and fuses the mid-block residual add into ``ln2``
 ``"fused"`` (``base16``'s default) runs the fused short-sequence attention
 kernels. The param tree is the reference's, so
 :func:`~unionml_tpu_torch.models.convert.vit_from_jax_params` carries a JAX
-tree over unchanged. The reference's ``VIT_PARTITION_RULES`` wait for
-tensor parallelism (ROADMAP.md, A11).
+tree over unchanged. :data:`VIT_PARTITION_RULES` are the reference's
+Megatron layout for ``ShardingConfig(tensor=...)``: q/k/v and ``up``
+split their output features over ``tensor``, o and ``down`` their input
+features, the patch embedding its output channels.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.layers import Attention, LayerNorm, MlpBlock
+from unionml_tpu_torch.parallel.sharding import PartitionRule
 
 
 @dataclass(frozen=True)
@@ -74,9 +77,19 @@ class _AddLayerNorm(nn.Module):
         self.dtype = torch_dtype(dtype)
 
     def forward(self, params, x: torch.Tensor, branch: torch.Tensor):
+        from unionml_tpu_torch.models.layers import _sharded_norm
         from unionml_tpu_torch.ops.fused_norm import fused_add_layer_norm
+        from unionml_tpu_torch.parallel.compat import is_dtensor, local_call
 
-        s, y = fused_add_layer_norm(x, branch, params["scale"], params["bias"], self.eps)
+        def fn(xl, rl, g, b):
+            return fused_add_layer_norm(xl, rl, g, b, self.eps)
+
+        if is_dtensor(x):
+            fn, args, grads, placements, mesh = _sharded_norm(
+                fn, x, [branch], [params["scale"], params["bias"]])
+            s, y = local_call(fn, args, grads, (placements, placements), mesh)
+        else:
+            s, y = fn(x, branch, params["scale"], params["bias"])
         return s, y.to(self.dtype)
 
 
@@ -201,3 +214,13 @@ def init_params(
     params["head"] = dense((d, cfg.num_classes), d, (cfg.num_classes,))
     return params
 
+
+# Megatron-style TP: qkv/up split output features over `tensor`,
+# o/down split input features -> one sum after attn, one after mlp.
+VIT_PARTITION_RULES = (
+    PartitionRule(r"attn/(q|k|v)/kernel$", (None, "tensor", None)),
+    PartitionRule(r"attn/o/kernel$", ("tensor", None, None)),
+    PartitionRule(r"mlp/up/kernel$", (None, "tensor")),
+    PartitionRule(r"mlp/down/kernel$", ("tensor", None)),
+    PartitionRule(r"patch_embed/kernel$", (None, None, None, "tensor")),
+)

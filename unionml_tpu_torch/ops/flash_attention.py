@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.parallel.compat import refuse_dtensor
 
 NEG_INF = -1e30
 
@@ -460,6 +461,7 @@ def flash_attention(
     or 128 keys of one q head by 64 queries). The CUDA
     kernels for CUDA tensors, the plain versions for CPU ones."""
     del block_q, block_kv  # the TPU's tile knobs; see the docstring
+    refuse_dtensor("flash_attention", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_valid_start is not None:

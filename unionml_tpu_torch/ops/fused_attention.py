@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.parallel.compat import refuse_dtensor
 from unionml_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 
 # Above this sequence length use flash attention (the TPU kernel's S x S
@@ -216,6 +217,7 @@ def fused_attention(
     (differentiable). GQA-aware: kv heads repeat to the query heads
     outside the autograd function. Sequences longer than
     :data:`MAX_FUSED_SEQ` and unequal q/kv lengths raise ``ValueError``."""
+    refuse_dtensor("fused_attention", q, k, v)
     if q.shape[1] > MAX_FUSED_SEQ:
         raise ValueError(
             f"fused_attention is for short sequences (<= {MAX_FUSED_SEQ}); "

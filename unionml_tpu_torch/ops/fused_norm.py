@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.parallel.compat import refuse_dtensor
 
 _FWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -353,6 +354,7 @@ def fused_layer_norm(
     dims), one fused pass each way; ``rms=True`` drops the mean (pass
     ``beta=None``): Llama-style RMSNorm. Differentiable in ``x``,
     ``gamma`` and ``beta``."""
+    refuse_dtensor("fused_layer_norm", x, gamma, beta)
     if not _needs_grad(x, gamma, beta):
         return _fwd(_flat(x), gamma, beta, eps, rms).reshape(x.shape)
     return _LayerNorm.apply(_flat(x), gamma, beta, eps, rms).reshape(x.shape)
@@ -364,6 +366,7 @@ def fused_add_layer_norm(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``s = x + r; y = norm(s)`` in one pass; returns ``(s, y)``, both in
     ``x``'s dtype. The backward sends ``dx + ds`` to both ``x`` and ``r``."""
+    refuse_dtensor("fused_add_layer_norm", x, r, gamma, beta)
     if _needs_grad(x, r, gamma, beta):
         s, y = _AddLayerNorm.apply(_flat(x), _flat(r), gamma, beta, eps, rms)
     else:

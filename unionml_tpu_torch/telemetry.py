@@ -57,11 +57,11 @@ import itertools
 import json
 import math
 import os
+import random
 import re
 import sys
 import threading
 import time
-import uuid
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -183,9 +183,21 @@ _instance_counters: Dict[str, "itertools.count"] = {}
 _instance_lock = threading.Lock()
 
 
+#: The source of request, trace and span ids: seeded from the OS once (and
+#: again in a forked child), then drawn without a system call, so the
+#: trainer's per-phase spans cost no syscall between its goodput phases.
+_ID_RNG = random.Random()
+os.register_at_fork(after_in_child=_ID_RNG.seed)
+
+
+def _random_hex(bits: int) -> str:
+    """``bits`` random bits as lowercase hex, never all zero."""
+    return f"{_ID_RNG.getrandbits(bits) or 1:0{bits // 4}x}"
+
+
 def new_request_id() -> str:
     """A 16-hex-char request id (the ``X-Request-ID`` / trace key)."""
-    return uuid.uuid4().hex[:16]
+    return _random_hex(64)
 
 
 def instance_label(prefix: str) -> str:
@@ -774,15 +786,13 @@ class TraceContext:
 
 
 def new_trace_id() -> str:
-    """A 32-hex-char (128-bit) W3C trace id (never all-zero: uuid4's
-    version bits are fixed)."""
-    return uuid.uuid4().hex
+    """A 32-hex-char (128-bit) W3C trace id (never all-zero)."""
+    return _random_hex(128)
 
 
 def new_span_id() -> str:
-    """A 16-hex-char (64-bit) W3C span id (never all-zero: the uuid4
-    version nibble lands inside the first 16 chars)."""
-    return uuid.uuid4().hex[:16]
+    """A 16-hex-char (64-bit) W3C span id (never all-zero)."""
+    return _random_hex(64)
 
 
 def parse_traceparent(header: Optional[str]) -> Optional[TraceContext]:
