@@ -134,6 +134,29 @@ Phases, each of which fails the run with a non-zero exit:
              a ViT-B gradient tree equal to its input, the collective
              counter above 0; step ms plain and sharded; the phase within
              60 s;
+3i. parallel — (a) the ring flash attention's per-step functions on
+             four virtual shards of one causal GQA sequence at llama_lc's
+             attention width (q[2,4096,12,64], kv[2,4096,4,64], bf16), each
+             virtual rank given the kv the rotation would bring: out, lse,
+             dq, dk, dv against the unsharded flash op row by row, a
+             diagonal run non-causal and a delta from the local shard alone
+             failing; rows 9-11 and the delta pass 10 times each; then a
+             one-rank NCCL group and (b) two
+             sequence_parallel_lm_step(attn="ring_flash") steps of llama_lc
+             at 2 x 4096 through compile_step, bit for bit against lm_step
+             on the same seed and shifted tokens; (c) two
+             pipelined_lm_steps (one stage, 4 microbatches, flash) at 4 x
+             2048, SGD, each tensor's update within 5e-2 of lm_step's
+             4-microbatch accumulation; (d1) Mixtral-8x7B width at 2 of its
+             32 layers (fused norms, flash attention): two SGD lm_steps of
+             1 x 1024 under ShardingConfig(data=-1, expert=1,
+             rules=LLAMA_MOE_PARTITION_RULES) bit for bit against the plain
+             steps, aux_loss non-zero, peak memory; (d2) one Mixtral-width
+             MoE block int8 against its fp form (rel < 0.05), then random
+             int8 experts at 8 layers (11.3 GB) behind make_generator, 16
+             greedy tokens for 2 prompts of 128: ms a token, peak memory,
+             the MoE blocks' share of the device time, rows 1 and 2
+             launched; the phase within 60 s;
 4. serve   — build the ported llm_serving template at Llama-3-8B width
              (int8 weights, padded flash prefill, fused RMSNorm; random
              weights from a seeded torch.Generator on the card), check its
@@ -3443,6 +3466,524 @@ def sharded_phase(vit_cfg, llama_cfg, *, device: str = "cuda", vit_batch: int = 
             "collectives": collectives, "seconds": seconds}
 
 
+# --------------------------------------------------------------------- #
+# 3i: sequence, pipeline and expert parallelism, the MoE Llama
+# --------------------------------------------------------------------- #
+
+PARALLEL_PHASE_MAX_S = 60.0   # the phase's own time limit
+# (a): the ring's kernels on four virtual shards of one causal GQA
+# sequence at llama_lc's attention width
+RING_SHAPE = dict(b=2, s=4096, h=12, kvh=4, d=64)
+RING_SHARDS = 4
+# out, dq, dk and dv of the ring against the unsharded op, row by row: the
+# ring rounds each step's partial output (and dq, dk, dv) to bf16 before
+# its fp32 merge or sum, one more bf16 rounding than the unsharded
+# kernels' per visiting shard, so up to ~4 ulps of a row's largest entry
+# where the unsharded op has ~2.5: 3e-2
+RING_ROW_LIMIT = 3e-2
+# (c): the pipelined step against lm_step's 4-microbatch accumulation,
+# SGD (an update linear in the gradient), per tensor: |update difference|
+# over |plain update|. The two normalise the loss at other points (over
+# the whole batch, against per microbatch then a mean of four) and run the
+# head on 4x the rows, so the bf16 backward rounds differently
+PIPELINE_UPDATE_REL_MAX = 5e-2
+# (d2): the int8 MoE block against the fp block at full width: the
+# reference's bound (tests/unit/test_moe.py:212-229)
+MOE_INT8_REL_MAX = 0.05
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_SERVE_LAYERS = 8
+
+
+def sgd_optimizer(learning_rate: float):
+    """Plain elementwise SGD (the comparisons of (c): an update linear in
+    the gradient)."""
+    from unionml_tpu_torch.models.train import Optimizer, tree_leaves, tree_unflatten
+
+    def update(grads, state, params):
+        return tree_unflatten(grads, [g * -learning_rate for g in tree_leaves(grads)]), state
+
+    return Optimizer(lambda params: {}, update, elementwise=True)
+
+
+def virtual_ring(q, k, v, do, shards: int, *, causal: bool = True, fault: str = "") -> dict:
+    """The ring flash attention's per-step functions over ``shards``
+    virtual ranks in one process: at every step each virtual rank gets
+    the kv shard the rotation would bring (rank ``me`` at step ``s`` the
+    shard of ``(me - s) mod n``), the forward merges the partial outputs,
+    the backward sums the delta pass's partials against the global lse,
+    then runs dq and dk/dv, dk/dv summed in the order the rotating buffers
+    visit the ranks. Returns the whole out, lse, dq, dk, dv. Planted
+    faults: ``diagonal_noncausal`` (the diagonal shard run non-causal),
+    ``local_delta`` (each rank's delta from its own shard's partial only)."""
+    from unionml_tpu_torch.ops import ring_attention as ring
+    from unionml_tpu_torch.ops.attention import NEG_INF
+
+    n = shards
+    scale = q.shape[-1] ** -0.5
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(n, dim=1)] for t in (q, k, v, do))
+
+    def kind(src, me):
+        got = ring.ring_step_kind(src, me, causal)
+        return "full" if fault == "diagonal_noncausal" and got == "diagonal" else got
+
+    outs, lses = [], []
+    for me in range(n):
+        b, s_loc, h, d = qs[me].shape
+        out = torch.zeros(b, s_loc, h, d, dtype=torch.float32, device=q.device)
+        lse = torch.full((b, h, s_loc), NEG_INF, dtype=torch.float32, device=q.device)
+        for s in range(n):
+            src = (me - s) % n
+            part = ring.ring_flash_step(qs[me], ks[src], vs[src], kind=kind(src, me), scale=scale)
+            if part is not None:
+                out, lse = ring.merge_partial(out, lse, *part)
+        outs.append(out.to(q.dtype))
+        lses.append(lse)
+    deltas = []
+    for me in range(n):
+        delta = torch.zeros_like(lses[me])
+        for s in range(n):
+            src = (me - s) % n
+            if fault == "local_delta" and src != me:
+                continue
+            part = ring.ring_delta_step(qs[me], ks[src], vs[src], dos[me], lses[me],
+                                        kind=kind(src, me), scale=scale)
+            if part is not None:
+                delta = delta + part
+        deltas.append(delta)
+    dq = [torch.zeros(t.shape, dtype=torch.float32, device=q.device) for t in qs]
+    dk = [torch.zeros(t.shape, dtype=torch.float32, device=q.device) for t in ks]
+    dv = [torch.zeros(t.shape, dtype=torch.float32, device=q.device) for t in vs]
+    for s in range(n):
+        for me in range(n):
+            src = (me - s) % n
+            grads = ring.ring_grad_step(qs[me], ks[src], vs[src], dos[me], lses[me], deltas[me],
+                                        kind=kind(src, me), scale=scale)
+            if grads is not None:
+                dq[me] += grads[0].float()
+                dk[src] += grads[1].float()
+                dv[src] += grads[2].float()
+    return {"out": torch.cat(outs, dim=1), "lse": torch.cat(lses, dim=2),
+            "dq": torch.cat(dq, dim=1).to(q.dtype), "dk": torch.cat(dk, dim=1).to(k.dtype),
+            "dv": torch.cat(dv, dim=1).to(v.dtype)}
+
+
+def unsharded_flash(q, k, v, do, *, causal: bool = True) -> dict:
+    """The unsharded flash op on the whole sequence: the lse forward and
+    the backward (delta pass, dq, dk/dv) on the card, their plain versions
+    on the CPU."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        out, lse = fa.flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+        dq, dk, dv = fa.flash_bwd_cuda(q, k, v, do, lse, causal=causal, scale=scale)
+    else:
+        out, lse = fa.flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+        dq, dk, dv = fa.flash_bwd_plain(q, k, v, do, lse, causal=causal, scale=scale)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def ring_kernel_check(*, device: str = "cuda", shape: dict = None, shards: int = RING_SHARDS,
+                      seed: int = 0) -> dict:
+    """(a): one causal GQA sequence split into ``shards`` virtual shards,
+    driven through the ring's per-step functions (:func:`virtual_ring`),
+    held against the unsharded op on the whole sequence: out, dq, dk and
+    dv row by row within :data:`RING_ROW_LIMIT`, lse within ``LSE_TOL``;
+    the diagonal run non-causal must fail the out check and a delta from
+    the local shard alone the dq and dk checks. The launches of rows 9-11
+    and the delta pass during the ring, and both times."""
+    c = dict(RING_SHAPE, **(shape or {}))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+
+    def rand(*dims):
+        return torch.randn(*dims, generator=gen, device=device).to(dtype)
+
+    q, do = rand(c["b"], c["s"], c["h"], c["d"]), rand(c["b"], c["s"], c["h"], c["d"])
+    k, v = rand(c["b"], c["s"], c["kvh"], c["d"]), rand(c["b"], c["s"], c["kvh"], c["d"])
+    kernels = lm_kernels()
+    want = unsharded_flash(q, k, v, do)
+    for kern in kernels.values():
+        kern.launches = 0
+    got = virtual_ring(q, k, v, do, shards)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    noncausal = virtual_ring(q, k, v, do, shards, fault="diagonal_noncausal")
+    local = virtual_ring(q, k, v, do, shards, fault="local_delta")
+    checks = check_rows_with_fault("ring out", got, want, noncausal, {"out": RING_ROW_LIMIT},
+                                   "the diagonal shard run non-causal")
+    checks.update(check_rows_with_fault("ring", got, want, local,
+                                        dict.fromkeys(("dq", "dk"), RING_ROW_LIMIT),
+                                        "delta from the local shard alone"))
+    checks["dv"] = check_rows("ring dv", got["dv"], want["dv"], RING_ROW_LIMIT)
+    lse_err = float((got["lse"] - want["lse"]).abs().max())
+    torch.testing.assert_close(got["lse"], want["lse"], **LSE_TOL)
+    on_card = device == "cuda"
+    out = {"shape": f"q[{c['b']},{c['s']},{c['h']},{c['d']}] kv[{c['b']},{c['s']},{c['kvh']},"
+                    f"{c['d']}] causal, {shards} virtual shards",
+           "checks": checks, "lse_max_abs_err": lse_err, "launches": launches}
+    if on_card:
+        out["ring_ms"] = time_ms(lambda: virtual_ring(q, k, v, do, shards), iters=3, warmup=1)
+        out["unsharded_ms"] = time_ms(lambda: unsharded_flash(q, k, v, do), iters=3, warmup=1)
+        expect = {"flash_fwd": shards * (shards + 1) // 2,
+                  "flash_bwd_delta": shards * (shards + 1) // 2,
+                  "flash_bwd_dq": shards * (shards + 1) // 2,
+                  "flash_bwd_dkv": shards * (shards + 1) // 2}
+        if launches != expect:
+            raise AssertionError(f"the ring's launches {launches}, expected {expect}")
+    log(f"parallel ring: {out['shape']}: rows {checks}; lse max abs err {lse_err}; launches "
+        f"{launches}; ring ms {out.get('ring_ms')} unsharded ms {out.get('unsharded_ms')}")
+    return out
+
+
+def _timed_steps(step, state, batches, on_card: bool):
+    per_step, times, losses = [], [], []
+    for b in batches:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        if on_card:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        per_step.append([x.clone() for x in local_leaves(state.params)])
+    return state, per_step, times, losses
+
+
+def sequence_parallel_check(config, *, device: str = "cuda", batch: int = 2, seq: int = 4096,
+                            steps: int = 2) -> dict:
+    """(b): ``steps`` ``sequence_parallel_lm_step(attn="ring_flash")`` steps
+    through ``compile_step`` on a one-rank (data 1, sequence 1) mesh
+    against ``lm_step`` on the same seed and shifted tokens (the last
+    target ignore_id): the params after every step bit for bit; rows 9-11
+    and the delta pass launched on the ring."""
+    from unionml_tpu_torch.models import Llama, create_train_state, lm_step
+    from unionml_tpu_torch.models.sequence_parallel import sequence_parallel_lm_step
+    from unionml_tpu_torch.parallel import ShardingConfig, compile_step
+
+    on_card = device == "cuda"
+    module = Llama(config)
+    tokens = torch.from_numpy(lm_tokens(batch * steps, seq, config.vocab_size, 5)).to(device)
+    batches = [tokens[i * batch:(i + 1) * batch] for i in range(steps)]
+    example = torch.zeros(1, 8, dtype=torch.long, device=device)
+    kernels = lm_kernels()
+
+    def shifted(b):
+        return b, torch.cat([b[:, 1:], torch.full_like(b[:, :1], -100)], dim=1)
+
+    state = create_train_state(module, example, learning_rate=1e-3)
+    _, plain, plain_ms, plain_loss = _timed_steps(lm_step(module), state,
+                                                  [shifted(b) for b in batches], on_card)
+    sc = ShardingConfig(data=1, sequence=-1, batch_spec=("data", "sequence"))
+    step, state = compile_step(
+        sequence_parallel_lm_step(config, mesh=sc.mesh(), attn="ring_flash"),
+        create_train_state(module, example, learning_rate=1e-3), sharding=sc)
+    for kern in kernels.values():
+        kern.launches = 0
+    _, sp, sp_ms, sp_loss = _timed_steps(step, state, batches, on_card)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    equal = [leaves_equal(a, b) for a, b in zip(sp, plain)]
+    out = {"config": f"Llama width {config.hidden_dim}, {config.num_layers} layers, attn "
+                     f"ring_flash over (data 1, sequence 1); {steps} steps of {batch} x {seq}",
+           "plain_step_ms": plain_ms, "step_ms": sp_ms, "bit_equal_per_step": equal,
+           "loss": sp_loss, "plain_loss": plain_loss, "launches": launches}
+    log(f"parallel sp: step_ms plain {plain_ms} sp {sp_ms}; bit-equal {equal}; loss {sp_loss} "
+        f"(plain {plain_loss}); launches {launches}")
+    if not all(equal):
+        raise AssertionError("the sequence-parallel steps left the plain steps' bits")
+    if on_card and not all(launches.values()):
+        raise AssertionError(f"a flash kernel never launched on the ring: {launches}")
+    return out
+
+
+def pipeline_check(config, *, device: str = "cuda", batch: int = 4, seq: int = 2048,
+                   micro: int = 4, steps: int = 2, lr: float = 1e-2) -> dict:
+    """(c): ``steps`` ``pipelined_lm_step``s (one stage, ``micro``
+    microbatches) through ``compile_step`` on a one-rank (pipeline 1,
+    data 1) mesh against ``lm_step(accumulate_steps=micro)`` on the same
+    params and tokens, SGD: each tensor's update within
+    :data:`PIPELINE_UPDATE_REL_MAX` of the plain update after every step;
+    rows 9-11 launched on the pipeline."""
+    from unionml_tpu_torch.models import Llama, lm_step
+    from unionml_tpu_torch.models.llama import init_params
+    from unionml_tpu_torch.models.pipeline_lm import (
+        PIPELINE_PARTITION_RULES, pipelined_lm_step, to_pipeline_params)
+    from unionml_tpu_torch.models.train import TrainState, tree_leaves, tree_unflatten
+    from unionml_tpu_torch.parallel import ShardingConfig, compile_step
+
+    on_card = device == "cuda"
+    module = Llama(config)
+    tokens = torch.from_numpy(lm_tokens(batch * steps, seq + 1, config.vocab_size, 6)).to(device)
+    batches = [tokens[i * batch:(i + 1) * batch] for i in range(steps)]
+    kernels = lm_kernels()
+    init = init_params(config, seed=3, device=device)
+    first = [x.clone() for x in tree_leaves(to_pipeline_params(init, config, 1))]
+    plain_state = TrainState.create(apply_fn=module, params=init, tx=sgd_optimizer(lr))
+    acc = [b.reshape(micro, batch // micro, seq + 1) for b in batches]
+    _, plain, plain_ms, plain_loss = _timed_steps(lm_step(module, accumulate_steps=micro),
+                                                  plain_state, acc, on_card)
+    sc = ShardingConfig(data=1, pipeline=-1, rules=PIPELINE_PARTITION_RULES)
+    state = TrainState.create(apply_fn=None, params=to_pipeline_params(init, config, 1),
+                              tx=sgd_optimizer(lr))
+    step, state = compile_step(pipelined_lm_step(config, 1, mesh=sc.mesh(),
+                                                 num_microbatches=micro), state, sharding=sc)
+    for kern in kernels.values():
+        kern.launches = 0
+    _, piped, pp_ms, pp_loss = _timed_steps(step, state, batches, on_card)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    worst = []
+    for got_step, want_step in zip(piped, plain):
+        want_tree = to_pipeline_params(tree_unflatten(init, want_step), config, 1)
+        rel = []
+        for g, w, p0 in zip(got_step, tree_leaves(want_tree), first):
+            upd = (w.float() - p0.float()).norm()
+            rel.append(float((g.float() - w.float()).norm() / upd.clamp_min(1e-30)))
+        worst.append(max(rel))
+    out = {"config": f"Llama width {config.hidden_dim}, {config.num_layers} layers, attn "
+                     f"{config.attn_impl}, 1 stage x {micro} microbatches; {steps} SGD steps "
+                     f"of {batch} x {seq}",
+           "plain_step_ms": plain_ms, "step_ms": pp_ms, "update_rel_err": worst,
+           "limit": PIPELINE_UPDATE_REL_MAX, "loss": pp_loss, "plain_loss": plain_loss,
+           "launches": launches}
+    log(f"parallel pipeline: step_ms plain {plain_ms} pipelined {pp_ms}; update rel err "
+        f"{worst}; loss {pp_loss} (plain {plain_loss}); launches {launches}")
+    if max(worst) > PIPELINE_UPDATE_REL_MAX:
+        raise AssertionError(f"the pipelined step's update is {max(worst)} off the plain "
+                             f"step's, beyond {PIPELINE_UPDATE_REL_MAX}")
+    if on_card and not all(launches.values()):
+        raise AssertionError(f"a flash kernel never launched in the pipeline: {launches}")
+    return out
+
+
+def moe_kernels() -> dict:
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    return {"rms_norm_fwd": fn.KERNEL, "norm_bwd": fn.BWD_KERNEL,
+            "flash_fwd_padded": fa.KERNEL, **lm_kernels()}
+
+
+def moe_train_check(config, *, device: str = "cuda", seq: int = 1024, steps: int = 2) -> dict:
+    """(d1): Mixtral-8x7B width at ``config.num_layers`` layers, bf16
+    compute, fused norms, flash attention: ``steps`` SGD ``lm_step``s plain
+    and through ``compile_step`` under ``ShardingConfig(data=-1, expert=1,
+    rules=LLAMA_MOE_PARTITION_RULES)`` on 1 x ``seq`` tokens from one seed,
+    interleaved: the params after every step bit for bit, ``aux_loss``
+    reported and non-zero, peak memory. (SGD keeps two states of the
+    width on the card at once: an AdamW state of it is 4x the params.)"""
+    from unionml_tpu_torch.models import Llama, lm_step
+    from unionml_tpu_torch.models.llama import LLAMA_MOE_PARTITION_RULES, init_params
+    from unionml_tpu_torch.models.train import TrainState
+    from unionml_tpu_torch.parallel import ShardingConfig, compile_step
+
+    on_card = device == "cuda"
+    module = Llama(config)
+    tokens = torch.from_numpy(lm_tokens(steps, seq + 1, config.vocab_size, 7)).to(device)
+    kernels = moe_kernels()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        return TrainState.create(apply_fn=module, params=init_params(config, seed=9,
+                                                                     device=device),
+                                 tx=sgd_optimizer(1e-3))
+
+    plain_state = fresh()
+    plain_step = lm_step(module)
+    sc = ShardingConfig(data=-1, expert=1, rules=LLAMA_MOE_PARTITION_RULES)
+    step, state = compile_step(lm_step(module), fresh(), sharding=sc)
+    equal, plain_ms, sharded_ms, aux, losses = [], [], [], [], []
+    launches = None
+    for i in range(steps):
+        b = tokens[i:i + 1]
+        plain_state, _, t_plain, _ = _timed_steps(plain_step, plain_state, [b], on_card)
+        for kern in kernels.values():
+            kern.launches = 0
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        if on_card:
+            torch.cuda.synchronize()
+        sharded_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        plain_ms += t_plain
+        aux.append(float(metrics["aux_loss"]))
+        losses.append(float(metrics["loss"]))
+        equal.append(leaves_equal(local_leaves(state.params), local_leaves(plain_state.params)))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    out = {"config": f"Mixtral-8x7B width (vocab {config.vocab_size}, d {config.hidden_dim}, "
+                     f"{config.num_experts} experts top-{config.num_selected}, mlp "
+                     f"{config.mlp_dim}), {config.num_layers} layers, attn {config.attn_impl}, "
+                     f"norm {config.norm_impl}; {steps} SGD steps of 1 x {seq}",
+           "plain_step_ms": plain_ms, "sharded_step_ms": sharded_ms,
+           "bit_equal_per_step": equal, "aux_loss": aux, "loss": losses,
+           "peak_gib": peak, "launches_per_step": launches}
+    log(f"parallel moe train: step_ms plain {plain_ms} sharded {sharded_ms}; bit-equal {equal}; "
+        f"loss {losses} aux_loss {aux}; peak {peak} GiB; launches a step {launches}")
+    if not all(equal):
+        raise AssertionError("the MoE step under LLAMA_MOE_PARTITION_RULES left the plain bits")
+    if not all(a > 0 and np.isfinite(a) for a in aux):
+        raise AssertionError(f"the MoE aux loss is {aux}, not finite and positive")
+    if on_card and not (launches["rms_norm_fwd"] and launches["norm_bwd"]
+                        and launches["flash_fwd"]):
+        raise AssertionError(f"a kernel never launched on the MoE step: {launches}")
+    return out
+
+
+def random_moe_block(config, gen, device: str, dtype) -> dict:
+    """A random fp MoE block at ``config``'s width: the fp32 router and
+    ``dtype`` experts, normal with std 1/sqrt(fan_in)."""
+    d, h, e = config.hidden_dim, config.mlp_dim, config.num_experts
+
+    def normal(*shape):
+        w = torch.randn(*shape, generator=gen, device=device, dtype=torch.float32)
+        return (w * shape[-2] ** -0.5).to(dtype)
+
+    return {"router_kernel": normal(d, e).float(), "w_gate": normal(e, d, h),
+            "w_up": normal(e, d, h), "w_down": normal(e, h, d)}
+
+
+def moe_serve_check(config, *, device: str = "cuda", prompts: int = 2, prompt_len: int = 128,
+                    new_tokens: int = 16) -> dict:
+    """(d2): one MoE block at Mixtral width, fp (bf16) against its int8
+    form (quantize_params): rel < :data:`MOE_INT8_REL_MAX`; then int8
+    experts (random, made on the card) at ``config.num_layers`` layers
+    behind ``make_generator``: ``new_tokens`` greedy tokens for
+    ``prompts`` prompts of ``prompt_len``; ms a token, peak memory, the
+    MoE blocks' share of the device time (CUDA events around each block),
+    rows 1 and 2 launched."""
+    from unionml_tpu_torch.models import LLAMA_QUANT_PATTERNS, Llama, make_generator
+    from unionml_tpu_torch.models import quantize_params
+    from unionml_tpu_torch.ops import moe
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(11)
+    dtype = torch.bfloat16
+    fp = random_moe_block(config, gen, device, dtype)
+    x = torch.randn(1, prompt_len, config.hidden_dim, generator=gen, device=device).to(dtype)
+    block = moe.MoEMlp(config.num_experts, config.num_selected, config.mlp_dim,
+                       config.hidden_dim, dtype=dtype)
+    qblock = moe.MoEMlp(config.num_experts, config.num_selected, config.mlp_dim,
+                        config.hidden_dim, dtype=dtype, quantized=True)
+    with torch.inference_mode():
+        want, _ = block(fp, x)
+        got, _ = qblock(quantize_params({"moe": fp}, LLAMA_QUANT_PATTERNS)["moe"], x)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    del fp
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30 if on_card else None
+    params = random_quantized_params(config, 12, device=device)
+    weights_gib = torch.cuda.memory_allocated() / 2**30 if on_card else None
+    expert_bytes = sum(t.numel() * t.element_size() for i in range(config.num_layers)
+                       for name, t in params[f"block_{i}"]["moe"].items() if name.endswith("_q"))
+    model = Llama(config)
+    generate = make_generator(model, max_new_tokens=new_tokens)
+    rng = np.random.default_rng(13)
+    ids = torch.as_tensor(rng.integers(1, config.vocab_size, (prompts, prompt_len)),
+                          device=device)
+    kernels = moe_kernels()
+    spans = []
+    real = moe.MoEMlp.forward
+
+    def timed(self, params, x, **kw):
+        if not on_card:
+            return real(self, params, x, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(self, params, x, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    with torch.inference_mode():
+        generate(params, ids)       # warm: the cuBLAS plans and the kernels' first launches
+        for kern in kernels.values():
+            kern.launches = 0
+        moe.MoEMlp.forward = timed
+        try:
+            if on_card:
+                torch.cuda.synchronize()
+                total_start = torch.cuda.Event(enable_timing=True)
+                total_end = torch.cuda.Event(enable_timing=True)
+                total_start.record()
+            t0 = time.perf_counter()
+            tokens = generate(params, ids)
+            if on_card:
+                total_end.record()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            moe.MoEMlp.forward = real
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    moe_ms = sum(s.elapsed_time(e) for s, e in spans) if on_card else None
+    device_ms = total_start.elapsed_time(total_end) if on_card else None
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    out = {"config": f"Mixtral-8x7B width, int8 (experts int8 with per-(expert, channel) "
+                     f"scales), {config.num_layers} layers, prefill {config.prefill_impl}, "
+                     f"norm {config.norm_impl}; {prompts} prompts x {prompt_len}, "
+                     f"{new_tokens} greedy tokens",
+           "int8_block_rel_err": rel, "limit": MOE_INT8_REL_MAX,
+           "expert_int8_gb": expert_bytes / 1e9, "ms_per_token": wall * 1e3 / new_tokens,
+           "wall_s": wall, "peak_gib": peak, "held_before_gib": held_gib,
+           "with_weights_gib": weights_gib, "moe_device_ms": moe_ms, "device_ms": device_ms,
+           "moe_share_of_device_time": (moe_ms / device_ms) if on_card else None,
+           "launches": launches, "tokens_shape": list(tokens.shape)}
+    log(f"parallel moe serve: int8 block rel err {rel}; {out['expert_int8_gb']:.2f} GB int8 "
+        f"experts; ms a token {out['ms_per_token']}; allocated {held_gib} GiB before the "
+        f"weights, {weights_gib} GiB with them, peak {peak} GiB; MoE blocks "
+        f"{moe_ms} of {device_ms} device ms; launches {launches}")
+    if not rel < MOE_INT8_REL_MAX:
+        raise AssertionError(f"the int8 MoE block is {rel} off the fp block")
+    if tuple(tokens.shape) != (prompts, new_tokens) or not bool(
+            ((tokens >= 0) & (tokens < config.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(tokens.shape)} tokens out of range")
+    if on_card and not (launches["rms_norm_fwd"] and launches["flash_fwd_padded"]):
+        raise AssertionError(f"rows 1 / 2 never launched on the MoE serving path: {launches}")
+    return out
+
+
+def parallel_phase(llama_cfg, *, device: str = "cuda") -> dict:
+    """3i: a one-rank process group (NCCL on the card), then (a)
+    :func:`ring_kernel_check`, (b) :func:`sequence_parallel_check`, (c)
+    :func:`pipeline_check` at llama_lc width, (d1) :func:`moe_train_check`
+    and (d2) :func:`moe_serve_check` at Mixtral-8x7B width. The group is
+    destroyed at the end. Fails past :data:`PARALLEL_PHASE_MAX_S`."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import LlamaConfig
+    from unionml_tpu_torch.parallel import multihost_initialize
+
+    t0 = time.perf_counter()
+    ring = ring_kernel_check(device=device)
+    if not multihost_initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device):
+        raise AssertionError("the process group did not start")
+    try:
+        backend = dist.get_backend()
+        sp = sequence_parallel_check(llama_cfg, device=device)
+        pipe = pipeline_check(llama_cfg, device=device)
+        mixtral = LlamaConfig.mixtral_8x7b()
+        train_cfg = dataclasses.replace(mixtral, num_layers=MIXTRAL_TRAIN_LAYERS,
+                                        norm_impl="fused", attn_impl="flash")
+        moe_train = moe_train_check(train_cfg, device=device)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    serve_cfg = dataclasses.replace(mixtral, num_layers=MIXTRAL_SERVE_LAYERS, quantized=True,
+                                    prefill_impl="flash", norm_impl="fused")
+    moe_serve = moe_serve_check(serve_cfg, device=device)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"parallel: backend {backend}, phase {seconds:.1f} s")
+    if device == "cuda" and seconds > PARALLEL_PHASE_MAX_S:
+        raise AssertionError(f"the parallel phase took {seconds:.1f} s, over "
+                             f"{PARALLEL_PHASE_MAX_S} s")
+    return {"backend": backend, "ring": ring, "sequence_parallel": sp, "pipeline": pipe,
+            "moe_train": moe_train, "moe_serve": moe_serve, "seconds": seconds}
+
+
 def kernel_phase(batch: int, bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # row 2 at the micro-batcher's prefill and decode and the paged
@@ -3571,7 +4112,8 @@ def random_quantized_params(config, seed: int, device: str = "cuda",
     ``torch.Generator`` on ``device``, leaf by leaf: no fp weights are
     quantized. The embedding and the norm scales are in ``float_dtype``
     (default the config's compute dtype, serving residency; fp32 is the
-    reference's training tree)."""
+    reference's training tree). An MoE config's blocks carry int8 experts
+    in place of the MLP."""
     from unionml_tpu_torch._device import torch_dtype
     from unionml_tpu_torch.models.convert import _dense_shapes, _int4_site
 
@@ -3594,9 +4136,25 @@ def random_quantized_params(config, seed: int, device: str = "cuda",
 
     emb = torch.randn(config.vocab_size, d, device=device, generator=gen) * d**-0.5
     params = {"embed": {"embedding": emb.to(dtype)}}
+    def experts():
+        # int8 experts with per-(expert, out-channel) scales and the fp32
+        # router, the layout quantize_params writes for an MoE block
+        e, h = config.num_experts, config.mlp_dim
+        out = {"router_kernel": torch.randn(d, e, device=device, generator=gen) * d**-0.5}
+        for name, (k, n) in (("gate", (d, h)), ("up", (d, h)), ("down", (h, d))):
+            out[f"w_{name}_q"] = torch.randint(-127, 128, (e, k, n), device=device,
+                                               generator=gen, dtype=torch.int8)
+            out[f"w_{name}_scale"] = ((0.75 + 0.5 * torch.rand(e, n, device=device,
+                                                               generator=gen))
+                                      / (73.0 * k**0.5))
+        return out
+
     for i in range(config.num_layers):
-        block = {"attn_norm": {"scale": ones()}, "mlp_norm": {"scale": ones()},
-                 "attn": {}, "mlp": {}}
+        block = {"attn_norm": {"scale": ones()}, "mlp_norm": {"scale": ones()}, "attn": {}}
+        if config.num_experts:
+            block["moe"] = experts()
+        else:
+            block["mlp"] = {}
         for (part, site), (_, (k, n)) in _dense_shapes(config).items():
             block[part][site] = dense((part, site), k, n)
         params[f"block_{i}"] = block
@@ -6446,6 +7004,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"time: sharded done at {time.perf_counter() - t_run:.1f} s (phase "
         f"{sharded['seconds']:.1f} s)")
+    parallel = parallel_phase(llama_cfg)
+    log(f"time: parallel done at {time.perf_counter() - t_run:.1f} s (phase "
+        f"{parallel['seconds']:.1f} s)")
 
     base = LlamaConfig.llama3_8b()
     served = serve_phase(dataclasses.replace(base, num_layers=args.layers),
@@ -6572,6 +7133,14 @@ def main(argv=None) -> int:
             "rollout_launches": rollout["launches"].get(name),
             "sharded_launches": sharded["vit"]["launches"].get(
                 name, sharded["lm"]["launches"].get(name)),
+            "parallel_launches": {
+                path: launches_of[name] for path, launches_of in (
+                    ("ring_4_virtual_shards", parallel["ring"]["launches"]),
+                    ("sequence_parallel", parallel["sequence_parallel"]["launches"]),
+                    ("pipeline", parallel["pipeline"]["launches"]),
+                    ("moe_train_step", parallel["moe_train"]["launches_per_step"]),
+                    ("moe_serve", parallel["moe_serve"]["launches"]))
+                if name in launches_of},
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
@@ -6581,6 +7150,7 @@ def main(argv=None) -> int:
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
                       "vit_train": vit, "llama_train": llama, "qlora_train": qlora,
                       "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
+                      "parallel": parallel,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -450,12 +450,16 @@ def test_bert_bridge_refuses_wrong_trees():
 
 
 def test_attention_impls_that_are_not_ported_raise():
-    """``blockwise`` waits for the parallelism port (A6); the
-    sequence-parallel impls and unknown names raise ``ValueError`` as in
-    the reference."""
-    _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="A6"):
-        BertClassifier(dataclasses.replace(cfg, attn_impl="blockwise"))
+    """``blockwise`` is ported: an unmasked classifier forward under it
+    matches the JAX package's blockwise forward in fp32. The
+    sequence-parallel impls (no sequence axis in BERT) and unknown names
+    raise ``ValueError`` as in the reference."""
+    jmodule, jparams, _, params = _pair("classifier", attn_impl="blockwise")
+    jcfg, cfg = _configs(attn_impl="blockwise")
+    ids, _, _ = _inputs()
+    want = JBertClassifier(jcfg).apply({"params": jparams}, jnp.asarray(ids))
+    got = BertClassifier(cfg)(params, _t(ids))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FP32)
     for impl in ("ring", "ring_flash", "ulysses", "nope"):
         with pytest.raises(ValueError, match="unknown attention impl"):
             BertMlm(dataclasses.replace(cfg, attn_impl=impl))

@@ -1457,3 +1457,35 @@ def test_one_rank_nccl_compile_step_is_bit_equal_on_card(cuda, nccl_group):
     assert tflash.DQ_KERNEL.launches > before
     for a, b in zip(plain, sharded):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_ring_flash_per_step_functions_on_two_virtual_shards_on_card(cuda, d):
+    """The ring flash attention's per-step functions (rows 9-11 and the
+    delta pass) over two virtual shards of a causal GQA sequence, each
+    virtual rank given the kv the rotation would bring, against the
+    unsharded flash op: out, dq, dk, dv row by row within the smoke's ring
+    limit, lse within its tolerance, the planted faults (the diagonal run
+    non-causal, a delta from the local shard alone) failing, each kernel
+    launched 3 times (chip_smoke.ring_kernel_check raises otherwise)."""
+    smoke = _chip_smoke()
+    out = smoke.ring_kernel_check(device="cuda", shards=2,
+                                  shape=dict(b=1, s=1024, h=8, kvh=2, d=d))
+    assert out["launches"] == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv"), 3)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_moe_compile_step_is_bit_equal_on_card(cuda, nccl_group):
+    """An MoE Llama (4 experts top-2, bf16 compute, fused norms, flash
+    attention) through compile_step under ShardingConfig(data=-1,
+    expert=1, rules=LLAMA_MOE_PARTITION_RULES) on a one-rank NCCL mesh:
+    the params after each of two steps bit for bit the plain steps', the
+    aux loss positive, rows 2, 5 and 9-11 launched
+    (chip_smoke.moe_train_check raises otherwise)."""
+    smoke = _chip_smoke()
+    cfg = LlamaConfig.tiny(hidden_dim=256, num_experts=4, num_selected=2, norm_impl="fused",
+                           attn_impl="flash")
+    out = smoke.moe_train_check(cfg, device="cuda", seq=128)
+    assert all(out["bit_equal_per_step"]) and min(out["aux_loss"]) > 0

@@ -282,11 +282,13 @@ def test_port_param_paths_are_the_reference_names():
 
 
 def test_pipeline_parallelism_names_a6b():
+    """Pipeline parallelism (A6b) is ported: its three names import from
+    the package, and the package exports the reference's names."""
+    from unionml_tpu_torch.parallel import pipeline
+
     for name in ("pipeline_apply", "pipeline_spmd", "stack_stage_params"):
-        with pytest.raises(ImportError, match="A6b"):
-            __import__("unionml_tpu_torch.parallel", fromlist=[name])
-    assert set(tpar.__all__) == set(jpar.__all__) - {"pipeline_apply", "pipeline_spmd",
-                                                     "stack_stage_params"}
+        assert getattr(tpar, name) is getattr(pipeline, name)
+    assert set(tpar.__all__) == set(jpar.__all__)
 
 
 # --------------------------------------------------------------------- #

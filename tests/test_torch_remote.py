@@ -448,6 +448,7 @@ def _image_run(mp, apps_dir, root):
     def docker_exec_ssh(host, command, **popen_kwargs):
         if command.startswith("docker run"):
             commands.append(command)
+            command = _on_host(backend, host, command)
             m = re.search(r"reg\.example/app:\S+ (python -m unionml_tpu_torch\.remote\.runner "
                           r".*)$", command)
             envs = dict(kv.split("=", 1) for kv in re.findall(r"-e ([A-Z_]+=\S*)", command))
@@ -657,10 +658,26 @@ def _make_gpu_backend(tmp_path, hosts, **kwargs):
     )
 
 
+def _on_host(backend, host, text):
+    """``text`` (a command or path) as fake ``host`` sees it: the backend's
+    workdir at ``<workdir>.hosts/<host>``, the host's own filesystem."""
+    workdir = str(backend.workdir).rstrip("/")
+    return text.replace(workdir, f"{workdir}.hosts/{host}")
+
+
 def _fake_transport(monkeypatch, backend, apps_dir, fail_hosts=(), capture=None, stub=False):
     """Local-subprocess stand-ins for the SSH/scp primitives. ``stub=True``
     records remote commands without executing them; otherwise commands run
-    locally via bash, so the real runner executes in the pushed workdir."""
+    locally via bash, so the real runner executes in the pushed workdir.
+
+    Each fake host has a filesystem of its own, as real hosts do: its
+    commands and copies see the backend's ``workdir`` at a directory of
+    that host's (:func:`_on_host`), so hosts provisioned in parallel never
+    delete or write each other's pushed tree. The captured commands are the
+    backend's own, before that mapping."""
+
+    def on_host(host, text):
+        return _on_host(backend, host, text)
 
     def fake_run_ssh(host, command):
         if capture is not None:
@@ -669,11 +686,13 @@ def _fake_transport(monkeypatch, backend, apps_dir, fail_hosts=(), capture=None,
             return subprocess.CompletedProcess([], 0, "", "")
         if "docker pull" in command:
             return subprocess.CompletedProcess([], 0, "", "")
-        return subprocess.run(["bash", "-c", command], capture_output=True, text=True)
+        return subprocess.run(["bash", "-c", on_host(host, command)], capture_output=True,
+                              text=True)
 
     def fake_scp_to(host, src, dst):
         if capture is not None:
             capture.append(("scp_to", host, src, dst))
+        dst = on_host(host, dst)
         if Path(src.rstrip("/.")).resolve() == Path(dst).resolve():
             return
         subprocess.run(["bash", "-c", f"mkdir -p {dst} && cp -r {src} {dst}"], check=True)
@@ -681,6 +700,7 @@ def _fake_transport(monkeypatch, backend, apps_dir, fail_hosts=(), capture=None,
     def fake_scp_from(host, src, dst):
         if capture is not None:
             capture.append(("scp_from", host, src, dst))
+        src = on_host(host, src)
         subprocess.run(["bash", "-c", f"mkdir -p {dst} && cp -r {src} {dst}"], check=True)
 
     def fake_ssh(host, command, **popen_kwargs):
@@ -694,7 +714,8 @@ def _fake_transport(monkeypatch, backend, apps_dir, fail_hosts=(), capture=None,
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [str(REPO_ROOT), str(apps_dir), env.get("PYTHONPATH", "")])
-        return subprocess.Popen(["bash", "-c", command], env=env, **popen_kwargs)
+        return subprocess.Popen(["bash", "-c", on_host(host, command)], env=env,
+                                **popen_kwargs)
 
     monkeypatch.setattr(backend, "_run_ssh", fake_run_ssh)
     monkeypatch.setattr(backend, "_scp_to", fake_scp_to)

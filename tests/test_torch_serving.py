@@ -195,8 +195,10 @@ def test_port_imports_neither_jax_nor_reference():
     autoscaler, disaggregation) and the deployment front (FastAPI seam,
     serverless handlers and template, rollouts, the remote backend and
     its runner, the CLI) and the parallelism layer (mesh, collectives,
-    sharding, sharded checkpoints) among them. ``fastapi`` and ``yaml`` stay
-    unimported: the modules import them only where they are used."""
+    sharding, sharded checkpoints, the pipeline, ring and Ulysses
+    attention, MoE, sequence- and pipeline-parallel training) among them.
+    ``fastapi`` and ``yaml`` stay unimported: the modules import them only
+    where they are used."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -217,7 +219,9 @@ def test_port_imports_neither_jax_nor_reference():
         "            'remote.packaging', 'remote.runner', 'cli',\n"
         "            'templates.serverless.app', 'templates.serverless.tests.test_app',\n"
         "            'parallel', 'parallel.mesh', 'parallel.compat', 'parallel.collectives',\n"
-        "            'parallel.sharding', 'checkpoint.sharded'):\n"
+        "            'parallel.sharding', 'checkpoint.sharded', 'parallel.pipeline',\n"
+        "            'ops.ring_attention', 'ops.ulysses', 'ops.moe',\n"
+        "            'models.sequence_parallel', 'models.pipeline_lm'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"
@@ -259,8 +263,9 @@ def test_unported_model_paths_raise():
     model = template.build_model(name="unported")
     with pytest.raises(NotImplementedError):
         model.predictor(lambda params, prompts: prompts, jit=True)
-    with pytest.raises(NotImplementedError):
-        LlamaConfig.tiny(num_experts=2)
+    # MoE is ported: a config the reference refuses is refused the same way
+    with pytest.raises(ValueError, match="num_selected"):
+        LlamaConfig.tiny(num_experts=1)
 
 
 def test_model_remote_configures_a_backend(tmp_path, monkeypatch):

@@ -481,3 +481,24 @@ def test_chip_smoke_vit_phases_rehearsal_on_cpu():
         torch.Generator().manual_seed(0), torch.zeros(1, 32, 32, 3))))
     assert agree["min_grad_cosine"] > 0.9999
     assert agree["rerun_same_loss_bits"] and agree["rerun_same_param_bits"]
+
+
+def test_tree_unflatten_holds_no_reference_cycle():
+    """ROADMAP.md C12: a rebuilt tree's leaves are freed with the tree,
+    without the cyclic collector (a nested recursive function kept them,
+    and so a step's whole param and gradient trees, alive until it ran)."""
+    import gc
+    import weakref
+
+    from unionml_tpu_torch.models.train import tree_unflatten
+
+    gc.disable()
+    try:
+        leaf = torch.zeros(4)
+        ref = weakref.ref(leaf)
+        tree = tree_unflatten({"a": [0, (1,)]}, [leaf, torch.ones(2)])
+        assert tree["a"][0] is leaf and isinstance(tree["a"][1], tuple)
+        del leaf, tree
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -11,7 +11,8 @@ collective fails one test instead of the suite.
 
 This module imports neither JAX nor the JAX package (the ranks must not):
 the rank bodies below return numpy values, which the tests hold against
-the JAX package in the pytest process.
+the JAX package in the pytest process. A body of another module beside
+this one (``tests/torch_ranks_a6b.py``) is called as ``"module:function"``.
 """
 
 from __future__ import annotations
@@ -38,9 +39,12 @@ def _free_port() -> int:
 
 
 class RankPool:
-    """``world`` gloo ranks, started once and reused across calls."""
+    """``world`` gloo ranks, started once and reused across calls. With
+    ``connect=False`` the constructor returns once the rank processes are
+    spawned and the first :meth:`submit` waits for them to join, so their
+    start-up overlaps the caller's own work."""
 
-    def __init__(self, world: int, *, start_timeout: float = 120.0):
+    def __init__(self, world: int, *, start_timeout: float = 120.0, connect: bool = True):
         self.world = world
         self._key = secrets.token_bytes(16)
         self._listener = Listener(("127.0.0.1", 0), authkey=self._key)
@@ -59,13 +63,22 @@ class RankPool:
             for rank in range(world)
         ]
         self._conns: List[Any] = [None] * world
+        self._connected = False
+        if connect:
+            self._connect()
+
+    def _connect(self) -> None:
+        """Wait (within ``start_timeout``) for every rank to join."""
+        if self._connected:
+            return
         try:
-            for _ in range(world):
+            for _ in range(self.world):
                 conn = self._listener.accept()
                 self._conns[conn.recv()] = conn
         except BaseException:
             self.close()
             raise
+        self._connected = True
 
     def submit(self, name: str, *args: Any, **kwargs: Any) -> "RankPool":
         """Start ``name(*args, **kwargs)`` in every rank and return at once
@@ -73,6 +86,7 @@ class RankPool:
         compute its reference meanwhile."""
         if self._procs is None:
             raise RuntimeError("the rank pool was closed (an earlier call failed or hung)")
+        self._connect()
         self._pending = name
         for conn in self._conns:
             conn.send((name, args, kwargs))
@@ -109,6 +123,12 @@ class RankPool:
         procs, self._procs = self._procs, None
         if procs is None:
             return
+        if not self._connected:   # never used: nothing to shut down politely
+            for p in procs:
+                p.kill()
+                p.wait()
+            self._listener.close()
+            return
         for conn in self._conns:
             try:
                 if conn is not None:
@@ -132,11 +152,18 @@ def _serve(host: str, port: int, key: bytes, rank: int, world: int, store: int) 
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    conn = Client((host, port), authkey=key)
-    conn.send(rank)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{store}", rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    # the imports every body needs, before joining the pool: with a pool
+    # that connects lazily they load while the caller works
+    import torch.distributed.tensor  # noqa: F401
+
+    import unionml_tpu_torch.models  # noqa: F401
+    import unionml_tpu_torch.parallel  # noqa: F401
+
+    conn = Client((host, port), authkey=key)
+    conn.send(rank)
     bodies = sys.modules[__name__]
     while True:
         try:
@@ -147,7 +174,13 @@ def _serve(host: str, port: int, key: bytes, rank: int, world: int, store: int) 
             break
         name, args, kwargs = msg
         try:
-            result = getattr(bodies, name)(*args, **kwargs)
+            if ":" in name:   # "module:function", a body of another rank module
+                import importlib
+
+                mod, _, name = name.partition(":")
+                result = getattr(importlib.import_module(mod), name)(*args, **kwargs)
+            else:
+                result = getattr(bodies, name)(*args, **kwargs)
             assert "jax" not in sys.modules, "a rank imported JAX"
             conn.send((True, result))
         except Exception:

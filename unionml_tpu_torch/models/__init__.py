@@ -1,8 +1,8 @@
-"""The port's model zoo: the Llama model (serving, LM training and LoRA /
-QLoRA fine-tuning), the ViT training model, the MLP classifier and the
-BERT encoder (fine-tune and masked-LM heads) with their train-state and
-step factories (the reference's zoo is ported one model at a time;
-ROADMAP.md)."""
+"""The port's model zoo: the Llama model (serving, LM training, LoRA /
+QLoRA fine-tuning, MoE, sequence- and pipeline-parallel training), the
+ViT training model, the MLP classifier and the BERT encoder (fine-tune
+and masked-LM heads) with their train-state and step factories (the
+reference's zoo is ported one model at a time; ROADMAP.md)."""
 
 from unionml_tpu_torch.models.bert import (
     BertClassifier,
@@ -16,6 +16,7 @@ from unionml_tpu_torch.models.bert import init_params as init_bert_params
 from unionml_tpu_torch.models.convert import (
     bert_from_jax_params,
     from_jax_params,
+    pipeline_from_jax_params,
     lora_from_jax_state,
     mlp_from_jax_params,
     vit_from_jax_params,
@@ -26,7 +27,15 @@ from unionml_tpu_torch.models.generate import (
     make_sampler,
     serving_params,
 )
-from unionml_tpu_torch.models.llama import Llama, LlamaConfig, init_cache, init_params
+from unionml_tpu_torch.models.llama import (
+    LLAMA_MOE_PARTITION_RULES,
+    LLAMA_PARTITION_RULES,
+    LLAMA_QUANT_PARTITION_RULES,
+    Llama,
+    LlamaConfig,
+    init_cache,
+    init_params,
+)
 from unionml_tpu_torch.models.mlp import Mlp, MlpConfig
 from unionml_tpu_torch.models.mlp import init_params as init_mlp_params
 from unionml_tpu_torch.models.lora import (
@@ -42,6 +51,17 @@ from unionml_tpu_torch.models.quantization import (
     Int4DenseGeneral,
     QuantizedDenseGeneral,
     quantize_params,
+)
+from unionml_tpu_torch.models.pipeline_lm import (
+    PIPELINE_PARTITION_RULES,
+    create_pipelined_lm_state,
+    pipelined_lm_apply,
+    pipelined_lm_step,
+    to_pipeline_params,
+)
+from unionml_tpu_torch.models.sequence_parallel import (
+    sequence_parallel_config,
+    sequence_parallel_lm_step,
 )
 from unionml_tpu_torch.models.speculative import (
     make_speculative_generator,
@@ -77,9 +97,20 @@ __all__ = [
     "mlm_step",
     "Llama",
     "LlamaConfig",
+    "LLAMA_PARTITION_RULES",
+    "LLAMA_QUANT_PARTITION_RULES",
+    "LLAMA_MOE_PARTITION_RULES",
+    "PIPELINE_PARTITION_RULES",
+    "create_pipelined_lm_state",
+    "pipelined_lm_apply",
+    "pipelined_lm_step",
+    "to_pipeline_params",
+    "sequence_parallel_config",
+    "sequence_parallel_lm_step",
     "init_cache",
     "init_params",
     "from_jax_params",
+    "pipeline_from_jax_params",
     "lora_from_jax_state",
     "LoRADenseGeneral",
     "LoRATrainState",

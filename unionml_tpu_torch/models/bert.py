@@ -13,9 +13,9 @@ Attention follows the reference's routing. A batch with an
 additive fp32 bias ``where(mask, 0, -1e30)`` ``[B, 1, 1, S]`` (a fully
 masked row softmaxes uniformly, as in the reference); without a mask
 ``config.attn_impl`` picks ``xla``, ``fused`` (kernel rows 12-13),
-``flash`` (rows 9-11) or ``auto``. ``blockwise`` waits for sequence
-parallelism (ROADMAP.md, A6b) and raises ``NotImplementedError``; the
-sequence-parallel impls raise ``ValueError`` as in the reference.
+``flash`` (rows 9-11), ``blockwise`` (online softmax over key blocks) or
+``auto``; the sequence-parallel impls raise ``ValueError`` as in the
+reference.
 
 A sequence longer than ``max_len`` raises ``ValueError`` from its shape
 (the reference's gather fills the missing positions with NaN rows;
@@ -34,7 +34,6 @@ from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.layers import (
-    ATTN_IMPLS,
     LayerNorm,
     MlpBlock,
     _run_attention,
@@ -76,11 +75,6 @@ class BertConfig:
 
 
 def _check_attn_impl(impl: str) -> None:
-    if impl == "blockwise":
-        raise NotImplementedError(
-            "attn_impl 'blockwise' is not ported yet (sequence parallelism, A6b); the port's BERT "
-            f"takes {tuple(i for i in SUPPORTED_ATTN_IMPLS if i in ATTN_IMPLS)}"
-        )
     if impl not in SUPPORTED_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; use one of {SUPPORTED_ATTN_IMPLS}")
 

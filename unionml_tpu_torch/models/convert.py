@@ -15,11 +15,16 @@ numbers. For a ``weight_bits=4`` config each site must carry the form
 the config's layer declares there (int4 where ``tile_for`` gives a tile
 and the group divides K, the int8 fallback elsewhere); a tree packed for
 another tile or group is refused rather than decoded wrong. For a
+``num_experts > 0`` config each block carries its MoE leaves instead
+of the dense MLP (``moe/router_kernel`` fp32 ``[d, E]``, ``moe/w_gate`` /
+``w_up`` ``[E, d, h]`` and ``w_down`` ``[E, h, d]``, or their int8
+``w_*_q`` with ``w_*_scale`` ``[E, N]``). For a
 ``lora_rank > 0`` config a dense site may also carry its adapters,
 ``lora_a`` ``[K, r]`` and ``lora_b`` ``[r, N]``, beside an fp or int8 base;
 :func:`lora_from_jax_state` turns a JAX ``LoRATrainState`` (adapters and
-frozen base) into the port's. The rest of the reference's converter (HF
-safetensors import/export) is not ported yet.
+frozen base) into the port's, and :func:`pipeline_from_jax_params` a
+pipelined tree (stage params stacked). The rest of the reference's
+converter (HF safetensors import/export) is not ported yet.
 
 :func:`vit_from_jax_params` does the same for a ``unionml_tpu`` ViT tree
 (fp32 params): the flax Conv kernel ``[p, p, C, D]`` (HWIO), Dense kernels
@@ -60,15 +65,35 @@ def _dense_shapes(config: LlamaConfig) -> Dict[Tuple[str, ...], Tuple[Tuple[int,
     kernel shape and the int8 ``[K, N]`` shape."""
     c = config
     d, hd, h, kvh = c.hidden_dim, c.head_dim, c.num_heads, c.num_kv_heads
-    return {
+    sites = {
         ("attn", "q"): ((d, h, hd), (d, h * hd)),
         ("attn", "k"): ((d, kvh, hd), (d, kvh * hd)),
         ("attn", "v"): ((d, kvh, hd), (d, kvh * hd)),
         ("attn", "o"): ((h, hd, d), (h * hd, d)),
-        ("mlp", "gate"): ((d, c.mlp_dim), (d, c.mlp_dim)),
-        ("mlp", "up"): ((d, c.mlp_dim), (d, c.mlp_dim)),
-        ("mlp", "down"): ((c.mlp_dim, d), (c.mlp_dim, d)),
     }
+    if not c.num_experts:   # an MoE block has experts in place of the dense MLP
+        sites.update({
+            ("mlp", "gate"): ((d, c.mlp_dim), (d, c.mlp_dim)),
+            ("mlp", "up"): ((d, c.mlp_dim), (d, c.mlp_dim)),
+            ("mlp", "down"): ((c.mlp_dim, d), (c.mlp_dim, d)),
+        })
+    return sites
+
+
+def _moe_shapes(config: LlamaConfig) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """An MoE block's leaves (path under the block) and shapes: the fp32
+    router and the experts, fp or (``quantized``) int8 with per-(expert,
+    out-channel) scales."""
+    d, h, e = config.hidden_dim, config.mlp_dim, config.num_experts
+    kn = {"gate": (d, h), "up": (d, h), "down": (h, d)}
+    out = {("moe", "router_kernel"): (d, e)}
+    for name, (k, n) in kn.items():
+        if config.quantized:
+            out[("moe", f"w_{name}_q")] = (e, k, n)
+            out[("moe", f"w_{name}_scale")] = (e, n)
+        else:
+            out[("moe", f"w_{name}")] = (e, k, n)
+    return out
 
 
 def _int4_site(config: LlamaConfig, path: Tuple[str, ...], k: int, n: int) -> bool:
@@ -124,6 +149,9 @@ def _expected(config: LlamaConfig) -> Dict[Tuple[str, ...], Any]:
         out[(block, "mlp_norm", "scale")] = (d,)
         for site, shapes in _dense_shapes(config).items():
             out[(block,) + site] = shapes
+        if config.num_experts:
+            for leaf, shape in _moe_shapes(config).items():
+                out[(block,) + leaf] = shape
     return out
 
 
@@ -155,6 +183,45 @@ def from_jax_params(params: Mapping, config: LlamaConfig, device: DeviceLike = N
         return _to_tensor(node, dev)
 
     return convert(params, ())
+
+
+def pipeline_from_jax_params(params: Mapping, config: LlamaConfig, num_stages: int,
+                             device: DeviceLike = None) -> dict:
+    """The reference's pipelined Llama tree (``{embed, stages, head}``,
+    stage params stacked on a leading axis of ``num_stages``, as
+    ``unionml_tpu.models.to_pipeline_params`` or ``create_pipelined_lm_state``
+    lay it out) as the port's: unstacked into the flat Llama tree, checked
+    leaf by leaf by :func:`from_jax_params`, and stacked again by
+    :func:`~unionml_tpu_torch.models.pipeline_lm.to_pipeline_params`."""
+    from unionml_tpu_torch.models.pipeline_lm import to_pipeline_params
+
+    if config.num_layers % num_stages:
+        raise ValueError(f"num_layers {config.num_layers} not divisible by num_stages "
+                         f"{num_stages}")
+    per = config.num_layers // num_stages
+
+    def stage_slice(tree, s):
+        if isinstance(tree, Mapping):
+            return {k: stage_slice(v, s) for k, v in tree.items()}
+        arr = np.asarray(tree)
+        if arr.shape[:1] != (num_stages,):
+            raise ValueError(f"a stage leaf of shape {arr.shape} has no leading stage axis "
+                             f"of {num_stages}")
+        return arr[s]
+
+    stages = _get(params, ("stages",))
+    flat = {"embed": _get(params, ("embed", "embed")),
+            "final_norm": _get(params, ("head", "final_norm")),
+            "lm_head": _get(params, ("head", "lm_head"))}
+    for s in range(num_stages):
+        local = stage_slice(stages, s)
+        for i in range(per):
+            if f"block_{i}" not in local:
+                raise ValueError(f"missing param stages/block_{i}")
+            flat[f"block_{s * per + i}"] = local[f"block_{i}"]
+        if len(local) != per:
+            raise ValueError(f"stages hold {len(local)} blocks a stage, expected {per}")
+    return to_pipeline_params(from_jax_params(flat, config, device), config, num_stages)
 
 
 def lora_from_jax_state(state: Any, config: LlamaConfig, device: DeviceLike = None, *,

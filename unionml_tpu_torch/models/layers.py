@@ -14,10 +14,12 @@ CUDA kernel of :mod:`unionml_tpu_torch.ops.fused_norm`),
 halves, fp32), the cached path of :class:`Attention` (contiguous KV
 cache, scalar or per-row fill index, ``prefill_impl="flash"`` through the
 padded kernel of :mod:`unionml_tpu_torch.ops.flash_attention`), the
-cache-free path (``attn_impl`` ``xla``, ``fused`` through the
-differentiable kernels of :mod:`unionml_tpu_torch.ops.fused_attention`,
+cache-free path (``attn_impl`` ``xla``, ``blockwise``, ``fused`` through
+the differentiable kernels of :mod:`unionml_tpu_torch.ops.fused_attention`,
 ``flash`` through the differentiable kernels of
-:mod:`unionml_tpu_torch.ops.flash_attention`, or ``auto``),
+:mod:`unionml_tpu_torch.ops.flash_attention`, ``auto``, and the
+sequence-sharded ``ring`` / ``ring_flash`` / ``ulysses`` over
+``sequence_axis``),
 the block-paged decode step (``block_table=``, through
 :mod:`unionml_tpu_torch.ops.paged_attention`), the int8 KV cache,
 :class:`LayerNorm` (flax's statistics, or ``impl="fused"`` through
@@ -359,16 +361,22 @@ def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
     buf[:, index:index + seq] = new
 
 
-ATTN_IMPLS = ("auto", "xla", "fused", "flash")
+# the dispatcher's accepted impl names, the reference's
+ATTN_IMPLS = ("auto", "xla", "blockwise", "flash", "fused", "ring", "ring_flash", "ulysses")
 
 
-def _run_attention(q, k, v, *, impl: str, causal: bool) -> torch.Tensor:
+def _run_attention(q, k, v, *, impl: str, causal: bool,
+                   sequence_axis: Optional[str] = None) -> torch.Tensor:
     """Cache-free attention over [B, S, H, D]: ``xla`` is the full-score
-    reference, ``fused`` the fused short-sequence kernels, ``flash`` the
-    differentiable flash-attention kernels, ``auto`` fused up to
+    reference, ``blockwise`` the online-softmax blocks, ``fused`` the fused
+    short-sequence kernels, ``flash`` the differentiable flash-attention
+    kernels, ``auto`` fused up to
     :data:`~unionml_tpu_torch.ops.fused_attention.MAX_FUSED_SEQ`
     equal-length tokens and flash above it (or for unequal lengths), as
-    the reference picks."""
+    the reference picks. ``ring`` / ``ring_flash`` / ``ulysses`` are the
+    sequence-sharded forms (:mod:`~unionml_tpu_torch.ops.ring_attention`,
+    :mod:`~unionml_tpu_torch.ops.ulysses`) over the bound mesh axis
+    ``sequence_axis``, inside ``shard_map`` on local shards."""
     from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ
 
     if is_dtensor(q):
@@ -377,6 +385,10 @@ def _run_attention(q, k, v, *, impl: str, causal: bool) -> torch.Tensor:
         impl = "fused" if q.shape[1] <= MAX_FUSED_SEQ and k.shape[1] == q.shape[1] else "flash"
     if impl == "xla":
         return mha_reference(q, k, v, causal=causal)
+    if impl == "blockwise":
+        from unionml_tpu_torch.ops.attention import blockwise_attention
+
+        return blockwise_attention(q, k, v, causal=causal)
     if impl == "fused":
         from unionml_tpu_torch.ops.fused_attention import fused_attention
 
@@ -385,9 +397,25 @@ def _run_attention(q, k, v, *, impl: str, causal: bool) -> torch.Tensor:
         from unionml_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=causal)
-    raise NotImplementedError(
-        f"attn_impl {impl!r} is not ported; the cache-free path takes {ATTN_IMPLS}"
-    )
+    if impl == "ring":
+        from unionml_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+        assert sequence_axis, "ring attention needs a sequence mesh axis"
+        return ring_attention_sharded(q, k, v, axis=sequence_axis, causal=causal)
+    if impl == "ring_flash":
+        from unionml_tpu_torch.ops.ring_attention import ring_flash_attention_sharded
+
+        assert sequence_axis, "ring attention needs a sequence mesh axis"
+        return ring_flash_attention_sharded(q, k, v, axis=sequence_axis, causal=causal)
+    if impl == "ulysses":
+        from unionml_tpu_torch.ops.ulysses import ulysses_attention_sharded
+
+        assert sequence_axis, "ulysses attention needs a sequence mesh axis"
+        # the inner attention sees the FULL gathered sequence: "auto"
+        # (fused short / flash long) as in the reference
+        return ulysses_attention_sharded(q, k, v, axis=sequence_axis, causal=causal,
+                                         impl="auto")
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 def quantize_kv(x: torch.Tensor):
@@ -424,6 +452,7 @@ class Attention(nn.Module):
         attn_impl: str = "xla",
         prefill_impl: str = "cached",
         paged_impl: str = "auto",
+        sequence_axis: Optional[str] = None,
         quantized: bool = False,
         weight_bits: int = 8,
         int4_group: int = 0,
@@ -446,6 +475,8 @@ class Attention(nn.Module):
         self.rope_scaling = rope_scaling
         self.causal = causal
         self.attn_impl = attn_impl
+        # the bound mesh axis the sequence-sharded impls rotate / reshuffle over
+        self.sequence_axis = sequence_axis
         self.prefill_impl = prefill_impl
         # decode attention over a block-paged pool (block_table=): the
         # reference's names — "pallas" = the hand-written CUDA kernel,
@@ -517,7 +548,8 @@ class Attention(nn.Module):
         if cache is None:
             if kv_mask is not None:
                 raise ValueError("kv_mask requires a KV cache (generation path)")
-            out = _run_attention(q, k, v, impl=self.attn_impl, causal=self.causal)
+            out = _run_attention(q, k, v, impl=self.attn_impl, causal=self.causal,
+                                 sequence_axis=self.sequence_axis)
             return self.o(params["o"], out)
 
         if len(cache) not in (2, 4):

@@ -6,14 +6,19 @@ the reference's param tree (nested dicts with the flax names) passed to
 ``forward``; :func:`init_params` (or ``Llama.init``, what
 :func:`~unionml_tpu_torch.models.train.create_train_state` calls) makes a
 random tree of that layout on a device, and :func:`init_cache` the KV
-cache. Only the dense model is ported, with int8 or packed-int4
-(``weight_bits=4``) weight-only matmuls, the int8 KV cache
-(``kv_quant``), the block-paged decode step (``block_table=``) and, for
-training, per-block recomputation (``remat``) and LoRA adapters on an fp
-or int8 base (``lora_rank``, :mod:`~unionml_tpu_torch.models.lora`): MoE
-raises ``NotImplementedError``. :data:`LLAMA_PARTITION_RULES`,
-:data:`LLAMA_QUANT_PARTITION_RULES` and :data:`LLAMA_LORA_PARTITION_RULES`
-are the reference's tensor-parallel layouts.
+cache. Ported: int8 or packed-int4 (``weight_bits=4``) weight-only
+matmuls, the int8 KV cache (``kv_quant``), the block-paged decode step
+(``block_table=``) and, for training, per-block recomputation (``remat``),
+LoRA adapters on an fp or int8 base (``lora_rank``,
+:mod:`~unionml_tpu_torch.models.lora`) and sequence-sharded attention over
+``sequence_axis`` (:mod:`~unionml_tpu_torch.models.sequence_parallel`).
+``num_experts > 0`` swaps each block's MLP for the mixture-of-experts
+block of :mod:`~unionml_tpu_torch.ops.moe` (fp or int8 experts; a LoRA
+config carries adapters on attention only, as in the reference), whose
+load-balance losses ``forward(..., sow=)`` collects under
+``"aux_losses"``. :data:`LLAMA_PARTITION_RULES`,
+:data:`LLAMA_QUANT_PARTITION_RULES`, :data:`LLAMA_LORA_PARTITION_RULES`
+and :data:`LLAMA_MOE_PARTITION_RULES` are the reference's layouts.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from unionml_tpu_torch.models.layers import (
     gather_rows,
     make_dense,
 )
+from unionml_tpu_torch.ops.moe import MoEMlp
+from unionml_tpu_torch.parallel.compat import checkpoint_context_fn
 from unionml_tpu_torch.parallel.sharding import PartitionRule
 
 # per layer (k, v), or (k_q, v_q, k_scale, v_scale) under kv_quant
@@ -65,6 +72,9 @@ class LlamaConfig:
     paged_impl: str = "auto"
     # "fused" = the fused RMSNorm kernel (ops/fused_norm.py)
     norm_impl: str = "xla"
+    # the mesh axis ring / ring_flash / ulysses attention runs over
+    # (models/sequence_parallel.py binds it)
+    sequence_axis: Optional[str] = None
     quantized: bool = False  # weight-only quantized matmuls (serving path)
     # 8 = int8; 4 = packed int4 through the int4 kernel (ops/int4_matmul.py)
     weight_bits: int = 8
@@ -77,7 +87,12 @@ class LlamaConfig:
     # cache-free forward recomputes each block's activations in the
     # backward instead of keeping them
     remat: bool = False
+    # mixture-of-experts MLPs (0 = dense): ops/moe.py's block, top
+    # num_selected of num_experts; experts shard over the mesh's `expert`
+    # axis by LLAMA_MOE_PARTITION_RULES. MoE experts carry no LoRA adapters
+    # (attention adapters still apply).
     num_experts: int = 0
+    num_selected: int = 2
     # > 0: trainable rank-r adapters on q/k/v/o and gate/up/down
     # (models/lora.py); with quantized=True the QLoRA configuration. The
     # LM head and the embedding carry none.
@@ -91,16 +106,26 @@ class LlamaConfig:
 
     def __post_init__(self):
         if self.num_experts:
-            raise NotImplementedError(
-                "LlamaConfig num_experts is not ported to unionml_tpu_torch "
-                "(see ROADMAP.md)"
-            )
+            if not 1 <= self.num_selected <= self.num_experts:
+                raise ValueError(
+                    f"num_selected={self.num_selected} must be in "
+                    f"[1, num_experts={self.num_experts}]"
+                )
         if self.weight_bits not in (4, 8):
             raise ValueError(f"weight_bits must be 8 or 4, got {self.weight_bits}")
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        """Mixtral-8x7B geometry: Llama blocks + 8-expert top-2 MoE MLPs."""
+        return LlamaConfig(
+            vocab_size=32_000, hidden_dim=4096, num_layers=32, num_heads=32,
+            num_kv_heads=8, mlp_dim=14_336, rope_theta=1e6, max_len=32_768,
+            num_experts=8, num_selected=2,
+        )
 
     @staticmethod
     def llama_lc(**overrides) -> "LlamaConfig":
@@ -140,19 +165,24 @@ class LlamaBlock(nn.Module):
             features=cfg.hidden_dim, rope=True, rope_theta=cfg.rope_theta,
             rope_scaling=cfg.rope_scaling, causal=True, attn_impl=cfg.attn_impl,
             prefill_impl=cfg.prefill_impl, paged_impl=cfg.paged_impl,
-            quantized=cfg.quantized, weight_bits=cfg.weight_bits,
+            sequence_axis=cfg.sequence_axis, quantized=cfg.quantized, weight_bits=cfg.weight_bits,
             int4_group=cfg.int4_group, int4_tp=cfg.int4_tp, lora_rank=cfg.lora_rank,
             lora_alpha=cfg.lora_alpha, dtype=dtype,
         )
         self.mlp_norm = RMSNorm(eps=cfg.norm_eps, dtype=dtype, impl=cfg.norm_impl)
-        self.mlp = MlpBlock(
-            cfg.mlp_dim, cfg.hidden_dim, gated=True, quantized=cfg.quantized,
-            weight_bits=cfg.weight_bits, int4_group=cfg.int4_group, int4_tp=cfg.int4_tp,
-            lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha, dtype=dtype,
-        )
+        if cfg.num_experts:
+            # experts stay int8 under weight_bits=4 (no int4 expert kernel)
+            self.moe = MoEMlp(cfg.num_experts, cfg.num_selected, cfg.mlp_dim, cfg.hidden_dim,
+                              dtype=dtype, quantized=cfg.quantized)
+        else:
+            self.mlp = MlpBlock(
+                cfg.mlp_dim, cfg.hidden_dim, gated=True, quantized=cfg.quantized,
+                weight_bits=cfg.weight_bits, int4_group=cfg.int4_group, int4_tp=cfg.int4_tp,
+                lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha, dtype=dtype,
+            )
 
     def forward(self, params, x, *, positions=None, cache=None, cache_index=None,
-                kv_mask=None, block_table=None, full_prefill=False):
+                kv_mask=None, block_table=None, full_prefill=False, sow=None):
         h = self.attn_norm(params["attn_norm"], x)
         if cache is not None:
             a, new_cache = self.attn(
@@ -169,6 +199,12 @@ class LlamaBlock(nn.Module):
             a, new_cache = self.attn(params["attn"], h, positions=positions), None
         x = x + a
         h = self.mlp_norm(params["mlp_norm"], x)
+        if hasattr(self, "moe"):
+            mlp_out, aux = self.moe(params["moe"], h, sow=sow)
+            if sow is not None:
+                # lm_step adds their layer mean to the loss
+                sow.setdefault("aux_losses", []).append(aux)
+            return x + mlp_out, new_cache
         x = x + self.mlp(params["mlp"], h)
         return x, new_cache
 
@@ -213,8 +249,15 @@ class Llama(nn.Module):
         block_table: Optional[torch.Tensor] = None,
         logit_index: Optional[torch.Tensor] = None,
         full_prefill: bool = False,
+        sow: Optional[dict] = None,
     ):
         """logits [B,S,V] fp32; with ``cache`` returns (logits, cache).
+
+        ``sow``: a dict that MoE blocks append to, under the flax
+        collections' names: each block's load-balance loss under
+        ``"aux_losses"``, its ``(routing_fraction, gate_fraction)`` stack
+        under ``"moe_stats"`` (read them before the backward: a block
+        recomputed under ``remat`` appends again then).
 
         ``block_table``: int [B, table_width] — marks ``cache`` as a
         block-paged pool (per layer [num_blocks, block, kv_heads, ...])
@@ -244,13 +287,14 @@ class Llama(nn.Module):
         for i, block in enumerate(self.blocks):
             if remat:
                 x, c = checkpoint(block, params[f"block_{i}"], x, positions=positions,
-                                  kv_mask=kv_mask, use_reentrant=False)
+                                  kv_mask=kv_mask, sow=sow, use_reentrant=False,
+                                  context_fn=checkpoint_context_fn())
             else:
                 x, c = block(
                     params[f"block_{i}"], x, positions=positions,
                     cache=cache[i] if cache is not None else None,
                     cache_index=cache_index, kv_mask=kv_mask,
-                    block_table=block_table, full_prefill=full_prefill,
+                    block_table=block_table, full_prefill=full_prefill, sow=sow,
                 )
             new_cache.append(c)
         if logit_index is not None:
@@ -269,8 +313,8 @@ def assert_int4_tp_compatible(config: LlamaConfig, tensor: int) -> None:
     output channels and decodes garbage with no exception. With
     ``config.int4_tp`` set (the degree ``quantize_params(tensor=...)``
     packed for), any ``tensor`` dividing it is slab-aligned. The LM head is
-    exempt: it shards K. (Tensor parallelism itself is not ported yet;
-    this is the guard it will call.)"""
+    exempt: it shards K. (Serving under tensor parallelism is not ported
+    yet, ROADMAP.md A6c; this is the guard it will call.)"""
     from unionml_tpu_torch.ops.int4_matmul import tile_for
 
     if tensor <= 1 or config.weight_bits != 4:
@@ -305,7 +349,9 @@ def init_params(
     """A random fp param tree in the reference's layout, made on ``device``
     (``None`` = CUDA, raising without one) from a generator there seeded
     with ``seed``: kernels normal with std 1/sqrt(fan_in),
-    embedding normal with std 1/sqrt(hidden), norm scales one; with
+    embedding normal with std 1/sqrt(hidden), norm scales one (an MoE
+    block: its fp32 router and its experts in the config's compute dtype,
+    as the reference declares them); with
     ``lora_rank > 0`` also the adapters of
     :func:`~unionml_tpu_torch.models.lora.init_lora_params`, drawn after
     the base. (The reference draws flax's initializers from a JAX key; the
@@ -334,12 +380,23 @@ def init_params(
                 "o": {"kernel": normal((cfg.num_heads, hd, d), cfg.num_heads * hd)},
             },
             "mlp_norm": {"scale": ones(d)},
-            "mlp": {
+        }
+        if cfg.num_experts:
+            # the reference's param dtypes: the router fp32, the experts in
+            # the compute dtype
+            e, h, wdt = cfg.num_experts, cfg.mlp_dim, torch_dtype(cfg.dtype)
+            params[f"block_{i}"]["moe"] = {
+                "router_kernel": normal((d, e), d).float(),
+                "w_gate": normal((e, d, h), d).to(wdt),
+                "w_up": normal((e, d, h), d).to(wdt),
+                "w_down": normal((e, h, d), h).to(wdt),
+            }
+        else:
+            params[f"block_{i}"]["mlp"] = {
                 "gate": {"kernel": normal((d, cfg.mlp_dim), d)},
                 "up": {"kernel": normal((d, cfg.mlp_dim), d)},
                 "down": {"kernel": normal((cfg.mlp_dim, d), cfg.mlp_dim)},
-            },
-        }
+            }
     params["final_norm"] = {"scale": ones(d)}
     params["lm_head"] = {"kernel": normal((d, cfg.vocab_size), d)}
     if cfg.lora_rank > 0:
@@ -411,6 +468,21 @@ LLAMA_QUANT_PARTITION_RULES = LLAMA_PARTITION_RULES + (
     PartitionRule(r"lm_head/scale$", ("tensor",)),
 )
 
+
+# MoE configs (num_experts > 0): expert weights [E, d, h] shard E over the
+# `expert` mesh axis and the hidden dim over `tensor`; the router is
+# replicated (every rank routes its own tokens). Includes the int8 rules,
+# so one list covers fp and quantized MoE models alike.
+LLAMA_MOE_PARTITION_RULES = (
+    PartitionRule(r"moe/w_(gate|up)$", ("expert", None, "tensor")),
+    PartitionRule(r"moe/w_down$", ("expert", "tensor", None)),
+    # int8 serving form: [E, K, N] weights + [E, N] scales
+    PartitionRule(r"moe/w_(gate|up)_q$", ("expert", None, "tensor")),
+    PartitionRule(r"moe/w_(gate|up)_scale$", ("expert", "tensor")),
+    PartitionRule(r"moe/w_down_q$", ("expert", "tensor", None)),
+    PartitionRule(r"moe/w_down_scale$", ("expert", None)),
+    PartitionRule(r"moe/router_kernel$", (None,)),
+) + LLAMA_QUANT_PARTITION_RULES
 
 
 def __getattr__(name):

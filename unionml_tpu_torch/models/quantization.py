@@ -13,7 +13,8 @@ reference's rounding point (a product that rounds to bf16 before the
 scale would be a different result). :func:`weight_product` carries the
 gradient of that product to its input (QLoRA trains adapters through a
 frozen int8 base) and, for a float weight, to the weight. MoE expert
-blocks are not ported yet and raise.
+blocks (``moe$``) quantize per (expert, out-channel) to int8 whatever
+``bits`` says (there is no int4 expert kernel).
 """
 
 from __future__ import annotations
@@ -216,6 +217,13 @@ def _quantize_kernel_2d(w2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def _quantize_expert_kernel(w3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(expert, out-channel) symmetric int8 for [E, K, N] MoE weights:
+    the 2D recipe over each expert; returns (int8 [E, K, N], fp32 [E, N])."""
+    pairs = [_quantize_kernel_2d(w) for w in w3d]
+    return torch.stack([q for q, _ in pairs]), torch.stack([s for _, s in pairs])
+
+
 def _quantize_int4_site(path, w2d: torch.Tensor, group_size: int, tensor: int):
     """The packed-int4 leaves of one dense site, or ``None`` when the site
     stays int8."""
@@ -248,7 +256,10 @@ def quantize_params(
     ``o`` contracts its LEADING dims (``[heads, dim, out]`` → K=heads*dim),
     every other one its single leading input dim (``[in, ...features]`` →
     K=in, N=prod(features)). Non-matching subtrees pass through. Tensors
-    stay on their device. MoE expert blocks are not ported and raise.
+    stay on their device. A matching MoE expert block (``w_gate`` /
+    ``w_up`` / ``w_down`` [E, K, N]) becomes ``w_*_q`` int8 + ``w_*_scale``
+    fp32 [E, N] (per expert and out-channel, int8 also under ``bits=4``);
+    its fp32 router passes through.
 
     ``bits=4``: the packed-int4 layout (``kernel_p`` + ``scale``, or
     ``scale_g`` with ``group_size``) for layers with a conforming tile; a
@@ -264,7 +275,13 @@ def quantize_params(
     def walk(path, tree):
         if isinstance(tree, dict) and "w_gate" in tree and "w_down" in tree:
             if any(c.search("/".join(path)) for c in compiled):
-                raise NotImplementedError("MoE expert quantization is not ported")
+                out = {}
+                for name, v in tree.items():
+                    if name in ("w_gate", "w_up", "w_down"):
+                        out[f"{name}_q"], out[f"{name}_scale"] = _quantize_expert_kernel(v)
+                    else:
+                        out[name] = v
+                return out
         if isinstance(tree, dict) and isinstance(tree.get("kernel"), torch.Tensor):
             if any(c.search("/".join(path)) for c in compiled):
                 w = tree["kernel"]

@@ -53,19 +53,22 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def _build(node: Any, it) -> Any:
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
+
+
 def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
     """A tree shaped like ``like`` holding ``leaves`` in
-    :func:`tree_leaves` order."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(like)
+    :func:`tree_leaves` order. The recursion is a module function: a
+    nested recursive function would keep the leaves in a reference cycle
+    (the function, its closure cell) until the cyclic collector ran,
+    holding a step's whole param and gradient trees on the card
+    (ROADMAP.md C12)."""
+    return _build(like, iter(leaves))
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -551,21 +554,31 @@ def lm_step(
     over the shifted pairs (``tokens[:, :-1]`` predicts ``tokens[:, 1:]``),
     or an ``(inputs, labels)`` tuple whose labels carry ``ignore_id`` at
     unsupervised positions. The loss is :func:`masked_cross_entropy` plus
-    ``aux_loss_weight`` times the layer-mean of the model's auxiliary
-    losses, which the port's dense model does not have (its ``aux_loss``
-    is 0; MoE waits for A6b). Metrics ``loss`` (the cross entropy),
-    ``perplexity`` and ``aux_loss`` stay on the device.
+    ``aux_loss_weight`` times the layer-mean of the load-balance losses
+    the model's MoE blocks sow (``forward(..., sow=)``; 0 for a dense
+    model). Metrics ``loss`` (the cross entropy), ``perplexity`` and
+    ``aux_loss`` (that layer-mean) stay on the device.
     ``accumulate_steps > 1``: the batch leaves carry a leading microbatch
     axis and one optimizer update follows the fp32 grad mean over it."""
+
+    import inspect
+
+    # a model with auxiliary losses takes a ``sow`` dict (Llama's MoE blocks)
+    sows = "sow" in inspect.signature(module.forward).parameters
 
     def loss_fn(params, microbatch):
         if isinstance(microbatch, tuple):
             inputs, targets = microbatch
         else:
             inputs, targets = microbatch[:, :-1], microbatch[:, 1:]
-        logits = module(params, inputs)
+        sown: dict = {}
+        logits = module(params, inputs, sow=sown) if sows else module(params, inputs)
         ce = masked_cross_entropy(logits, targets, ignore_id=ignore_id)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        losses = sown.get("aux_losses", [])
+        if losses:
+            aux = sum(a.float() for a in losses) / len(losses)
+        else:
+            aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
     def step(state: TrainState, batch):

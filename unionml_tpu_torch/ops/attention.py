@@ -1,9 +1,11 @@
 """Multi-head attention in plain PyTorch: the full-score reference and the
 KV-cache decode engine.
 
-The port of the parts of :mod:`unionml_tpu.ops.attention` that the Llama
-serving path runs (the reference computes them outside any Pallas
-kernel, so plain tensor code is their port). Tensors are
+The port of :mod:`unionml_tpu.ops.attention` (the reference computes all
+of it outside any Pallas kernel, so plain tensor code is its port): the
+full-score reference, the cached decode attention, the online-softmax
+:func:`blockwise_attention` whose accumulation the ring reuses, and the
+:func:`attention` dispatcher. Tensors are
 ``[batch, seq, heads, head_dim]``; GQA is supported everywhere — ``k`` /
 ``v`` may have fewer heads than ``q`` as long as the count divides.
 Products take their inputs in the working dtype and accumulate in fp32,
@@ -192,3 +194,130 @@ def quantized_cache_attention(
         q, k_q, v_q, k_scale=k_s, v_scale=v_s, bias=bias, scale=scale,
         block_threshold=block_threshold,
     )
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    block_size: int = 512,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks ([B,S,H,D] in/out).
+
+    Memory is O(Sq·block_size) instead of O(Sq·Skv). ``q_offset`` /
+    ``kv_offset`` give the global positions of the local q/kv shards so
+    ring attention can reuse the accumulation per rotation step with
+    correct causal masking. With default (zero) offsets and ``q_len !=
+    kv_len``, causal masking is bottom-right aligned (queries are the last
+    ``q_len`` positions, as in :func:`mha_reference`)."""
+    if causal and q_offset == 0 and kv_offset == 0:
+        q_offset = k.shape[1] - q.shape[1]
+    out, _, _ = _blockwise_accumulate(
+        q, k, v, causal=causal, block_size=block_size, scale=scale,
+        q_offset=q_offset, kv_offset=kv_offset,
+    )
+    return out.to(q.dtype)
+
+
+def _blockwise_accumulate(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    block_size: int,
+    scale: Optional[float],
+    q_offset=0,
+    kv_offset=0,
+    acc: Optional[tuple] = None,
+):
+    """Run over the KV blocks in order, returning ``(out, running_max,
+    normalizer)`` (fp32; ``out`` [B, Sq, H, D], the others [B, Sq, H]).
+
+    ``acc = (out_unnormalized, m, l)`` lets callers (ring attention) chain
+    accumulation across KV shards and normalize once at the end; without
+    it ``out`` comes normalized. ``q_offset`` / ``kv_offset`` may be ints
+    or 0-dim tensors."""
+    batch, q_len, num_q_heads, head_dim = q.shape
+    kv_len = k.shape[1]
+    k = _repeat_kv(k, num_q_heads)
+    v = _repeat_kv(v, num_q_heads)
+    scale = scale if scale is not None else head_dim**-0.5
+    block_size = min(block_size, kv_len)
+    num_blocks = -(-kv_len // block_size)
+    q_pos = q_offset + torch.arange(q_len, device=q.device)
+    qf = q.float()
+    if acc is None:
+        out = torch.zeros(batch, q_len, num_q_heads, head_dim, dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((batch, q_len, num_q_heads), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros(batch, q_len, num_q_heads, dtype=torch.float32, device=q.device)
+    else:
+        out, m, l = acc
+    for blk in range(num_blocks):
+        lo = blk * block_size
+        k_blk = k[:, lo:lo + block_size]
+        v_blk = v[:, lo:lo + block_size]
+        n = k_blk.shape[1]
+        # the reference pads the last block; its padded keys are masked,
+        # which is what leaving them out computes
+        kv_pos = kv_offset + lo + torch.arange(n, device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk.float()) * scale   # [B,H,Q,Bk]
+        if causal:
+            mask = q_pos[:, None] >= kv_pos[None, :]
+            s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+        m_blk = s.amax(dim=-1)                                           # [B,H,Q]
+        m_new = torch.maximum(m, m_blk.transpose(1, 2))                  # [B,Q,H]
+        # guard fully-masked rows: exp(NEG_INF - NEG_INF) would be 1
+        m_safe = torch.where(m_new == NEG_INF, torch.zeros_like(m_new), m_new)
+        p = torch.exp(s - m_safe.transpose(1, 2)[..., None])
+        if causal:
+            p = torch.where(mask[None, None], p, torch.zeros_like(p))
+        corr = torch.exp(torch.where(m == NEG_INF, torch.full_like(m, NEG_INF), m - m_safe))
+        l = l * corr + p.sum(dim=-1).transpose(1, 2)
+        out = out * corr[..., None] + torch.einsum("bhqk,bkhd->bqhd", p, v_blk.float())
+        m = m_new
+    if acc is not None:
+        return out, m, l
+    return out / l.clamp_min(1e-30)[..., None], m, l
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    impl: str = "xla",
+    block_size: int = 512,
+    **kwargs,
+) -> torch.Tensor:
+    """Dispatch between attention implementations, the reference's names:
+    ``"xla"`` (full scores), ``"blockwise"`` (O(S·block) memory),
+    ``"flash"`` (the flash kernels, rows 9-11), ``"fused"`` (the fused
+    short-sequence kernels, rows 12-13), or ``"auto"``: fused up to
+    :data:`~unionml_tpu_torch.ops.fused_attention.MAX_FUSED_SEQ`
+    equal-length tokens, flash beyond."""
+    if impl == "auto":
+        from unionml_tpu_torch.ops.fused_attention import MAX_FUSED_SEQ
+
+        impl = "fused" if q.shape[1] <= MAX_FUSED_SEQ and k.shape[1] == q.shape[1] else "flash"
+    if impl == "xla":
+        return mha_reference(q, k, v, causal=causal, **kwargs)
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=causal, block_size=block_size, **kwargs)
+    if impl == "flash":
+        from unionml_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, **kwargs)
+    if impl == "fused":
+        from unionml_tpu_torch.ops.fused_attention import fused_attention
+
+        return fused_attention(q, k, v, causal=causal, **kwargs)
+    raise ValueError(f"unknown attention impl {impl!r}; use auto|xla|blockwise|flash|fused")

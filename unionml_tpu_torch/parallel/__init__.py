@@ -13,12 +13,11 @@ eagerly with DTensor inserting the collectives GSPMD inserts there.
   partition rules, ``compile_step``.
 - :mod:`unionml_tpu_torch.parallel.compat` — ``shard_map`` (local shards,
   axes bound) and the kernel boundary (``local_call``).
-- :mod:`unionml_tpu_torch.parallel.collectives` — named collectives and
-  the bucketed gradient all-reduce.
-
-Pipeline parallelism (``pipeline_apply``, ``pipeline_spmd``,
-``stack_stage_params``) is not ported yet (ROADMAP.md, A6b): importing
-those names raises ``ImportError``.
+- :mod:`unionml_tpu_torch.parallel.collectives` — named collectives
+  (differentiable: a rotation, an all-to-all and a psum each go back as
+  their transpose) and the bucketed gradient all-reduce.
+- :mod:`unionml_tpu_torch.parallel.pipeline` — the GPipe schedule
+  (``pipeline_apply``, ``pipeline_spmd``, ``stack_stage_params``).
 """
 
 from unionml_tpu_torch.parallel.collectives import bucketed_psum
@@ -29,6 +28,11 @@ from unionml_tpu_torch.parallel.mesh import (
     mesh_devices,
     multihost_initialize,
 )
+from unionml_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pipeline_spmd,
+    stack_stage_params,
+)
 from unionml_tpu_torch.parallel.sharding import (
     PartitionRule,
     ShardingConfig,
@@ -38,20 +42,11 @@ from unionml_tpu_torch.parallel.sharding import (
     state_shardings,
 )
 
-_PIPELINE = ("pipeline_apply", "pipeline_spmd", "stack_stage_params")
-
-
-def __getattr__(name):
-    if name in _PIPELINE:
-        raise ImportError(
-            f"unionml_tpu_torch.parallel.{name} (pipeline parallelism) is not ported yet "
-            "(ROADMAP.md, A6b)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
     "bucketed_psum",
+    "pipeline_apply",
+    "pipeline_spmd",
+    "stack_stage_params",
     "cpu_multiprocess_supported",
     "shard_map",
     "make_mesh",

@@ -18,6 +18,36 @@ for bit the leaf-wise one, and the explicit data-axis reduction of the
 overlapped accumulation bit for bit the serial step's
 (:func:`~unionml_tpu_torch.parallel.sharding.resolve_grads` reduces with
 it too). The price is an all-gather's traffic instead of an all-reduce's.
+
+:func:`psum`, :func:`pmean`, :func:`ppermute_shift` and :func:`all_to_all`
+are differentiable (``torch.autograd.Function``), each backward the
+transpose ``jax.grad`` takes through the same collective under the
+reference's ``shard_map(check_vma=False)``:
+
+- ``ppermute_shift`` by ``+shift`` goes back by ``-shift``;
+- a tiled ``all_to_all(split, concat)`` goes back as ``all_to_all(concat,
+  split)``;
+- ``psum`` goes back as a ``psum`` of the cotangents (``pmean`` divided by
+  the axis size). It pairs with :func:`~unionml_tpu_torch.parallel.compat
+  .shard_map`, which divides the cotangent of an output replicated over an
+  axis by that axis's size and sums the gradient of an input replicated
+  over it: at every replicating call site (the sequence-parallel loss's
+  token sums and MoE fractions, the pipeline's final psum of the last
+  stage's outputs, the expert-parallel aux loss) each rank's share then
+  receives the whole cotangent once, not ``n`` times it. The parameters a
+  body sees replicated get exactly one reduction, where they leave the
+  shard_map (their gradient ``Partial`` over the axes the spec leaves
+  out, summed in rank order by :func:`~unionml_tpu_torch.parallel.sharding
+  .resolve_grads`).
+- :func:`psum_invariant` / :func:`pmean_invariant` are the sums of a
+  DTensor local call (:func:`~unionml_tpu_torch.parallel.compat
+  .local_call`), whose replicated output's cotangent arrives whole on every
+  rank undivided: their backward passes each rank's cotangent through (the
+  MoE block's output over the expert-weight axes and its routing fractions
+  over the batch axes).
+
+The ranks' backward graphs are the same, so they issue their collectives
+in the same order; the process group's timeout bounds every wait.
 """
 
 from __future__ import annotations
@@ -105,15 +135,74 @@ def ordered_sum(x: torch.Tensor, group: Any) -> torch.Tensor:
     return _Gathered(x, group, async_op=False).wait()
 
 
-def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
-    """Sum-reduce across an axis (or, in order, across each of a tuple)."""
-    for group in _groups(axis):
+def _ordered_sums(x: torch.Tensor, groups) -> torch.Tensor:
+    for group in groups:
         x = ordered_sum(x, group)
     return x
 
 
+class _Psum(torch.autograd.Function):
+    """The rank-ordered sum over ``groups``; its backward is the sum of the
+    cotangents over the same groups (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _ordered_sums(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ordered_sums(grad, ctx.groups), None
+
+
+class _PsumInvariant(torch.autograd.Function):
+    """The rank-ordered sum over ``groups`` whose cotangent is the same on
+    every rank: the backward passes it through."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _ordered_sums(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x`` unchanged; its cotangent times ``scale`` (a replicated
+    output's per-rank share at the ``shard_map`` boundary)."""
+    return _ScaleGrad.apply(x, scale)
+
+
+def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """Sum-reduce across an axis (or, in order, across each of a tuple);
+    differentiable, the backward a psum of the cotangents."""
+    return _Psum.apply(x, _groups(axis))
+
+
 def pmean(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     return psum(x, axis) / compat.axis_size(axis)
+
+
+def psum_invariant(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """:func:`psum` for a DTensor local call, whose cotangent arrives the
+    same on every rank: the backward hands each rank its cotangent."""
+    return _PsumInvariant.apply(x, _groups(axis))
+
+
+def pmean_invariant(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    return psum_invariant(x, axis) / compat.axis_size(axis)
 
 
 class PendingPsum:
@@ -203,14 +292,11 @@ def reduce_scatter(x: torch.Tensor, axis: AxisName, *, scatter_axis: int = 0) ->
     return total.chunk(n, dim=scatter_axis)[dist.get_rank(group)].contiguous()
 
 
-def ppermute_shift(x: torch.Tensor, axis: str, *, shift: int = 1) -> torch.Tensor:
-    """Rotate shards around a ring: rank ``i`` of the axis receives rank
-    ``i - shift``'s block."""
-    group = _single_group(axis, "ppermute_shift")
+def _ppermute(x: torch.Tensor, group: Any, shift: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     me = dist.get_rank(group)
     ranks = dist.get_process_group_ranks(group)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
     ops = [dist.P2POp(dist.isend, x.contiguous(), ranks[(me + shift) % n], group),
            dist.P2POp(dist.irecv, out, ranks[(me - shift) % n], group)]
     for req in dist.batch_isend_irecv(ops):
@@ -219,13 +305,29 @@ def ppermute_shift(x: torch.Tensor, axis: str, *, shift: int = 1) -> torch.Tenso
     return out
 
 
-def all_to_all(x: torch.Tensor, axis: str, *, split_axis: int, concat_axis: int,
-               tiled: bool = True) -> torch.Tensor:
-    """Split ``split_axis`` into one block per rank, send block ``j`` to
-    rank ``j`` and concatenate what arrives along ``concat_axis``."""
-    if not tiled:
-        raise NotImplementedError("untiled all_to_all is not ported")
-    group = _single_group(axis, "all_to_all")
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ppermute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ppermute(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute_shift(x: torch.Tensor, axis: str, *, shift: int = 1) -> torch.Tensor:
+    """Rotate shards around a ring: rank ``i`` of the axis receives rank
+    ``i - shift``'s block. Differentiable: the backward rotates the
+    cotangent by ``-shift``. On an axis of size 1 the input comes back
+    as it is, with no collective (a ring of one)."""
+    group = _single_group(axis, "ppermute_shift")
+    if shift % dist.get_world_size(group) == 0:
+        return x
+    return _Ppermute.apply(x, group, shift)
+
+
+def _all_to_all(x: torch.Tensor, group: Any, split_axis: int, concat_axis: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     sends = [c.contiguous() for c in x.chunk(n, dim=split_axis)]
     # gathered, so gloo (which has no all_to_all on the CPU) runs it too
@@ -235,6 +337,31 @@ def all_to_all(x: torch.Tensor, axis: str, *, split_axis: int, concat_axis: int,
     COLLECTIVES.add("all_to_all")
     me = dist.get_rank(group)
     return torch.cat([gathered[me][src] for src in range(n)], dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_axis, concat_axis = ctx.args
+        return _all_to_all(grad, group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: str, *, split_axis: int, concat_axis: int,
+               tiled: bool = True) -> torch.Tensor:
+    """Split ``split_axis`` into one block per rank, send block ``j`` to
+    rank ``j`` and concatenate what arrives along ``concat_axis``.
+    Differentiable: the backward is ``all_to_all(concat_axis,
+    split_axis)``."""
+    if not tiled:
+        raise NotImplementedError("untiled all_to_all is not ported")
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    return _AllToAll.apply(x, _single_group(axis, "all_to_all"), split_axis, concat_axis)
 
 
 def axis_index(axis: str) -> int:

@@ -10,7 +10,15 @@ runs the function on plain tensors with the mesh bound, so the
 collectives of :mod:`~unionml_tpu_torch.parallel.collectives` find each
 axis's process group, and wraps the outputs back as DTensors by
 ``out_specs``. The to_local / from_local pair is differentiable, so
-autograd crosses the boundary.
+autograd crosses the boundary with the reference's transpose
+(``shard_map(check_vma=False)``): an output replicated over a mesh axis
+(its spec leaves the axis out) passes each rank ``1/n`` of its cotangent,
+and an input's gradient is ``Partial`` (a sum still to take) over every
+axis its spec leaves out; with the backward of
+:func:`~unionml_tpu_torch.parallel.collectives.psum` a psum, every
+gradient is the serial one. An input that was a plain tensor needing a
+gradient enters as the global value every rank holds and gets the whole
+gradient back.
 
 :func:`local_call` is the same boundary for one call on DTensors whose
 placements the caller has already checked: the kernel wrappers take
@@ -27,6 +35,7 @@ from typing import Any, Callable, Optional, Sequence
 __all__ = [
     "axis_size",
     "bound_mesh",
+    "checkpoint_context_fn",
     "is_dtensor",
     "local_call",
     "refuse_dtensor",
@@ -62,6 +71,20 @@ def _mesh_scope(mesh: Any):
         yield mesh
     finally:
         _MESH.reset(token)
+
+
+def checkpoint_context_fn() -> Callable:
+    """A ``context_fn`` for non-reentrant ``torch.utils.checkpoint``: the
+    recomputation in the backward runs with the mesh the forward had bound
+    (a recomputed ring or all-to-all finds its axes; the backward runs
+    outside the forward's :func:`shard_map`)."""
+    mesh = _MESH.get()
+
+    def contexts():
+        recompute = _mesh_scope(mesh) if mesh is not None else contextlib.nullcontext()
+        return contextlib.nullcontext(), recompute
+
+    return contexts
 
 
 def bound_mesh() -> Any:
@@ -103,22 +126,41 @@ def _with_specs(fn: Callable, x: Any, spec: Any) -> Any:
 
 
 def _local_in(t: Any, mesh: Any, spec: Any) -> Any:
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
     from unionml_tpu_torch.parallel.sharding import local_slices, spec_placements
 
     placements = spec_placements(mesh, spec, t.dim())
-    if is_dtensor(t):
-        if tuple(t.placements) != tuple(placements):
-            t = t.redistribute(mesh, placements)
-        return t.to_local(grad_placements=placements)
-    return t[local_slices(t.shape, mesh, placements)]
+    if not is_dtensor(t):
+        if not (torch.is_grad_enabled() and t.requires_grad):
+            return t[local_slices(t.shape, mesh, placements)]
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(mesh, placements)
+    return t.to_local(grad_placements=[Partial() if isinstance(p, Replicate) else p
+                                       for p in placements])
 
 
 def _global_out(t: Any, mesh: Any, spec: Any) -> Any:
-    from torch.distributed.tensor import DTensor
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
 
+    from unionml_tpu_torch.parallel import collectives
     from unionml_tpu_torch.parallel.sharding import spec_placements
 
-    return DTensor.from_local(t, mesh, spec_placements(mesh, spec, t.dim()), run_check=False)
+    placements = spec_placements(mesh, spec, t.dim())
+    if torch.is_grad_enabled() and t.requires_grad:
+        # an output replicated over an axis: each of its ranks holds the
+        # whole value, so each takes 1/n of its cotangent (the reference's
+        # transpose; the backward of the body's psum sums the shares)
+        n = 1
+        for i, p in enumerate(placements):
+            if isinstance(p, Replicate):
+                n *= mesh.size(i)
+        if n > 1:
+            t = collectives.scale_grad(t, 1.0 / n)
+    return DTensor.from_local(t, mesh, placements, run_check=False)
 
 
 def shard_map(

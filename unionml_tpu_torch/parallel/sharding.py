@@ -5,8 +5,10 @@ vocabulary is the reference's: **dp** (batch rows over ``data``, the
 gradient summed over it), **fsdp** (params and optimizer state sharded
 over ``fsdp``, gathered where a product needs them whole), **tp**
 (Megatron layouts from the partition rules over ``tensor``); ``sequence``,
-``pipeline`` and ``expert`` are axes of the mesh whose strategies are
-ported with sequence, pipeline and expert parallelism (ROADMAP.md, A6b).
+``pipeline`` and ``expert`` are axes of the mesh that
+:mod:`~unionml_tpu_torch.models.sequence_parallel`,
+:mod:`~unionml_tpu_torch.parallel.pipeline` and
+:mod:`~unionml_tpu_torch.ops.moe` (``LLAMA_MOE_PARTITION_RULES``) use.
 A :class:`ShardingConfig` names the axis sizes, how batches shard and how
 parameters partition, with the same regex rules and the same ``sanitize``
 as the reference, so a rule set written for the JAX package means the
@@ -318,13 +320,14 @@ def _mesh_device(mesh: Any) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _place(t: torch.Tensor, sharding: NamedSharding) -> Any:
-    """A DTensor of ``t``'s global value under ``sharding``, cut from the
-    copy every rank holds (no collective): this rank's block, copied."""
+def _place(t: torch.Tensor, sharding: NamedSharding, placements: Any = None) -> Any:
+    """A DTensor of ``t``'s global value under ``sharding`` (or the given
+    ``placements`` on its mesh), cut from the copy every rank holds (no
+    collective): this rank's block, copied."""
     from torch.distributed.tensor import DTensor
 
     mesh = sharding.mesh
-    placements = sharding.placements(t.dim())
+    placements = placements if placements is not None else sharding.placements(t.dim())
     if is_dtensor(t):
         return t if tuple(t.placements) == tuple(placements) \
             else t.redistribute(mesh, placements)
@@ -430,12 +433,22 @@ def place_batch(batch: Any, sharding: NamedSharding) -> Any:
 
     from unionml_tpu_torch.models.train import tree_map
 
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = sharding.mesh
+
     def leaf(x):
         if not isinstance(x, torch.Tensor):
             if not hasattr(x, "__array__"):
                 return x
             x = torch.as_tensor(np.asarray(x))
-        return _place(x, sharding)
+        # a dim of one row over a mesh dim of one rank is the same layout
+        # sharded or whole; whole, since DTensor refuses to fold a sharded
+        # dim of size 1 into another (a 1-row batch's projections)
+        placements = [Replicate() if isinstance(p, Shard) and x.shape[p.dim] == 1
+                      and mesh.size(i) == 1 else p
+                      for i, p in enumerate(sharding.placements(x.dim()))]
+        return _place(x, sharding, placements)
 
     return tree_map(leaf, batch)
 
