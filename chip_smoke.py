@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (unionml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--layers 16] [--max-new-tokens 32]
+    python3 chip_smoke.py [--layers 12] [--max-new-tokens 32]
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -243,7 +243,28 @@ Phases, each of which fails the run with a non-zero exit:
              launch shape these phases gave the kernel is run again on
              random inputs and held against the plain version (grouped
              bf16 also bit for bit);
-9. report  — one JSON line of per-kernel numbers, the nvidia-smi line, and
+9. placed, hf, encdec — (a) the engine phase's int8 tree, the int4
+             paged engine's g=128 tree and the speculative engine's
+             per-channel int4 target placed by LLAMA_QUANT_PARTITION_RULES /
+             LLAMA_INT4_PARTITION_RULES on a one-rank NCCL group (every
+             placement whole): the paged DecodeEngine and make_generator on
+             each placed tree give the plain tree's tokens bit for bit; rows
+             1, 2, 6, 7 and 8 counted on these runs; the int4 guard passes
+             tensor 2 / 4 / 8 for a tree packed for int4_tp=8 and refuses 4
+             for the default packing; (b) Llama-3-8B widths at 2 layers
+             (vocab 128256), seeded bf16 weights made on the card, written by
+             export_llama_safetensors as two indexed shards beside a
+             config.json written here, in a temporary directory under
+             build/ (deleted), read back by llama_config_from_hf and
+             streamed onto the card as int8 by load_llama_checkpoint: the
+             tree bit for bit quantize_params', the paged engine's tokens
+             equal from both; write and load seconds, bytes, the load's host
+             RSS peak; (c) the encoder-decoder at EncDecConfig() (768 x 12 +
+             12 layers, vocab 32128): 4 seq2seq steps with the loss falling,
+             cached greedy decode = the full-prefix recompute (fp32, the
+             largest logits gap printed), one predictor call on ragged
+             sources; each prints its seconds (``time: ... done in``);
+10. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -3984,6 +4005,333 @@ def parallel_phase(llama_cfg, *, device: str = "cuda") -> dict:
             "moe_train": moe_train, "moe_serve": moe_serve, "seconds": seconds}
 
 
+# --------------------------------------------------------------------- #
+# 9: serving a placed tree (A6c), the HF converter, the encoder-decoder
+# --------------------------------------------------------------------- #
+
+TP_PROMPT_LENGTHS = (5, 120, 37, 260)     # 9a: the paged engine's requests
+TP_NEW_TOKENS = 16
+HF_LAYERS = 2                             # 9b: Llama-3-8B widths, depth cut to 2
+HF_NEW_TOKENS = 16
+ENCDEC_STEPS = 4                          # 9c: seq2seq steps on one batch
+ENCDEC_NEW_TOKENS = 8
+
+
+def serving_counters(config) -> dict:
+    """The kernel counters a serving path at ``config`` launches: rows 1,
+    2 and 6, and row 7 or 8 for an int4 config."""
+    from unionml_tpu_torch.ops import flash_attention as fa
+    from unionml_tpu_torch.ops import fused_norm
+    from unionml_tpu_torch.ops import int4_matmul as i4
+    from unionml_tpu_torch.ops import paged_attention as pa
+
+    counters = {"paged_attention": pa.KERNEL, "flash_fwd_padded": fa.KERNEL,
+                "rms_norm_fwd": fused_norm.KERNEL}
+    if config.weight_bits == 4:
+        counters["int4_matmul_grouped" if config.int4_group else "int4_matmul"] = (
+            i4.KERNEL_GROUPED if config.int4_group else i4.KERNEL)
+    return counters
+
+
+def tp_serve_check(config, params, rules, *, device: str = "cuda",
+                   lengths: tuple = TP_PROMPT_LENGTHS, max_new_tokens: int = TP_NEW_TOKENS,
+                   buckets: tuple = (64, 256)) -> dict:
+    """9a: ``params`` placed by ``rules`` over ``ShardingConfig(data=-1,
+    tensor=1)`` on a one-rank process group (NCCL on the card; every
+    placement is whole), then served through the paged DecodeEngine and
+    make_generator on the placed tree: tokens bit for bit the plain
+    tree's. The kernels' launch counts are read around the placed runs
+    only. The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import Llama, make_generator
+    from unionml_tpu_torch.parallel import ShardingConfig, multihost_initialize, shard_pytree
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    kw = dict(slots=4, prompt_buckets=buckets, max_new_tokens=max_new_tokens, paged=True,
+              device=device)
+    counters = serving_counters(config)
+    if not multihost_initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device):
+        raise AssertionError("the process group did not start")
+    try:
+        backend = dist.get_backend()
+        if device == "cuda" and backend != "nccl":
+            raise AssertionError(f"the card's group runs {backend}, not NCCL")
+        placed = shard_pytree(params, ShardingConfig(data=-1, tensor=1, rules=rules))
+        engine = DecodeEngine(Llama(config), **kw)
+        gen = make_generator(Llama(config), max_new_tokens=max_new_tokens,
+                             max_len=engine.cache_len)
+        prompt = torch.tensor([prompts[1]], device=device)
+        for c in counters.values():
+            c.launches = 0
+        try:
+            tp_tokens = engine.generate(placed, prompts)
+            tp_gen = gen(placed, prompt)
+        finally:
+            engine.close()
+        launches = {name: c.launches for name, c in counters.items()}
+        del placed
+    finally:
+        dist.destroy_process_group()
+    plain = DecodeEngine(Llama(config), **kw)
+    try:
+        plain_tokens = plain.generate(params, prompts)
+    finally:
+        plain.close()
+    plain_gen = gen(params, prompt)
+    if tp_tokens != plain_tokens:
+        raise AssertionError(f"the engine on the placed tree gave {tp_tokens}, the plain tree "
+                             f"{plain_tokens}")
+    if not torch.equal(tp_gen, plain_gen):
+        raise AssertionError("make_generator on the placed tree left the plain tree's tokens")
+    missing = [name for name, n in launches.items() if n == 0]
+    if device == "cuda" and missing:
+        raise AssertionError(f"the placed path launched no {missing}")
+    seconds = time.perf_counter() - t0
+    log(f"tp serve ({config.weight_bits}-bit{f', g={config.int4_group}' if config.int4_group else ''},"
+        f" {config.num_layers} layers): backend {backend}, {len(prompts)} prompts x "
+        f"{max_new_tokens} tokens bit for bit on the placed tree, launches {launches}, "
+        f"{seconds:.1f} s")
+    return {"backend": backend, "launches": launches, "tokens_equal": True,
+            "seconds": seconds}
+
+
+def int4_tp_guard_check() -> dict:
+    """9a: the int4 tensor-parallel guard at Llama-3-8B width: a tree
+    packed for int4_tp=8 serves at 2, 4 and 8; the default packing
+    (int4_tp=1) is refused at 4 (the 1024-channel k / v split a tile)."""
+    from unionml_tpu_torch.models import LlamaConfig
+    from unionml_tpu_torch.models.llama import assert_int4_tp_compatible
+
+    for tp in (2, 4, 8):
+        assert_int4_tp_compatible(LlamaConfig(quantized=True, weight_bits=4, int4_tp=8), tp)
+    try:
+        assert_int4_tp_compatible(LlamaConfig(quantized=True, weight_bits=4), 4)
+    except ValueError as exc:
+        refused = str(exc).split(" — ")[0]
+    else:
+        raise AssertionError("the default int4 packing was not refused at tensor=4")
+    log(f"tp serve: int4 guard passes 2 / 4 / 8 packed for int4_tp=8; refuses: {refused}")
+    return {"passes": [2, 4, 8], "refused": refused}
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssPeak:
+    """The host RSS peak of the process while the block runs, sampled every
+    5 ms on a thread, above the RSS when it started."""
+
+    def __enter__(self):
+        self.start = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+    @property
+    def growth(self) -> int:
+        return self.peak - self.start
+
+
+def hf_config_json(config) -> dict:
+    """An HF ``config.json`` for ``config``, as a Llama-3-8B checkpoint
+    ships it."""
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": config.vocab_size, "hidden_size": config.hidden_dim,
+        "num_hidden_layers": config.num_layers, "num_attention_heads": config.num_heads,
+        "num_key_value_heads": config.num_kv_heads, "intermediate_size": config.mlp_dim,
+        "rope_theta": config.rope_theta, "rms_norm_eps": config.norm_eps,
+        "max_position_embeddings": config.max_len, "hidden_act": "silu",
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16", "bos_token_id": 128000,
+        "eos_token_id": 128001, "attention_bias": False, "mlp_bias": False,
+    }
+
+
+def hf_import_check(config, *, device: str = "cuda", new_tokens: int = HF_NEW_TOKENS,
+                    lengths: tuple = (7, 200, 64, 130), buckets: tuple = (64, 256)) -> dict:
+    """9b: seeded bf16 weights at ``config`` (built on ``device``) written
+    by export_llama_safetensors as two shards with their index, beside a
+    config.json written here, into a temporary directory under build/
+    (deleted at the end); the config read back by llama_config_from_hf;
+    the shards streamed onto ``device`` by load_llama_checkpoint(quantize=
+    True). The loaded int8 tree must equal quantize_params of the same
+    weights bit for bit, and the paged engine must serve the same tokens
+    from both."""
+    import shutil
+    import tempfile
+
+    from unionml_tpu_torch.models import Llama, LLAMA_QUANT_PATTERNS, quantize_params
+    from unionml_tpu_torch.models.convert import (export_llama_safetensors,
+                                                  llama_config_from_hf, load_llama_checkpoint)
+    from unionml_tpu_torch.models.llama import init_params
+    from unionml_tpu_torch.models.train import tree_leaves
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    t0 = time.perf_counter()
+    params = init_params(config, seed=7, device=device, dtype=torch.bfloat16)
+    leaves = tree_leaves(params)
+    total = sum(t.numel() * t.element_size() for t in leaves)
+    lm_head = params["lm_head"]["kernel"]
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="hf_ckpt_", dir=build)
+    try:
+        t_write = time.perf_counter()
+        # everything but the LM head in the first shard, the head in the second
+        shards = export_llama_safetensors(
+            params, config, root, max_shard_bytes=total - lm_head.numel() * lm_head.element_size())
+        write_s = time.perf_counter() - t_write
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump(hf_config_json(config), f, indent=2)
+        on_disk = dir_bytes(root)
+        if len(shards) != 2 or not os.path.exists(os.path.join(root,
+                                                               "model.safetensors.index.json")):
+            raise AssertionError(f"expected two indexed shards, got {shards}")
+        with open(os.path.join(root, "config.json")) as f:
+            hf_cfg = llama_config_from_hf(json.load(f))
+        for field in ("vocab_size", "hidden_dim", "num_layers", "num_heads", "num_kv_heads",
+                      "mlp_dim", "rope_theta", "norm_eps", "max_len"):
+            if getattr(hf_cfg, field) != getattr(config, field):
+                raise AssertionError(f"config.json read back {field}={getattr(hf_cfg, field)}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_load = time.perf_counter()
+        with RssPeak() as rss:
+            loaded, qcfg = load_llama_checkpoint(
+                root, quantize=True, device=device, quantized=True, prefill_impl="flash",
+                norm_impl="fused", paged_impl="auto")
+            if device == "cuda":
+                torch.cuda.synchronize()
+        load_s = time.perf_counter() - t_load
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = quantize_params(params, LLAMA_QUANT_PATTERNS)
+    del params
+    got_leaves = dict(zip(tree_paths(loaded), tree_leaves(loaded)))
+    want_leaves = dict(zip(tree_paths(want), tree_leaves(want)))
+    if got_leaves.keys() != want_leaves.keys():
+        raise AssertionError(f"loaded leaves {sorted(set(got_leaves) ^ set(want_leaves))} "
+                             "differ from quantize_params'")
+    unequal = [p for p, a in got_leaves.items() if not (
+        a.dtype == want_leaves[p].dtype and a.shape == want_leaves[p].shape
+        and torch.equal(a, want_leaves[p]))]
+    if unequal:
+        raise AssertionError(f"loaded leaves {unequal[:4]} differ from quantize_params'")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    tokens = []
+    for tree in (loaded, want):
+        engine = DecodeEngine(Llama(qcfg), slots=4, prompt_buckets=buckets,
+                              max_new_tokens=new_tokens, paged=True, device=device)
+        try:
+            tokens.append(engine.generate(tree, prompts))
+        finally:
+            engine.close()
+    if tokens[0] != tokens[1]:
+        raise AssertionError(f"the loaded tree served {tokens[0]}, quantize_params' {tokens[1]}")
+    seconds = time.perf_counter() - t0
+    log(f"hf import: {config.num_layers} layers at width {config.hidden_dim}, vocab "
+        f"{config.vocab_size}: {total} bf16 bytes ({on_disk} on disk, 2 shards) written in "
+        f"{write_s:.2f} s, streamed int8 onto {device} in {load_s:.2f} s, host RSS peak "
+        f"+{rss.growth} bytes during the load; int8 tree bit for bit quantize_params', "
+        f"{len(prompts)} x {new_tokens} tokens equal; {seconds:.1f} s")
+    return {"bytes": total, "bytes_on_disk": on_disk, "write_s": write_s, "load_s": load_s,
+            "load_rss_peak_bytes": rss.growth, "leaves": len(got_leaves),
+            "tokens_equal": True, "seconds": seconds}
+
+
+def encdec_check(config, *, device: str = "cuda", batch: int = 8, src_len: int = 64,
+                 tgt_len: int = 32, steps: int = ENCDEC_STEPS,
+                 new_tokens: int = ENCDEC_NEW_TOKENS) -> dict:
+    """9c: the encoder-decoder at ``config``: ``steps`` seq2seq_step
+    updates (AdamW) on one batch, the loss finite and falling; greedy
+    tokens from the cached decode equal to the full-prefix recompute, in
+    fp32 at the same widths (near-tie argmaxes of random bf16 weights
+    flip between the two paths' products; the reference's test is fp32
+    too), with the largest |cached - recomputed| logit over the steps
+    printed; one make_seq2seq_predictor call
+    over ragged sources in ``config``'s dtype."""
+    from unionml_tpu_torch.models.encdec import (EncoderDecoder, init_params,
+                                                 make_seq2seq_generator,
+                                                 make_seq2seq_predictor, seq2seq_step)
+    from unionml_tpu_torch.models.train import TrainState, adamw
+
+    t0 = time.perf_counter()
+    module = EncoderDecoder(config)
+    params = init_params(config, seed=5, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    src = torch.randint(2, config.vocab_size, (batch, src_len), device=device, generator=gen)
+    src[1, src_len // 2:] = 0                       # one padded source
+    tgt = torch.cat([torch.ones(batch, 1, dtype=torch.long, device=device),
+                     src[:, :tgt_len - 1]], dim=1)
+    state = TrainState.create(apply_fn=module, params=params, tx=adamw(1e-3))
+    step = seq2seq_step(module)
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, (src, tgt))
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"seq2seq losses {losses} not finite and falling")
+
+    f32 = dataclasses.replace(config, dtype="float32")
+    m32 = EncoderDecoder(f32)
+    rows = src[:2, :24].clone()
+    mask = rows != 0
+    cached = make_seq2seq_generator(m32, max_new_tokens=new_tokens)(state.params, rows, None,
+                                                                    mask)
+    from unionml_tpu_torch.models.encdec import init_decoder_cache
+
+    toks = torch.ones(rows.shape[0], 1, dtype=torch.long, device=device)
+    gap = 0.0
+    with torch.no_grad():
+        enc = m32.encode(state.params, rows, src_mask=mask)
+        cache = init_decoder_cache(f32, rows.shape[0], new_tokens + 1, dtype="float32",
+                                   device=device)
+        for i in range(new_tokens):
+            step_logits, cache = m32.decode(state.params, toks[:, -1:], enc, mask, cache, i)
+            full = m32.decode(state.params, toks, enc, mask)[:, -1]
+            gap = max(gap, float((step_logits[:, -1] - full).abs().max()))
+            toks = torch.cat([toks, full.argmax(-1)[:, None]], dim=1)
+    if not torch.equal(cached, toks[:, 1:]):
+        raise AssertionError(f"cached decode {cached.tolist()} left the full-prefix recompute "
+                             f"{toks[:, 1:].tolist()}")
+
+    class _State:
+        pass
+
+    holder = _State()
+    holder.params = state.params
+    pred = make_seq2seq_predictor(module, max_new_tokens=new_tokens, src_buckets=(16, 64))
+    sources = [src[0, :5].tolist(), src[2, :40].tolist(), src[3, :17].tolist()]
+    outs = pred(holder, sources)
+    if len(outs) != 3 or any(len(o) != new_tokens for o in outs):
+        raise AssertionError(f"the predictor gave {outs}")
+    seconds = time.perf_counter() - t0
+    log(f"encdec: {config.hidden_dim} wide, {config.num_encoder_layers} + "
+        f"{config.num_decoder_layers} layers, vocab {config.vocab_size}: losses {losses}; "
+        f"cached decode = full-prefix recompute ({new_tokens} tokens x 2, fp32, largest "
+        f"logits gap {gap}); predictor over {len(sources)} ragged sources; "
+        f"{seconds:.1f} s")
+    return {"losses": losses, "cached_equals_recompute": True, "max_logits_gap": gap,
+            "predictor_rows": len(outs), "seconds": seconds}
+
+
 def kernel_phase(batch: int, bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # row 2 at the micro-batcher's prefill and decode and the paged
@@ -6908,9 +7256,10 @@ def remote_phase(*, device: str = "cuda", steps: int = 8) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # the serving phases' Llama-3-8B depth: half of its 32 layers keeps the
-    # run within its time on a slow host (every width is the model's)
-    parser.add_argument("--layers", type=int, default=16)
+    # the serving phases' Llama-3-8B depth: 12 of its 32 layers keeps the
+    # run within half its time limit on a slow host with phase 9 added
+    # (every width is the model's)
+    parser.add_argument("--layers", type=int, default=12)
     parser.add_argument("--max-new-tokens", type=int, default=32)
     args = parser.parse_args(argv)
 
@@ -7028,9 +7377,21 @@ def main(argv=None) -> int:
     serverless = serverless_phase(config, params)
     log(f"time: serverless done at {time.perf_counter() - t_run:.1f} s")
     rollout = rollout_phase(config, params)
+    log(f"time: rollout done at {time.perf_counter() - t_run:.1f} s")
+    from unionml_tpu_torch.models import (EncDecConfig, LLAMA_INT4_PARTITION_RULES,
+                                          LLAMA_QUANT_PARTITION_RULES)
+
+    tp = {"int8": tp_serve_check(config, params, LLAMA_QUANT_PARTITION_RULES),
+          "int4_guard": int4_tp_guard_check()}
+    log(f"time: tp serve int8 done in {tp['int8']['seconds']:.1f} s")
     del model, params
     torch.cuda.empty_cache()
-    log(f"time: rollout done at {time.perf_counter() - t_run:.1f} s")
+    hf = hf_import_check(dataclasses.replace(base, num_layers=HF_LAYERS))
+    torch.cuda.empty_cache()
+    log(f"time: hf import done in {hf['seconds']:.1f} s")
+    encdec = encdec_check(EncDecConfig())
+    torch.cuda.empty_cache()
+    log(f"time: encdec done in {encdec['seconds']:.1f} s")
     remote = remote_phase()
     log(f"time: remote done at {time.perf_counter() - t_run:.1f} s")
     fp32 = fp32_parity_phase(base, 32)
@@ -7050,14 +7411,21 @@ def main(argv=None) -> int:
         model4.artifact = ModelArtifact(params4)
         int4_engine = engine_phase(cfg4, INT4_ENGINE_NEW_TOKENS, model=model4, params=params4,
                                    probe=probe)
+        tp["int4_grouped"] = tp_serve_check(cfg4, params4, LLAMA_INT4_PARTITION_RULES)
+        log(f"time: tp serve int4 g=128 done in {tp['int4_grouped']['seconds']:.1f} s")
         del model4, params4
         log(f"time: int4 paged engine done at {time.perf_counter() - t_run:.1f} s")
         target_cfg = serving_config(dataclasses.replace(base, num_layers=args.layers,
                                                         weight_bits=4))
         draft_cfg = serving_config(dataclasses.replace(base, **DRAFT_WIDTHS))
-        spec = spec_phase(target_cfg, random_quantized_params(target_cfg, 1), draft_cfg,
+        target_params = random_quantized_params(target_cfg, 1)
+        spec = spec_phase(target_cfg, target_params, draft_cfg,
                           random_quantized_params(draft_cfg, 2), 32, probe=probe)
         log(f"time: int4 speculative engine done at {time.perf_counter() - t_run:.1f} s")
+        tp["int4"] = tp_serve_check(target_cfg, target_params, LLAMA_INT4_PARTITION_RULES)
+        del target_params
+        torch.cuda.empty_cache()
+        log(f"time: tp serve int4 done in {tp['int4']['seconds']:.1f} s")
         int4_fp32 = fp32_parity_phase(dataclasses.replace(base, weight_bits=4, int4_group=128), 32)
         spec_fp32 = spec_fp32_parity_phase(dataclasses.replace(base, weight_bits=4),
                                            dataclasses.replace(base, **DRAFT_WIDTHS), 32)
@@ -7105,6 +7473,12 @@ def main(argv=None) -> int:
     per_train_step = {**vit["launches_per_step"], **llama["launches_per_step"]}
     main_launches["int4_matmul"] = spec["launches"]["int4_matmul"]
     main_launches["int4_matmul_grouped"] = int4_engine["launches"]["int4_matmul_grouped"]
+    # the placed-tree serving paths (9a): rows 1, 2 and 6 on the int8
+    # tree, 7 on the per-channel int4 tree, 8 on the g=128 one
+    tp_launches = dict(tp["int8"]["launches"])
+    tp_launches["int4_matmul"] = tp["int4"]["launches"]["int4_matmul"]
+    tp_launches["int4_matmul_grouped"] = tp["int4_grouped"]["launches"]["int4_matmul_grouped"]
+    log(f"tp serve: launches on the placed trees {tp_launches}")
     rows = []
     for name, cases in kernels.items():
         main_case = cases[0]
@@ -7131,6 +7505,7 @@ def main(argv=None) -> int:
             "fleet_launches": fleet["launches"].get(name),
             "serverless_launches": serverless["launches"].get(name),
             "rollout_launches": rollout["launches"].get(name),
+            "tp_serve_launches": tp_launches.get(name),
             "sharded_launches": sharded["vit"]["launches"].get(
                 name, sharded["lm"]["launches"].get(name)),
             "parallel_launches": {
@@ -7150,7 +7525,8 @@ def main(argv=None) -> int:
                       "int4_fp32_parity": int4_fp32, "spec_fp32_parity": spec_fp32,
                       "vit_train": vit, "llama_train": llama, "qlora_train": qlora,
                       "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
-                      "parallel": parallel,
+                      "parallel": parallel, "tp_serve": tp, "hf_import": hf,
+                      "encdec": encdec,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

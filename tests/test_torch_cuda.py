@@ -1489,3 +1489,27 @@ def test_one_rank_nccl_moe_compile_step_is_bit_equal_on_card(cuda, nccl_group):
                            attn_impl="flash")
     out = smoke.moe_train_check(cfg, device="cuda", seq=128)
     assert all(out["bit_equal_per_step"]) and min(out["aux_loss"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 0), (4, 128)],
+                         ids=["int8", "int4", "int4_g128"])
+def test_one_rank_nccl_tp_engine_is_bit_equal_on_card(cuda, bits, group):
+    """A6c on the card: a Llama tree placed by the int8 / int4 partition
+    rules on a one-rank NCCL group (every placement whole), served by the
+    paged DecodeEngine and make_generator on the placed tree, gives the
+    plain tree's tokens bit for bit, with rows 1, 2, 6 and 7 or 8 launched
+    on the placed runs (chip_smoke.tp_serve_check raises otherwise)."""
+    import dataclasses
+
+    from unionml_tpu_torch.models import LLAMA_INT4_PARTITION_RULES, LLAMA_QUANT_PARTITION_RULES
+
+    smoke = _chip_smoke()
+    cfg = smoke.serving_config(LlamaConfig.tiny(hidden_dim=256, mlp_dim=512, vocab_size=512))
+    if bits == 4:
+        cfg = dataclasses.replace(cfg, weight_bits=4, int4_group=group)
+    params = smoke.random_quantized_params(cfg, 0)
+    rules = LLAMA_INT4_PARTITION_RULES if bits == 4 else LLAMA_QUANT_PARTITION_RULES
+    out = smoke.tp_serve_check(cfg, params, rules, device="cuda", lengths=(5, 40, 9, 60),
+                               buckets=(32, 64), max_new_tokens=6)
+    assert out["tokens_equal"] and all(n > 0 for n in out["launches"].values())

@@ -196,9 +196,11 @@ def test_port_imports_neither_jax_nor_reference():
     serverless handlers and template, rollouts, the remote backend and
     its runner, the CLI) and the parallelism layer (mesh, collectives,
     sharding, sharded checkpoints, the pipeline, ring and Ulysses
-    attention, MoE, sequence- and pipeline-parallel training) among them.
-    ``fastapi`` and ``yaml`` stay unimported: the modules import them only
-    where they are used."""
+    attention, MoE, sequence- and pipeline-parallel training) and the HF
+    converter and encoder-decoder among them. ``fastapi`` and ``yaml`` stay
+    unimported: the modules import them only where they are used; and no
+    module imports ``transformers`` or ``safetensors`` (the card machine
+    has neither: the converter reads and writes the format itself)."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -221,12 +223,14 @@ def test_port_imports_neither_jax_nor_reference():
         "            'parallel', 'parallel.mesh', 'parallel.compat', 'parallel.collectives',\n"
         "            'parallel.sharding', 'checkpoint.sharded', 'parallel.pipeline',\n"
         "            'ops.ring_attention', 'ops.ulysses', 'ops.moe',\n"
-        "            'models.sequence_parallel', 'models.pipeline_lm'):\n"
+        "            'models.sequence_parallel', 'models.pipeline_lm', 'models.convert',\n"
+        "            'models.encdec'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"
         "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
-        "             or m.split('.')[0] in ('orbax', 'msgpack', 'fastapi', 'yaml'))\n"
+        "             or m.split('.')[0] in ('orbax', 'msgpack', 'fastapi', 'yaml',\n"
+        "                                    'transformers', 'safetensors'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -316,7 +316,8 @@ def sgd(learning_rate: float):
 
 def bridged_steps(kind: str, cfg: dict, jax_params: Any, batches: List[Any], *,
                   sharding: Any = None, rules: str = "", lr: float = 0.1,
-                  accumulate_steps: int = 1, overlap: str = "", fault: str = "") -> dict:
+                  accumulate_steps: int = 1, overlap: str = "", fault: str = "",
+                  overlap_axes: Any = ("data",)) -> dict:
     """The reference's params (numpy, its layout) bridged into the port,
     then SGD steps of the zoo's step factory, unsharded or sharded:
     the losses and the final params (whole, numpy)."""
@@ -351,7 +352,7 @@ def bridged_steps(kind: str, cfg: dict, jax_params: Any, batches: List[Any], *,
         step, state = compile_step(step, state, sharding=sc)
     ov = {"": None, "defer": GradOverlap(mode="defer")}.get(overlap)
     if overlap == "shard_map":
-        ov = GradOverlap(mode="shard_map", mesh=sc.mesh(), axes=("data",))
+        ov = GradOverlap(mode="shard_map", mesh=sc.mesh(), axes=tuple(overlap_axes))
     losses = []
     with grad_overlap_scope(ov), _Faults(fault):
         for batch in batches:

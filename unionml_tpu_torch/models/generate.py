@@ -11,7 +11,12 @@ chunked prefill, bucketed prompt lengths with a cache sized per bucket,
 and power-of-two batch padding. Random draws come from a
 :class:`torch.Generator` in place of the reference's PRNG key.
 
-Generation runs on the device of the weights it is given. Shared-prefix
+Generation runs on the device of the weights it is given. A tree placed
+under tensor parallelism (:func:`~unionml_tpu_torch.parallel.shard_pytree`
+with the Llama partition rules) is served on each rank's local shards:
+the cache holds the rank's kv heads and the logits are whole on every
+rank before sampling (every rank of the mesh calls ``generate`` with the
+same prompts). Shared-prefix
 serving (``make_prefix_cache``, ``make_generator(prefix_len=)``,
 ``make_lm_predictor(system_prefix=)``) prefills a system prompt once per
 weights and copies its rows into each request batch's cache.
@@ -26,7 +31,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from unionml_tpu_torch.models.llama import Llama, LlamaConfig, init_cache
+from unionml_tpu_torch.models.layers import localize_params
+from unionml_tpu_torch.models.llama import Llama, LlamaConfig, cache_config, init_cache
 from unionml_tpu_torch.models.train import resolve_params
 
 
@@ -34,6 +40,8 @@ def _params_device(params) -> torch.device:
     node = params
     while isinstance(node, Mapping):
         node = next(iter(node.values()))
+    if hasattr(node, "to_local"):     # a placed tree: its local shards' device
+        return node.to_local().device
     return node.device
 
 
@@ -127,6 +135,7 @@ def make_generator(
                     f"max_len={prefix_cache.total_len}; this generator needs "
                     f"prefix_len={prefix_len}, max_len={total_len}"
                 )
+        params = localize_params(params)
         device = _params_device(params)
         tokens = torch.as_tensor(tokens, device=device).long()
         batch, prompt_len = tokens.shape
@@ -164,7 +173,7 @@ def make_generator(
                 for layer in prefix_cache.cache
             )
         else:
-            cache = init_cache(cfg, batch, total_len, device=device)
+            cache = init_cache(cache_config(cfg, params), batch, total_len, device=device)
 
         # prefill: optional lead chunks fill cache rows only; the tail's
         # head runs on the LAST position (prompts are left-padded)
@@ -235,6 +244,7 @@ def make_prefix_cache(
     state identity)."""
     cfg: LlamaConfig = module.config
     total_len = max_len or cfg.max_len
+    params = localize_params(params)
     device = _params_device(params)
     toks = torch.as_tensor(np.asarray(prefix_tokens, np.int64), device=device)[None]
     prefix_len = toks.shape[1]
@@ -245,7 +255,7 @@ def make_prefix_cache(
             f"prefix of {prefix_len} tokens leaves no cache room within max_len {total_len}"
         )
     with torch.inference_mode():
-        cache = init_cache(cfg, 1, total_len, device=device)
+        cache = init_cache(cache_config(cfg, params), 1, total_len, device=device)
         step_size = prefill_chunk or prefix_len
         n_chunks = max(0, (prefix_len - 1) // step_size)
         tail_start = n_chunks * step_size

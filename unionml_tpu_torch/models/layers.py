@@ -26,7 +26,8 @@ the block-paged decode step (``block_table=``, through
 :mod:`unionml_tpu_torch.ops.fused_norm`), q/k/v/o biases, and the gated
 and GELU :class:`MlpBlock`, with int8 or packed-int4 (``weight_bits=4``)
 weight-only projections and LoRA adapters (``lora_rank``) on q/k/v/o and
-gate/up/down. Cross attention raises ``NotImplementedError``.
+gate/up/down, and cross attention (``kv=``, ``kv_mask=``: the encoder-
+decoder's, full-score and position-free).
 
 Under a sharded step (DTensor activations and params) the kernel-backed
 norms and the cache-free attention cross to local shards here
@@ -35,10 +36,20 @@ take plain tensors only. A rank holding q heads ``[h0, h0 + Hl)`` of a
 GQA layer whose kv heads stay whole (``num_kv_heads`` not divisible by
 ``tensor``) attends each local head ``h`` with kv head ``(h0 + h) //
 group``, the offset GSPMD applies silently in the reference.
+
+Serving a placed tree (:class:`LocalParams`, :func:`local_forward`): the
+forward runs on plain local tensors with the ``tensor`` axis bound, the
+kernels reached directly; column-parallel sites (q / k / v, gate / up)
+compute their rank's heads or channels, row-parallel ones (o, down) sum
+the ranks' partial products in rank order (:func:`row_parallel_sum`),
+and a local head reads kv head ``(h0 + h) // group`` where ``tensor``
+splits the q heads but not the kv heads.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Optional, Tuple
 
@@ -180,6 +191,174 @@ def _sharded_attention(q, k, v, *, impl: str, causal: bool):
 
     return local_call(attend, [q, k, v], [q.placements, kv_grads, kv_grads],
                       q.placements, mesh)
+
+
+# --------------------------------------------------------------------- #
+# serving a placed tree: the forward on local shards (tensor parallelism)
+# --------------------------------------------------------------------- #
+
+
+class TensorParallel:
+    """The ``tensor`` axis a placed tree is served over: its process group,
+    this rank's index and the axis size (1 where the mesh has no such axis
+    or it has one rank). Sums are rank-ordered (the bits do not depend on
+    the buffer a value travelled in, as :func:`~unionml_tpu_torch.parallel
+    .sharding.resolve_grads`' sums)."""
+
+    def __init__(self, mesh: Any, axis: str = "tensor"):
+        names = tuple(mesh.mesh_dim_names or ())
+        if axis in names:
+            self.size = mesh.size(names.index(axis))
+            self.rank = mesh.get_local_rank(axis)
+            self.group = mesh.get_group(axis)
+        else:
+            self.size, self.rank, self.group = 1, 0, None
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's block of ``x``, concatenated along ``dim`` in rank
+        order (a column-parallel output made whole)."""
+        if self.size == 1:
+            return x
+        from unionml_tpu_torch.parallel.collectives import gather_group
+
+        return gather_group(x, self.group, dim)
+
+
+def row_parallel_sum(tp: TensorParallel, y: torch.Tensor) -> torch.Tensor:
+    """The whole output of a row-parallel site (o, down, the int4 LM head):
+    every rank's partial product summed in rank order in fp32, then cast
+    once to ``y``'s dtype."""
+    if tp.size == 1:
+        return y
+    from unionml_tpu_torch.parallel.collectives import ordered_sum
+
+    return ordered_sum(y.float(), tp.group).to(y.dtype)
+
+
+class LocalParams(dict):
+    """A placed param tree as this rank's local shards (plain tensors),
+    with the :class:`TensorParallel` axis it is served over (``tp``).
+    :class:`~unionml_tpu_torch.models.llama.Llama` runs its forward on it
+    with the collectives of Megatron's layout: column-parallel sites
+    (q / k / v, gate / up, the fp and int8 LM head) compute their local
+    channels, row-parallel ones (o, down, the int4 LM head) sum partial
+    products (:func:`row_parallel_sum`), a vocab-sharded embedding sums
+    its masked lookups, and the LM head's logits are made whole."""
+
+    tp: TensorParallel
+
+
+def localize_params(params: Any) -> Any:
+    """``params`` as :class:`LocalParams` when it is a placed tree
+    (:func:`~unionml_tpu_torch.parallel.shard_pytree` places every tensor,
+    so its first leaf is a DTensor), else unchanged. A leaf sharded over
+    another mesh axis than ``tensor`` (an fsdp layout) is gathered whole
+    over it, once, here; the tree's ``tensor`` blocks stay as placed."""
+    first = _first_leaf(params)
+    if isinstance(params, LocalParams) or not is_dtensor(first):
+        return params
+    mesh = first.device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+
+    def leaf(t):
+        if not is_dtensor(t):
+            return t
+        want = [p if isinstance(p, Replicate) or
+                (isinstance(p, Shard) and names[i] == "tensor") else Replicate()
+                for i, p in enumerate(t.placements)]
+        if want != list(t.placements):
+            t = t.redistribute(t.device_mesh, want)
+        return t.to_local()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+
+    out = LocalParams(walk(params))
+    out.tp = TensorParallel(mesh)
+    return out
+
+
+def _first_leaf(tree: Any) -> Any:
+    # a placed tree places every tensor: its first leaf tells
+    while isinstance(tree, dict) and tree:
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def local_kv_heads(config: Any, params: Any) -> int:
+    """The kv heads a rank's cache holds for ``params`` (a
+    :class:`LocalParams` tree or a plain one): the local k projection's
+    heads, or, where ``tensor`` splits the q heads but not the kv heads,
+    one per local q head (each its kv head ``(h0 + h) // group``, so the
+    cache and the paged kernel see whole groups of one)."""
+    if not isinstance(params, LocalParams) or params.tp.size == 1:
+        return config.num_kv_heads
+    attn = params["block_0"]["attn"]
+    hd = config.head_dim
+    q, kv = _site_width(attn["q"]) // hd, _site_width(attn["k"]) // hd
+    return q if kv == config.num_kv_heads and q < config.num_heads else kv
+
+
+def _site_width(p: Any) -> int:
+    """Output channels of a dense site's (local) params."""
+    if "kernel_p" in p:
+        return (p["scale_g"] if "scale_g" in p else p["scale"]).shape[-1]
+    if "kernel_q" in p:
+        return p["kernel_q"].shape[1]
+    return math.prod(p["kernel"].shape[1:])
+
+
+def _site_rows(p: Any) -> int:
+    """Contraction rows of a 2-D dense site's (local) params."""
+    for name in ("kernel_p", "kernel_q", "kernel"):
+        if name in p:
+            return p[name].shape[0]
+    raise KeyError(f"no kernel in {sorted(p)}")
+
+
+@contextlib.contextmanager
+def local_forward(params: Any, ids: Any):
+    """The params a serving forward runs on, with the ``tensor`` axis bound
+    for its layers: with autograd off and host ids, a placed tree's local
+    shards (:func:`localize_params`); a :class:`LocalParams` tree as it is;
+    anything else unchanged and unbound (a training step's placed batch
+    keeps DTensor's path)."""
+    if (not isinstance(params, LocalParams) and not torch.is_grad_enabled()
+            and not is_dtensor(ids) and is_dtensor(_first_leaf(params))):
+        params = localize_params(params)
+    if not isinstance(params, LocalParams):
+        yield params
+        return
+    token = _TP.set(params.tp)
+    try:
+        yield params
+    finally:
+        _TP.reset(token)
+
+
+def local_embed(tp: TensorParallel, table: torch.Tensor, ids: torch.Tensor,
+                vocab: int) -> torch.Tensor:
+    """An embedding lookup on a rank's rows of the table: a vocab-sharded
+    table looks up the ids in its range (zeros elsewhere) and the blocks
+    are summed (exactly: one rank holds each row)."""
+    rows = table.shape[0]
+    if rows == vocab:
+        return table[ids]
+    local = ids - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return row_parallel_sum(tp, x)
+
+
+#: The axis the running forward serves a :class:`LocalParams` tree over
+#: (set by :class:`~unionml_tpu_torch.models.llama.Llama` for one call).
+_TP: "contextvars.ContextVar[Optional[TensorParallel]]" = contextvars.ContextVar(
+    "unionml_tensor_parallel", default=None)
 
 
 def make_dense(
@@ -504,6 +683,7 @@ class Attention(nn.Module):
         params,
         x: torch.Tensor,
         *,
+        kv: Optional[torch.Tensor] = None,
         positions: Optional[torch.Tensor] = None,
         cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         cache_index=None,
@@ -522,6 +702,11 @@ class Attention(nn.Module):
         whole visible history (empty cache, index 0, no prefix), which
         lets ``prefill_impl="flash"`` attend over the fresh k/v alone.
 
+        ``kv``: a ``(batch, kv_seq, features)`` source for cross attention
+        (k / v project from it, q from ``x``); needs ``causal=False``,
+        ``rope=False`` and no cache. ``kv_mask`` then hides padded source
+        positions (``(batch, kv_seq)``, False = hidden).
+
         ``block_table``: int [batch, table_width] — marks ``cache`` as a
         block-paged pool (per buffer [num_blocks, block, kv_heads, ...])
         addressed through the table. Decode steps only: ``seq == 1``, a
@@ -532,9 +717,15 @@ class Attention(nn.Module):
         with ``lengths = fill + 1`` (the written row sees itself).
         """
         batch, seq, _ = x.shape
-        q = self.q(params["q"], x)
-        k = self.k(params["k"], x)
-        v = self.v(params["v"], x)
+        tp = _TP.get()
+        if kv is not None:
+            return self._cross(params, x, kv, kv_mask, cache, tp)
+        if tp is None:
+            q = self.q(params["q"], x)
+            k = self.k(params["k"], x)
+            v = self.v(params["v"], x)
+        else:
+            q, k, v = self._local_qkv(params, x, x, tp)
         if positions is None:
             if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
                 base = cache_index[:, None]
@@ -550,7 +741,7 @@ class Attention(nn.Module):
                 raise ValueError("kv_mask requires a KV cache (generation path)")
             out = _run_attention(q, k, v, impl=self.attn_impl, causal=self.causal,
                                  sequence_axis=self.sequence_axis)
-            return self.o(params["o"], out)
+            return self._project_out(params["o"], out, tp)
 
         if len(cache) not in (2, 4):
             raise ValueError(
@@ -657,7 +848,55 @@ class Attention(nn.Module):
                                  for i in range(seq)], dim=1)
             else:
                 out = attend(q, bias)
-        return self.o(params["o"], out), new_cache
+        return self._project_out(params["o"], out, tp), new_cache
+
+    def _cross(self, params, x, kv, kv_mask, cache, tp):
+        """Cross attention: q from ``x``, k / v from the source ``kv``,
+        fully visible and position-free, padded source positions hidden by
+        the fp32 bias ``where(kv_mask, 0, -1e30)``; the full-score path
+        (``q_len != kv_len`` in general)."""
+        if self.causal or self.rope or cache is not None:
+            raise ValueError(
+                "cross attention (kv=...) is incompatible with causal masking, RoPE, "
+                "and KV caches — the source is fully visible and position-free"
+            )
+        if tp is None:
+            q = self.q(params["q"], x)
+            k = self.k(params["k"], kv)
+            v = self.v(params["v"], kv)
+        else:
+            q, k, v = self._local_qkv(params, x, kv, tp)
+        bias = None
+        if kv_mask is not None:
+            bias = torch.where(kv_mask[:, None, None, :], torch.zeros((), device=x.device),
+                               torch.full((), -1e30, device=x.device))
+        return self._project_out(params["o"], mha_reference(q, k, v, bias=bias), tp)
+
+    def _local_qkv(self, params, x, source, tp: TensorParallel):
+        """q / k / v on this rank's heads of a :class:`LocalParams` tree
+        (column-parallel). Where the kv projections stay whole under sharded
+        q heads, each local head ``h`` takes kv head ``(h0 + h) // group``
+        (the rule of :func:`_sharded_attention`)."""
+        hd, d = self.head_dim, x.shape[-1]
+        hq = _site_width(params["q"]) // hd
+        hkv = _site_width(params["k"]) // hd
+        q = self.q(params["q"], x, features=(hq, hd), kn=(d, self.num_heads * hd))
+        kv_kn = (d, self.num_kv_heads * hd)
+        k = self.k(params["k"], source, features=(hkv, hd), kn=kv_kn)
+        v = self.v(params["v"], source, features=(hkv, hd), kn=kv_kn)
+        if hkv == self.num_kv_heads and hq < self.num_heads:
+            index = _local_kv_heads(hq, tp.rank * hq, self.num_heads // self.num_kv_heads,
+                                    x.device)
+            k, v = k.index_select(2, index), v.index_select(2, index)
+        return q, k, v
+
+    def _project_out(self, params, out, tp: Optional[TensorParallel]):
+        """The o projection; on local heads (row-parallel) the partial
+        products summed over the ranks."""
+        if tp is None:
+            return self.o(params, out)
+        y = self.o(params, out, kn=(self.num_heads * self.head_dim, self.o.features))
+        return y if out.shape[2] == self.num_heads else row_parallel_sum(tp, y)
 
 
 class MlpBlock(nn.Module):
@@ -702,6 +941,15 @@ class MlpBlock(nn.Module):
         self.down = dense(features)
 
     def forward(self, params, x: torch.Tensor) -> torch.Tensor:
+        tp = _TP.get()
+        if tp is not None and self.gated:
+            # gate / up column-parallel, down row-parallel
+            d, hidden = x.shape[-1], self.up.features
+            h = _site_width(params["up"])
+            gate = F.silu(self.gate(params["gate"], x, features=h, kn=(d, hidden)))
+            up = self.up(params["up"], x, features=h, kn=(d, hidden))
+            y = self.down(params["down"], gate * up, kn=(hidden, d))
+            return y if h == hidden else row_parallel_sum(tp, y)
         if not self.gated:
             h = F.gelu(
                 self.up(params["up"], x),

@@ -17,8 +17,18 @@ block of :mod:`~unionml_tpu_torch.ops.moe` (fp or int8 experts; a LoRA
 config carries adapters on attention only, as in the reference), whose
 load-balance losses ``forward(..., sow=)`` collects under
 ``"aux_losses"``. :data:`LLAMA_PARTITION_RULES`,
-:data:`LLAMA_QUANT_PARTITION_RULES`, :data:`LLAMA_LORA_PARTITION_RULES`
-and :data:`LLAMA_MOE_PARTITION_RULES` are the reference's layouts.
+:data:`LLAMA_QUANT_PARTITION_RULES`, :data:`LLAMA_INT4_PARTITION_RULES`,
+:data:`LLAMA_LORA_PARTITION_RULES` and :data:`LLAMA_MOE_PARTITION_RULES`
+are the reference's layouts.
+
+Serving a placed tree (one that :func:`~unionml_tpu_torch.parallel
+.shard_pytree` laid out by those rules): with autograd off and host
+tokens, ``forward`` takes each rank's local shards once
+(:func:`~unionml_tpu_torch.models.layers.localize_params`) and runs on
+plain tensors, the kernels reached directly, with Megatron's collectives
+over the ``tensor`` axis (:class:`~unionml_tpu_torch.models.layers
+.LocalParams`); the KV cache holds the rank's kv heads
+(:func:`cache_config`).
 """
 
 from __future__ import annotations
@@ -32,11 +42,18 @@ from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.layers import (
+    _TP,
     Attention,
+    LocalParams,
     MlpBlock,
     RMSNorm,
+    _site_rows,
+    _site_width,
     gather_rows,
+    local_embed,
+    local_forward,
     make_dense,
+    row_parallel_sum,
 )
 from unionml_tpu_torch.ops.moe import MoEMlp
 from unionml_tpu_torch.parallel.compat import checkpoint_context_fn
@@ -272,8 +289,27 @@ class Llama(nn.Module):
         visible history (see :class:`~unionml_tpu_torch.models.layers
         .Attention`).
         """
+        with local_forward(params, tokens) as params:
+            if isinstance(params, LocalParams) and (self.config.num_experts
+                                                    or self.config.lora_rank):
+                raise NotImplementedError(
+                    "serving a placed MoE or LoRA tree is not ported: serve the "
+                    "merged / unplaced tree"
+                )
+            return self._forward(params, tokens, positions=positions, cache=cache,
+                                 cache_index=cache_index, kv_mask=kv_mask,
+                                 block_table=block_table, logit_index=logit_index,
+                                 full_prefill=full_prefill, sow=sow)
+
+    def _forward(self, params, tokens, *, positions, cache, cache_index, kv_mask,
+                 block_table, logit_index, full_prefill, sow):
         cfg = self.config
-        x = gather_rows(params["embed"]["embedding"], tokens.long()).to(self.dtype)
+        tp = _TP.get()
+        if tp is None:
+            x = gather_rows(params["embed"]["embedding"], tokens.long()).to(self.dtype)
+        else:
+            x = local_embed(tp, params["embed"]["embedding"], tokens.long(),
+                            cfg.vocab_size).to(self.dtype)
         if positions is None and cache_index is not None:
             if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
                 base = cache_index[:, None]
@@ -301,10 +337,28 @@ class Llama(nn.Module):
             rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, logit_index.long()][:, None, :]         # [B, 1, D]
         x = self.final_norm(params["final_norm"], x)
-        logits = self.lm_head(params["lm_head"], x.float())
+        if tp is None:
+            logits = self.lm_head(params["lm_head"], x.float())
+        else:
+            logits = self._local_head(params["lm_head"], x.float(), tp)
         if cache is not None:
             return logits, tuple(new_cache)
         return logits
+
+
+    def _local_head(self, p, x, tp):
+        """The LM head on a rank's shard, its logits whole on every rank:
+        the int4 head is K-sharded (each rank's partial logits summed), the
+        fp / int8 head vocab-sharded (the blocks gathered)."""
+        d, vocab = x.shape[-1], self.config.vocab_size
+        rows = _site_rows(p)
+        if rows < d:
+            k0 = tp.rank * rows
+            y = self.lm_head(p, x[..., k0:k0 + rows], kn=(d, vocab))
+            return row_parallel_sum(tp, y)
+        width = _site_width(p)
+        y = self.lm_head(p, x, features=width, kn=(d, vocab))
+        return y if width == vocab else tp.gather(y, -1)
 
 
 def assert_int4_tp_compatible(config: LlamaConfig, tensor: int) -> None:
@@ -313,8 +367,8 @@ def assert_int4_tp_compatible(config: LlamaConfig, tensor: int) -> None:
     output channels and decodes garbage with no exception. With
     ``config.int4_tp`` set (the degree ``quantize_params(tensor=...)``
     packed for), any ``tensor`` dividing it is slab-aligned. The LM head is
-    exempt: it shards K. (Serving under tensor parallelism is not ported
-    yet, ROADMAP.md A6c; this is the guard it will call.)"""
+    exempt: it shards K. Call it before placing a ``weight_bits=4`` tree
+    with :data:`LLAMA_INT4_PARTITION_RULES`."""
     from unionml_tpu_torch.ops.int4_matmul import tile_for
 
     if tensor <= 1 or config.weight_bits != 4:
@@ -406,6 +460,20 @@ def init_params(
     return params
 
 
+def cache_config(config: LlamaConfig, params: Any) -> LlamaConfig:
+    """``config`` with the kv heads a rank's cache holds for ``params``: a
+    placed tree's local kv heads (:func:`~unionml_tpu_torch.models.layers
+    .local_kv_heads`), else the config's own. Caches, pools and their byte
+    counts are built from it."""
+    import dataclasses
+
+    from unionml_tpu_torch.models.layers import local_kv_heads
+
+    heads = local_kv_heads(config, params)
+    return config if heads == config.num_kv_heads else \
+        dataclasses.replace(config, num_kv_heads=heads)
+
+
 def init_cache(
     config: LlamaConfig,
     batch: int,
@@ -466,6 +534,34 @@ LLAMA_QUANT_PARTITION_RULES = LLAMA_PARTITION_RULES + (
     PartitionRule(r"mlp/down/kernel_q$", ("tensor", None)),
     PartitionRule(r"lm_head/kernel_q$", (None, "tensor")),
     PartitionRule(r"lm_head/scale$", ("tensor",)),
+)
+
+
+# packed-int4 serving (weight_bits=4): kernel_p is [K, N/2] (packed
+# output channels). q/k/v/gate/up shard N as int8 does (a shard holds
+# whole packing tiles when the tree is quantized with tensor=int4_tp;
+# check with assert_int4_tp_compatible), o/down shard K. The LM head is
+# row-parallel (K sharded): 8B's 128256 channels have no power-of-two
+# tile split, but K = hidden always divides, and each rank's partial
+# logits are summed. Group-wise scales (scale_g [K/g, N]) follow their
+# kernel: column-parallel sites shard N, row-parallel sites the K-group
+# rows.
+LLAMA_INT4_PARTITION_RULES = (
+    # overrides (first match wins) of the inherited int8 lm_head rules:
+    # the int4 head is K-sharded, so its per-channel [vocab] scale is
+    # replicated
+    PartitionRule(r"lm_head/scale$", ()),
+    PartitionRule(r"lm_head/scale_g$", ("tensor", None)),
+    PartitionRule(r"lm_head/kernel_p$", ("tensor", None)),
+    PartitionRule(r"attn/(q|k|v)/scale_g$", (None, "tensor")),
+    PartitionRule(r"attn/o/scale_g$", ("tensor", None)),
+    PartitionRule(r"mlp/(gate|up)/scale_g$", (None, "tensor")),
+    PartitionRule(r"mlp/down/scale_g$", ("tensor", None)),
+) + LLAMA_QUANT_PARTITION_RULES + (
+    PartitionRule(r"attn/(q|k|v)/kernel_p$", (None, "tensor")),
+    PartitionRule(r"attn/o/kernel_p$", ("tensor", None)),
+    PartitionRule(r"mlp/(gate|up)/kernel_p$", (None, "tensor")),
+    PartitionRule(r"mlp/down/kernel_p$", ("tensor", None)),
 )
 
 

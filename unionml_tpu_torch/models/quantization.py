@@ -129,7 +129,10 @@ class DenseGeneral(nn.Module):
         self.dtype = torch_dtype(dtype)
         self.use_bias = use_bias
 
-    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, params, x: torch.Tensor, *, features=None, kn=None) -> torch.Tensor:
+        # the product follows the kernel's own shape: a local shard's
+        # features need no override (``features`` / ``kn`` are taken for
+        # the quantized layers' sake)
         axes = (self.axis,) if isinstance(self.axis, int) else tuple(self.axis)
         axes = [a % x.dim() for a in axes]
         kernel = params["kernel"].to(self.dtype)
@@ -153,8 +156,11 @@ class QuantizedDenseGeneral(nn.Module):
         self.axis = axis
         self.dtype = torch_dtype(dtype)
 
-    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
-        xt, lead, feats, k, n = _dense_geometry(x, self.axis, self.features)
+    def forward(self, params, x: torch.Tensor, *, features=None, kn=None) -> torch.Tensor:
+        """``features``: the output dims of a tensor-parallel shard (its
+        local channels) in place of the layer's own; ``kn`` is taken for
+        :class:`Int4DenseGeneral`'s sake."""
+        xt, lead, feats, k, n = _dense_geometry(x, self.axis, features or self.features)
         kernel_q, scale = params["kernel_q"], params["scale"]
         if tuple(kernel_q.shape) != (k, n):
             raise ValueError(f"kernel_q is {tuple(kernel_q.shape)}, expected {(k, n)}")
@@ -192,11 +198,16 @@ class Int4DenseGeneral(nn.Module):
         self.shards = shards
         self._int8 = QuantizedDenseGeneral(features, axis=axis, dtype=dtype)
 
-    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
-        xt, lead, feats, k, n = _dense_geometry(x, self.axis, self.features)
-        tile = int4_tile(k, n, shards=self.shards, group_size=self.group_size)
+    def forward(self, params, x: torch.Tensor, *, features=None, kn=None) -> torch.Tensor:
+        """``features``: a tensor-parallel shard's local output dims;
+        ``kn``: the site's whole ``(K, N)``, which fixes the packing tile
+        (a shard of a column-parallel site holds whole tiles, a shard of a
+        row-parallel one whole K blocks of the same slabs)."""
+        xt, lead, feats, k, n = _dense_geometry(x, self.axis, features or self.features)
+        whole_k, whole_n = kn or (k, n)
+        tile = int4_tile(whole_k, whole_n, shards=self.shards, group_size=self.group_size)
         if not tile:
-            return self._int8(params, x)
+            return self._int8(params, x, features=features)
         kernel_p = params["kernel_p"]
         scale = params["scale_g"] if self.group_size else params["scale"]
         if tuple(kernel_p.shape) != (k, n // 2):

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch.models.generate import _params_device
-from unionml_tpu_torch.models.llama import Llama, init_cache
+from unionml_tpu_torch.models.layers import localize_params
+from unionml_tpu_torch.models.llama import Llama, cache_config, init_cache
 from unionml_tpu_torch.models.train import resolve_params
 
 __all__ = [
@@ -90,14 +91,16 @@ def make_speculative_generator(
 
     @torch.inference_mode()
     def generate(target_params, draft_params, tokens, true_lens=None):
+        # a placed target (or draft) runs on its local shards
+        target_params, draft_params = localize_params(target_params), localize_params(draft_params)
         dev = _params_device(target_params)
         tokens = torch.as_tensor(tokens, device=dev).long()
         batch, prompt_len = tokens.shape
         # + k + 1 slack: a round writes up to k+1 rows past a row's fill
         total = (max_len or (prompt_len + max_new_tokens)) + k + 1
         rows = torch.arange(batch, device=dev)
-        t_cache = init_cache(t_cfg, batch, total, device=dev)
-        d_cache = init_cache(d_cfg, batch, total, device=dev)
+        t_cache = init_cache(cache_config(t_cfg, target_params), batch, total, device=dev)
+        d_cache = init_cache(cache_config(d_cfg, draft_params), batch, total, device=dev)
         if true_lens is None:
             true_lens = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
         else:

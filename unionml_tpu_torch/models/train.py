@@ -483,7 +483,15 @@ def _shard_map_accumulated(
 
     fn = shard_map(local, overlap.mesh, in_specs=(P(), P(None, axis_arg)),
                    out_specs=((P(), P()), P()), check_rep=False)
-    return fn(params, batch)
+    (loss, aux), grads = fn(params, batch)
+    from unionml_tpu_torch.parallel.compat import is_dtensor
+
+    # the replicated sums cut to each param's own layout (an fsdp-sharded
+    # param takes its block, no collective), as GSPMD reshards them
+    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                     if is_dtensor(p) and tuple(g.placements) != tuple(p.placements) else g,
+                     grads, params)
+    return (loss, aux), grads
 
 
 def _bind_frozen(loss_fn: Callable, state: Any) -> Callable:

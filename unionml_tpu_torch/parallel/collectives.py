@@ -9,6 +9,10 @@ asynchronous ``all_reduce`` per byte-bounded bucket of a gradient tree
 and can hand back the pending handles, so the overlapped accumulation
 waits for microbatch *i*'s sums only where it consumes them, during
 microbatch *i + 1*. Every collective issued counts in :data:`COLLECTIVES`.
+:func:`psum`, :func:`bucketed_psum`, :func:`all_gather` and
+:func:`reduce_scatter` also take a tuple of axes: they run over the
+product of those axes, its blocks in ``lax``'s order (row-major in the
+tuple's order), through each axis's own group in turn.
 
 Sums are deterministic: a psum gathers every rank's block and adds them
 in rank order (:func:`ordered_sum`), so an element's sum does not depend
@@ -105,8 +109,18 @@ def _groups(axis: AxisName) -> List[Any]:
 def _single_group(axis: AxisName, what: str) -> Any:
     groups = _groups(axis)
     if len(groups) != 1:
-        raise NotImplementedError(f"{what} over several axes at once is not ported")
+        raise ValueError(f"{what} takes one mesh axis, got {axis!r}")
     return groups[0]
+
+
+def _product_index(axis: AxisName) -> int:
+    """This rank's index in the product of the named axes, laid out as
+    ``lax`` lays out a tuple of axes: row-major in the tuple's order."""
+    mesh = compat.bound_mesh()
+    index = 0
+    for name in compat._axes(axis):
+        index = index * mesh.size(mesh.mesh_dim_names.index(name)) + mesh.get_local_rank(name)
+    return index
 
 
 class _Gathered:
@@ -209,17 +223,19 @@ class PendingPsum:
     """The in-flight buckets of one :func:`bucketed_psum`; :meth:`wait`
     blocks for them and returns the reduced tree."""
 
-    def __init__(self, like: Any, leaves: List[torch.Tensor], pieces: List[Any]):
+    def __init__(self, like: Any, leaves: List[torch.Tensor], pieces: List[Any],
+                 rest: List[Any] = ()):
         self._like = like
         self._leaves = leaves
         self._pieces = pieces   # (gathered bucket, [(leaf index, numel, shape)])
+        self._rest = list(rest)  # the groups of the tuple's later axes
 
     def wait(self) -> Any:
         from unionml_tpu_torch.models.train import tree_unflatten
 
         out: List[Any] = list(self._leaves)
         for gathered, members in self._pieces:
-            flat = gathered.wait()
+            flat = _ordered_sums(gathered.wait(), self._rest)
             offset = 0
             for i, numel, shape in members:
                 out[i] = flat[offset:offset + numel].view(shape)
@@ -240,14 +256,17 @@ def bucketed_psum(
     ``bucket_bytes`` gets its own bucket, a tensor is never split; a
     bucket's leaves travel as one flat buffer per dtype). The values are
     the plain psum's, bit for bit: bucketing changes how many collectives
-    run, never which shards sum nor in what order. ``wait=False`` returns
-    a :class:`PendingPsum` whose ``wait()`` gives the tree, so the caller
+    run, never which shards sum nor in what order. Over a tuple of axes
+    the sum runs over their product as :func:`psum`'s does: each bucket's
+    asynchronous gather over the first axis, then rank-ordered sums over
+    the others where it is waited for. ``wait=False`` returns a
+    :class:`PendingPsum` whose ``wait()`` gives the tree, so the caller
     consumes the sums later."""
     if bucket_bytes <= 0:
         raise ValueError(f"bucket_bytes must be > 0, got {bucket_bytes}")
     from unionml_tpu_torch.models.train import tree_leaves
 
-    group = _single_group(axis, "bucketed_psum")
+    group, *rest = _groups(axis)
     leaves = tree_leaves(tree)
     buckets: List[List[int]] = []
     sizes: List[int] = []
@@ -268,28 +287,42 @@ def bucketed_psum(
             flat = torch.cat([leaves[i].reshape(-1) for i in members])
             pieces.append((_Gathered(flat, group, async_op=True),
                            [(i, leaves[i].numel(), leaves[i].shape) for i in members]))
-    pending = PendingPsum(tree, leaves, pieces)
+    pending = PendingPsum(tree, leaves, pieces, rest)
     return pending.wait() if wait else pending
 
 
 def all_gather(x: torch.Tensor, axis: AxisName, *, gather_axis: int = 0,
                tiled: bool = True) -> torch.Tensor:
     """Gather shards along ``gather_axis`` (fsdp param gather); untiled
-    stacks them on a new leading-at-``gather_axis`` dimension."""
-    group = _single_group(axis, "all_gather")
+    stacks them on a new leading-at-``gather_axis`` dimension. Over a
+    tuple of axes the blocks come in ``lax``'s order of the product
+    (row-major in the tuple's order): gathered over the last axis first,
+    then each earlier one."""
+    for i, group in enumerate(reversed(_groups(axis))):
+        x = gather_group(x, group, gather_axis, tiled=tiled or i > 0)
+    return x
+
+
+def gather_group(x: torch.Tensor, group: Any, dim: int, *, tiled: bool = True) -> torch.Tensor:
+    """Every rank of ``group``'s ``x``, in rank order, concatenated along
+    ``dim`` (stacked on a new ``dim`` when not ``tiled``)."""
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     COLLECTIVES.add("all_gather")
-    return torch.cat(parts, dim=gather_axis) if tiled else torch.stack(parts, dim=gather_axis)
+    return torch.cat(parts, dim=dim) if tiled else torch.stack(parts, dim=dim)
 
 
 def reduce_scatter(x: torch.Tensor, axis: AxisName, *, scatter_axis: int = 0) -> torch.Tensor:
     """Sum-reduce then keep this rank's block of ``scatter_axis`` (fsdp
-    gradient shard)."""
-    group = _single_group(axis, "reduce_scatter")
-    total = ordered_sum(x, group)
-    n = dist.get_world_size(group)
-    return total.chunk(n, dim=scatter_axis)[dist.get_rank(group)].contiguous()
+    gradient shard). Over a tuple of axes: the sum over their product
+    (as :func:`psum`), and the block at this rank's index in it, in
+    ``lax``'s order."""
+    groups = _groups(axis)
+    total = _ordered_sums(x, groups)
+    n = 1
+    for group in groups:
+        n *= dist.get_world_size(group)
+    return total.chunk(n, dim=scatter_axis)[_product_index(axis)].contiguous()
 
 
 def _ppermute(x: torch.Tensor, group: Any, shift: int) -> torch.Tensor:

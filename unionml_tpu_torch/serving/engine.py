@@ -481,6 +481,17 @@ class DecodeEngine:
         self.model_version: Optional[str] = None
         self.module = module
         self.cfg = module.config
+        # the layout caches and pool blocks are built with: the config's
+        # kv heads, or a placed tree's local ones once it binds
+        self._cache_cfg = self.cfg
+        self._draft_cache_cfg = draft_module.config if draft_module is not None else None
+        self._params_src: Any = None
+        # a placed tree over several ranks: decide each pass on a drained
+        # pipeline (_drain_pipeline), admit arrivals as the ranks agree
+        # (_agree_arrivals: submitted requests wait in _staged until then)
+        self._lockstep = False
+        self._lockstep_group: Any = None
+        self._staged: List[_Request] = []
         self.slots = slots
         self.max_new_tokens = max_new_tokens
         self.prefill_chunk = None if prefill_chunk is None else int(prefill_chunk)
@@ -629,6 +640,7 @@ class DecodeEngine:
             blk = self._kv_block_size
             self._table_width = self.cache_len // blk
             block_nbytes = self._kv_block_nbytes(blk)
+            self._pool_bytes_arg = None if kv_pool_blocks is not None else kv_pool_bytes
             if kv_pool_blocks is not None:
                 num_blocks = int(kv_pool_blocks)
             elif kv_pool_bytes is not None:
@@ -998,7 +1010,10 @@ class DecodeEngine:
                     prompt_tokens=len(req.prompt),
                     queue_depth=self._room.qsize(),
                 )
-                self._room.put(req)
+                if self._lockstep:
+                    self._staged.append(req)
+                else:
+                    self._room.put(req)
         self._g_queue_depth.set(self._room.qsize())
 
     def _usage_rejected(self, reqs: List[_Request], reason: str) -> None:
@@ -1111,6 +1126,7 @@ class DecodeEngine:
             with self._lock:
                 drained = (
                     self._room.empty()
+                    and not self._staged
                     and self._admitting == 0
                     and self._admission is None
                     and all(r is None for r in self._occupant)
@@ -1161,7 +1177,7 @@ class DecodeEngine:
         """Device bytes of one pool block across every layer and buffer
         (``init_cache``'s layout: bf16 k/v, or int8 k/v + fp32
         per-(row, head) scales under ``kv_quant``)."""
-        cfg = self.cfg
+        cfg = self._cache_cfg
         rows = blk * cfg.num_kv_heads
         if getattr(cfg, "kv_quant", False):
             per_layer = 2 * (rows * cfg.head_dim * 1 + rows * 4)
@@ -1210,7 +1226,7 @@ class DecodeEngine:
 
         def init_state():
             return {
-                "cache": init_cache(cfg, B, L, device=dev),
+                "cache": init_cache(self._cache_cfg, B, L, device=dev),
                 "kv_mask": torch.zeros((B, L), dtype=torch.bool, device=dev),
                 # empty slots idle at row 0: dead slots still run the
                 # decode step and write garbage k/v at their fill row —
@@ -1251,14 +1267,14 @@ class DecodeEngine:
         full_ok = cfg.prefill_impl == "flash"
 
         def prefill(params, state, slot, tokens, true_len):
-            fresh = init_cache(cfg, 1, tokens.shape[0], device=dev)
+            fresh = init_cache(self._cache_cfg, 1, tokens.shape[0], device=dev)
             return finish_prefill(
                 params, state, fresh, slot, tokens[None], 0, true_len, full=full_ok,
             )
 
         self._prefill = prefill
         self._prefill_final = finish_prefill
-        self._init_fresh = lambda *, bucket: init_cache(cfg, 1, bucket, device=dev)
+        self._init_fresh = lambda *, bucket: init_cache(self._cache_cfg, 1, bucket, device=dev)
         self._prefill_step = self._make_prefill_step()
 
         def decode_chunk(params, state, active):
@@ -1378,7 +1394,7 @@ class DecodeEngine:
 
         def init_state():
             return {
-                "pool": init_cache(cfg, n_pool, blk, device=dev),
+                "pool": init_cache(self._cache_cfg, n_pool, blk, device=dev),
                 "fill": torch.zeros((B,), dtype=torch.int32, device=dev),
                 "last_tok": torch.zeros((B,), dtype=torch.long, device=dev),
                 "done": torch.ones((B,), dtype=torch.bool, device=dev),
@@ -1407,7 +1423,7 @@ class DecodeEngine:
         full_ok = cfg.prefill_impl == "flash"
 
         def prefill(params, state, slot, ids, tokens, true_len):
-            fresh = init_cache(cfg, 1, tokens.shape[0], device=dev)
+            fresh = init_cache(self._cache_cfg, 1, tokens.shape[0], device=dev)
             return finish_prefill(
                 params, state, fresh, slot, ids, tokens[None], 0, true_len,
                 full=full_ok,
@@ -1415,7 +1431,7 @@ class DecodeEngine:
 
         self._prefill = prefill
         self._prefill_final = finish_prefill
-        self._init_fresh = lambda *, bucket: init_cache(cfg, 1, bucket, device=dev)
+        self._init_fresh = lambda *, bucket: init_cache(self._cache_cfg, 1, bucket, device=dev)
         self._prefill_step = self._make_prefill_step()
 
         def decode_chunk(params, state, active, table):
@@ -1469,8 +1485,8 @@ class DecodeEngine:
 
         def init_state():
             return {
-                "cache": init_cache(cfg, B, L, device=dev),
-                "d_cache": init_cache(dcfg, B, L, device=dev),
+                "cache": init_cache(self._cache_cfg, B, L, device=dev),
+                "d_cache": init_cache(self._draft_cache_cfg, B, L, device=dev),
                 "kv_mask": torch.zeros((B, L), dtype=torch.bool, device=dev),
                 "fill": torch.zeros((B,), dtype=torch.int32, device=dev),
                 "last_tok": torch.zeros((B,), dtype=torch.long, device=dev),
@@ -1511,7 +1527,7 @@ class DecodeEngine:
             return first
 
         def init_fresh(*, bucket):
-            return (init_cache(cfg, 1, bucket, device=dev), init_cache(dcfg, 1, bucket, device=dev))
+            return (init_cache(self._cache_cfg, 1, bucket, device=dev), init_cache(self._draft_cache_cfg, 1, bucket, device=dev))
 
         def prefill(params, state, slot, tokens, true_len):
             return finish_prefill(
@@ -1652,6 +1668,12 @@ class DecodeEngine:
             )
         if deadline_ms is None:
             deadline_ms = current_deadline_ms()
+        if deadline_ms is not None and self._lockstep:
+            raise ValueError(
+                "deadline_ms is refused on a placed tree served over several "
+                "ranks: shedding at dequeue reads each rank's clock, and the "
+                "ranks must take the same decisions (ROADMAP.md C14)"
+            )
         # validate EVERY prompt before creating any request or trace
         # rid, so a bad later prompt cannot leak earlier ones' state
         rows = [self._canonical_row(p) for p in prompts]
@@ -1679,10 +1701,11 @@ class DecodeEngine:
             if not req.event.wait(self.submit_timeout):
                 # abandon the whole call: queued siblings are dropped at
                 # admission and in-slot ones retired at the next harvest,
-                # so orphans stop burning device time and slots
+                # so orphans stop burning device time and slots. Under
+                # lockstep they run on: a timeout is one rank's clock
                 self._m_timeouts.inc()
                 for r in reqs:
-                    r.abandoned = True
+                    r.abandoned = not self._lockstep
                 raise TimeoutError("decode engine did not finish in time")
             if req.error is not None:
                 raise req.error
@@ -1708,8 +1731,11 @@ class DecodeEngine:
         chunks yields exactly ``generate(params, [prompt])[0]`` (tested
         in the engine tests). Raises the engine's error, or
         ``TimeoutError`` when no chunk lands within ``submit_timeout``.
+        Refused on a placed tree served over several ranks (a consumer
+        that stops abandons its request on one rank only).
         """
         self.bind(params)
+        self._refuse_under_lockstep("generate_stream")
         tenant = (
             validate_tenant(tenant) if tenant is not None
             else current_tenant()
@@ -1801,7 +1827,7 @@ class DecodeEngine:
         is how much of the prompt an engine sharing this store will splice.
         Blocks the byte budget could not store shrink the match — the
         decode leg recomputes the difference. Billed as a 1-token
-        request."""
+        request. Refused on a placed tree served over several ranks."""
         if self.prefix_cache is None:
             raise ValueError(
                 "prefill_export needs a prefix cache — the harvested KV "
@@ -1810,6 +1836,7 @@ class DecodeEngine:
                 "shared RadixPrefixCache)"
             )
         self.bind(params)
+        self._refuse_under_lockstep("prefill_export")
         tenant = validate_tenant(tenant) if tenant is not None else current_tenant()
         priority = validate_priority(priority) if priority is not None else current_priority()
         if deadline_ms is None:
@@ -1883,8 +1910,21 @@ class DecodeEngine:
     def bind(self, params):
         """Set (or swap) the served weights (on the engine's device);
         state allocates lazily. Swapping while requests are in flight
-        would mix weights within a decode — refused instead."""
-        if params is self._params:
+        would mix weights within a decode — refused instead.
+
+        A tree placed under tensor parallelism is served on this rank's
+        local shards (:func:`~unionml_tpu_torch.models.layers
+        .localize_params`, once, here): the cache, the pool's blocks and
+        their byte count hold the rank's kv heads. Every rank of the mesh
+        runs its own engine over the same requests, submitted through
+        :meth:`generate` in the same calls and the same order; over several
+        ranks each dispatcher pass waits for the pipeline to drain and
+        admits only the arrivals every rank has (lockstep), so the ranks
+        decide alike and their forwards issue their collectives in one
+        order. Decisions that read a rank's clock are refused there:
+        ``deadline_ms``, :meth:`generate_stream`, :meth:`prefill_export`
+        and ``max_queue_depth`` (ROADMAP.md C14)."""
+        if params is self._params or params is self._params_src:
             return
         if self.draft is not None:
             if not (isinstance(params, Mapping) and "target" in params and "draft" in params):
@@ -1893,11 +1933,37 @@ class DecodeEngine:
                     '"draft": params} (the make_speculative_predictor artifact '
                     "contract)"
                 )
+        from unionml_tpu_torch.models.layers import localize_params
+        from unionml_tpu_torch.models.llama import cache_config
+
+        from unionml_tpu_torch.models.layers import LocalParams
+
+        src = params
+        draft_layout = self._draft_cache_cfg
+        if self.draft is not None:
+            params = {"target": localize_params(params["target"]),
+                      "draft": localize_params(params["draft"])}
+            layout = cache_config(self.cfg, params["target"])
+            draft_layout = cache_config(self.draft.config, params["draft"])
+            trees = params.values()
+        else:
+            params = localize_params(params)
+            layout = cache_config(self.cfg, params)
+            trees = [params]
+        tps = [t.tp for t in trees if isinstance(t, LocalParams) and t.tp.size > 1]
+        lockstep = bool(tps)
+        if lockstep and self.max_queue_depth is not None:
+            raise ValueError(
+                "max_queue_depth is refused on a placed tree served over "
+                "several ranks: each rank's queue depth at a submit depends "
+                "on its own timing (ROADMAP.md C14)"
+            )
         with self._lock:
             busy = (
                 any(r is not None for r in self._occupant)
                 or self._admitting > 0
                 or not self._room.empty()
+                or bool(self._staged)
                 or not self._inflight.empty()
             )
             if self._params is not None and busy:
@@ -1911,7 +1977,29 @@ class DecodeEngine:
                 # and the device splice memo goes with them
                 self.prefix_cache.clear()
                 self._dev_splice.clear()
+            if (layout, draft_layout) != (self._cache_cfg, self._draft_cache_cfg):
+                self._draft_cache_cfg = draft_layout
+                self._adopt_layout(layout)
             self._params = params
+            self._params_src = src
+            self._lockstep = lockstep
+            self._lockstep_group = tps[0].group if tps else None
+
+    def _adopt_layout(self, layout) -> None:
+        """Caches and pool blocks from now on hold ``layout``'s kv heads
+        (a placed tree's local ones): the idle engine drops its device
+        state, and a pool sized by bytes is re-counted in blocks of the
+        new size. Called with the lock held."""
+        self._cache_cfg = layout
+        self._state = None
+        self._dev_splice.clear()
+        if self.kv_pool is not None:
+            pool = self.kv_pool
+            nbytes = self._kv_block_nbytes(pool.block_size)
+            blocks = pool.num_blocks
+            if self._pool_bytes_arg is not None:
+                blocks = max(2, int(self._pool_bytes_arg) // nbytes)
+            pool.resize(num_blocks=blocks, block_nbytes=nbytes)
 
     def warmup(self, params) -> int:
         """Run one request per bucket (2 tokens: a 1-token request would
@@ -2111,11 +2199,14 @@ class DecodeEngine:
                 entry = self._inflight.get_nowait()
             except queue.Empty:
                 break
+            self._inflight.task_done()
             if entry[0] == "insert":
                 self._release_lease(entry[2])
             elif entry[0] == "preempt":
                 self._fail_orphan(entry[2], RuntimeError("decode engine closed"))
-        for req in self._room.pop_all():
+        with self._lock:
+            staged, self._staged = self._staged, []
+        for req in [*self._room.pop_all(), *staged]:
             req.error = RuntimeError("decode engine closed")
             self._release_lease(req)   # a resumed-queued stream's pin
             self._tracer.finish_request(req.rid)
@@ -2136,7 +2227,7 @@ class DecodeEngine:
         # a reaped or rolled-back canary its version's weights
         with self._lock:
             self._state = None
-            self._params = None
+            self._params = self._params_src = None
             self._dev_splice.clear()
 
 
@@ -3243,8 +3334,63 @@ class DecodeEngine:
                 except BaseException as exc:  # pragma: no cover - engine crash
                     self._recover(exc)
 
+    def _drain_pipeline(self) -> None:
+        """Wait until the harvester has processed every in-flight entry
+        (readbacks, retirements, prefix-cache inserts). Under lockstep (a
+        placed tree over several ranks) every decision the dispatcher
+        takes then rests on state that is the same on every rank, so the
+        ranks' forwards issue their collectives in one order."""
+        q = self._inflight
+        with q.all_tasks_done:
+            while q.unfinished_tasks and not self._stop.is_set():
+                q.all_tasks_done.wait(0.1)
+
+    def _refuse_under_lockstep(self, what: str) -> None:
+        if self._lockstep:
+            raise NotImplementedError(
+                f"{what} is refused on a placed tree served over several "
+                "ranks: serve it through generate() (ROADMAP.md C14)"
+            )
+
+    def _agree_arrivals(self) -> bool:
+        """Lockstep: move into the waiting room the submitted requests that
+        every rank has (the least count staged over the tensor group, one
+        all-reduce); returns False, with no collective, when this rank has
+        neither staged arrivals nor work in hand. Work in hand is the same
+        on every rank after the drain, so the ranks that enter the
+        all-reduce are the same ones pass for pass, and a rank whose
+        arrivals came early waits in it for the others'."""
+        with self._lock:
+            staged = len(self._staged)
+            busy = (
+                any(r is not None for r in self._occupant)
+                or self._admission is not None
+                or not self._room.empty()
+                or self._room.parked_count() > 0
+            )
+        if not staged and not busy:
+            return False
+        import torch.distributed as dist
+
+        from unionml_tpu_torch.parallel.collectives import COLLECTIVES
+
+        count = torch.tensor([staged], dtype=torch.int64, device=self.device)
+        dist.all_reduce(count, op=dist.ReduceOp.MIN, group=self._lockstep_group)
+        COLLECTIVES.add("all_reduce")
+        with self._lock:
+            agreed = self._staged[:int(count.item())]
+            del self._staged[:len(agreed)]
+            for req in agreed:
+                self._room.put(req)
+        self._g_queue_depth.set(self._room.qsize())
+        return True
+
     def _run_pass(self) -> bool:
         """One dispatcher pass; returns whether it made progress."""
+        if self._lockstep:
+            self._drain_pipeline()
+            if not self._agree_arrivals():
+                return False
         progressed = False
         adm = self._admission
         if adm is not None:
@@ -3280,6 +3426,8 @@ class DecodeEngine:
                             progressed = True
                 else:
                     progressed = True
+        if self._lockstep:
+            self._drain_pipeline()
         if self._dispatch_chunk():
             progressed = True
         return progressed
@@ -3299,6 +3447,7 @@ class DecodeEngine:
             finally:
                 if entry[0] == "chunk":
                     self._chunk_credits.release()
+                self._inflight.task_done()
 
     def _recover(self, exc: BaseException) -> None:
         """Engine supervision: a failed device program fails ONLY the

@@ -311,6 +311,24 @@ class KVBlockPool:
             self._m_freed.inc(freed)
         self._sync_gauges()
 
+    def resize(self, *, num_blocks: int, block_nbytes: int) -> None:
+        """Re-count an idle pool: ``num_blocks`` blocks of ``block_nbytes``
+        (the engine's blocks changed size: a placed tree's local kv heads).
+        Refused while any block is taken or reserved."""
+        if self.in_use or self._reserved:
+            raise RuntimeError(
+                f"cannot resize a pool with {self.in_use} blocks in use and "
+                f"{self._reserved} reserved"
+            )
+        if num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2 (block 0 is the trash block), "
+                             f"got {num_blocks}")
+        self.num_blocks = int(num_blocks)
+        self.block_nbytes = int(block_nbytes)
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self.generation += 1
+        self._sync_gauges()
+
     # ------------------------------------------------------------------ #
     # views
     # ------------------------------------------------------------------ #
