@@ -264,7 +264,25 @@ Phases, each of which fails the run with a non-zero exit:
              cached greedy decode = the full-prefix recompute (fp32, the
              largest logits gap printed), one predictor call on ragged
              sources; each prints its seconds (``time: ... done in``);
-10. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
+10a. jit  — the ported vision_tpu template's @model.predictor(jit=True) at
+             ViT-B/16 width (fused norms and attention), batch 64 and 8: the
+             captured CUDA graph's replay against the eager body bit for bit
+             (logits and model.predict's predictions), rows 3 / 4 / 12
+             launched 13 / 12 / 12 times per replay as per eager call, a
+             second state of the same shapes giving its own predictions,
+             host ms a call eager and replayed; clear_jit_cache empties it;
+10b. placed — on a one-rank NCCL group (every placement whole): int8
+             experts at Mixtral-8x7B widths, 2 layers, placed by
+             LLAMA_MOE_PARTITION_RULES through the paged DecodeEngine and
+             make_generator, and a QLoRA state (random int8 base and rank-16
+             adapters) at qlora_8b widths, 2 layers, placed by
+             LLAMA_LORA_PARTITION_RULES through make_lm_predictor(
+             system_prefix=...): tokens bit for bit the unplaced tree's,
+             rows 1, 2 and 6 counted. One card runs one rank: the
+             controller that serves a placed engine over several ranks
+             (ROADMAP.md C14) publishes nothing here; the four-rank gloo
+             tests (tests/test_torch_serving_controller.py) hold it;
+11. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -2873,10 +2891,11 @@ def bert_grad_agreement(config, *, device: str = "cuda", batch: int = BERT_BATCH
 
 
 def block_cosines(module_cls, config, plain_config, loss, params, batch,
-                  null_grads: tuple = ()) -> dict:
+                  null_grads: tuple = (), plain_grads: list = None) -> dict:
     """One step's gradients of ``module_cls(config)`` against
     ``module_cls(plain_config)``: the cosine of every tensor (but those
-    whose path ends with one of ``null_grads``), by path."""
+    whose path ends with one of ``null_grads``), by path. ``plain_grads``:
+    the plain step's gradient leaves where the caller has them already."""
     import torch.nn.functional as F
 
     from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
@@ -2884,6 +2903,9 @@ def block_cosines(module_cls, config, plain_config, loss, params, batch,
     paths = ["/".join(p) for p in tree_paths(params)]
     grads = []
     for cfg in (config, plain_config):
+        if cfg is plain_config and plain_grads is not None:
+            grads.append([t.float().flatten() for t in plain_grads])
+            continue
         module = module_cls(cfg)
         g = value_and_grad(lambda p, b, m=module: (loss(m(p, b[0]), b[1]), {}), params, batch)[1]
         grads.append([t.float().flatten() for t in tree_leaves(g)])
@@ -2892,18 +2914,21 @@ def block_cosines(module_cls, config, plain_config, loss, params, batch,
             if not any(p.endswith("/".join(n)) for n in null_grads)}
 
 
-def bert_flash_delta_fault(config, params, batch, loss, *, deep: int = 2) -> dict:
+def bert_flash_delta_fault(config, params, batch, loss, *, deep: int = 2,
+                           xla_grads: list = None) -> dict:
     """The flash backward with the reference's ``delta = rowsum(dO * O)``
     from the bf16 output planted (:func:`output_delta_fault`), one step of
-    ``BertClassifier(config)`` against ``attn_impl="xla"``: the least
-    cosine of each block's gradients; the last ``deep`` blocks' least must
-    be under :data:`BERT_GRAD_COSINE_MIN`, or the check could not tell the
-    repaired backward from the reference's."""
+    ``BertClassifier(config)`` against ``attn_impl="xla"`` (whose gradient
+    leaves the caller may pass as ``xla_grads``): the least cosine of each
+    block's gradients; the last ``deep`` blocks' least must be under
+    :data:`BERT_GRAD_COSINE_MIN`, or the check could not tell the repaired
+    backward from the reference's."""
     from unionml_tpu_torch.models import BertClassifier
 
     with output_delta_fault():
         cos = block_cosines(BertClassifier, config, dataclasses.replace(config, attn_impl="xla"),
-                            loss, params, batch, null_grads=(("attn_k", "bias"),))
+                            loss, params, batch, null_grads=(("attn_k", "bias"),),
+                            plain_grads=xla_grads)
     blocks = {}
     for path, c in cos.items():
         part = path.split("/")
@@ -3110,7 +3135,8 @@ def basic_tpu_phase(*, device: str = "cuda", epochs: int = 5, batch: int = 64,
     wall_s = time.perf_counter() - t0
     devices = {str(p.device.type) for p in (state.params["Dense_0"]["kernel"],
                                             state.params["Dense_1"]["bias"])}
-    preds = np.asarray(app.model.predict(features=np.zeros((2, 64), np.float32)))
+    # the template's predictor is jit=True: a CUDA graph on the card, a tensor out
+    preds = app.model.predict(features=np.zeros((2, 64), np.float32)).cpu().numpy()
     out = {"steps": state.step, "metrics": metrics, "params_on": sorted(devices),
            "predict_shape": list(preds.shape), "wall_s": wall_s,
            "steps_vs_cpu": steps_vs_cpu, "max_param_diff_vs_cpu": vs_cpu}
@@ -4035,11 +4061,11 @@ def serving_counters(config) -> dict:
 
 def tp_serve_check(config, params, rules, *, device: str = "cuda",
                    lengths: tuple = TP_PROMPT_LENGTHS, max_new_tokens: int = TP_NEW_TOKENS,
-                   buckets: tuple = (64, 256)) -> dict:
+                   buckets: tuple = (64, 256), sharding: dict = None) -> dict:
     """9a: ``params`` placed by ``rules`` over ``ShardingConfig(data=-1,
-    tensor=1)`` on a one-rank process group (NCCL on the card; every
-    placement is whole), then served through the paged DecodeEngine and
-    make_generator on the placed tree: tokens bit for bit the plain
+    tensor=1, **sharding)`` on a one-rank process group (NCCL on the card;
+    every placement is whole), then served through the paged DecodeEngine
+    and make_generator on the placed tree: tokens bit for bit the plain
     tree's. The kernels' launch counts are read around the placed runs
     only. The group is destroyed at the end."""
     import torch.distributed as dist
@@ -4060,7 +4086,8 @@ def tp_serve_check(config, params, rules, *, device: str = "cuda",
         backend = dist.get_backend()
         if device == "cuda" and backend != "nccl":
             raise AssertionError(f"the card's group runs {backend}, not NCCL")
-        placed = shard_pytree(params, ShardingConfig(data=-1, tensor=1, rules=rules))
+        placed = shard_pytree(params, ShardingConfig(data=-1, tensor=1, rules=rules,
+                                                     **(sharding or {})))
         engine = DecodeEngine(Llama(config), **kw)
         gen = make_generator(Llama(config), max_new_tokens=max_new_tokens,
                              max_len=engine.cache_len)
@@ -7254,6 +7281,219 @@ def remote_phase(*, device: str = "cuda", steps: int = 8) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# 10a: @model.predictor(jit=True) as captured CUDA graphs
+# --------------------------------------------------------------------- #
+
+JIT_BATCHES = (64, 8)        # ViT-B/16's training batch, and another shape
+JIT_CALLS = 10               # calls timed each way
+# per ViT-B/16 forward with norm_impl="fused" and attn_impl="fused": ln1 x 12
+# + ln_final, ln2 (add form) x 12, attention x 12
+JIT_LAUNCHES_PER_CALL = {"layer_norm_fwd": 13, "add_layer_norm_fwd": 12,
+                         "fused_attention_fwd": 12}
+
+
+def _call_ms(fn, calls: int, on_card: bool) -> float:
+    """Host ms of one call that ends when the card is done with it."""
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def jit_predictor_phase(config, *, device: str = "cuda", batches: tuple = JIT_BATCHES,
+                        calls: int = JIT_CALLS) -> dict:
+    """10a: the ported vision_tpu template at ``config`` (ViT-B/16 width)
+    with its ``@model.predictor(jit=True)``: per batch size, the captured
+    graph's replay against the eager body bit for bit (the logits, and the
+    template's predictions through ``model.predict``), rows 3, 4 and 12
+    launched per replay as per eager call, a second state of the same
+    shapes swapped in (its own predictions: the graph is captured for its
+    tensors), and host ms a call eager and replayed (recorded, no claim);
+    then ``clear_jit_cache`` empties the cache."""
+    from unionml_tpu_torch import ModelArtifact, execution
+    from unionml_tpu_torch.models import ViT, create_train_state
+    from unionml_tpu_torch.templates.vision_tpu.app import build_model
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    model = build_model(config, name="chip_smoke_jit", reader_cache=False)
+    if not model._predict_step_options.get("jit"):
+        raise AssertionError("the vision_tpu template's predictor is not jit=True")
+    size = config.image_size
+    example = torch.zeros(1, size, size, 3, device=device)
+    states = [create_train_state(ViT(config), example, seed=seed) for seed in (0, 1)]
+    body = model._predictor
+
+    def logits_body(state, features):
+        with torch.no_grad():
+            return state.apply_fn(state.params, torch.as_tensor(features, device=device))
+
+    graphed = execution.jit_predictor(logits_body)
+    graphed_body = execution.jit_predictor(body)
+    counters = {name: k for name, k in vit_kernels().items() if name in JIT_LAUNCHES_PER_CALL}
+    rng = np.random.default_rng(21)
+    out: dict = {"config": f"ViT-B/16 width ({config.hidden_dim} x {config.num_layers}, "
+                           f"{size}px, {config.num_classes} classes), {config.dtype} compute, "
+                           f"attn {config.attn_impl}, norm {config.norm_impl}", "batches": {}}
+    for b in batches:
+        x = rng.normal(size=(b, size, size, 3)).astype(np.float32)
+
+        def launched(fn):
+            for k in counters.values():
+                k.launches = 0
+            result = fn()
+            return result, {name: k.launches for name, k in counters.items()}
+
+        eager, eager_launches = launched(lambda: logits_body(states[0], x))
+        first = graphed(states[0], x)                       # capture, then the first replay
+        replayed, replay_launches = launched(lambda: graphed(states[0], x))
+        model.artifact = ModelArtifact(states[0])
+        preds = model.predict(features=x)
+        eager_preds = body(states[0], x)
+        model.artifact = ModelArtifact(states[1])
+        swapped, eager_swapped = graphed(states[1], x), logits_body(states[1], x)
+        swapped_preds, eager_swapped_preds = model.predict(features=x), body(states[1], x)
+        eager_ms = _call_ms(lambda: body(states[0], x), calls, on_card)
+        replay_ms = _call_ms(lambda: graphed_body(states[0], x), calls, on_card)
+        row = {"eager_launches": eager_launches, "replay_launches": replay_launches,
+               "replay_bits_equal": bool(torch.equal(first, eager) and torch.equal(replayed, eager)),
+               "predict_equal": bool(torch.equal(preds, eager_preds)),
+               "swap_bits_equal": bool(torch.equal(swapped, eager_swapped)),
+               "swap_predict_equal": bool(torch.equal(swapped_preds, eager_swapped_preds)),
+               "swap_differs": not torch.equal(swapped, eager),
+               "eager_host_ms": eager_ms, "replay_host_ms": replay_ms,
+               "graphs": len(graphed)}
+        out["batches"][b] = row
+        log(f"jit predictor batch {b}: replay bits equal {row['replay_bits_equal']}, predict "
+            f"equal {row['predict_equal']}, swapped state {row['swap_bits_equal']} / "
+            f"{row['swap_predict_equal']} (differs from the first {row['swap_differs']}); "
+            f"launches eager {eager_launches} per replay {replay_launches}; host ms a call "
+            f"eager {eager_ms} replayed {replay_ms}")
+        if not (row["replay_bits_equal"] and row["predict_equal"]):
+            raise AssertionError(f"batch {b}: the replay left the eager bits")
+        if not (row["swap_bits_equal"] and row["swap_predict_equal"] and row["swap_differs"]):
+            raise AssertionError(f"batch {b}: a swapped state did not give its own predictions")
+        if on_card and not (eager_launches == replay_launches == JIT_LAUNCHES_PER_CALL):
+            raise AssertionError(f"batch {b}: launches eager {eager_launches}, per replay "
+                                 f"{replay_launches}, expected {JIT_LAUNCHES_PER_CALL}")
+    out["launches_per_replay"] = replay_launches
+    execution.clear_jit_cache()
+    if len(graphed) or len(graphed_body):
+        raise AssertionError("clear_jit_cache left graphs behind")
+    del states, model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 10b: placed MoE and QLoRA trees served on one NCCL rank
+# --------------------------------------------------------------------- #
+
+PLACED_LAYERS = 2            # of Mixtral-8x7B's 32 and Llama-3-8B's 32 (qlora_8b)
+
+
+def lora_serve_check(config, *, device: str = "cuda", seed: int = 5, lengths: tuple = (5, 40),
+                     max_new_tokens: int = 8) -> dict:
+    """10b (QLoRA): a random int8 base at ``config``'s widths (fp32
+    embedding, as phase 3e builds it) with random rank-``lora_rank``
+    adapters, placed by ``LLAMA_LORA_PARTITION_RULES`` on a one-rank
+    process group (every placement whole), served by
+    ``make_lm_predictor`` without and with a 16-id ``system_prefix``:
+    tokens bit for bit the unplaced state's; rows 1 and 2 counted on the
+    placed runs (the flash prefill runs on the prefix-free one)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import Llama, make_lm_predictor
+    from unionml_tpu_torch.models.llama import LLAMA_LORA_PARTITION_RULES
+    from unionml_tpu_torch.models.lora import create_lora_train_state
+    from unionml_tpu_torch.parallel import ShardingConfig, multihost_initialize, shard_pytree
+
+    t0 = time.perf_counter()
+    base = random_quantized_params(config, seed, device=device, float_dtype=torch.float32)
+    state = create_lora_train_state(Llama(config), torch.zeros(1, 8, dtype=torch.long,
+                                                                device=device),
+                                    base_params=base)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randomize(tree):
+        if isinstance(tree, dict):
+            return {k: randomize(v) for k, v in tree.items()}
+        return 0.02 * torch.randn(tree.shape, generator=gen, device=device)
+
+    state.params = randomize(state.params)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    prefix = rng.integers(1, config.vocab_size, size=16).tolist()
+    # the flash prefill (row 1) runs where no prefix precedes the prompt
+    kws = [dict(max_new_tokens=max_new_tokens, bucket_lens=(64,), max_len=128,
+                system_prefix=system_prefix) for system_prefix in (None, prefix)]
+    counters = {name: k for name, k in serving_counters(config).items()
+                if name != "paged_attention"}
+    if not multihost_initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device):
+        raise AssertionError("the process group did not start")
+    try:
+        sc = ShardingConfig(data=-1, tensor=1, rules=LLAMA_LORA_PARTITION_RULES)
+        placed = dataclasses.replace(state, params=shard_pytree(state.params, sc),
+                                     frozen_params=shard_pytree(state.frozen_params, sc))
+        predicts = [make_lm_predictor(Llama(config), **kw) for kw in kws]
+        predicts[1](placed, prompts)     # warm: the prefix cache of the placed state
+        for c in counters.values():
+            c.launches = 0
+        tp_tokens = [predict(placed, prompts) for predict in predicts]
+        launches = {name: c.launches for name, c in counters.items()}
+        del placed
+    finally:
+        dist.destroy_process_group()
+    plain_tokens = [make_lm_predictor(Llama(config), **kw)(state, prompts) for kw in kws]
+    seconds = time.perf_counter() - t0
+    log(f"placed qlora serve ({config.num_layers} layers, rank {config.lora_rank}): "
+        f"{len(prompts)} prompts x {max_new_tokens} tokens without and with a prefix, equal "
+        f"{tp_tokens == plain_tokens}, "
+        f"launches {launches}, {seconds:.1f} s")
+    if tp_tokens != plain_tokens:
+        raise AssertionError(f"the placed QLoRA state gave {tp_tokens}, the plain one "
+                             f"{plain_tokens}")
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"the placed QLoRA path launched no {launches}")
+    return {"launches": launches, "tokens_equal": True, "seconds": seconds}
+
+
+def placed_moe_lora_phase(moe_cfg, qlora_cfg, *, device: str = "cuda", **serve) -> dict:
+    """10b: an int8 MoE tree at ``moe_cfg`` (Mixtral-8x7B widths at
+    :data:`PLACED_LAYERS` layers on the card) placed by
+    ``LLAMA_MOE_PARTITION_RULES`` (``expert=1``), through the paged engine
+    and ``make_generator`` (:func:`tp_serve_check`, ``serve`` its
+    settings), and a QLoRA state at ``qlora_cfg`` (``qlora_8b`` widths)
+    (:func:`lora_serve_check`): each placed path's tokens bit for bit the
+    unplaced tree's, rows 1, 2 and 6 counted. One card runs one rank, so
+    every placement is whole; the controller of a multi-rank engine (C14)
+    publishes nothing here and is held by the four-rank gloo tests."""
+    from unionml_tpu_torch.models import LLAMA_MOE_PARTITION_RULES
+
+    t0 = time.perf_counter()
+    moe_params = random_quantized_params(moe_cfg, 12, device=device)
+    moe = tp_serve_check(moe_cfg, moe_params, LLAMA_MOE_PARTITION_RULES, device=device,
+                         sharding={"expert": 1}, **serve)
+    del moe_params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    qlora = lora_serve_check(qlora_cfg, device=device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"moe": moe, "qlora": qlora,
+            "config": f"MoE {moe_cfg.num_experts} experts top {moe_cfg.num_selected}, width "
+                      f"{moe_cfg.hidden_dim}, mlp {moe_cfg.mlp_dim}, {moe_cfg.num_layers} "
+                      f"layers, int8; QLoRA rank {qlora_cfg.lora_rank}, width "
+                      f"{qlora_cfg.hidden_dim}, {qlora_cfg.num_layers} layers",
+            "launches": {name: moe["launches"].get(name, 0) + qlora["launches"].get(name, 0)
+                         for name in {**moe["launches"], **qlora["launches"]}},
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # the serving phases' Llama-3-8B depth: 12 of its 32 layers keeps the
@@ -7392,6 +7632,12 @@ def main(argv=None) -> int:
     encdec = encdec_check(EncDecConfig())
     torch.cuda.empty_cache()
     log(f"time: encdec done in {encdec['seconds']:.1f} s")
+    jit = jit_predictor_phase(vit_cfg)
+    log(f"time: jit predictor done in {jit['seconds']:.1f} s")
+    placed = placed_moe_lora_phase(
+        serving_config(dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=PLACED_LAYERS)),
+        serving_config(qlora_config(num_layers=PLACED_LAYERS, remat=False)))
+    log(f"time: placed moe and qlora done in {placed['seconds']:.1f} s")
     remote = remote_phase()
     log(f"time: remote done at {time.perf_counter() - t_run:.1f} s")
     fp32 = fp32_parity_phase(base, 32)
@@ -7506,6 +7752,8 @@ def main(argv=None) -> int:
             "serverless_launches": serverless["launches"].get(name),
             "rollout_launches": rollout["launches"].get(name),
             "tp_serve_launches": tp_launches.get(name),
+            "jit_launches_per_replay": jit["launches_per_replay"].get(name),
+            "placed_moe_lora_launches": placed["launches"].get(name),
             "sharded_launches": sharded["vit"]["launches"].get(
                 name, sharded["lm"]["launches"].get(name)),
             "parallel_launches": {
@@ -7526,7 +7774,7 @@ def main(argv=None) -> int:
                       "vit_train": vit, "llama_train": llama, "qlora_train": qlora,
                       "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
                       "parallel": parallel, "tp_serve": tp, "hf_import": hf,
-                      "encdec": encdec,
+                      "encdec": encdec, "jit_predictor": jit, "placed_moe_lora": placed,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

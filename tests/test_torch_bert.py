@@ -566,9 +566,11 @@ def test_fused_backward_keeps_the_deep_blocks_gradients_at_bert_base_width():
         assert len(cosines) == len(grads["xla"]) - cfg.num_layers
         low = {p: c for p, c in cosines.items() if not c >= 0.99}
         assert not low, (impl, low)
+    # the xla step's gradients above are the planted check's plain side too
     fault = chip_smoke.bert_flash_delta_fault(
         dataclasses.replace(cfg, attn_impl="flash"), params, batch,
-        lambda logits, y: torch.nn.functional.cross_entropy(logits.float(), y))
+        lambda logits, y: torch.nn.functional.cross_entropy(logits.float(), y),
+        xla_grads=[g for _, g in grads["xla"]])
     assert fault["deep_blocks_least"] < 0.99
 
 

@@ -1513,3 +1513,182 @@ def test_one_rank_nccl_tp_engine_is_bit_equal_on_card(cuda, bits, group):
     out = smoke.tp_serve_check(cfg, params, rules, device="cuda", lengths=(5, 40, 9, 60),
                                buckets=(32, 64), max_new_tokens=6)
     assert out["tokens_equal"] and all(n > 0 for n in out["launches"].values())
+
+
+# --------------------------------------------------------------------- #
+# @model.predictor(jit=True): captured CUDA graphs
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+def test_jit_predictor_replays_eager_bits_and_counts_launches_on_card(cuda):
+    """The vision_tpu template's jit=True predictor at ViT-B/16 width
+    (fused norms and attention), batch 8 and 2: the replay gives the eager
+    body's bits, a second state of the same shapes gives its own
+    predictions, and rows 3 / 4 / 12 count 13 / 12 / 12 launches on every
+    replay (chip_smoke.jit_predictor_phase raises otherwise)."""
+    from unionml_tpu_torch.models import ViTConfig
+
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(ViTConfig.base16(num_classes=1000), norm_impl="fused")
+    out = smoke.jit_predictor_phase(cfg, batches=(8, 2), calls=2)
+    for row in out["batches"].values():
+        assert row["replay_bits_equal"] and row["swap_bits_equal"] and row["swap_differs"]
+        assert row["replay_launches"] == smoke.JIT_LAUNCHES_PER_CALL
+
+
+@pytest.mark.cuda
+def test_jit_predictor_launch_counts_grow_on_every_replay(cuda):
+    """Rows 3 / 4 / 12 count the launches a replay makes (the capture made
+    none), and an in-place update of the model's tensors is replayed."""
+    from unionml_tpu_torch import execution
+    from unionml_tpu_torch.models import ViT, ViTConfig, create_train_state
+
+    cfg = ViTConfig(image_size=32, patch_size=8, num_classes=10, hidden_dim=256, num_layers=2,
+                    num_heads=4, mlp_dim=512, norm_impl="fused", attn_impl="fused")
+    state = create_train_state(ViT(cfg), torch.zeros(1, 32, 32, 3, device=cuda))
+
+    def body(state, features):
+        with torch.no_grad():
+            return state.apply_fn(state.params, torch.as_tensor(features, device="cuda"))
+
+    graphed = execution.jit_predictor(body)
+    x = torch.randn(4, 32, 32, 3)
+    kernels = (tnorm.LN_KERNEL, tnorm.ADD_KERNEL, tfused.FWD_KERNEL)
+    graphed(state, x)
+    counts = []
+    for _ in range(3):
+        counts.append([k.launches for k in kernels])
+        graphed(state, x)
+    counts.append([k.launches for k in kernels])
+    steps = [[b - a for a, b in zip(p, n)] for p, n in zip(counts, counts[1:])]
+    assert steps == [[3, 2, 2]] * 3, steps
+    # an in-place update of the same tensors is read by the replay (no new
+    # capture), as jax.jit reads new argument values
+    with torch.no_grad():
+        state.params["cls"].add_(0.5)
+    assert torch.equal(graphed(state, x), body(state, x)) and len(graphed) == 1
+    execution.clear_jit_cache()
+    assert len(graphed) == 0
+
+
+@pytest.mark.cuda
+def test_jit_predictor_refuses_a_body_that_cannot_be_captured(cuda):
+    """A body with a host sync (``.item()``) raises, naming the predictor:
+    no eager fallback (run in its own interpreter: a failed capture must not
+    touch this process's CUDA state)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from unionml_tpu_torch import execution\n"
+        "def syncing_body(state, features):\n"
+        "    x = torch.as_tensor(features, device='cuda') * state['w']\n"
+        "    return x * x.sum().item()\n"
+        "try:\n"
+        "    execution.jit_predictor(syncing_body)({'w': torch.ones(3, device='cuda')},\n"
+        "                                          torch.ones(3))\n"
+        "except RuntimeError as exc:\n"
+        "    print('REFUSED', exc)\n"
+    )
+    repo = Path(__file__).resolve().parents[1]
+    done = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=300)
+    assert "REFUSED" in done.stdout, done.stdout + done.stderr
+    assert "syncing_body" in done.stdout and "cannot be captured" in done.stdout
+
+
+# --------------------------------------------------------------------- #
+# ROADMAP C10: which stage makes a micro-batched row depend on its neighbour
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+def test_c10_micro_batched_row_keeps_its_bits_through_every_kernel_stage(cuda):
+    """One 1000-token row alone ([1, 1024], left-padded as
+    make_lm_predictor pads it) and beside a 300-token neighbour ([2,
+    1024]) through the stages of the micro-batcher's path at Llama-3-8B
+    width (int8, bf16, flash prefill, fused norm), each stage fed the solo
+    run's input for the row: the embedding, RMSNorm (row 2), the int8 q
+    product (cuBLAS, M = 1024 against 2048), the padded flash prefill
+    (row 1), the fp32 LM head (cuBLAS, M = 1 against 2) and one decode step
+    of 2 layers. Every stage a hand-written kernel runs keeps the row's
+    bits; the first stage whose bits differ is printed (ROADMAP.md C10)."""
+    from unionml_tpu_torch.models.llama import init_cache
+    from unionml_tpu_torch.models.quantization import weight_product
+    from unionml_tpu_torch.ops.flash_attention import flash_attention
+
+    smoke = _chip_smoke()
+    cfg = smoke.serving_config(dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2))
+    params = smoke.random_quantized_params(cfg, 0)
+    module = Llama(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    s, lengths = 1024, (1000, 300)
+    ids = torch.zeros(2, s, dtype=torch.long, device=cuda)
+    mask = torch.zeros(2, s, dtype=torch.bool, device=cuda)
+    for i, n in enumerate(lengths):
+        ids[i, s - n:] = torch.randint(1, cfg.vocab_size, (n,), generator=gen, device=cuda)
+        mask[i, s - n:] = True
+    block = params["block_0"]
+    same, apart = {}, {}
+
+    def keep(stage, solo, paired):
+        # the row's bits alone and beside the neighbour; where they part,
+        # how many outputs and by how much
+        same[stage] = torch.equal(solo, paired)
+        if not same[stage]:
+            diff = (solo.float() - paired.float()).abs()
+            apart[stage] = (int((diff > 0).sum()), solo.numel(), float(diff.max()))
+
+    with torch.inference_mode():
+        emb = params["embed"]["embedding"]
+        x = emb[ids].to(torch.bfloat16)                                   # [2, S, d]
+        keep("embedding", emb[ids[:1]].to(torch.bfloat16)[0], x[0])
+        norm = module.blocks[0].attn_norm
+        h = norm(block["attn_norm"], x)
+        keep("rms_norm (row 2)", norm(block["attn_norm"], x[:1])[0], h[0])
+        q_site = block["attn"]["q"]
+        flat = h.reshape(2 * s, -1)
+        y_pair = weight_product(flat, q_site["kernel_q"], q_site["scale"])
+        y_solo = weight_product(flat[:s], q_site["kernel_q"], q_site["scale"])
+        keep("int8 q product (cuBLAS)", y_solo, y_pair[:s])
+        hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        q = y_pair.to(torch.bfloat16).reshape(2, s, hq, hd)
+        kv = torch.randn(2, 2, s, hkv, hd, generator=gen, device=cuda).to(torch.bfloat16)
+        pads = torch.tensor([s - n for n in lengths], dtype=torch.int32, device=cuda)
+        o_pair = flash_attention(q, kv[0], kv[1], causal=True, kv_valid_start=pads)
+        o_solo = flash_attention(q[:1], kv[0][:1], kv[1][:1], causal=True,
+                                 kv_valid_start=pads[:1])
+        keep("flash prefill (row 1)", o_solo[0], o_pair[0])
+        last = torch.randn(2, cfg.hidden_dim, generator=gen, device=cuda)
+        head_pair = module.lm_head(params["lm_head"], last[:, None])
+        head_solo = module.lm_head(params["lm_head"], last[:1, None])
+        keep("fp32 lm head (cuBLAS)", head_solo[0], head_pair[0])
+        caches, firsts = [], []
+        for i in range(2):
+            cache = init_cache(cfg, 1, s + 1, device=cuda)
+            kv_mask = torch.cat([mask[i:i + 1], torch.ones(1, 1, dtype=torch.bool,
+                                                           device=cuda)], dim=1)
+            logits, cache = module(params, ids[i:i + 1], cache=cache, cache_index=0,
+                                   kv_mask=kv_mask, full_prefill=True,
+                                   logit_index=torch.tensor([s - 1], device=cuda))
+            caches.append(cache)
+            firsts.append(logits[:, -1].argmax(-1))
+        tok = torch.stack(firsts)                                          # [2, 1]
+        kv_mask = torch.cat([mask, torch.ones(2, 1, dtype=torch.bool, device=cuda)], dim=1)
+        pos = (s - (s - torch.tensor(lengths, device=cuda)))[:, None]
+        pair_cache = tuple(tuple(torch.cat([a, b]) for a, b in zip(la, lb))
+                           for la, lb in zip(*caches))
+        step_pair, _ = module(params, tok, positions=pos, cache=pair_cache, cache_index=s,
+                              kv_mask=kv_mask)
+        step_solo, _ = module(params, tok[:1], positions=pos[:1],
+                              cache=tuple(tuple(b.clone() for b in layer) for layer in caches[0]),
+                              cache_index=s, kv_mask=kv_mask[:1])
+        keep("decode step (2 layers)", step_solo[0], step_pair[0])
+    first = next((stage for stage, equal in same.items() if not equal), None)
+    print(f"C10 stages (row bits kept alone vs beside a 300-token row): {same}; "
+          f"first stage whose bits differ: {first}; (outputs apart, of, max |diff|): {apart}")
+    for stage in ("rms_norm (row 2)", "flash prefill (row 1)"):
+        assert same[stage], f"the hand-written kernel stage {stage} left the row's bits"

@@ -264,9 +264,17 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, served_params):
 
 
 def test_unported_model_paths_raise():
+    # predictor(jit=True) is ported (CUDA graphs): it registers, and a model
+    # object on the CPU runs the body as called
     model = template.build_model(name="unported")
-    with pytest.raises(NotImplementedError):
-        model.predictor(lambda params, prompts: prompts, jit=True)
+
+    def echo(params: dict, prompts: list) -> list:
+        return prompts
+
+    model.predictor(echo, jit=True)
+    assert model._predict_step_options["jit"] is True
+    params = {"w": torch.zeros(2)}
+    assert model._call_predictor(params, [[1, 2]]) == [[1, 2]]
     # MoE is ported: a config the reference refuses is refused the same way
     with pytest.raises(ValueError, match="num_selected"):
         LlamaConfig.tiny(num_experts=1)

@@ -558,12 +558,12 @@ def test_engine_with_more_requests_than_slots_under_tensor_parallel(ranks, tiny_
 def test_staggered_calls_at_the_default_pipeline_depth_under_tensor_parallel(ranks, tiny_llama,
                                                                             jax_solo):
     """Two generate() calls from two threads at the engine's default
-    pipeline depth, the second reaching each rank's engine mid-decode at
-    another pass (after 3 decode steps on rank 0, 6 on rank 1, ...): the
-    ranks admit only the arrivals every rank has, so every slot keeps the
-    JAX package's solo tokens and the placed solo run's; a deadline, a
-    stream and a queue bound, whose decisions read one rank's clock, are
-    refused (ROADMAP.md C14)."""
+    pipeline depth, the second reaching the controller mid-decode (after 3
+    decode steps): the controller's plans carry each arrival to its tensor
+    group's follower at the same pass, so every slot keeps the JAX
+    package's solo tokens and the placed solo run's; a deadline, a stream
+    and a queue bound, which read the controller's clock alone, now serve
+    the same tokens (ROADMAP.md C14)."""
     module, params = tiny_llama
     prompts = [[1, 2, 3, 4, 5], [6, 7, 8]]
     pending, cache_len = _engine_run(ranks, _tiny(), params, prompts, paged=True,
@@ -571,4 +571,4 @@ def test_staggered_calls_at_the_default_pipeline_depth_under_tensor_parallel(ran
     want = jax_solo("fp", module, params, prompts, 12, cache_len)
     for got in pending.collect():
         assert got["engine"] == got["solo"] == got["plain_engine"] == want
-        assert got["refused"] == [True, True, True]
+        assert got["lifted"] == [want[:1], want[0], want[:1]]

@@ -19,7 +19,10 @@ class Faults:
     """Planted faults: ``one_axis`` (a collective over a tuple of axes that
     reduces, gathers or scatters over its first axis only),
     ``drop_row_sum`` (row-parallel sites that keep their rank's partial
-    product instead of the sum over the ranks)."""
+    product instead of the sum over the ranks), ``drop_expert_sum`` (a
+    served MoE block that keeps its local experts' output instead of the
+    sum over ``expert``), ``reorder_arrivals`` (a multi-rank engine's
+    follower that applies a plan's arrivals in the reverse order)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -43,6 +46,19 @@ class Faults:
 
             for mod in (layers, llama):
                 self._patch(mod, "row_parallel_sum", lambda tp, y: y)
+        elif self.name == "drop_expert_sum":
+            from unionml_tpu_torch.ops import moe
+
+            axis_sum = moe._axis_sum
+            self._patch(moe, "_axis_sum",
+                        lambda out, axis, name: out if name == "expert"
+                        else axis_sum(out, axis, name))
+        elif self.name == "reorder_arrivals":
+            from unionml_tpu_torch.serving.engine import DecodeEngine
+
+            requests = DecodeEngine._follower_requests
+            self._patch(DecodeEngine, "_follower_requests",
+                        lambda engine, arrivals: requests(engine, arrivals)[::-1])
         elif self.name:
             raise KeyError(self.name)
         return self
@@ -178,12 +194,39 @@ def tp_spec_engine(cfg: dict, jax_params: Any, prompts: List[List[int]], *,
     for name, target in (("tp", placed), ("plain", params)):
         engine = DecodeEngine(Llama(LlamaConfig(**target_cfg)), draft_module=Llama(draft_cfg),
                               **spec_engine_kwargs(max_new_tokens))
-        try:
-            out[name] = engine.generate({"target": target, "draft": draft}, prompts)
-            out["cache_len"] = engine.cache_len
-        finally:
-            engine.close()
+        out[name], _ = serve_placed(engine, {"target": target, "draft": draft},
+                                    lambda e, p: e.generate(p, prompts))
+        out["cache_len"] = engine.cache_len
     return out
+
+
+def serve_placed(engine: Any, params: Any, call: Any, after: Any = None) -> tuple:
+    """Serve ``params`` with ``engine`` as a multi-rank engine is served:
+    ``call(engine, params)`` on the controller (its only caller; every
+    call of an engine that is not served over several ranks), ``follow()``
+    on the other ranks; then ``after(engine)`` on every rank, and the
+    engine closed. Returns the controller's result (sent to every rank of
+    the engine) and ``after``'s."""
+    import torch.distributed as dist
+
+    engine.bind(params)
+    tree = engine._params["target"] if engine.draft is not None else engine._params
+    value = None
+    try:
+        if engine.role == "follower":
+            engine.follow(params)
+        else:
+            value = call(engine, params)
+        extra = after(engine) if after is not None else None
+    finally:
+        engine.close()
+    if engine.role != "solo":
+        # the tests' engines span the world or one tensor group
+        box = [value]
+        group = None if len(tree.ranks) == dist.get_world_size() else tree.tp.group
+        dist.broadcast_object_list(box, src=tree.ranks[0], group=group)
+        value = box[0]
+    return value, extra
 
 
 def spec_engine_kwargs(max_new_tokens: int) -> dict:
@@ -221,17 +264,17 @@ def tp_engine(cfg: dict, jax_params: Any, prompts: List[List[int]], *, max_new_t
               paged: bool, rules: str = "LLAMA_PARTITION_RULES", bits: int = 0,
               quant_tensor: int = 1, kv_quant: bool = False, system_prefix: Any = None,
               pipeline_depth: Any = 1, stagger: int = 0, fault: str = "") -> dict:
-    """``DecodeEngine`` on the placed tree (every rank the same requests
-    in one call) and the solo generator under the same placement at the
-    engine's cache length, per prompt; the pool's block bytes against the
-    unplaced engine's. With ``system_prefix`` both engines hold it in a
-    prefix cache (blocks of 4) and splice it into every admission; no solo
-    run then. With ``stagger`` the placed engine takes the prompts in two
-    ``generate()`` calls from two threads, the second once the engine has
-    dispatched ``stagger`` decode steps times one more than the rank's
-    index (so it reaches each rank's engine at another pass, mid-decode),
-    then it must refuse a deadline and a stream, and an engine with a
-    queue bound the placed tree."""
+    """``DecodeEngine`` on the placed tree (the controller takes the
+    requests, the other rank of its tensor group follows) and the solo
+    generator under the same placement at the engine's cache length, per
+    prompt; the pool's block bytes against the unplaced engine's. With
+    ``system_prefix`` both engines hold it in a prefix cache (blocks of 4)
+    and splice it into every admission; no solo run then. With ``stagger``
+    the controller takes the prompts in two ``generate()`` calls from two
+    threads, the second once the engine has dispatched ``stagger`` decode
+    steps (mid-decode), then a call with a deadline, a stream and an
+    engine with a queue bound, which C14's controller serves (``lifted``:
+    their tokens)."""
     import threading
     import time
 
@@ -249,31 +292,21 @@ def tp_engine(cfg: dict, jax_params: Any, prompts: List[List[int]], *, max_new_t
                                               quant_tensor=quant_tensor)
     kw = engine_kwargs(max_new_tokens, paged, pipeline_depth)
 
-    def staggered(engine):
-        import torch.distributed as dist
-
+    def staggered(engine, placed):
         half = len(prompts) // 2
         first: List[Any] = []
         caller = threading.Thread(target=lambda: first.extend(engine.generate(placed,
                                                                               prompts[:half])))
         caller.start()
         due = time.monotonic() + 30
-        while (engine.stats()["decode_steps"] < stagger * (dist.get_rank() + 1)
-               and time.monotonic() < due):
+        while engine.stats()["decode_steps"] < stagger and time.monotonic() < due:
             time.sleep(0.001)
         second = engine.generate(placed, prompts[half:])
         caller.join()
-        bounded = DecodeEngine(module, **dict(kw, max_queue_depth=4))
-        refused = []
-        for call in (lambda: engine.generate(placed, prompts[:1], deadline_ms=1e4),
-                     lambda: list(engine.generate_stream(placed, prompts[0])),
-                     lambda: bounded.generate(placed, prompts[:1])):
-            try:
-                call()
-            except (ValueError, NotImplementedError) as exc:
-                refused.append("C14" in str(exc))
-        bounded.close()
-        return first + second, refused
+        lifted = [engine.generate(placed, prompts[:1], deadline_ms=1e4),
+                  sum(engine.generate_stream(placed, prompts[0]), [])]
+        lifted.append(bounded.generate(placed, prompts[:1]))
+        return first + second, lifted
 
     def engine_kw():
         if system_prefix is None:
@@ -282,32 +315,48 @@ def tp_engine(cfg: dict, jax_params: Any, prompts: List[List[int]], *, max_new_t
                     prefix_cache=RadixPrefixCache(block_size=4,
                                                   registry=telemetry.MetricsRegistry()))
 
+    def measure(engine):
+        got = {"cache_len": engine.cache_len}
+        if paged:
+            got["block_nbytes"] = (plain_bytes, engine.kv_pool.block_nbytes)
+            got["pool_blocks"] = engine.kv_pool.num_blocks
+            got["pool_heads"] = int(engine._state["pool"][0][0].shape[2])
+        if system_prefix is not None:
+            got["saved"] = engine.stats()["prefix_cache"]["prefill_tokens_saved"]
+        return got
+
     out = {"sharded": sharded}
     with Faults(fault):
         engine = DecodeEngine(module, **engine_kw())
-        try:
-            plain_bytes = engine.kv_pool.block_nbytes if paged else None
-            if stagger:
-                out["engine"], out["refused"] = staggered(engine)
-            else:
-                out["engine"] = engine.generate(placed, prompts)
-            out["cache_len"] = engine.cache_len
-            if paged:
-                out["block_nbytes"] = (plain_bytes, engine.kv_pool.block_nbytes)
-                out["pool_blocks"] = engine.kv_pool.num_blocks
-                out["pool_heads"] = int(engine._state["pool"][0][0].shape[2])
-            if system_prefix is None:
-                gen = make_generator(module, max_new_tokens=max_new_tokens,
-                                     max_len=engine.cache_len)
-                out["solo"] = [gen(placed, torch.tensor([p])).numpy()[0].tolist()
-                               for p in prompts]
-            else:
-                out["saved"] = engine.stats()["prefix_cache"]["prefill_tokens_saved"]
-        finally:
-            engine.close()
+        plain_bytes = engine.kv_pool.block_nbytes if paged else None
+        if stagger:
+            # bound in the same order on every rank: the engine, then the
+            # bounded one (followed meanwhile on the other rank)
+            bounded = DecodeEngine(module, **dict(kw, max_queue_depth=4))
+            engine.bind(placed)
+            bounded.bind(placed)
+            (out["engine"], out["lifted"]), got = serve_placed(engine, placed, staggered,
+                                                               measure)
+            serve_placed(bounded, placed, lambda e, p: None)
+        else:
+            out["engine"], got = serve_placed(engine, placed,
+                                              lambda e, p: e.generate(p, prompts), measure)
+        out.update(got)
+        if system_prefix is None:
+            gen = make_generator(module, max_new_tokens=max_new_tokens,
+                                 max_len=engine.cache_len)
+            out["solo"] = [gen(placed, torch.tensor([p])).numpy()[0].tolist()
+                           for p in prompts]
     plain = DecodeEngine(Llama(LlamaConfig(**cfg)), **engine_kw())
     try:
-        out["plain_engine"] = plain.generate(params, prompts)
+        if system_prefix is None:
+            out["plain_engine"] = plain.generate(params, prompts)
+        else:
+            # one call a prompt: a later admission then always finds the
+            # prefix's blocks (one call of all would race the harvest's
+            # insert, which the placed engine waits for, against the next
+            # admission)
+            out["plain_engine"] = [plain.generate(params, [p])[0] for p in prompts]
         if system_prefix is not None:
             out["plain_saved"] = plain.stats()["prefix_cache"]["prefill_tokens_saved"]
     finally:

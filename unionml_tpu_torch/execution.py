@@ -20,20 +20,37 @@ runs the step through :func:`~unionml_tpu_torch.parallel.compile_step` on
 the placed state, each rank feeding only its batch rows;
 ``overlap_grads=True`` overlaps the gradient collectives of gradient
 accumulation with the next microbatch (:func:`resolve_grad_overlap`).
+
+:func:`jit_predictor` is the port's counterpart of ``jax.jit`` for a
+predictor body (``@model.predictor(jit=True)``): one CUDA graph captured
+per call signature and replayed after that (:func:`clear_jit_cache` drops
+them). ``torch.compile`` cannot take its place: the hand-written kernels
+are ``ctypes`` calls it cannot trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import threading
 import time
-from typing import Any, Callable, Iterable, Optional
+import weakref
+from collections import OrderedDict
+from typing import Any, Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from unionml_tpu_torch import telemetry
 from unionml_tpu_torch._logging import logger
-from unionml_tpu_torch.models.train import resolve_params, tree_device, tree_leaves, tree_map
+from unionml_tpu_torch.models.train import (
+    resolve_params,
+    tree_device,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 def publish_memory_gauges(registry: Optional[Any] = None) -> int:
@@ -107,6 +124,193 @@ def batch_indices(
         return
     for i in range(n_batches):
         yield order[i * batch_size:(i + 1) * batch_size]
+
+
+#: the reference's bound on its per-function jit cache
+#: (``lru_cache(maxsize=128)``): predictors kept, and graphs kept a predictor
+_JIT_CACHE_SIZE = 128
+
+
+def _model_tensors(obj: Any) -> List[torch.Tensor]:
+    """The tensors a model object holds, in a fixed order: a module's
+    parameters and buffers, the leaves of a dict / list / tuple tree, the
+    fields of a dataclass state (a ``TrainState``)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return [*obj.parameters(), *obj.buffers()]
+    if isinstance(obj, dict):
+        values: Iterable[Any] = obj.values()
+    elif isinstance(obj, (list, tuple)):
+        values = obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        values = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    else:
+        return []
+    return [t for v in values for t in _model_tensors(v)]
+
+
+def _structure(tree: Any) -> Any:
+    """A hashable form of a feature tree's structure (dict keys, list and
+    tuple lengths)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _structure(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    return None
+
+
+def _is_array(x: Any) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _leaf_key(x: Any, device: torch.device) -> Any:
+    """An array leaf by shape, dtype and device (its values are inputs); any
+    other leaf by value (a constant of the captured program)."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), str(x.dtype), str(x.device))
+    if isinstance(x, np.ndarray):
+        return ("array", x.shape, str(x.dtype), str(device))
+    return ("value", type(x).__name__, repr(x))
+
+
+def _signature(tensors: List[torch.Tensor], features: Any) -> Any:
+    device = next((t.device for t in tensors if t.is_cuda), torch.device("cpu"))
+    return (_structure(features),
+            tuple(_leaf_key(x, device) for x in tree_leaves(features)),
+            tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
+
+
+class _Graph:
+    """One captured call: its static inputs and outputs, the graph, and the
+    kernel launches it replays."""
+
+    def __init__(self, graph, inputs: List[Any], outputs: Any, launches: dict):
+        self.graph, self.inputs, self.outputs, self.launches = graph, inputs, outputs, launches
+
+    def run(self, leaves: List[Any]) -> Any:
+        for dst, src in zip(self.inputs, leaves):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(torch.as_tensor(src))
+        self.graph.replay()
+        for kernel, n in self.launches.items():
+            kernel.launches += n
+        return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                        self.outputs)
+
+
+class GraphedPredictor:
+    """A predictor body ``(model_object, features) -> preds`` run as CUDA
+    graphs (:func:`jit_predictor`).
+
+    The call signature is the features' tree structure, each array leaf's
+    shape, dtype and device (other leaves by value), and the identity of
+    the model object's tensors (their addresses, shapes and dtypes): a
+    model object with other tensors captures anew, and an in-place update
+    of the same tensors is read by the replay, as ``jax.jit`` reads new
+    argument values. The first call of a signature runs the body once on
+    a side stream (kernels built, lazy state set up), captures it into a
+    graph with its own memory pool, and replays it; later calls copy the
+    features into the graph's static inputs and replay. Outputs are
+    cloned out of the graph's buffers. A kernel's launch count grows by the
+    launches the graph captured at every replay (a capture launches
+    nothing). A body that cannot be captured (a host sync: ``.item()``,
+    ``.cpu()``, a Python branch on a tensor's value) raises, naming the
+    predictor; nothing falls back to eager. A model object with no tensor
+    on a CUDA device runs the body as called (the CPU path)."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self._graphs: "OrderedDict[Any, _Graph]" = OrderedDict()
+        self._lock = threading.Lock()
+        functools.update_wrapper(self, fn)
+        _LIVE.add(self)
+
+    def signature(self, model_object: Any, features: Any) -> Any:
+        """The cache key of a call (see the class docstring)."""
+        return _signature(_model_tensors(model_object), features)
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def clear(self) -> None:
+        """Drop every graph (and with it its memory pool)."""
+        with self._lock:
+            self._graphs.clear()
+
+    def __call__(self, model_object: Any, features: Any) -> Any:
+        tensors = _model_tensors(model_object)
+        device = next((t.device for t in tensors if t.is_cuda), None)
+        if device is None:
+            return self.fn(model_object, features)
+        key = _signature(tensors, features)
+        leaves = tree_leaves(features)
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(model_object, features, leaves, device)
+                self._graphs[key] = entry
+                while len(self._graphs) > _JIT_CACHE_SIZE:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+            return entry.run(leaves)
+
+    def _capture(self, model_object: Any, features: Any, leaves: List[Any],
+                 device: torch.device) -> _Graph:
+        from unionml_tpu_torch.ops._build import KERNELS
+
+        inputs = [torch.as_tensor(x).to(device, copy=True) if _is_array(x) else x
+                  for x in leaves]
+        static = tree_unflatten(features, inputs)
+        name = getattr(self.fn, "__qualname__", repr(self.fn))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            self.fn(model_object, static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = {k: k.launches for k in KERNELS}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(graph):
+                outputs = self.fn(model_object, static)
+        except Exception as exc:
+            raise RuntimeError(
+                f"predictor {name!r} cannot be captured as a CUDA graph (jit=True): "
+                f"{type(exc).__name__}: {exc} — a body with a host sync (.item(), "
+                ".cpu(), a Python branch on a tensor's value) runs with jit=False"
+            ) from exc
+        finally:
+            launched = {k: k.launches - n for k, n in before.items() if k.launches != n}
+            for k in launched:
+                k.launches = before[k]
+        return _Graph(graph, inputs, outputs, launched)
+
+
+_LIVE: "weakref.WeakSet[GraphedPredictor]" = weakref.WeakSet()
+
+
+@functools.lru_cache(maxsize=_JIT_CACHE_SIZE)
+def _graphed(fn: Callable) -> GraphedPredictor:
+    return GraphedPredictor(fn)
+
+
+def jit_predictor(fn: Callable) -> GraphedPredictor:
+    """Capture a predictor body ``(model_object, features) -> preds`` as
+    CUDA graphs (:class:`GraphedPredictor`), from a bounded per-function
+    cache (the reference's ``lru_cache(maxsize=128)``)."""
+    return _graphed(fn)
+
+
+def clear_jit_cache() -> None:
+    """Drop every cached predictor's graphs, their memory pools and the
+    per-function cache (the reference's call, for long-lived sessions that
+    re-define predictors or swap models)."""
+    for predictor in list(_LIVE):
+        predictor.clear()
+    _graphed.cache_clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def resolve_grad_overlap(sharding: Any, accumulate_steps: int) -> Any:

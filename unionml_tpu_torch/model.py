@@ -94,12 +94,6 @@ def is_tensor_tree(obj: Any) -> bool:
     return bool(found) and all(isinstance(x, torch.Tensor) for x in found)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to unionml_tpu_torch yet (see ROADMAP.md)"
-    )
-
-
 class Model(TrackedInstance):
     """Declarative model spec (reference: unionml/model.py:55)."""
 
@@ -483,18 +477,20 @@ class Model(TrackedInstance):
     def predictor(self, fn: Optional[Callable] = None, **predict_task_kwargs):
         """Register the predictor (reference: model.py:230-252).
 
-        ``batch_axis`` hints at the micro-batching axis for the serving
-        batcher. The reference's ``jit=True`` has no meaning here (PyTorch
-        runs eagerly) and raises.
+        ``jit=True`` runs the predictor body as CUDA graphs, captured once
+        per call signature and replayed after that (the port's counterpart
+        of the reference's ``jax.jit``:
+        :func:`~unionml_tpu_torch.execution.jit_predictor`); a model object
+        on the CPU runs the body as called. ``batch_axis`` hints at the
+        micro-batching axis for the serving batcher.
         """
         if fn is None:
             return lambda f: self.predictor(f, **predict_task_kwargs)
-        if predict_task_kwargs.pop("jit", False):
-            raise _not_ported("predictor(jit=True)")
+        jit = predict_task_kwargs.pop("jit", False)
         batch_axis = predict_task_kwargs.pop("batch_axis", 0)
         type_guards.guard_predictor(fn, self.model_type, self._dataset.feature_type)
         self._predictor = fn
-        self._predict_step_options = {"batch_axis": batch_axis}
+        self._predict_step_options = {"jit": jit, "batch_axis": batch_axis}
         self._predict_task_kwargs = {
             "resources": self._default_stage_resources(), **predict_task_kwargs
         }
@@ -694,6 +690,12 @@ class Model(TrackedInstance):
         return self._predict_from_features_task
 
     def _call_predictor(self, model_object, features):
+        """Dispatch to the predictor, captured when it was registered with
+        ``jit=True`` (reference: model.py:715-721)."""
+        if self._predict_step_options.get("jit"):
+            from unionml_tpu_torch.execution import jit_predictor
+
+            return jit_predictor(self._predictor)(model_object, features)
         return self._predictor(model_object, features)
 
     # ------------------------------------------------------------------ #

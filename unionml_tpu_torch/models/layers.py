@@ -203,7 +203,8 @@ class TensorParallel:
     this rank's index and the axis size (1 where the mesh has no such axis
     or it has one rank). Sums are rank-ordered (the bits do not depend on
     the buffer a value travelled in, as :func:`~unionml_tpu_torch.parallel
-    .sharding.resolve_grads`' sums)."""
+    .sharding.resolve_grads`' sums). ``expert`` is the mesh's ``expert``
+    axis in the same form (an MoE tree's experts split over it)."""
 
     def __init__(self, mesh: Any, axis: str = "tensor"):
         names = tuple(mesh.mesh_dim_names or ())
@@ -213,6 +214,8 @@ class TensorParallel:
             self.group = mesh.get_group(axis)
         else:
             self.size, self.rank, self.group = 1, 0, None
+        if axis == "tensor":
+            self.expert = TensorParallel(mesh, "expert")
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's block of ``x``, concatenated along ``dim`` in rank
@@ -237,23 +240,31 @@ def row_parallel_sum(tp: TensorParallel, y: torch.Tensor) -> torch.Tensor:
 
 class LocalParams(dict):
     """A placed param tree as this rank's local shards (plain tensors),
-    with the :class:`TensorParallel` axis it is served over (``tp``).
+    with the :class:`TensorParallel` axis it is served over (``tp``) and
+    the global ranks that serve it together (``ranks``: this rank's
+    ``expert`` x ``tensor`` block of the mesh, in row-major order; the
+    first is a multi-rank engine's controller).
     :class:`~unionml_tpu_torch.models.llama.Llama` runs its forward on it
     with the collectives of Megatron's layout: column-parallel sites
-    (q / k / v, gate / up, the fp and int8 LM head) compute their local
-    channels, row-parallel ones (o, down, the int4 LM head) sum partial
-    products (:func:`row_parallel_sum`), a vocab-sharded embedding sums
-    its masked lookups, and the LM head's logits are made whole."""
+    (q / k / v, gate / up, the fp and int8 LM head, the column-parallel
+    LoRA factors) compute their local channels, row-parallel ones (o,
+    down, the int4 LM head, a row-parallel base with its ``lora_a`` rows)
+    sum partial products (:func:`row_parallel_sum`), a vocab-sharded
+    embedding sums its masked lookups, an MoE block runs its local experts
+    on its hidden slice and sums over ``expert`` then ``tensor``, and the
+    LM head's logits are made whole."""
 
     tp: TensorParallel
+    ranks: Tuple[int, ...]
 
 
 def localize_params(params: Any) -> Any:
     """``params`` as :class:`LocalParams` when it is a placed tree
     (:func:`~unionml_tpu_torch.parallel.shard_pytree` places every tensor,
     so its first leaf is a DTensor), else unchanged. A leaf sharded over
-    another mesh axis than ``tensor`` (an fsdp layout) is gathered whole
-    over it, once, here; the tree's ``tensor`` blocks stay as placed."""
+    another mesh axis than ``tensor`` or ``expert`` (an fsdp layout) is
+    gathered whole over it, once, here; the tree's ``tensor`` and
+    ``expert`` blocks stay as placed."""
     first = _first_leaf(params)
     if isinstance(params, LocalParams) or not is_dtensor(first):
         return params
@@ -266,7 +277,7 @@ def localize_params(params: Any) -> Any:
         if not is_dtensor(t):
             return t
         want = [p if isinstance(p, Replicate) or
-                (isinstance(p, Shard) and names[i] == "tensor") else Replicate()
+                (isinstance(p, Shard) and names[i] in _SERVED_AXES) else Replicate()
                 for i, p in enumerate(t.placements)]
         if want != list(t.placements):
             t = t.redistribute(t.device_mesh, want)
@@ -279,7 +290,16 @@ def localize_params(params: Any) -> Any:
 
     out = LocalParams(walk(params))
     out.tp = TensorParallel(mesh)
+    coord = mesh.get_coordinate()
+    block = mesh.mesh[tuple(slice(None) if n in _SERVED_AXES else c
+                            for n, c in zip(names, coord))]
+    out.ranks = tuple(int(r) for r in block.flatten().tolist())
     return out
+
+
+#: the mesh axes a served tree keeps split: every rank of them serves the
+#: same requests together (the others are replicas)
+_SERVED_AXES = ("expert", "tensor")
 
 
 def _first_leaf(tree: Any) -> Any:

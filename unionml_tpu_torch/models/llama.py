@@ -27,8 +27,9 @@ tokens, ``forward`` takes each rank's local shards once
 (:func:`~unionml_tpu_torch.models.layers.localize_params`) and runs on
 plain tensors, the kernels reached directly, with Megatron's collectives
 over the ``tensor`` axis (:class:`~unionml_tpu_torch.models.layers
-.LocalParams`); the KV cache holds the rank's kv heads
-(:func:`cache_config`).
+.LocalParams`) — LoRA adapters following their base's layout, MoE experts
+split over ``expert`` and ``tensor`` too; the KV cache holds the rank's kv
+heads (:func:`cache_config`).
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from unionml_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from unionml_tpu_torch.models.layers import (
     _TP,
     Attention,
-    LocalParams,
     MlpBlock,
     RMSNorm,
     _site_rows,
@@ -290,12 +290,6 @@ class Llama(nn.Module):
         .Attention`).
         """
         with local_forward(params, tokens) as params:
-            if isinstance(params, LocalParams) and (self.config.num_experts
-                                                    or self.config.lora_rank):
-                raise NotImplementedError(
-                    "serving a placed MoE or LoRA tree is not ported: serve the "
-                    "merged / unplaced tree"
-                )
             return self._forward(params, tokens, positions=positions, cache=cache,
                                  cache_index=cache_index, kv_mask=kv_mask,
                                  block_table=block_table, logit_index=logit_index,

@@ -78,8 +78,13 @@ class LoRADenseGeneral(nn.Module):
         self.use_bias = use_bias
         self.dtype = torch_dtype(dtype)
 
-    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
-        xt, lead, feats, k, n = _dense_geometry(x, self.axis, self.features)
+    def forward(self, params, x: torch.Tensor, *, features=None, kn=None) -> torch.Tensor:
+        """``features``: a tensor-parallel shard's local output dims (a
+        column-parallel base: its ``lora_b`` columns); a row-parallel
+        shard's rows of ``x``, the base and ``lora_a`` give a partial
+        product the caller sums over the ranks. ``kn`` is taken for the
+        int4 layer's sake."""
+        xt, lead, feats, k, n = _dense_geometry(x, self.axis, features or self.features)
         x2 = xt.reshape(-1, k).to(self.dtype)
         if self.quantized:
             kernel_q = params["kernel_q"]

@@ -128,6 +128,10 @@ def _library(name: str) -> ctypes.CDLL:
         return lib
 
 
+#: every :class:`Kernel` made (a captured CUDA graph credits their launches)
+KERNELS: List["Kernel"] = []
+
+
 class Kernel:
     """One C entry point of one kernel library, with its launch count.
 
@@ -142,6 +146,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def _bind(self):
         if self._fn is None:

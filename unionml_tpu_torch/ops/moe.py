@@ -273,6 +273,11 @@ class MoEMlp(nn.Module):
 
         if is_dtensor(x):
             return _sharded_moe(self, params, x, sow)
+        from unionml_tpu_torch.models.layers import _TP
+
+        tp = _TP.get()
+        if tp is not None:
+            return _local_moe(self, params, x, tp)
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
         weights, indices, aux, (rf, gf) = self.route(params["router_kernel"], tokens)
@@ -367,6 +372,37 @@ def _sharded_moe(block: MoEMlp, params, x, sow):
                                                          for k in keys]
     out = compat.local_call(run, args, grads, x.placements, mesh)
     return out, aux
+
+
+def _local_moe(block: MoEMlp, params, x, tp):
+    """:class:`MoEMlp` on a served tree's local shards (a
+    :class:`~unionml_tpu_torch.models.layers.LocalParams` forward): the
+    router whole on every rank, each rank's experts on their hidden slice
+    over all the rows, the partial outputs summed over ``expert`` then
+    ``tensor`` in rank order, as :func:`_sharded_moe` sums them in
+    training. The dense dispatch stays the reference's."""
+    b, s, d = x.shape
+    tokens = x.reshape(b * s, d)
+    weights, indices, aux, _ = block.route(params["router_kernel"], tokens)
+    experts = block._expert_weights(params)
+    e_local, h_local = experts["gate"].shape[0], experts["gate"].shape[-1]
+    e0 = tp.expert.rank * e_local if e_local < block.num_experts else 0
+    combine = _combine(weights, indices, block.num_experts, block.dtype)[:, e0:e0 + e_local]
+    out = _experts_out(tokens, combine, experts, block.dtype)
+    if e_local < block.num_experts:
+        out = _axis_sum(out, tp.expert, "expert")
+    if h_local < block.hidden_dim:
+        out = _axis_sum(out, tp, "tensor")
+    return out.reshape(b, s, d).to(block.dtype), aux
+
+
+def _axis_sum(out: torch.Tensor, axis, name: str) -> torch.Tensor:
+    """The rank-ordered sum of a served MoE block's partial output over
+    one mesh axis (``axis``: its :class:`~unionml_tpu_torch.models.layers
+    .TensorParallel`; ``name`` says which)."""
+    from unionml_tpu_torch.parallel.collectives import ordered_sum
+
+    return ordered_sum(out, axis.group)
 
 
 def migrate_moe_router_params(params):

@@ -47,6 +47,23 @@ prefix cache) saves a victim's blocks through the same path and resumes
 it by splicing them back. ``prefill_export`` / ``kv_export`` /
 ``kv_import`` hand a request's blocks to another engine.
 
+A tree placed over several ranks (tensor and expert parallelism) is
+served by one engine per rank under ONE controller, the port's form of
+the reference's single controller over the mesh (the reference has no
+follower: GSPMD issues its collectives from one program). The first rank
+of the tree's parallel groups takes every request (``generate``,
+``generate_stream``, ``prefill_export``, a ``ServingApp`` in front of
+it) and makes every decision: arrivals, deadline shedding, cancellations,
+the queue bound and the breaker. Each dispatcher pass it publishes one
+plan of those decisions through the process group's key-value store;
+the other ranks run :meth:`DecodeEngine.follow`, whose dispatcher applies
+each plan in order and then runs the same pass, so every rank admits,
+splices and dispatches alike and their forwards issue the same
+collectives in the same order. Every rank decides each pass on a drained
+pipeline (the harvests, retirements and prefix inserts of earlier passes
+done), so nothing read from the harvest differs between ranks; the
+dispatch / harvest overlap is given up there (ROADMAP.md C14).
+
 On the CPU (the tests) the same code runs synchronously. An injected
 fault (``FaultInjector``) is recovered as in the reference; a real CUDA
 error is sticky for the process and cannot be recovered by rebuilding
@@ -55,14 +72,16 @@ state — the engine then fails every later request.
 
 from __future__ import annotations
 
+import itertools
 import math
+import pickle
 import queue
 import threading
 import time
 from collections import OrderedDict, deque
 from collections.abc import Mapping
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -300,6 +319,13 @@ class _Request:
     _itl_anchor: float = 0.0
     _itl_sum_ms: float = 0.0
     _itl_n: int = 0
+    # a multi-rank engine's plan: the request's id in the plans, the
+    # caller's cancellation (applied by the next plan), the controller's
+    # deadline verdict, and a prefill_export whose lease the plan takes
+    _pid: int = -1
+    _cancelled: bool = False
+    _shed: bool = False
+    _export: bool = False
 
     def emit(self, chunk: List[int]) -> None:
         if self.stream is not None and chunk:
@@ -308,6 +334,69 @@ class _Request:
     def finish_stream(self) -> None:
         if self.stream is not None:
             self.stream.put(None)
+
+
+#: per process: how many multi-rank engines each set of ranks has bound,
+#: which names each engine's plan channel alike on every rank of the set
+_CHANNELS: Dict[Tuple[int, ...], int] = {}
+_CHANNELS_LOCK = threading.Lock()
+
+
+class _PlanChannel:
+    """The plans of one multi-rank engine, in order: the controller
+    publishes plan ``n`` under ``<key>/<n>`` in the process group's
+    key-value store, each follower polls for it, and the last follower to
+    read it deletes it. A store, not a collective: an idle controller
+    sends nothing and a follower waits without a collective timeout, and
+    two engines over the same ranks cannot pair each other's messages."""
+
+    def __init__(self, ranks: Tuple[int, ...]):
+        import torch.distributed as dist
+
+        with _CHANNELS_LOCK:
+            n = _CHANNELS.get(ranks, 0)
+            _CHANNELS[ranks] = n + 1
+        self._store = dist.distributed_c10d._get_default_store()
+        self._key = f"unionml_engine_plans/{'-'.join(map(str, ranks))}/{n}"
+        self._followers = len(ranks) - 1
+        self.seq = 0
+
+    def publish(self, plan: dict) -> None:
+        self._store.set(f"{self._key}/{self.seq}", pickle.dumps(plan))
+        self.seq += 1
+
+    def receive(self, stop: threading.Event) -> Optional[dict]:
+        """The next plan; ``None`` once ``stop`` is set while waiting."""
+        key = f"{self._key}/{self.seq}"
+        wait = 1e-4
+        while not self._store.check([key]):
+            if stop.is_set():
+                return None
+            time.sleep(wait)
+            wait = min(2 * wait, 0.01)
+        plan = pickle.loads(self._store.get(key))
+        if self._store.add(f"{key}/read", 1) == self._followers:
+            self._store.delete_key(key)
+            self._store.delete_key(f"{key}/read")
+        self.seq += 1
+        return plan
+
+
+class _PlanLease:
+    """A multi-rank ``prefill_export``'s lease: every rank took it at the
+    same harvest, and its release reaches every rank through the next
+    plan (an LRU pin dropped on one rank's clock would let the ranks'
+    prefix stores evict differently)."""
+
+    def __init__(self, engine: "DecodeEngine", pid: int, lease):
+        self._engine, self._pid = engine, pid
+        self.rows, self.n_blocks, self.n_tokens = lease.rows, lease.n_blocks, lease.n_tokens
+
+    def release(self) -> None:
+        engine, self._engine = self._engine, None
+        if engine is not None:
+            with engine._lock:
+                engine._releases.append(self._pid)
 
 
 class DecodeEngine:
@@ -390,6 +479,21 @@ class DecodeEngine:
             multiples. One cache per weight binding: ``bind`` to other
             params clears it. Defaults to a private cache when
             ``system_prefix`` is set, else off.
+
+    A tree placed over several ranks (:func:`~unionml_tpu_torch.parallel
+    .shard_pytree` with ``tensor`` or ``expert`` > 1) is served by one
+    engine per rank, built alike and bound in the same order on every
+    rank, under one controller: the first rank of the tree's ``expert`` x
+    ``tensor`` ranks (:attr:`role` ``"controller"``, rank 0 of the tensor
+    group under plain tensor parallelism) takes every request — put a
+    ``ServingApp`` in front of it — and publishes each dispatcher pass's
+    plan; every other rank calls :meth:`follow` with its own placed tree
+    and takes no request (its ``generate`` / ``generate_stream`` /
+    ``prefill_export`` raise, naming the controller; ``kv_import`` is
+    refused on every rank).
+    Closing the controller's engine ends the followers' :meth:`follow`.
+    Swapping the weights of such an engine is refused: close it on every
+    rank and build another.
     """
 
     def __init__(
@@ -486,12 +590,21 @@ class DecodeEngine:
         self._cache_cfg = self.cfg
         self._draft_cache_cfg = draft_module.config if draft_module is not None else None
         self._params_src: Any = None
-        # a placed tree over several ranks: decide each pass on a drained
-        # pipeline (_drain_pipeline), admit arrivals as the ranks agree
-        # (_agree_arrivals: submitted requests wait in _staged until then)
+        # a placed tree over several ranks: one controller publishes each
+        # pass's plan (_take_plan), every rank decides on a drained
+        # pipeline (_drain_pipeline). The controller's submitted requests
+        # wait in _staged for the next plan; _planned holds every rank's
+        # planned requests by plan id until they finish
         self._lockstep = False
-        self._lockstep_group: Any = None
+        self.role = "solo"
+        self._controller_rank = 0
+        self._channel: Optional[_PlanChannel] = None
+        self._followed = threading.Event()
         self._staged: List[_Request] = []
+        self._planned: Dict[int, _Request] = {}
+        self._plan_ids = itertools.count()
+        self._releases: List[int] = []
+        self._export_leases: Dict[int, Any] = {}
         self.slots = slots
         self.max_new_tokens = max_new_tokens
         self.prefill_chunk = None if prefill_chunk is None else int(prefill_chunk)
@@ -699,6 +812,7 @@ class DecodeEngine:
         if self.introspect:
             self._instrument_programs()
         self._stop = threading.Event()
+        self._closing = False
         self._worker = threading.Thread(
             target=self._run, daemon=True, name="unionml-torch-decode-engine"
         )
@@ -1008,7 +1122,7 @@ class DecodeEngine:
                     "submit", rid=req.rid, tenant=req.tenant,
                     priority=req.priority,
                     prompt_tokens=len(req.prompt),
-                    queue_depth=self._room.qsize(),
+                    queue_depth=self._room.qsize() + len(self._staged),
                 )
                 if self._lockstep:
                     self._staged.append(req)
@@ -1074,7 +1188,8 @@ class DecodeEngine:
                 reason="breaker_open", retry_after_s=max(0.1, remaining),
             )
         if self.max_queue_depth is not None:
-            depth = self._room.qsize()
+            # a multi-rank controller's arrivals wait for the next plan
+            depth = self._room.qsize() + len(self._staged)
             if depth + n_new > self.max_queue_depth:
                 self._m_rejected["queue_full"].inc(n_new)
                 self._usage_rejected(reqs, "queue_full")
@@ -1102,7 +1217,7 @@ class DecodeEngine:
             status = "ok"
         out = {
             "status": status,
-            "queue_depth": self._room.qsize(),
+            "queue_depth": self._room.qsize() + len(self._staged),
             "breaker_open": breaker,
         }
         if self.phase != "colocated":
@@ -1646,6 +1761,7 @@ class DecodeEngine:
         (the scheduler's waiting room).
         """
         self.bind(params)
+        self._refuse_on_follower("generate")
         tenant = (
             validate_tenant(tenant) if tenant is not None
             else current_tenant()
@@ -1668,12 +1784,6 @@ class DecodeEngine:
             )
         if deadline_ms is None:
             deadline_ms = current_deadline_ms()
-        if deadline_ms is not None and self._lockstep:
-            raise ValueError(
-                "deadline_ms is refused on a placed tree served over several "
-                "ranks: shedding at dequeue reads each rank's clock, and the "
-                "ranks must take the same decisions (ROADMAP.md C14)"
-            )
         # validate EVERY prompt before creating any request or trace
         # rid, so a bad later prompt cannot leak earlier ones' state
         rows = [self._canonical_row(p) for p in prompts]
@@ -1701,11 +1811,10 @@ class DecodeEngine:
             if not req.event.wait(self.submit_timeout):
                 # abandon the whole call: queued siblings are dropped at
                 # admission and in-slot ones retired at the next harvest,
-                # so orphans stop burning device time and slots. Under
-                # lockstep they run on: a timeout is one rank's clock
+                # so orphans stop burning device time and slots
                 self._m_timeouts.inc()
                 for r in reqs:
-                    r.abandoned = not self._lockstep
+                    self._abandon(r)
                 raise TimeoutError("decode engine did not finish in time")
             if req.error is not None:
                 raise req.error
@@ -1731,11 +1840,9 @@ class DecodeEngine:
         chunks yields exactly ``generate(params, [prompt])[0]`` (tested
         in the engine tests). Raises the engine's error, or
         ``TimeoutError`` when no chunk lands within ``submit_timeout``.
-        Refused on a placed tree served over several ranks (a consumer
-        that stops abandons its request on one rank only).
         """
         self.bind(params)
-        self._refuse_under_lockstep("generate_stream")
+        self._refuse_on_follower("generate_stream")
         tenant = (
             validate_tenant(tenant) if tenant is not None
             else current_tenant()
@@ -1787,7 +1894,7 @@ class DecodeEngine:
             # the next harvest instead of decoding to max_new_tokens for
             # a dead request
             if not req.event.is_set():
-                req.abandoned = True
+                self._abandon(req)
 
 
     def _canonical_row(self, prompt) -> np.ndarray:
@@ -1827,7 +1934,9 @@ class DecodeEngine:
         is how much of the prompt an engine sharing this store will splice.
         Blocks the byte budget could not store shrink the match — the
         decode leg recomputes the difference. Billed as a 1-token
-        request. Refused on a placed tree served over several ranks."""
+        request. On a multi-rank engine every rank's host store holds the
+        prompt's blocks of its own shard, and the lease's release reaches
+        every rank through the next plan."""
         if self.prefix_cache is None:
             raise ValueError(
                 "prefill_export needs a prefix cache — the harvested KV "
@@ -1836,7 +1945,7 @@ class DecodeEngine:
                 "shared RadixPrefixCache)"
             )
         self.bind(params)
-        self._refuse_under_lockstep("prefill_export")
+        self._refuse_on_follower("prefill_export")
         tenant = validate_tenant(tenant) if tenant is not None else current_tenant()
         priority = validate_priority(priority) if priority is not None else current_priority()
         if deadline_ms is None:
@@ -1844,6 +1953,7 @@ class DecodeEngine:
         row = self._canonical_row(prompt)
         req = _Request(prompt=row, max_new_tokens=1, tenant=tenant, priority=priority)
         req._kv_event = threading.Event()
+        req._export = self._lockstep
         if deadline_ms is not None:
             req.deadline = req.submitted + deadline_ms / 1e3
         req.rid = self._tracer.new_request("prefill")
@@ -1854,7 +1964,7 @@ class DecodeEngine:
             raise
         if not req.event.wait(self.submit_timeout):
             self._m_timeouts.inc()
-            req.abandoned = True
+            self._abandon(req)
             raise TimeoutError("prefill did not finish in time")
         if req.error is not None:
             raise req.error
@@ -1862,7 +1972,14 @@ class DecodeEngine:
         # prefill: wait for the lease release that marks it processed (a
         # timeout degrades to a shorter match, never an error)
         req._kv_event.wait(self.submit_timeout)
-        lease = self.prefix_cache.lease(row)
+        if self._lockstep:
+            # taken at that harvest on every rank (_process_entry)
+            with self._lock:
+                taken = self._export_leases.get(req._pid)
+            lease = _PlanLease(self, req._pid, taken if taken is not None
+                               else self.prefix_cache.lease(np.zeros(0, np.int32)))
+        else:
+            lease = self.prefix_cache.lease(row)
         return {
             "tokens": list(req.tokens),
             "prompt": [int(t) for t in row],
@@ -1894,12 +2011,20 @@ class DecodeEngine:
         """Attach a donor's exported entries to this engine's host prefix
         store (``POST /debug/kv/import``); returns blocks newly attached.
         Rows that are not packed host blocks (a numpy tree, another
-        package's entries) are packed first."""
+        package's entries) are packed first. Refused on a multi-rank
+        engine: blocks attached outside the plan would change one rank's
+        prefix matches and not the others' (ROADMAP.md C14)."""
         cache = self.prefix_cache
         if cache is None:
             raise ValueError(
                 "no prefix cache on this engine — KV import needs the host "
                 "block store; construct with prefix_cache=True"
+            )
+        if self._lockstep:
+            raise NotImplementedError(
+                "kv_import is refused on an engine served over several ranks: "
+                "each rank's store would take its blocks outside the "
+                "controller's plan (ROADMAP.md C14)"
             )
         return int(cache.import_blocks([
             entry if packed_base(entry["rows"]) is not None
@@ -1912,18 +2037,14 @@ class DecodeEngine:
         state allocates lazily. Swapping while requests are in flight
         would mix weights within a decode — refused instead.
 
-        A tree placed under tensor parallelism is served on this rank's
-        local shards (:func:`~unionml_tpu_torch.models.layers
+        A tree placed under tensor (or expert) parallelism is served on
+        this rank's local shards (:func:`~unionml_tpu_torch.models.layers
         .localize_params`, once, here): the cache, the pool's blocks and
-        their byte count hold the rank's kv heads. Every rank of the mesh
-        runs its own engine over the same requests, submitted through
-        :meth:`generate` in the same calls and the same order; over several
-        ranks each dispatcher pass waits for the pipeline to drain and
-        admits only the arrivals every rank has (lockstep), so the ranks
-        decide alike and their forwards issue their collectives in one
-        order. Decisions that read a rank's clock are refused there:
-        ``deadline_ms``, :meth:`generate_stream`, :meth:`prefill_export`
-        and ``max_queue_depth`` (ROADMAP.md C14)."""
+        their byte count hold the rank's kv heads. Over several ranks this
+        sets the engine's :attr:`role`: the first of the tree's ranks is the
+        controller, the others followers (see the class docstring and
+        :meth:`follow`); every rank must bind its engines in the same
+        order."""
         if params is self._params or params is self._params_src:
             return
         if self.draft is not None:
@@ -1950,13 +2071,13 @@ class DecodeEngine:
             params = localize_params(params)
             layout = cache_config(self.cfg, params)
             trees = [params]
-        tps = [t.tp for t in trees if isinstance(t, LocalParams) and t.tp.size > 1]
-        lockstep = bool(tps)
-        if lockstep and self.max_queue_depth is not None:
-            raise ValueError(
-                "max_queue_depth is refused on a placed tree served over "
-                "several ranks: each rank's queue depth at a submit depends "
-                "on its own timing (ROADMAP.md C14)"
+        ranks = max((t.ranks for t in trees if isinstance(t, LocalParams)),
+                    key=len, default=())
+        lockstep = len(ranks) > 1
+        if self._params is not None and (lockstep or self._lockstep):
+            raise RuntimeError(
+                "an engine served over several ranks keeps the tree it was "
+                "bound to: close it on every rank and build another"
             )
         with self._lock:
             busy = (
@@ -1982,8 +2103,13 @@ class DecodeEngine:
                 self._adopt_layout(layout)
             self._params = params
             self._params_src = src
+            if lockstep:
+                import torch.distributed as dist
+
+                self._controller_rank = ranks[0]
+                self.role = "controller" if dist.get_rank() == ranks[0] else "follower"
+                self._channel = _PlanChannel(ranks)
             self._lockstep = lockstep
-            self._lockstep_group = tps[0].group if tps else None
 
     def _adopt_layout(self, layout) -> None:
         """Caches and pool blocks from now on hold ``layout``'s kv heads
@@ -2178,7 +2304,15 @@ class DecodeEngine:
         self._sched.reset_stats()
 
     def close(self):
+        if self.role == "controller" and not self._closing:
+            # the dispatcher finishes its pass (its collectives pair the
+            # followers'), then the followers are told to stop
+            self._closing = True
+            self._worker.join(timeout=60.0)
+            self._channel.publish({"stop": True})
+        self._closing = True
         self._stop.set()
+        self._followed.set()
         self._worker.join(timeout=5.0)
         self._harvester.join(timeout=5.0)
         with self._lock:
@@ -2206,6 +2340,9 @@ class DecodeEngine:
                 self._fail_orphan(entry[2], RuntimeError("decode engine closed"))
         with self._lock:
             staged, self._staged = self._staged, []
+            leases, self._export_leases = list(self._export_leases.values()), {}
+        for lease in leases:
+            lease.release()
         for req in [*self._room.pop_all(), *staged]:
             req.error = RuntimeError("decode engine closed")
             self._release_lease(req)   # a resumed-queued stream's pin
@@ -2655,6 +2792,12 @@ class DecodeEngine:
             except Exception as exc:
                 logger.info(f"prefix-cache insert skipped: {exc!r}")
             finally:
+                if req._export:
+                    # a multi-rank export's pin, taken at this harvest on
+                    # every rank; the plan releases it
+                    lease = self.prefix_cache.lease(req.prompt)
+                    with self._lock:
+                        self._export_leases[req._pid] = lease
                 self._release_lease(req)
             return
         if entry[0] == "preempt":
@@ -3073,7 +3216,8 @@ class DecodeEngine:
                     req, TimeoutError("request abandoned before admission")
                 )
                 return
-            if req.deadline is not None and time.perf_counter() > req.deadline:
+            if (req._shed if self._lockstep else
+                    req.deadline is not None and time.perf_counter() > req.deadline):
                 # shed at dequeue: an expired request never consumes prefill
                 waited_ms = (time.perf_counter() - req.submitted) * 1e3
                 self._drop_admission(req, DeadlineExceeded(
@@ -3323,7 +3467,7 @@ class DecodeEngine:
         to ``pipeline_depth`` decode chunks in flight. NEVER waits for the
         device — the harvester thread owns the readbacks."""
         with torch.inference_mode():
-            while not self._stop.is_set():
+            while not (self._stop.is_set() or self._closing):
                 try:
                     if not self._run_pass():
                         # nothing admittable or dispatchable: arrivals and
@@ -3336,60 +3480,152 @@ class DecodeEngine:
 
     def _drain_pipeline(self) -> None:
         """Wait until the harvester has processed every in-flight entry
-        (readbacks, retirements, prefix-cache inserts). Under lockstep (a
-        placed tree over several ranks) every decision the dispatcher
-        takes then rests on state that is the same on every rank, so the
-        ranks' forwards issue their collectives in one order."""
+        (readbacks, retirements, prefix-cache inserts). On a multi-rank
+        engine every decision the dispatcher takes then rests on state
+        that is the same on every rank (the plan carries the decisions
+        that read a clock or a caller), so the ranks' forwards issue their
+        collectives in one order. Kept rather than planned: the harvest's
+        effects (retirements, freed blocks, prefix inserts, preemption
+        saves) feed admission, pool and splice decisions everywhere, and
+        shipping them all would rebuild the harvester in the plan."""
         q = self._inflight
         with q.all_tasks_done:
             while q.unfinished_tasks and not self._stop.is_set():
                 q.all_tasks_done.wait(0.1)
 
-    def _refuse_under_lockstep(self, what: str) -> None:
-        if self._lockstep:
-            raise NotImplementedError(
-                f"{what} is refused on a placed tree served over several "
-                "ranks: serve it through generate() (ROADMAP.md C14)"
+    def _refuse_on_follower(self, what: str) -> None:
+        if self.role == "follower":
+            raise RuntimeError(
+                f"{what} on a follower rank of an engine served over several "
+                f"ranks: rank {self._controller_rank}, the controller, takes "
+                "every request; this rank runs follow()"
             )
 
-    def _agree_arrivals(self) -> bool:
-        """Lockstep: move into the waiting room the submitted requests that
-        every rank has (the least count staged over the tensor group, one
-        all-reduce); returns False, with no collective, when this rank has
-        neither staged arrivals nor work in hand. Work in hand is the same
-        on every rank after the drain, so the ranks that enter the
-        all-reduce are the same ones pass for pass, and a rank whose
-        arrivals came early waits in it for the others'."""
+    def _abandon(self, req: _Request) -> None:
+        """A waiter gave up on ``req``. On a multi-rank engine the next
+        plan abandons it on every rank at the same pass."""
+        if self._lockstep:
+            req._cancelled = True
+        else:
+            req.abandoned = True
+
+    def follow(self, params) -> int:
+        """Serve ``params`` (this rank's placed tree) as a follower of the
+        engine's controller; returns once the controller's engine has
+        closed (then :meth:`close` this one), with the plans applied. Every
+        rank of the tree but the controller calls it, while the controller
+        serves requests (:meth:`generate`, a ``ServingApp``...); a follower
+        applies the plans from its :meth:`bind` on, so where it serves
+        several engines it binds them all first, in the controller's
+        order. Raises ``ValueError`` on the controller or where the tree is
+        not served over several ranks."""
+        self.bind(params)
+        if self.role != "follower":
+            raise ValueError(
+                f"follow() on the {self.role} engine: only the ranks other "
+                "than the first of a tree placed over several ranks follow"
+            )
+        self._followed.wait()
+        return self._channel.seq
+
+    def _take_plan(self) -> bool:
+        """A multi-rank engine's plan for this dispatcher pass: built and
+        published by the controller, read by a follower, then applied
+        alike on both. False (and no pass) when the controller is idle
+        with nothing to say, or a follower is stopping."""
+        if self.role == "follower":
+            plan = self._channel.receive(self._stop)
+            if plan is None or plan.get("stop"):
+                self._stop.set()
+                self._followed.set()
+                return False
+            arrivals = self._follower_requests(plan["arrivals"])
+        else:
+            built = self._build_plan()
+            if built is None:
+                return False
+            plan, arrivals = built
+            self._channel.publish(plan)
+        self._apply_plan(plan, arrivals)
+        return True
+
+    def _build_plan(self):
+        """Controller: this pass's decisions — the arrivals since the last
+        plan, cancellations, deadlines expired on this rank's clock, the
+        export leases released — or ``None`` when there is nothing to say
+        and no work in hand (work in hand is the same on every rank after
+        the drain, so a follower has none either)."""
+        now = time.perf_counter()
         with self._lock:
-            staged = len(self._staged)
+            arrivals, self._staged = self._staged, []
+            releases, self._releases = self._releases, []
             busy = (
                 any(r is not None for r in self._occupant)
                 or self._admission is not None
                 or not self._room.empty()
                 or self._room.parked_count() > 0
             )
-        if not staged and not busy:
-            return False
-        import torch.distributed as dist
+            live = [r for r in self._planned.values() if not r.event.is_set()]
+        for req in arrivals:
+            req._pid = next(self._plan_ids)
+        reqs = live + arrivals
+        cancel = [r._pid for r in reqs if r._cancelled and not r.abandoned]
+        shed = [r._pid for r in reqs
+                if r.deadline is not None and not r._shed and now > r.deadline]
+        if not (arrivals or releases or cancel or shed or busy):
+            return None
+        plan = {
+            "arrivals": [(r._pid, r.prompt.tolist(), r.max_new_tokens, r.tenant,
+                          r.priority, r.submitted, r._export) for r in arrivals],
+            "cancel": cancel, "shed": shed, "release": releases,
+            # usage-fed fair weights read this rank's clock: every rank
+            # uses the controller's for the pass
+            "weights": self._room.fair_weights({r.tenant for r in arrivals}),
+        }
+        return plan, arrivals
 
-        from unionml_tpu_torch.parallel.collectives import COLLECTIVES
+    def _follower_requests(self, arrivals) -> List[_Request]:
+        """A follower's own requests for a plan's arrivals, in its order."""
+        out = []
+        for pid, prompt, n, tenant, priority, submitted, export in arrivals:
+            req = _Request(prompt=np.asarray(prompt, np.int32), max_new_tokens=n,
+                           submitted=submitted, tenant=tenant, priority=priority)
+            req._pid, req._export = pid, export
+            req.rid = self._tracer.new_request("follow")
+            out.append(req)
+        return out
 
-        count = torch.tensor([staged], dtype=torch.int64, device=self.device)
-        dist.all_reduce(count, op=dist.ReduceOp.MIN, group=self._lockstep_group)
-        COLLECTIVES.add("all_reduce")
+    def _apply_plan(self, plan: dict, arrivals: List[_Request]) -> None:
+        """The plan on this rank, in its order: arrivals into the waiting
+        room, cancellations and deadline verdicts on the planned requests,
+        export leases released, the pass's fair weights held."""
+        released = []
         with self._lock:
-            agreed = self._staged[:int(count.item())]
-            del self._staged[:len(agreed)]
-            for req in agreed:
+            for pid in [p for p, r in self._planned.items() if r.event.is_set()]:
+                del self._planned[pid]
+            for req in arrivals:
+                self._planned[req._pid] = req
+            for pid in plan["cancel"]:
+                if pid in self._planned:
+                    self._planned[pid].abandoned = True
+            for pid in plan["shed"]:
+                if pid in self._planned:
+                    self._planned[pid]._shed = True
+            for pid in plan["release"]:
+                released.append(self._export_leases.pop(pid, None))
+            self._room.hold_weights(plan["weights"])
+            for req in arrivals:
                 self._room.put(req)
+        for lease in released:
+            if lease is not None:
+                lease.release()
         self._g_queue_depth.set(self._room.qsize())
-        return True
 
     def _run_pass(self) -> bool:
         """One dispatcher pass; returns whether it made progress."""
         if self._lockstep:
             self._drain_pipeline()
-            if not self._agree_arrivals():
+            if not self._take_plan():
                 return False
         progressed = False
         adm = self._admission

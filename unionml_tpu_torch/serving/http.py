@@ -193,7 +193,9 @@ LANDING_HTML = """<html><head><title>unionml-tpu</title></head>
 def _to_jsonable(obj: Any) -> Any:
     if isinstance(obj, (bool, int, float, str, type(None))):
         return obj
-    if hasattr(obj, "tolist"):  # numpy / jax arrays and scalars
+    if hasattr(obj, "detach"):  # a tensor, on the card too
+        return obj.detach().cpu().tolist()
+    if hasattr(obj, "tolist"):  # numpy arrays and scalars
         return np.asarray(obj).tolist()
     if hasattr(obj, "to_dict"):  # DataFrame
         return obj.to_dict(orient="records")

@@ -405,6 +405,8 @@ class WaitingRoom:
         # parked lane: pool-exhausted admissions awaiting blocks, at
         # most one per class (strictly-higher classes admit past them)
         self._parked: List[Any] = []
+        # fair weights held for a multi-rank engine's pass (None: live)
+        self._held: Optional[Dict[str, float]] = None
 
     # ------------------------------------------------------------------ #
     # depth views
@@ -469,11 +471,32 @@ class WaitingRoom:
             self._depths[req.priority] += 1
             self._publish_locked(req.priority)
 
+    def fair_weights(self, tenants=()) -> Optional[Dict[str, float]]:
+        """The live fair weight of every queued tenant and of ``tenants``
+        (``None`` without a usage ledger): what a multi-rank engine's
+        controller ships in its plan for :meth:`hold_weights`."""
+        if self._usage is None:
+            return None
+        with self._lock:
+            queued = {t for p in PRIORITIES for t in self._queues[p]}
+        names = sorted(queued | set(tenants))
+        return {t: self._live_weight(t) for t in names}
+
+    def hold_weights(self, weights: Optional[Dict[str, float]]) -> None:
+        """Use ``weights`` (a controller's :meth:`fair_weights`) until the
+        next call; ``None`` goes back to the live weights."""
+        self._held = weights
+
     def _fair_weight(self, tenant: str) -> float:
         """Usage-fed DRR weight: 1 − the tenant's attributed share of
         device time, floored at ``min_fair_weight`` — heavy tenants
         refill slower, light ones catch up (VTC-style fairness on the
         usage ledger)."""
+        if self._held is not None:
+            return self._held.get(tenant, 1.0)
+        return self._live_weight(tenant)
+
+    def _live_weight(self, tenant: str) -> float:
         if self._usage is None:
             return 1.0
         share = self._usage.fair_share(tenant)

@@ -8,7 +8,11 @@ behind the standard Dataset/Model spec, trained through
 builds the same app for another :class:`ViTConfig` (``ViTConfig.base16()``
 for ViT-B/16 at 224x224). Tensors live on the device named by the
 ``device`` hyperparameter (``None`` = CUDA; pass ``"cpu"`` to train on the
-CPU explicitly). Without a mesh the step takes no sharding config.
+CPU explicitly). Without a mesh the step takes no sharding config. The
+predictor is ``jit=True`` as in the reference: on the card its body runs as
+a CUDA graph captured once per input shape (the fused LayerNorm and
+attention kernels replayed with it), tensors in and tensors out; the
+evaluator converts.
 
 Run: ``python app.py`` (train + save model.pt).
 """
@@ -113,17 +117,17 @@ def build_model(
             on_step(state, metrics)
         return state, metrics
 
-    @model.predictor
-    def predictor(state: TrainState, features: np.ndarray) -> np.ndarray:
+    @model.predictor(jit=True)
+    def predictor(state: TrainState, features: np.ndarray) -> torch.Tensor:
         device = state.params["cls"].device
         with torch.no_grad():
             logits = state.apply_fn(state.params, torch.as_tensor(features, device=device))
-        return logits.argmax(dim=-1).cpu().numpy()
+        return logits.argmax(dim=-1)
 
     @model.evaluator
     def evaluator(state: TrainState, features: np.ndarray, targets: np.ndarray) -> float:
-        preds = predictor(state, features)
-        return float((np.asarray(preds) == np.asarray(targets)).mean())
+        preds = predictor(state, features).cpu().numpy()
+        return float((preds == np.asarray(targets)).mean())
 
     return model
 
