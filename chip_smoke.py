@@ -270,7 +270,10 @@ Phases, each of which fails the run with a non-zero exit:
              (logits and model.predict's predictions), rows 3 / 4 / 12
              launched 13 / 12 / 12 times per replay as per eager call, a
              second state of the same shapes giving its own predictions,
-             host ms a call eager and replayed; clear_jit_cache empties it;
+             host ms a call eager and replayed; each replay charged the
+             eager call's counted cost (rows 3 / 4 / 12 by their cost
+             functions plus the counted aten work), as the tracker credits
+             it; clear_jit_cache empties it;
 10b. placed — on a one-rank NCCL group (every placement whole): int8
              experts at Mixtral-8x7B widths, 2 layers, placed by
              LLAMA_MOE_PARTITION_RULES through the paged DecodeEngine and
@@ -282,7 +285,18 @@ Phases, each of which fails the run with a non-zero exit:
              controller that serves a placed engine over several ranks
              (ROADMAP.md C14) publishes nothing here; the four-rank gloo
              tests (tests/test_torch_serving_controller.py) hold it;
-11. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
+11. costs  — the program costs the trackers counted on the runs above
+             (unionml_tpu_torch.introspection): the card resolves to the
+             peak table's H100 row (source "table"); the int8 engine's
+             engine.decode counts within 2% of 2 x the int8 layers' and LM
+             head's weights x slots x steps plus row 6's work, every
+             program it called costs FLOPs and bytes, and the MFU and HBM
+             ratios read in (0, 1] after the run; 3b's ViT-B/16
+             trainer.step counts within 5% of 6 x params x tokens plus rows
+             12-13, its ratios in (0, 1] and its MFU series in /metrics;
+             each kernel row's cost function gives the bound PERF.md §6
+             lists at its shape;
+12. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -383,9 +397,14 @@ def time_ms_cold(fns: list, iters: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def bound(nbytes: float, ops: float, peak_ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(cost: tuple, peak_ops: float):
+    """(ms, what bounds it) of a call of ``cost = (flops, bytes)``, a
+    kernel row's cost function's value (the arithmetic the program tracker
+    counts): the larger of the bytes over the card's memory rate and the
+    operations over its peak for their type."""
+    from unionml_tpu_torch.ops._build import bound_ms
+
+    return bound_ms(cost, peak_ops, PEAK_BYTES_S)
 
 
 def card_line() -> str:
@@ -431,7 +450,7 @@ def norm_case(rows: int, d: int, gen: torch.Generator) -> dict:
     log_norm_fwd_checks(name, case["checks"])
     x, _ = case["inputs"]
     err = check_close(name, case["got"]["y"], fused_norm.rms_norm_plain(x, g, eps), NORM_TOL)
-    b_ms, b_by = bound(2 * rows * d * 2 + d * 2, 4 * rows * d, PEAK_FP32_OPS_S)
+    b_ms, b_by = bound(fused_norm.norm_fwd_cost(x, g, None, True), PEAK_FP32_OPS_S)
     return {
         "shape": f"x[{rows},{d}] bf16, g[{d}] bf16",
         "max_abs_err": err, "checks": case["checks"], "rows_invariant": True,
@@ -470,10 +489,9 @@ def flash_case(b: int, s: int, h: int, kvh: int, d: int, pads, gen) -> dict:
     if not torch.equal(got, again):
         raise AssertionError(f"flash B={b} S={s}: two forward runs differ")
     # work this data needs: visible (q, kv) pairs under causal + left padding
-    pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
-    ops = 4 * pairs * h * d                       # QK^T and PV, 2 flops per MAC
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b
-    b_ms, b_by = bound(nbytes, ops, PEAK_BF16_OPS_S)
+    cost = fa.flash_fwd_padded_cost(q, k, v, causal=True, pads=pads)
+    ops = cost[0]
+    b_ms, b_by = bound(cost, PEAK_BF16_OPS_S)
     vis = fa._visible(pad, s, s, True)[:, 0]       # [B, 1, Sq, Skv]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     ms = time_ms(lambda: fa.flash_fwd_padded_cuda(q, k, v, pad, causal=True, scale=scale))
@@ -549,14 +567,12 @@ def paged_case(batch: int, hq: int, hk: int, d: int, blk: int, width: int, int8:
     err = check_close(f"paged_attention {form}", got, want, PAGED_TOL)
     checks = check_paged_rows(f"paged_attention {form}", got, want,
                               dropped_block_fault(q, k, v, table, lens, **scales))
-    # bytes this data needs: every visible K/V row once at kv-head width
+    # what this data needs: every visible K/V row once at kv-head width
     # (int8: 1 byte a value plus a 4-byte scale per head), q, out, table,
     # lengths
-    rows = sum(lengths)
-    per_row = hk * d * (1 if int8 else 2) + (hk * 4 if int8 else 0)
-    nbytes = 2 * rows * per_row + 2 * q.numel() * 2 + table.numel() * 4 + batch * 4
-    ops = 4 * rows * hq * d                       # q.k and p.v, 2 flops per MAC
-    b_ms, b_by = bound(nbytes, ops, PEAK_BF16_OPS_S)
+    cost = pa.paged_attention_cost(q, k, table, k_scale=scales.get("k_scale"), lengths=lengths)
+    nbytes = cost[1]
+    b_ms, b_by = bound(cost, PEAK_BF16_OPS_S)
     # yardstick: no single PyTorch call pages, so SDPA over the same rows
     # gathered contiguous (int8: dequantized to bf16), gather not timed
     flat = table.reshape(-1).long()
@@ -866,10 +882,8 @@ def int4_case(rows: int, k: int, n: int, group: int, dtype, gen, tile: int = Non
         head = i4.int4_matmul_cuda(x[:8].contiguous(), packed, scale, tile_n=tile, group_size=group)
         if not torch.equal(head, got[:8]):
             raise AssertionError(f"{name}: a row's result depends on the launch's row count")
-    elt = x.element_size()
-    nbytes = packed.numel() + scale.numel() * 4 + rows * k * elt + rows * n * elt
     peak = PEAK_FP32_OPS_S if dtype == torch.float32 else PEAK_BF16_OPS_S
-    b_ms, b_by = bound(nbytes, 2 * rows * k * n, peak)
+    b_ms, b_by = bound(i4.int4_matmul_cost(x, packed, scale), peak)
     cold = [
         (lambda p=p: i4.int4_matmul_cuda(x, p, scale, tile_n=tile, group_size=group))
         for p in cold_copies(packed)
@@ -1375,7 +1389,6 @@ def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
     b = 0.1 * torch.randn(d, device="cuda", generator=gen)
     gb, bb = g.bfloat16(), b.bfloat16()    # the library call's bf16 affine params
     shape = f"x[{rows},{d}] bf16, gamma/beta[{d}] fp32"
-    n = rows * d
 
     fwd_cases = {}
     for name, fwd in (
@@ -1411,19 +1424,21 @@ def vit_norm_cases(rows: int, d: int, gen: torch.Generator) -> dict:
     w, wb = gb.detach().requires_grad_(), bb.detach().requires_grad_()
     lib_y = F.layer_norm(xr, (d,), w, wb, eps)
     cases = {}
-    for name, err, run, plain, nbytes, ops, lib, call in (
+    for name, err, run, plain, cost, lib, call in (
         ("layer_norm_fwd", ln_err, lambda: fn.norm_fwd_cuda(xl, g, b, eps, False),
-         lambda: fn.norm_fwd_plain(xl, g, b, eps, False), 2 * n * 2 + 2 * d * 4, 8 * n,
+         lambda: fn.norm_fwd_plain(xl, g, b, eps, False), fn.norm_fwd_cost(xl, g, b, False),
          lambda: F.layer_norm(xl, (d,), gb, bb, eps), "F.layer_norm, bf16 affine params"),
         ("add_layer_norm_fwd", add_err, lambda: fn.norm_add_fwd_cuda(x, r, g, b, eps, False),
-         lambda: fn.norm_add_fwd_plain(x, r, g, b, eps, False), 4 * n * 2 + 2 * d * 4, 9 * n,
+         lambda: fn.norm_add_fwd_plain(x, r, g, b, eps, False),
+         fn.norm_add_fwd_cost(x, g, b, False),
          lambda: F.layer_norm(x + r, (d,), gb, bb, eps), "x + r, then F.layer_norm"),
         ("norm_bwd", bwd_err, lambda: fn.norm_bwd_cuda(s, g, dy, eps, False, True),
-         lambda: fn.norm_bwd_plain(s, g, dy, eps, False, True), 3 * n * 2 + 3 * d * 4, 15 * n,
+         lambda: fn.norm_bwd_plain(s, g, dy, eps, False, True),
+         fn.norm_bwd_cost(s, g, False, True),
          lambda: torch.autograd.grad(lib_y, (xr, w, wb), dy, retain_graph=True),
          "the backward of F.layer_norm (autograd.grad over a recorded forward)"),
     ):
-        b_ms, b_by = bound(nbytes, ops, PEAK_FP32_OPS_S)
+        b_ms, b_by = bound(cost, PEAK_FP32_OPS_S)
         cases[name] = [{
             "shape": shape, "max_abs_err": err, "ms": time_ms(run),
             "plain_ms": time_ms(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
@@ -1464,8 +1479,6 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
             raise AssertionError(f"fused_attention_bwd {name}: two runs differ")
     fwd_err = checks["out"]["max_abs_err"]
     bwd_err = max(checks[name]["max_abs_err"] for name in ("dq", "dk", "dv"))
-    numel = q.numel()
-    pairs = b * h * s * s
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     lq, lk, lv = (t.detach().requires_grad_() for t in (qt, kt, vt))
     lib_o = F.scaled_dot_product_attention(lq, lk, lv)
@@ -1475,9 +1488,9 @@ def fused_attention_case(b: int, s: int, h: int, d: int, gen) -> dict:
         return torch.autograd.grad(out, (lq, lk, lv), dot)
 
     shape = f"q/k/v[{b},{s},{h},{d}] bf16, non-causal"
-    f_ms, fb_ms = bound(4 * numel * 2, 4 * pairs * d, PEAK_BF16_OPS_S)
+    f_ms, fb_ms = bound(tfa.fused_attention_fwd_cost(q, k, v, causal=False), PEAK_BF16_OPS_S)
     # the backward reads q, k, v, do and writes dq, dk, dv
-    b_ms, bb_ms = bound(7 * numel * 2, 10 * pairs * d, PEAK_BF16_OPS_S)
+    b_ms, bb_ms = bound(tfa.fused_attention_bwd_cost(q, k, v, causal=False), PEAK_BF16_OPS_S)
     fwd_case = {
         "shape": shape, "max_abs_err": fwd_err, "row_checks": {"out": checks["out"]},
         "ms": time_ms(fwd),
@@ -1667,6 +1680,35 @@ def vit_grad_agreement(config, *, device: str = "cuda", batch: int = 64) -> dict
     )
 
 
+def metric_value(text: str, name: str, **labels) -> float:
+    """The value of the ``name`` series with ``labels`` in an exposition
+    (0 when the series is absent)."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    for line in text.splitlines():
+        if line.startswith(name + "{") and all(w in line for w in want):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def trainer_program(program: str = "trainer.step") -> dict:
+    """The trainer's program series in the process registry (what ``GET
+    /metrics`` serves): calls, FLOPs and bytes so far, and the MFU and HBM
+    gauges, with the exposition's MFU line."""
+    from unionml_tpu_torch import telemetry
+
+    text = telemetry.get_registry().exposition()
+    lbl = dict(component="trainer", program=program)
+    mfu_line = next((line for line in text.splitlines()
+                     if line.startswith("unionml_program_mfu_ratio{")
+                     and 'component="trainer"' in line and f'program="{program}"' in line), None)
+    return {"calls": metric_value(text, "unionml_program_calls_total", **lbl),
+            "flops": metric_value(text, "unionml_program_flops_total", **lbl),
+            "bytes": metric_value(text, "unionml_program_bytes_total", **lbl),
+            "mfu": metric_value(text, "unionml_program_mfu_ratio", **lbl),
+            "hbm": metric_value(text, "unionml_program_hbm_ratio", **lbl),
+            "mfu_line": mfu_line}
+
+
 def marked_training(build, kernels: dict, *, steps: int, warmup: int, on_card: bool,
                     **train_kwargs) -> dict:
     """``build(on_step).train(**train_kwargs)``, with the host clock, the
@@ -1696,9 +1738,17 @@ def marked_training(build, kernels: dict, *, steps: int, warmup: int, on_card: b
         k.launches = 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    before = trainer_program()
     t0 = time.perf_counter()
     state, metrics = model.train(**train_kwargs)
     wall_s = time.perf_counter() - t0
+    # the trainer waited for the card at its end: the gauges read a steady run
+    after = trainer_program()
+    calls = after["calls"] - before["calls"]
+    program = {"calls": calls, "mfu": after["mfu"], "hbm_utilization": after["hbm"],
+               "mfu_line": after["mfu_line"],
+               "flops_per_call": (after["flops"] - before["flops"]) / max(calls, 1),
+               "bytes_per_call": (after["bytes"] - before["bytes"]) / max(calls, 1)}
     if len(losses) != steps or set(marks) != {warmup, steps}:
         raise AssertionError(f"the trainer ran {len(losses)} steps, expected {steps}")
     (t_a, c_a, _), (t_b, c_b, peak) = marks[warmup], marks[steps]
@@ -1713,6 +1763,7 @@ def marked_training(build, kernels: dict, *, steps: int, warmup: int, on_card: b
         "peak_mem_gib": peak / 2**30 if on_card else None,
         "samples_per_sec_gauge": telemetry.get_registry().gauge(
             "unionml_trainer_samples_per_sec").value,
+        "program": program,
     }
 
 
@@ -1743,6 +1794,9 @@ def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
         trainer_kwargs={"num_epochs": epochs, "batch_size": batch},
         n=batch * batches_per_epoch * 5 // 4, seed=0,
     )
+    from unionml_tpu_torch.models.train import tree_leaves
+
+    run["n_params"] = sum(p.numel() for p in tree_leaves(run["state"].params))
     if not keep_state:
         del run["state"]
     step_ms, per_step, gauge = run["step_ms"], run["launches_per_step"], run[
@@ -1762,6 +1816,7 @@ def vit_train_phase(config, *, device: str = "cuda", batch: int = 64,
         f"evaluation included)")
     log(f"{name}: loss first {losses[0]} last {losses[-1]}; eval {out['eval']}; launches per "
         f"timed step {per_step}; launches in the run {out['launches']}")
+    log(f"{name}: trainer.step program {out['program']}, {out['n_params']} params")
     if on_card:
         if per_step != VIT_LAUNCHES_PER_STEP:
             raise AssertionError(f"ViT kernel launches per step {per_step}, expected "
@@ -2104,14 +2159,6 @@ def lm_kernels() -> dict:
             "flash_bwd_dq": fa.DQ_KERNEL, "flash_bwd_dkv": fa.DKV_KERNEL}
 
 
-def _visible_pairs(q_len: int, kv_len: int, causal: bool) -> int:
-    """(query, key) pairs one head attends over (bottom-right causal)."""
-    if not causal:
-        return q_len * kv_len
-    off = kv_len - q_len
-    return sum(min(kv_len, max(0, i + off + 1)) for i in range(q_len))
-
-
 def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal: bool,
                      gen) -> dict:
     """Rows 9, 10 and 11 at one shape: the lse forward against its plain
@@ -2161,18 +2208,12 @@ def flash_train_case(b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal
     errs = {t_name: c["max_abs_err"] for t_name, c in checks.items()}
     del want, want_out, want_lse, fault
     # work these inputs need: every visible (query, key) pair of every head
-    pairs = b * h * _visible_pairs(sq, skv, causal)
-    q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, b * h * sq * 4
-    bounds = {
-        "flash_bwd_delta": bound(2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,  # q, do, k, v
-                                 4 * pairs * d, PEAK_BF16_OPS_S),          # S and dP
-        "flash_fwd": bound(2 * q_bytes + 2 * kv_bytes + stat_bytes,          # q, out, k, v, lse
-                           4 * pairs * d, PEAK_BF16_OPS_S),
-        "flash_bwd_dq": bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,   # q, do, dq, k, v
-                              6 * pairs * d, PEAK_BF16_OPS_S),
-        "flash_bwd_dkv": bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes,  # q, do, k, v, dk, dv
-                               8 * pairs * d, PEAK_BF16_OPS_S),
-    }
+    pairs = b * h * fa.visible_pairs(sq, skv, causal)
+    bounds = {name: bound(cost_fn(q, k, v, causal=causal), PEAK_BF16_OPS_S)
+              for name, cost_fn in (("flash_bwd_delta", fa.flash_delta_cost),
+                                    ("flash_fwd", fa.flash_fwd_cost),
+                                    ("flash_bwd_dq", fa.flash_bwd_dq_cost),
+                                    ("flash_bwd_dkv", fa.flash_bwd_dkv_cost))}
     plain_fwd_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1)
     plain_bwd_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse, **kw), iters=3,
                            warmup=1)
@@ -4972,6 +5013,11 @@ def engine_phase(
         "host_syncs": len(host_syncs),
         "launches": launches,
         "int4_expected_launches": int4_expected,
+        # phase 11 reads the programs' costs (stats taken after the requests
+        # finished and the card was synchronized)
+        "programs": stats.get("programs"),
+        "geometry": {"slots": slots, "chunk_steps": chunk_steps, "cache_len": engine.cache_len,
+                     "block": engine.kv_pool.block_size},
     }
     log(f"engine: {out['requests']} requests ({len(prompts)} /predict in {waves} staggered "
         f"waves + 1 stream), wall {wall_s} s, {out['tokens_per_s']} generated tokens/s")
@@ -4982,6 +5028,8 @@ def engine_phase(
     log(f"engine: peak memory {out['peak_mem_gib']} GiB, launches {launches}, requests "
         f"token-identical to a contiguous engine: {out['match_contiguous']}")
     log(f"engine: operations that waited for the card during the requests: {len(host_syncs)}")
+    if out["programs"] is not None:
+        log(f"engine: programs {json.dumps(out['programs'])}")
     return out
 
 
@@ -7303,6 +7351,58 @@ def _call_ms(fn, calls: int, on_card: bool) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def meta(*shape, dtype=torch.bfloat16) -> torch.Tensor:
+    """A tensor of ``shape`` with no storage: a cost function's argument."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def jit_kernel_flops(config, batch: int) -> float:
+    """The FLOPs rows 3, 4 and 12 charge in one ViT forward at ``batch``
+    (a LayerNorm, a residual add-norm and an attention a block, and the
+    final LayerNorm: 13 / 12 / 12 at ViT-B), from their cost functions."""
+    from unionml_tpu_torch.ops import fused_attention as tfa
+    from unionml_tpu_torch.ops import fused_norm as fn
+
+    seq = (config.image_size // config.patch_size) ** 2 + 1
+    d, heads = config.hidden_dim, config.num_heads
+    x, p = meta(batch * seq, d), meta(d, dtype=torch.float32)
+    q = meta(batch, seq, heads, d // heads)
+    layers = config.num_layers
+    return ((layers + 1) * fn.norm_fwd_cost(x, p, p, False)[0]
+            + layers * fn.norm_add_fwd_cost(x, p, p, False)[0]
+            + layers * tfa.fused_attention_fwd_cost(q, q, q, causal=False)[0])
+
+
+def jit_cost_check(config, batch: int, graphed, eager, replay, sig) -> dict:
+    """Phase 11 on 10a's captured predictor: a replay is charged the
+    eager call's counted cost (rows 3, 4 and 12 as their cost functions
+    say, plus the counted aten work; the eager call on the features
+    already on the card, as the capture's warm-up takes them), and the
+    tracker credits the same per replay."""
+    from unionml_tpu_torch.introspection import CostCounter
+
+    with CostCounter() as eager_cost:
+        eager()
+    with CostCounter() as replay_cost:
+        replay()
+    tracked = graphed.programs.cost("predictor.jit", sig)
+    want_kernels = jit_kernel_flops(config, batch)
+    out = {"eager": eager_cost.cost, "replay": replay_cost.cost, "tracked": tracked,
+           "kernel_flops": eager_cost.kernel_flops, "kernel_flops_expected": want_kernels,
+           "aten_flops": eager_cost.flops - eager_cost.kernel_flops}
+    log(f"costs: jit predictor batch {batch}: eager {eager_cost.cost}, per replay "
+        f"{replay_cost.cost}, tracked {tracked}; rows 3/4/12 charged {eager_cost.kernel_flops} "
+        f"FLOPs (their cost functions: {want_kernels}), aten work {out['aten_flops']} FLOPs")
+    if not (replay_cost.cost == eager_cost.cost == tuple(tracked)):
+        raise AssertionError(f"batch {batch}: a replay's cost {replay_cost.cost} or the tracked "
+                             f"{tracked} is not the eager call's {eager_cost.cost}")
+    if eager_cost.kernel_flops != want_kernels or not out["aten_flops"] > 0:
+        raise AssertionError(f"batch {batch}: the kernel rows charged {eager_cost.kernel_flops} "
+                             f"FLOPs, their cost functions say {want_kernels}; aten work "
+                             f"{out['aten_flops']}")
+    return out
+
+
 def jit_predictor_phase(config, *, device: str = "cuda", batches: tuple = JIT_BATCHES,
                         calls: int = JIT_CALLS) -> dict:
     """10a: the ported vision_tpu template at ``config`` (ViT-B/16 width)
@@ -7350,6 +7450,11 @@ def jit_predictor_phase(config, *, device: str = "cuda", batches: tuple = JIT_BA
         eager, eager_launches = launched(lambda: logits_body(states[0], x))
         first = graphed(states[0], x)                       # capture, then the first replay
         replayed, replay_launches = launched(lambda: graphed(states[0], x))
+        # the eager call on the features already on the device, as the
+        # graph's warm-up takes them (a replay's copy-in is not the body's)
+        x_dev = torch.as_tensor(x, device=device)
+        costs = jit_cost_check(config, b, graphed, lambda: logits_body(states[0], x_dev),
+                               lambda: graphed(states[0], x), graphed.signature(states[0], x))
         model.artifact = ModelArtifact(states[0])
         preds = model.predict(features=x)
         eager_preds = body(states[0], x)
@@ -7365,7 +7470,7 @@ def jit_predictor_phase(config, *, device: str = "cuda", batches: tuple = JIT_BA
                "swap_predict_equal": bool(torch.equal(swapped_preds, eager_swapped_preds)),
                "swap_differs": not torch.equal(swapped, eager),
                "eager_host_ms": eager_ms, "replay_host_ms": replay_ms,
-               "graphs": len(graphed)}
+               "graphs": len(graphed), "costs": costs}
         out["batches"][b] = row
         log(f"jit predictor batch {b}: replay bits equal {row['replay_bits_equal']}, predict "
             f"equal {row['predict_equal']}, swapped state {row['swap_bits_equal']} / "
@@ -7492,6 +7597,133 @@ def placed_moe_lora_phase(moe_cfg, qlora_cfg, *, device: str = "cuda", **serve) 
             "launches": {name: moe["launches"].get(name, 0) + qlora["launches"].get(name, 0)
                          for name in {**moe["launches"], **qlora["launches"]}},
             "seconds": time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------------- #
+# 11: program costs and the card's peaks
+# --------------------------------------------------------------------- #
+
+# each kernel row's bound at PERF.md §6's shape (its main case here): the
+# value the table lists, which the row's cost function must give again
+PERF_BOUNDS = {
+    "flash_fwd_padded": 0.02504062567164179, "rms_norm_fwd": 0.020034942089552237,
+    "layer_norm_fwd": 0.011563558208955224, "add_layer_norm_fwd": 0.023125282388059703,
+    "norm_bwd": 0.017345337313432834, "paged_attention": 0.006070829850746268,
+    "int4_matmul": 0.0027045826865671643, "int4_matmul_grouped": 0.009488047761194031,
+    "flash_fwd": 0.05210012602628918, "flash_bwd_dq": 0.07815018903943377,
+    "flash_bwd_dkv": 0.10420025205257837, "flash_bwd_delta": 0.05210012602628918,
+    "fused_attention_fwd": 0.023123448358208953, "fused_attention_bwd": 0.040466034626865675,
+}
+DECODE_FLOPS_REL = 0.02     # engine.decode against the weights' and row 6's count
+TRAIN_FLOPS_REL = 0.05      # trainer.step against 6 x params x tokens + rows 12-13
+
+
+def decode_flops(config, geometry: dict) -> float:
+    """One decode chunk's FLOPs from the config: 2 x the int8 layers' and
+    the LM head's weights x slots x steps, plus row 6's attention work over
+    every row the table reaches (its cost function) in every layer."""
+    from unionml_tpu_torch.models.convert import _dense_shapes
+    from unionml_tpu_torch.ops import paged_attention as pa
+
+    slots, steps = geometry["slots"], geometry["chunk_steps"]
+    weights = (config.num_layers * sum(k * n for _, (k, n) in _dense_shapes(config).values())
+               + config.hidden_dim * config.vocab_size)
+    hd, block = config.hidden_dim // config.num_heads, geometry["block"]
+    attn = pa.paged_attention_cost(meta(slots, config.num_heads, hd),
+                                   meta(1, block, config.num_kv_heads, hd),
+                                   meta(slots, geometry["cache_len"] // block, dtype=torch.int32))
+    return steps * (2 * weights * slots + config.num_layers * attn[0])
+
+
+def vit_step_flops(config, n_params: int, batch: int) -> float:
+    """6 x params x tokens of a ViT training step, plus rows 12 and 13's
+    attention work (their cost functions)."""
+    from unionml_tpu_torch.ops import fused_attention as tfa
+
+    seq = (config.image_size // config.patch_size) ** 2 + 1
+    q = meta(batch, seq, config.num_heads, config.hidden_dim // config.num_heads)
+    attn = (tfa.fused_attention_fwd_cost(q, q, q, causal=False)[0]
+            + tfa.fused_attention_bwd_cost(q, q, q, causal=False)[0])
+    return 6 * n_params * batch * seq + config.num_layers * attn
+
+
+def check_ratios(name: str, entry: dict) -> None:
+    """MFU and the HBM ratio of a program read after a steady run and a
+    wait for the card: in (0, 1]. A ratio over 1 means the window's
+    arithmetic is wrong."""
+    for key in ("mfu", "hbm_utilization"):
+        if not 0 < entry[key] <= 1.0:
+            raise AssertionError(f"{name}: {key} {entry[key]} is not in (0, 1]")
+
+
+def costs_phase(engine_config, engine: dict, vit_config, vit: dict, jit: dict,
+                kernel_rows: list) -> dict:
+    """11: the costs the program trackers counted on this run's paths. The
+    card resolves to the peak table's H100 row; the int8 engine's
+    ``engine.decode`` counts within 2% of the config's arithmetic, every
+    program it called costs more than 0, and the MFU and HBM ratios of
+    those called twice or more read in (0, 1]; ViT-B/16's ``trainer.step``
+    within 5% of 6 x params x tokens plus rows 12-13, its ratios in (0, 1]
+    and its MFU series in ``/metrics``; 10a's replays charged the eager
+    call's cost (checked in 10a); each kernel row's cost function gives the
+    bound PERF.md §6 lists."""
+    from unionml_tpu_torch.introspection import resolve_device_peaks
+
+    t0 = time.perf_counter()
+    peaks = resolve_device_peaks()
+    programs = engine["programs"]
+    kind = torch.cuda.get_device_name(0)
+    log(f"costs: peaks {peaks}; engine programs' device {programs['device']}")
+    if not (peaks["source"] == programs["device"]["source"] == "table"
+            and peaks["kind"] == programs["device"]["kind"] == kind
+            and (peaks["peak_flops"], peaks["peak_bytes_per_s"]) == (PEAK_BF16_OPS_S,
+                                                                     PEAK_BYTES_S)):
+        raise AssertionError(f"the card {kind!r} did not resolve to the peak table's H100 row: "
+                             f"{peaks}")
+    decode = programs["engine.decode"]
+    want = decode_flops(engine_config, engine["geometry"])
+    out = {"peaks": peaks, "decode_flops": decode["flops_per_call"], "decode_flops_expected": want,
+           "engine": {}}
+    for key, entry in programs.items():
+        if key == "device" or not entry["calls"]:
+            continue
+        out["engine"][key] = {k: entry[k] for k in ("calls", "compiles", "flops_per_call",
+                                                    "bytes_per_call", "mfu", "hbm_utilization")}
+        log(f"costs: engine {key}: {out['engine'][key]}")
+        if not (entry["flops_per_call"] > 0 and entry["bytes_per_call"] > 0):
+            raise AssertionError(f"engine {key} costs {entry['flops_per_call']} FLOPs, "
+                                 f"{entry['bytes_per_call']} bytes a call")
+        if entry["calls"] >= 2:
+            check_ratios(f"engine {key}", entry)
+        elif entry["mfu"] > 1.0 or entry["hbm_utilization"] > 1.0:
+            raise AssertionError(f"engine {key}: a ratio over 1: {entry}")
+    log(f"costs: engine.decode {decode['flops_per_call']} FLOPs a chunk, the config's count "
+        f"{want} (ratio {decode['flops_per_call'] / want})")
+    if abs(decode["flops_per_call"] / want - 1) > DECODE_FLOPS_REL:
+        raise AssertionError(f"engine.decode counts {decode['flops_per_call']} FLOPs, the "
+                             f"config's arithmetic {want}")
+    step = vit["program"]
+    want_step = vit_step_flops(vit_config, vit["n_params"], vit["batch"])
+    out["vit_step"] = {**step, "flops_expected": want_step}
+    log(f"costs: vit trainer.step {step}; 6 x params x tokens + attention {want_step} (ratio "
+        f"{step['flops_per_call'] / want_step})")
+    if abs(step["flops_per_call"] / want_step - 1) > TRAIN_FLOPS_REL:
+        raise AssertionError(f"trainer.step counts {step['flops_per_call']} FLOPs, expected "
+                             f"{want_step}")
+    check_ratios("vit trainer.step", step)
+    if not step["mfu_line"]:
+        raise AssertionError('no unionml_program_mfu_ratio{component="trainer"} line in /metrics')
+    out["jit"] = {b: row["costs"] for b, row in jit["batches"].items()}
+    out["bounds"] = {}
+    for row in kernel_rows:
+        name, got = row["name"], row["bound_ms"]
+        out["bounds"][name] = got
+        if abs(got / PERF_BOUNDS[name] - 1) > 1e-9:
+            raise AssertionError(f"{name}: the cost function's bound {got} ms, PERF.md lists "
+                                 f"{PERF_BOUNDS[name]}")
+    log(f"costs: every kernel row's cost function gives PERF.md's bound: {out['bounds']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv=None) -> int:
@@ -7766,6 +7998,8 @@ def main(argv=None) -> int:
                 if name in launches_of},
             "shapes": cases, "launch_shape_checks": shape_checks.get(name),
         })
+    costs = costs_phase(config, engine, vit_cfg, vit, jit, rows)
+    log(f"time: costs done in {costs['seconds']:.1f} s")
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
                       "fleet": fleet, "serverless": serverless, "rollout": rollout,
                       "remote": remote, "int8_kv": int8_kv,
@@ -7775,7 +8009,7 @@ def main(argv=None) -> int:
                       "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
                       "parallel": parallel, "tp_serve": tp, "hf_import": hf,
                       "encdec": encdec, "jit_predictor": jit, "placed_moe_lora": placed,
-                      "seconds": time.perf_counter() - t_run}), flush=True)
+                      "costs": costs, "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

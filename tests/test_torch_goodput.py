@@ -208,7 +208,8 @@ def test_run_step_trainer_goodput_integration(double_buffer):
     assert torch.equal(out["w"], plain["w"])
     report = tracker.report()
     assert report["steps"] == 8 and report["goodput_s"] > 0
-    assert report["badput_s"]["compile"] == 0.0   # eager PyTorch compiles nothing
+    # the first step is the counted dispatch (the port's compile event)
+    assert report["badput_s"]["compile"] > 0.0
     if double_buffer:
         assert report["badput_s"]["host_to_device"] == 0.0
     snap = reg.snapshot()

@@ -369,6 +369,46 @@ def test_collectives_match_the_reference(ranks):
         assert sum(got["issued"].values()) >= 6
 
 
+def test_untiled_all_to_all_matches_the_reference(ranks):
+    """``all_to_all(tiled=False)``: ``lax.all_to_all``'s untiled form (the
+    split axis, one entry per rank, removed; a new axis of the arrivals at
+    ``concat_axis``) against the reference's under shard_map on 4 devices,
+    and each case's gradient for a cotangent (exact: small integers)."""
+    from unionml_tpu.parallel import collectives as jc
+
+    # each rank's block [4, 4, 4]: every axis holds one entry per rank
+    x = np.arange(16 * 4 * 4, dtype=np.float32).reshape(16, 4, 4)
+    mesh = jpar.make_mesh({"data": 4}, devices=_devices(4))
+    cases = [(0, 1), (1, 0), (0, 0), (1, 2), (2, 1), (2, 0)]
+    rng = np.random.default_rng(0)
+    want, cotangents = [], []
+    for split, concat in cases:
+        def f(arr, split=split, concat=concat):
+            return jpar.shard_map(lambda b: jc.all_to_all(b, "data", split_axis=split,
+                                                          concat_axis=concat, tiled=False),
+                                  mesh=mesh, in_specs=JP("data"), out_specs=JP("data"),
+                                  check_rep=False)(arr)
+
+        out = np.asarray(f(x))
+        ct = rng.integers(-3, 4, size=out.shape).astype(np.float32)
+        # the exchange permutes x's entries (x holds their flat indices):
+        # its gradient sends each cotangent entry back where it came from,
+        # as jax.grad does where it can transpose the case (the reference
+        # cannot for some axis pairs)
+        grad = np.empty_like(x)
+        grad.flat[out.ravel().astype(np.int64)] = ct.ravel()
+        try:
+            np.testing.assert_array_equal(jax.grad(lambda a: (f(a) * ct).sum())(x), grad)
+        except ValueError:
+            pass
+        want.append((out, grad))
+        cotangents.append(ct)
+    for rank_got in ranks.run("untiled_all_to_all", x, cases, cotangents):
+        for case, got, (out, grad) in zip(cases, rank_got, want):
+            np.testing.assert_array_equal(got["out"], out, err_msg=str(case))
+            np.testing.assert_array_equal(got["grad"], grad, err_msg=str(case))
+
+
 def test_bucketed_psum_matches_plain_psum(ranks):
     """Bucketing changes how many collectives run, never the values: bit
     for bit the leaf-wise psum for buckets from one-per-leaf to one, each
@@ -390,6 +430,15 @@ def test_bucketed_psum_matches_plain_psum(ranks):
                                        atol=1e-6)
     with pytest.raises(ValueError, match="bucket_bytes"):
         tpar.bucketed_psum({"a": torch.ones(2)}, "data", bucket_bytes=0)
+
+
+def test_a_rank_counts_its_local_shards_work(ranks):
+    """The program tracker's counter on a placed product counts what this
+    rank computes (its shard of the columns), not the whole mesh's work,
+    so a per-card MFU stays a share of one card's peak."""
+    for got in ranks.run("placed_cost"):
+        assert got["local"] == (2, 4)
+        assert got["cost"] == (2 * 2 * 8 * 4, (2 * 8 + 8 * 4 + 2 * 4) * 4)
 
 
 def test_kernel_wrappers_take_local_shards_only(ranks):

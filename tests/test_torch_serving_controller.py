@@ -13,10 +13,15 @@ Held: ``ServingApp`` on the controller answers ``POST /predict`` and
 ``/predict/stream`` with the solo tokens, also two callers at once at the
 default pipeline depth; a deadline that expires in the queue is shed and
 the next request keeps its tokens; the queue bound answers overload;
-``prefill_export``'s blocks, each rank's kv heads put together, import
-into a solo engine that gives the same tokens; a follower refuses
-requests, naming the controller. Planted fault: a follower that applies a
-plan's arrivals in another order must fail the parity check.
+``prefill_export``'s blocks, each rank's kv heads put together by the
+controller's ``kv_export``, import into a solo engine that gives the same
+tokens; a solo engine's export imports through the controller's plan
+(every rank its own kv heads) and the prompt then hits; ``kv_export``
+from caller threads keeps the ranks' host stores (blocks, LRU stamps,
+evictions) alike; a follower refuses requests, naming the controller.
+Planted faults: a follower that applies a plan's arrivals in another
+order, one that imports another rank's kv heads, and one that bumps its
+store's clock on its own must each fail.
 """
 
 import jax
@@ -126,8 +131,9 @@ def test_the_queue_bound_answers_overload(queue_run):
 
 def test_prefill_export_imports_into_a_solo_engine(ranks, weights):
     """``prefill_export`` on the controller leaves the prompt's blocks in
-    every rank's host store (its own kv head each); put together (rows
-    [1, block, kv_heads, head_dim], the heads in rank order) they
+    every rank's host store (its own kv head each); the controller's
+    ``kv_export`` puts them together (rows [1, block, kv_heads, head_dim],
+    every kv head, as the reference's one store holds them) and they
     import into an unplaced engine, whose tokens for the prompt, spliced
     from them, are the placed engine's."""
     prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3]
@@ -140,16 +146,15 @@ def test_prefill_export_imports_into_a_solo_engine(ranks, weights):
         convert.from_jax_params(weights, LlamaConfig(**_tiny()), device="cpu"),
         LLAMA_QUANT_PATTERNS)
     for group in ((0, 1), (2, 3)):
-        parts = [got[r]["entries"] for r in group]
-        assert [len(p) for p in parts] == [2, 2]
+        assert len(got[group[0]]["entries"]) == 2
         entries = [
-            {"tokens": e0["tokens"], "first_block": e0["first_block"],
-             "rows": tuple(tuple(torch.from_numpy(np.concatenate([b0, b1], axis=2))
-                                 .to(getattr(torch, dtype))
-                                 for (b0, dtype), (b1, _) in zip(l0, l1))
-                           for l0, l1 in zip(e0["rows"], e1["rows"]))}
-            for e0, e1 in zip(*parts)
+            {"tokens": e["tokens"], "first_block": e["first_block"],
+             "rows": tuple(tuple(torch.from_numpy(buf).to(getattr(torch, dtype))
+                                 for buf, dtype in layer) for layer in e["rows"])}
+            for e in got[group[0]]["entries"]
         ]
+        assert all(buf.shape[2] == cfg.num_kv_heads for e in entries for layer in e["rows"]
+                   for buf in layer)
         solo = DecodeEngine(
             Llama(cfg), slots=2, max_new_tokens=6, prompt_buckets=(16,), chunk_steps=3,
             paged=True, kv_block_size=4, kv_pool_bytes=1 << 20, device="cpu",
@@ -161,6 +166,59 @@ def test_prefill_export_imports_into_a_solo_engine(ranks, weights):
             assert solo.stats()["prefix_cache"]["prefill_tokens_saved"] == 8
         finally:
             solo.close()
+
+
+def test_kv_import_is_served_through_the_plan(ranks, weights):
+    """A solo engine's ``kv_export`` (whole kv heads) imported through the
+    controller: every rank attaches its own kv head of each block at one
+    plan position; the prompt then admitted gets a prefix hit, every rank
+    saves the same prefill tokens, and its tokens are the solo run's under
+    the same placement."""
+    got = ranks.run("torch_ranks_a8:controller_kv_import", _tiny(quantized=True), weights,
+                    [3, 1, 4, 1, 5, 9, 2, 6, 5, 3], max_new_tokens=6, timeout=120)
+    for r in got:
+        assert r["exported"] == 2 and r["attached"] == 2
+        assert r["hits"] == 1 and r["saved"] == 8 and r["rows_match"]
+        assert r["tokens"] == r["solo"]
+
+
+def test_planted_fault_foreign_kv_heads_fail(ranks, weights):
+    """A follower that imports another rank's kv heads of each block keeps
+    rows that are not its heads', and the prompt spliced from them leaves
+    the solo tokens."""
+    got = ranks.run("torch_ranks_a8:controller_kv_import", _tiny(quantized=True), weights,
+                    [3, 1, 4, 1, 5, 9, 2, 6, 5, 3], max_new_tokens=6, fault="foreign_heads",
+                    timeout=120)
+    assert not got[1]["rows_match"] and not got[3]["rows_match"]
+    assert got[0]["tokens"] != got[0]["solo"]
+
+
+def _lru_run(ranks, weights, fault=""):
+    prompts = [[1, 2, 3, 4, 5, 6, 7, 8, 9], [9, 8, 7, 6, 5, 4, 3, 2], [5, 5, 6, 6, 7, 7, 8, 8, 1],
+               [2, 4, 6, 8, 10, 12, 14, 16, 3]]
+    return ranks.run("torch_ranks_a8:controller_kv_lru", _tiny(quantized=True), weights, prompts,
+                     max_new_tokens=4, max_bytes=4096, fault=fault, timeout=120)
+
+
+def test_caller_thread_exports_keep_the_ranks_stores_alike(ranks, weights):
+    """``kv_export`` from two caller threads interleaved with the traffic,
+    then prompts past the stores' byte bound: every export is whole (both
+    kv heads), and the two ranks of each engine hold the same blocks with
+    the same LRU stamps after the same evictions."""
+    got = _lru_run(ranks, weights)
+    for group in ((0, 1), (2, 3)):
+        a, b = (got[r] for r in group)
+        assert not a["errors"] and a["exports"] and all(
+            heads == 2 for entry in a["exports"] for heads in entry)
+        assert a["evictions"] > 0 and a["evictions"] == b["evictions"]
+        assert a["store"] == b["store"]
+
+
+def test_planted_fault_a_follower_clock_fails(ranks, weights):
+    """A follower that looks each planned export up once more on its own
+    bumps its clock: its stamps leave the controller's."""
+    got = _lru_run(ranks, weights, fault="follower_clock")
+    assert got[0]["store"] != got[1]["store"] and got[2]["store"] != got[3]["store"]
 
 
 def test_planted_fault_reordered_arrivals_fail_parity(ranks, weights):

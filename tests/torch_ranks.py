@@ -419,6 +419,28 @@ def collectives(x: Any) -> dict:
     return out
 
 
+def untiled_all_to_all(x: Any, cases: List[tuple], cotangents: List[Any]) -> List[dict]:
+    """``all_to_all(tiled=False)`` under shard_map over ``data=4`` (x's
+    rows split over the ranks) for each ``(split_axis, concat_axis)``: the
+    result whole and x's gradient for the cotangent (whole)."""
+    import torch
+
+    from unionml_tpu_torch.parallel import collectives as c
+    from unionml_tpu_torch.parallel import make_mesh, shard_map
+    from unionml_tpu_torch.parallel.sharding import PartitionSpec as P
+
+    mesh = make_mesh({"data": 4})
+    out = []
+    for (split, concat), ct in zip(cases, cotangents):
+        t = torch.from_numpy(x).requires_grad_()
+        whole = shard_map(lambda b: c.all_to_all(b, "data", split_axis=split, concat_axis=concat,
+                                                 tiled=False),
+                          mesh=mesh, in_specs=P("data"), out_specs=P("data"))(t).full_tensor()
+        (grad,) = torch.autograd.grad(whole, [t], grad_outputs=torch.from_numpy(ct))
+        out.append({"out": whole.detach().numpy(), "grad": grad.numpy()})
+    return out
+
+
 def bucketed(tree: Any, bucket_sizes: List[int]) -> dict:
     """bucketed_psum of ``tree`` (rows split over data=4) at each bucket
     size against the leaf-wise psum: bit equality and the all-reduces
@@ -499,6 +521,23 @@ def fsdp_state() -> dict:
             "local": tuple(out["w"].to_local().shape),
             "in_place": out["w"].to_local().data_ptr() == before.data_ptr(),
             "value": out["w"].full_tensor().numpy()}
+
+
+def placed_cost() -> dict:
+    """One product with a column-sharded weight over ``data=4`` under the
+    program tracker's counter: its FLOPs and bytes on this rank."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from unionml_tpu_torch.introspection import CostCounter
+    from unionml_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"data": -1})
+    x = distribute_tensor(torch.ones(2, 8), mesh, [Replicate()])
+    w = distribute_tensor(torch.ones(8, 16), mesh, [Shard(1)])
+    with CostCounter() as counter:
+        y = x @ w
+    return {"cost": counter.cost, "local": tuple(y.to_local().shape)}
 
 
 def refusals() -> dict:

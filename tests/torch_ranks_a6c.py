@@ -22,7 +22,11 @@ class Faults:
     product instead of the sum over the ranks), ``drop_expert_sum`` (a
     served MoE block that keeps its local experts' output instead of the
     sum over ``expert``), ``reorder_arrivals`` (a multi-rank engine's
-    follower that applies a plan's arrivals in the reverse order)."""
+    follower that applies a plan's arrivals in the reverse order),
+    ``follower_clock`` (a follower that looks a planned export's prompt up
+    in its host store once more on its own, bumping its LRU clock), and
+    ``foreign_heads`` (a follower that imports another rank's kv heads of
+    each block)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -59,6 +63,26 @@ class Faults:
             requests = DecodeEngine._follower_requests
             self._patch(DecodeEngine, "_follower_requests",
                         lambda engine, arrivals: requests(engine, arrivals)[::-1])
+        elif self.name == "follower_clock":
+            import numpy as np
+
+            from unionml_tpu_torch.serving.engine import DecodeEngine
+
+            apply_kv = DecodeEngine._apply_kv
+
+            def extra_lookup(engine, item):
+                if item[0] == "export":
+                    engine.prefix_cache.lease(np.asarray(item[2], np.int32)).release()
+                apply_kv(engine, item)
+
+            self._patch(DecodeEngine, "_apply_kv", extra_lookup)
+        elif self.name == "foreign_heads":
+            from unionml_tpu_torch.serving.engine import DecodeEngine
+
+            index = DecodeEngine._kv_head_index
+            self._patch(DecodeEngine, "_kv_head_index",
+                        lambda engine: [[(h + 1) % engine.cfg.num_kv_heads for h in heads]
+                                        for heads in index(engine)])
         elif self.name:
             raise KeyError(self.name)
         return self

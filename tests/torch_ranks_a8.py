@@ -183,9 +183,9 @@ def controller_queue(cfg: dict, jax_params: Any, prompts: List[List[int]], *,
 def controller_export(cfg: dict, jax_params: Any, prompt: List[int], *,
                       max_new_tokens: int) -> dict:
     """``prefill_export`` from the placed int8 tree's prefix-cached engine
-    on the controller (its lease released through the plan), then every
-    rank's host entries for the prompt (its own kv heads) and the
-    controller's tokens for the prompt, generated on the exported blocks."""
+    on the controller (its lease released through the plan), the
+    controller's tokens for the prompt, generated on the exported blocks,
+    and its ``kv_export`` of them (every rank's kv heads put together)."""
     from unionml_tpu_torch import telemetry
     from unionml_tpu_torch.serving.engine import DecodeEngine
     from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
@@ -200,19 +200,133 @@ def controller_export(cfg: dict, jax_params: Any, prompt: List[int], *,
         lease_blocks = handle["lease"].n_blocks
         handle["lease"].release()
         tokens = engine.generate(placed, [prompt])[0]
+        # the controller's kv_export: every rank's kv heads put together
+        entries = [{"tokens": e["tokens"], "first_block": e["first_block"],
+                    # as fp32 (exact for a bf16 cache) with the dtype's name
+                    "rows": [[(buf.float().numpy(), str(buf.dtype).split(".")[-1])
+                              for buf in layer] for layer in e["rows"]]}
+                   for e in engine.kv_export(prompt, wait_s=30.0)]
         return {"first": handle["tokens"], "cached": handle["cached_tokens"],
-                "lease_blocks": lease_blocks, "tokens": tokens,
+                "lease_blocks": lease_blocks, "tokens": tokens, "entries": entries,
                 "saved": engine.stats()["prefix_cache"]["prefill_tokens_saved"]}
 
-    def entries(engine):
-        return [{"tokens": e["tokens"], "first_block": e["first_block"],
-                 # as fp32 (exact for a bf16 cache) with the dtype's name
-                 "rows": [[(buf.float().numpy(), str(buf.dtype).split(".")[-1])
-                           for buf in layer] for layer in e["rows"]]}
-                for e in engine.kv_export(prompt, wait_s=30.0)]
+    got, _ = serve_placed(engine, placed, run)
+    return dict(got, cache_len=engine.cache_len)
 
-    got, mine = serve_placed(engine, placed, run, entries)
-    return dict(got, entries=mine, cache_len=engine.cache_len)
+
+def _store_state(cache: Any) -> dict:
+    """A host prefix store's LRU state: its clock, and every stored
+    block's token path with its stamp, in path order."""
+    nodes, stack = [], [(cache._root, b"")]
+    while stack:
+        node, path = stack.pop()
+        for key, child in node.children.items():
+            nodes.append((path + key).hex() + f"@{child.last_used}")
+            stack.append((child, path + key))
+    return {"clock": cache._clock, "blocks": sorted(nodes)}
+
+
+def _prefix_engine(module: Any, max_new_tokens: int, **over: Any) -> Any:
+    from unionml_tpu_torch import telemetry
+    from unionml_tpu_torch.serving.engine import DecodeEngine
+    from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+
+    store = dict(block_size=4, registry=telemetry.MetricsRegistry())
+    store.update(over.pop("store", {}))
+    return DecodeEngine(module, **_paged(max_new_tokens=max_new_tokens, prompt_buckets=(16,),
+                                         prefix_cache=RadixPrefixCache(**store), **over))
+
+
+def controller_kv_import(cfg: dict, jax_params: Any, prompt: List[int], *,
+                         max_new_tokens: int, fault: str = "") -> dict:
+    """A solo engine's ``kv_export`` of ``prompt`` (the unplaced tree,
+    whole kv heads) imported through the multi-rank engine's controller,
+    then the prompt admitted there: the blocks attached, the prompt's
+    tokens, and on every rank the prefill tokens saved and its store's
+    rows against the solo export's heads this rank keeps."""
+    import torch
+
+    from unionml_tpu_torch.models.layers import local_kv_index
+
+    module, params, placed, _ = _placed(cfg, jax_params, "LLAMA_QUANT_PARTITION_RULES", bits=8)
+    solo = _prefix_engine(module, max_new_tokens)
+    try:
+        solo.generate(params, [prompt])
+        entries = solo.kv_export(prompt, wait_s=30.0)
+    finally:
+        solo.close()
+    engine = _prefix_engine(module, max_new_tokens)
+    engine.bind(placed)
+    fault = fault if engine.role == "follower" else ""
+
+    def run(engine, placed):
+        attached = engine.kv_import(entries)
+        return {"attached": attached, "tokens": engine.generate(placed, [prompt])[0]}
+
+    def after(engine):
+        index = local_kv_index(engine.cfg, engine._params)
+        lease = engine.prefix_cache.lease(prompt)
+        try:
+            rows_match = len(lease.rows) == len(entries) and all(
+                torch.equal(mine, whole[:, :, index])
+                for e, stored in zip(entries, lease.rows)
+                for layer, stored_layer in zip(e["rows"], stored)
+                for whole, mine in zip(layer, stored_layer))
+        finally:
+            lease.release()
+        return {"saved": engine.stats()["prefix_cache"]["prefill_tokens_saved"],
+                "hits": engine.stats()["prefix_cache"]["hits"], "rows_match": rows_match}
+
+    with Faults(fault):
+        got, mine = serve_placed(engine, placed, run, after)
+    return dict(got, **mine, exported=len(entries),
+                solo=_solo(module, placed, [prompt], max_new_tokens, engine.cache_len)[0])
+
+
+def controller_kv_lru(cfg: dict, jax_params: Any, prompts: List[List[int]], *,
+                      max_new_tokens: int, max_bytes: int, fault: str = "") -> dict:
+    """``kv_export`` from two caller threads interleaved with the engine's
+    traffic on the controller, then more prompts than the host store's
+    byte bound holds: the whole-head entries the exports returned, and
+    every rank's store (clock, blocks and stamps) and evictions."""
+    module, _, placed, _ = _placed(cfg, jax_params, "LLAMA_QUANT_PARTITION_RULES", bits=8)
+    engine = _prefix_engine(module, max_new_tokens, store={"max_bytes": max_bytes})
+    engine.bind(placed)
+    fault = fault if engine.role == "follower" else ""
+
+    def run(engine, placed):
+        exported, errors = [], []
+        stop = threading.Event()
+
+        def exporter(k):
+            try:
+                while not stop.is_set():
+                    for p in prompts[k::2]:
+                        # the kv heads of each entry's first buffer
+                        exported.append([e["rows"][0][0].shape[2]
+                                         for e in engine.kv_export(p, wait_s=0.0)])
+            except Exception as exc:
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=exporter, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        tokens = [engine.generate(placed, [p])[0] for p in prompts]
+        time.sleep(0.2)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        # past the byte bound: more prompts than the store holds
+        tokens += [engine.generate(placed, [[t + 1 for t in p][::-1] + [50]])[0] for p in prompts]
+        return {"tokens": tokens, "exports": exported, "errors": errors}
+
+    def after(engine):
+        stats = engine.stats()["prefix_cache"]
+        return {"store": _store_state(engine.prefix_cache), "evictions": stats["evictions"]}
+
+    with Faults(fault):
+        got, mine = serve_placed(engine, placed, run, after)
+    return dict(got, **mine)
 
 
 def follower_fault(cfg: dict, jax_params: Any, prompts: List[List[int]], *,

@@ -156,7 +156,18 @@ def run_elastic_trainer(
     tracker = None
     if goodput:
         tracker = goodput if isinstance(goodput, GoodputTracker) else GoodputTracker()
+        # the wall window opens AFTER step construction, matching
+        # run_step_trainer: compile_step's placement is build-time setup
         tracker.start()
+        # the step's first (counted) dispatch is its compile event: its
+        # FLOPs and bytes go to the program tracker and its time into
+        # goodput's `compile` bucket, as the reference's jit compile does
+        from unionml_tpu_torch.introspection import ProgramTracker
+
+        step_fn = ProgramTracker(
+            registry=tracker.registry, component="trainer",
+            on_compile=tracker.note_compile_ms,
+        ).wrap("trainer.elastic_step", step_fn)
 
     def prepare(batch: Any) -> Any:
         return to_microbatches(batch, accumulate_steps, batch_size) \

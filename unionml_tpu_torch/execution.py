@@ -25,7 +25,10 @@ accumulation with the next microbatch (:func:`resolve_grad_overlap`).
 predictor body (``@model.predictor(jit=True)``): one CUDA graph captured
 per call signature and replayed after that (:func:`clear_jit_cache` drops
 them). ``torch.compile`` cannot take its place: the hand-written kernels
-are ``ctypes`` calls it cannot trace.
+are ``ctypes`` calls it cannot trace. A signature's warm-up call (before
+its capture) is its compile event: its FLOPs and bytes are counted
+(:class:`~unionml_tpu_torch.introspection.CostCounter`) and every replay
+credits them, as it credits the captured kernels' launches.
 """
 
 from __future__ import annotations
@@ -182,21 +185,27 @@ def _signature(tensors: List[torch.Tensor], features: Any) -> Any:
 
 
 class _Graph:
-    """One captured call: its static inputs and outputs, the graph, and the
-    kernel launches it replays."""
+    """One captured call: its static inputs and outputs, the graph, the
+    kernel launches it replays and the cost its warm-up call counted."""
 
-    def __init__(self, graph, inputs: List[Any], outputs: Any, launches: dict):
+    def __init__(self, graph, inputs: List[Any], outputs: Any, launches: dict, cost: tuple):
         self.graph, self.inputs, self.outputs, self.launches = graph, inputs, outputs, launches
+        self.cost = cost
 
     def run(self, leaves: List[Any]) -> Any:
-        for dst, src in zip(self.inputs, leaves):
-            if isinstance(dst, torch.Tensor):
-                dst.copy_(torch.as_tensor(src))
-        self.graph.replay()
-        for kernel, n in self.launches.items():
-            kernel.launches += n
-        return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-                        self.outputs)
+        from unionml_tpu_torch.ops._build import charged
+
+        # a cost counter around the replay is charged the eager call's cost
+        # (the copies in and out are not the body's work)
+        with charged(lambda: self.cost):
+            for dst, src in zip(self.inputs, leaves):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(torch.as_tensor(src))
+            self.graph.replay()
+            for kernel, n in self.launches.items():
+                kernel.launches += n
+            return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                            self.outputs)
 
 
 class GraphedPredictor:
@@ -217,12 +226,21 @@ class GraphedPredictor:
     nothing). A body that cannot be captured (a host sync: ``.item()``,
     ``.cpu()``, a Python branch on a tensor's value) raises, naming the
     predictor; nothing falls back to eager. A model object with no tensor
-    on a CUDA device runs the body as called (the CPU path)."""
+    on a CUDA device runs the body as called (the CPU path).
+
+    :attr:`programs` tracks the body as ``predictor.jit``: the warm-up call
+    of each signature is its compile event (its FLOPs and bytes counted),
+    each replay a call credited that cost (on the CPU path: the first call
+    of a signature, then each call)."""
 
     def __init__(self, fn: Callable):
+        from unionml_tpu_torch.introspection import ProgramTracker
+
         self.fn = fn
         self._graphs: "OrderedDict[Any, _Graph]" = OrderedDict()
         self._lock = threading.Lock()
+        self.programs = ProgramTracker(component=telemetry.instance_label("predictor"))
+        self._eager = self.programs.wrap("predictor.jit", fn, sig_fn=self.signature)
         functools.update_wrapper(self, fn)
         _LIVE.add(self)
 
@@ -242,22 +260,31 @@ class GraphedPredictor:
         tensors = _model_tensors(model_object)
         device = next((t.device for t in tensors if t.is_cuda), None)
         if device is None:
-            return self.fn(model_object, features)
+            return self._eager(model_object, features)
         key = _signature(tensors, features)
         leaves = tree_leaves(features)
         with self._lock:
             entry = self._graphs.get(key)
+            t0 = time.perf_counter()
             if entry is None:
                 entry = self._capture(model_object, features, leaves, device)
                 self._graphs[key] = entry
                 while len(self._graphs) > _JIT_CACHE_SIZE:
                     self._graphs.popitem(last=False)
-            else:
-                self._graphs.move_to_end(key)
-            return entry.run(leaves)
+                out = entry.run(leaves)
+                self.programs.record_compile("predictor.jit", key, entry.cost,
+                                             (time.perf_counter() - t0) * 1e3)
+                return out
+            self._graphs.move_to_end(key)
+            out = entry.run(leaves)
+            self.programs.record_call("predictor.jit", key, (time.perf_counter() - t0) * 1e3)
+            return out
 
     def _capture(self, model_object: Any, features: Any, leaves: List[Any],
                  device: torch.device) -> _Graph:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        from unionml_tpu_torch.introspection import CostCounter
         from unionml_tpu_torch.ops._build import KERNELS
 
         inputs = [torch.as_tensor(x).to(device, copy=True) if _is_array(x) else x
@@ -266,25 +293,29 @@ class GraphedPredictor:
         name = getattr(self.fn, "__qualname__", repr(self.fn))
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.device(device), torch.cuda.stream(side):
-            self.fn(model_object, static)
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = {k: k.launches for k in KERNELS}
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.device(device), torch.cuda.graph(graph):
-                outputs = self.fn(model_object, static)
-        except Exception as exc:
-            raise RuntimeError(
-                f"predictor {name!r} cannot be captured as a CUDA graph (jit=True): "
-                f"{type(exc).__name__}: {exc} — a body with a host sync (.item(), "
-                ".cpu(), a Python branch on a tensor's value) runs with jit=False"
-            ) from exc
-        finally:
-            launched = {k: k.launches - n for k, n in before.items() if k.launches != n}
-            for k in launched:
-                k.launches = before[k]
-        return _Graph(graph, inputs, outputs, launched)
+        counter = CostCounter()
+        # the warm-up call is counted alone: a counter of the caller's is
+        # charged at the replay, as every later replay charges it
+        with _disable_current_modes():
+            with torch.cuda.device(device), torch.cuda.stream(side), counter:
+                self.fn(model_object, static)
+            torch.cuda.current_stream(device).wait_stream(side)
+            before = {k: k.launches for k in KERNELS}
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.device(device), torch.cuda.graph(graph):
+                    outputs = self.fn(model_object, static)
+            except Exception as exc:
+                raise RuntimeError(
+                    f"predictor {name!r} cannot be captured as a CUDA graph (jit=True): "
+                    f"{type(exc).__name__}: {exc} — a body with a host sync (.item(), "
+                    ".cpu(), a Python branch on a tensor's value) runs with jit=False"
+                ) from exc
+            finally:
+                launched = {k: k.launches - n for k, n in before.items() if k.launches != n}
+                for k in launched:
+                    k.launches = before[k]
+        return _Graph(graph, inputs, outputs, launched, counter.cost)
 
 
 _LIVE: "weakref.WeakSet[GraphedPredictor]" = weakref.WeakSet()
@@ -527,10 +558,18 @@ def run_step_trainer(
     )
     c_steps = reg.counter("unionml_trainer_steps_total", "Train steps dispatched.")
     c_examples = reg.counter("unionml_trainer_examples_total", "Training examples consumed.")
-    step = ProgramTracker(registry=reg, component="trainer").wrap("trainer.step", step_fn)
     tracker = None
     if goodput:
         tracker = goodput if isinstance(goodput, GoodputTracker) else GoodputTracker(registry=reg)
+    # program introspection: the first step (the counted dispatch, the
+    # port's compile event) records the step's FLOPs and bytes and its
+    # time, which goodput debits into its `compile` bucket; the
+    # unionml_program_mfu_ratio{component="trainer", program="trainer.step"}
+    # gauge reports live MFU against the device peak
+    step = ProgramTracker(
+        registry=reg, component="trainer",
+        on_compile=tracker.note_compile_ms if tracker is not None else None,
+    ).wrap("trainer.step", step_fn)
 
     def wait() -> None:
         if on_card:

@@ -13,9 +13,12 @@ guessed.
   starvation in the feed), ``host_to_device`` (the pin and copy enqueue
   of the inline feed), ``compile``, ``checkpoint`` (save/restore stall on
   the loop) and ``preemption`` (elastic restore + replay after a
-  preemption). Eager PyTorch compiles nothing, so the port's trainers
-  never call :meth:`~GoodputTracker.note_compile_ms` and ``compile``
-  stays 0; the hook is kept for a caller that compiles its step.
+  preemption). Eager PyTorch compiles nothing; the port's compile event
+  is the first, counted dispatch of each step shape (the trainers'
+  :class:`~unionml_tpu_torch.introspection.ProgramTracker` counts its
+  FLOPs and bytes under a dispatch mode and reports its wall time
+  through :meth:`~GoodputTracker.note_compile_ms`), and ``compile`` holds
+  those calls.
   Published series: ``unionml_train_goodput_ratio``,
   ``unionml_train_goodput_seconds_total``,
   ``unionml_train_badput_seconds_total{cause}`` and the per-phase
@@ -77,7 +80,7 @@ COMPUTE_PHASE = "compute"
 BADPUT_CAUSES = (
     "data_wait",        # host input starvation (the stream/loader feed)
     "host_to_device",   # the inline feed's pin and copy enqueue
-    "compile",          # compile/recompile (note_compile_ms); 0 in eager PyTorch
+    "compile",          # the first, counted dispatch of a step shape (note_compile_ms)
     "checkpoint",       # checkpoint save/restore stall on the loop
     "preemption",       # elastic restore + replay after preemption
 )
@@ -271,9 +274,8 @@ class GoodputTracker:
     time reported *inside* a compute phase (:meth:`note_compile_ms`) is
     debited out of that compute phase into the ``compile`` bucket, so
     goodput never counts a recompile as useful work and the buckets
-    still sum to measured wall time. Eager PyTorch compiles nothing:
-    the port's trainers never report a compile, and ``compile`` stays
-    0.
+    still sum to measured wall time. The port's trainers report the
+    first, counted dispatch of each step shape as its compile.
 
     ``registry`` / ``tracer`` / ``flight`` default to the
     process-global telemetry instances (one scrape covers serving and

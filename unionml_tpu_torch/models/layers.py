@@ -51,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -315,12 +315,23 @@ def local_kv_heads(config: Any, params: Any) -> int:
     heads, or, where ``tensor`` splits the q heads but not the kv heads,
     one per local q head (each its kv head ``(h0 + h) // group``, so the
     cache and the paged kernel see whole groups of one)."""
+    return len(local_kv_index(config, params))
+
+
+def local_kv_index(config: Any, params: Any) -> List[int]:
+    """The global kv head of each head a rank's cache holds for
+    ``params`` (:func:`local_kv_heads`), in cache order: a column-parallel
+    shard's own heads, or, where ``tensor`` splits the q heads but not the
+    kv heads, kv head ``(h0 + h) // group`` of each local q head ``h``."""
     if not isinstance(params, LocalParams) or params.tp.size == 1:
-        return config.num_kv_heads
+        return list(range(config.num_kv_heads))
     attn = params["block_0"]["attn"]
     hd = config.head_dim
     q, kv = _site_width(attn["q"]) // hd, _site_width(attn["k"]) // hd
-    return q if kv == config.num_kv_heads and q < config.num_heads else kv
+    if kv == config.num_kv_heads and q < config.num_heads:
+        group = config.num_heads // config.num_kv_heads
+        return [(params.tp.rank * q + h) // group for h in range(q)]
+    return list(range(params.tp.rank * kv, (params.tp.rank + 1) * kv))
 
 
 def _site_width(p: Any) -> int:

@@ -13,10 +13,20 @@ calls before anything else.
 A wrapper launches through a :class:`Kernel`, which binds the C function,
 counts launches in the plain integer ``launches`` (only where the kernel
 really launched) and raises on any CUDA error code the C side returns.
+
+Each kernel row also has a cost function beside its wrapper: the
+``(flops, bytes)`` of one call from its arguments' shapes. The op that
+picks the kernel or its plain version reports that cost through
+:func:`charged` to the cost counter of the calling thread
+(:class:`unionml_tpu_torch.introspection.CostCounter`), whichever path
+runs, and the aten ops inside it are not counted: a program costs the
+same on the card and on the CPU. With no counter active, :func:`charged`
+is one C call and a shared null context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +35,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -164,3 +177,63 @@ class Kernel:
                 f"(cudaError_t {code})"
             )
         self.launches += 1
+
+
+# --------------------------------------------------------------------- #
+# kernel costs
+# --------------------------------------------------------------------- #
+
+#: per thread: ``quiet``, the depth of :func:`charged` scopes open here
+#: (a cost counter does not count aten ops inside one)
+COST_TLS = threading.local()
+_NULL = contextlib.nullcontext()
+
+
+def cost_sink():
+    """The innermost cost counter on this thread's dispatch-mode stack
+    (autograd's worker threads inherit the stack of the thread that
+    started the backward), or None."""
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "counts_costs", False):
+            return mode
+    return None
+
+
+@contextlib.contextmanager
+def _kernel_scope(sink, cost: Tuple[float, float]):
+    depth = getattr(COST_TLS, "quiet", 0)
+    if depth == 0:
+        sink.charge(*cost)
+    COST_TLS.quiet = depth + 1
+    try:
+        yield
+    finally:
+        COST_TLS.quiet = depth
+
+
+def charged(cost_fn: Callable[..., Tuple[float, float]], *args, **kwargs):
+    """A context for one call of a kernel row (the kernel or its plain
+    version): when a cost counter is active, ``cost_fn(*args, **kwargs)``
+    is charged to it once (a row called inside another row's scope is part
+    of that row's cost) and the aten ops inside are not counted."""
+    sink = cost_sink()
+    if sink is None:
+        return _NULL
+    return _kernel_scope(sink, cost_fn(*args, **kwargs))
+
+
+def nbytes(*tensors: Optional[torch.Tensor]) -> int:
+    """Bytes of the given tensors (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(cost: Tuple[float, float], peak_ops: float, peak_bytes: float) -> Tuple[float, str]:
+    """The least time (ms) a device with these peaks could take for a call
+    of ``cost = (flops, bytes)``, and what bounds it: the larger of the
+    bytes over the memory rate and the operations over the peak rate for
+    their type."""
+    flops, moved = cost
+    t_bytes, t_ops = moved / peak_bytes * 1e3, flops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -45,9 +45,10 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
 from unionml_tpu_torch.parallel.compat import refuse_dtensor
 
 NEG_INF = -1e30
@@ -203,6 +204,77 @@ def flash_bwd_plain(
 # --------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------- #
+
+
+# --------------------------------------------------------------------- #
+# costs: (flops, bytes) of one call from the arguments' shapes
+# --------------------------------------------------------------------- #
+
+
+def visible_pairs(q_len: int, kv_len: int, causal: bool, pad: int = 0) -> int:
+    """(query, key) pairs one head attends over: bottom-right causal, the
+    first ``pad`` keys (left padding) hidden."""
+    if not causal:
+        return q_len * max(0, kv_len - pad)
+    # query i sees keys [pad, i + kv_len - q_len]
+    seen = np.clip(np.arange(q_len, dtype=np.int64) + (kv_len - q_len + 1), 0, kv_len) - pad
+    return int(np.maximum(seen, 0).sum())
+
+
+def _pairs(q: torch.Tensor, k: torch.Tensor, causal: bool, pads=None) -> int:
+    b, q_len, h = q.shape[0], q.shape[1], q.shape[2]
+    kv_len = k.shape[1]
+    if pads is None:
+        return b * h * visible_pairs(q_len, kv_len, causal)
+    return h * sum(visible_pairs(q_len, kv_len, causal, int(p)) for p in pads)
+
+
+def flash_fwd_padded_cost(q, k, v, *, causal: bool, pads=None) -> Tuple[float, float]:
+    """Row 1: ``q . k`` and ``p . v`` over the visible pairs (2 operations
+    a multiply-add each); q, k, v read, out written, the pads read.
+    ``pads`` (host ints) counts this data's pairs; without them (a program's
+    cost, from shapes alone) no key is padded."""
+    d = q.shape[-1]
+    return (float(4 * _pairs(q, k, causal, pads) * d),
+            float(2 * nbytes(q) + nbytes(k, v) + 4 * q.shape[0]))
+
+
+def flash_fwd_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """Row 9: row 1's work; q, k, v read, out and the fp32 lse written."""
+    d, (b, q_len, h) = q.shape[-1], q.shape[:3]
+    return (float(4 * _pairs(q, k, causal) * d),
+            float(2 * nbytes(q) + nbytes(k, v) + 4 * b * h * q_len))
+
+
+def flash_delta_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """The delta pass: ``S = q . k`` and ``dP = dO . v`` over the visible
+    pairs; q, do, k, v and lse read, delta written."""
+    d, (b, q_len, h) = q.shape[-1], q.shape[:3]
+    return (float(4 * _pairs(q, k, causal) * d),
+            float(2 * nbytes(q) + nbytes(k, v) + 2 * 4 * b * h * q_len))
+
+
+def flash_bwd_dq_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """Row 10: S, dP and ``dq += dS . k``; q, do, k, v, lse, delta read,
+    dq written."""
+    d, (b, q_len, h) = q.shape[-1], q.shape[:3]
+    return (float(6 * _pairs(q, k, causal) * d),
+            float(3 * nbytes(q) + nbytes(k, v) + 2 * 4 * b * h * q_len))
+
+
+def flash_bwd_dkv_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """Row 11: S, dP, ``dv += p . dO`` and ``dk += dS . q``; q, do, k, v,
+    lse, delta read, dk and dv written (the per-head scratch apart)."""
+    d, (b, q_len, h) = q.shape[-1], q.shape[:3]
+    return (float(8 * _pairs(q, k, causal) * d),
+            float(2 * nbytes(q) + 2 * nbytes(k, v) + 2 * 4 * b * h * q_len))
+
+
+def flash_bwd_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """The backward on the card: the delta pass, then rows 10 and 11."""
+    parts = [cost(q, k, v, causal=causal)
+             for cost in (flash_delta_cost, flash_bwd_dq_cost, flash_bwd_dkv_cost)]
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor):
@@ -386,17 +458,19 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def _fwd(q, k, v, causal: bool, scale: float):
-    if _on_card(q):
-        return flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, scale=scale)
-    return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+    with charged(flash_fwd_cost, q, k, v, causal=causal):
+        if _on_card(q):
+            return flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal, scale=scale)
+        return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
 
 
 def _padded_fwd(q, k, v, pad, causal: bool, scale: float):
-    if _on_card(q):
-        return flash_fwd_padded_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                     pad.contiguous(), causal=causal, scale=scale)
-    return flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
+    with charged(flash_fwd_padded_cost, q, k, v, causal=causal):
+        if _on_card(q):
+            return flash_fwd_padded_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         pad.contiguous(), causal=causal, scale=scale)
+        return flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
 
 
 class _PaddedForwardOnly(torch.autograd.Function):
@@ -429,11 +503,12 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, scale=ctx.scale)
-        if _on_card(q):
-            grads = flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   do.contiguous(), lse, **kw)
-        else:
-            grads = flash_bwd_plain(q, k, v, do, lse, **kw)
+        with charged(flash_bwd_cost, q, k, v, causal=ctx.causal):
+            if _on_card(q):
+                grads = flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       do.contiguous(), lse, **kw)
+            else:
+                grads = flash_bwd_plain(q, k, v, do, lse, **kw)
         return (*grads, None, None)
 
 

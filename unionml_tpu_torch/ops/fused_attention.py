@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
 from unionml_tpu_torch.parallel.compat import refuse_dtensor
 from unionml_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 
@@ -169,6 +169,25 @@ def fused_attention_bwd_cuda(
 # --------------------------------------------------------------------- #
 
 
+def _pairs(q: torch.Tensor, causal: bool) -> int:
+    b, s, h = q.shape[:3]
+    return b * h * (s * (s + 1) // 2 if causal else s * s)
+
+
+def fused_attention_fwd_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """Row 12, ``(flops, bytes)`` of one call: ``q . k`` and ``p . v`` over
+    the visible pairs (2 operations a multiply-add); q, k, v read and out
+    written once."""
+    return float(4 * _pairs(q, causal) * q.shape[-1]), float(2 * nbytes(q) + nbytes(k, v))
+
+
+def fused_attention_bwd_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """Row 13: S and dP again, then dq, dk and dv (and the row sums of
+    ``e . dP``) over the visible pairs; q, k, v, dO read and dq, dk, dv
+    written once."""
+    return float(10 * _pairs(q, causal) * q.shape[-1]), float(3 * nbytes(q) + 2 * nbytes(k, v))
+
+
 def _on_card(x: torch.Tensor) -> bool:
     if x.is_cuda:
         return True
@@ -178,10 +197,11 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def _fwd(q, k, v, causal):
-    if _on_card(q):
-        return fused_attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        causal=causal)
-    return fused_attention_fwd_plain(q, k, v, causal=causal)
+    with charged(fused_attention_fwd_cost, q, k, v, causal=causal):
+        if _on_card(q):
+            return fused_attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=causal)
+        return fused_attention_fwd_plain(q, k, v, causal=causal)
 
 
 class _Fused(torch.autograd.Function):
@@ -195,13 +215,14 @@ class _Fused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        if _on_card(q):
-            grads = fused_attention_bwd_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
-                causal=ctx.causal,
-            )
-        else:
-            grads = fused_attention_bwd_plain(q, k, v, do, causal=ctx.causal)
+        with charged(fused_attention_bwd_cost, q, k, v, causal=ctx.causal):
+            if _on_card(q):
+                grads = fused_attention_bwd_cuda(
+                    q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+                    causal=ctx.causal,
+                )
+            else:
+                grads = fused_attention_bwd_plain(q, k, v, do, causal=ctx.causal)
         return (*grads, None)
 
 

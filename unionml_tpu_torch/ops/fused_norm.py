@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
 from unionml_tpu_torch.parallel.compat import refuse_dtensor
 
 _FWD_ARGS = [
@@ -117,6 +117,40 @@ def norm_bwd_plain(
         dx = rstd * (dyg - c1 - xhat * c2)
     dbeta = dy32.sum(dim=0) if with_beta else None
     return dx.to(x.dtype), (dy32 * xhat).sum(dim=0), dbeta
+
+
+# --------------------------------------------------------------------- #
+# costs: (flops, bytes) of one call from the arguments' shapes
+# --------------------------------------------------------------------- #
+
+
+def norm_fwd_cost(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
+                  rms: bool) -> Tuple[float, float]:
+    """Rows 2 (``rms``) and 3: x read and y written once, gamma (and
+    beta) read once; 4 operations an element for RMS (square, sum, scale,
+    gamma), 8 for LayerNorm (mean, centre, square, sum, scale, gamma,
+    beta and the mean's sum)."""
+    n = x.numel()
+    return float((4 if rms else 8) * n), float(2 * nbytes(x) + nbytes(gamma, beta))
+
+
+def norm_add_fwd_cost(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
+                      rms: bool) -> Tuple[float, float]:
+    """Row 4: x and r read, s and y written, the parameters read; the
+    norm's operations and the add."""
+    n = x.numel()
+    return float((5 if rms else 9) * n), float(4 * nbytes(x) + nbytes(gamma, beta))
+
+
+def norm_bwd_cost(x: torch.Tensor, gamma: torch.Tensor, rms: bool,
+                  with_beta: bool) -> Tuple[float, float]:
+    """Row 5: x and dy read, dx written; gamma read and dgamma (and
+    dbeta) written in fp32; 15 operations an element for LayerNorm (the
+    statistics again, x-hat, the two row sums, dx, the column sums), 11
+    for RMS (no mean)."""
+    n, d = x.numel(), x.shape[-1]
+    params = (3 if with_beta else 2) * d * 4
+    return float((11 if rms else 15) * n), float(3 * nbytes(x) + params)
 
 
 # --------------------------------------------------------------------- #
@@ -278,16 +312,18 @@ def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
 
 
 def _fwd(x2, gamma, beta, eps, rms):
-    if _on(x2, "fused_layer_norm"):
-        return norm_fwd_cuda(x2.contiguous(), gamma.contiguous(),
-                             None if beta is None else beta.contiguous(), eps, rms)
-    return norm_fwd_plain(x2, gamma, beta, eps, rms)
+    with charged(norm_fwd_cost, x2, gamma, beta, rms):
+        if _on(x2, "fused_layer_norm"):
+            return norm_fwd_cuda(x2.contiguous(), gamma.contiguous(),
+                                 None if beta is None else beta.contiguous(), eps, rms)
+        return norm_fwd_plain(x2, gamma, beta, eps, rms)
 
 
 def _bwd(x2, gamma, dy2, eps, rms, with_beta):
-    if _on(x2, "fused_layer_norm"):
-        return norm_bwd_cuda(x2.contiguous(), gamma, dy2.contiguous(), eps, rms, with_beta)
-    return norm_bwd_plain(x2, gamma, dy2, eps, rms, with_beta)
+    with charged(norm_bwd_cost, x2, gamma, rms, with_beta):
+        if _on(x2, "fused_layer_norm"):
+            return norm_bwd_cuda(x2.contiguous(), gamma, dy2.contiguous(), eps, rms, with_beta)
+        return norm_bwd_plain(x2, gamma, dy2, eps, rms, with_beta)
 
 
 def _param_grads(ctx, dgamma, dbeta):
@@ -296,10 +332,11 @@ def _param_grads(ctx, dgamma, dbeta):
 
 
 def _add_fwd(x2, r2, gamma, beta, eps, rms):
-    if _on(x2, "fused_add_layer_norm"):
-        return norm_add_fwd_cuda(x2.contiguous(), r2.contiguous(), gamma.contiguous(),
-                                 None if beta is None else beta.contiguous(), eps, rms)
-    return norm_add_fwd_plain(x2, r2, gamma, beta, eps, rms)
+    with charged(norm_add_fwd_cost, x2, gamma, beta, rms):
+        if _on(x2, "fused_add_layer_norm"):
+            return norm_add_fwd_cuda(x2.contiguous(), r2.contiguous(), gamma.contiguous(),
+                                     None if beta is None else beta.contiguous(), eps, rms)
+        return norm_add_fwd_plain(x2, r2, gamma, beta, eps, rms)
 
 
 class _LayerNorm(torch.autograd.Function):

@@ -42,7 +42,7 @@ from typing import Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
 
 __all__ = [
     "MAX_PALLAS_ROWS",
@@ -282,6 +282,18 @@ def _fallback(x, packed, scale, *, tile_n, dtype, group_size):
     return (y * scale.float()).to(dtype)
 
 
+def int4_matmul_cost(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                     compute: torch.dtype = None) -> Tuple[float, float]:
+    """Rows 7 (per-channel) and 8 (grouped), ``(flops, bytes)`` of one
+    kernel call: ``2 * rows * K * N`` operations; the packed weight and
+    its fp32 scales read once, x read and the result written in the
+    compute dtype (default: x's)."""
+    rows, k = x.shape
+    n = scale.shape[-1]
+    elt = (compute or x.dtype).itemsize
+    return float(2 * rows * k * n), float(nbytes(packed, scale) + (rows * k + rows * n) * elt)
+
+
 def int4_matmul_cuda(
     x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
     tile_n: int, group_size: int = 0,
@@ -367,12 +379,14 @@ def int4_matmul(
     if not use_kernel:
         return _fallback(x, packed, scale, dtype=dtype, **kwargs)
     if x.is_cuda:
-        return int4_matmul_cuda(
-            x.to(compute).contiguous(), packed.contiguous(), scale.float().contiguous(),
-            **kwargs,
-        ).to(dtype)
+        with charged(int4_matmul_cost, x, packed, scale, compute):
+            return int4_matmul_cuda(
+                x.to(compute).contiguous(), packed.contiguous(), scale.float().contiguous(),
+                **kwargs,
+            ).to(dtype)
     if x.device.type == "cpu":
-        return int4_matmul_plain(x, packed, scale, dtype=dtype, **kwargs)
+        with charged(int4_matmul_cost, x, packed, scale, compute):
+            return int4_matmul_plain(x, packed, scale, dtype=dtype, **kwargs)
     raise ValueError(
         f"int4_matmul has no kernel path for device {x.device} (the kernel runs "
         "on CUDA tensors, the plain version on CPU tensors)"

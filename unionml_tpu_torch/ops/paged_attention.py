@@ -33,11 +33,11 @@ path does); the engine never decodes such a row (``lengths = fill + 1``).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel
+from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
 from unionml_tpu_torch.ops.attention import _grouped_cache_attention
 
 NEG_INF = -1e30
@@ -84,6 +84,23 @@ def _check_shapes(q, k, v, block_table, lengths, k_scale, v_scale):
         raise ValueError(
             f"q heads {q.shape[1]} must be a multiple of kv heads {k.shape[2]}"
         )
+
+
+def paged_attention_cost(q, k, block_table, *, k_scale=None,
+                         lengths=None) -> Tuple[float, float]:
+    """Row 6, ``(flops, bytes)`` of one call: ``q . k`` and ``p . v`` over
+    every visible row at q-head width (2 operations a multiply-add); each
+    visible K/V row read once at kv-head width (int8 pools: a byte a value
+    and a 4-byte scale a head), q read, out written, the table and the
+    lengths read. ``lengths`` (host ints) counts this data's rows; without
+    them (a program's cost, from shapes alone) every row the table reaches
+    counts (``batch * width * block``)."""
+    batch, width = block_table.shape
+    _, block, hk, d = k.shape
+    rows = batch * width * block if lengths is None else sum(int(n) for n in lengths)
+    per_row = hk * d * k.element_size() + (hk * 4 if k_scale is not None else 0)
+    moved = 2 * rows * per_row + 2 * nbytes(q) + block_table.numel() * 4 + batch * 4
+    return float(4 * rows * q.shape[1] * d), float(moved)
 
 
 def paged_attention_plain(
@@ -238,12 +255,14 @@ def paged_attention(
     _check_shapes(q, k, v, block_table, lengths, k_scale, v_scale)
     kwargs = dict(k_scale=k_scale, v_scale=v_scale, scale=scale)
     if q.is_cuda and impl in ("auto", "pallas"):
-        return paged_attention_cuda(
-            q.contiguous(), k, v, block_table.to(torch.int32).contiguous(),
-            lengths.to(torch.int32).contiguous(), **kwargs,
-        )
+        with charged(paged_attention_cost, q, k, block_table, k_scale=k_scale):
+            return paged_attention_cuda(
+                q.contiguous(), k, v, block_table.to(torch.int32).contiguous(),
+                lengths.to(torch.int32).contiguous(), **kwargs,
+            )
     if q.device.type == "cpu" and impl in ("auto", "reference"):
-        return paged_attention_plain(q, k, v, block_table, lengths, **kwargs)
+        with charged(paged_attention_cost, q, k, block_table, k_scale=k_scale):
+            return paged_attention_plain(q, k, v, block_table, lengths, **kwargs)
     raise ValueError(
         f"paged_attention impl {impl!r} has no path for device {q.device} "
         "(the kernel runs on CUDA tensors, the plain version on CPU tensors)"

@@ -388,13 +388,29 @@ def all_to_all(x: torch.Tensor, axis: str, *, split_axis: int, concat_axis: int,
                tiled: bool = True) -> torch.Tensor:
     """Split ``split_axis`` into one block per rank, send block ``j`` to
     rank ``j`` and concatenate what arrives along ``concat_axis``.
-    Differentiable: the backward is ``all_to_all(concat_axis,
-    split_axis)``."""
-    if not tiled:
-        raise NotImplementedError("untiled all_to_all is not ported")
+    ``tiled=False`` is ``lax.all_to_all``'s untiled form: ``split_axis``
+    must have one entry per rank; it is removed, and the entries that
+    arrive are stacked along a new axis at ``concat_axis`` (a position of
+    the result). Differentiable: the backward is ``all_to_all(concat_axis,
+    split_axis)`` (untiled: with the same axis moves undone)."""
+    group = _single_group(axis, "all_to_all")
     split_axis %= x.dim()
     concat_axis %= x.dim()
-    return _AllToAll.apply(x, _single_group(axis, "all_to_all"), split_axis, concat_axis)
+    if tiled:
+        return _AllToAll.apply(x, group, split_axis, concat_axis)
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] != n:
+        raise ValueError(f"untiled all_to_all needs split_axis {split_axis} of size {n} (the "
+                         f"axis size), got {tuple(x.shape)}")
+    # the reference's reshaping around the tiled exchange
+    if split_axis < concat_axis:
+        concat_axis += 1
+        x = x.unsqueeze(concat_axis)
+    elif split_axis > concat_axis:
+        x = x.unsqueeze(concat_axis)
+        split_axis += 1
+    out = _AllToAll.apply(x, group, split_axis, concat_axis)
+    return out if split_axis == concat_axis else out.squeeze(split_axis)
 
 
 def axis_index(axis: str) -> int:

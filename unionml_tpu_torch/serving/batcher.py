@@ -175,12 +175,15 @@ class MicroBatcher:
         .FaultInjector` whose ``batcher.predict`` point fires before
         the shared device call (chaos tests; ``None`` is zero-cost).
 
-        ``introspect``: record request lifecycle events into ``flight``
+        ``introspect``: wrap the predictor in a
+        :class:`~unionml_tpu_torch.introspection.ProgramTracker`
+        (``batcher.predict``: calls, and the FLOPs and bytes counted at
+        each bucket's first call, behind ``stats()["programs"]`` and
+        ``/metrics``) and record request lifecycle events into ``flight``
         (default: the process-global
         :class:`~unionml_tpu_torch.telemetry.FlightRecorder` behind
-        ``GET /debug/flight``). ``False`` disables it. (The reference
-        also wraps the predictor in a program tracker fed by XLA cost
-        analysis; that tracker is not ported, so no FLOPs are billed.)
+        ``GET /debug/flight``). ``False`` disables both and leaves the
+        predictor unwrapped.
 
         ``usage``: a :class:`~unionml_tpu_torch.serving.usage.UsageLedger`
         (or ``True`` for a default one on this batcher's registry)
@@ -213,8 +216,9 @@ class MicroBatcher:
         self._tracer = tracer if tracer is not None else telemetry.get_tracer()
         self.instance = telemetry.instance_label("batcher")
         self._build_instruments()
-        # flight recording (docs/observability.md): introspect=False
-        # leaves every flight site a single None check.
+        # program tracking + flight recording (docs/observability.md):
+        # introspect=False leaves the predictor unwrapped and every flight
+        # site a single None check.
         self.introspect = bool(introspect)
         if usage is True:
             from unionml_tpu_torch.serving.usage import UsageLedger
@@ -222,10 +226,24 @@ class MicroBatcher:
             usage = UsageLedger(registry=self._registry)
         self._usage = usage or None
         self._flight = None
+        self._programs = None
         if self.introspect:
+            from unionml_tpu_torch.introspection import ProgramTracker
+
             self._flight = (
                 flight if flight is not None
                 else telemetry.get_flight_recorder()
+            )
+            self._programs = ProgramTracker(registry=self._registry, component=self.instance)
+            self._predict_fn = self._programs.wrap(
+                "batcher.predict", self._predict_fn,
+                # cheap per-call signature: the padded bucket size (row
+                # lists) or the leading array shape; pytree features
+                # fall back to single-signature attribution
+                sig_fn=(
+                    (lambda feats: len(feats)) if row_lists
+                    else (lambda feats: getattr(feats, "shape", None))
+                ),
             )
         self._worker = threading.Thread(target=self._run, daemon=True, name="unionml-tpu-batcher")
         self._worker.start()
@@ -449,6 +467,8 @@ class MicroBatcher:
         }
         if self._usage is not None:
             out["usage"] = self._usage.stats()
+        if self._programs is not None:
+            out["programs"] = self._programs.stats()
         for name, h in (
             ("queue_wait_ms", self._h_queue), ("device_ms", self._h_device)
         ):
@@ -470,6 +490,8 @@ class MicroBatcher:
             m.reset()
         if self._usage is not None:
             self._usage.reset_stats()
+        if self._programs is not None:
+            self._programs.reset()
 
     def close(self):
         self._stop.set()
@@ -622,11 +644,15 @@ class MicroBatcher:
                     self._h_device.observe(p.device_ms)
                 self._m_requests.inc(len(batch))
                 if self._usage is not None:
-                    # the shared device call split by row share
+                    # the shared device call split by row share; FLOPs
+                    # from the tracker's counted cost per chunked part
                     shares: dict = {}
                     for p in batch:
                         shares[p.tenant] = shares.get(p.tenant, 0) + p.rows
-                    self._usage.attribute(shares, device_s=device_ms / 1e3)
+                    flops = 0.0
+                    if self._programs is not None:
+                        flops = self._programs.cost("batcher.predict")[0] * len(parts)
+                    self._usage.attribute(shares, device_s=device_ms / 1e3, flops=flops)
                     for p in batch:
                         self._usage.finish_request(
                             p.tenant, queue_ms=p.queue_wait_ms,

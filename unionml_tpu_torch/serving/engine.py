@@ -54,7 +54,8 @@ follower: GSPMD issues its collectives from one program). The first rank
 of the tree's parallel groups takes every request (``generate``,
 ``generate_stream``, ``prefill_export``, a ``ServingApp`` in front of
 it) and makes every decision: arrivals, deadline shedding, cancellations,
-the queue bound and the breaker. Each dispatcher pass it publishes one
+the queue bound and the breaker, and the host prefix store's exports and
+imports. Each dispatcher pass it publishes one
 plan of those decisions through the process group's key-value store;
 the other ranks run :meth:`DecodeEngine.follow`, whose dispatcher applies
 each plan in order and then runs the same pass, so every rank admits,
@@ -103,6 +104,7 @@ from unionml_tpu_torch.serving.prefix_cache import (
     pack_rows,
     packed_base,
     packed_nbytes,
+    PrefixLease,
 )
 from unionml_tpu_torch.serving.scheduler import (
     DEFAULT_PRIORITY,
@@ -358,6 +360,7 @@ class _PlanChannel:
             _CHANNELS[ranks] = n + 1
         self._store = dist.distributed_c10d._get_default_store()
         self._key = f"unionml_engine_plans/{'-'.join(map(str, ranks))}/{n}"
+        self.ranks = ranks
         self._followers = len(ranks) - 1
         self.seq = 0
 
@@ -367,19 +370,61 @@ class _PlanChannel:
 
     def receive(self, stop: threading.Event) -> Optional[dict]:
         """The next plan; ``None`` once ``stop`` is set while waiting."""
-        key = f"{self._key}/{self.seq}"
+        plan = self.read_shared(str(self.seq), stop)
+        if plan is not None:
+            self.seq += 1
+        return plan
+
+    def put(self, name: str, value: Any) -> None:
+        """A payload of its own beside the plans (a kv import's blocks, a
+        follower's part of a kv export)."""
+        self._store.set(f"{self._key}/{name}", pickle.dumps(value))
+
+    def _wait(self, key: str, stop: threading.Event, timeout: Optional[float]) -> bool:
+        deadline = None if timeout is None else time.monotonic() + timeout
         wait = 1e-4
         while not self._store.check([key]):
-            if stop.is_set():
-                return None
+            if stop.is_set() or (deadline is not None and time.monotonic() > deadline):
+                return False
             time.sleep(wait)
             wait = min(2 * wait, 0.01)
-        plan = pickle.loads(self._store.get(key))
+        return True
+
+    def read_shared(self, name: str, stop: threading.Event) -> Any:
+        """A value every follower reads once (the last deletes it);
+        ``None`` once ``stop`` is set while waiting."""
+        key = f"{self._key}/{name}"
+        if not self._wait(key, stop, None):
+            return None
+        value = pickle.loads(self._store.get(key))
         if self._store.add(f"{key}/read", 1) == self._followers:
             self._store.delete_key(key)
             self._store.delete_key(f"{key}/read")
-        self.seq += 1
-        return plan
+        return value
+
+    def take(self, name: str, stop: threading.Event, timeout: float) -> Any:
+        """A value one reader takes (and deletes); raises ``TimeoutError``
+        after ``timeout`` seconds."""
+        key = f"{self._key}/{name}"
+        if not self._wait(key, stop, timeout):
+            raise TimeoutError(f"no {name} from the engine's ranks in {timeout} s")
+        value = pickle.loads(self._store.get(key))
+        self._store.delete_key(key)
+        return value
+
+
+class _KvOp:
+    """A multi-rank engine's ``kv_export`` / ``kv_import`` waiting for the
+    plan that applies it on every rank (ROADMAP.md C14)."""
+
+    __slots__ = ("kind", "payload", "pid", "event", "result", "error")
+
+    def __init__(self, kind: str, payload: Any):
+        self.kind, self.payload = kind, payload
+        self.pid = -1
+        self.event = threading.Event()
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
 
 
 class _PlanLease:
@@ -427,9 +472,10 @@ class DecodeEngine:
         max_queue_depth/breaker_*/fault_injector: admission control, the
             circuit breaker and the chaos points ``engine.prefill`` /
             ``engine.dispatch`` / ``engine.harvest`` / ``engine.dequeue``.
-        introspect: program tracking (calls and host time per device
-            program, :class:`~unionml_tpu_torch.introspection
-            .ProgramTracker`) and flight recording.
+        introspect: program tracking (calls, host time, and the FLOPs and
+            bytes counted at each program signature's first dispatch,
+            :class:`~unionml_tpu_torch.introspection.ProgramTracker`) and
+            flight recording.
         usage: a :class:`~unionml_tpu_torch.serving.usage.UsageLedger` (or
             ``True``) for per-tenant metering.
         perf: the serving goodput plane (defaults on with ``introspect``).
@@ -489,8 +535,11 @@ class DecodeEngine:
     ``ServingApp`` in front of it — and publishes each dispatcher pass's
     plan; every other rank calls :meth:`follow` with its own placed tree
     and takes no request (its ``generate`` / ``generate_stream`` /
-    ``prefill_export`` raise, naming the controller; ``kv_import`` is
-    refused on every rank).
+    ``prefill_export`` / ``kv_export`` / ``kv_import`` raise, naming the
+    controller). The controller's ``kv_export`` and ``kv_import`` ride its
+    next plan: every rank looks up or attaches its own kv heads of the
+    blocks at the same plan position, so the ranks' host stores keep one
+    LRU order.
     Closing the controller's engine ends the followers' :meth:`follow`.
     Swapping the weights of such an engine is refused: close it on every
     rank and build another.
@@ -605,6 +654,11 @@ class DecodeEngine:
         self._plan_ids = itertools.count()
         self._releases: List[int] = []
         self._export_leases: Dict[int, Any] = {}
+        # kv_export / kv_import calls waiting for a plan, and the
+        # controller's ones in the plan being applied (by op id)
+        self._kv_ops: List[_KvOp] = []
+        self._kv_applying: Dict[int, _KvOp] = {}
+        self._kv_ids = itertools.count()
         self.slots = slots
         self.max_new_tokens = max_new_tokens
         self.prefill_chunk = None if prefill_chunk is None else int(prefill_chunk)
@@ -961,9 +1015,10 @@ class DecodeEngine:
 
     def _instrument_programs(self):
         """Wrap the device programs in a :class:`~unionml_tpu_torch
-        .introspection.ProgramTracker`: calls and host time per program
-        land in ``/metrics`` and ``stats()["programs"]``. The sig lambdas
-        are ONE shape attribute each (they run per dispatch)."""
+        .introspection.ProgramTracker`: calls, host time, FLOPs and bytes
+        per program (counted at each signature's first dispatch) land in
+        ``/metrics`` and ``stats()["programs"]``. The sig lambdas are ONE
+        shape attribute each (they run per dispatch)."""
         from unionml_tpu_torch.introspection import ProgramTracker
 
         tr = ProgramTracker(registry=self._registry, component=self.instance)
@@ -1976,8 +2031,10 @@ class DecodeEngine:
             # taken at that harvest on every rank (_process_entry)
             with self._lock:
                 taken = self._export_leases.get(req._pid)
+            # (an empty lease, not a lookup: a lookup here would stamp the
+            # controller's store alone)
             lease = _PlanLease(self, req._pid, taken if taken is not None
-                               else self.prefix_cache.lease(np.zeros(0, np.int32)))
+                               else PrefixLease(self.prefix_cache, []))
         else:
             lease = self.prefix_cache.lease(row)
         return {
@@ -1993,44 +2050,141 @@ class DecodeEngine:
         """The host prefix-store entries covering ``prompt`` — the donor
         half of the cross-process KV handoff (``POST /debug/kv/export``).
         ``wait_s`` bounds a short poll for inserts still in flight;
-        whatever is covered when it expires is exported."""
+        whatever is covered when it expires is exported. On a multi-rank
+        engine the controller's next plan takes the lookup (so every
+        rank's store stamps the same blocks at the same plan position) and
+        the rows come back whole: every rank's kv heads put together in
+        head order, as the reference's one store holds them."""
         cache = self.prefix_cache
         if cache is None:
             raise ValueError(
                 "no prefix cache on this engine — KV export needs the host "
                 "block store; construct with prefix_cache=True"
             )
+        self._refuse_on_follower("kv_export")
         row = self._canonical_row(prompt)
         target = (len(row) // cache.block_size) * cache.block_size
         deadline = time.monotonic() + max(0.0, wait_s)
         while cache.peek(row) < target and time.monotonic() < deadline:
             time.sleep(0.005)
-        return cache.export_request(row)
+        if not self._lockstep:
+            return cache.export_request(row)
+        op = self._planned_kv("export", row)
+        return self._whole_heads(op)
 
     def kv_import(self, entries: Sequence[dict]) -> int:
         """Attach a donor's exported entries to this engine's host prefix
         store (``POST /debug/kv/import``); returns blocks newly attached.
         Rows that are not packed host blocks (a numpy tree, another
-        package's entries) are packed first. Refused on a multi-rank
-        engine: blocks attached outside the plan would change one rank's
-        prefix matches and not the others' (ROADMAP.md C14)."""
+        package's entries) are packed first. On a multi-rank engine the
+        controller publishes the entries with its next plan and every rank
+        attaches its own kv heads of each block at that plan position."""
         cache = self.prefix_cache
         if cache is None:
             raise ValueError(
                 "no prefix cache on this engine — KV import needs the host "
                 "block store; construct with prefix_cache=True"
             )
-        if self._lockstep:
-            raise NotImplementedError(
-                "kv_import is refused on an engine served over several ranks: "
-                "each rank's store would take its blocks outside the "
-                "controller's plan (ROADMAP.md C14)"
-            )
-        return int(cache.import_blocks([
+        self._refuse_on_follower("kv_import")
+        packed = [
             entry if packed_base(entry["rows"]) is not None
             else {**entry, "rows": pack_rows(entry["rows"])}
             for entry in entries
-        ]))
+        ]
+        if not self._lockstep:
+            return int(cache.import_blocks(packed))
+        return int(self._planned_kv("import", packed).result)
+
+    # ------------------------------------------------------------------ #
+    # the host store's lookups and attaches on a multi-rank engine (C14)
+    # ------------------------------------------------------------------ #
+
+    def _planned_kv(self, kind: str, payload: Any) -> _KvOp:
+        """Queue a host-store operation for the controller's next plan and
+        wait until this rank applied it."""
+        op = _KvOp(kind, payload)
+        with self._lock:
+            self._kv_ops.append(op)
+        if not op.event.wait(self.submit_timeout):
+            raise TimeoutError(f"kv_{kind} was not applied in time")
+        if op.error is not None:
+            raise op.error
+        return op
+
+    def _kv_head_index(self) -> List[List[int]]:
+        """Per layer of a host block, the global kv head of each head this
+        rank's store holds (the target's layers, then a draft's)."""
+        from unionml_tpu_torch.models.layers import local_kv_index
+
+        if self.draft is None:
+            return [local_kv_index(self.cfg, self._params)] * self.cfg.num_layers
+        target = local_kv_index(self.cfg, self._params["target"])
+        draft = local_kv_index(self.draft.config, self._params["draft"])
+        return [target] * self.cfg.num_layers + [draft] * self.draft.config.num_layers
+
+    def _apply_kv(self, item: tuple) -> None:
+        """One planned host-store operation on this rank: an export's
+        lookup (a follower puts its rows, with their heads, for the
+        controller), or an import of this rank's kv heads of each block."""
+        kind, pid = item[0], item[1]
+        op = self._kv_applying.pop(pid, None)   # the controller's waiter
+        cache = self.prefix_cache
+        try:
+            if kind == "export":
+                local = cache.export_request(np.asarray(item[2], np.int32))
+                if op is None:
+                    import torch.distributed as dist
+
+                    self._channel.put(f"kv/{pid}/{dist.get_rank()}",
+                                      (self._kv_head_index(), [e["rows"] for e in local]))
+                else:
+                    op.result = local
+                return
+            entries = op.payload if op is not None else \
+                self._channel.read_shared(f"kv/{pid}", self._stop)
+            if entries is None:
+                return
+            index = self._kv_head_index()
+
+            def mine(rows):
+                return pack_rows(tuple(
+                    tuple(buf[:, :, heads] for buf in layer) for layer, heads in zip(rows, index)
+                ))
+
+            attached = cache.import_blocks([{**e, "rows": mine(e["rows"])} for e in entries])
+            if op is not None:
+                op.result = attached
+        except BaseException as exc:
+            if op is None:
+                raise
+            op.error = exc
+        finally:
+            if op is not None:
+                op.event.set()
+
+    def _whole_heads(self, op: _KvOp) -> List[dict]:
+        """The controller's export entries with every rank's kv heads put
+        together in head order (the first rank in rank order that holds a
+        head gives it)."""
+        parts = [(self._kv_head_index(), [e["rows"] for e in op.result])]
+        for rank in self._channel.ranks[1:]:
+            parts.append(self._channel.take(f"kv/{op.pid}/{rank}", self._stop,
+                                            self.submit_timeout))
+        out = []
+        for i, entry in enumerate(op.result[:min(len(rows) for _, rows in parts)]):
+            layers = []
+            for li, layer in enumerate(entry["rows"]):
+                heads = 1 + max(max(index[li]) for index, _ in parts)
+                bufs = []
+                for bi in range(len(layer)):
+                    cols = []
+                    for h in range(heads):
+                        index, rows = next((ix, r) for ix, r in parts if h in ix[li])
+                        cols.append(rows[i][li][bi][:, :, index[li].index(h)])
+                    bufs.append(torch.stack(cols, dim=2))
+                layers.append(tuple(bufs))
+            out.append({**entry, "rows": pack_rows(tuple(layers))})
+        return out
 
     def bind(self, params):
         """Set (or swap) the served weights (on the engine's device);
@@ -2530,8 +2684,8 @@ class DecodeEngine:
     # ------------------------------------------------------------------ #
 
     def _program_cost(self, key: str, sig=None) -> float:
-        """FLOPs of one dispatch of a tracked program (0: the port's
-        programs carry no costs yet)."""
+        """FLOPs of one dispatch of a tracked program (0 with
+        ``introspect=False``)."""
         if self._programs is None:
             return 0.0
         return self._programs.cost(key, sig)[0]
@@ -3552,13 +3706,15 @@ class DecodeEngine:
     def _build_plan(self):
         """Controller: this pass's decisions — the arrivals since the last
         plan, cancellations, deadlines expired on this rank's clock, the
-        export leases released — or ``None`` when there is nothing to say
-        and no work in hand (work in hand is the same on every rank after
-        the drain, so a follower has none either)."""
+        export leases released, the host-store exports and imports callers
+        asked for — or ``None`` when there is nothing to say and no work in
+        hand (work in hand is the same on every rank after the drain, so a
+        follower has none either)."""
         now = time.perf_counter()
         with self._lock:
             arrivals, self._staged = self._staged, []
             releases, self._releases = self._releases, []
+            kv_ops, self._kv_ops = self._kv_ops, []
             busy = (
                 any(r is not None for r in self._occupant)
                 or self._admission is not None
@@ -3572,8 +3728,17 @@ class DecodeEngine:
         cancel = [r._pid for r in reqs if r._cancelled and not r.abandoned]
         shed = [r._pid for r in reqs
                 if r.deadline is not None and not r._shed and now > r.deadline]
-        if not (arrivals or releases or cancel or shed or busy):
+        if not (arrivals or releases or cancel or shed or busy or kv_ops):
             return None
+        kv = []
+        for op in kv_ops:
+            op.pid = next(self._kv_ids)
+            self._kv_applying[op.pid] = op
+            if op.kind == "export":
+                kv.append(("export", op.pid, op.payload.tolist()))
+            else:   # the blocks go under a key of their own, beside the plan
+                self._channel.put(f"kv/{op.pid}", op.payload)
+                kv.append(("import", op.pid))
         plan = {
             "arrivals": [(r._pid, r.prompt.tolist(), r.max_new_tokens, r.tenant,
                           r.priority, r.submitted, r._export) for r in arrivals],
@@ -3581,6 +3746,7 @@ class DecodeEngine:
             # usage-fed fair weights read this rank's clock: every rank
             # uses the controller's for the pass
             "weights": self._room.fair_weights({r.tenant for r in arrivals}),
+            "kv": kv,
         }
         return plan, arrivals
 
@@ -3598,7 +3764,8 @@ class DecodeEngine:
     def _apply_plan(self, plan: dict, arrivals: List[_Request]) -> None:
         """The plan on this rank, in its order: arrivals into the waiting
         room, cancellations and deadline verdicts on the planned requests,
-        export leases released, the pass's fair weights held."""
+        export leases released, the pass's fair weights held, then the
+        host-store exports and imports (:meth:`_apply_kv`)."""
         released = []
         with self._lock:
             for pid in [p for p, r in self._planned.items() if r.event.is_set()]:
@@ -3619,6 +3786,8 @@ class DecodeEngine:
         for lease in released:
             if lease is not None:
                 lease.release()
+        for item in plan["kv"]:
+            self._apply_kv(item)
         self._g_queue_depth.set(self._room.qsize())
 
     def _run_pass(self) -> bool:

@@ -411,10 +411,11 @@ class EngineReplica(ReplicaHandle):
         return cache.export_hot(max_blocks=max_blocks)
 
     def import_cache_blocks(self, entries: Sequence[dict]) -> int:
-        cache = getattr(self.engine, "prefix_cache", None)
-        if cache is None:
+        if getattr(self.engine, "prefix_cache", None) is None:
             return 0
-        return int(cache.import_blocks(entries))
+        # through the engine: a multi-rank engine attaches them on every
+        # rank at one plan position
+        return int(self.engine.kv_import(entries))
 
     def metrics_registry(self):
         return self.engine.registry

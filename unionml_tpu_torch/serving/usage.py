@@ -17,7 +17,7 @@ assembles, per request, a **resource vector** —
 - ``decode_tokens`` — tokens served,
 - ``device_seconds`` / ``flops`` — each dispatched program's cost (wall
   between consecutive harvests, the :class:`~unionml_tpu_torch.introspection
-  .ProgramTracker` cost-analysis FLOPs) split across the live occupants
+  .ProgramTracker`'s counted FLOPs) split across the live occupants
   of the batch/chunk, **weighted by their harvested-token share**,
 - ``kv_block_seconds`` — block-seconds integrated over
   :class:`~unionml_tpu_torch.serving.kv_pool.KVBlockPool` hold times (paged
@@ -297,8 +297,8 @@ class UsageLedger:
         )
         self._f_flops = counter(
             "unionml_tenant_flops_total",
-            "Attributed FLOPs per tenant (ProgramTracker cost analysis "
-            "split by token share; 0 when introspection is off).",
+            "Attributed FLOPs per tenant (the ProgramTracker's counted "
+            "FLOPs split by token share; 0 when introspection is off).",
         )
         self._f_kv_s = counter(
             "unionml_tenant_kv_block_seconds_total",
