@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (unionml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--layers 12] [--max-new-tokens 32]
+    python3 chip_smoke.py [--layers 10] [--max-new-tokens 32]
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -296,7 +296,21 @@ Phases, each of which fails the run with a non-zero exit:
              12-13, its ratios in (0, 1] and its MFU series in /metrics;
              each kernel row's cost function gives the bound PERF.md §6
              lists at its shape;
-12. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
+12. guard  — the sanitizers (unionml_tpu_torch.diagnostics) at Llama-3-8B
+             widths, 2 layers, int8, on the paged engine: (a) a clean run
+             under nan_guard gives the tokens and the row 1 / 2 / 6
+             launches of the same run without it (wall ms a decode step
+             each way: the guard's cost); (b) a NaN planted in block_0's
+             attn_norm scale runs through without the guard and raises
+             FloatingPointError naming row 2 with it, on the engine made
+             before the guard; (c) assert_finite names the planted leaf;
+             (d) describe / assert_sharding on 9a's placement (one NCCL
+             rank) and on a mesh with a tensor axis: every leaf at the
+             rules' spec, wrong expectations raise; (e) 10a's ViT-B/16
+             jit=True body replayed under the guard on a batch with an
+             inf pixel (named at row 3 by the eager re-run) and a NaN
+             pixel (named at the op that first carries it);
+13. report — one JSON line of per-kernel numbers, the nvidia-smi line, and
              last the result line {"ok": true, "device": {...}}.
 
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -7726,12 +7740,243 @@ def costs_phase(engine_config, engine: dict, vit_config, vit: dict, jit: dict,
     return out
 
 
+# --------------------------------------------------------------------- #
+# 12: the numerical sanitizers (nan_guard, assert_finite, describe /
+# assert_sharding)
+# --------------------------------------------------------------------- #
+
+GUARD_LAYERS = 2                          # Llama-3-8B widths, depth cut to 2
+GUARD_PROMPT_LENGTHS = (5, 120, 37, 260)
+GUARD_NEW_TOKENS = 16
+GUARD_JIT_BATCH = 8
+GUARD_PLANT = ("block_0", "attn_norm", "scale")
+GUARD_ROW_2 = "row 2, fused_norm.norm_fwd"
+
+
+def planted_tree(params: dict, value: float = float("nan"), index: int = 7) -> dict:
+    """``params`` with ``value`` at ``index`` of block 0's attn_norm scale
+    (that leaf copied; every other leaf shared)."""
+    a, b, c = GUARD_PLANT
+    leaf = params[a][b][c].clone()
+    leaf.view(-1)[index] = value
+    return {**params, a: {**params[a], b: {**params[a][b], c: leaf}}}
+
+
+def raised(fn) -> str:
+    """The FloatingPointError / AssertionError ``fn`` raises, as text; ""
+    when it returns."""
+    try:
+        fn()
+    except (FloatingPointError, AssertionError) as exc:
+        return str(exc)
+    return ""
+
+
+def guard_engine_check(config, params, *, device: str = "cuda") -> dict:
+    """12 (a)-(c) on the paged int8 DecodeEngine at ``config``: (a) a clean
+    run under the guard gives the tokens and the row 1 / 2 / 6 launches of
+    the same run without it (wall ms per decode step each way, the prefill
+    of the batch included: the guard's cost); (b) a NaN planted in
+    block_0's attn_norm scale passes through the run without the guard and
+    raises FloatingPointError naming row 2 with it, on the engine made
+    and run before the guard; (c) assert_finite names the planted leaf
+    with the reference's path and one bad value, and the clean tree
+    passes."""
+    from unionml_tpu_torch.diagnostics import assert_finite, nan_guard
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in GUARD_PROMPT_LENGTHS]
+    counters = serving_counters(config)
+    engine = DecodeEngine(Llama(config), slots=4, prompt_buckets=(64, 256),
+                          max_new_tokens=GUARD_NEW_TOKENS, paged=True, device=device)
+
+    def run(guarded: bool):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with nan_guard(guarded):
+            tokens = engine.generate(params, prompts)   # returns with its tokens read back
+        ms = (time.perf_counter() - t0) * 1e3 / GUARD_NEW_TOKENS
+        return tokens, {name: c.launches for name, c in counters.items()}, ms
+
+    bad = planted_tree(params)
+    try:
+        run(False)                                   # warm: kernels loaded, state built
+        runs = [run(g) for g in (False, True, True, False)]
+        plain_bad = engine.generate(bad, prompts)
+        with nan_guard():
+            guarded_bad = raised(lambda: engine.generate(bad, prompts))
+    finally:
+        engine.close()
+    (tokens, launches, _), guarded = runs[0], runs[1]
+    off_ms, on_ms = [runs[0][2], runs[3][2]], [runs[1][2], runs[2][2]]
+    out = {"tokens_equal": all(r[0] == tokens for r in runs),
+           "launches": launches, "launches_guarded": guarded[1],
+           "launches_equal": all(r[1] == launches for r in runs),
+           "ms_per_step": off_ms, "ms_per_step_guarded": on_ms,
+           "guard_cost_x": min(on_ms) / min(off_ms),
+           "planted_tokens_without_guard": [len(t) for t in plain_bad],
+           "planted_error": guarded_bad}
+    log(f"guard (a): {len(prompts)} prompts x {GUARD_NEW_TOKENS} tokens, tokens equal "
+        f"{out['tokens_equal']}, launches {launches} guarded {guarded[1]}; wall ms a decode "
+        f"step (prefill included) without {off_ms} with {on_ms} (x{out['guard_cost_x']:.2f})")
+    log(f"guard (b): planted NaN without the guard -> {out['planted_tokens_without_guard']} "
+        f"tokens a prompt; with it -> {guarded_bad!r}")
+    if not (out["tokens_equal"] and out["launches_equal"]):
+        raise AssertionError(f"the guard changed the clean run: {runs}")
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"the guarded path launched no {launches}")
+    if plain_bad is None or any(len(t) != GUARD_NEW_TOKENS for t in plain_bad):
+        raise AssertionError("the planted NaN did not run through without the guard")
+    if guarded_bad != f"invalid value (nan) encountered in {GUARD_ROW_2}":
+        raise AssertionError(f"the guard on the planted NaN raised {guarded_bad!r}, not row 2")
+
+    clean = raised(lambda: assert_finite(params, name="params"))
+    planted = raised(lambda: assert_finite(bad, name="params"))
+    want = "params['block_0']['attn_norm']['scale'] has 1 non-finite value(s)"
+    out["assert_finite"] = planted
+    log(f"guard (c): assert_finite on the clean tree {clean!r}; on the planted one {planted!r}")
+    if clean or not planted.startswith(want):
+        raise AssertionError(f"assert_finite: clean {clean!r}, planted {planted!r}")
+    return out
+
+
+def guard_sharding_check(config, params, *, device: str = "cuda") -> dict:
+    """12 (d): phase 9a's placement of the int8 tree by
+    LLAMA_QUANT_PARTITION_RULES on one NCCL rank (``data=-1, tensor=1``),
+    and the same rules over a mesh with a ``tensor`` axis of size 1: every
+    leaf's realized spec is the one the rules give (assert_sharding on
+    every path), describe_sharding names each leaf's mesh and spec, and a
+    wrong expectation (the q kernel's spec cut short, and its first
+    dimension over ``data``) raises."""
+    import re
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.diagnostics import (
+        _leaf_paths,
+        assert_sharding,
+        describe_sharding,
+        realized_spec,
+    )
+    from unionml_tpu_torch.models import LLAMA_QUANT_PARTITION_RULES
+    from unionml_tpu_torch.parallel import ShardingConfig, multihost_initialize, shard_pytree
+    from unionml_tpu_torch.parallel.sharding import P
+
+    if not multihost_initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device):
+        raise AssertionError("the process group did not start")
+    out = {}
+    try:
+        for name, sharding in (("9a", ShardingConfig(data=-1, tensor=1,
+                                                     rules=LLAMA_QUANT_PARTITION_RULES)),
+                               ("tensor_axis", ShardingConfig(data=1, tensor=-1,
+                                                              rules=LLAMA_QUANT_PARTITION_RULES))):
+            placed = shard_pytree(params, sharding)
+            expected = {path: sharding.param_pspec("/".join(re.findall(r"\['([^']*)'\]", path)),
+                                                   leaf)
+                        for path, leaf in _leaf_paths(placed)}
+            assert_sharding(placed, expected)
+            described = describe_sharding(placed)
+            q = "['block_0']['attn']['q']['kernel_q']"
+            spec = realized_spec(dict(_leaf_paths(placed))[q])
+            wrong = {"short": raised(lambda: assert_sharding(placed, {q: P(*spec[:-1])})),
+                     "other": raised(lambda: assert_sharding(placed, {q: P("data", *spec[1:])}))}
+            out[name] = {"leaves": len(expected), "q_spec": repr(spec),
+                         "described": described[q], "wrong": wrong,
+                         "axes": sorted({str(s) for s in expected.values()})}
+            log(f"guard (d) {name}: {len(expected)} leaves at the rules' specs "
+                f"({out[name]['axes']}); {q} -> {described[q]}; wrong expectations raise "
+                f"{wrong['short'][:90]!r}, {wrong['other'][:90]!r}")
+            if not all("realized sharding spec" in w for w in wrong.values()):
+                raise AssertionError(f"{name}: a wrong expectation passed: {wrong}")
+            if not all(d.startswith("NamedSharding(mesh=") for d in described.values()):
+                raise AssertionError(f"{name}: a placed leaf described as {described}")
+            del placed
+    finally:
+        dist.destroy_process_group()
+    if "tensor" not in out["tensor_axis"]["q_spec"]:
+        raise AssertionError(f"the tensor axis is not in the q kernel's spec: {out}")
+    return out
+
+
+def guard_jit_check(config, *, device: str = "cuda", batch: int = GUARD_JIT_BATCH) -> dict:
+    """12 (e): phase 10a's ViT-B/16 ``jit=True`` body, captured on a clean
+    batch, then replayed under the guard on a batch with one non-finite
+    pixel: the replay's output is checked and the eager re-run names where
+    the first NaN was made. An inf pixel stays inf through the patch
+    product (the guard, like jax_debug_nans, passes inf) and turns NaN in
+    the first LayerNorm: row 3. A NaN pixel is named at the first op that
+    carries it (the cast to the compute dtype). Without the guard both
+    replays return."""
+    from unionml_tpu_torch import execution
+    from unionml_tpu_torch.diagnostics import nan_guard
+    from unionml_tpu_torch.models import ViT, create_train_state
+
+    size = config.image_size
+    state = create_train_state(ViT(config), torch.zeros(1, size, size, 3, device=device), seed=0)
+
+    def logits_body(state, features):
+        with torch.no_grad():
+            return state.apply_fn(state.params, torch.as_tensor(features, device=device))
+
+    graphed = execution.jit_predictor(logits_body)
+    x = np.random.default_rng(12).normal(size=(batch, size, size, 3)).astype(np.float32)
+    counters = {name: k for name, k in vit_kernels().items() if name in JIT_LAUNCHES_PER_CALL}
+    graphed(state, x)                                  # the capture, on a clean batch
+    for k in counters.values():
+        k.launches = 0
+    with nan_guard():
+        clean = graphed(state, x)
+    out = {"clean_replay_launches": {name: k.launches for name, k in counters.items()},
+           "clean_finite": bool(torch.isfinite(clean).all())}
+    for name, value in (("inf_pixel", np.inf), ("nan_pixel", np.nan)):
+        bad = x.copy()
+        bad[0, size // 2, size // 3, 1] = value
+        passed = graphed(state, bad)
+        with nan_guard():
+            error = raised(lambda: graphed(state, bad))
+        out[name] = {"without_guard_finite": bool(torch.isfinite(passed).all()), "error": error}
+        log(f"guard (e) {name}: without the guard the replay returns (finite "
+            f"{out[name]['without_guard_finite']}); with it {error!r}")
+    graphs = len(graphed)
+    execution.clear_jit_cache()
+    del state
+    torch.cuda.empty_cache()
+    if not out["clean_finite"] or (device == "cuda" and
+                                   out["clean_replay_launches"] != JIT_LAUNCHES_PER_CALL):
+        raise AssertionError(f"the clean replay under the guard: {out}")
+    if not out["inf_pixel"]["error"].endswith("row 3, fused_norm.norm_fwd"):
+        raise AssertionError(f"the inf pixel's NaN was not named at row 3: {out['inf_pixel']}")
+    if not out["nan_pixel"]["error"].startswith("invalid value (nan) encountered in aten."):
+        raise AssertionError(f"the NaN pixel was not named: {out['nan_pixel']}")
+    if device == "cuda" and graphs != 1:
+        raise AssertionError(f"the guarded replays captured anew: {graphs} graphs")
+    return out
+
+
+def guard_phase(llama_config, vit_config, *, device: str = "cuda") -> dict:
+    """12: the sanitizers on the card (see the three checks)."""
+    t0 = time.perf_counter()
+    params = random_quantized_params(llama_config, 12, device=device)
+    out = {"config": f"Llama-3-8B widths, {llama_config.num_layers} layers, int8, paged",
+           "engine": guard_engine_check(llama_config, params, device=device),
+           "sharding": guard_sharding_check(llama_config, params, device=device)}
+    del params
+    torch.cuda.empty_cache()
+    out["jit"] = guard_jit_check(vit_config, device=device)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"guard: phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # the serving phases' Llama-3-8B depth: 12 of its 32 layers keeps the
-    # run within half its time limit on a slow host with phase 9 added
+    # the serving phases' Llama-3-8B depth: 10 of its 32 layers keeps the
+    # run within half its time limit on a slow host with phases 9-12 added
     # (every width is the model's)
-    parser.add_argument("--layers", type=int, default=12)
+    parser.add_argument("--layers", type=int, default=10)
     parser.add_argument("--max-new-tokens", type=int, default=32)
     args = parser.parse_args(argv)
 
@@ -8000,6 +8245,10 @@ def main(argv=None) -> int:
         })
     costs = costs_phase(config, engine, vit_cfg, vit, jit, rows)
     log(f"time: costs done in {costs['seconds']:.1f} s")
+    guard = guard_phase(serving_config(dataclasses.replace(base, num_layers=GUARD_LAYERS)),
+                        vit_cfg)
+    log(f"time: guard done at {time.perf_counter() - t_run:.1f} s (phase "
+        f"{guard['seconds']:.1f} s)")
     print(json.dumps({"kernels": rows, "serve": served, "engine": engine, "prefix": prefix,
                       "fleet": fleet, "serverless": serverless, "rollout": rollout,
                       "remote": remote, "int8_kv": int8_kv,
@@ -8009,7 +8258,8 @@ def main(argv=None) -> int:
                       "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
                       "parallel": parallel, "tp_serve": tp, "hf_import": hf,
                       "encdec": encdec, "jit_predictor": jit, "placed_moe_lora": placed,
-                      "costs": costs, "seconds": time.perf_counter() - t_run}), flush=True)
+                      "costs": costs, "guard": guard,
+                      "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

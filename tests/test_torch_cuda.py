@@ -1573,6 +1573,52 @@ def test_jit_predictor_launch_counts_grow_on_every_replay(cuda):
 
 
 @pytest.mark.cuda
+def test_nan_guard_on_the_card_names_rows_and_checks_replays(cuda):
+    """Under ``nan_guard`` a kernel row's NaN raises naming the row and its
+    C entry, a clean call launches as without the guard, and a captured
+    predictor checks each replay: an inf pixel (a NaN first made by the
+    first LayerNorm) names row 3 on the eager re-run, a NaN pixel the cast
+    that first carries it; without the guard both replays return."""
+    from unionml_tpu_torch import execution
+    from unionml_tpu_torch.diagnostics import nan_guard
+    from unionml_tpu_torch.models import ViT, ViTConfig, create_train_state
+
+    x = torch.randn(64, 4096, device=cuda, dtype=torch.bfloat16)
+    gamma = torch.ones(4096, device=cuda)
+    bad_gamma = gamma.clone()
+    bad_gamma[7] = float("nan")        # planted outside the guard, which would name the write
+    before = tnorm.KERNEL.launches
+    clean = tnorm.fused_rms_norm(x, gamma)
+    with nan_guard():
+        assert torch.equal(tnorm.fused_rms_norm(x, gamma), clean)
+        assert tnorm.KERNEL.launches - before == 2
+        with pytest.raises(FloatingPointError, match="row 2, fused_norm.norm_fwd"):
+            tnorm.fused_rms_norm(x, bad_gamma)
+
+    cfg = ViTConfig(image_size=32, patch_size=8, num_classes=10, hidden_dim=256, num_layers=2,
+                    num_heads=4, mlp_dim=512, norm_impl="fused", attn_impl="fused")
+    state = create_train_state(ViT(cfg), torch.zeros(1, 32, 32, 3, device=cuda))
+
+    def body(state, features):
+        with torch.no_grad():
+            return state.apply_fn(state.params, torch.as_tensor(features, device="cuda"))
+
+    graphed = execution.jit_predictor(body)
+    x = torch.randn(4, 32, 32, 3)
+    graphed(state, x)                                   # captured clean
+    for value, where in ((float("inf"), "row 3, fused_norm.norm_fwd"),
+                         (float("nan"), r"aten\._to_copy")):
+        bad = x.clone()
+        bad[0, 3, 5, 1] = value
+        assert not torch.isfinite(graphed(state, bad)).all()
+        with nan_guard():
+            with pytest.raises(FloatingPointError, match=where):
+                graphed(state, bad)
+    assert len(graphed) == 1
+    execution.clear_jit_cache()
+
+
+@pytest.mark.cuda
 def test_jit_predictor_refuses_a_body_that_cannot_be_captured(cuda):
     """A body with a host sync (``.item()``) raises, naming the predictor:
     no eager fallback (run in its own interpreter: a failed capture must not

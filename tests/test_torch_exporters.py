@@ -243,7 +243,8 @@ def test_encoders_are_byte_equal_to_the_reference():
 
 def test_default_resource_reports_torch_not_jax():
     """The resource carries torch's version, its CUDA build and the card's
-    name (``cpu`` without one), and no JAX probe."""
+    name (``cpu`` without one), the reference's ``unionml_tpu.backend``
+    key (``cuda`` or ``cpu``), and no JAX probe."""
     import torch
 
     res = default_resource("svc")
@@ -252,7 +253,8 @@ def test_default_resource_reports_torch_not_jax():
     assert res["unionml_tpu.cuda_version"] == str(torch.version.cuda)
     assert res["unionml_tpu.device"] == (
         torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu")
-    assert not any("jax" in key or "backend" in key for key in res)
+    assert res["unionml_tpu.backend"] == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert not any("jax" in key for key in res)
 
 
 class _Artifact:

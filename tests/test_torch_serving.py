@@ -197,7 +197,8 @@ def test_port_imports_neither_jax_nor_reference():
     its runner, the CLI) and the parallelism layer (mesh, collectives,
     sharding, sharded checkpoints, the pipeline, ring and Ulysses
     attention, MoE, sequence- and pipeline-parallel training) and the HF
-    converter and encoder-decoder among them. ``fastapi`` and ``yaml`` stay
+    converter, the encoder-decoder and the diagnostics' sanitizers among
+    them. ``fastapi`` and ``yaml`` stay
     unimported: the modules import them only where they are used; and no
     module imports ``transformers`` or ``safetensors`` (the card machine
     has neither: the converter reads and writes the format itself)."""
@@ -224,7 +225,7 @@ def test_port_imports_neither_jax_nor_reference():
         "            'parallel.sharding', 'checkpoint.sharded', 'parallel.pipeline',\n"
         "            'ops.ring_attention', 'ops.ulysses', 'ops.moe',\n"
         "            'models.sequence_parallel', 'models.pipeline_lm', 'models.convert',\n"
-        "            'models.encdec'):\n"
+        "            'models.encdec', 'diagnostics'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"

@@ -835,6 +835,90 @@ def skew_sample(step_s: float) -> Any:
     return allgather_step_times(step_s * (dist.get_rank() + 1))
 
 
+def sanitizers(llama_cfg: dict, jax_params: Any, plant: tuple) -> dict:
+    """The diagnostics' sanitizers on placed trees: describe / assert
+    sharding on a batch placed by ``P("data", None)`` over ``data=4`` (the
+    reference's test) and on the tiny Llama placed by
+    ``LLAMA_PARTITION_RULES`` over ``data=2, tensor=2``; ``assert_finite``
+    on that placed tree with a NaN at ``plant`` (a key path); the NaN
+    guard on a DTensor op whose NaN lies in rank 2's shard only. Errors
+    come back as their messages."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from unionml_tpu_torch.diagnostics import (
+        assert_finite,
+        assert_sharding,
+        describe_sharding,
+        nan_guard,
+        realized_spec,
+    )
+    from unionml_tpu_torch.models import LLAMA_PARTITION_RULES, LlamaConfig, from_jax_params
+    from unionml_tpu_torch.parallel import ShardingConfig, make_mesh, shard_pytree
+    from unionml_tpu_torch.parallel.sharding import NamedSharding, P, _place
+
+    def error(call) -> Any:
+        try:
+            call()
+        except (AssertionError, FloatingPointError) as exc:
+            return f"{type(exc).__name__}: {exc}"
+        return None
+
+    out: dict = {}
+    mesh = make_mesh({"data": 4})
+    x = _place(torch.ones(16, 4), NamedSharding(mesh, P("data", None)))
+    tree = {"batch": x, "host": np.ones(3)}
+    out["describe"] = describe_sharding(tree)
+    out["asserts"] = {
+        name: error(lambda want=want: assert_sharding(tree, want))
+        for name, want in (("placed", {"batch": P("data", None)}),
+                           ("short", {"batch": P("data")}),
+                           ("other", {"batch": P(None, "data")}),
+                           ("callable", {"batch": lambda spec: spec[0] == "data"}),
+                           ("missing", {"nonexistent": P()}))}
+    # placed some other way: the spec its placements give
+    out["distributed"] = tuple(realized_spec(distribute_tensor(torch.ones(8, 4), mesh,
+                                                               [Shard(1)])))
+
+    cfg = LlamaConfig(**llama_cfg)
+    params = from_jax_params(jax_params, cfg, device="cpu")
+    config = ShardingConfig(data=2, tensor=2, rules=LLAMA_PARTITION_RULES)
+    placed = shard_pytree(params, config)
+    out["llama_specs"] = {path: tuple(realized_spec(leaf)) for path, leaf in
+                          _diag_paths(placed)}
+    out["llama_asserts"] = {
+        "kernels": error(lambda: assert_sharding(placed, {
+            "['attn']['q']['kernel']": P(None, "tensor", None),
+            "['attn']['o']['kernel']": P("tensor", None, None)})),
+        "wrong": error(lambda: assert_sharding(placed, {"['attn']['q']['kernel']":
+                                                        P("tensor", None)}))}
+    bad = params
+    node = bad
+    for key in plant[:-1]:
+        node = node[key]
+    node[plant[-1]] = node[plant[-1]].clone()
+    node[plant[-1]].view(-1)[1] = float("nan")
+    out["finite"] = error(lambda: assert_finite(shard_pytree(bad, config), name="params"))
+    out["finite_clean"] = error(lambda: assert_finite(placed, name="params"))
+
+    # the guard checks a DTensor op by this rank's shard: rank 2's holds an inf
+    rows = torch.ones(8, 4)
+    rows[4, 1] = float("inf")
+    spread = distribute_tensor(rows, mesh, [Shard(0)])
+    with nan_guard():
+        out["guard"] = error(lambda: spread * 0.0)
+    out["rank"] = dist.get_rank()
+    return out
+
+
+def _diag_paths(tree: Any):
+    from unionml_tpu_torch.diagnostics import _leaf_paths
+
+    return list(_leaf_paths(tree))
+
+
 if __name__ == "__main__":
     import logging
     import warnings

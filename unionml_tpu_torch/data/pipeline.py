@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
+from unionml_tpu_torch.ops._build import nan_scope
 from unionml_tpu_torch.parallel.compat import is_dtensor
 
 _EXHAUSTED = object()  # next(it) default at the end of the source
@@ -259,10 +260,17 @@ def _threaded_prefetch(iterator: Iterable[Any], *, buffer_size: int, feed: Devic
 
     def producer() -> None:
         try:
-            for item in iterator:
-                if not offer(place(item)):
-                    return
-            offer(_EXHAUSTED)
+            it = iter(iterator)
+            while True:
+                # the source and the copy run here: a NaN guard entered on
+                # any thread checks them
+                with nan_scope():
+                    item = next(it, _EXHAUSTED)
+                    placed = None if item is _EXHAUSTED else place(item)
+                if placed is None or not offer(placed):
+                    break
+            if placed is None:
+                offer(_EXHAUSTED)
         except BaseException as exc:  # re-raised at the consumer
             offer(_FeedError(exc))
 

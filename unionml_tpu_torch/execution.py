@@ -47,6 +47,7 @@ import torch
 
 from unionml_tpu_torch import telemetry
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.ops import _build
 from unionml_tpu_torch.models.train import (
     resolve_params,
     tree_device,
@@ -56,10 +57,11 @@ from unionml_tpu_torch.models.train import (
 )
 
 
-def publish_memory_gauges(registry: Optional[Any] = None) -> int:
+def publish_hbm_gauges(registry: Optional[Any] = None) -> int:
     """Publish each CUDA device's ``torch.cuda.memory_allocated`` as the
-    ``unionml_trainer_hbm_bytes_in_use{device=...}`` gauge; returns the
-    number of devices published (0 without a card)."""
+    ``unionml_trainer_hbm_bytes_in_use{device=...}`` gauge (the H100's
+    memory is HBM3, so the reference's name holds); returns the number of
+    devices published (0 without a card)."""
     reg = registry if registry is not None else telemetry.get_registry()
     gauge = reg.gauge(
         "unionml_trainer_hbm_bytes_in_use",
@@ -193,11 +195,9 @@ class _Graph:
         self.cost = cost
 
     def run(self, leaves: List[Any]) -> Any:
-        from unionml_tpu_torch.ops._build import charged
-
         # a cost counter around the replay is charged the eager call's cost
         # (the copies in and out are not the body's work)
-        with charged(lambda: self.cost):
+        with _build.charged(lambda: self.cost):
             for dst, src in zip(self.inputs, leaves):
                 if isinstance(dst, torch.Tensor):
                     dst.copy_(torch.as_tensor(src))
@@ -274,11 +274,31 @@ class GraphedPredictor:
                 out = entry.run(leaves)
                 self.programs.record_compile("predictor.jit", key, entry.cost,
                                              (time.perf_counter() - t0) * 1e3)
-                return out
-            self._graphs.move_to_end(key)
-            out = entry.run(leaves)
-            self.programs.record_call("predictor.jit", key, (time.perf_counter() - t0) * 1e3)
-            return out
+            else:
+                self._graphs.move_to_end(key)
+                out = entry.run(leaves)
+                self.programs.record_call("predictor.jit", key,
+                                          (time.perf_counter() - t0) * 1e3)
+        if _build.NAN_GUARD and _build.holds_nan(out):
+            self._name_nan(model_object, features, leaves, device)
+        return out
+
+    def _name_nan(self, model_object: Any, features: Any, leaves: List[Any],
+                  device: torch.device) -> None:
+        """A replay under the NaN guard gave a NaN: re-run the call
+        eagerly under the guard on the inputs the graph was given (copied
+        to the card unchecked, as the replay's were), which raises naming
+        the row or op that made it, as XLA re-runs the de-optimized
+        program."""
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        name = getattr(self.fn, "__qualname__", repr(self.fn))
+        with _disable_current_modes():
+            inputs = [torch.as_tensor(x).to(device) if _is_array(x) else x for x in leaves]
+        with torch.cuda.device(device), _build.nan_scope():
+            self.fn(model_object, tree_unflatten(features, inputs))
+        raise _build.nan_error(f"predictor {name!r} (a CUDA graph replay; its eager re-run "
+                               "made no NaN)")
 
     def _capture(self, model_object: Any, features: Any, leaves: List[Any],
                  device: torch.device) -> _Graph:
@@ -617,7 +637,7 @@ def run_step_trainer(
                             tracker.record_step_skew(steps + 1, times)
                 if window_closed:
                     _publish_loss(metrics, g_loss)
-                    publish_memory_gauges(reg)
+                    publish_hbm_gauges(reg)
                 leaf = next((x for x in tree_leaves(batch) if getattr(x, "ndim", 0) >= 1), None)
                 if leaf is None:
                     rows = batch_size
@@ -636,7 +656,7 @@ def run_step_trainer(
             with phase_scope(tracker, "compute"):
                 wait()
             _publish_loss(metrics, g_loss)
-            publish_memory_gauges(reg)
+            publish_hbm_gauges(reg)
             rate = timer.summary().get("samples_per_sec_median")
             if rate:
                 g_rate.set(rate)

@@ -87,7 +87,8 @@ def default_resource(service_name: str = "unionml-tpu") -> Dict[str, Any]:
     """The exporter's resource attributes: service/host identity plus
     the same build/runtime info ``unionml_tpu_build_info`` publishes:
     torch's version, the CUDA version it was built for and the name of
-    CUDA device 0 (``cpu`` when torch sees none). torch stays unimported
+    CUDA device 0 (``cpu`` when torch sees none), and the reference's
+    ``unionml_tpu.backend`` key (``cuda`` or ``cpu``). torch stays unimported
     — ``"unloaded"`` until something else loads it, exactly like
     :func:`telemetry.publish_process_metrics`."""
     try:
@@ -95,15 +96,17 @@ def default_resource(service_name: str = "unionml-tpu") -> Dict[str, Any]:
     except Exception:
         version = "unknown"
     torch_version, cuda_version, device = "unloaded", "unloaded", "unloaded"
+    backend = "unloaded"
     torch_mod = sys.modules.get("torch")
     if torch_mod is not None:
         torch_version = str(getattr(torch_mod, "__version__", "unknown"))
         cuda_version = str(getattr(getattr(torch_mod, "version", None), "cuda", None))
         try:
-            device = (str(torch_mod.cuda.get_device_name(0))
-                      if torch_mod.cuda.is_available() else "cpu")
+            on_card = torch_mod.cuda.is_available()
+            backend = "cuda" if on_card else "cpu"
+            device = str(torch_mod.cuda.get_device_name(0)) if on_card else "cpu"
         except Exception:
-            device = "unknown"
+            backend = device = "unknown"
     return {
         "service.name": service_name,
         "service.version": str(version),
@@ -113,6 +116,8 @@ def default_resource(service_name: str = "unionml-tpu") -> Dict[str, Any]:
         "unionml_tpu.torch_version": torch_version,
         "unionml_tpu.cuda_version": cuda_version,
         "unionml_tpu.device": device,
+        # the reference's key, so a collector's filter on it matches
+        "unionml_tpu.backend": backend,
     }
 
 

@@ -70,6 +70,9 @@ from unionml_tpu_torch.ops.attention import (
 )
 from unionml_tpu_torch.parallel.compat import is_dtensor, local_call
 
+# a layer's dtype argument: a torch dtype or its name (the reference's alias)
+Dtype = Any
+
 
 # --------------------------------------------------------------------- #
 # the kernel boundary under placements

@@ -38,6 +38,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import torch_dtype
 from unionml_tpu_torch.models.convert import _dense_shapes, _expected
+from unionml_tpu_torch.models.layers import Dtype  # noqa: F401 (the reference's alias)
 from unionml_tpu_torch.models.quantization import (
     _dense_geometry,
     _quantize_kernel_2d,

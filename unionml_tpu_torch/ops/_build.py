@@ -20,8 +20,18 @@ picks the kernel or its plain version reports that cost through
 :func:`charged` to the cost counter of the calling thread
 (:class:`unionml_tpu_torch.introspection.CostCounter`), whichever path
 runs, and the aten ops inside it are not counted: a program costs the
-same on the card and on the CPU. With no counter active, :func:`charged`
-is one C call and a shared null context.
+same on the card and on the CPU. With no dispatch mode on the thread,
+:func:`charged` is one C call and a shared null context.
+
+The same choke point serves the NaN guard
+(:func:`unionml_tpu_torch.diagnostics.nan_guard`): each row passes its
+result through :func:`checked`, which, while :data:`NAN_GUARD` is set,
+raises ``FloatingPointError`` naming the row and its C entry when a NaN
+comes out. The aten ops outside the rows are checked by :class:`NanMode`
+on each thread that runs device work (:func:`nan_scope`); the ops inside
+a row, its plain version's included, are the row's and are not checked
+one by one, so the CPU and the card name the same row. With the guard
+off a row pays one read of :data:`NAN_GUARD`.
 """
 
 from __future__ import annotations
@@ -35,10 +45,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -202,9 +212,9 @@ def cost_sink():
 
 
 @contextlib.contextmanager
-def _kernel_scope(sink, cost: Tuple[float, float]):
+def _kernel_scope(sink, cost: Optional[Tuple[float, float]]):
     depth = getattr(COST_TLS, "quiet", 0)
-    if depth == 0:
+    if depth == 0 and sink is not None:
         sink.charge(*cost)
     COST_TLS.quiet = depth + 1
     try:
@@ -217,11 +227,125 @@ def charged(cost_fn: Callable[..., Tuple[float, float]], *args, **kwargs):
     """A context for one call of a kernel row (the kernel or its plain
     version): when a cost counter is active, ``cost_fn(*args, **kwargs)``
     is charged to it once (a row called inside another row's scope is part
-    of that row's cost) and the aten ops inside are not counted."""
-    sink = cost_sink()
-    if sink is None:
+    of that row's cost) and the aten ops inside are not counted. The scope
+    also keeps :class:`NanMode` off the row's own ops."""
+    if not torch._C._len_torch_dispatch_stack():
         return _NULL
-    return _kernel_scope(sink, cost_fn(*args, **kwargs))
+    sink = cost_sink()
+    return _kernel_scope(sink, None if sink is None else cost_fn(*args, **kwargs))
+
+
+# --------------------------------------------------------------------- #
+# the NaN guard
+# --------------------------------------------------------------------- #
+
+#: process-wide, as ``jax_debug_nans`` is: set while a
+#: :func:`~unionml_tpu_torch.diagnostics.nan_guard` scope is open on any
+#: thread
+NAN_GUARD = False
+
+
+def row_label(row: int, kernel: Kernel) -> str:
+    """How the guard names a kernel row: ``"row 2, fused_norm.norm_fwd"``."""
+    return f"row {row}, {kernel.source}.{kernel.symbol}"
+
+
+def nan_error(where: str) -> FloatingPointError:
+    return FloatingPointError(f"invalid value (nan) encountered in {where}")
+
+
+def _floating(out: Any) -> List[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        if type(out).__name__ == "DTensor":
+            out = out.to_local()   # a rank checks its own shard
+        return [out] if out.is_floating_point() else []
+    if isinstance(out, (list, tuple)):
+        return [t for x in out for t in _floating(x)]
+    if isinstance(out, dict):
+        return [t for x in out.values() for t in _floating(x)]
+    return []
+
+
+def holds_nan(out: Any) -> bool:
+    """Whether a floating tensor in ``out`` (a tensor or a tree of them)
+    holds a NaN: one readback a tensor, its ops neither counted nor
+    checked. False while the CUDA stream is capturing a graph, where a
+    readback is illegal (the captured predictor checks each replay)."""
+    tensors = _floating(out)
+    if not tensors:
+        return False
+    if any(t.is_cuda for t in tensors) and torch.cuda.is_current_stream_capturing():
+        return False
+    depth = getattr(COST_TLS, "quiet", 0)
+    COST_TLS.quiet = depth + 1
+    try:
+        return any(bool(torch.isnan(t).any()) for t in tensors)
+    finally:
+        COST_TLS.quiet = depth
+
+
+def checked(out: Any, row: str) -> Any:
+    """A kernel row's result, passed through. Under the NaN guard a NaN in
+    it raises ``FloatingPointError`` naming ``row`` (see
+    :func:`row_label`); the kernel or its plain version ran either way."""
+    if NAN_GUARD and holds_nan(out):
+        raise nan_error(row)
+    return out
+
+
+_NAN_RULES: Dict[Any, Optional[int]] = {}
+
+
+def _nan_rule(func) -> Optional[int]:
+    """What :class:`NanMode` checks of ``func``, decided once per op: None
+    for nothing (a view or an allocation makes no values), the position
+    of the values argument of a scatter (it writes only those; the rest
+    of its result is what the buffer held, which may be stale or never
+    written), else -1: the result."""
+    from unionml_tpu_torch.introspection import _ALLOCS, _SCATTERS, _VIEWS
+
+    packet = func._overloadpacket
+    if func.is_view or packet in _VIEWS or packet in _ALLOCS:
+        return None
+    return _SCATTERS.get(packet, -1)
+
+
+class NanMode(TorchDispatchMode):
+    """The guard's check of each aten op on the thread that entered it:
+    a NaN in the values an op makes raises ``FloatingPointError`` naming
+    the op (``aten.mul.Tensor``); see :func:`_nan_rule`. Ops inside a
+    kernel row are the row's (checked by :func:`checked`); a DTensor op
+    is checked by the local ops it runs."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in types:
+            if t not in (torch.Tensor, torch.nn.Parameter):
+                if t.__name__ == "DTensor":
+                    return NotImplemented
+                return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        if NAN_GUARD and not getattr(COST_TLS, "quiet", 0):
+            rule = _NAN_RULES[func] if func in _NAN_RULES else \
+                _NAN_RULES.setdefault(func, _nan_rule(func))
+            if rule is not None and holds_nan(out if rule < 0 else
+                                              args[rule] if len(args) > rule else None):
+                raise nan_error(str(func))
+        return out
+
+
+def nan_scope():
+    """The context a thread runs one unit of device work in (the engine's
+    dispatcher pass and harvest, the batcher's batch, the feed's item):
+    while the guard is on, :class:`NanMode` unless this thread has one
+    entered already; else the shared null context. Autograd's workers
+    inherit the mode of the thread that started the backward."""
+    if not NAN_GUARD:
+        return _NULL
+    if torch._C._len_torch_dispatch_stack() and any(
+            isinstance(m, NanMode) for m in _get_current_dispatch_mode_stack()):
+        return _NULL
+    return NanMode()
 
 
 def nbytes(*tensors: Optional[torch.Tensor]) -> int:

@@ -48,7 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
+from unionml_tpu_torch.ops._build import Kernel, charged, checked, nbytes, row_label
 from unionml_tpu_torch.parallel.compat import refuse_dtensor
 
 NEG_INF = -1e30
@@ -60,6 +60,11 @@ DELTA_KERNEL = Kernel("flash_bwd", "flash_bwd_delta", [ctypes.c_void_p] * 6 + _S
 DQ_KERNEL = Kernel("flash_bwd", "flash_bwd_dq", [ctypes.c_void_p] * 7 + _SHAPE_ARGS)
 DKV_KERNEL = Kernel("flash_bwd", "flash_bwd_dkv", [ctypes.c_void_p] * 7 + _SHAPE_ARGS)
 HEAD_DIMS = (64, 128)
+# the rows' names under the NaN guard (the ROADMAP.md kernel table's rows;
+# the backward's check covers the delta pass, dq and dk / dv together)
+ROW_PADDED, ROW_LSE = row_label(1, KERNEL), row_label(9, FWD_KERNEL)
+ROW_BWD = f"rows 10-11, {DQ_KERNEL.source}.{DQ_KERNEL.symbol} / {DKV_KERNEL.symbol}"
+ROW_DELTA = f"row 10's delta pass, {DELTA_KERNEL.source}.{DELTA_KERNEL.symbol}"
 LOG2E = 1.4426950408889634
 STAT_ROWS = 64   # the dk/dv kernel copies lse / delta in 64-row (256-byte) segments
 
@@ -270,11 +275,19 @@ def flash_bwd_dkv_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
             float(2 * nbytes(q) + 2 * nbytes(k, v) + 2 * 4 * b * h * q_len))
 
 
+def _summed(q, k, v, causal: bool, costs) -> Tuple[float, float]:
+    parts = [cost(q, k, v, causal=causal) for cost in costs]
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
 def flash_bwd_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
     """The backward on the card: the delta pass, then rows 10 and 11."""
-    parts = [cost(q, k, v, causal=causal)
-             for cost in (flash_delta_cost, flash_bwd_dq_cost, flash_bwd_dkv_cost)]
-    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    return _summed(q, k, v, causal, (flash_delta_cost, flash_bwd_dq_cost, flash_bwd_dkv_cost))
+
+
+def flash_grad_cost(q, k, v, *, causal: bool) -> Tuple[float, float]:
+    """Rows 10 and 11 given ``delta`` (a ring step's backward)."""
+    return _summed(q, k, v, causal, (flash_bwd_dq_cost, flash_bwd_dkv_cost))
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor):
@@ -460,17 +473,21 @@ def _on_card(x: torch.Tensor) -> bool:
 def _fwd(q, k, v, causal: bool, scale: float):
     with charged(flash_fwd_cost, q, k, v, causal=causal):
         if _on_card(q):
-            return flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, scale=scale)
-        return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+            out = flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 causal=causal, scale=scale)
+        else:
+            out = flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+        return checked(out, ROW_LSE)
 
 
 def _padded_fwd(q, k, v, pad, causal: bool, scale: float):
     with charged(flash_fwd_padded_cost, q, k, v, causal=causal):
         if _on_card(q):
-            return flash_fwd_padded_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                         pad.contiguous(), causal=causal, scale=scale)
-        return flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
+            out = flash_fwd_padded_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        pad.contiguous(), causal=causal, scale=scale)
+        else:
+            out = flash_fwd_padded_plain(q, k, v, pad, causal=causal, scale=scale)
+        return checked(out, ROW_PADDED)
 
 
 class _PaddedForwardOnly(torch.autograd.Function):
@@ -509,6 +526,7 @@ class _Flash(torch.autograd.Function):
                                        do.contiguous(), lse, **kw)
             else:
                 grads = flash_bwd_plain(q, k, v, do, lse, **kw)
+            checked(grads, ROW_BWD)
         return (*grads, None, None)
 
 

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
+from unionml_tpu_torch.ops._build import Kernel, charged, checked, nbytes, row_label
 from unionml_tpu_torch.parallel.compat import refuse_dtensor
 from unionml_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 
@@ -51,6 +51,8 @@ BWD_KERNEL = Kernel(
     + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p],
 )
+# the rows' names under the NaN guard (the ROADMAP.md kernel table's rows)
+ROW_FWD, ROW_BWD = row_label(12, FWD_KERNEL), row_label(13, BWD_KERNEL)
 
 
 # --------------------------------------------------------------------- #
@@ -199,9 +201,11 @@ def _on_card(x: torch.Tensor) -> bool:
 def _fwd(q, k, v, causal):
     with charged(fused_attention_fwd_cost, q, k, v, causal=causal):
         if _on_card(q):
-            return fused_attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                            causal=causal)
-        return fused_attention_fwd_plain(q, k, v, causal=causal)
+            out = fused_attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           causal=causal)
+        else:
+            out = fused_attention_fwd_plain(q, k, v, causal=causal)
+        return checked(out, ROW_FWD)
 
 
 class _Fused(torch.autograd.Function):
@@ -223,6 +227,7 @@ class _Fused(torch.autograd.Function):
                 )
             else:
                 grads = fused_attention_bwd_plain(q, k, v, do, causal=ctx.causal)
+            checked(grads, ROW_BWD)
         return (*grads, None)
 
 

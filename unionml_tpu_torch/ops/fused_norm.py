@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
+from unionml_tpu_torch.ops._build import Kernel, charged, checked, nbytes, row_label
 from unionml_tpu_torch.parallel.compat import refuse_dtensor
 
 _FWD_ARGS = [
@@ -44,6 +44,9 @@ KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)          # RMS forward
 LN_KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)       # LayerNorm forward
 ADD_KERNEL = Kernel("fused_norm", "norm_fwd", _FWD_ARGS)      # residual add + norm
 BWD_KERNEL = Kernel("fused_norm", "norm_bwd", _BWD_ARGS)      # backward, both modes
+# the rows' names under the NaN guard (the ROADMAP.md kernel table's rows)
+ROW_RMS, ROW_LN = row_label(2, KERNEL), row_label(3, LN_KERNEL)
+ROW_ADD, ROW_BWD = row_label(4, ADD_KERNEL), row_label(5, BWD_KERNEL)
 _DTYPES = (torch.bfloat16, torch.float32)
 # 16-byte vectors a row: the forward's 8 warps hold at most 8 a lane, the
 # backward's 4
@@ -314,16 +317,20 @@ def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
 def _fwd(x2, gamma, beta, eps, rms):
     with charged(norm_fwd_cost, x2, gamma, beta, rms):
         if _on(x2, "fused_layer_norm"):
-            return norm_fwd_cuda(x2.contiguous(), gamma.contiguous(),
-                                 None if beta is None else beta.contiguous(), eps, rms)
-        return norm_fwd_plain(x2, gamma, beta, eps, rms)
+            out = norm_fwd_cuda(x2.contiguous(), gamma.contiguous(),
+                                None if beta is None else beta.contiguous(), eps, rms)
+        else:
+            out = norm_fwd_plain(x2, gamma, beta, eps, rms)
+        return checked(out, ROW_RMS if rms else ROW_LN)
 
 
 def _bwd(x2, gamma, dy2, eps, rms, with_beta):
     with charged(norm_bwd_cost, x2, gamma, rms, with_beta):
         if _on(x2, "fused_layer_norm"):
-            return norm_bwd_cuda(x2.contiguous(), gamma, dy2.contiguous(), eps, rms, with_beta)
-        return norm_bwd_plain(x2, gamma, dy2, eps, rms, with_beta)
+            out = norm_bwd_cuda(x2.contiguous(), gamma, dy2.contiguous(), eps, rms, with_beta)
+        else:
+            out = norm_bwd_plain(x2, gamma, dy2, eps, rms, with_beta)
+        return checked(out, ROW_BWD)
 
 
 def _param_grads(ctx, dgamma, dbeta):
@@ -334,9 +341,11 @@ def _param_grads(ctx, dgamma, dbeta):
 def _add_fwd(x2, r2, gamma, beta, eps, rms):
     with charged(norm_add_fwd_cost, x2, gamma, beta, rms):
         if _on(x2, "fused_add_layer_norm"):
-            return norm_add_fwd_cuda(x2.contiguous(), r2.contiguous(), gamma.contiguous(),
-                                     None if beta is None else beta.contiguous(), eps, rms)
-        return norm_add_fwd_plain(x2, r2, gamma, beta, eps, rms)
+            out = norm_add_fwd_cuda(x2.contiguous(), r2.contiguous(), gamma.contiguous(),
+                                    None if beta is None else beta.contiguous(), eps, rms)
+        else:
+            out = norm_add_fwd_plain(x2, r2, gamma, beta, eps, rms)
+        return checked(out, ROW_ADD)
 
 
 class _LayerNorm(torch.autograd.Function):

@@ -42,7 +42,7 @@ from typing import Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
+from unionml_tpu_torch.ops._build import Kernel, charged, checked, nbytes, row_label
 
 __all__ = [
     "MAX_PALLAS_ROWS",
@@ -70,6 +70,8 @@ _VMEM_WEIGHT_BYTES = 11_000_000
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 KERNEL = Kernel("int4_matmul", "int4_matmul_fwd", _ARGS)
 KERNEL_GROUPED = Kernel("int4_matmul", "int4_matmul_fwd", _ARGS)
+# the rows' names under the NaN guard (the ROADMAP.md kernel table's rows)
+ROW, ROW_GROUPED = row_label(7, KERNEL), row_label(8, KERNEL_GROUPED)
 KERNEL_GROUP_ALIGN = 128   # the kernel's K chunk: a group is a multiple of it or all of K
 
 # the bf16 kernel's K split: its CTAs own 128 output channels of one K-slice
@@ -380,13 +382,14 @@ def int4_matmul(
         return _fallback(x, packed, scale, dtype=dtype, **kwargs)
     if x.is_cuda:
         with charged(int4_matmul_cost, x, packed, scale, compute):
-            return int4_matmul_cuda(
+            return checked(int4_matmul_cuda(
                 x.to(compute).contiguous(), packed.contiguous(), scale.float().contiguous(),
                 **kwargs,
-            ).to(dtype)
+            ).to(dtype), ROW_GROUPED if group_size else ROW)
     if x.device.type == "cpu":
         with charged(int4_matmul_cost, x, packed, scale, compute):
-            return int4_matmul_plain(x, packed, scale, dtype=dtype, **kwargs)
+            return checked(int4_matmul_plain(x, packed, scale, dtype=dtype, **kwargs),
+                           ROW_GROUPED if group_size else ROW)
     raise ValueError(
         f"int4_matmul has no kernel path for device {x.device} (the kernel runs "
         "on CUDA tensors, the plain version on CPU tensors)"

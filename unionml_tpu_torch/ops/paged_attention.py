@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from unionml_tpu_torch.ops._build import Kernel, charged, nbytes
+from unionml_tpu_torch.ops._build import Kernel, charged, checked, nbytes, row_label
 from unionml_tpu_torch.ops.attention import _grouped_cache_attention
 
 NEG_INF = -1e30
@@ -48,6 +48,7 @@ KERNEL = Kernel(
     + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
+ROW = row_label(6, KERNEL)   # the row's name under the NaN guard
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8          # q heads per kv head the kernel holds in registers
 IMPLS = ("auto", "pallas", "reference")
@@ -256,13 +257,13 @@ def paged_attention(
     kwargs = dict(k_scale=k_scale, v_scale=v_scale, scale=scale)
     if q.is_cuda and impl in ("auto", "pallas"):
         with charged(paged_attention_cost, q, k, block_table, k_scale=k_scale):
-            return paged_attention_cuda(
+            return checked(paged_attention_cuda(
                 q.contiguous(), k, v, block_table.to(torch.int32).contiguous(),
                 lengths.to(torch.int32).contiguous(), **kwargs,
-            )
+            ), ROW)
     if q.device.type == "cpu" and impl in ("auto", "reference"):
         with charged(paged_attention_cost, q, k, block_table, k_scale=k_scale):
-            return paged_attention_plain(q, k, v, block_table, lengths, **kwargs)
+            return checked(paged_attention_plain(q, k, v, block_table, lengths, **kwargs), ROW)
     raise ValueError(
         f"paged_attention impl {impl!r} has no path for device {q.device} "
         "(the kernel runs on CUDA tensors, the plain version on CPU tensors)"

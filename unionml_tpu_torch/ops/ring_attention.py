@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from unionml_tpu_torch.ops._build import charged, checked
 from unionml_tpu_torch.ops.attention import NEG_INF, _blockwise_accumulate
 from unionml_tpu_torch.parallel import compat
 from unionml_tpu_torch.parallel.collectives import axis_index, axis_size, ppermute_shift
@@ -144,14 +145,23 @@ def ring_flash_step(q, k, v, *, kind: str, scale: float):
     """One ring step's forward: ``(out_i, lse_i)`` of the flash forward
     (row 9) on (local q, visiting kv), causal for the diagonal; ``lse_i``
     [B, H, S] fp32. ``None`` for a skipped shard."""
-    from unionml_tpu_torch.ops.flash_attention import _on_card, flash_fwd_cuda, flash_fwd_plain
+    from unionml_tpu_torch.ops.flash_attention import (
+        ROW_LSE,
+        _on_card,
+        flash_fwd_cost,
+        flash_fwd_cuda,
+        flash_fwd_plain,
+    )
 
     if kind == "skip":
         return None
     causal = kind == "diagonal"
-    if _on_card(q):
-        return flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
-    return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+    with charged(flash_fwd_cost, q, k, v, causal=causal):
+        if _on_card(q):
+            out = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+        else:
+            out = flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+        return checked(out, ROW_LSE)
 
 
 def merge_partial(acc_out, acc_lse, out_i, lse_i) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -179,14 +189,23 @@ def ring_delta_step(q, k, v, do, lse, *, kind: str, scale: float) -> Optional[to
     in its delta mode): ``sum_j p_ij dp_ij`` in fp32 over the visiting
     shard's keys, ``p`` against the GLOBAL ``lse``; [B, H, S]. ``None``
     for a skipped shard."""
-    from unionml_tpu_torch.ops.flash_attention import _on_card, flash_delta, flash_delta_cuda
+    from unionml_tpu_torch.ops.flash_attention import (
+        ROW_DELTA,
+        _on_card,
+        flash_delta,
+        flash_delta_cost,
+        flash_delta_cuda,
+    )
 
     if kind == "skip":
         return None
     causal = kind == "diagonal"
-    if _on_card(q):
-        return flash_delta_cuda(q, k, v, do, lse, causal=causal, scale=scale)
-    return flash_delta(q, k, v, do, lse, causal=causal, scale=scale)
+    with charged(flash_delta_cost, q, k, v, causal=causal):
+        if _on_card(q):
+            out = flash_delta_cuda(q, k, v, do, lse, causal=causal, scale=scale)
+        else:
+            out = flash_delta(q, k, v, do, lse, causal=causal, scale=scale)
+        return checked(out, ROW_DELTA)
 
 
 def ring_grad_step(q, k, v, do, lse, delta, *, kind: str, scale: float):
@@ -197,19 +216,24 @@ def ring_grad_step(q, k, v, do, lse, delta, *, kind: str, scale: float):
     GQA group summed in fp32 and rounded once). ``None`` for a skipped
     shard."""
     from unionml_tpu_torch.ops.flash_attention import (
+        ROW_BWD,
         _on_card,
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
         flash_bwd_plain,
+        flash_grad_cost,
     )
 
     if kind == "skip":
         return None
     kw = dict(causal=kind == "diagonal", scale=scale)
-    if _on_card(q):
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
-        return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
-    return flash_bwd_plain(q, k, v, do, lse, delta=delta, **kw)
+    with charged(flash_grad_cost, q, k, v, causal=kw["causal"]):
+        if _on_card(q):
+            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+            grads = (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
+        else:
+            grads = flash_bwd_plain(q, k, v, do, lse, delta=delta, **kw)
+        return checked(grads, ROW_BWD)
 
 
 def _ring_flash_forward(q, k, v, *, axis, causal, scale):

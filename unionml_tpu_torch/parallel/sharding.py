@@ -54,6 +54,7 @@ __all__ = [
     "gather_state",
     "local_slices",
     "named_sharding",
+    "placed_spec",
     "resolve_grads",
     "shard_pytree",
     "spec_placements",
@@ -74,6 +75,9 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+# the attribute a placed DTensor keeps its PartitionSpec in
+_SPEC_ATTR = "_unionml_partition_spec"
 
 
 @dataclass(frozen=True)
@@ -105,6 +109,24 @@ def spec_placements(mesh: Any, spec: Any, ndim: int) -> List[Any]:
                 raise ValueError(f"spec {spec} shards two dimensions over axis {name!r}")
             placements[i] = Shard(d)
     return placements
+
+
+def placed_spec(t: Any) -> PartitionSpec:
+    """The :class:`PartitionSpec` a DTensor was placed by (kept by
+    :func:`_place`, as a JAX array keeps the spec of its
+    ``NamedSharding``: ``P("data", None)`` stays apart from
+    ``P("data")``), else the one its placements give: an entry for each
+    dimension, the mesh axes that shard it in mesh order."""
+    spec = getattr(t, _SPEC_ATTR, None)
+    if spec is not None:
+        return spec
+    from torch.distributed.tensor import Shard
+
+    entries: List[List[str]] = [[] for _ in range(t.dim())]
+    for name, placement in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if isinstance(placement, Shard):
+            entries[placement.dim].append(name)
+    return P(*[None if not e else e[0] if len(e) == 1 else tuple(e) for e in entries])
 
 
 def local_slices(shape: Sequence[int], mesh: Any, placements: Sequence[Any]) -> Tuple[slice, ...]:
@@ -323,18 +345,24 @@ def _mesh_device(mesh: Any) -> torch.device:
 def _place(t: torch.Tensor, sharding: NamedSharding, placements: Any = None) -> Any:
     """A DTensor of ``t``'s global value under ``sharding`` (or the given
     ``placements`` on its mesh), cut from the copy every rank holds (no
-    collective): this rank's block, copied."""
+    collective): this rank's block, copied. A DTensor placed by the spec
+    keeps it (:func:`placed_spec`)."""
     from torch.distributed.tensor import DTensor
 
     mesh = sharding.mesh
-    placements = placements if placements is not None else sharding.placements(t.dim())
+    given = placements is not None
+    placements = placements if given else sharding.placements(t.dim())
     if is_dtensor(t):
-        return t if tuple(t.placements) == tuple(placements) \
+        out = t if tuple(t.placements) == tuple(placements) \
             else t.redistribute(mesh, placements)
-    local = t.detach()[local_slices(t.shape, mesh, placements)]
-    local = local.to(_mesh_device(mesh)).clone(memory_format=torch.contiguous_format)
-    return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=t.shape, stride=_contiguous_stride(t.shape))
+    else:
+        local = t.detach()[local_slices(t.shape, mesh, placements)]
+        local = local.to(_mesh_device(mesh)).clone(memory_format=torch.contiguous_format)
+        out = DTensor.from_local(local, mesh, placements, run_check=False,
+                                 shape=t.shape, stride=_contiguous_stride(t.shape))
+    if not given:
+        setattr(out, _SPEC_ATTR, sharding.spec)
+    return out
 
 
 def _contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:

@@ -28,6 +28,7 @@ import numpy as np
 
 from unionml_tpu_torch import telemetry
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.ops._build import nan_scope
 from unionml_tpu_torch.serving.faults import (
     DeadlineExceeded,
     EngineUnavailable,
@@ -610,7 +611,8 @@ class MicroBatcher:
                         _slice_rows(feats, start, stop, rl) if total > cap else feats
                     )
                     padded = _pad_to(chunk, self._bucket(stop - start), rl)
-                    out = self._predict_fn(padded)
+                    with nan_scope():   # a NaN guard entered on any thread
+                        out = self._predict_fn(padded)
                     if not rl and isinstance(out, list):
                         # array mode normalizes plain-list outputs (the
                         # list IS the batch axis) so chunk concat/slice

@@ -90,6 +90,7 @@ import torch
 from unionml_tpu_torch import telemetry
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.ops._build import nan_scope
 from unionml_tpu_torch.serving.faults import (
     DeadlineExceeded,
     EngineUnavailable,
@@ -3623,7 +3624,9 @@ class DecodeEngine:
         with torch.inference_mode():
             while not (self._stop.is_set() or self._closing):
                 try:
-                    if not self._run_pass():
+                    with nan_scope():   # a NaN guard entered on any thread
+                        progressed = self._run_pass()
+                    if not progressed:
                         # nothing admittable or dispatchable: arrivals and
                         # harvest-freed slots are picked up next pass
                         if self._perf is not None:
@@ -3846,7 +3849,8 @@ class DecodeEngine:
             except queue.Empty:
                 continue
             try:
-                self._process_entry(entry)
+                with nan_scope():
+                    self._process_entry(entry)
             except BaseException as exc:  # pragma: no cover - engine crash
                 self._recover(exc)
             finally:
