@@ -192,6 +192,21 @@ Phases, each of which fails the run with a non-zero exit:
              planes included); after phase 7, fp32 parity of a prefix-cache engine and a
              plain one at 8 layers, and a stream preempted at a full pool and resumed
              with its unpreempted tokens;
+5c. programs — the engine's compiled programs: every decode chunk and
+             paged admission of the engines above and below runs as a CUDA
+             graph captured once per signature and replayed (5, 5b, 6, 8, 9a,
+             10b included). Right after 5, phase 5's engine at all --layers
+             with 5's 24 prompts and its stream, built twice: its programs
+             eager (the private seam ``engine._graphs.eager``), then
+             replayed; the same again for 8's speculative engine after 8: the
+             tokens and streams bit for bit the same, each kernel's launches
+             during the run the same, the graphs' memory pool back at 0 bytes
+             once the engine is closed; host ms a decode chunk, ITL p50 / p99,
+             tokens/s, ms a decode step on the stream, capture ms a
+             signature and the pool's bytes each way; and, in a process of
+             its own, a decode chunk and a paged admission that read the
+             card on the host each fail their request with the program's
+             name (no eager fallback);
 6. int8 kv — a 4-layer paged engine with kv_quant=True serves a few
              requests through the kernel's int8 form;
 6b. serverless — the llm_serving template over the engine phases'
@@ -354,6 +369,10 @@ SPEC_SELF_ACCEPT_MIN = 0.99               # self-speculation: draft == target
 # the engine phase's serving configuration
 ENGINE_BUCKETS = (64, 256, 1024)
 ENGINE_NEW_TOKENS = 64
+ENGINE_LENGTHS = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 1000,
+                  300, 8, 999, 77, 550, 20, 1001, 250, 128, 45, 620, 5)
+ENGINE_STREAM_LENGTH = 333
+SPEC_LENGTHS = (5, 200, 37, 120, 64, 12, 180, 90)
 INT4_ENGINE_NEW_TOKENS = 32               # the int4 engine's requests: the int8 one's at half depth
 
 
@@ -4152,6 +4171,8 @@ def tp_serve_check(config, params, rules, *, device: str = "cuda",
         try:
             tp_tokens = engine.generate(placed, prompts)
             tp_gen = gen(placed, prompt)
+            graphs = {prog: (g["graphs"], g["replays"])
+                      for prog, g in engine.stats().get("graphs", {}).items()}
         finally:
             engine.close()
         launches = {name: c.launches for name, c in counters.items()}
@@ -4172,13 +4193,20 @@ def tp_serve_check(config, params, rules, *, device: str = "cuda",
     missing = [name for name, n in launches.items() if n == 0]
     if device == "cuda" and missing:
         raise AssertionError(f"the placed path launched no {missing}")
+    # the one-rank NCCL engine serves from its CUDA graphs (each capture's
+    # warm-up runs the collectives first): its decode chunk and admission
+    # captured, and graphs replayed
+    if device == "cuda" and not (graphs.get("engine.decode", (0, 0))[0]
+                                 and graphs.get("engine.prefill", (0, 0))[0]
+                                 and sum(r for _, r in graphs.values())):
+        raise AssertionError(f"the placed engine did not serve from its graphs: {graphs}")
     seconds = time.perf_counter() - t0
     log(f"tp serve ({config.weight_bits}-bit{f', g={config.int4_group}' if config.int4_group else ''},"
         f" {config.num_layers} layers): backend {backend}, {len(prompts)} prompts x "
         f"{max_new_tokens} tokens bit for bit on the placed tree, launches {launches}, "
-        f"{seconds:.1f} s")
+        f"graphs (captured, replays) {graphs}, {seconds:.1f} s")
     return {"backend": backend, "launches": launches, "tokens_equal": True,
-            "seconds": seconds}
+            "graphs": graphs, "seconds": seconds}
 
 
 def int4_tp_guard_check() -> dict:
@@ -4831,12 +4859,18 @@ def _pool_blocks_in_use(metrics: str) -> list:
             if line.startswith("unionml_kv_pool_blocks_in_use{")]
 
 
+def engine_prompts(config, lengths: tuple = ENGINE_LENGTHS) -> tuple:
+    """The engine phase's seeded prompts and its stream's prompt."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
+    return prompts, rng.integers(1, config.vocab_size, size=ENGINE_STREAM_LENGTH).tolist()
+
+
 def engine_phase(
     config, max_new_tokens: int, *, device: str = "cuda", model=None, params=None,
     slots: int = 16, probe=None,
     buckets: tuple = ENGINE_BUCKETS, chunk_steps: int = 8, waves: int = 3,
-    lengths: tuple = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 1000,
-                      300, 8, 999, 77, 550, 20, 1001, 250, 128, 45, 620, 5),
+    lengths: tuple = ENGINE_LENGTHS,
 ) -> dict:
     """Serve ``config`` through the block-paged DecodeEngine behind
     ServingApp(batch=False); ``device="cpu"`` rehearses the phase at a
@@ -4890,9 +4924,7 @@ def engine_phase(
     )
     host, port = app.serve(host="127.0.0.1", port=0, blocking=False)
     base = f"http://{host}:{port}"
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(1, config.vocab_size, size=n).tolist() for n in lengths]
-    stream_prompt = rng.integers(1, config.vocab_size, size=333).tolist()
+    prompts, stream_prompt = engine_prompts(config, lengths)
     results, errors, streamed = {}, [], []
 
     def request(i):
@@ -5047,6 +5079,271 @@ def engine_phase(
     return out
 
 
+# phase 5c: the engine's compiled programs, eager against replayed
+
+
+def drive_engine(engine, params, prompts: list, stream_prompt: list) -> tuple:
+    """Every prompt in one ``generate`` call beside one ``generate_stream``
+    (joins at chunk boundaries); returns (tokens, streamed, wall s)."""
+    streamed, errors = [], []
+
+    def stream():
+        try:
+            for chunk in engine.generate_stream(params, stream_prompt):
+                streamed.extend(chunk)
+        except Exception as exc:  # reported below; any failure fails the run
+            errors.append(exc)
+
+    th = threading.Thread(target=stream)
+    t0 = time.perf_counter()
+    th.start()
+    tokens = engine.generate(params, prompts)
+    th.join(timeout=300)
+    if th.is_alive() or errors:
+        raise AssertionError(f"the stream did not finish: {errors}")
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return tokens, streamed, time.perf_counter() - t0
+
+
+class ChunkProbe:
+    """The decode chunks an engine serves, seen from its dispatcher: the
+    engine's ``_run_program`` wrapped so that, while :attr:`on`, each
+    ``engine.decode`` call is bracketed by two CUDA events on the
+    dispatcher's stream and by each kernel's launch count (the dispatcher
+    is the only thread that launches while the engine serves; a replayed
+    chunk credits the launches its capture recorded). The call itself is
+    unchanged."""
+
+    def __init__(self, engine, counters: dict):
+        self.on = False
+        self.events, self.launches = [], []
+        on_card = engine.device.type == "cuda"
+        run = engine._run_program
+
+        def probed(program, *args, **kw):
+            if not self.on or program != "engine.decode":
+                return run(program, *args, **kw)
+            before = {n: c.launches for n, c in counters.items()}
+            if on_card:
+                pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+            out = run(program, *args, **kw)
+            if on_card:
+                pair[1].record()
+                self.events.append(pair)
+            self.launches.append({n: c.launches - before[n] for n, c in counters.items()})
+            return out
+
+        engine._run_program = probed
+
+    def step_ms(self, chunk_steps: int):
+        """ms a decode step on the stream, from each served chunk's events
+        (call after the card is synchronized): p50 and max over chunks."""
+        if not self.events:
+            return None
+        per = sorted(a.elapsed_time(b) / chunk_steps for a, b in self.events)
+        return {"p50": per[len(per) // 2], "max": per[-1], "chunks": len(per)}
+
+    def per_chunk(self) -> list:
+        """The distinct launch counts of the served chunks."""
+        distinct = []
+        for d in self.launches:
+            if d not in distinct:
+                distinct.append(d)
+        return distinct
+
+
+def settle(engine) -> None:
+    """Wait until no decode chunk of the engine is being dispatched or in
+    flight: every pipeline credit held once (a dispatcher can still be
+    enqueuing a trailing chunk when the last request returns)."""
+    credits = engine._chunk_credits
+    for _ in range(engine.pipeline_depth):
+        credits.acquire()
+    for _ in range(engine.pipeline_depth):
+        credits.release()
+
+
+def admission_launches(engine, params, counters: dict) -> dict:
+    """Each kernel's launches admitting one prompt per bucket, one after
+    another on the idle engine (one token each: the admission alone)."""
+    settle(engine)
+    before = {n: c.launches for n, c in counters.items()}
+    for b in engine.buckets:
+        engine.generate(params, [[1] * (b - engine.prefix_len)], max_new_tokens=1)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {n: c.launches - before[n] for n, c in counters.items()}
+
+
+def programs_phase(name: str, make_engine, params, prompts: list, stream_prompt: list,
+                   counters: dict, *, device: str = "cuda") -> dict:
+    """Phase 5c: the same engine built twice, run once with its programs
+    eager (the private seam ``engine._graphs.eager``) and once replayed
+    from CUDA graphs (the default on the card), each warmed up first: the
+    tokens and the stream bit for bit the same, and each kernel's launches
+    during the run the same. Reports the host ms a decode chunk
+    (``unionml_engine_chunk_dispatch_ms``), ITL p50 / p99, generated
+    tokens/s, ms a decode step on the stream, each program's capture ms and
+    replays, and the graphs' memory pool, which must be back at 0 bytes
+    once the engine is closed and the allocator's cache emptied.
+
+    How many decode chunks a run dispatches depends on timing (a faster
+    dispatcher runs further ahead of the harvest), so the launches are
+    held equal where the work is fixed: a kernel's launches a decode chunk
+    and admitting one prompt per bucket; the run's own are reported."""
+    from unionml_tpu_torch.serving._programs import pool_bytes
+
+    on_card = device == "cuda"
+    runs = {}
+    for mode in ("eager", "replayed"):
+        engine = make_engine()
+        engine._graphs.eager = mode == "eager"
+        pool = None
+        try:
+            t0 = time.perf_counter()
+            engine.warmup(params)
+            if on_card:
+                torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            engine.reset_stats()
+            probe = ChunkProbe(engine, counters)
+            for c in counters.values():
+                c.launches = 0
+            probe.on = True
+            tokens, streamed, wall_s = drive_engine(engine, params, prompts, stream_prompt)
+            settle(engine)   # a trailing chunk is served too
+            probe.on = False
+            launches = {n: c.launches for n, c in counters.items()}
+            stats = engine.stats()
+            dispatch = engine._h_dispatch.summary()
+            step_ms, per_chunk = probe.step_ms(engine.chunk_steps), probe.per_chunk()
+            per_admission = admission_launches(engine, params, counters)
+            pool = engine._graphs.pool
+            graph_bytes = pool_bytes(pool) if on_card else 0
+        finally:
+            engine.close()
+        if on_card:
+            torch.cuda.empty_cache()
+        left = pool_bytes(pool) if on_card else 0
+        itl = stats.get("itl_ms", {})
+        n_tokens = sum(len(t) for t in tokens) + len(streamed)
+        runs[mode] = {
+            "tokens": tokens, "streamed": streamed, "launches": launches,
+            "chunks": len(probe.launches),
+            "launches_per_chunk": per_chunk, "launches_per_admissions": per_admission,
+            "warmup_s": warm_s, "wall_s": wall_s, "tokens_per_s": n_tokens / wall_s,
+            "dispatch_ms_p50": dispatch.get("p50"), "dispatch_ms_p99": dispatch.get("p99"),
+            "itl_ms_p50": itl.get("p50"), "itl_ms_p99": itl.get("p99"),
+            "step_ms_on_stream": step_ms,
+            "graphs": {prog: {"graphs": g["graphs"], "replays": g["replays"],
+                              "capture_ms": g["capture_ms"]}
+                       for prog, g in stats.get("graphs", {}).items()},
+            "graph_pool_bytes": graph_bytes, "graph_pool_bytes_after_close": left,
+        }
+        r = runs[mode]
+        log(f"programs {name} {mode}: warmup {warm_s:.2f} s, {len(prompts)} prompts + 1 stream "
+            f"in {wall_s} s, {r['tokens_per_s']} generated tokens/s; host ms a decode chunk "
+            f"p50 {r['dispatch_ms_p50']} p99 {r['dispatch_ms_p99']}; ITL ms p50 "
+            f"{r['itl_ms_p50']} p99 {r['itl_ms_p99']}; ms a decode step on the stream "
+            f"{step_ms}; launches {launches} over {r['chunks']} decode chunks; a chunk "
+            f"{per_chunk}; one admission a bucket {per_admission}")
+        if mode == "replayed":
+            log(f"programs {name} replayed: graphs {json.dumps(r['graphs'])}; pool "
+                f"{graph_bytes} bytes, {left} after close")
+    eager, replayed = runs["eager"], runs["replayed"]
+    out = {"runs": {m: {k: v for k, v in r.items() if k not in ("tokens", "streamed")}
+                    for m, r in runs.items()},
+           "tokens_equal": eager["tokens"] == replayed["tokens"]
+           and eager["streamed"] == replayed["streamed"],
+           "launches_equal": eager["launches_per_chunk"] == replayed["launches_per_chunk"]
+           and eager["launches_per_admissions"] == replayed["launches_per_admissions"]}
+    log(f"programs {name}: replayed tokens equal to eager bit for bit {out['tokens_equal']}, "
+        f"launches equal {out['launches_equal']}")
+    if not out["tokens_equal"]:
+        diff = [i for i, (a, b) in enumerate(zip(eager["tokens"], replayed["tokens"])) if a != b]
+        raise AssertionError(f"programs {name}: the replayed tokens differ from the eager ones "
+                             f"(requests {diff}, stream equal "
+                             f"{eager['streamed'] == replayed['streamed']})")
+    if not out["launches_equal"]:
+        raise AssertionError(
+            f"programs {name}: launches a chunk eager {eager['launches_per_chunk']} replayed "
+            f"{replayed['launches_per_chunk']}; admitting a prompt a bucket eager "
+            f"{eager['launches_per_admissions']} replayed {replayed['launches_per_admissions']}")
+    if on_card:
+        if not replayed["graphs"].get("engine.decode", {}).get("replays"):
+            raise AssertionError(f"programs {name}: no decode chunk was replayed")
+        if eager["graphs"]:
+            raise AssertionError(f"programs {name}: the eager seam captured {eager['graphs']}")
+        if not all(replayed["launches"].values()):
+            raise AssertionError(f"programs {name}: a kernel never launched {replayed['launches']}")
+        if replayed["graph_pool_bytes"] <= 0 or replayed["graph_pool_bytes_after_close"]:
+            raise AssertionError(f"programs {name}: graph pool {replayed['graph_pool_bytes']} "
+                                 f"bytes, {replayed['graph_pool_bytes_after_close']} after close")
+    return out
+
+
+REFUSED_PROGRAMS = {"engine.decode": "_decode_chunk", "engine.prefill": "_prefill"}
+
+
+def capture_refusal_check(program: str, device: str = "cuda") -> str:
+    """A program that reads the card on the host cannot be captured: the
+    engine fails the request with the program's name and the cause, and
+    never runs the program eagerly instead (``program``: the decode chunk
+    or the paged admission). Run in a process of its own: no process of
+    the smoke's keeps a failed capture."""
+    from unionml_tpu_torch.models import Llama, LlamaConfig, init_params
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           dtype="float32")
+    params = init_params(cfg, seed=0, device=device)
+    attr = REFUSED_PROGRAMS[program]
+    engine = DecodeEngine(Llama(cfg), paged=True, slots=2, max_new_tokens=4,
+                          prompt_buckets=(16,), chunk_steps=2, device=device)
+    body = getattr(engine, attr)
+
+    def reads_the_card(*args):
+        result = body(*args)
+        float(args[1]["fill"].sum())   # waits for the card: no capture can hold it
+        return result
+
+    setattr(engine, attr, reads_the_card)
+    try:
+        engine.generate(params, [[1, 2, 3]])
+        err = None
+    except RuntimeError as exc:
+        err = str(exc)
+    finally:
+        engine.close()
+    if err is None or "cannot be captured as a CUDA graph" not in err \
+            or repr(program) not in err:
+        raise AssertionError(f"{program} with a host read: {err!r}")
+    return err[:240]
+
+
+def start_capture_refusals() -> dict:
+    """One process a refused program (:func:`capture_refusal_check`)."""
+    return {program: subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         f"print(json.dumps(chip_smoke.capture_refusal_check({program!r})))"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for program in REFUSED_PROGRAMS}
+
+
+def finish_capture_refusals(procs: dict) -> dict:
+    result = {}
+    for program, proc in procs.items():
+        out, err = proc.communicate(timeout=240)
+        if proc.returncode:
+            raise AssertionError(f"the capture refusal check of {program} failed: "
+                                 f"{err[-2000:]}")
+        result[program] = json.loads(out.strip().splitlines()[-1])
+        log(f"programs: a host read in {program} refused: {result[program]}")
+    return result
+
+
 def kv_quant_phase(config, params, max_new_tokens: int, *, device: str = "cuda",
                    layers: int = 4, buckets: tuple = (64, 256)) -> dict:
     """A paged engine with the int8 KV cache at ``layers`` layers serves a
@@ -5086,7 +5383,13 @@ def fp32_config(config, layers: int):
     )
 
 
-def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda", layers: int = 8,
+# the fp32 parity phases' depth: cut to 4 so the whole smoke, phase 5c's
+# two eager runs included, stays within half its time limit
+FP32_PARITY_LAYERS = 4
+
+
+def fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda",
+                      layers: int = FP32_PARITY_LAYERS,
                       buckets: tuple = ENGINE_BUCKETS,
                       lengths: tuple = (5, 1000, 37, 260, 700, 16, 129, 900, 64, 12, 480, 300)
                       ) -> dict:
@@ -5214,13 +5517,20 @@ def check_splice_bits(name: str, engine, slot: int, host_blocks: list) -> dict:
 def warm_splice_check(name: str, engine, params, prompt: list) -> dict:
     """Admit ``prompt`` (already cached) on an otherwise idle engine, and
     while it is resident hold its spliced pool rows against the host
-    store's blocks (:func:`check_splice_bits`)."""
+    store's blocks (:func:`check_splice_bits`). Every pipeline credit is
+    held until then, so no decode chunk runs: a replayed engine would
+    otherwise finish the request before its rows are read."""
     cache = engine.prefix_cache
     row = engine._canonical_row(prompt)
     blk = cache.block_size
     used = min(cache.peek(row) // blk, (len(row) - 1) // blk)
+    credits = engine._chunk_credits
+    held = 0
     stream = engine.generate_stream(params, prompt)
     try:
+        for _ in range(engine.pipeline_depth):
+            credits.acquire()
+            held += 1
         first = next(stream)   # the prefill (its scatter included) has landed
         if engine.device.type == "cuda":
             torch.cuda.synchronize()
@@ -5233,8 +5543,13 @@ def warm_splice_check(name: str, engine, params, prompt: list) -> dict:
             out = check_splice_bits(name, engine, slots[0], lease.rows[:used])
         finally:
             lease.release()
+        for _ in range(held):
+            credits.release()
+        held = 0
         tokens = list(first) + [t for chunk in stream for t in chunk]
     finally:
+        for _ in range(held):
+            credits.release()
         stream.close()
     out["tokens"] = len(tokens)
     return out
@@ -5533,28 +5848,30 @@ def prefix_phase(
         if on_card:
             # device time of one unit's splice (upload + copy, and from the
             # device memo) and of one block's extract to the host
-            lease = cache.lease(engine._canonical_row(shots[0]))
-            try:
-                unit = (lease.rows[0],)
-                fresh = engine._init_fresh(bucket=engine.buckets[0])
+            # the engine's fresh caches are its dispatcher's (inference) tensors
+            with torch.inference_mode():
+                lease = cache.lease(engine._canonical_row(shots[0]))
+                try:
+                    unit = (lease.rows[0],)
+                    fresh = engine._init_fresh(bucket=engine.buckets[0])
 
-                def splice_cold():
+                    def splice_cold():
+                        engine._dev_splice.clear()
+                        engine._splice_block(fresh, engine._device_splice_rows(unit), 0)
+
+                    timing["splice_ms_per_unit"] = time_ms(splice_cold)
+                    timing["splice_ms_per_unit_memo"] = time_ms(
+                        lambda: engine._splice_block(fresh, engine._device_splice_rows(unit), 0))
+                    st = engine._state
+                    ids = np.arange(1, 9, dtype=np.int32)
+                    # few calls: each one allocates pinned buffers the host
+                    # cannot reuse until the card has copied into them
+                    timing["extract_ms_per_block"] = time_ms(
+                        lambda: engine._extract_blocks(st, 0, ids, 0, len(ids)),
+                        iters=3) / len(ids)
+                finally:
+                    lease.release()
                     engine._dev_splice.clear()
-                    engine._splice_block(fresh, engine._device_splice_rows(unit), 0)
-
-                timing["splice_ms_per_unit"] = time_ms(splice_cold)
-                timing["splice_ms_per_unit_memo"] = time_ms(
-                    lambda: engine._splice_block(fresh, engine._device_splice_rows(unit), 0))
-                st = engine._state
-                ids = np.arange(1, 9, dtype=np.int32)
-                # few calls: each one allocates pinned buffers the host
-                # cannot reuse until the card has copied into them
-                timing["extract_ms_per_block"] = time_ms(
-                    lambda: engine._extract_blocks(st, 0, ids, 0, len(ids)),
-                    iters=3) / len(ids)
-            finally:
-                lease.release()
-                engine._dev_splice.clear()
     finally:
         if app is not None:
             app.shutdown()
@@ -5627,7 +5944,7 @@ def prefix_kv_quant_check(config, params, *, device: str = "cuda", layers: int =
 
 
 def prefix_fp32_parity_phase(config, max_new_tokens: int, *, device: str = "cuda",
-                             layers: int = 8, buckets: tuple = ENGINE_BUCKETS,
+                             layers: int = FP32_PARITY_LAYERS, buckets: tuple = ENGINE_BUCKETS,
                              shared: tuple = (300, 120, 600), per_group: int = 4,
                              suffix: tuple = (5, 200), preempt_prompt: int = 40,
                              preempt_new_tokens: int = 64) -> dict:
@@ -6520,7 +6837,7 @@ def _spec_engine(target_cfg, draft_cfg, device, **kw):
 def spec_phase(target_cfg, target_params, draft_cfg, draft_params, max_new_tokens: int, *,
                device: str = "cuda", probe=None, slots: int = 8, k: int = 4,
                buckets: tuple = (64, 256), chunk_steps: int = 4,
-               lengths: tuple = (5, 200, 37, 120, 64, 12, 180, 90), self_requests: int = 4) -> dict:
+               lengths: tuple = SPEC_LENGTHS, self_requests: int = 4) -> dict:
     """Serve the int4 target with the draft through the speculative
     DecodeEngine behind ServingApp(batch=False): every prompt at once plus
     one /predict/stream, no host waits while serving, the per-channel int4
@@ -6548,6 +6865,10 @@ def spec_phase(target_cfg, target_params, draft_cfg, draft_params, max_new_token
     rng = np.random.default_rng(13)
     prompts = [rng.integers(1, target_cfg.vocab_size, size=n).tolist() for n in lengths]
     results, errors, streamed = {}, [], []
+    if probe is not None:
+        # the row counts the warm-up and each program's capture give the
+        # kernel: a replay launches what its capture recorded
+        probe.rows.clear()
     t0 = time.perf_counter()
     engine.warmup(params)
     if on_card:
@@ -6579,8 +6900,6 @@ def spec_phase(target_cfg, target_params, draft_cfg, draft_params, max_new_token
             errors.append(f"stream: {exc!r}")
 
     i4.KERNEL.launches = 0
-    if probe is not None:
-        probe.rows.clear()
     threads = [threading.Thread(target=stream)] + [
         threading.Thread(target=request, args=(i,)) for i in range(len(prompts))
     ]
@@ -6672,7 +6991,7 @@ def spec_phase(target_cfg, target_params, draft_cfg, draft_params, max_new_token
 
 
 def spec_fp32_parity_phase(target_cfg, draft_cfg, max_new_tokens: int, *, device: str = "cuda",
-                           layers: int = 8, buckets: tuple = (64, 256),
+                           layers: int = FP32_PARITY_LAYERS, buckets: tuple = (64, 256),
                            lengths: tuple = (5, 200, 37, 120, 64, 12, 180, 90, 16, 250, 33, 7)
                            ) -> dict:
     """fp32 activations, ``layers`` layers: the speculative engine (the
@@ -8082,6 +8401,17 @@ def main(argv=None) -> int:
     model, params = build_template(config, ENGINE_NEW_TOKENS, ENGINE_BUCKETS, "cuda")
     engine = engine_phase(config, ENGINE_NEW_TOKENS, model=model, params=params)
     log(f"time: engine done at {time.perf_counter() - t_run:.1f} s")
+    refusals = start_capture_refusals()
+    from unionml_tpu_torch.models import Llama
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    programs = {"paged_int8": programs_phase(
+        "paged int8", lambda: DecodeEngine(
+            Llama(config), paged=True, slots=16, prompt_buckets=ENGINE_BUCKETS,
+            max_new_tokens=ENGINE_NEW_TOKENS, chunk_steps=8, device="cuda"),
+        params, *engine_prompts(config), serving_counters(config))}
+    programs["refusal"] = finish_capture_refusals(refusals)
+    log(f"time: programs paged int8 done at {time.perf_counter() - t_run:.1f} s")
     prefix = prefix_phase(config, ENGINE_NEW_TOKENS, model=model, params=params)
     prefix["int8_kv"] = prefix_kv_quant_check(config, params)
     log(f"time: prefix done at {time.perf_counter() - t_run:.1f} s")
@@ -8142,9 +8472,22 @@ def main(argv=None) -> int:
                                                         weight_bits=4))
         draft_cfg = serving_config(dataclasses.replace(base, **DRAFT_WIDTHS))
         target_params = random_quantized_params(target_cfg, 1)
-        spec = spec_phase(target_cfg, target_params, draft_cfg,
-                          random_quantized_params(draft_cfg, 2), 32, probe=probe)
+        draft_params = random_quantized_params(draft_cfg, 2)
+        spec = spec_phase(target_cfg, target_params, draft_cfg, draft_params, 32, probe=probe)
         log(f"time: int4 speculative engine done at {time.perf_counter() - t_run:.1f} s")
+        rng = np.random.default_rng(13)
+        spec_prompts = [rng.integers(1, target_cfg.vocab_size, size=n).tolist()
+                        for n in SPEC_LENGTHS]
+        spec_counters = {k: c for k, c in serving_counters(target_cfg).items()
+                         if k != "paged_attention"}
+        programs["spec"] = programs_phase(
+            "speculative int4", lambda: _spec_engine(
+                target_cfg, draft_cfg, "cuda", speculate_k=4, slots=8, prompt_buckets=(64, 256),
+                max_new_tokens=32, chunk_steps=4),
+            {"target": target_params, "draft": draft_params}, spec_prompts, spec_prompts[0],
+            spec_counters)
+        del draft_params
+        log(f"time: programs speculative done at {time.perf_counter() - t_run:.1f} s")
         tp["int4"] = tp_serve_check(target_cfg, target_params, LLAMA_INT4_PARTITION_RULES)
         del target_params
         torch.cuda.empty_cache()
@@ -8258,7 +8601,7 @@ def main(argv=None) -> int:
                       "bert_train": bert, "basic_tpu": basic_tpu, "sharded": sharded,
                       "parallel": parallel, "tp_serve": tp, "hf_import": hf,
                       "encdec": encdec, "jit_predictor": jit, "placed_moe_lora": placed,
-                      "costs": costs, "guard": guard,
+                      "costs": costs, "guard": guard, "programs": programs,
                       "seconds": time.perf_counter() - t_run}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,10 @@ from unionml_tpu_torch.serving.router import (
 )
 from unionml_tpu_torch.serving.usage import UsageLedger
 
+import torch_threads
+
+torch_threads.share_cores()
+
 pytestmark = pytest.mark.chaos
 
 

@@ -48,6 +48,10 @@ from unionml_tpu_torch.models import (
 )
 from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
 
+import torch_threads
+
+torch_threads.share_cores()
+
 VOCAB = 96
 # fp32 on both sides: the same arithmetic in another summation order
 FP32 = dict(rtol=1e-5, atol=1e-5)

@@ -30,6 +30,10 @@ from unionml_tpu_torch.checkpoint.pytree_io import restore_into
 from unionml_tpu_torch.models import TrainState, adamw
 from unionml_tpu_torch.models.train import tree_leaves
 
+import torch_threads
+
+torch_threads.share_cores()
+
 JOIN_S = 10.0
 
 

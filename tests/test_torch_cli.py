@@ -25,6 +25,10 @@ from click.testing import CliRunner
 import unionml_tpu_torch.cli as cli_mod
 from unionml_tpu_torch.cli import app
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO_ROOT = Path(__file__).resolve().parents[1]
 ALL_TEMPLATES = ["basic", "basic_tpu", "llm_serving", "serverless", "vision_tpu"]
 SCAFFOLD_FILES = [

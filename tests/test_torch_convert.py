@@ -32,6 +32,10 @@ from unionml_tpu_torch.models.bert import BertClassifier, BertConfig
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig
 from unionml_tpu_torch.models.quantization import LLAMA_QUANT_PATTERNS, quantize_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 CPU = "cpu"
 
 

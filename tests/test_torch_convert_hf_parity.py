@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
+
+torch_threads.share_cores()
+
 transformers = pytest.importorskip("transformers")
 
 from unionml_tpu.models import convert as jconvert  # noqa: E402

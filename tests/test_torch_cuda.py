@@ -26,6 +26,10 @@ from unionml_tpu_torch.ops import int4_matmul as tint4
 from unionml_tpu_torch.ops import paged_attention as tpaged
 from unionml_tpu_torch.serving import DecodeEngine
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 def _verify_and_steps(cfg, params, device, prompt_len=32):
     """One speculative round's two sides over 8 slots with their own fills
@@ -1738,3 +1742,203 @@ def test_c10_micro_batched_row_keeps_its_bits_through_every_kernel_stage(cuda):
           f"first stage whose bits differ: {first}; (outputs apart, of, max |diff|): {apart}")
     for stage in ("rms_norm (row 2)", "flash prefill (row 1)"):
         assert same[stage], f"the hand-written kernel stage {stage} left the row's bits"
+
+
+# --------------------------------------------------------------------- #
+# the engine's compiled programs: decode chunks and paged admissions as
+# CUDA graphs (A11)
+# --------------------------------------------------------------------- #
+
+PROGRAM_MODES = {
+    "contiguous": dict(),
+    "paged": dict(paged=True),
+    # bucket 16 admits whole (row 1, the flash prefill), 64 in 16-token chunks
+    "paged_chunked": dict(paged=True, prefill_chunk=16, prompt_buckets=(16, 64)),
+    "paged_int8_kv": dict(paged=True, kv_quant=True),
+    "paged_int4_g128": dict(paged=True, weight_bits=4, int4_group=128),
+    "speculative_int4": dict(weight_bits=4, draft=True),
+}
+
+
+def _programs_case(smoke, cfg, mode: dict, *, slots=4, buckets=(32, 64), new=8,
+                   lengths=(5, 40, 9, 60, 17, 33)):
+    from unionml_tpu_torch.models import Llama as TLlama
+    from unionml_tpu_torch.serving import DecodeEngine as Engine
+
+    mode = dict(mode)
+    draft = mode.pop("draft", False)
+    fields = {k: mode.pop(k) for k in ("kv_quant", "weight_bits", "int4_group") if k in mode}
+    cfg = dataclasses.replace(cfg, **fields)
+    params = smoke.random_quantized_params(cfg, 0)
+    counters = smoke.serving_counters(cfg)
+    kw = dict(slots=slots, prompt_buckets=buckets, max_new_tokens=new, chunk_steps=4,
+              device="cuda")
+    kw.update(mode)
+    if draft:
+        kw.update(draft_module=TLlama(cfg), speculate_k=3)
+        params = {"target": params, "draft": params}
+    if not kw.get("paged"):
+        counters.pop("paged_attention")
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
+    return smoke.programs_phase("card test", lambda: Engine(TLlama(cfg), **kw), params,
+                                prompts[1:], prompts[0], counters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(PROGRAM_MODES))
+def test_engine_programs_replay_the_eager_bits_and_launches_on_card(cuda, mode):
+    """Each decode chunk (contiguous, paged, speculative) and each paged
+    admission (monolithic, and chunked lead / final programs) replayed from
+    its CUDA graph gives the eager programs' tokens bit for bit, with rows
+    1, 2, 6, 7 / 8 launched as often each way, and the graphs' pool is
+    back at 0 bytes after close (chip_smoke.programs_phase raises
+    otherwise)."""
+    smoke = _chip_smoke()
+    cfg = smoke.serving_config(LlamaConfig.tiny(hidden_dim=256, mlp_dim=512, vocab_size=512))
+    out = _programs_case(smoke, cfg, PROGRAM_MODES[mode])
+    assert out["tokens_equal"] and out["launches_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "speculative_int4"])
+def test_engine_programs_at_llama3_8b_widths_on_card(cuda, mode):
+    """The same at Llama-3-8B widths, 2 layers (vocab 128256, int8 or
+    int4 weights): replayed tokens and launches equal to the eager ones."""
+    smoke = _chip_smoke()
+    cfg = smoke.serving_config(dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2))
+    out = _programs_case(smoke, cfg, PROGRAM_MODES[mode], slots=8, buckets=(64, 256),
+                         lengths=(5, 200, 37, 120, 64, 12, 180, 90))
+    assert out["tokens_equal"] and out["launches_equal"]
+
+
+@pytest.mark.cuda
+def test_engine_programs_sample_fresh_numbers_each_replay_on_card(cuda):
+    """A sampling engine's graphs draw from its generator: the same prompt
+    sent again samples other tokens (each replay draws afresh), and an
+    engine of the same seed samples the same tokens again."""
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+
+    def run():
+        engine = DecodeEngine(Llama(cfg), paged=True, slots=2, max_new_tokens=12,
+                              prompt_buckets=(16,), chunk_steps=4, temperature=1.0, seed=7,
+                              device=cuda)
+        try:
+            out = [engine.generate(params, [[1, 2, 3]])[0] for _ in range(3)]
+            graphs = engine.stats()["graphs"]
+        finally:
+            engine.close()
+        assert graphs["engine.decode"]["replays"] > 0 and graphs["engine.prefill"]["replays"] > 0
+        return out
+
+    first = run()
+    assert first[0] != first[1] != first[2]
+    assert run() == first
+
+
+@pytest.mark.cuda
+def test_concurrent_captures_count_launches_exactly_on_card(cuda):
+    """Two threads ask to capture graphs of row 2 at once (thread-local
+    capture mode, as the engines' dispatchers capture; the captures take
+    the shared capture stream in turn) while a third launches row 2
+    eagerly: each graph records its own body's launches, the count holds
+    the eager launches and the warm-ups exactly, and each replay credits
+    its graph's launches."""
+    import threading
+
+    from unionml_tpu_torch import _graphs
+
+    x = torch.randn(16, 4096, device=cuda, dtype=torch.bfloat16)
+    g = torch.randn(4096, device=cuda, dtype=torch.bfloat16)
+    n, eager = 3, 40
+    tnorm.rms_norm_cuda(x, g, 1e-5)   # built and bound before the race
+    torch.cuda.synchronize()
+    before = tnorm.KERNEL.launches
+    barrier = threading.Barrier(3)
+    graphs, errors = [], []
+
+    def body():
+        y = x
+        for _ in range(n):
+            y = tnorm.rms_norm_cuda(y, g, 1e-5)
+        return y
+
+    def capture():
+        try:
+            barrier.wait()
+            graphs.append(_graphs.capture(body, cuda, "row 2 x3", mode="thread_local"))
+        except Exception as exc:   # reported below
+            errors.append(exc)
+
+    def launch():
+        barrier.wait()
+        for _ in range(eager):
+            tnorm.rms_norm_cuda(x, g, 1e-5)
+
+    threads = [threading.Thread(target=capture) for _ in range(2)] + [
+        threading.Thread(target=launch)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert [gr.launches for gr in graphs] == [{tnorm.KERNEL: n}] * 2
+    assert tnorm.KERNEL.launches - before == eager + 2 * n
+    for gr in graphs:
+        gr.replay()
+    torch.cuda.synchronize()
+    assert tnorm.KERNEL.launches - before == eager + 4 * n
+    assert torch.equal(graphs[0].outputs, body())
+
+
+@pytest.mark.cuda
+def test_engines_that_come_and_go_leave_no_card_memory_on_card(cuda):
+    """Engines made, served from their graphs and closed one after another
+    (a rollout's canaries, an autoscaler's replicas) leave the card's
+    allocated memory within 1 MiB of where the first one left it: the
+    graphs capture on
+    one shared stream, so no engine leaves a cuBLAS workspace behind."""
+    import gc
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_dim=256, num_heads=4, num_kv_heads=2,
+                           dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    after = []
+    for _ in range(3):
+        engine = DecodeEngine(Llama(cfg), paged=True, slots=2, max_new_tokens=8,
+                              prompt_buckets=(16,), chunk_steps=4, device=cuda)
+        try:
+            engine.generate(params, [[1, 2, 3], [4, 5]])
+            assert engine.stats()["graphs"]["engine.decode"]["graphs"] == 1
+        finally:
+            engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    # a cuBLAS workspace is tens of MiB; the engine's own buffers are all
+    # freed at close
+    assert max(after) - after[0] < 1 << 20, after
+
+
+@pytest.mark.cuda
+def test_engine_program_that_reads_the_card_refuses_capture_on_card(cuda):
+    """A decode chunk and a paged admission that read the card on the host
+    each fail their request naming the program and the cause; the engine
+    never runs them eagerly instead (in a process of its own)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    for program in ("engine.decode", "engine.prefill"):
+        proc = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke; "
+             f"print(json.dumps(chip_smoke.capture_refusal_check({program!r})))"],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert program in json.loads(proc.stdout.strip().splitlines()[-1])

@@ -39,6 +39,10 @@ from unionml_tpu_torch.models import Llama, LlamaConfig, from_jax_params
 from unionml_tpu_torch.ops import _build, fused_norm
 from unionml_tpu_torch.serving import DecodeEngine
 
+import torch_threads
+
+torch_threads.share_cores()
+
 VOCAB = 61
 PLANT = ("block_0", "attn_norm", "scale")
 ROW_2 = "row 2, fused_norm.norm_fwd"

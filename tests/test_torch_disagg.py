@@ -50,6 +50,10 @@ from unionml_tpu_torch.serving.router import (
 )
 from unionml_tpu_torch.serving.scheduler import validate_phase
 
+import torch_threads
+
+torch_threads.share_cores()
+
 pytestmark = pytest.mark.chaos
 
 N_NEW = 12

@@ -34,6 +34,10 @@ from unionml_tpu_torch.models import TrainState, ViT, ViTConfig, adamw, classifi
 from unionml_tpu_torch.models import create_train_state, vit_from_jax_params
 from unionml_tpu_torch.models.train import tree_leaves
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 CFG = dict(dataclasses.asdict(ViTConfig.tiny()), dtype="float32")
 # after 10 AdamW steps of lr 1e-3 from the same params, fp32 on both sides

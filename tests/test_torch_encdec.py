@@ -28,6 +28,10 @@ from unionml_tpu_torch.models.encdec import (
 )
 from unionml_tpu_torch.models.train import TrainState, adamw
 
+import torch_threads
+
+torch_threads.share_cores()
+
 CPU = "cpu"
 #: fp32 CPU, the same arithmetic in two frameworks: logits and losses
 #: (measured <= 3e-6 on these sizes)

@@ -15,6 +15,7 @@ summation order).
 import json
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -33,7 +34,7 @@ from unionml_tpu.models.llama import init_cache as jinit_cache
 from unionml_tpu.serving.engine import DecodeEngine as JEngine
 
 import unionml_tpu_torch
-from unionml_tpu_torch import ModelArtifact, telemetry
+from unionml_tpu_torch import ModelArtifact, _graphs, telemetry
 from unionml_tpu_torch.models import (
     Llama,
     LlamaConfig,
@@ -44,6 +45,10 @@ from unionml_tpu_torch.models import (
 )
 from unionml_tpu_torch.serving import DecodeEngine, FaultInjector, Overloaded, ServingApp
 from unionml_tpu_torch.serving.scheduler import SchedulerConfig
+
+import torch_threads
+
+torch_threads.share_cores()
 
 VOCAB = 97
 FP32 = dict(rtol=1e-4, atol=1e-4)
@@ -610,9 +615,20 @@ def test_closed_engine_drops_its_bound_weights(weights):
     _, tp = weights
     _, cfg = _configs()
     engine = _engine(cfg, slots=1, max_new_tokens=4, prompt_buckets=(8,), chunk_steps=2)
+    # the card's program cache, its capture stubbed (a replay runs the body)
+    engine._graphs.capturable = True
+
+    def capture(body, *args, **kwargs):
+        warm = body()
+        return _graphs.Graph(types.SimpleNamespace(replay=body), warm, warm, {}, (0.0, 0.0))
+
+    engine._graphs.capture = capture
     params = dict(tp)
     engine.bind(params)
     engine.generate(params, [[1, 2, 3]])
     assert engine._params is params and engine._state is not None
+    assert len(engine._graphs) > 0 and engine._graphs.pool is not None
     engine.close()
     assert engine._params is None and engine._state is None
+    # the compiled programs and their memory pool went with them
+    assert len(engine._graphs) == 0 and engine._graphs.pool is None

@@ -24,6 +24,10 @@ from unionml_tpu_torch.exporters import (
 from unionml_tpu_torch.serving.http import ServingApp
 from unionml_tpu_torch.telemetry import MetricsRegistry, TraceRecorder
 
+import torch_threads
+
+torch_threads.share_cores()
+
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 PARENT_SPAN = "00f067aa0ba902b7"
 

@@ -29,6 +29,10 @@ from unionml_tpu_torch.data.pipeline import prefetch_to_device
 from unionml_tpu_torch.goodput import GoodputTracker
 from unionml_tpu_torch.models.train import tree_leaves
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 JOIN_S = 10.0   # every wait here has its own bound (no pytest-timeout)
 

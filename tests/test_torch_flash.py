@@ -30,6 +30,10 @@ from unionml_tpu.ops import flash_attention as jfa
 
 from unionml_tpu_torch.ops import flash_attention as tfa
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # fp32 on both sides: the same function in another summation order
 FWD_TOL = dict(rtol=0, atol=2e-5)
 GRAD_TOL = dict(rtol=0, atol=3e-4)   # the JAX package's own gradient tolerance

@@ -13,6 +13,10 @@ from pathlib import Path
 
 from unionml_tpu_torch.models import LlamaConfig
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 def _chip_smoke():
     repo = str(Path(__file__).resolve().parents[1])

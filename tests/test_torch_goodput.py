@@ -22,6 +22,10 @@ from unionml_tpu import telemetry as jtelemetry
 from unionml_tpu_torch import goodput, telemetry
 from unionml_tpu_torch.execution import run_step_trainer
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 class FakeClock:
     def __init__(self):

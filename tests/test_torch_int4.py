@@ -44,6 +44,10 @@ from unionml_tpu_torch.models.llama import assert_int4_tp_compatible
 from unionml_tpu_torch.ops import int4_matmul as tint4
 from unionml_tpu_torch.serving import DecodeEngine
 
+import torch_threads
+
+torch_threads.share_cores()
+
 VOCAB = 512
 
 

@@ -36,6 +36,10 @@ from unionml_tpu_torch.serving.batcher import MicroBatcher
 from unionml_tpu_torch.serving.usage import UsageLedger, tenant_scope
 from unionml_tpu_torch.telemetry import FlightRecorder, MetricsRegistry, TraceRecorder
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 def _row(text: str, name: str, **labels) -> float:
     want = [f'{k}="{v}"' for k, v in labels.items()]

@@ -36,6 +36,10 @@ from unionml_tpu_torch.models.convert import vit_from_jax_params
 from unionml_tpu_torch.models.train import value_and_grad
 from unionml_tpu_torch.templates.vision_tpu import app as vision_template
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(image_size=32, patch_size=8, num_classes=10, hidden_dim=64, num_layers=2,
             num_heads=4, mlp_dim=128, dtype="float32")

@@ -17,6 +17,10 @@ from unionml_tpu.serving import kv_pool as jkv
 from unionml_tpu_torch import telemetry
 from unionml_tpu_torch.serving import kv_pool
 
+import torch_threads
+
+torch_threads.share_cores()
+
 PACKAGES = [(kv_pool, telemetry), (jkv, jtelemetry)]
 
 

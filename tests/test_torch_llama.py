@@ -38,6 +38,10 @@ from unionml_tpu_torch.models import (
 )
 from unionml_tpu_torch.models.layers import rotary_embedding
 
+import torch_threads
+
+torch_threads.share_cores()
+
 VOCAB = 97
 FP32 = dict(rtol=1e-4, atol=1e-4)
 

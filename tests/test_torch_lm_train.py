@@ -38,6 +38,10 @@ from unionml_tpu_torch.models import (
 )
 from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(attn_impl="flash", dtype="float32")
 # fp32 on both sides: the same arithmetic in another summation order

@@ -55,6 +55,10 @@ from unionml_tpu_torch.models.lora import LoRADenseGeneral
 from unionml_tpu_torch.models.quantization import QuantizedDenseGeneral
 from unionml_tpu_torch.models.train import tree_leaves, value_and_grad
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 RANK = 4
 TOKENS = jnp.zeros((1, 8), jnp.int32)

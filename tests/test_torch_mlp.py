@@ -33,6 +33,10 @@ from unionml_tpu_torch.models import (
     mlp_from_jax_params,
 )
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # fp32 on both sides: the same arithmetic in another summation order
 FP32 = dict(rtol=1e-5, atol=1e-5)
 # after twenty Adam steps of lr 1e-3 (each moves a param by up to ~1e-3)

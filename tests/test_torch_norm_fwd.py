@@ -25,6 +25,10 @@ from unionml_tpu.ops.fused_norm import fused_layer_norm as jln
 
 from unionml_tpu_torch.ops import fused_norm as tnorm
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # as test_torch_vit.py's norm parity: fp32 through the same arithmetic in
 # another summation order
 FP32 = dict(rtol=1e-5, atol=1e-5)

@@ -26,6 +26,10 @@ from unionml_tpu_torch.ops import attention as tattn
 from unionml_tpu_torch.ops import flash_attention as tflash
 from unionml_tpu_torch.ops import fused_norm as tnorm
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # the module, not the dispatcher function unionml_tpu.ops re-exports
 jattn = importlib.import_module("unionml_tpu.ops.attention")
 

@@ -27,6 +27,10 @@ from unionml_tpu.ops.paged_attention import paged_attention_reference as jpaged_
 from unionml_tpu_torch.ops import attention as tattn
 from unionml_tpu_torch.ops import paged_attention as tpaged
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, H, KVH, D, BS, W, N = 4, 4, 2, 16, 8, 4, 12
 # a zero-length row, one row, a full block, one past a block edge, and
 # the whole table

@@ -33,6 +33,10 @@ from unionml_tpu_torch.models.train import tree_leaves
 from unionml_tpu_torch.parallel.mesh import mesh_array
 from unionml_tpu_torch.parallel.sharding import _map_with_path
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 @pytest.fixture(scope="module")
 def ranks():

@@ -59,6 +59,10 @@ from unionml_tpu_torch.models import (
 from unionml_tpu_torch.ops import attention as tatt
 from unionml_tpu_torch.ops import moe
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # the module (the JAX package's ``attention`` name is the dispatcher function)
 jatt = importlib.import_module("unionml_tpu.ops.attention")
 

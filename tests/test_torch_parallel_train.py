@@ -31,6 +31,10 @@ from unionml_tpu.models.mlp import MlpConfig as JMlpConfig
 from unionml_tpu_torch.models.llama import LlamaConfig
 from unionml_tpu_torch.models.train import tree_leaves
 
+import torch_threads
+
+torch_threads.share_cores()
+
 #: fp32 CPU, sharded port vs sharded reference after a few SGD steps:
 #: the two differ only in reduction order (measured <= 2e-6 here)
 PARAM_ATOL = 2e-5

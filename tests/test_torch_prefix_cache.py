@@ -27,6 +27,10 @@ from unionml_tpu_torch.serving.prefix_cache import (
     tree_nbytes,
 )
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 def _cache(**kw):
     kw.setdefault("block_size", 4)

@@ -47,6 +47,10 @@ from unionml_tpu_torch.serving.prefix_cache import (
 )
 from unionml_tpu_torch.serving.scheduler import SchedulerConfig
 
+import torch_threads
+
+torch_threads.share_cores()
+
 VOCAB = 97
 
 

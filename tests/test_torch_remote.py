@@ -29,6 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO_ROOT = Path(__file__).resolve().parents[1]
 
 SKLEARN_APP = '''

@@ -68,6 +68,10 @@ from unionml_tpu_torch.serving.router import (
 from unionml_tpu_torch.serving.scheduler import model_version_scope, validate_model_version
 from unionml_tpu_torch.serving.usage import UsageLedger, tenant_scope
 
+import torch_threads
+
+torch_threads.share_cores()
+
 _JAX_TWIN = {}
 
 

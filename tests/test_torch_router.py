@@ -47,6 +47,10 @@ from unionml_tpu_torch.serving.router import (
     make_router_app,
 )
 
+import torch_threads
+
+torch_threads.share_cores()
+
 pytestmark = pytest.mark.chaos
 
 

@@ -33,6 +33,10 @@ from unionml_tpu_torch.serving.serverless import (
 )
 from unionml_tpu_torch.templates.llm_serving import app as template
 
+import torch_threads
+
+torch_threads.share_cores()
+
 pytestmark = pytest.mark.quick
 
 

@@ -42,6 +42,10 @@ from unionml_tpu_torch.serving import DecodeEngine, MicroBatcher
 from unionml_tpu_torch.serving.http import ServingApp
 from unionml_tpu_torch.templates.llm_serving import app as template
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 VOCAB = 97
 KNOBS = dict(prefill_impl="flash", norm_impl="fused", quantized=True)
@@ -197,11 +201,12 @@ def test_port_imports_neither_jax_nor_reference():
     its runner, the CLI) and the parallelism layer (mesh, collectives,
     sharding, sharded checkpoints, the pipeline, ring and Ulysses
     attention, MoE, sequence- and pipeline-parallel training) and the HF
-    converter, the encoder-decoder and the diagnostics' sanitizers among
-    them. ``fastapi`` and ``yaml`` stay
-    unimported: the modules import them only where they are used; and no
-    module imports ``transformers`` or ``safetensors`` (the card machine
-    has neither: the converter reads and writes the format itself)."""
+    converter, the encoder-decoder, the diagnostics' sanitizers, the
+    CUDA graph capture and the engine's compiled programs among them.
+    ``fastapi`` and ``yaml`` stay unimported: the modules import them only
+    where they are used; and no module imports ``transformers`` or
+    ``safetensors`` (the card machine has neither: the converter reads and
+    writes the format itself)."""
     code = (
         "import importlib, pathlib, sys\n"
         "root = pathlib.Path('unionml_tpu_torch')\n"
@@ -225,7 +230,7 @@ def test_port_imports_neither_jax_nor_reference():
         "            'parallel.sharding', 'checkpoint.sharded', 'parallel.pipeline',\n"
         "            'ops.ring_attention', 'ops.ulysses', 'ops.moe',\n"
         "            'models.sequence_parallel', 'models.pipeline_lm', 'models.convert',\n"
-        "            'models.encdec', 'diagnostics'):\n"
+        "            'models.encdec', 'diagnostics', '_graphs', 'serving._programs'):\n"
         "    assert 'unionml_tpu_torch.' + new in mods, (new, mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flax' or m == 'unionml_tpu' or m.startswith('unionml_tpu.')\n"

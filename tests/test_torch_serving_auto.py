@@ -19,6 +19,10 @@ from unionml_tpu_torch.serving.auto import (
     measure_rtt_ms,
 )
 
+import torch_threads
+
+torch_threads.share_cores()
+
 pytestmark = pytest.mark.quick
 
 

@@ -40,6 +40,10 @@ from unionml_tpu_torch.models.quantization import LLAMA_QUANT_PATTERNS, quantize
 from unionml_tpu_torch.serving.engine import DecodeEngine
 from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
 
+import torch_threads
+
+torch_threads.share_cores()
+
 PROMPTS = [[1, 2, 3, 4, 5], [6, 7, 8], [9, 10, 11, 12], [13, 14]]
 
 

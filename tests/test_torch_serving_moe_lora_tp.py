@@ -36,6 +36,10 @@ from unionml_tpu.models.llama import LlamaConfig as JLlamaConfig
 from unionml_tpu.models.quantization import LLAMA_QUANT_PATTERNS as J_PATTERNS
 from unionml_tpu.models.quantization import quantize_params as jquantize_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 #: fp32 CPU: the placed MoE forward's logits against the unplaced ones (the
 #: partial outputs of two experts' halves summed over 2 x 2 ranks)
 ATOL = 2e-5

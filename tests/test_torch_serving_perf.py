@@ -39,6 +39,10 @@ from unionml_tpu_torch.serving.perf import (
     ServingRegressionWatchdog,
 )
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 @pytest.fixture(scope="module")
 def tiny_llama():

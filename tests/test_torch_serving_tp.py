@@ -42,6 +42,10 @@ from unionml_tpu.models.quantization import LLAMA_QUANT_PATTERNS as J_PATTERNS
 from unionml_tpu.models.quantization import quantize_params as jquantize_params
 from unionml_tpu_torch.models.train import tree_leaves
 
+import torch_threads
+
+torch_threads.share_cores()
+
 #: fp32 CPU: a rank-ordered sum over 4 ranks against XLA's psum, and the
 #: placed Llama's logits against the unplaced ones (measured <= 2.4e-6)
 ATOL = 2e-5

@@ -33,6 +33,10 @@ from unionml_tpu_torch.slo import (
 )
 from unionml_tpu_torch.telemetry import MetricsRegistry
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 # ------------------------------------------------------------ burn math
 

@@ -41,6 +41,10 @@ from unionml_tpu_torch.models import (
 from unionml_tpu_torch.models.speculative import greedy_acceptance
 from unionml_tpu_torch.serving import DecodeEngine
 
+import torch_threads
+
+torch_threads.share_cores()
+
 VOCAB = 97
 DRAFT = dict(hidden_dim=32, num_layers=1, num_heads=2, num_kv_heads=1, mlp_dim=64)
 

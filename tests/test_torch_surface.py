@@ -17,6 +17,10 @@ from pathlib import Path
 
 import pytest
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parent.parent
 REFERENCE = REPO / "unionml_tpu"
 

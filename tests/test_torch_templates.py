@@ -23,6 +23,10 @@ import torch
 
 from unionml_tpu_torch.models import TrainState, adamw
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 TEMPLATES = ("basic", "basic_tpu", "llm_serving", "serverless", "vision_tpu")
 # after Adam steps of lr 1e-3 (each moves a param by up to ~1e-3)

@@ -40,6 +40,10 @@ from unionml_tpu_torch.telemetry import (
     trace_scope,
 )
 
+import torch_threads
+
+torch_threads.share_cores()
+
 TP = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 PARENT_SPAN = "00f067aa0ba902b7"

@@ -31,6 +31,10 @@ from unionml_tpu_torch.models import ViT, ViTConfig, vit_from_jax_params
 from unionml_tpu_torch.ops import fused_attention as tfa
 from unionml_tpu_torch.ops import fused_norm as tnorm
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # fp32 through the same arithmetic in another summation order
 FP32 = dict(rtol=1e-5, atol=1e-5)
 # bf16: the same rounding points; a sum-order difference can move a value

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch import telemetry
+from unionml_tpu_torch._graphs import Graph, capture
 from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.ops import _build
 from unionml_tpu_torch.models.train import (
@@ -187,12 +188,13 @@ def _signature(tensors: List[torch.Tensor], features: Any) -> Any:
 
 
 class _Graph:
-    """One captured call: its static inputs and outputs, the graph, the
-    kernel launches it replays and the cost its warm-up call counted."""
+    """One captured call: its static inputs and the captured body
+    (:class:`~unionml_tpu_torch._graphs.Graph`: outputs, the kernel
+    launches it replays and the cost its warm-up call counted)."""
 
-    def __init__(self, graph, inputs: List[Any], outputs: Any, launches: dict, cost: tuple):
-        self.graph, self.inputs, self.outputs, self.launches = graph, inputs, outputs, launches
-        self.cost = cost
+    def __init__(self, captured: Graph, inputs: List[Any]):
+        self.captured, self.inputs = captured, inputs
+        self.cost = captured.cost
 
     def run(self, leaves: List[Any]) -> Any:
         # a cost counter around the replay is charged the eager call's cost
@@ -201,11 +203,8 @@ class _Graph:
             for dst, src in zip(self.inputs, leaves):
                 if isinstance(dst, torch.Tensor):
                     dst.copy_(torch.as_tensor(src))
-            self.graph.replay()
-            for kernel, n in self.launches.items():
-                kernel.launches += n
-            return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-                            self.outputs)
+            outputs = self.captured.replay()
+            return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, outputs)
 
 
 class GraphedPredictor:
@@ -302,40 +301,17 @@ class GraphedPredictor:
 
     def _capture(self, model_object: Any, features: Any, leaves: List[Any],
                  device: torch.device) -> _Graph:
-        from torch.utils._python_dispatch import _disable_current_modes
-
-        from unionml_tpu_torch.introspection import CostCounter
-        from unionml_tpu_torch.ops._build import KERNELS
-
         inputs = [torch.as_tensor(x).to(device, copy=True) if _is_array(x) else x
                   for x in leaves]
         static = tree_unflatten(features, inputs)
         name = getattr(self.fn, "__qualname__", repr(self.fn))
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        counter = CostCounter()
-        # the warm-up call is counted alone: a counter of the caller's is
-        # charged at the replay, as every later replay charges it
-        with _disable_current_modes():
-            with torch.cuda.device(device), torch.cuda.stream(side), counter:
-                self.fn(model_object, static)
-            torch.cuda.current_stream(device).wait_stream(side)
-            before = {k: k.launches for k in KERNELS}
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.device(device), torch.cuda.graph(graph):
-                    outputs = self.fn(model_object, static)
-            except Exception as exc:
-                raise RuntimeError(
-                    f"predictor {name!r} cannot be captured as a CUDA graph (jit=True): "
-                    f"{type(exc).__name__}: {exc} — a body with a host sync (.item(), "
-                    ".cpu(), a Python branch on a tensor's value) runs with jit=False"
-                ) from exc
-            finally:
-                launched = {k: k.launches - n for k, n in before.items() if k.launches != n}
-                for k in launched:
-                    k.launches = before[k]
-        return _Graph(graph, inputs, outputs, launched, counter.cost)
+        captured = capture(
+            lambda: self.fn(model_object, static), device,
+            f"predictor {name!r} (jit=True)",
+            hint=" — a body with a host sync (.item(), .cpu(), a Python branch on a "
+                 "tensor's value) runs with jit=False",
+        )
+        return _Graph(captured, inputs)
 
 
 _LIVE: "weakref.WeakSet[GraphedPredictor]" = weakref.WeakSet()

@@ -551,8 +551,8 @@ def rotary_embedding(
 
 def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
     """Write ``new`` [B, seq, ...] into ``buf`` [B, max_len, ...] IN PLACE at
-    fill ``index`` (an int shared by every row, or a [B] tensor of per-row
-    fills). The reference builds a new buffer; the port writes into the
+    fill ``index`` (an int or a 0-d device tensor shared by every row, or a
+    [B] tensor of per-row fills). The reference builds a new buffer; the port writes into the
     caller's cache, which every caller owns for the whole generation, to
     avoid a copy of the cache per layer per step. A per-row fill is
     clamped into ``[0, max_len - seq]`` on the device, as the reference's
@@ -565,6 +565,10 @@ def _update_cache(buf: torch.Tensor, new: torch.Tensor, index) -> None:
         pos = start[:, None] + torch.arange(seq, device=buf.device)[None, :]
         rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
         buf[rows, pos] = new
+        return
+    if isinstance(index, torch.Tensor):
+        # a 0-d device offset (a captured program's input), read on no host
+        buf.index_copy_(1, index.long() + torch.arange(seq, device=buf.device), new)
         return
     index = int(index)
     if index + seq > buf.shape[1]:
@@ -729,8 +733,9 @@ class Attention(nn.Module):
 
         ``cache``: (k, v) of [batch, max_len, kv_heads, head_dim], or the
         int8 form (k_q, v_q, k_scale, v_scale) with fp32 scales [batch,
-        max_len, kv_heads], written in place at ``cache_index`` (an int, or
-        a [batch] tensor of per-row fills); ``kv_mask``: bool [batch,
+        max_len, kv_heads], written in place at ``cache_index`` (an int or
+        a 0-d device tensor, with ``positions`` given, or a [batch] tensor
+        of per-row fills); ``kv_mask``: bool [batch,
         max_len], False slots are never attended to (left padding).
         ``full_prefill``: the caller's promise that this call covers the
         whole visible history (empty cache, index 0, no prefix), which
@@ -855,7 +860,9 @@ class Attention(nn.Module):
                     visible = visible & kv_mask[:, None, :]
                 visible = visible[:, None]
             else:
-                q_pos = int(cache_index) + torch.arange(seq, device=x.device)[:, None]
+                base = (cache_index.long() if isinstance(cache_index, torch.Tensor)
+                        else int(cache_index))   # an int or a 0-d device offset
+                q_pos = base + torch.arange(seq, device=x.device)[:, None]
                 visible = kv_pos <= q_pos                     # (seq, max_len)
                 if kv_mask is not None:
                     visible = (visible[None] & kv_mask[:, None, :])[:, None]

@@ -151,10 +151,6 @@ def _library(name: str) -> ctypes.CDLL:
         return lib
 
 
-#: every :class:`Kernel` made (a captured CUDA graph credits their launches)
-KERNELS: List["Kernel"] = []
-
-
 class Kernel:
     """One C entry point of one kernel library, with its launch count.
 
@@ -169,7 +165,6 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
-        KERNELS.append(self)
 
     def _bind(self):
         if self._fn is None:
@@ -186,7 +181,31 @@ class Kernel:
                 f"CUDA kernel {self.symbol} failed to launch "
                 f"(cudaError_t {code})"
             )
-        self.launches += 1
+        record = getattr(_CAPTURE_TLS, "record", None)
+        if record is None:
+            self.launches += 1
+        else:
+            record[self] = record.get(self, 0) + 1
+
+
+#: per thread: ``record``, the launches a CUDA graph capture open on this
+#: thread has recorded (:func:`launches_recorded`)
+_CAPTURE_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def launches_recorded():
+    """Launches this thread makes inside the block go into the yielded
+    ``{kernel: n}`` instead of the kernels' counts: a CUDA graph's capture
+    records its launches and runs none, and each replay credits them.
+    Other threads' launches meanwhile count as ever."""
+    outer = getattr(_CAPTURE_TLS, "record", None)
+    record: Dict["Kernel", int] = {}
+    _CAPTURE_TLS.record = record
+    try:
+        yield record
+    finally:
+        _CAPTURE_TLS.record = outer
 
 
 # --------------------------------------------------------------------- #

@@ -9,21 +9,30 @@ thread that does, per-slot generation counters, the epoch-tagged
 ``FaultInjector`` points, the paged allocator with fence-deferred frees
 and reservation at submit, usage metering and the serving perf plane.
 
-The device programs are plain functions on tensors that update the
-resident state IN PLACE (the reference donates it to a jitted program):
+The device programs are functions on tensors that update the resident
+state IN PLACE, the counterpart of the reference's donated state: every
+state tensor keeps its storage from chunk to chunk and admission to
+admission.
 
 - the decode chunk is a Python loop of ``chunk_steps`` single-token
   steps (the reference's ``lax.scan``), with ``live``, ``done``,
-  ``fill`` and ``last_tok`` kept on the device — nothing in the loop
-  reads a device value on the host;
+  ``fill`` and ``last_tok`` kept on the device and each step's tokens
+  written into one ``[chunk_steps, slots]`` state buffer — nothing in the
+  loop reads a device value on the host;
 - a monolithic admission prefills a fresh ``[1, bucket]`` cache and
   writes it into the slot's rows (contiguous) or scatters it into the
   slot's pool blocks with one indexed write per buffer (paged);
-- each chunk's ``[chunk_steps, slots]`` tokens are copied into pinned
-  host memory without blocking and a CUDA event is recorded after the
-  copy; the harvester waits on that event (never on the whole device),
-  so "harvested" means the chunk finished on the card — what the
-  fence-deferred frees of the paged pool need.
+- on the card each decode chunk (every layout) and each paged admission
+  program runs as a CUDA graph captured once per signature and replayed
+  (:mod:`~unionml_tpu_torch.serving._programs`, the reference's one
+  executable per bucket): a paged admission takes its slot, pool block
+  ids, tokens, offset and length as device inputs and fills a static
+  ``[1, bucket]`` fresh cache per bucket;
+- each chunk's tokens are copied into pinned host memory without
+  blocking, on the program's stream right behind it, and a CUDA event is
+  recorded after the copy; the harvester waits on that event (never on
+  the whole device), so "harvested" means the chunk finished on the card
+  — what the fence-deferred frees of the paged pool need.
 
 With ``draft_module`` the engine is SPECULATIVE (contiguous layout
 only, as in the reference): each decode chunk is ``chunk_steps`` rounds
@@ -91,6 +100,8 @@ from unionml_tpu_torch import telemetry
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.ops._build import nan_scope
+from unionml_tpu_torch.serving._programs import EnginePrograms
+from unionml_tpu_torch.serving._programs import upload as _upload
 from unionml_tpu_torch.serving.faults import (
     DeadlineExceeded,
     EngineUnavailable,
@@ -125,17 +136,6 @@ from unionml_tpu_torch.serving.usage import (
 )
 
 __all__ = ["DecodeEngine"]
-
-
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` without waiting for the device: a FRESH
-    pinned copy per call, sent with ``non_blocking`` (PyTorch's pinned
-    allocator keeps the block from reuse until the copy has run, so an
-    upload still in flight can never see its source overwritten)."""
-    host = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != "cuda":
-        return host.clone().to(device)
-    return host.pin_memory().to(device, non_blocking=True)
 
 
 class _Readback:
@@ -827,7 +827,17 @@ class DecodeEngine:
             temperature=temperature, top_k=top_k, top_p=top_p
         )
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the compiled programs (one CUDA graph per signature on the card);
+        # a sampling engine's graphs draw from its generator
+        self._graphs = EnginePrograms(
+            self.device, self.instance,
+            generators=(self._gen,) if temperature != 0.0 else (),
+        )
+        # paged mode: one static [1, bucket] fresh cache per bucket, which
+        # every admission of that bucket fills (its programs' graphs read it)
+        self._fresh: Dict[int, Any] = {}
         self._params: Any = None
+        self._weight_dtypes: tuple = ()
         self._state: Any = None
         self._occupant: List[Optional[_Request]] = [None] * slots
         # bumped on every (re)admission: an in-flight chunk snapshot with a
@@ -1360,26 +1370,48 @@ class DecodeEngine:
     # device programs (eager; they update the resident state in place)
     # ------------------------------------------------------------------ #
 
-    def _run_prefill(self, params, fresh, toks, start: int, true_len: int,
-                     *, full: bool = False):
+    def _run_prefill(self, params, fresh, toks, start, true_len, *, full: bool = False):
         """The prefill tail shared by every admission: run ``toks`` (the
         whole right-padded bucket at ``start=0``, or the final chunk at
         its offset) against ``fresh`` and sample the first token at the
-        last REAL position. Returns ``(first [] device tensor, fresh)``."""
+        last REAL position. ``start`` and ``true_len`` are ints, or device
+        tensors (a 0-d offset, a ``[1]`` length) where the program is
+        captured. Returns ``(first [] device tensor, fresh)``."""
         dev = self.device
         bucket = fresh[0][0].shape[1]
         c = toks.shape[1]
         kv_mask = (torch.arange(bucket, device=dev) < true_len)[None, :]
+        last = true_len - 1 - start
         logits, filled = self.module(
             params, toks,
             positions=start + torch.arange(c, device=dev)[None, :],
             cache=fresh, cache_index=start, kv_mask=kv_mask,
             # head on the last REAL position only
-            logit_index=torch.full((1,), true_len - 1 - start, dtype=torch.long, device=dev),
+            logit_index=(last.reshape(1).long() if isinstance(last, torch.Tensor)
+                         else torch.full((1,), last, dtype=torch.long, device=dev)),
             full_prefill=full,
         )
         first = self._sample(logits[:, 0], self._gen)[0]
         return first, filled
+
+    def _run_program(self, program: str, key: tuple, fn, args: tuple, host: tuple,
+                     sig=None):
+        """Device program ``fn(*args, *inputs)``, ``inputs`` the host arrays
+        ``host`` on the device: on the card the CUDA graph of its signature
+        (``key``, the layout's dtypes and the identities of ``args``),
+        captured at its first call; else eagerly
+        (:class:`~unionml_tpu_torch.serving._programs.EnginePrograms`)."""
+        st = args[1]
+        bufs = st["pool" if "pool" in st else "cache"] if isinstance(st, dict) else st
+        dtypes = (self._weight_dtypes, bufs[0][0].dtype)
+        return self._graphs.run(program, (*key, *dtypes), fn, args, host,
+                                tracker=self._programs, sig=sig)
+
+    def _forget_state(self, st) -> None:
+        """Drop the graphs captured on a state a recovery replaced (they
+        hold it alive); the next dispatch captures on the new one."""
+        if st is not None and st is not self._state:
+            self._graphs.drop(keep=lambda key, refs: all(r is not st for r in refs))
 
     def _build_programs(self):
         from unionml_tpu_torch.models.llama import init_cache
@@ -1406,6 +1438,8 @@ class DecodeEngine:
                 "fill": torch.zeros((B,), dtype=torch.int32, device=dev),
                 "last_tok": torch.zeros((B,), dtype=torch.long, device=dev),
                 "done": torch.ones((B,), dtype=torch.bool, device=dev),
+                # each decode chunk's tokens
+                "toks": torch.zeros((self.chunk_steps, B), dtype=torch.long, device=dev),
             }
 
         self._init_state = init_state
@@ -1449,35 +1483,31 @@ class DecodeEngine:
         self._prefill_step = self._make_prefill_step()
 
         def decode_chunk(params, state, active):
-            """``chunk_steps`` decode steps for every slot; returns the
-            tokens [chunk_steps, slots]."""
-            out = []
-            for _ in range(self.chunk_steps):
-                live = active & ~state["done"]
-                fill = state["fill"]
+            """``chunk_steps`` decode steps for every slot, in place;
+            returns the state's token buffer [chunk_steps, slots]."""
+            fill, done, kv_mask = state["fill"], state["done"], state["kv_mask"]
+            for i in range(self.chunk_steps):
+                live = active & ~done
                 # this step writes its k/v at row `fill`; the new token
                 # must see ITSELF, so expose the row before the step — for
                 # live slots only
-                kv_mask = state["kv_mask"] | (
-                    (rows_l[None, :] == fill[:, None]) & live[:, None]
-                )
+                kv_mask |= (rows_l[None, :] == fill[:, None]) & live[:, None]
                 logits, _ = module(
                     params, state["last_tok"][:, None], cache=state["cache"],
                     cache_index=fill, kv_mask=kv_mask,
                 )
                 nxt = torch.where(live, sample(logits[:, -1], self._gen), pad_id)
-                done = state["done"]
-                if eos_id is not None:
-                    done = done | (live & (nxt == eos_id))
+                stop = live & (nxt == eos_id) if eos_id is not None else None
                 advance = live & (fill + 1 < L)
                 # a live slot at the cache end freezes its fill on a
                 # masked-True row — mark done so it stops writing there
-                state["done"] = done | (live & ~advance)
-                state["kv_mask"] = kv_mask
-                state["fill"] = fill + advance.int()
-                state["last_tok"] = torch.where(live, nxt, state["last_tok"])
-                out.append(nxt)
-            return torch.stack(out)
+                done |= live & ~advance
+                if stop is not None:
+                    done |= stop
+                fill += advance.int()
+                state["last_tok"].copy_(torch.where(live, nxt, state["last_tok"]))
+                state["toks"][i].copy_(nxt)
+            return state["toks"]
 
         self._decode_chunk = decode_chunk
         self._build_cache_programs()
@@ -1569,6 +1599,9 @@ class DecodeEngine:
                 "fill": torch.zeros((B,), dtype=torch.int32, device=dev),
                 "last_tok": torch.zeros((B,), dtype=torch.long, device=dev),
                 "done": torch.ones((B,), dtype=torch.bool, device=dev),
+                # each decode chunk's tokens, and an admission's first token
+                "toks": torch.zeros((self.chunk_steps, B), dtype=torch.long, device=dev),
+                "first": torch.zeros((), dtype=torch.long, device=dev),
             }
 
         self._init_state = init_state
@@ -1577,7 +1610,19 @@ class DecodeEngine:
                            true_len, full=False):
             """Prefill tail, then the table-directed block scatter: fresh
             rows into pool blocks ``ids`` ([bucket/block]; duplicate trash
-            entries write garbage over garbage)."""
+            entries write garbage over garbage). ``slot`` ([1]), ``ids``,
+            ``start`` (0-d, or the int 0 of a monolithic admission) and
+            ``true_len`` ([1]) are device tensors: the program reads no
+            value on the host, so its graph serves every admission of the
+            bucket.
+
+            Rows of ``fresh`` past the chunks this admission wrote hold an
+            earlier admission's rows and are never read: attention masks
+            every row at or past ``true_len``, and the rows past the final
+            chunk fall in blocks past the ``ceil(true_len / block)``
+            covered ones, whose ids are the trash block (chunks are whole
+            blocks); decode never reads a pool row at or past a slot's
+            fill before writing it."""
             first, filled = self._run_prefill(
                 params, fresh, toks, start, true_len, full=full
             )
@@ -1586,49 +1631,54 @@ class DecodeEngine:
             for p_layer, f_layer in zip(state["pool"], filled):
                 for pbuf, fbuf in zip(p_layer, f_layer):
                     pbuf[idx] = fbuf.reshape((nb, blk) + tuple(fbuf.shape[2:])).to(pbuf.dtype)
-            state["fill"][slot].fill_(true_len)   # no host copy (see above)
-            state["last_tok"][slot] = first
-            state["done"][slot].fill_(False)
-            return first
+            state["fill"].index_copy_(0, slot, true_len.int())
+            state["last_tok"].index_copy_(0, slot, first.reshape(1))
+            state["done"].index_fill_(0, slot, False)
+            state["first"].copy_(first)
+            return state["first"]
 
         full_ok = cfg.prefill_impl == "flash"
 
         def prefill(params, state, slot, ids, tokens, true_len):
-            fresh = init_cache(self._cache_cfg, 1, tokens.shape[0], device=dev)
             return finish_prefill(
-                params, state, fresh, slot, ids, tokens[None], 0, true_len,
-                full=full_ok,
+                params, state, init_fresh(bucket=tokens.shape[0]), slot, ids, tokens[None],
+                0, true_len, full=full_ok,
             )
+
+        def init_fresh(*, bucket):
+            fresh = self._fresh.get(bucket)
+            if fresh is None:
+                fresh = self._fresh[bucket] = init_cache(self._cache_cfg, 1, bucket, device=dev)
+            return fresh
 
         self._prefill = prefill
         self._prefill_final = finish_prefill
-        self._init_fresh = lambda *, bucket: init_cache(self._cache_cfg, 1, bucket, device=dev)
+        self._init_fresh = init_fresh
         self._prefill_step = self._make_prefill_step()
 
         def decode_chunk(params, state, active, table):
-            """``chunk_steps`` paged decode steps. The block table is a
-            per-chunk input (the host grows it between chunks); retired
-            and dead slots' rows go to the trash block every step, so
-            their writes never land in a block the allocator recycled."""
-            out = []
-            for _ in range(self.chunk_steps):
-                live = active & ~state["done"]
-                fill = state["fill"]
+            """``chunk_steps`` paged decode steps, in place. The block table
+            is a per-chunk input (the host grows it between chunks);
+            retired and dead slots' rows go to the trash block every step,
+            so their writes never land in a block the allocator recycled."""
+            fill, done = state["fill"], state["done"]
+            for i in range(self.chunk_steps):
+                live = active & ~done
                 step_table = torch.where(live[:, None], table, 0)
                 logits, _ = module(
                     params, state["last_tok"][:, None], cache=state["pool"],
                     cache_index=fill, block_table=step_table,
                 )
                 nxt = torch.where(live, sample(logits[:, -1], self._gen), pad_id)
-                done = state["done"]
-                if eos_id is not None:
-                    done = done | (live & (nxt == eos_id))
+                stop = live & (nxt == eos_id) if eos_id is not None else None
                 advance = live & (fill + 1 < L)
-                state["done"] = done | (live & ~advance)
-                state["fill"] = fill + advance.int()
-                state["last_tok"] = torch.where(live, nxt, state["last_tok"])
-                out.append(nxt)
-            return torch.stack(out)
+                done |= live & ~advance
+                if stop is not None:
+                    done |= stop
+                fill += advance.int()
+                state["last_tok"].copy_(torch.where(live, nxt, state["last_tok"]))
+                state["toks"][i].copy_(nxt)
+            return state["toks"]
 
         self._decode_chunk = decode_chunk
         self._build_cache_programs()
@@ -1662,6 +1712,8 @@ class DecodeEngine:
                 "fill": torch.zeros((B,), dtype=torch.int32, device=dev),
                 "last_tok": torch.zeros((B,), dtype=torch.long, device=dev),
                 "done": torch.ones((B,), dtype=torch.bool, device=dev),
+                # each chunk's rounds: emission row, emitted and accepted counts
+                "toks": torch.zeros((self.chunk_steps, B, k + 3), dtype=torch.long, device=dev),
             }
 
         self._init_state = init_state
@@ -1717,15 +1769,15 @@ class DecodeEngine:
         self._prefill_step = prefill_step
 
         def spec_chunk(params, state, active):
-            """``chunk_steps`` speculative rounds. Returns one int64
-            tensor [R, B, k+3]: per round and slot the emission row (k+1
-            tokens), the emitted count (eos-truncated on the device) and
-            the accepted draft count; the host truncates at the budget."""
-            outs = []
-            for _ in range(self.chunk_steps):
-                live = active & ~state["done"]
-                fill0 = state["fill"]
-                kv_mask = state["kv_mask"]
+            """``chunk_steps`` speculative rounds, in place. Returns the
+            state's int64 token buffer [R, B, k+3]: per round and slot the
+            emission row (k+1 tokens), the emitted count (eos-truncated on
+            the device) and the accepted draft count; the host truncates at
+            the budget."""
+            kv_mask, fill, done0 = state["kv_mask"], state["fill"], state["done"]
+            for r in range(self.chunk_steps):
+                live = active & ~done0
+                fill0 = fill   # this round's start (updated in place last)
                 # the draft proposes k tokens over k+1 steps (the extra step
                 # writes proposal k's KV, so a fully accepted round leaves no
                 # draft-cache hole)
@@ -1767,18 +1819,16 @@ class DecodeEngine:
                 # the rows written; done stops later rounds)
                 new_fill = fill0 + torch.where(live, accepted + 1, 0).int()
                 # freeze before the end: the next round writes k+1 rows
-                state["done"] = done | (live & (new_fill + k + 1 >= L))
-                state["kv_mask"] = kv_mask | (
-                    (rows_l >= fill0[:, None]) & (rows_l < new_fill[:, None])
-                )
-                state["fill"] = new_fill
-                state["last_tok"] = torch.where(live, correction, state["last_tok"])
-                outs.append(torch.cat([
+                done0.copy_(done | (live & (new_fill + k + 1 >= L)))
+                kv_mask |= (rows_l >= fill0[:, None]) & (rows_l < new_fill[:, None])
+                fill.copy_(new_fill)
+                state["last_tok"].copy_(torch.where(live, correction, state["last_tok"]))
+                state["toks"][r].copy_(torch.cat([
                     torch.where(live[:, None], emit, pad_id),
                     n_emit[:, None],
                     torch.where(live, accepted, 0)[:, None],
                 ], dim=1))
-            return torch.stack(outs)
+            return state["toks"]
 
         self._decode_chunk = spec_chunk
 
@@ -2213,6 +2263,7 @@ class DecodeEngine:
         from unionml_tpu_torch.models.llama import cache_config
 
         from unionml_tpu_torch.models.layers import LocalParams
+        from unionml_tpu_torch.models.train import tree_leaves
 
         src = params
         draft_layout = self._draft_cache_cfg
@@ -2253,10 +2304,16 @@ class DecodeEngine:
                 # and the device splice memo goes with them
                 self.prefix_cache.clear()
                 self._dev_splice.clear()
+            if self._params is not None:
+                # every graph captured the old params
+                self._graphs.drop()
             if (layout, draft_layout) != (self._cache_cfg, self._draft_cache_cfg):
                 self._draft_cache_cfg = draft_layout
                 self._adopt_layout(layout)
             self._params = params
+            self._weight_dtypes = tuple(sorted({
+                str(t.dtype) for t in tree_leaves(params) if isinstance(t, torch.Tensor)
+            }))
             self._params_src = src
             if lockstep:
                 import torch.distributed as dist
@@ -2273,6 +2330,8 @@ class DecodeEngine:
         new size. Called with the lock held."""
         self._cache_cfg = layout
         self._state = None
+        self._fresh.clear()
+        self._graphs.drop()
         self._dev_splice.clear()
         if self.kv_pool is not None:
             pool = self.kv_pool
@@ -2352,6 +2411,10 @@ class DecodeEngine:
         if self._programs is not None:
             # per device program: calls and host time
             out["programs"] = self._programs.stats()
+        graphs = self._graphs.stats()
+        if graphs:
+            # the captured programs: graphs, capture ms, replays
+            out["graphs"] = graphs
         out["robustness"] = {
             "queue_depth": self._room.qsize(),
             "rejected": {
@@ -2521,6 +2584,9 @@ class DecodeEngine:
             self._state = None
             self._params = self._params_src = None
             self._dev_splice.clear()
+            self._fresh.clear()
+            # every graph and the pool they share
+            self._graphs.close()
 
 
     # ------------------------------------------------------------------ #
@@ -2569,13 +2635,15 @@ class DecodeEngine:
             )
         if st is None:
             st = self._init_state()
-        toks = _upload(padded, self.device).long()
         if self.paged:
-            first = self._prefill(
-                self._params, st, slot, _upload(ids, self.device), toks,
-                len(req.prompt),
+            first = self._run_program(
+                "engine.prefill", (bucket,), self._prefill, (self._params, st),
+                (np.array([slot]), ids, padded.astype(np.int64),
+                 np.array([len(req.prompt)])),
+                sig=(bucket,),
             )
         else:
+            toks = _upload(padded, self.device).long()
             first = self._prefill(self._params, st, slot, toks, len(req.prompt))
         readback = _Readback(first)
         if self._usage is not None:
@@ -2585,6 +2653,7 @@ class DecodeEngine:
                 # _recover ran (harvester thread) while this prefill was
                 # being dispatched: fail this request with the poisoned
                 # batch (self._state stays the recovery's None)
+                self._forget_state(st)
                 raise RuntimeError(
                     "engine recovered while this admission's prefill "
                     "was in flight; the request failed with the "
@@ -3130,13 +3199,12 @@ class DecodeEngine:
         t_dispatch = time.perf_counter()
         try:
             self._fire("engine.dispatch")
-            active = _upload(mask, self.device)
-            if self.paged:
-                toks = self._decode_chunk(
-                    self._params, st, active, _upload(table_np, self.device)
-                )
-            else:
-                toks = self._decode_chunk(self._params, st, active)
+            toks = self._run_program(
+                "engine.decode", (self.slots, self.chunk_steps), self._decode_chunk,
+                (self._params, st), (mask,) if table_np is None else (mask, table_np),
+            )
+            # enqueued on the program's stream right behind it: the next
+            # chunk cannot overwrite the token buffer before it is copied
             readback = _Readback(toks)
             self._h_dispatch.observe((time.perf_counter() - t_dispatch) * 1e3)
         except BaseException:
@@ -3149,6 +3217,7 @@ class DecodeEngine:
                 # _recover ran mid-dispatch: drop the readback; the
                 # requests it covered are already failed
                 self._chunk_credits.release()
+                self._forget_state(st)
                 return True
             for slot in np.flatnonzero(mask):
                 if self._occupant[slot] is not None:
@@ -3525,14 +3594,24 @@ class DecodeEngine:
                 )
                 return
             start = adm.next_chunk * adm.chunk
-            toks = _upload(adm.padded[None, start: start + adm.chunk], self.device).long()
+            host_toks = adm.padded[None, start: start + adm.chunk].astype(np.int64)
+            if self.paged:
+                # device inputs: one graph per bucket serves every offset
+                toks, host_start = None, np.array(start, np.int64)
+            else:
+                toks = _upload(host_toks, self.device)
+            sig = tuple(host_toks.shape)
             if adm.next_chunk < adm.n_chunks - 1:
                 t0 = time.perf_counter()
-                adm.fresh = self._prefill_step(self._params, adm.fresh, toks, start)
-                if self._usage is not None:
-                    req._attr_flops += self._program_cost(
-                        "engine.prefill_chunk", tuple(toks.shape)
+                if self.paged:
+                    adm.fresh = self._run_program(
+                        "engine.prefill_chunk", (adm.bucket, adm.chunk), self._prefill_step,
+                        (self._params, adm.fresh), (host_toks, host_start), sig=sig,
                     )
+                else:
+                    adm.fresh = self._prefill_step(self._params, adm.fresh, toks, start)
+                if self._usage is not None:
+                    req._attr_flops += self._program_cost("engine.prefill_chunk", sig)
                 self._tracer.record_span(
                     req.rid, f"prefill-chunk[{adm.next_chunk}]", t0,
                     time.perf_counter(), tokens=adm.chunk,
@@ -3551,10 +3630,12 @@ class DecodeEngine:
                 # state while this admission was mid-flight: build it fresh
                 st = self._init_state()
             if self.paged:
-                first = self._prefill_final(
-                    self._params, st, adm.fresh, adm.slot,
-                    _upload(adm.pool_ids, self.device), toks, start,
-                    len(req.prompt),
+                first = self._run_program(
+                    "engine.prefill_final", (adm.bucket, adm.chunk), self._prefill_final,
+                    (self._params, st, adm.fresh),
+                    (np.array([adm.slot]), adm.pool_ids, host_toks, host_start,
+                     np.array([len(req.prompt)])),
+                    sig=sig,
                 )
             else:
                 first = self._prefill_final(
@@ -3563,13 +3644,12 @@ class DecodeEngine:
                 )
             readback = _Readback(first)
             if self._usage is not None:
-                req._attr_flops += self._program_cost(
-                    "engine.prefill_final", tuple(toks.shape)
-                )
+                req._attr_flops += self._program_cost("engine.prefill_final", sig)
             with self._lock:
                 if self._admission is not adm or self._epoch != ep0:
                     # raced with _recover/close mid-dispatch: the request
                     # was already failed
+                    self._forget_state(st)
                     return
                 self._state = st
                 self._admission = None
@@ -3904,7 +3984,10 @@ class DecodeEngine:
                     req.finish_stream()
                     self._occupant[slot] = None
             self._m_slots_busy.set(0)
-            self._state = None
+            # drop and recapture: the graphs captured on the dropped state
+            # go with it; the next admission's fresh state captures anew
+            old, self._state = self._state, None
+            self._forget_state(old)
             if self.paged:
                 # the device pool arrays are dropped with the state;
                 # the next admission's _init_state rebuilds them, so
